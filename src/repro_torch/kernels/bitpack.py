@@ -1,0 +1,160 @@
+"""Wrappers of the Hopper bit-pack kernels (``csrc/bitpack.cu``).
+
+Port of ``repro/kernels/bitpack.py`` (K1–K3 of the kernel table in
+PERF.md).  Each wrapper checks dtype, device, contiguity and shape,
+allocates its outputs with ``torch.empty``, launches on the current CUDA
+stream and books one launch in ``LAUNCHES``.  For a tensor on the CPU it
+returns the plain version (``ref.py``) instead; for a CUDA tensor it
+launches the kernel or raises — there is no fallback.
+
+Packed words are int32 tensors holding the uint32 bits; the kernels read
+the same storage as ``uint32_t*``.  Element indices are int32, so a packed
+array holds fewer than 2³¹ fields (16·W < 2³¹, pancake n ≤ 12).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core import obs
+from . import _build
+from . import ref as _ref
+from .ref import FIELDS_PER_WORD
+
+MAX_FIELDS = 1 << 31
+
+#: Kernel launches per wrapper (launches only, never plain-version calls).
+LAUNCHES = obs.counters("kernels", {"mark_rotate_count": 0,
+                                    "scatter_mark": 0, "lut_count": 0})
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def make_lut(table) -> int:
+    """Encode a 4-entry value map [new0, new1, new2, new3] into one integer:
+    entry v occupies bits [2v, 2v+2)."""
+    assert len(table) == 4 and all(0 <= v <= 3 for v in table)
+    return sum(int(v) << (2 * i) for i, v in enumerate(table))
+
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    # in, out, n_words, lut, count_val, count, stream
+    "roomy_lut_count": [_P, _P, _I64, _I32, _I32, _P, _P],
+    # in, out, n_words, idx, m, mark, only_if, stream
+    "roomy_scatter_mark": [_P, _P, _I64, _P, _I64, _I32, _I32, _P],
+    # in, out, n_words, idx, m, mark, only_if, lut, count_val, count, stream
+    "roomy_mark_rotate_count": [_P, _P, _I64, _P, _I64, _I32, _I32, _I32,
+                                _I32, _P, _P],
+}
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("bitpack")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.roomy_error_string.argtypes = [ctypes.c_int]
+        lib.roomy_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(name: str, packed: torch.Tensor, *args) -> None:
+    lib = _lib()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        code = getattr(lib, name)(*args, stream)
+    if code:
+        raise RuntimeError(f"{name}: CUDA error {code}: "
+                           f"{lib.roomy_error_string(code).decode()}")
+
+
+def _on_card(packed: torch.Tensor, idx: torch.Tensor | None = None) -> bool:
+    """Validate the arguments; True for CUDA tensors, False for CPU ones."""
+    if packed.dtype != torch.int32 or packed.dim() != 1:
+        raise TypeError(f"packed words must be a 1-D int32 tensor, got "
+                        f"{packed.dtype} of shape {tuple(packed.shape)}")
+    if not packed.is_contiguous():
+        raise ValueError("packed words must be contiguous")
+    if packed.shape[0] * FIELDS_PER_WORD >= MAX_FIELDS:
+        raise ValueError(f"{packed.shape[0]} words hold 2^31 fields or more; "
+                         "int32 element indices cannot address them")
+    if idx is not None:
+        if idx.dtype != torch.int32 or idx.dim() != 1:
+            raise TypeError(f"indices must be a 1-D int32 tensor, got "
+                            f"{idx.dtype} of shape {tuple(idx.shape)}")
+        if not idx.is_contiguous():
+            raise ValueError("indices must be contiguous")
+        if idx.device != packed.device:
+            raise ValueError(f"indices on {idx.device}, words on "
+                             f"{packed.device}")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {packed.device}")
+    return packed.device.type == "cuda"
+
+
+def _check_values(*fields: int, lut: int = 0) -> None:
+    if not 0 <= lut < 256:
+        raise ValueError(f"lut {lut} is not a 4-entry 2-bit map")
+    for v in fields:
+        if not 0 <= v <= 3:
+            raise ValueError(f"field value {v} outside 0..3")
+
+
+def bitpack_lut_count(packed: torch.Tensor, lut: int, count_val: int):
+    """K3: map every field through ``lut`` and count fields that map to
+    ``count_val`` over all W·16 fields.  Returns (new (W,) int32, count ()
+    int32)."""
+    _check_values(count_val, lut=lut)
+    if not _on_card(packed):
+        return _ref.bitpack_lut_count_ref(packed, lut, count_val)
+    out = torch.empty_like(packed)
+    cnt = torch.empty((), dtype=torch.int32, device=packed.device)
+    _launch("roomy_lut_count", packed, packed.data_ptr(), out.data_ptr(),
+            packed.shape[0], lut, count_val, cnt.data_ptr())
+    LAUNCHES["lut_count"] += 1
+    return out, cnt
+
+
+def bitpack_scatter_mark(packed: torch.Tensor, idx: torch.Tensor, *,
+                         mark: int = 2, only_if: int = 0) -> torch.Tensor:
+    """K2: ``packed[idx] ← mark`` where the field holds ``only_if``;
+    negative and ≥ 16·W indices drop, duplicates are safe.  Out of place."""
+    _check_values(mark, only_if)
+    if not _on_card(packed, idx):
+        return _ref.bitpack_scatter_mark_ref(packed, idx, mark, only_if)
+    out = torch.empty_like(packed)
+    _launch("roomy_scatter_mark", packed, packed.data_ptr(), out.data_ptr(),
+            packed.shape[0], idx.data_ptr(), idx.shape[0], mark, only_if)
+    LAUNCHES["scatter_mark"] += 1
+    return out
+
+
+def bitpack_mark_rotate_count(packed: torch.Tensor, idx: torch.Tensor,
+                              lut: int, count_val: int, *, mark: int = 2,
+                              only_if: int = 0, inplace: bool = False):
+    """K1: the scatter-mark of K2, then the rotate+count of K3, in one
+    launch.  With ``inplace=True`` the result is written over ``packed``
+    (one read and one write of the words) and ``packed`` is returned.
+    Returns (new (W,) int32, count () int32)."""
+    _check_values(count_val, mark, only_if, lut=lut)
+    if not _on_card(packed, idx):
+        new, cnt = _ref.bitpack_mark_rotate_count_ref(packed, idx, lut,
+                                                      count_val, mark, only_if)
+        return (packed.copy_(new) if inplace else new), cnt
+    out = packed if inplace else torch.empty_like(packed)
+    cnt = torch.empty((), dtype=torch.int32, device=packed.device)
+    _launch("roomy_mark_rotate_count", packed, packed.data_ptr(),
+            out.data_ptr(), packed.shape[0], idx.data_ptr(), idx.shape[0],
+            mark, only_if, lut, count_val, cnt.data_ptr())
+    LAUNCHES["mark_rotate_count"] += 1
+    return out, cnt
