@@ -25,7 +25,40 @@ caught:
    the two runs up.
 6. fused ≡ unfused at n = 11 (bit-identical words), kernels ≡ plain
    versions at n = 9, both on the card.
-7. the ``kernels`` JSON line, the card line, and last
+7. K6 (flash attention) parity against its plain version on the card,
+   float32 (atol = rtol = 2e-5, never TF32) and bfloat16 (2e-2), the
+   tolerances of ``tests/test_kernels.py:41-42,57-58``, and per (batch,
+   head) ‖got − want‖ ≤ 1e-2 ‖want‖: every case of
+   ``tests/test_kernels.py:16-26``, head_dim 256 with window 4096 and
+   softcap 50 at Sq = Skv = 4100 with GQA 1, 2 and 4, Sq = 1, head_dim 12
+   and 100, rows that see no key; contiguous and as strided views.
+8. gemma2-2b FULL in bfloat16, params from ``lm.init_params`` on a seeded
+   generator (``phase_lm``):
+   a. main path: ``lm.prefill`` over 1 × 32768 tokens (``prefill_32k``
+      with its global batch of 32 cut to 1), nothing wrapped around it,
+      launch counts set to 0 just before and read just after: K6 launched
+      26 times, once a layer; tokens/s, wall, peak memory;
+   b. the same prefill again, with q/k/v of layer 0 (local) and layer 1
+      (global) captured and K6 timed by CUDA events (its share of a.'s
+      wall); K6 parity on the captured layers by both checks, and two
+      planted faults the per-(b, h) check must reject (the local window
+      one 32-key tile short; the global output zeroed past row 4096);
+   c. K6 times at those two shapes (CUDA events, median of 20) beside the
+      bound (max of flops at 989 TFLOP/s and bytes at 3.35 TB/s) and the
+      plain version's time; SDPA (``library_ms``) at the global shape
+      with the softcap off, against K6 with the softcap off;
+   d. the same prefill with the plain attention: last logits agree (per
+      row ‖a − b‖ ≤ 3.5e-2 ‖b‖); K6 prefills with planted attention faults
+      (every local window a tile short; a global layer given the local
+      window) must break that limit;
+   e. 16 ``decode_step``s from the prefill's caches (decode tokens/s),
+      then one prefill and 4 decode steps under ``torch.profiler``:
+      device time by kernel group and the device's idle share;
+   f. prefill-then-decode ≡ stepwise decode on a 64-token prefix, in
+      bfloat16 and in float32;
+   g. ``python -m repro_torch.launch.serve --arch gemma2-2b`` with its
+      defaults: 4 requests, 8-token prompts, 12 new tokens each.
+9. the ``kernels`` JSON line (K1–K3 and K6), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -38,6 +71,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -46,9 +80,14 @@ from repro_torch.apps import pancake_bits as P  # noqa: E402
 from repro_torch.core import bitarray as BA  # noqa: E402
 from repro_torch.core import constructs as C  # noqa: E402
 from repro_torch.core import obs  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitpack as K  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 REPS = 20
@@ -58,12 +97,46 @@ LUTS = [(ROTATE, BA.CUR), (K.make_lut([0, 0, 2, 1]), 0),
         (K.make_lut([3, 2, 1, 0]), 3), (K.make_lut([1, 1, 1, 1]), 1)]
 MARKS = [(2, 0), (1, 0), (3, 1), (0, 2), (2, 2)]
 SOURCE = "src/repro_torch/kernels/csrc/bitpack.cu"
-KERNELS = [  # (launch-counter name, TPU kernel it replaces)
-    ("mark_rotate_count", "src/repro/kernels/bitpack.py:221"),
-    ("scatter_mark", "src/repro/kernels/bitpack.py:142"),
-    ("lut_count", "src/repro/kernels/bitpack.py:71"),
+KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
+    ("mark_rotate_count", "src/repro/kernels/bitpack.py:268"),
+    ("scatter_mark", "src/repro/kernels/bitpack.py:184"),
+    ("lut_count", "src/repro/kernels/bitpack.py:90"),
 ]
 MAX_ERR = {name: 0 for name, _ in KERNELS}
+MAX_ERR["flash_attention"] = 0.0
+MAX_REL = {"flash_attention": 0.0}
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:41-42,57-58
+# The elementwise tolerances above are about as large as a bfloat16 output
+# of a row that sees thousands of keys (about 1/sqrt(keys)), so K6 is also
+# held per (batch, head) to ‖got − want‖ ≤ K6_REL_TOL · ‖want‖, a bound
+# scaled to the output; planted faults (a window one 32-key tile short,
+# rows past 4096 zeroed) must break it.
+K6_REL_TOL = 1e-2
+K6_TILE = 32                  # the kernel's kv tile (flash_attention.cu)
+K6_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
+    # tests/test_kernels.py:16-26
+    (1, 4, 4, 64, 64, 32, True, None, None),
+    (2, 8, 2, 128, 128, 64, True, None, None),
+    (1, 4, 1, 96, 96, 32, True, None, None),
+    (1, 4, 2, 96, 96, 32, True, 32, None),
+    (1, 2, 2, 64, 64, 32, True, None, 50.0),
+    (1, 4, 2, 64, 64, 32, True, 16, 30.0),
+    (1, 4, 1, 48, 80, 32, False, None, None),
+    (2, 2, 2, 33, 65, 16, True, None, None),
+    # gemma2-2b: head_dim 256, window 4096, softcap 50, just over one
+    # window, GQA 2 (the model's), 1 and 4; one query row
+    (1, 8, 4, 4100, 4100, 256, True, 4096, 50.0),
+    (1, 8, 8, 4100, 4100, 256, True, 4096, 50.0),
+    (1, 8, 2, 4100, 4100, 256, True, 4096, 50.0),
+    (1, 8, 4, 1, 1, 256, True, 4096, 50.0),
+    (1, 8, 4, 1, 4100, 256, True, 4096, 50.0),
+    # the smoke config's head_dim 12, a head_dim that is no multiple of 8,
+    # rows that see no key at all (window, Sq > Skv)
+    (2, 4, 2, 70, 70, 12, True, 8, 50.0),
+    (1, 3, 1, 130, 150, 100, False, 20, None),
+    (1, 2, 1, 100, 10, 64, True, 5, None),
+]
 
 
 def expect(ok: bool, what) -> None:
@@ -100,6 +173,7 @@ def phase_build() -> None:
     for name, log in _build.BUILD_LOGS.items():
         print(f"[{name}] {log.strip()}")
     K._lib()
+    FA._lib()
 
 
 # ------------------------------------------------------------------ parity
@@ -188,12 +262,99 @@ def phase_parity_full(dev):
     return data, tgt
 
 
+def k6_inputs(case, dtype, dev, seed, strided=False):
+    """q, k, v of one K6 case from a numpy seed; ``strided`` gives them as
+    the model does, (B, S, H, D) activations viewed as (B, H, S, D)."""
+    b, hq, hkv, sq, skv, d = case[:6]
+    rng = np.random.default_rng(seed)
+    out = []
+    for h, s in ((hq, sq), (hkv, skv), (hkv, skv)):
+        x = torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+        x = x.to(dev, dtype)
+        out.append(x.transpose(1, 2) if strided else
+                   x.transpose(1, 2).contiguous())
+    return out
+
+
+def k6_errors(got, want) -> dict:
+    """Max abs err, the worst per-(batch, head) ‖got − want‖ / ‖want‖ (0/0
+    reads 0, x/0 reads inf), mean |want|, and whether each check holds."""
+    g, w = got.float(), want.float()
+    if not g.numel():
+        return {"max_abs": 0.0, "rel": 0.0, "mean_want": 0.0,
+                "elementwise_ok": True, "rel_ok": True}
+    tol = K6_TOL[got.dtype]
+    rel = ((g - w).flatten(2).norm(dim=-1) / w.flatten(2).norm(dim=-1))
+    rel = float(rel.nan_to_num(nan=0.0, posinf=math.inf).max())
+    return {"max_abs": float((g - w).abs().max()), "rel": rel,
+            "mean_want": float(w.abs().mean()),
+            "elementwise_ok": bool(torch.isfinite(g).all()) and bool(
+                ((g - w).abs() <= tol + tol * w.abs()).all()),
+            "rel_ok": rel <= K6_REL_TOL}
+
+
+def check_k6(q, k, v, causal, window, softcap, what) -> dict:
+    """K6 against its plain version on the same inputs, by both checks."""
+    got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    want = R.attention_ref(q, k, v, causal=causal, window=window,
+                           softcap=softcap)
+    torch.cuda.synchronize()
+    expect(got.dtype == q.dtype and got.shape == q.shape, what)
+    e = k6_errors(got, want)
+    MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], e["max_abs"])
+    MAX_REL["flash_attention"] = max(MAX_REL["flash_attention"], e["rel"])
+    if not (e["elementwise_ok"] and e["rel_ok"]):
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version ({what}): {e}")
+    return e
+
+
+def k6_summary(errs) -> str:
+    return (f"max abs err {max(e['max_abs'] for e in errs):.3e} (mean |want| "
+            f"{max(e['mean_want'] for e in errs):.3e}), per-(b, h) rel err "
+            f"{max(e['rel'] for e in errs):.3e}")
+
+
+def phase_k6_parity_edges(dev) -> None:
+    for i, case in enumerate(K6_CASES):
+        causal, window, softcap = case[6:]
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            for strided in (False, True):
+                q, k, v = k6_inputs(case, dtype, dev, i, strided)
+                errs.append(check_k6(q, k, v, causal, window, softcap,
+                                     f"{case} {dtype} strided={strided}"))
+        print(f"parity K6 {case}: f32 {k6_summary(errs[:2])}; bf16 "
+              f"{k6_summary(errs[2:])} (tol elementwise 2e-5 / 2e-2, rel "
+              f"{K6_REL_TOL})")
+
+
+def visible_pairs(sq, skv, causal, window) -> int:
+    """(q, k) pairs the mask lets through, q and k positions from 0."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(q - window, 0) if window is not None else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def k6_bound(q, k, causal, window):
+    """(bound ms, bound_by, flops, bytes): flops 4·B·Hq·D per visible pair
+    at the bf16 peak, bytes = q, k, v read once and o written once."""
+    b, hq, sq, d = q.shape
+    flops = 4 * b * hq * d * visible_pairs(sq, k.shape[2], causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
 # ------------------------------------------------------------------- times
 
-def median_ms(fn, setup=None) -> float:
+def median_ms(fn, setup=None, reps=REPS) -> float:
     fn()                                   # warm-up
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         if setup is not None:
             setup()
         a = torch.cuda.Event(enable_timing=True)
@@ -307,6 +468,430 @@ def phase_equivalence(dev) -> None:
           "n=9 kernels == plain versions on the card")
 
 
+# ------------------------------------------------- LM serving (gemma2-2b)
+
+ARCH = "gemma2-2b"
+PREFILL_LEN = 32768      # prefill_32k (repro/configs/shapes.py:24); batch 32 cut to 1
+DECODE_STEPS = 16
+EQUIV_PREFIX = 64
+PLAIN_REPS = 3           # the plain attention at 32k takes about a second a call
+SEED = 0
+K6_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+K6_REPLACES = "src/repro/kernels/flash_attention.py:114"
+# bfloat16 logits of two paths that round at different places (K6 rounds
+# P to bfloat16 before P·V where the plain version keeps it in float32;
+# prefill and decode run different matmul shapes) drift apart over 26
+# layers, and an elementwise relative bound means nothing for a logit near
+# 0.  So each row of bfloat16 logits is held to ‖a − b‖ ≤ BF16_LOGIT_REL_TOL
+# · ‖b‖ over the real vocab.  The limit lies between the readings of sound
+# runs on an H100 (K6 vs plain prefill 1.78e-2, prefill vs stepwise decode
+# 2.04e-2) and those of planted attention faults (every local window a
+# tile short 6.92e-2, a global layer given the local window 0.862), which
+# phase_prefill_plain re-reads every run and requires to exceed it.
+# float32 is held elementwise to 2e-3 (abs + rel), as
+# tests/test_models.py:199-200 holds the reference.
+BF16_LOGIT_REL_TOL = 3.5e-2
+F32_TOL = 2e-3
+
+
+def sync(dev) -> None:
+    torch.cuda.synchronize(dev)
+
+
+def logit_errors(got, want, what) -> dict:
+    """Print and return how far two logit tensors (..., V) lie apart, and
+    whether they agree by the rule above."""
+    a, w = got.float(), want.float()
+    diff = (a - w).abs()
+    rel = float(((a - w).norm(dim=-1) / w.norm(dim=-1)).max())
+    if got.dtype == torch.float32:
+        ok = bool((diff <= F32_TOL + F32_TOL * w.abs()).all())
+        rule = f"{F32_TOL} abs + rel"
+    else:
+        ok, rule = rel <= BF16_LOGIT_REL_TOL, f"rel {BF16_LOGIT_REL_TOL}"
+    res = {"max_abs_err": float(diff.max()), "mean_abs_err": float(
+        diff.mean()), "rel_err": rel, "max_abs_logit": float(w.abs().max()),
+        "same_argmax": bool((a.argmax(-1) == w.argmax(-1)).all()), "ok": ok}
+    print(f"{what}: per-row rel err {rel:.4e}, max abs err "
+          f"{res['max_abs_err']:.4e}, mean abs err {res['mean_abs_err']:.4e},"
+          f" max |logits| {res['max_abs_logit']:.4f} (tol {rule}: "
+          f"{'agree' if ok else 'differ'}), same argmax {res['same_argmax']}")
+    return res
+
+
+def logits_agree(got, want, what) -> dict:
+    res = logit_errors(got, want, what)
+    expect(res["ok"], f"{what}: {res}")
+    return res
+
+
+def lm_inputs(cfg, b, s, dev, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    return {"tokens": toks, "positions": pos}
+
+
+def params_as(params, dtype):
+    if isinstance(params, dict):
+        return {k: params_as(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_as(v, dtype) for v in params]
+    return params.to(dtype)
+
+
+class Capture:
+    """Wraps ``ops.flash_attention`` for one run: keeps copies of the first
+    ``keep`` calls' q, k, v (strides and all) and times every call with
+    CUDA events.  ``fault(i, kw)``, if given, returns the keyword arguments
+    that call i (layer i) runs with instead of ``kw``: a planted fault.
+    The launch count stays in the kernel's own wrapper."""
+
+    def __init__(self, keep: int = 0, fault=None):
+        self.keep, self.fault, self.calls, self.events = keep, fault, [], []
+
+    def __enter__(self):
+        self.orig = OPS.flash_attention
+
+        def wrapped(q, k, v, **kw):
+            if self.fault is not None:
+                kw = self.fault(len(self.events), dict(kw))
+            if len(self.calls) < self.keep:
+                self.calls.append((q.clone(), k.clone(), v.clone(), kw))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.orig(q, k, v, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+        OPS.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        OPS.flash_attention = self.orig
+        return False
+
+    def kernel_ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
+    """The main path's prefill: 1 × ``seq`` tokens through ``lm.prefill``
+    with every launch count set to 0 just before it, and nothing wrapped
+    around it, so wall and peak memory are the prefill's own."""
+    lm.prefill(params, lm_inputs(cfg, 1, 256, dev, SEED + 1), cfg)  # warm-up
+    inputs = lm_inputs(cfg, 1, seq, dev, SEED)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(params, inputs, cfg,
+                                max_len=seq + DECODE_STEPS)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect(launches == {"flash_attention": cfg.n_layers}, launches)
+    expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
+    expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
+    expect(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    expect(len(caches["kv"]) == cfg.n_layers and all(
+        int(c.lengths[0]) == seq for c in caches["kv"]), "cache lengths")
+    res = {"tokens": seq, "wall_s": wall, "tokens_per_s": seq / wall,
+           "peak_bytes": peak, "launches": launches}
+    print(f"prefill: {cfg.name} bf16 1 x {seq} tokens, {wall:.3f} s wall, "
+          f"{seq / wall:.0f} tokens/s, peak {peak} bytes, K6 launches "
+          f"{launches['flash_attention']}")
+    return inputs, logits, caches, res
+
+
+def phase_capture(cfg, params, inputs, wall, dev):
+    """A second prefill of the main path's inputs through ``Capture``: the
+    q, k, v of layer 0 (local) and layer 1 (global), and K6's time by CUDA
+    events as a share of the main path's wall."""
+    FA.reset_launches()
+    with Capture(keep=2) as cap:
+        lm.prefill(params, inputs, cfg)
+        sync(dev)
+    expect(FA.LAUNCHES["flash_attention"] == cfg.n_layers, dict(FA.LAUNCHES))
+    k6_ms = cap.kernel_ms()
+    res = {"k6_ms": k6_ms, "k6_share": k6_ms / 1e3 / wall}
+    print(f"prefill K6 time: {cfg.n_layers} launches taking {k6_ms:.1f} ms "
+          f"by CUDA events ({100 * res['k6_share']:.1f}% of the main "
+          f"path's wall)")
+    return cap.calls, res
+
+
+def phase_k6_parity_real(calls) -> dict:
+    """K6 on the captured layers by both checks, then planted faults that
+    the per-(b, h) check must reject: K6 with the local layer's window one
+    kv tile short, and K6's global-layer output with rows past one window
+    zeroed."""
+    for (q, k, v, kw), name in zip(calls, ("layer 0 (local)",
+                                           "layer 1 (global)")):
+        e = check_k6(q, k, v, kw["causal"], kw["window"], kw["softcap"],
+                     f"prefill {name}")
+        print(f"parity K6 prefill {name} q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} window {kw['window']} softcap "
+              f"{kw['softcap']}: {k6_summary([e])} (tol elementwise 2e-2, "
+              f"rel {K6_REL_TOL})")
+    (ql, kl, vl, kwl), (qg, kg, vg, kwg) = calls
+    w = kwl["window"]
+    want = R.attention_ref(ql, kl, vl, window=w, softcap=kwl["softcap"])
+    short = FA.flash_attention(ql, kl, vl, window=w - K6_TILE,
+                               softcap=kwl["softcap"])
+    faults = {f"local window {w} - {K6_TILE}": k6_errors(short, want)}
+    want = R.attention_ref(qg, kg, vg, softcap=kwg["softcap"])
+    zeroed = FA.flash_attention(qg, kg, vg, softcap=kwg["softcap"])
+    zeroed[:, :, w:] = 0
+    faults[f"global rows past {w} zeroed"] = k6_errors(zeroed, want)
+    del want, short, zeroed
+    for name, e in faults.items():
+        print(f"planted K6 fault, {name}: {k6_summary([e])}; elementwise "
+              f"check {'passes' if e['elementwise_ok'] else 'fails'}, "
+              f"per-(b, h) check {'passes' if e['rel_ok'] else 'fails'}")
+        expect(not e["rel_ok"], f"the per-(b, h) check misses {name}")
+    return faults
+
+
+def phase_k6_times(calls):
+    """K6 at the prefill's local and global shapes, beside its bound and
+    its plain version; SDPA at the global shape with the softcap off."""
+    out = {}
+    for (q, k, v, kw), name in zip(calls, ("local", "global")):
+        w, sc = kw["window"], kw["softcap"]
+        ms = median_ms(lambda: FA.flash_attention(q, k, v, window=w,
+                                                  softcap=sc))
+        plain = median_ms(lambda: R.attention_ref(q, k, v, window=w,
+                                                  softcap=sc),
+                          reps=PLAIN_REPS)
+        bound, by, flops, nbytes = k6_bound(q, k, True, w)
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "flops": flops, "bytes": nbytes}
+        print(f"time: K6 {name} {tuple(q.shape)} window {w} softcap {sc}: "
+              f"{ms:.3f} ms, bound {bound:.3f} ms ({by}: {flops:.3e} flops "
+              f"at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms "
+              f"(median of {PLAIN_REPS}), library n/a (SDPA has no softcap)")
+    q, k, v, _ = calls[1]
+    off = median_ms(lambda: FA.flash_attention(q, k, v))
+    sdpa = median_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    out["global"].update(ms_softcap_off=off, library_ms_softcap_off=sdpa)
+    print(f"time: K6 global, softcap off: {off:.3f} ms; library "
+          f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+          f"{sdpa:.3f} ms")
+    return out
+
+
+def logit_faults(cfg) -> dict:
+    """Planted attention faults for ``Capture``: each maps (layer, kwargs)
+    to the kwargs that layer's K6 call runs with."""
+    tile, win = K6_TILE, cfg.local_window
+    return {
+        f"every local layer's window one {tile}-key tile short":
+            lambda i, kw: ({**kw, "window": kw["window"] - tile}
+                           if kw["window"] is not None else kw),
+        f"layer 1 (global) given the local window {win}":
+            lambda i, kw: {**kw, "window": win} if i == 1 else kw,
+    }
+
+
+def phase_prefill_plain(cfg, params, inputs, logits, dev):
+    """The same prefill with the plain attention: the logits agree.  Then
+    K6 prefills with planted attention faults, whose logits must differ
+    from the plain prefill's by more than the limit."""
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    ref_logits, _ = lm.prefill(params, inputs, cfg.replace(kernels="ref"))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    expect(FA.LAUNCHES["flash_attention"] == 0, dict(FA.LAUNCHES))
+    print(f"prefill plain attention: {wall:.3f} s wall")
+    v = cfg.vocab_size                         # pad rows are -1e30 in both
+    ref_logits = ref_logits[..., :v]
+    errs = logit_errors(logits[..., :v], ref_logits,
+                        "prefill K6 vs plain attention, last-position logits")
+    controls = {}
+    for name, fault in logit_faults(cfg).items():
+        with Capture(fault=fault):
+            bad, _ = lm.prefill(params, inputs, cfg)
+        controls[name] = logit_errors(bad[..., :v], ref_logits,
+                                      f"planted fault, {name}, vs plain")
+        del bad
+    expect(errs["ok"], f"prefill logits: {errs}")
+    for name, e in controls.items():
+        expect(not e["ok"], f"the logits check misses {name}: {e}")
+    return {"plain_wall_s": wall, "logits_vs_plain": errs,
+            "planted_faults": controls}
+
+
+def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
+    """``steps`` greedy decode steps from the prefill's caches."""
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    zeros = torch.zeros_like(tok)
+    seq = int(caches["kv"][0].lengths[0])
+    FA.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, caches = lm.decode_step(params, {"tokens": tok,
+                                             "positions": zeros}, caches, cfg)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    expect(bool(torch.isfinite(lg).all()), "decode logits not finite")
+    expect(all(int(c.lengths[0]) == seq + steps for c in caches["kv"]),
+           "decode cache lengths")
+    print(f"decode: {steps} steps after {seq} tokens, {wall:.3f} s, "
+          f"{steps / wall:.2f} tokens/s (batch 1)")
+    return {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall}
+
+
+def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2) -> dict:
+    """prefill(s tokens) then one decode step == s + 1 decode steps from
+    an empty cache (tests/test_models.py:171-200); returns the errors."""
+    inputs = lm_inputs(cfg, b, s + 1, dev, SEED + 2)
+    toks, pos = inputs["tokens"], inputs["positions"]
+    _, caches = lm.prefill(params, {"tokens": toks[:, :s],
+                                    "positions": pos[:, :s]}, cfg,
+                           max_len=s + 1)
+    lg_a, _ = lm.decode_step(params, {"tokens": toks[:, s:],
+                                      "positions": pos[:, :1]}, caches, cfg)
+    caches = lm.make_cache(cfg, b, s + 1, device=dev)
+    for t in range(s + 1):
+        lg_b, caches = lm.decode_step(params, {"tokens": toks[:, t:t + 1],
+                                               "positions": pos[:, :1]},
+                                      caches, cfg)
+    sync(dev)
+    v = cfg.vocab_size
+    return logits_agree(lg_a[..., :v], lg_b[..., :v],
+                        f"equivalence: {cfg.name} {cfg.dtype} prefill({s}) "
+                        f"+ decode == {s + 1} decode steps")
+
+
+def phase_serve(argv=("--arch", ARCH)):
+    """``python -m repro_torch.launch.serve --arch gemma2-2b`` with its
+    defaults: 4 requests of 8 tokens, 12 new tokens each."""
+    outs, server, wall = serve.main(list(argv))
+    toks = sum(len(v) for v in outs.values())
+    expect(sorted(outs) == [0, 1, 2, 3], sorted(outs))
+    expect(all(len(v) == 12 and all(0 <= t < server.cfg.vocab_size
+                                    for t in v) for v in outs.values()),
+           outs)
+    expect(server.stats == {"prefills": 4, "decode_steps": 11,
+                            "tokens_out": 44}, server.stats)
+    print(f"serve: {toks} tokens in {wall:.3f} s, {toks / wall:.2f} "
+          f"tokens/s, stats {server.stats}")
+    return {"tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
+            "stats": server.stats}
+
+
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    if "fa_bf16_kernel" in low or "fa_f32_kernel" in low:
+        return "flash_attention (K6)"
+    if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copy/memset"
+    return "elementwise and other"
+
+
+def device_profile(fn, dev, what) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: device time by kernel
+    group, and the share of the wall with no kernel running (kernels run
+    one at a time on the one stream, so their durations add up)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    groups, kernels = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        g = kernel_group(ev.name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
+    busy_ms = sum(groups.values())
+    res = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+           "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
+           "groups_ms": groups,
+           "top_kernels_ms": dict(sorted(kernels.items(),
+                                         key=lambda kv: -kv[1])[:6])}
+    if not busy_ms:
+        print(f"profile {what}: the profiler saw no device time; idle "
+              f"share not measured")
+        return res
+    print(f"profile {what}: wall {wall * 1e3:.1f} ms (profiled), kernels "
+          f"{busy_ms:.1f} ms, device idle {100 * res['idle_share']:.1f}%; "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in
+                      sorted(groups.items(), key=lambda kv: -kv[1])))
+    return res
+
+
+def phase_profile(cfg, params, inputs, caches, dev, steps=4) -> dict:
+    """Where the time goes: one prefill of the main path's inputs and
+    ``steps`` decode steps from its caches, under the profiler."""
+    tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+
+    def decode():
+        c = caches
+        for _ in range(steps):
+            _, c = lm.decode_step(params, {"tokens": tok, "positions": tok},
+                                  c, cfg)
+    return {"prefill": device_profile(
+                lambda: lm.prefill(params, inputs, cfg), dev,
+                f"prefill 1 x {inputs['tokens'].shape[1]}"),
+            f"decode_{steps}_steps": device_profile(
+                decode, dev, f"{steps} decode steps")}
+
+
+def phase_lm(dev):
+    """gemma2-2b FULL in bfloat16, params from the port's init_params on a
+    seeded generator: prefill (the main path), K6 on its real inputs and
+    at its shapes, the plain prefill, decode, equivalence, the Server."""
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync(dev)
+    print(f"init: {cfg.name}, {cfg.param_count()} params in bfloat16, "
+          f"{time.perf_counter() - t0:.3f} s")
+    inputs, logits, caches, prefill = phase_prefill(cfg, params, dev)
+    calls, k6_share = phase_capture(cfg, params, inputs, prefill["wall_s"],
+                                    dev)
+    prefill.update(k6_share)
+    prefill["k6_planted_faults"] = phase_k6_parity_real(calls)
+    k6_times = phase_k6_times(calls)
+    del calls
+    prefill.update(phase_prefill_plain(cfg, params, inputs, logits, dev))
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    profile = phase_profile(cfg, params, inputs, caches, dev)
+    del caches
+    torch.cuda.empty_cache()
+    equiv = {"bfloat16": prefill_vs_stepwise(cfg, params, dev)}
+    cfg32 = cfg.replace(dtype="float32")
+    equiv["float32"] = prefill_vs_stepwise(cfg32, params_as(params,
+                                                            torch.float32),
+                                           dev)
+    del params
+    torch.cuda.empty_cache()
+    served = phase_serve()
+    print(json.dumps({"lm": {"arch": ARCH, "prefill": prefill,
+                             "decode": decode, "serve": served,
+                             "profile": profile,
+                             "equivalence": equiv,
+                             "k6_times": k6_times}}))
+    return prefill["launches"]["flash_attention"], k6_times
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_card()
@@ -320,6 +905,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches = phase_main_path(dev)
     phase_equivalence(dev)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    phase_k6_parity_edges(dev)
+    k6_launches, k6 = phase_lm(dev)
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -327,6 +917,19 @@ def main() -> None:
                 "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
                for name, replaces in KERNELS]
+    g, loc = k6["global"], k6["local"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": K6_SOURCE,
+        "replaces": K6_REPLACES, "launches": k6_launches,
+        "max_abs_err": MAX_ERR["flash_attention"],
+        "max_rel_err_per_bh": MAX_REL["flash_attention"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": None,
+        "shape": "gemma2-2b global layer, 1x8x32768x256, softcap 50",
+        "ms_softcap_off": g["ms_softcap_off"],
+        "library_ms_softcap_off": g["library_ms_softcap_off"],
+        "local_ms": loc["ms"], "local_plain_ms": loc["plain_ms"],
+        "local_bound_ms": loc["bound_ms"]})
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,0 +1,39 @@
+"""Architecture registry — maps ``--arch`` ids to (FULL, SMOKE) configs.
+
+The reference knows ten architectures (``repro/configs/registry.py``).
+The port knows those whose path it carries; for the others
+``get_config`` raises and names the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+from ..models.config import ModelConfig
+from . import gemma2_2b
+
+_MODULES = {"gemma2-2b": gemma2_2b}
+
+#: Architectures of the reference not ported yet → the ROADMAP item that
+#: ports each one.
+NOT_PORTED = {
+    "minicpm-2b": "9.2 (dense configs)",
+    "granite-34b": "9.2 (dense configs)",
+    "nemotron-4-15b": "9.2 (dense configs; relu2 MLP, untied head)",
+    "phi3.5-moe-42b-a6.6b": "9.4 (models/moe.py over core/delayed)",
+    "granite-moe-3b-a800m": "9.4 (models/moe.py over core/delayed)",
+    "falcon-mamba-7b": "9.3 (models/ssm.py over K9)",
+    "zamba2-1.2b": "9.5 (hybrid mamba2 + shared attention)",
+    "musicgen-medium": "9.6 (frontend-stub audio)",
+    "qwen2-vl-2b": "9.6 (frontend-stub vision, M-RoPE)",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet: ROADMAP item "
+            f"{NOT_PORTED[arch]}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    mod = _MODULES[arch]
+    return mod.SMOKE if smoke else mod.FULL

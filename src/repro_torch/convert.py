@@ -2,10 +2,12 @@
 
 The JAX package keeps packed 2-bit words as uint32 arrays and ranks as
 rows of uint32 words (word 0 high); the port keeps words as int32 tensors
-with the same bits and ranks as int64.  These functions move state across
-both ways, so the two packages can start from identical state.  They take
-array-likes (numpy arrays, or anything ``np.asarray`` accepts, such as a
-JAX array) and import nothing of JAX.
+with the same bits and ranks as int64.  LM params and caches are stacked
+over layers in the reference ((L, …), or (L/2, 2, …) local/global pairs
+for gemma2) and kept as one entry per layer in the port.  These functions
+move state across, so the two packages can start from identical state.
+They take array-likes (numpy arrays, or anything ``np.asarray`` accepts,
+such as a JAX array) and import nothing of JAX.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from . import device as _device
 from .core import bitarray as BA
+from .core import paged
 from .core import ranking as R
 
 
@@ -44,3 +47,43 @@ def ranks_from_rows(rows, device=None) -> torch.Tensor:
 def ranks_to_numpy(ranks: torch.Tensor) -> np.ndarray:
     """(m,) int64 ranks → (m,) uint64 numpy ranks (the numpy tier's type)."""
     return ranks.detach().cpu().numpy().astype(np.uint64)
+
+
+# ------------------------------------------------------------ LM state
+
+def array_to_torch(a, device=None) -> torch.Tensor:
+    """An array-like of a numpy dtype → a tensor of the same dtype."""
+    return torch.from_numpy(np.array(a)).to(_device.resolve(device))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer(stacked, i: int, cfg):
+    """Layer i of a reference-stacked leaf: a[i//2, i%2] for gemma2's
+    (L/2, 2, …) pairs (local first), a[i] otherwise."""
+    a = np.asarray(stacked)
+    return a[i // 2, i % 2] if cfg.local_global_pattern else a[i]
+
+
+def lm_params_from_jax(params, cfg, device=None) -> dict:
+    """The reference's ``lm.init_params`` pytree (dicts of array-likes)
+    → the port's params: the same dicts, ``blocks`` as a list of L."""
+    conv = lambda a: array_to_torch(a, device)  # noqa: E731
+    return {"embed": _tree_map(conv, params["embed"]),
+            "final_norm": conv(params["final_norm"]),
+            "blocks": [_tree_map(lambda a: conv(_layer(a, i, cfg)),
+                                 params["blocks"])
+                       for i in range(cfg.n_layers)]}
+
+
+def lm_caches_from_jax(caches, cfg, device=None) -> dict:
+    """The reference's decode caches ({"kv": PagedKV with stacked
+    leaves}) → the port's ({"kv": [PagedKV] * L})."""
+    kv = caches["kv"]
+    return {"kv": [paged.PagedKV(*(array_to_torch(
+        _layer(getattr(kv, f), i, cfg), device) for f in paged.PagedKV._fields))
+        for i in range(cfg.n_layers)]}

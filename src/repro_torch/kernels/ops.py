@@ -1,4 +1,5 @@
-"""Dispatching entry points for the bit-pack kernels (``repro/kernels/ops.py:129-170``).
+"""Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
+flash attention (``:76-85``) and the bit-pack kernels (``:129-170``).
 
 ``impl``:
   * ``"auto"`` goes by the tensor's device: the CUDA kernel for a CUDA
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import bitpack as _bp
+from . import flash_attention as _fa
 from . import ref as _ref
 
 IMPLS = ("auto", "cuda", "ref")
@@ -54,3 +56,15 @@ def bitpack_mark_rotate_count(packed, idx, lut, count_val, *, mark=2,
     return _bp.bitpack_mark_rotate_count(packed, idx, lut, count_val,
                                          mark=mark, only_if=only_if,
                                          inplace=inplace)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None, impl="auto"):
+    """q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D) → (B, Hq, Sq, D) in q.dtype:
+    causal, sliding-window (``window`` previous positions, self excluded),
+    tanh-softcapped, GQA attention."""
+    if _use_ref(impl, q):
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale)

@@ -1,18 +1,26 @@
-"""Plain PyTorch versions of the bit-pack kernels (``kernels/csrc/bitpack.cu``).
+"""Plain PyTorch versions of the port's kernels (``kernels/csrc/*.cu``).
 
-Twins of ``repro/kernels/ref.py:251-281``.  They are device-agnostic: the
+Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-281``
+and the attention functions of ``:23-123``.  They are device-agnostic: the
 CPU tests run them as the port's only path there, and ``chip_smoke.py``
-runs them on CUDA tensors to hold each kernel against them bit for bit.
+runs them on CUDA tensors to hold each kernel against them (bit for bit
+for the bit-pack kernels, within the float tolerances for attention).
 
 Packed words are int32 tensors holding the uint32 bits.  Unpacking shifts
 arithmetically, which is harmless because every field is masked with 3;
 repacking ORs ``field << 2j``, and ``3 << 30`` wraps to the sign bit.
+
+Attention computes in float32 whatever the input type and casts the
+result to ``q.dtype``, as the reference does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 FIELDS_PER_WORD = 16
+NEG_INF = -1e30
 
 
 def _shifts(device) -> torch.Tensor:
@@ -65,3 +73,89 @@ def bitpack_mark_rotate_count_ref(packed: torch.Tensor, idx: torch.Tensor,
     passes the fused kernel does in one launch."""
     marked = bitpack_scatter_mark_ref(packed, idx, mark, only_if)
     return bitpack_lut_count_ref(marked, lut, count_val)
+
+
+# ------------------------------------------------------------- attention
+
+def _mask(q_pos, k_pos, seq_kv, causal, window):
+    """Visible (q, k) pairs; ``window`` counts previous positions, self
+    excluded."""
+    m = k_pos < seq_kv
+    if causal:
+        m = m & (k_pos <= q_pos)
+    if window is not None:
+        m = m & (k_pos >= q_pos - window)
+    return m
+
+
+def attention_naive(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None):
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) with the full (Sq, Skv) logits."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    s = torch.where(_mask(q_pos, k_pos, skv, causal, window), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                  scale=None, block_k: int = 512):
+    """Blocked online-softmax attention (the flash kernel's arithmetic),
+    over kv chunks of ``block_k``, carrying (acc, m, l) in float32.  Every
+    chunk is visited: the plain version skips nothing."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
+    qf = q.float()
+    q_pos = torch.arange(sq, device=dev)[:, None]
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, block_k):
+        kc = k[:, :, k0:k0 + block_k].float().repeat_interleave(g, dim=1)
+        vc = v[:, :, k0:k0 + block_k].float().repeat_interleave(g, dim=1)
+        s = torch.matmul(qf, kc.transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        k_pos = k0 + torch.arange(kc.shape[2], device=dev)[None, :]
+        msk = _mask(q_pos, k_pos, skv, causal, window)
+        s = torch.where(msk, s, NEG_INF)
+        m_cur = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.where(msk, torch.exp(s - m_cur[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, vc)
+        m = m_cur
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, mask, *, softcap=None, scale=None):
+    """One query position over a (gathered) cache, grouped over GQA.
+
+    q: (B, Hq, D); k, v: (B, S, Hkv, D); mask: (B, S) validity.  Products
+    of the input type accumulate in float32 (the reference's
+    ``preferred_element_type``), and p is cast to ``v.dtype`` before P·V."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, g, d)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, hq, d).to(q.dtype)

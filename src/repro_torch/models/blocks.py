@@ -1,0 +1,60 @@
+"""The transformer block, for prefill and for one decode step.
+
+Port of the transformer half of ``repro/models/blocks.py``: pre-norm
+attention and MLP, each followed by gemma2's post-norm when
+``cfg.post_norm``.  The mamba and MoE blocks come with their slices
+(ROADMAP items 9.3-9.5).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import paged
+from .attention import attention, decode_attention, init_attention
+from .config import ModelConfig
+from .layers import init_mlp, mlp, rms_norm
+
+
+def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
+                           device, dtype) -> dict:
+    d = cfg.d_model
+    zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)  # noqa: E731
+    p = {"ln1": zeros(), "ln2": zeros(),
+         "attn": init_attention(gen, cfg, device=device, dtype=dtype),
+         "mlp": init_mlp(gen, cfg, device=device, dtype=dtype)}
+    if cfg.post_norm:
+        p["post_ln1"] = zeros()
+        p["post_ln2"] = zeros()
+    return p
+
+
+def _mlp_half(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.rms_eps), cfg)
+    if cfg.post_norm:
+        h = rms_norm(h, p["post_ln2"], cfg.rms_eps)
+    return x + h
+
+
+def transformer_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                      cfg: ModelConfig, *, window: Optional[int] = None,
+                      return_kv: bool = False):
+    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    h, kv = attention(p["attn"], h, positions, cfg, window=window,
+                      return_kv=True)
+    if cfg.post_norm:
+        h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
+    x = _mlp_half(p, x + h, cfg)
+    return (x, kv) if return_kv else x
+
+
+def transformer_block_decode(p: dict, x: torch.Tensor, cache: paged.PagedKV,
+                             cfg: ModelConfig, *,
+                             window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, paged.PagedKV]:
+    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    h, cache = decode_attention(p["attn"], h, cache, cfg, window=window)
+    if cfg.post_norm:
+        h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
+    return _mlp_half(p, x + h, cfg), cache
