@@ -28,7 +28,9 @@ caught:
 7. K6 (flash attention) parity against its plain version on the card,
    float32 (atol = rtol = 2e-5, never TF32) and bfloat16 (2e-2), the
    tolerances of ``tests/test_kernels.py:41-42,57-58``, and per (batch,
-   head) ‖got − want‖ ≤ 1e-2 ‖want‖: every case of
+   head) ‖got − want‖ ≤ 1e-2 ‖want‖; K6 with its LSE output gives the
+   same output bit for bit and an LSE within 2e-5 (f32) / 1e-3 (bf16)
+   absolute of ``attention_lse_ref``: every case of
    ``tests/test_kernels.py:16-26``, head_dim 256 with window 4096 and
    softcap 50 at Sq = Skv = 4100 with GQA 1, 2 and 4, Sq = 1, head_dim 12
    and 100, rows that see no key; contiguous and as strided views.
@@ -45,8 +47,10 @@ caught:
       one 32-key tile short; the global output zeroed past row 4096);
    c. K6 times at those two shapes (CUDA events, median of 20) beside the
       bound (max of flops at 989 TFLOP/s and bytes at 3.35 TB/s) and the
-      plain version's time; SDPA (``library_ms``) at the global shape
-      with the softcap off, against K6 with the softcap off;
+      plain version's time; at the global shape the library call
+      (``library_ms``): ``flex_attention``, compiled, with the softcap as
+      its score_mod, held to K6's per-(b, h) limit against K6; SDPA with
+      the softcap off, against K6 with the softcap off;
    d. the same prefill with the plain attention: last logits agree (per
       row ‖a − b‖ ≤ 3.5e-2 ‖b‖); K6 prefills with planted attention faults
       (every local window a tile short; a global layer given the local
@@ -58,14 +62,51 @@ caught:
       bfloat16 and in float32;
    g. ``python -m repro_torch.launch.serve --arch gemma2-2b`` with its
       defaults: 4 requests, 8-token prompts, 12 new tokens each.
-9. the ``kernels`` JSON line (K1–K3 and K6), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+9. K7 (flash-attention backward) parity against its plain version:
+   every case of ``tests/test_kernels.py:332-339``, head_dim 256 with
+   window 4096 and softcap 50 at 8192 rows with GQA 1, 2 and 4, the train
+   shape, Sq != Skv, rows that see no key, head_dims 12 and 100; float32
+   elementwise 3e-4, bfloat16 per (batch, head) 1e-2 for each of dq, dk,
+   dv; contiguous and strided; two runs give the same bits; the bf16
+   check also holds at logits of std 16 and 4; three planted faults, each
+   with finite output, must break the bf16 limit 2x: the backward without
+   the softcap at logits of std 4, without the term D = rowsum(dO ∘ O),
+   and with the window one 32-key tile short.
+10. K7 and K6-with-LSE times at the train shape and at 8192 rows with the
+   window cutting, beside the bound, the plain version and the library
+   call (``flex_attention``, compiled: its backward alone, and its forward
+   with the LSE; each held to the kernel's limits against the kernel);
+   with the softcap off, scaled_dot_product_attention's backward and
+   forward beside K7 and K6-with-LSE.
+11. gemma2-2b training (``phase_training``):
+   a. main path: ``runtime.train_loop.train`` on FULL, float32 master
+      params and bfloat16 compute, remat on, 1 × 4096 tokens a step
+      (``train_4k`` with its global batch of 256 cut to 1), 6 steps,
+      nothing wrapped around the loop, launch counts set to 0 just before
+      and read just after: each step (its ``train.step`` span) launches
+      K6-with-LSE 52 times, K7 26 times and K6 without LSE never; losses,
+      median step time of steps 1-5, tokens/s, peak memory;
+   b. one call of the step function (``make_train_step``: gradient, then
+      the AdamW update) under ``torch.profiler``: device time by group
+      (the update's kernels as the optimizer group) and the idle share;
+   c. one step's gradient through the kernels and through the plain
+      versions from the same params and batch: each leaf's ‖Δ‖/‖g‖ within
+      ``GRAD_REL_TOL``; planted faults in the backward read the same way,
+      and two (every local window halved; D = rowsum(dO ∘ O) dropped) must
+      break the limit;
+   d. SMOKE (float32, head_dim 12) on the card: the loss decreases over
+      15 steps, and a crash at step 7 with a checkpoint every 3 steps
+      replays to the uninterrupted final loss within rtol 1e-5.
+12. the ``kernels`` JSON line (K1–K3, K6, K6-with-LSE and K7), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -84,10 +125,17 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitpack as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as FAB  # noqa: E402
 from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.data.pipeline import batch_to_torch, make_batch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.runtime import (FaultInjector, TrainSettings,  # noqa: E402
+                                 make_train_step, train)
+from repro_torch.runtime.train_loop import loss_and_grads  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 REPS = 20
@@ -103,8 +151,9 @@ KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
     ("lut_count", "src/repro/kernels/bitpack.py:90"),
 ]
 MAX_ERR = {name: 0 for name, _ in KERNELS}
-MAX_ERR["flash_attention"] = 0.0
-MAX_REL = {"flash_attention": 0.0}
+MAX_ERR.update(flash_attention=0.0, flash_attention_lse=0.0,
+               flash_attention_bwd=0.0)
+MAX_REL = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:41-42,57-58
 # The elementwise tolerances above are about as large as a bfloat16 output
@@ -113,6 +162,9 @@ K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:4
 # scaled to the output; planted faults (a window one 32-key tile short,
 # rows past 4096 zeroed) must break it.
 K6_REL_TOL = 1e-2
+# K6's row log-sum-exp, absolute (|lse| is up to ~60 with the softcap; a
+# row that sees no key has -1e30 in both).
+K6_LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
 K6_TILE = 32                  # the kernel's kv tile (flash_attention.cu)
 K6_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
     # tests/test_kernels.py:16-26
@@ -174,6 +226,7 @@ def phase_build() -> None:
         print(f"[{name}] {log.strip()}")
     K._lib()
     FA._lib()
+    FAB._lib()
 
 
 # ------------------------------------------------------------------ parity
@@ -294,26 +347,37 @@ def k6_errors(got, want) -> dict:
 
 
 def check_k6(q, k, v, causal, window, softcap, what) -> dict:
-    """K6 against its plain version on the same inputs, by both checks."""
-    got = FA.flash_attention(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
-    want = R.attention_ref(q, k, v, causal=causal, window=window,
-                           softcap=softcap)
+    """K6 against its plain version on the same inputs, by both checks;
+    then K6 with its LSE output: the same output bit for bit, and the LSE
+    within ``K6_LSE_TOL`` of the plain version's."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = FA.flash_attention(q, k, v, **kw)
+    got_l, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    want, want_lse = R.attention_lse_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     expect(got.dtype == q.dtype and got.shape == q.shape, what)
+    expect(lse.dtype == torch.float32 and lse.shape == q.shape[:3], what)
+    expect(torch.equal(got_l, got), f"K6 with LSE changes the output: {what}")
     e = k6_errors(got, want)
+    e["lse_abs"] = float((lse - want_lse).abs().max()) if lse.numel() else 0.0
     MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], e["max_abs"])
     MAX_REL["flash_attention"] = max(MAX_REL["flash_attention"], e["rel"])
+    MAX_ERR["flash_attention_lse"] = max(MAX_ERR["flash_attention_lse"],
+                                         e["lse_abs"])
     if not (e["elementwise_ok"] and e["rel_ok"]):
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version ({what}): {e}")
+    if not e["lse_abs"] <= K6_LSE_TOL[q.dtype]:
+        raise AssertionError(f"flash_attention's LSE disagrees with its "
+                             f"plain version ({what}): {e}")
     return e
 
 
 def k6_summary(errs) -> str:
     return (f"max abs err {max(e['max_abs'] for e in errs):.3e} (mean |want| "
             f"{max(e['mean_want'] for e in errs):.3e}), per-(b, h) rel err "
-            f"{max(e['rel'] for e in errs):.3e}")
+            f"{max(e['rel'] for e in errs):.3e}, LSE max abs err "
+            f"{max(e.get('lse_abs', 0.0) for e in errs):.3e}")
 
 
 def phase_k6_parity_edges(dev) -> None:
@@ -327,7 +391,7 @@ def phase_k6_parity_edges(dev) -> None:
                                      f"{case} {dtype} strided={strided}"))
         print(f"parity K6 {case}: f32 {k6_summary(errs[:2])}; bf16 "
               f"{k6_summary(errs[2:])} (tol elementwise 2e-5 / 2e-2, rel "
-              f"{K6_REL_TOL})")
+              f"{K6_REL_TOL}, LSE 2e-5 / 1e-3)")
 
 
 def visible_pairs(sq, skv, causal, window) -> int:
@@ -532,14 +596,6 @@ def lm_inputs(cfg, b, s, dev, seed):
     return {"tokens": toks, "positions": pos}
 
 
-def params_as(params, dtype):
-    if isinstance(params, dict):
-        return {k: params_as(v, dtype) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_as(v, dtype) for v in params]
-    return params.to(dtype)
-
-
 class Capture:
     """Wraps ``ops.flash_attention`` for one run: keeps copies of the first
     ``keep`` calls' q, k, v (strides and all) and times every call with
@@ -593,7 +649,9 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     wall = time.perf_counter() - t0
     launches = dict(FA.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    expect(launches == {"flash_attention": cfg.n_layers}, launches)
+    expect(launches == {"flash_attention": cfg.n_layers,
+                        "flash_attention_lse": 0, "flash_attention_bwd": 0},
+           launches)
     expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
     expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
     expect(bool(torch.isfinite(logits).all()), "prefill logits not finite")
@@ -656,9 +714,56 @@ def phase_k6_parity_real(calls) -> dict:
     return faults
 
 
+_FLEX = []
+
+
+def flex_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                   scale=None, lse=False):
+    """One library call that computes K6's function on (q, k, v): PyTorch's
+    ``flex_attention``, compiled as its documentation has it used, with the
+    softcap as the score_mod, causal and window as the block mask (built
+    here, outside any timing) and ``enable_gqa``.  Returns a closure of
+    (q, k, v) giving the output, or (output, natural-log LSE) with
+    ``lse``.  torch.compile (and with it triton) is brought in on first
+    use."""
+    from torch.nn.attention import flex_attention as FX
+    expect(causal, "the library call is built for causal attention")
+    if not _FLEX:
+        _FLEX.append(torch.compile(FX.flex_attention, dynamic=False))
+
+    def visible(b, h, qi, ki):
+        m = ki <= qi
+        return m if window is None else m & (qi - ki <= window)
+
+    def cap(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+    mask = FX.create_block_mask(visible, None, None, q.shape[2], k.shape[2],
+                                device=q.device)
+    extra = ({} if not lse else {"return_aux": FX.AuxRequest(lse=True)}
+             if hasattr(FX, "AuxRequest") else {"return_lse": True})
+
+    def call(q, k, v):
+        out = _FLEX[0](q, k, v, score_mod=None if softcap is None else cap,
+                       block_mask=mask, scale=scale, enable_gqa=True,
+                       **extra)
+        if not lse:
+            return out
+        return (out[0], out[1].lse) if "return_aux" in extra else out
+    return call
+
+
+def bh_rel(got, want) -> float:
+    """Worst per-(batch, head) ‖got − want‖ / ‖want‖."""
+    g, w = got.float().flatten(2), want.float().flatten(2)
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
 def phase_k6_times(calls):
     """K6 at the prefill's local and global shapes, beside its bound and
-    its plain version; SDPA at the global shape with the softcap off."""
+    its plain version; at the global shape the library call
+    (``flex_attention``, softcap 50: ``library_ms``), held to K6's
+    per-(b, h) limit against K6, and SDPA with the softcap off beside K6
+    with the softcap off."""
     out = {}
     for (q, k, v, kw), name in zip(calls, ("local", "global")):
         w, sc = kw["window"], kw["softcap"]
@@ -674,8 +779,18 @@ def phase_k6_times(calls):
               f"{ms:.3f} ms, bound {bound:.3f} ms ({by}: {flops:.3e} flops "
               f"at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s), "
               f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms "
-              f"(median of {PLAIN_REPS}), library n/a (SDPA has no softcap)")
-    q, k, v, _ = calls[1]
+              f"(median of {PLAIN_REPS})")
+    q, k, v, kw = calls[1]
+    kw = {n: kw[n] for n in ("causal", "window", "softcap", "scale")
+          if n in kw}
+    lib = flex_attention(q, k, v, **kw)
+    agree = bh_rel(lib(q, k, v), FA.flash_attention(q, k, v, **kw))
+    expect(agree <= K6_REL_TOL, f"flex_attention vs K6: {agree}")
+    lib_ms = median_ms(lambda: lib(q, k, v))
+    out["global"].update(library_ms=lib_ms, library_rel_vs_kernel=agree)
+    print(f"time: K6 global, library flex_attention (compiled, softcap "
+          f"score_mod, causal block mask, GQA) {lib_ms:.3f} ms; per-(b, h) "
+          f"rel to K6 {agree:.3e}")
     off = median_ms(lambda: FA.flash_attention(q, k, v))
     sdpa = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
@@ -793,6 +908,10 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "fa_bf16_kernel" in low or "fa_f32_kernel" in low:
         return "flash_attention (K6)"
+    if any(w in low for w in ("dkdv_bf16_kernel", "dq_bf16_kernel",
+                              "dkdv_f32_kernel", "dq_f32_kernel",
+                              "dvec_kernel")):
+        return "flash_attention_bwd (K7)"
     if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
     if "memcpy" in low or "memset" in low:
@@ -800,10 +919,12 @@ def kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def device_profile(fn, dev, what) -> dict:
+def device_profile(fn, dev, what, tail=None) -> dict:
     """One run of ``fn`` under ``torch.profiler``: device time by kernel
     group, and the share of the wall with no kernel running (kernels run
-    one at a time on the one stream, so their durations add up)."""
+    one at a time on the one stream, so their durations add up).  With
+    ``tail`` = (marker kernel, group), every kernel that starts after the
+    marker goes to that group, and the marker to none."""
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -812,18 +933,21 @@ def device_profile(fn, dev, what) -> dict:
         fn()
         sync(dev)
         wall = time.perf_counter() - t0
-    groups, kernels = {}, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    groups, kernels, after = {}, {}, False
+    for ev in sorted((ev for ev in prof.events() if ev.device_type ==
+                      torch.autograd.DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start):
+        if tail and tail[0] in ev.name:
+            after = True
             continue
         us = ev.time_range.elapsed_us()
-        g = kernel_group(ev.name)
+        g = tail[1] if after else kernel_group(ev.name)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
     busy_ms = sum(groups.values())
     res = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
-           "groups_ms": groups,
+           "groups_ms": groups, "tail_marker_seen": after,
            "top_kernels_ms": dict(sorted(kernels.items(),
                                          key=lambda kv: -kv[1])[:6])}
     if not busy_ms:
@@ -878,9 +1002,8 @@ def phase_lm(dev):
     torch.cuda.empty_cache()
     equiv = {"bfloat16": prefill_vs_stepwise(cfg, params, dev)}
     cfg32 = cfg.replace(dtype="float32")
-    equiv["float32"] = prefill_vs_stepwise(cfg32, params_as(params,
-                                                            torch.float32),
-                                           dev)
+    equiv["float32"] = prefill_vs_stepwise(
+        cfg32, T.tree_map(lambda x: x.float(), params), dev)
     del params
     torch.cuda.empty_cache()
     served = phase_serve()
@@ -890,6 +1013,517 @@ def phase_lm(dev):
                              "equivalence": equiv,
                              "k6_times": k6_times}}))
     return prefill["launches"]["flash_attention"], k6_times
+
+
+# ------------------------------------------- K7 and training (gemma2-2b)
+
+K7_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+K7_REPLACES = "src/repro/kernels/flash_attention_bwd.py:149"
+K6_LSE_REPLACES = "src/repro/kernels/flash_attention.py:100"
+# f32 elementwise (abs + rel), the reference's own backward tolerance
+# (tests/test_kernels.py:371-372); bf16 per (batch, head) of each of dq, dk
+# and dv, ‖got − want‖ ≤ K7_REL_TOL ‖want‖, as K6 is held.  Planted faults
+# must break K7_REL_TOL by K7_FAULT_FACTOR or more.
+K7_F32_TOL = 3e-4
+K7_REL_TOL = 1e-2
+K7_FAULT_FACTOR = 2.0
+K7_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
+    # tests/test_kernels.py:332-339
+    (1, 2, 2, 64, 64, 32, True, None, None),
+    (1, 4, 2, 64, 64, 32, True, None, None),
+    (1, 2, 2, 96, 96, 16, True, 32, None),
+    (1, 2, 2, 64, 64, 32, True, None, 30.0),
+    (1, 2, 1, 48, 80, 32, False, None, None),
+    # gemma2-2b: head_dim 256, softcap 50, window 4096 where it cuts (8192
+    # rows), GQA 2 (the model's), 1 and 4; the train shape (4096 rows)
+    (1, 8, 4, 8192, 8192, 256, True, 4096, 50.0),
+    (1, 8, 8, 8192, 8192, 256, True, 4096, 50.0),
+    (1, 8, 2, 8192, 8192, 256, True, 4096, 50.0),
+    (1, 8, 4, 4096, 4096, 256, True, None, 50.0),
+    # Sq != Skv, rows that see no key, one row over 300 keys (one row over
+    # one key has dq = dk = 0 exactly: no relative bound applies), head_dims
+    # 12 and 100
+    (1, 8, 4, 100, 4100, 256, True, 4096, 50.0),
+    (1, 2, 1, 100, 10, 64, True, 5, None),
+    (1, 8, 4, 1, 300, 256, False, None, 50.0),
+    (2, 4, 2, 70, 70, 12, True, 8, 50.0),
+    (1, 3, 1, 130, 150, 100, False, 20, None),
+]
+K7_MODEL_CASE = K7_CASES[5]
+# q and k drawn with this σ give logits of std σ² = 16, where the softcap
+# of 50 bends them hard (with σ = 1 it is nearly the identity).  The
+# softcap fault is planted at σ = 2 (logits of std 4): there the backward
+# without the softcap stays finite, off by a factor of up to ~1.5 on the
+# largest probabilities, where at σ = 4 it overflows.
+K7_CAP_SIGMA = 4.0
+K7_FAULT_SIGMA = 2.0
+TRAIN_SEQ = 4096        # train_4k (repro/configs/shapes.py:22); batch 256 cut to 1
+TRAIN_STEPS = 6
+
+
+def k7_inputs(case, dtype, dev, seed, strided=False, qk_sigma=1.0):
+    """q, k, v, dO of one K7 case from a numpy seed."""
+    q, k, v = k6_inputs(case, dtype, dev, seed, strided)
+    if qk_sigma != 1.0:
+        q, k = q * qk_sigma, k * qk_sigma
+    b, hq, _, sq, _, d = case[:6]
+    rng = np.random.default_rng(seed + 1000)
+    do = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32))
+    do = do.to(dev, dtype).transpose(1, 2)
+    return q, k, v, do if strided else do.contiguous()
+
+
+def k7_errors(got, want) -> dict:
+    """Per gradient: max abs err, worst per-(b, h) ‖Δ‖/‖want‖; and whether
+    the dtype's check holds for all three."""
+    out, ok = {}, True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        rel = ((g - w).flatten(2).norm(dim=-1) / w.flatten(2).norm(dim=-1))
+        rel = float(rel.nan_to_num(nan=0.0, posinf=math.inf).max()) \
+            if g.numel() else 0.0
+        out[name] = {"max_abs": float((g - w).abs().max()) if g.numel()
+                     else 0.0, "rel": rel}
+        ok = ok and bool(torch.isfinite(g).all())
+        if got[0].dtype == torch.float32:
+            ok = ok and bool(((g - w).abs() <= K7_F32_TOL
+                              + K7_F32_TOL * w.abs()).all())
+        else:
+            ok = ok and rel <= K7_REL_TOL
+    out["max_abs"] = max(out[n]["max_abs"] for n in ("dq", "dk", "dv"))
+    out["rel"] = max(out[n]["rel"] for n in ("dq", "dk", "dv"))
+    out["ok"] = ok
+    return out
+
+
+def run_k7(q, k, v, do, kw, bwd_kw=None, drop_d=False):
+    """K6 with LSE forward, then K7 and its plain version on the same
+    (q, k, v, o, lse, dO).  A planted fault, if asked for: K7 run with
+    ``bwd_kw``, or (``drop_d``) given o = 0, which drops the term
+    D = rowsum(dO ∘ O) (K7 reads o for D alone) and nothing else."""
+    o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    got = FAB.flash_attention_bwd(q, k, v, torch.zeros_like(o) if drop_d
+                                  else o, lse, do, **(bwd_kw or kw))
+    want = R.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(got, (q, k, v)):
+        expect(g.shape == x.shape and g.dtype == x.dtype, "K7 output")
+    return k7_errors(got, want)
+
+
+def phase_k7_parity(dev) -> dict:
+    """K7 against its plain version on the card: every case in float32
+    (elementwise 3e-4) and bfloat16 (per (b, h) 1e-2), contiguous and as
+    strided views; the same twice gives the same bits (no atomics); then
+    two planted faults that must break the bf16 limit by 2x or more."""
+    for i, case in enumerate(K7_CASES):
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for strided in (False, True):
+                e = run_k7(*k7_inputs(case, dtype, dev, i, strided), kw)
+                MAX_ERR["flash_attention_bwd"] = max(
+                    MAX_ERR["flash_attention_bwd"], e["max_abs"])
+                if dtype == torch.bfloat16:
+                    MAX_REL["flash_attention_bwd"] = max(
+                        MAX_REL["flash_attention_bwd"], e["rel"])
+                errs[(dtype, strided)] = e
+                expect(e["ok"], f"K7 disagrees with its plain version "
+                       f"({case} {dtype} strided={strided}): {e}")
+        f32 = max(e["max_abs"] for (dt, _), e in errs.items()
+                  if dt == torch.float32)
+        bf = [e for (dt, _), e in errs.items() if dt == torch.bfloat16]
+        print(f"parity K7 {case}: f32 max abs err {f32:.3e} (tol "
+              f"{K7_F32_TOL} abs + rel); bf16 per-(b, h) rel err dq "
+              f"{max(e['dq']['rel'] for e in bf):.3e} dk "
+              f"{max(e['dk']['rel'] for e in bf):.3e} dv "
+              f"{max(e['dv']['rel'] for e in bf):.3e} (limit {K7_REL_TOL})")
+    case = K7_MODEL_CASE
+    kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+    q, k, v, do = k7_inputs(case, torch.bfloat16, dev, 99, True)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    runs = [FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            for _ in range(2)]
+    expect(all(torch.equal(a, b) for a, b in zip(*runs)),
+           "K7 differs between two runs on the same inputs")
+    del runs, o, lse
+    sound = {}
+    for sigma in (K7_CAP_SIGMA, K7_FAULT_SIGMA):
+        sound[sigma] = run_k7(*k7_inputs(case, torch.bfloat16, dev, 98, True,
+                                         sigma), kw)
+        expect(sound[sigma]["ok"], f"K7 at q, k of sigma {sigma}: "
+               f"{sound[sigma]}")
+    faults = {
+        f"softcap off in the backward (q, k at sigma {K7_FAULT_SIGMA})":
+            run_k7(*k7_inputs(case, torch.bfloat16, dev, 98, True,
+                              K7_FAULT_SIGMA), kw, {**kw, "softcap": None}),
+        "D = rowsum(dO o O) dropped": run_k7(q, k, v, do, kw, drop_d=True),
+        f"window {kw['window']} - {K6_TILE} in the backward":
+            run_k7(q, k, v, do, kw, {**kw, "window": kw["window"] - K6_TILE}),
+    }
+    for sigma, e in sound.items():
+        print(f"parity K7 {case} bf16, q and k at sigma {sigma} (logits std "
+              f"{sigma ** 2:g}): per-(b, h) rel err {e['rel']:.3e}")
+    print("parity K7: two runs give the same bits")
+    for name, e in faults.items():
+        print(f"planted K7 fault, {name}: per-(b, h) rel err dq "
+              f"{e['dq']['rel']:.3e} dk {e['dk']['rel']:.3e} dv "
+              f"{e['dv']['rel']:.3e}, max abs err {e['max_abs']:.3e} (must "
+              f"stay finite and exceed {K7_FAULT_FACTOR} x {K7_REL_TOL})")
+        expect(math.isfinite(e["max_abs"]) and e["rel"] >= K7_FAULT_FACTOR
+               * K7_REL_TOL, f"the K7 check misses {name}: {e}")
+    return {"sound_by_sigma": {str(k): v for k, v in sound.items()},
+            "planted_faults": faults}
+
+
+def bwd_bound(q, k, causal, window):
+    """(bound ms, bound_by, flops, bytes) of K7: 10·B·Hq·D flops per
+    visible pair at the bf16 peak; q, k, v, o, dO and lse read once, dq,
+    dk and dv written once."""
+    b, hq, sq, d = q.shape
+    flops = 10 * b * hq * d * visible_pairs(sq, k.shape[2], causal, window)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        4 * b * hq * sq
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def library_k7(q, k, v, do, kw, o, lse, grads) -> dict:
+    """The library call at one K7 shape: ``flex_attention``'s forward with
+    its LSE (no grad) and its backward alone (the forward run untimed
+    before each backward), each held against K6-with-LSE's (o, lse) and
+    K7's ``grads`` by their per-(b, h) limits and LSE tolerance."""
+    lib = flex_attention(q, k, v, lse=True, **kw)
+    with torch.no_grad():
+        lo, llse = lib(q, k, v)
+        fwd_ms = median_ms(lambda: lib(q, k, v))
+    fwd_rel, lse_abs = bh_rel(lo, o), float((llse - lse).abs().max())
+    expect(fwd_rel <= K6_REL_TOL and lse_abs <= K6_LSE_TOL[q.dtype],
+           f"flex_attention forward vs K6 with LSE: {fwd_rel}, {lse_abs}")
+    lib = flex_attention(q, k, v, **kw)
+    qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    held = {}
+
+    def forward():
+        held["o"] = lib(*qkv)
+
+    def backward():
+        return torch.autograd.grad(held["o"], qkv, do)
+    forward()
+    bwd_rel = max(bh_rel(a, b) for a, b in zip(backward(), grads))
+    expect(bwd_rel <= K7_REL_TOL, f"flex_attention backward vs K7: {bwd_rel}")
+    forward()
+    bwd_ms = median_ms(backward, setup=forward)
+    del held["o"]
+    return {"fwd_lse_ms": fwd_ms, "fwd_rel_vs_kernel": fwd_rel,
+            "lse_abs_vs_kernel": lse_abs, "bwd_ms": bwd_ms,
+            "bwd_rel_vs_kernel": bwd_rel}
+
+
+def phase_k7_times(dev) -> dict:
+    """K7 and K6 with its LSE at the train shape (1 × 8 × 4096 × 256, GQA 2,
+    softcap 50, causal: a local layer's window 4096 sees every earlier
+    position at this length) and at 8192 rows with the window cutting:
+    CUDA events, median of 20, beside the bound, the plain version (median
+    of 3) and the library call (``flex_attention``, compiled: forward with
+    LSE, and backward alone).  At the train shape with the softcap off, the
+    backward of scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) alone and its forward, beside K7 and K6-with-LSE with
+    the softcap off."""
+    out = {}
+    for name, case in (("train", (1, 8, 4, TRAIN_SEQ, TRAIN_SEQ, 256, True,
+                                  None, 50.0)),
+                       ("window", K7_MODEL_CASE)):
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        q, k, v, do = k7_inputs(case, torch.bfloat16, dev, 7, True)
+        o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+        ms = median_ms(lambda: FAB.flash_attention_bwd(q, k, v, o, lse, do,
+                                                       **kw))
+        plain = median_ms(lambda: R.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw), reps=PLAIN_REPS)
+        bound, by, flops, nbytes = bwd_bound(q, k, True, kw["window"])
+        fms = median_ms(lambda: FA.flash_attention(q, k, v, return_lse=True,
+                                                   **kw))
+        fplain = median_ms(lambda: R.attention_lse_ref(q, k, v, **kw),
+                           reps=PLAIN_REPS)
+        fbound, fby, fflops, fbytes = k6_bound(q, k, True, kw["window"])
+        fbytes += 4 * q.shape[0] * q.shape[1] * q.shape[2]     # lse written
+        fbound = max(fflops / BF16_FLOPS, fbytes / HBM_BYTES_PER_S) * 1e3
+        lib = library_k7(q, k, v, do, kw, o, lse,
+                         FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        out[name] = {
+            "shape": f"{tuple(q.shape)} kv {tuple(k.shape)} window "
+                     f"{kw['window']} softcap {kw['softcap']}",
+            "bwd": {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": by, "flops": flops, "bytes": nbytes,
+                    "library_ms": lib["bwd_ms"],
+                    "library_rel_vs_kernel": lib["bwd_rel_vs_kernel"]},
+            "fwd_lse": {"ms": fms, "plain_ms": fplain, "bound_ms": fbound,
+                        "bound_by": fby, "flops": fflops, "bytes": fbytes,
+                        "library_ms": lib["fwd_lse_ms"],
+                        "library_rel_vs_kernel": lib["fwd_rel_vs_kernel"],
+                        "library_lse_abs_vs_kernel": lib["lse_abs_vs_kernel"]}}
+        print(f"time: K7 {out[name]['shape']}: {ms:.3f} ms, bound "
+              f"{bound:.3f} ms ({by}: {flops:.3e} flops at 989 TFLOP/s, "
+              f"{nbytes} bytes at 3.35 TB/s), {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"plain {plain:.3f} ms (median of {PLAIN_REPS}), library "
+              f"flex_attention backward {lib['bwd_ms']:.3f} ms (per-(b, h) "
+              f"rel to K7 {lib['bwd_rel_vs_kernel']:.3e}); K6 with LSE "
+              f"{fms:.3f} ms, bound {fbound:.3f} ms, plain {fplain:.3f} ms, "
+              f"library flex_attention forward with LSE "
+              f"{lib['fwd_lse_ms']:.3f} ms (per-(b, h) rel to K6 "
+              f"{lib['fwd_rel_vs_kernel']:.3e}, LSE max abs "
+              f"{lib['lse_abs_vs_kernel']:.3e})")
+        del q, k, v, do, o, lse
+    q, k, v, do = k7_inputs((1, 8, 4, TRAIN_SEQ, TRAIN_SEQ, 256), torch.bfloat16,
+                            dev, 8, True)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    k7_off = median_ms(lambda: FAB.flash_attention_bwd(q, k, v, o, lse, do))
+    k6_off = median_ms(lambda: FA.flash_attention(q, k, v, return_lse=True))
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    ref_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                             enable_gqa=True)
+    sdpa_bwd = median_ms(lambda: torch.autograd.grad(
+        ref_out, (qq, kk, vv), do, retain_graph=True))
+    with torch.no_grad():
+        sdpa_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    out["train"]["bwd"].update(ms_softcap_off=k7_off,
+                               library_ms_softcap_off=sdpa_bwd)
+    out["train"]["fwd_lse"].update(ms_softcap_off=k6_off,
+                                   library_ms_softcap_off=sdpa_fwd)
+    print(f"time: train shape, softcap off: K7 {k7_off:.3f} ms, library "
+          f"scaled_dot_product_attention backward {sdpa_bwd:.3f} ms; K6 with "
+          f"LSE {k6_off:.3f} ms, library forward {sdpa_fwd:.3f} ms")
+    return out
+
+
+def step_launches(spans) -> list:
+    """Each ``train.step`` span's attention launches."""
+    return [{k.split(".", 1)[1]: v for k, v in sp.get("metrics", {}).items()
+             if k.startswith("attention.")}
+            for sp in spans if sp["sid"] == "train.step"]
+
+
+def phase_train(cfg, dev):
+    """The main path of this slice: ``runtime.train_loop.train`` on
+    gemma2-2b FULL (float32 master params, bfloat16 compute, remat on),
+    1 × 4096 tokens a step, 6 steps, nothing wrapped around the loop; every
+    launch count set to 0 just before and read just after.  Each step's
+    launches come from its ``train.step`` span."""
+    s = TrainSettings(batch=1, seq=TRAIN_SEQ, steps=TRAIN_STEPS, log_every=1)
+    spans = []
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    FA.reset_launches()
+    obs.enable(sink=spans.append)
+    t0 = time.perf_counter()
+    out = train(cfg, s, device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    obs.disable()
+    launches, peak = dict(FA.LAUNCHES), torch.cuda.max_memory_allocated(dev)
+    n = cfg.n_layers
+    per_step = step_launches(spans)
+    expect(per_step == [{"flash_attention_lse": 2 * n,
+                         "flash_attention_bwd": n}] * TRAIN_STEPS, per_step)
+    expect(launches == {"flash_attention": 0,
+                        "flash_attention_lse": 2 * n * TRAIN_STEPS,
+                        "flash_attention_bwd": n * TRAIN_STEPS}, launches)
+    expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
+    losses = out["losses"]
+    expect(len(losses) == TRAIN_STEPS and out["restarts"] == 0, losses)
+    expect(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    med = statistics.median(out["step_seconds"][1:TRAIN_STEPS])
+    res = {"tokens_per_step": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "step_seconds": out["step_seconds"],
+           "median_step_s_1_5": med, "tokens_per_s": TRAIN_SEQ / med,
+           "wall_s": wall, "peak_bytes": peak, "launches": launches,
+           "launches_per_step": per_step[0]}
+    print(f"train: {cfg.name} 1 x {TRAIN_SEQ} tokens a step, {TRAIN_STEPS} "
+          f"steps, losses {[round(x, 4) for x in losses]}; median step of "
+          f"steps 1-5 {med:.3f} s, {TRAIN_SEQ / med:.0f} tokens/s; steps "
+          f"{[round(x, 3) for x in out['step_seconds']]} s; peak {peak} "
+          f"bytes; launches per step {per_step[0]}, in all {launches}")
+    return out["final_params"], s, res
+
+
+OPT_MARK = "spin_kernel"      # torch.cuda._sleep's kernel
+
+
+def phase_train_profile(cfg, s, params, batch, dev) -> dict:
+    """One call of the main path's step function (``make_train_step``:
+    the gradient, then the AdamW update) under ``torch.profiler``, after
+    one call to warm up: device time by kernel group and the share of the
+    wall with no kernel running.  The update's kernels run after the
+    gradient's on the one stream; a marker kernel (``torch.cuda._sleep``)
+    launched as ``optim.update`` is entered tells them apart."""
+    step_fn = make_train_step(cfg, s)
+    held = {"opt": optim.init(params)}
+    update = optim.update
+
+    def marked(*a, **kw):
+        torch.cuda._sleep(1)
+        return update(*a, **kw)
+
+    def step():
+        _, held["opt"], _, _ = step_fn(params, held["opt"], None, batch, 0)
+    step()                                           # warm-up
+    optim.update = marked
+    try:
+        res = device_profile(step, dev, f"train step 1 x {TRAIN_SEQ}",
+                             tail=(OPT_MARK, "optimizer (AdamW update)"))
+    finally:
+        optim.update = update
+    expect(res["tail_marker_seen"] or not res["device_busy_ms"],
+           f"the profile shows no {OPT_MARK} before the update")
+    del held
+    return res
+
+
+# Per leaf, ‖g_kernels − g_plain‖ ≤ GRAD_REL_TOL · ‖g_plain‖ for one step's
+# gradient of gemma2-2b FULL in bfloat16.  Set between the sound readings
+# and a planted fault's (PERF.md §6).
+GRAD_REL_TOL = 5e-2
+
+
+def leaf_errors(grads, want, params) -> dict:
+    rels = {"__".join(p): float((g - w).norm() / w.norm())
+            for (p, _), g, w in zip(T.flatten_with_path(params), grads, want)}
+    worst = max(rels, key=rels.get)
+    return {"max_rel": rels[worst], "worst_leaf": worst,
+            "median_rel": statistics.median(rels.values())}
+
+
+class BwdFault:
+    """Wraps K7's wrapper as the autograd Function calls it: every call
+    runs with ``edit(args, kwargs)`` instead, the forward unchanged."""
+
+    def __init__(self, edit):
+        self.edit = edit
+
+    def __enter__(self):
+        self.orig = FAB.flash_attention_bwd
+
+        def wrapped(*a, **kw):
+            a, kw = self.edit(a, kw)
+            return self.orig(*a, **kw)
+        OPS._fab.flash_attention_bwd = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        OPS._fab.flash_attention_bwd = self.orig
+        return False
+
+
+def phase_grad_parity(cfg, params, batch, dev) -> dict:
+    """One step's gradient at full width through the kernels and through
+    the plain versions (``kernels="ref"``, the same autograd Function),
+    from the same params and batch: the loss and each leaf's ‖Δ‖/‖g‖.
+    Planted faults in the kernels' backward, with the forward unchanged,
+    are read the same way."""
+    n = cfg.n_layers
+    FA.reset_launches()
+    loss_r, want = loss_and_grads(params, batch, cfg.replace(kernels="ref"))
+    expect(not any(FA.LAUNCHES.values()), dict(FA.LAUNCHES))
+    loss_k, got = loss_and_grads(params, batch, cfg)
+    expect(dict(FA.LAUNCHES) == {"flash_attention": 0,
+                                 "flash_attention_lse": 2 * n,
+                                 "flash_attention_bwd": n}, dict(FA.LAUNCHES))
+    sound = leaf_errors(got, want, params)
+    loss_k, loss_r = float(loss_k), float(loss_r)
+    sound["loss_rel"] = abs(loss_k - loss_r) / abs(loss_r)
+    del got
+    def window(fn):
+        return lambda a, kw: (a, kw if kw["window"] is None else
+                              {**kw, "window": fn(kw["window"])})
+
+    def drop_d(a, kw):          # o = 0: D = rowsum(dO ∘ O) dropped
+        return a[:3] + (torch.zeros_like(a[3]),) + a[4:], kw
+    faults = {}
+    for name, edit in ((f"every local layer's backward window one {K6_TILE}"
+                        f"-key tile short", window(lambda w: w - K6_TILE)),
+                       ("every local layer's backward window halved",
+                        window(lambda w: w // 2)),
+                       ("every layer's backward without D = rowsum(dO o O)",
+                        drop_d)):
+        with BwdFault(edit):
+            loss_f, bad = loss_and_grads(params, batch, cfg)
+        faults[name] = leaf_errors(bad, want, params)
+        faults[name]["loss_rel"] = abs(float(loss_f) - loss_r) / abs(loss_r)
+        del bad
+    print(f"grad parity: {cfg.name} 1 x {TRAIN_SEQ}, kernels vs plain "
+          f"versions: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
+          f"{sound['loss_rel']:.3e}); per-leaf rel: max {sound['max_rel']:.4e}"
+          f" ({sound['worst_leaf']}), median {sound['median_rel']:.4e} "
+          f"(limit {GRAD_REL_TOL})")
+    for name, e in faults.items():
+        print(f"planted fault, {name}: per-leaf rel max {e['max_rel']:.4e} "
+              f"({e['worst_leaf']}), median {e['median_rel']:.4e}")
+    expect(sound["max_rel"] <= GRAD_REL_TOL, f"gradients differ: {sound}")
+    for name in ("every local layer's backward window halved",
+                 "every layer's backward without D = rowsum(dO o O)"):
+        expect(faults[name]["max_rel"] > GRAD_REL_TOL,
+               f"the gradient check misses {name}: {faults[name]}")
+    return {"loss_kernels": loss_k, "loss_plain": loss_r, **sound,
+            "planted_faults": faults}
+
+
+def phase_train_smoke(dev) -> dict:
+    """The runtime on the card at gemma2-2b SMOKE (float32, head_dim 12:
+    K6's and K7's float32 kernels): the loss decreases over 15 steps, and a
+    crash at step 7 with a checkpoint every 3 steps (in a temporary
+    directory) replays to the uninterrupted run's final loss."""
+    cfg = get_config(ARCH, smoke=True)
+    FA.reset_launches()
+    out = train(cfg, TrainSettings(batch=4, seq=32, steps=15, lr=1e-2,
+                                   warmup_steps=3, log_every=100),
+                verbose=False, device=dev)
+    n = cfg.n_layers
+    expect(dict(FA.LAUNCHES) == {"flash_attention": 0,
+                                 "flash_attention_lse": 2 * n * 15,
+                                 "flash_attention_bwd": n * 15},
+           dict(FA.LAUNCHES))
+    expect(out["losses"][-1] < out["losses"][0], out["losses"])
+    base = dict(batch=2, seq=16, steps=10, lr=1e-3, warmup_steps=2,
+                log_every=100)
+    with tempfile.TemporaryDirectory() as d:
+        crashed = train(cfg, TrainSettings(**base, ckpt_every=3,
+                                           ckpt_dir=os.path.join(d, "a")),
+                        fault=FaultInjector(fault_step=7), verbose=False,
+                        device=dev)
+    plain = train(cfg, TrainSettings(**base), verbose=False, device=dev)
+    a, b = crashed["losses"][-1], plain["losses"][-1]
+    expect(crashed["restarts"] == 1, crashed["restarts"])
+    expect(abs(a - b) <= 1e-5 * abs(b), (a, b))
+    res = {"losses": out["losses"], "replay_final_loss": a,
+           "uninterrupted_final_loss": b,
+           "replay_identical": crashed["losses"] == plain["losses"]}
+    print(f"train smoke: {cfg.name} SMOKE float32 on the card, loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f} over 15 steps; "
+          f"crash at 7 + restore: final loss {a:.7f} vs uninterrupted "
+          f"{b:.7f}, every loss identical: {res['replay_identical']}")
+    return res
+
+
+def phase_training(dev) -> dict:
+    """gemma2-2b training: the main path, its profile, and the gradient
+    parity at full width; then the runtime at SMOKE size."""
+    cfg = get_config(ARCH)
+    params, s, main_path = phase_train(cfg, dev)
+    batch = batch_to_torch(make_batch(cfg, s.seed, 0, s.batch, s.seq), dev)
+    profile = phase_train_profile(cfg, s, params, batch, dev)
+    torch.cuda.empty_cache()
+    parity = phase_grad_parity(cfg, params, batch, dev)
+    del params, batch
+    torch.cuda.empty_cache()
+    smoke = phase_train_smoke(dev)
+    print(json.dumps({"train": {"arch": ARCH, "main_path": main_path,
+                                "profile": profile, "grad_parity": parity,
+                                "smoke": smoke}}))
+    return main_path
 
 
 def main() -> None:
@@ -910,6 +1544,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_k6_parity_edges(dev)
     k6_launches, k6 = phase_lm(dev)
+    torch.cuda.empty_cache()
+    k7_parity = phase_k7_parity(dev)
+    k7 = phase_k7_times(dev)
+    torch.cuda.empty_cache()
+    trained = phase_training(dev)
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -924,14 +1563,54 @@ def main() -> None:
         "max_abs_err": MAX_ERR["flash_attention"],
         "max_rel_err_per_bh": MAX_REL["flash_attention"], "ms": g["ms"],
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"], "library_ms": None,
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "library": "flex_attention (compiled)",
         "shape": "gemma2-2b global layer, 1x8x32768x256, softcap 50",
         "ms_softcap_off": g["ms_softcap_off"],
         "library_ms_softcap_off": g["library_ms_softcap_off"],
         "local_ms": loc["ms"], "local_plain_ms": loc["plain_ms"],
         "local_bound_ms": loc["bound_ms"]})
+    tr, win = k7["train"], k7["window"]
+    kernels.append({
+        "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
+        "replaces": K6_LSE_REPLACES,
+        "launches": trained["launches"]["flash_attention_lse"],
+        "max_abs_err": MAX_ERR["flash_attention_lse"],
+        "ms": tr["fwd_lse"]["ms"], "plain_ms": tr["fwd_lse"]["plain_ms"],
+        "bound_ms": tr["fwd_lse"]["bound_ms"],
+        "bound_by": tr["fwd_lse"]["bound_by"],
+        "library_ms": tr["fwd_lse"]["library_ms"],
+        "library": "flex_attention (compiled) with its LSE",
+        "shape": "gemma2-2b train step, 1x8x4096x256, GQA 2, softcap 50, "
+                 "causal", "launches_per_step":
+            trained["launches_per_step"]["flash_attention_lse"],
+        "ms_softcap_off": tr["fwd_lse"]["ms_softcap_off"],
+        "library_ms_softcap_off": tr["fwd_lse"]["library_ms_softcap_off"],
+        "window_ms": win["fwd_lse"]["ms"],
+        "window_bound_ms": win["fwd_lse"]["bound_ms"],
+        "window_library_ms": win["fwd_lse"]["library_ms"]})
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": K7_SOURCE,
+        "replaces": K7_REPLACES,
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "max_abs_err": MAX_ERR["flash_attention_bwd"],
+        "max_rel_err_per_bh": MAX_REL["flash_attention_bwd"],
+        "ms": tr["bwd"]["ms"], "plain_ms": tr["bwd"]["plain_ms"],
+        "bound_ms": tr["bwd"]["bound_ms"], "bound_by": tr["bwd"]["bound_by"],
+        "library_ms": tr["bwd"]["library_ms"],
+        "library": "flex_attention (compiled), backward alone",
+        "shape": "gemma2-2b train step, 1x8x4096x256, GQA 2, softcap 50, "
+                 "causal", "launches_per_step":
+            trained["launches_per_step"]["flash_attention_bwd"],
+        "ms_softcap_off": tr["bwd"]["ms_softcap_off"],
+        "library_ms_softcap_off": tr["bwd"]["library_ms_softcap_off"],
+        "window_ms": win["bwd"]["ms"], "window_plain_ms": win["bwd"][
+            "plain_ms"], "window_bound_ms": win["bwd"]["bound_ms"],
+        "window_library_ms": win["bwd"]["library_ms"],
+        "planted_faults_rel": {k: v["rel"] for k, v in
+                               k7_parity["planted_faults"].items()}})
     print(f"total: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

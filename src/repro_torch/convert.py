@@ -4,7 +4,8 @@ The JAX package keeps packed 2-bit words as uint32 arrays and ranks as
 rows of uint32 words (word 0 high); the port keeps words as int32 tensors
 with the same bits and ranks as int64.  LM params and caches are stacked
 over layers in the reference ((L, …), or (L/2, 2, …) local/global pairs
-for gemma2) and kept as one entry per layer in the port.  These functions
+for gemma2) and kept as one entry per layer in the port; so are AdamW's
+moments, which mirror the params.  These functions
 move state across, so the two packages can start from identical state.
 They take array-likes (numpy arrays, or anything ``np.asarray`` accepts,
 such as a JAX array) and import nothing of JAX.
@@ -15,9 +16,11 @@ import numpy as np
 import torch
 
 from . import device as _device
+from . import tree as T
 from .core import bitarray as BA
 from .core import paged
 from .core import ranking as R
+from .optim import AdamWState
 
 
 def words_to_torch(words, device=None) -> torch.Tensor:
@@ -56,12 +59,6 @@ def array_to_torch(a, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(_device.resolve(device))
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _layer(stacked, i: int, cfg):
     """Layer i of a reference-stacked leaf: a[i//2, i%2] for gemma2's
     (L/2, 2, …) pairs (local first), a[i] otherwise."""
@@ -73,11 +70,20 @@ def lm_params_from_jax(params, cfg, device=None) -> dict:
     """The reference's ``lm.init_params`` pytree (dicts of array-likes)
     → the port's params: the same dicts, ``blocks`` as a list of L."""
     conv = lambda a: array_to_torch(a, device)  # noqa: E731
-    return {"embed": _tree_map(conv, params["embed"]),
+    return {"embed": T.tree_map(conv, params["embed"]),
             "final_norm": conv(params["final_norm"]),
-            "blocks": [_tree_map(lambda a: conv(_layer(a, i, cfg)),
-                                 params["blocks"])
+            "blocks": [T.tree_map(lambda a: conv(_layer(a, i, cfg)),
+                                  params["blocks"])
                        for i in range(cfg.n_layers)]}
+
+
+def opt_state_from_jax(state, cfg, device=None):
+    """The reference's ``AdamWState`` (step, m, v over its stacked params)
+    → the port's ``optim.AdamWState``: step as an int, m and v as
+    ``lm_params_from_jax`` lays out params."""
+    return AdamWState(step=int(np.asarray(state.step)),
+                      m=lm_params_from_jax(state.m, cfg, device),
+                      v=lm_params_from_jax(state.v, cfg, device))
 
 
 def lm_caches_from_jax(caches, cfg, device=None) -> dict:

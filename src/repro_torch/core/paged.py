@@ -66,16 +66,23 @@ def append(cache: PagedKV, k_new: torch.Tensor,
     """Append one token's K/V per sequence (decode step).
 
     k_new, v_new: (batch, kv_heads, head_dim).  The whole batch of writes
-    lands as one scatter (Roomy update + sync)."""
+    lands as one scatter (Roomy update + sync).  A sequence already past
+    its last page has its write dropped and its length still advanced, as
+    in the reference (an out-of-range page lookup, then a dropped scatter);
+    here it writes its last page's current value back in place, so no
+    host synchronisation is needed to find it."""
     lengths = cache.lengths.long()
     page_logical = lengths // cache.page_size
     offset = lengths % cache.page_size
+    inside = (page_logical < cache.pages_per_seq)[:, None, None]
+    page_logical = page_logical.clamp(max=cache.pages_per_seq - 1)
     phys = cache.page_table.long().gather(1, page_logical[:, None])[:, 0]
-    k_pages = cache.k_pages.index_put((phys, offset),
-                                      k_new.to(cache.k_pages.dtype))
-    v_pages = cache.v_pages.index_put((phys, offset),
-                                      v_new.to(cache.v_pages.dtype))
-    return cache._replace(k_pages=k_pages, v_pages=v_pages,
+
+    def write(pages, new):
+        new = torch.where(inside, new.to(pages.dtype), pages[phys, offset])
+        return pages.index_put((phys, offset), new)
+    return cache._replace(k_pages=write(cache.k_pages, k_new),
+                          v_pages=write(cache.v_pages, v_new),
                           lengths=cache.lengths + 1)
 
 

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel of repro/kernels/flash_attention.py:
 //   flash_attention (flash_attention.py:114, pallas_call at :181), kernel
-//   body _attn_kernel (:40).  The log-sum-exp output of the :169 variant
-//   (_attn_kernel_lse) is only read by the backward pass and comes with it.
+//   body _attn_kernel (:40), and its :169 variant (_attn_kernel_lse, :100)
+//   that also writes the row log-sum-exp the backward pass reads (K7,
+//   flash_attention_bwd.cu).
 //
 // It computes, for q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D):
 //   s   = q·kᵀ · scale;  s = tanh(s / softcap) · softcap  (when softcap > 0)
@@ -12,6 +13,9 @@
 //         (window counts previous positions, self excluded; q_pos and k_pos
 //         both count from 0, also when Sq != Skv)
 //   out = softmax(s) · v, a row with no visible key gives 0
+//   lse = m + log(l) per row, with l == 0 read as 1 (so -1e30 for a row
+//         that sees no key), float32, contiguous (B, Hq, Sq); written only
+//         when the caller passes an lse pointer (nullptr: not wanted)
 // with the kv head h / (Hq / Hkv) (GQA), in q's dtype.  NEG_INF is -1e30,
 // not -inf, and p is masked to 0 after the exp, as in the reference, so a
 // fully masked tile leaves the running sums unchanged.
@@ -161,7 +165,7 @@ template <int DP, int BK>
 __global__ void __launch_bounds__(kThreads)
     fa_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                   Params p) {
+                   float* __restrict__ lse, Params p) {
   constexpr int BQ = 64, LD = DP + 8, NB = BK / 8, NO = DP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // BQ x LD
@@ -287,6 +291,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= p.Sq) continue;
     const float sl = l[r] == 0.f ? 1.f : l[r];
+    if (lse != nullptr && t == 0)   // a row's 4 lanes hold the same m, l
+      lse[((long long)b * p.Hq + h) * p.Sq + row[r]] = m[r] + logf(sl);
     bf16* orow = og + row[r] * p.o_ss;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -320,7 +326,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 __global__ void __launch_bounds__(kThreads)
     fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  Params p) {
+                  float* __restrict__ lse, Params p) {
   extern __shared__ float smem_f[];
   const int D = p.D, LDK = D + 1;          // K rows padded: no bank conflict
   float* sQ = smem_f;                       // kF32Rows x D
@@ -396,6 +402,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + warp * 4 + rr;
     if (row >= p.Sq) continue;
     const float sl = l[rr] == 0.f ? 1.f : l[rr];
+    if (lse != nullptr && lane == 0)   // m and l are warp-uniform
+      lse[((long long)b * p.Hq + h) * p.Sq + row] = m[rr] + logf(sl);
 #pragma unroll
     for (int j = 0; j < kF32Cols; ++j) {
       const int d = lane + 32 * j;
@@ -408,7 +416,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP, int BK>
 int launch_bf16(dim3 grid, cudaStream_t stream, const void* q, const void* k,
-                const void* v, void* o, const Params& p) {
+                const void* v, void* o, float* lse, const Params& p) {
   const size_t smem = (size_t)(64 + 2 * BK) * (DP + 8) * sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(
       fa_bf16_kernel<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -416,7 +424,7 @@ int launch_bf16(dim3 grid, cudaStream_t stream, const void* q, const void* k,
   if (e != cudaSuccess) return (int)e;
   fa_bf16_kernel<DP, BK><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), p);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -432,11 +440,12 @@ const char* roomy_fa_error_string(int code) {
 
 // dtype 0: float32, 1: bfloat16.  strides: 12 element strides, (batch,
 // head, seq) of q, k, v and o in that order; the last dim is contiguous.
+// lse: nullptr, or B·Hq·Sq floats for the row log-sum-exp.
 int roomy_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int dtype, int B, int Hq, int Hkv, int Sq,
-                          int Skv, int D, const long long* strides,
-                          int causal, int window, float softcap, float scale,
-                          void* stream) {
+                          void* o, float* lse, int dtype, int B, int Hq,
+                          int Hkv, int Sq, int Skv, int D,
+                          const long long* strides, int causal, int window,
+                          float softcap, float scale, void* stream) {
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || B < 0 || Sq < 0 ||
       Skv < 0 || B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
@@ -462,16 +471,16 @@ int roomy_flash_attention(const void* q, const void* k, const void* v,
     dim3 grid((Sq + kF32Rows - 1) / kF32Rows, Hq, B);
     fa_f32_kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), p);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, p);
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + 63) / 64, Hq, B);
-  if (D <= 16) return launch_bf16<16, 64>(grid, s, q, k, v, o, p);
-  if (D <= 32) return launch_bf16<32, 64>(grid, s, q, k, v, o, p);
-  if (D <= 64) return launch_bf16<64, 64>(grid, s, q, k, v, o, p);
-  if (D <= 128) return launch_bf16<128, 64>(grid, s, q, k, v, o, p);
-  return launch_bf16<256, 32>(grid, s, q, k, v, o, p);
+  if (D <= 16) return launch_bf16<16, 64>(grid, s, q, k, v, o, lse, p);
+  if (D <= 32) return launch_bf16<32, 64>(grid, s, q, k, v, o, lse, p);
+  if (D <= 64) return launch_bf16<64, 64>(grid, s, q, k, v, o, lse, p);
+  if (D <= 128) return launch_bf16<128, 64>(grid, s, q, k, v, o, lse, p);
+  return launch_bf16<256, 32>(grid, s, q, k, v, o, lse, p);
 }
 
 }  // extern "C"

@@ -1,14 +1,16 @@
 """Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
 
 Port of ``repro/kernels/flash_attention.py`` (K6 of the kernel table in
-PERF.md), forward only: the log-sum-exp output that the backward pass
-reads comes with the backward kernel.  The wrapper checks shapes, types,
+PERF.md): the forward, and with ``return_lse=True`` the variant that also
+returns the (B, Hq, Sq) float32 row log-sum-exp the backward pass (K7,
+``flash_attention_bwd.py``) reads.  The wrapper checks shapes, types,
 devices and head_dim, allocates the output with ``torch.empty_like(q)``
 (so it takes q's strides: a (B, S, H, D) activation viewed as (B, H, S, D)
 gives an output whose inverse view is contiguous), launches on the current
-CUDA stream and books one launch in ``LAUNCHES``.  For CPU tensors it
-returns the plain version (``ref.attention_ref``); for CUDA tensors it
-launches the kernel or raises — there is no fallback.
+CUDA stream and books one launch in ``LAUNCHES``, under
+``flash_attention`` or ``flash_attention_lse``.  For CPU tensors it
+returns the plain version (``ref.attention_ref`` / ``attention_lse_ref``);
+for CUDA tensors it launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -24,8 +26,11 @@ from . import ref as _ref
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches (launches only, never plain-version calls).
-LAUNCHES = obs.counters("attention", {"flash_attention": 0})
+#: Kernel launches (launches only, never plain-version calls): K6 without
+#: and with the LSE output, and K7 (booked by ``flash_attention_bwd.py``).
+LAUNCHES = obs.counters("attention", {"flash_attention": 0,
+                                      "flash_attention_lse": 0,
+                                      "flash_attention_bwd": 0})
 
 
 def reset_launches() -> None:
@@ -41,11 +46,11 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("flash_attention")
-        # q, k, v, o, dtype, B, Hq, Hkv, Sq, Skv, D, strides, causal,
+        # q, k, v, o, lse, dtype, B, Hq, Hkv, Sq, Skv, D, strides, causal,
         # window, softcap, scale, stream
-        lib.roomy_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                              _I, _I, _I, _P, _I, _I, _F, _F,
-                                              _P]
+        lib.roomy_flash_attention.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
+                                              _I, _I, _I, _I, _P, _I, _I, _F,
+                                              _F, _P]
         lib.roomy_flash_attention.restype = _I
         lib.roomy_fa_error_string.argtypes = [_I]
         lib.roomy_fa_error_string.restype = ctypes.c_char_p
@@ -53,7 +58,7 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(q, k, v, window, softcap) -> None:
+def check_inputs(q, k, v, window, softcap) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D: (B, H, S, D)")
     b, hq, _, d = q.shape
@@ -79,28 +84,34 @@ def _check(q, k, v, window, softcap) -> None:
         raise ValueError(f"softcap {softcap} must be > 0")
 
 
-def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
+def last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    softcap: float | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None, scale: float | None = None,
+                    return_lse: bool = False):
     """K6: q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D), Hq % Hkv == 0, float32
-    or bfloat16, 1 <= D <= 256 → (B, Hq, Sq, D) in q.dtype.  ``window`` is
-    the number of previous positions visible (self excluded); q and k
-    positions both count from 0."""
-    _check(q, k, v, window, softcap)
+    or bfloat16, 1 <= D <= 256 → (B, Hq, Sq, D) in q.dtype, and with
+    ``return_lse`` also the (B, Hq, Sq) float32 row log-sum-exp (-1e30 for
+    a row that sees no key).  ``window`` is the number of previous
+    positions visible (self excluded); q and k positions both count
+    from 0."""
+    check_inputs(q, k, v, window, softcap)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
-        return _ref.attention_ref(q, k, v, causal=causal, window=window,
-                                  softcap=softcap, scale=scale)
-    q, k, v = (_last_dim_contiguous(x) for x in (q, k, v))
+        if return_lse:
+            return _ref.attention_lse_ref(q, k, v, **kw)
+        return _ref.attention_ref(q, k, v, **kw)
+    q, k, v = (last_dim_contiguous(x) for x in (q, k, v))
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     b, hq, sq, d = q.shape
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel() == 0:
+        return (out, lse) if return_lse else out
     hkv, skv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
                                          for s in x.stride()[:3]))
@@ -109,6 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.roomy_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPES[q.dtype], b, hq, hkv, sq, skv, d,
             ctypes.cast(strides, ctypes.c_void_p), int(causal),
             -1 if window is None else int(window),
@@ -116,5 +128,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if code:
         raise RuntimeError(f"roomy_flash_attention: CUDA error {code}: "
                            f"{lib.roomy_fa_error_string(code).decode()}")
+    if return_lse:
+        LAUNCHES["flash_attention_lse"] += 1
+        return out, lse
     LAUNCHES["flash_attention"] += 1
     return out

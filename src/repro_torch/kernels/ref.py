@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the port's kernels (``kernels/csrc/*.cu``).
 
 Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-281``
-and the attention functions of ``:23-123``.  They are device-agnostic: the
-CPU tests run them as the port's only path there, and ``chip_smoke.py``
-runs them on CUDA tensors to hold each kernel against them (bit for bit
-for the bit-pack kernels, within the float tolerances for attention).
+and the attention functions of ``:23-123``, plus the forward with its
+log-sum-exp and the backward of ``repro/kernels/flash_attention.py:100-111``
+and ``flash_attention_bwd.py`` (K6's LSE output and K7).  They are
+device-agnostic: the CPU tests run them as the port's only path there,
+and ``chip_smoke.py`` runs them on CUDA tensors to hold each kernel
+against them (bit for bit for the bit-pack kernels, within the float
+tolerances for attention).
 
 Packed words are int32 tensors holding the uint32 bits.  Unpacking shifts
 arithmetically, which is harmless because every field is masked with 3;
@@ -107,11 +110,10 @@ def attention_naive(q, k, v, *, causal=True, window=None, softcap=None,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
-                  scale=None, block_k: int = 512):
-    """Blocked online-softmax attention (the flash kernel's arithmetic),
-    over kv chunks of ``block_k``, carrying (acc, m, l) in float32.  Every
-    chunk is visited: the plain version skips nothing."""
+def _attention_blocked(q, k, v, causal, window, softcap, scale, block_k):
+    """The flash kernel's arithmetic over kv chunks of ``block_k``, carrying
+    (acc, m, l) in float32; returns (acc / l, m, l) with l == 0 read as 1.
+    Every chunk is visited: the plain version skips nothing."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -138,7 +140,74 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
         acc = acc * alpha[..., None] + torch.matmul(p, vc)
         m = m_cur
     l = torch.where(l == 0.0, 1.0, l)
-    return (acc / l[..., None]).to(q.dtype)
+    return acc / l[..., None], m, l
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                  scale=None, block_k: int = 512):
+    """Blocked online-softmax attention (the flash kernel's arithmetic)."""
+    out, _, _ = _attention_blocked(q, k, v, causal, window, softcap, scale,
+                                   block_k)
+    return out.to(q.dtype)
+
+
+def attention_lse_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                      scale=None, block_k: int = 512):
+    """``attention_ref`` that also returns the (B, Hq, Sq) float32 row
+    log-sum-exp ``m + log(l)`` (l == 0 read as 1, so a row that sees no
+    key has lse = -1e30), as ``repro/kernels/flash_attention.py:109-111``
+    emits it: the residual the backward pass reads."""
+    out, m, l = _attention_blocked(q, k, v, causal, window, softcap, scale,
+                                   block_k)
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
+                            window=None, softcap=None, scale=None,
+                            block_k: int = 512):
+    """K7's arithmetic (``repro/kernels/flash_attention_bwd.py``) over kv
+    chunks of ``block_k``, in float32: D = rowsum(dO∘O), p = exp(s - lse)
+    masked to 0 *after* the exp (a row that sees no key gets no gradient),
+    dS = p (dP - D), times the softcap derivative 1 - (s/c)², times scale.
+    Returns dq (B, Hq, Sq, D) and dk, dv per kv head (B, Hkv, Skv, D), the
+    GQA group already summed, each in its input's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
+    qf, dof = q.float(), do.float()
+    lse = lse.float()[..., None]
+    dvec = (dof * o.float()).sum(dim=-1)[..., None]
+    q_pos = torch.arange(sq, device=dev)[:, None]
+    dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, hkv, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, hkv, skv, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, block_k):
+        kc = k[:, :, k0:k0 + block_k].float().repeat_interleave(g, dim=1)
+        vc = v[:, :, k0:k0 + block_k].float().repeat_interleave(g, dim=1)
+        n = kc.shape[2]
+        s = torch.matmul(qf, kc.transpose(-1, -2)) * scale
+        dcap = None
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+            dcap = 1.0 - torch.square(s / softcap)
+        k_pos = k0 + torch.arange(n, device=dev)[None, :]
+        msk = _mask(q_pos, k_pos, skv, causal, window)
+        p = torch.where(msk, torch.exp(torch.where(msk, s, NEG_INF) - lse),
+                        0.0)
+        dp = torch.matmul(dof, vc.transpose(-1, -2))
+        ds = p * (dp - dvec)
+        if dcap is not None:
+            ds = ds * dcap
+        ds = ds * scale
+        dq += torch.matmul(ds, kc)
+        grouped = (b, hkv, g, n, d)
+        dk[:, :, k0:k0 + n] = torch.matmul(ds.transpose(-1, -2), qf
+                                           ).reshape(grouped).sum(2)
+        dv[:, :, k0:k0 + n] = torch.matmul(p.transpose(-1, -2), dof
+                                           ).reshape(grouped).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, mask, *, softcap=None, scale=None):

@@ -41,6 +41,7 @@ class ModelConfig:
     # --- numerics ---
     rms_eps: float = 1e-6
     dtype: str = "bfloat16"
+    remat: bool = True               # recompute each block in the backward
     kernels: str = "auto"            # auto | cuda | ref (kernels/ops.py)
 
     # ----------------------------------------------------------- derived

@@ -6,6 +6,7 @@ Port of ``repro/models/lm.py``.  Entry points:
   init_params(cfg, gen, device=, dtype=)      → params
   forward_hidden(params, inputs, cfg)         → (B, S, d)
   logits_fn(params, hidden, cfg)              → (B, S, vocab_padded)
+  loss_fn(params, batch, cfg)                 → scalar mean cross-entropy
   prefill(params, inputs, cfg, max_len=)      → (last logits (B, 1, V), caches)
   decode_step(params, inputs, caches, cfg)    → (logits (B, 1, V), caches)
   make_cache(cfg, batch, max_len, device=)    → empty caches
@@ -30,6 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..core import paged
@@ -90,15 +92,37 @@ def _embed(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_hidden(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """With ``cfg.remat`` and grad mode on, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+    and recomputed in the backward, as the reference's ``_maybe_remat``
+    does with ``jax.checkpoint`` (``repro/models/lm.py:120-121``)."""
     _dense_only(cfg)
     x = _embed(params, inputs, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p_l, w in zip(params["blocks"], layer_windows(cfg)):
-        x = transformer_block(p_l, x, inputs["positions"], cfg, window=w)
+        if remat:
+            x = checkpoint(transformer_block, p_l, x, inputs["positions"],
+                           cfg, window=w, use_reentrant=False)
+        else:
+            x = transformer_block(p_l, x, inputs["positions"], cfg, window=w)
     return rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
 def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return lm_head(params["embed"], hidden, cfg)
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is >= 0, on
+    float32 logits (``repro/models/lm.py:192-216`` on one device).
+    ``batch``: {"inputs": {"tokens", "positions"}, "labels": (B, S)}."""
+    hidden = forward_hidden(params, batch["inputs"], cfg)
+    logits = logits_fn(params, hidden, cfg).float()
+    labels = batch["labels"].long()
+    mask = labels >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return -(ll * mask).sum() / mask.sum().clamp(min=1)
 
 
 # ------------------------------------------------------ caches / decode

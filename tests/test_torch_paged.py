@@ -112,3 +112,26 @@ def test_gather_through_a_shuffled_table():
     k1 = _kv(rng, b, kvh, hd)
     _same_cache(tpaged.append(t, torch.from_numpy(k1), torch.from_numpy(k1)),
                 jpaged.append(j, jnp.asarray(k1), jnp.asarray(k1)))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_append_past_the_last_page_drops_the_write(jdt, tdt):
+    """A sequence past its last page: the reference drops the write (an
+    out-of-range page lookup, then a dropped scatter) and still advances
+    its length; the port gives the same pages and lengths, while the other
+    sequences of the batch keep appending."""
+    rng = np.random.default_rng(3)
+    b, kvh, hd, ps = 3, 2, 5, 4
+    t = tpaged.make(b, 8, kvh, hd, page_size=ps, dtype=tdt, device="cpu")
+    j = jpaged.make(b, 8, kvh, hd, page_size=ps, dtype=jdt)
+    start = np.array([5, 8, 0], np.int32)   # one inside, one at the end
+    t = t._replace(lengths=torch.from_numpy(start))
+    j = j._replace(lengths=jnp.asarray(start))
+    for _ in range(5):                       # the first row runs out too
+        k, v = _kv(rng, b, kvh, hd), _kv(rng, b, kvh, hd)
+        t = tpaged.append(t, torch.from_numpy(k), torch.from_numpy(v))
+        j = jpaged.append(j, jnp.asarray(k), jnp.asarray(v))
+        _same_cache(t, j)
+    assert t.lengths.tolist() == [10, 13, 5]
+    for got, want in zip(tpaged.gather(t), jpaged.gather(j)):
+        _same(got, want)
