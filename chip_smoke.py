@@ -97,8 +97,44 @@ caught:
    d. SMOKE (float32, head_dim 12) on the card: the loss decreases over
       15 steps, and a crash at step 7 with a checkpoint every 3 steps
       replays to the uninterrupted final loss within rtol 1e-5.
-12. the ``kernels`` JSON line (K1–K3, K6, K6-with-LSE and K7), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+12. K9 (selective scan) and falcon-mamba-7b (``phase_falcon_mamba``):
+   a. K9 parity against its plain version (the sequential form, with the
+      final state) on the card: the cases of ``tests/test_kernels.py:
+      85-90`` (L = 100 unaligned) and ``:112-127``, SMOKE's Di 64 / N 4,
+      the model's Di 8192 / N 16, one step, ragged Di and N; float32
+      (atol = rtol = 1e-4) and bfloat16 (5e-2), contiguous and strided,
+      with and without the state (y the same bits); y and h also per
+      (batch, 32-channel tile) ‖got − want‖ ≤ 1e-2 ‖want‖, which three
+      planted faults with finite output must break (the state reset every
+      128 steps, D·x dropped, A's decay off by one state);
+   b. FULL in bfloat16, params from ``lm.init_params`` on a seeded
+      generator; main path: ``lm.prefill`` over 1 × 32768 tokens
+      (``prefill_32k``, global batch 32 cut to 1), nothing wrapped around
+      it, launch counts set to 0 just before and read just after: K9
+      launched 64 times; tokens/s, wall, peak memory;
+   c. the same prefill again with layer 0's and layer 63's scan inputs
+      captured and K9 timed by CUDA events (its share of b.'s wall); K9
+      against the plain version over all 32768 steps of both layers, with
+      the state, by both checks, and the planted faults there;
+   d. K9 at that shape (median of 20) beside its bound (the largest of
+      the exponentials at 16 a clock per SM, the f32 FMAs at 67 TFLOP/s
+      and the bytes at 3.35 TB/s) and the plain version (median of 3); no
+      library call computes a selective scan;
+   e. 16 ``decode_step``s from b.'s states (K9 launched 0 times), then one
+      prefill and 4 decode steps under ``torch.profiler``;
+   f. ``forward_hidden`` + ``logits_fn`` over 1 × 4096 tokens (K9 launched
+      64 times);
+   g. the same prefill through K9 and through the plain scan at full
+      width and depth over 2048 tokens: the last logits agree per row
+      (1e-2); K9 prefills with planted faults in every layer are read the
+      same way, and D dropped must break the limit;
+   h. stepwise decode ≡ the forward column by column on a 64-token
+      prefix, and prefill-then-decode ≡ stepwise decode, in bfloat16 and
+      in float32;
+   i. ``python -m repro_torch.launch.serve --arch falcon-mamba-7b`` with
+      its defaults.
+13. the ``kernels`` JSON line (K1–K3, K6, K6-with-LSE, K7 and K9), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -126,6 +162,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitpack as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as FAB  # noqa: E402
+from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch import optim  # noqa: E402
@@ -152,8 +189,9 @@ KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
 ]
 MAX_ERR = {name: 0 for name, _ in KERNELS}
 MAX_ERR.update(flash_attention=0.0, flash_attention_lse=0.0,
-               flash_attention_bwd=0.0)
-MAX_REL = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+               flash_attention_bwd=0.0, mamba_scan=0.0)
+MAX_REL = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+           "mamba_scan": 0.0}
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:41-42,57-58
 # The elementwise tolerances above are about as large as a bfloat16 output
@@ -227,6 +265,7 @@ def phase_build() -> None:
     K._lib()
     FA._lib()
     FAB._lib()
+    MS._lib()
 
 
 # ------------------------------------------------------------------ parity
@@ -562,9 +601,16 @@ def sync(dev) -> None:
     torch.cuda.synchronize(dev)
 
 
-def logit_errors(got, want, what) -> dict:
+def reset_all_launches() -> None:
+    K.reset_launches()
+    FA.reset_launches()
+    MS.reset_launches()
+
+
+def logit_errors(got, want, what, rel_tol=BF16_LOGIT_REL_TOL) -> dict:
     """Print and return how far two logit tensors (..., V) lie apart, and
-    whether they agree by the rule above."""
+    whether they agree by the rule above (bfloat16 rows within
+    ``rel_tol``)."""
     a, w = got.float(), want.float()
     diff = (a - w).abs()
     rel = float(((a - w).norm(dim=-1) / w.norm(dim=-1)).max())
@@ -572,7 +618,7 @@ def logit_errors(got, want, what) -> dict:
         ok = bool((diff <= F32_TOL + F32_TOL * w.abs()).all())
         rule = f"{F32_TOL} abs + rel"
     else:
-        ok, rule = rel <= BF16_LOGIT_REL_TOL, f"rel {BF16_LOGIT_REL_TOL}"
+        ok, rule = rel <= rel_tol, f"rel {rel_tol}"
     res = {"max_abs_err": float(diff.max()), "mean_abs_err": float(
         diff.mean()), "rel_err": rel, "max_abs_logit": float(w.abs().max()),
         "same_argmax": bool((a.argmax(-1) == w.argmax(-1)).all()), "ok": ok}
@@ -583,8 +629,8 @@ def logit_errors(got, want, what) -> dict:
     return res
 
 
-def logits_agree(got, want, what) -> dict:
-    res = logit_errors(got, want, what)
+def logits_agree(got, want, what, rel_tol=BF16_LOGIT_REL_TOL) -> dict:
+    res = logit_errors(got, want, what, rel_tol)
     expect(res["ok"], f"{what}: {res}")
     return res
 
@@ -597,35 +643,37 @@ def lm_inputs(cfg, b, s, dev, seed):
 
 
 class Capture:
-    """Wraps ``ops.flash_attention`` for one run: keeps copies of the first
-    ``keep`` calls' q, k, v (strides and all) and times every call with
-    CUDA events.  ``fault(i, kw)``, if given, returns the keyword arguments
-    that call i (layer i) runs with instead of ``kw``: a planted fault.
-    The launch count stays in the kernel's own wrapper."""
+    """Wraps ``ops.<name>`` (the op the model calls: ``flash_attention`` or
+    ``mamba_scan``) for one run: keeps copies of the tensor arguments
+    (strides and all) and the keyword arguments of the calls (layers) in
+    ``keep``, and times every call with CUDA events.  ``fault(i, orig,
+    args, kw)``, if given, computes call i instead: a planted fault.  The
+    launch count stays in the kernel's own wrapper."""
 
-    def __init__(self, keep: int = 0, fault=None):
-        self.keep, self.fault, self.calls, self.events = keep, fault, [], []
+    def __init__(self, name, keep=(), fault=None):
+        self.name, self.keep, self.fault = name, keep, fault
+        self.calls, self.events = {}, []
 
     def __enter__(self):
-        self.orig = OPS.flash_attention
+        self.orig = getattr(OPS, self.name)
 
-        def wrapped(q, k, v, **kw):
-            if self.fault is not None:
-                kw = self.fault(len(self.events), dict(kw))
-            if len(self.calls) < self.keep:
-                self.calls.append((q.clone(), k.clone(), v.clone(), kw))
+        def wrapped(*args, **kw):
+            i = len(self.events)
+            if i in self.keep:
+                self.calls[i] = (tuple(t.clone() for t in args), kw)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            out = self.orig(q, k, v, **kw)
+            out = (self.orig(*args, **kw) if self.fault is None
+                   else self.fault(i, self.orig, args, kw))
             b.record()
             self.events.append((a, b))
             return out
-        OPS.flash_attention = wrapped
+        setattr(OPS, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        OPS.flash_attention = self.orig
+        setattr(OPS, self.name, self.orig)
         return False
 
     def kernel_ms(self) -> float:
@@ -670,7 +718,7 @@ def phase_capture(cfg, params, inputs, wall, dev):
     q, k, v of layer 0 (local) and layer 1 (global), and K6's time by CUDA
     events as a share of the main path's wall."""
     FA.reset_launches()
-    with Capture(keep=2) as cap:
+    with Capture("flash_attention", keep=(0, 1)) as cap:
         lm.prefill(params, inputs, cfg)
         sync(dev)
     expect(FA.LAUNCHES["flash_attention"] == cfg.n_layers, dict(FA.LAUNCHES))
@@ -679,7 +727,7 @@ def phase_capture(cfg, params, inputs, wall, dev):
     print(f"prefill K6 time: {cfg.n_layers} launches taking {k6_ms:.1f} ms "
           f"by CUDA events ({100 * res['k6_share']:.1f}% of the main "
           f"path's wall)")
-    return cap.calls, res
+    return [(*cap.calls[i][0], cap.calls[i][1]) for i in (0, 1)], res
 
 
 def phase_k6_parity_real(calls) -> dict:
@@ -802,8 +850,8 @@ def phase_k6_times(calls):
 
 
 def logit_faults(cfg) -> dict:
-    """Planted attention faults for ``Capture``: each maps (layer, kwargs)
-    to the kwargs that layer's K6 call runs with."""
+    """Planted attention faults: each maps (layer, kwargs) to the kwargs
+    that layer's K6 call runs with."""
     tile, win = K6_TILE, cfg.local_window
     return {
         f"every local layer's window one {tile}-key tile short":
@@ -831,7 +879,8 @@ def phase_prefill_plain(cfg, params, inputs, logits, dev):
                         "prefill K6 vs plain attention, last-position logits")
     controls = {}
     for name, fault in logit_faults(cfg).items():
-        with Capture(fault=fault):
+        with Capture("flash_attention", fault=lambda i, orig, a, kw, f=fault:
+                     orig(*a, **f(i, dict(kw)))):
             bad, _ = lm.prefill(params, inputs, cfg)
         controls[name] = logit_errors(bad[..., :v], ref_logits,
                                       f"planted fault, {name}, vs plain")
@@ -844,11 +893,12 @@ def phase_prefill_plain(cfg, params, inputs, logits, dev):
 
 
 def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
-    """``steps`` greedy decode steps from the prefill's caches."""
+    """``steps`` greedy decode steps from the prefill's caches; the decode
+    step runs plain PyTorch (no K9), as the reference's does."""
     tok = logits[:, -1].argmax(-1, keepdim=True)
     zeros = torch.zeros_like(tok)
-    seq = int(caches["kv"][0].lengths[0])
-    FA.reset_launches()
+    seq = int(caches["kv"][0].lengths[0]) if "kv" in caches else None
+    reset_all_launches()
     sync(dev)
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -857,15 +907,20 @@ def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
         tok = lg[:, -1].argmax(-1, keepdim=True)
     sync(dev)
     wall = time.perf_counter() - t0
+    k9 = MS.LAUNCHES["mamba_scan"]
+    expect(k9 == 0, dict(MS.LAUNCHES))
     expect(bool(torch.isfinite(lg).all()), "decode logits not finite")
-    expect(all(int(c.lengths[0]) == seq + steps for c in caches["kv"]),
-           "decode cache lengths")
-    print(f"decode: {steps} steps after {seq} tokens, {wall:.3f} s, "
-          f"{steps / wall:.2f} tokens/s (batch 1)")
-    return {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall}
+    if seq is not None:
+        expect(all(int(c.lengths[0]) == seq + steps for c in caches["kv"]),
+               "decode cache lengths")
+    print(f"decode: {cfg.name} {steps} steps after the prefill, {wall:.3f} "
+          f"s, {steps / wall:.2f} tokens/s (batch 1), K9 launches {k9}")
+    return {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall,
+            "k9_launches": k9}
 
 
-def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2) -> dict:
+def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2,
+                        rel_tol=BF16_LOGIT_REL_TOL) -> dict:
     """prefill(s tokens) then one decode step == s + 1 decode steps from
     an empty cache (tests/test_models.py:171-200); returns the errors."""
     inputs = lm_inputs(cfg, b, s + 1, dev, SEED + 2)
@@ -884,7 +939,7 @@ def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2) -> dict:
     v = cfg.vocab_size
     return logits_agree(lg_a[..., :v], lg_b[..., :v],
                         f"equivalence: {cfg.name} {cfg.dtype} prefill({s}) "
-                        f"+ decode == {s + 1} decode steps")
+                        f"+ decode == {s + 1} decode steps", rel_tol)
 
 
 def phase_serve(argv=("--arch", ARCH)):
@@ -908,6 +963,8 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "fa_bf16_kernel" in low or "fa_f32_kernel" in low:
         return "flash_attention (K6)"
+    if "scan_kernel<" in low:
+        return "mamba_scan (K9)"
     if any(w in low for w in ("dkdv_bf16_kernel", "dq_bf16_kernel",
                               "dkdv_f32_kernel", "dq_f32_kernel",
                               "dvec_kernel")):
@@ -1525,6 +1582,450 @@ def phase_training(dev) -> dict:
                                 "smoke": smoke}}))
     return main_path
 
+# --------------------------------- falcon-mamba-7b serving and forward (K9)
+
+FM_ARCH = "falcon-mamba-7b"
+K9_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
+K9_REPLACES = "src/repro/kernels/mamba_scan.py:61"
+K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # tests/test_kernels.py:108-127
+# Besides the elementwise tolerances, y is held per (batch, tile of K9_TILE
+# channels, the kernel's block at N = 16) to ‖got − want‖ ≤ K9_REL_TOL ·
+# ‖want‖ over all steps, and the final state h likewise over the tile's
+# channels and states; planted faults (the state reset every K9_CHUNK
+# steps, D·x dropped, A's decay off by one state) must break it.
+K9_TILE = 32
+K9_REL_TOL = 1e-2
+K9_CHUNK = 128                # the TPU kernel's time chunk (mamba_scan.py:33)
+K9_CASES = [  # b, l, di, n
+    # tests/test_kernels.py:85-90 (L = 100 unaligned) and the bf16 case of
+    # :112-127 (run in both dtypes, as all of these)
+    (2, 64, 32, 16), (1, 100, 16, 8), (1, 128, 64, 4), (3, 32, 8, 16),
+    (1, 64, 16, 8),
+    # SMOKE's Di 64 and N 4 over several chunks; the model's Di 8192 and
+    # N 16; one step; Di and N no multiple of the kernel's tiles
+    (2, 300, 64, 4), (1, 2048, 8192, 16), (1, 1, 8192, 16), (2, 37, 100, 3),
+]
+K9_FAULT_CASE = (1, 2048, 8192, 16)
+SFU_PER_CLOCK_SM = 16         # exponentials a clock per SM (CUDA guide, cc 9.0)
+F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+FM_PLAIN_LEN = 2048           # the plain scan's Python loop over 64 layers
+FM_PLAIN_LEN_F32 = 256
+FM_FORWARD_LEN = 4096
+# Per row of bfloat16 logits of falcon-mamba-7b: ‖a − b‖ ≤ FM_LOGIT_REL_TOL
+# · ‖b‖ for K9 against the plain scan over the same prefill and for the
+# equivalences.  K9's state is the plain version's bits and its y differs
+# in rare one-ulp roundings, but each bfloat16 residual add of 64 layers
+# can turn such a difference into a one-ulp step of the residual, so the
+# last logits drift apart by a few percent; in float32 the same comparison
+# holds elementwise to F32_TOL.  The limit lies between the sound readings
+# and a planted fault's (K9 with D dropped in every layer), which every
+# run re-reads and requires to exceed it.
+FM_LOGIT_REL_TOL = 0.1
+
+
+def k9_inputs(case, dtype, dev, seed, strided=False):
+    """x, dt, a, b, c, d of one K9 case from a numpy seed, drawn as
+    tests/test_kernels.py draws them (dt = 0.1·|N|, a = -|N|).  With
+    ``strided``, x and dt are column slices of one (B, L, 2·Di) tensor and
+    b, c of one (B, L, 3·N), as the model's splits give them."""
+    b, l, di, n = case
+    rng = np.random.default_rng(seed)
+
+    def nrm(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+    x, dt = nrm(b, l, di), nrm(b, l, di).abs() * 0.1
+    a, bb, cc, d = -nrm(di, n).abs(), nrm(b, l, n), nrm(b, l, n), nrm(di)
+    if strided:
+        x, dt = torch.cat([x, dt], -1).split(di, -1)
+        bb, cc = torch.cat([bb, cc, nrm(b, l, n)], -1)[..., :2 * n].split(n,
+                                                                         -1)
+    x, dt, bb, cc = (t.to(dtype) for t in (x, dt, bb, cc))
+    return x, dt, a, bb, cc, d
+
+
+def tile_rel(got, want, dim) -> float:
+    """Worst ‖got − want‖ / ‖want‖ over (batch, tile of K9_TILE channels),
+    the channels on ``dim`` and the tile taking every other dim but the
+    batch; 0/0 reads 0, x/0 inf."""
+    def tiles(t):
+        t = t.float().movedim(dim, -1)
+        t = F.pad(t, (0, (-t.shape[-1]) % K9_TILE))
+        return t.reshape(*t.shape[:-1], -1, K9_TILE).movedim(-2, 1).flatten(2)
+    g, w = tiles(got), tiles(want)
+    rel = (g - w).norm(dim=-1) / w.norm(dim=-1)
+    return float(rel.nan_to_num(nan=0.0, posinf=math.inf).max())
+
+
+def k9_errors(got, want) -> dict:
+    """(y, h) against (y, h): max abs errs, per-tile rel of each, and
+    whether the elementwise and per-tile checks hold."""
+    (gy, gh), (wy, wh) = got, want
+    tol = K9_TOL[gy.dtype]
+    dy, dh = (gy.float() - wy.float()).abs(), (gh - wh).abs()
+    res = {"max_abs_y": float(dy.max()) if dy.numel() else 0.0,
+           "max_abs_h": float(dh.max()) if dh.numel() else 0.0,
+           "h_same_bits": bool(torch.equal(gh, wh)),
+           "rel_y": tile_rel(gy, wy, 2), "rel_h": tile_rel(gh, wh, 1)}
+    res["elementwise_ok"] = bool(torch.isfinite(gy).all()) and bool(
+        torch.isfinite(gh).all()) and bool(
+        (dy <= tol + tol * wy.float().abs()).all()) and bool(
+        (dh <= K9_TOL[torch.float32]
+         + K9_TOL[torch.float32] * wh.abs()).all())
+    res["rel"] = max(res["rel_y"], res["rel_h"])
+    res["rel_ok"] = res["rel"] <= K9_REL_TOL
+    return res
+
+
+def check_k9(args, what):
+    """K9 with and without its final state against the plain sequential
+    form on the same inputs, by both checks; y is the same bits either
+    way.  Returns (errors, the plain version's (y, h))."""
+    y = MS.mamba_scan(*args)
+    got = MS.mamba_scan(*args, return_state=True)
+    want = R.mamba_scan_seq_stateful(*args)
+    sync(args[0].device)
+    x, _, a = args[:3]
+    expect(y.dtype == x.dtype and y.shape == x.shape, what)
+    expect(got[1].dtype == torch.float32 and got[1].shape ==
+           (x.shape[0], x.shape[2], a.shape[1]), what)
+    expect(torch.equal(y, got[0]), f"K9 with its state changes y: {what}")
+    e = k9_errors(got, want)
+    MAX_ERR["mamba_scan"] = max(MAX_ERR["mamba_scan"], e["max_abs_y"],
+                                e["max_abs_h"])
+    MAX_REL["mamba_scan"] = max(MAX_REL["mamba_scan"], e["rel"])
+    expect(e["elementwise_ok"] and e["rel_ok"],
+           f"K9 disagrees with its plain version ({what}): {e}")
+    return e, want
+
+
+def k9_faults(args, want) -> dict:
+    """Planted faults, each through the kernel, read against the plain
+    version's (y, h): the state reset every K9_CHUNK steps (K9 run chunk by
+    chunk), D·x dropped (D = 0), A's decay off by one state (A rolled by
+    one along N).  Each must keep finite output and break the per-tile
+    limit."""
+    x, dt, a, b, c, d = args
+    parts = [MS.mamba_scan(x[:, t:t + K9_CHUNK], dt[:, t:t + K9_CHUNK], a,
+                           b[:, t:t + K9_CHUNK], c[:, t:t + K9_CHUNK], d,
+                           return_state=True)
+             for t in range(0, x.shape[1], K9_CHUNK)]
+    runs = {f"state reset every {K9_CHUNK} steps":
+            (torch.cat([p[0] for p in parts], 1), parts[-1][1]),
+            "D.x dropped (D = 0)": MS.mamba_scan(
+                x, dt, a, b, c, torch.zeros_like(d), return_state=True),
+            "A's decay off by one state": MS.mamba_scan(
+                x, dt, a.roll(1, dims=1), b, c, d, return_state=True)}
+    out = {}
+    for name, got in runs.items():
+        e = k9_errors(got, want)
+        finite = bool(torch.isfinite(got[0]).all() and
+                      torch.isfinite(got[1]).all())
+        out[name] = {k: e[k] for k in ("max_abs_y", "rel_y", "rel_h", "rel")}
+        out[name]["finite"] = finite
+        print(f"planted K9 fault, {name}: per-tile rel err y "
+              f"{e['rel_y']:.3e}, h {e['rel_h']:.3e}; elementwise check "
+              f"{'passes' if e['elementwise_ok'] else 'fails'}, per-tile "
+              f"check {'passes' if e['rel_ok'] else 'fails'}")
+        expect(finite and not e["rel_ok"],
+               f"the per-tile check misses {name}: {e}")
+    return out
+
+
+def phase_k9_parity_edges(dev) -> dict:
+    """K9 against its plain version on the card: every case in float32
+    and bfloat16, contiguous and strided, with and without the state; then
+    the planted faults at the model's Di and N."""
+    for i, case in enumerate(K9_CASES):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for strided in (False, True):
+                errs[(dtype, strided)], _ = check_k9(
+                    k9_inputs(case, dtype, dev, i, strided),
+                    f"{case} {dtype} strided={strided}")
+        f32 = max(max(e["max_abs_y"], e["max_abs_h"])
+                  for (dt, _), e in errs.items() if dt == torch.float32)
+        bf = max(e["max_abs_y"] for (dt, _), e in errs.items()
+                 if dt == torch.bfloat16)
+        rel = max(e["rel"] for e in errs.values())
+        same = all(e["h_same_bits"] for e in errs.values())
+        print(f"parity K9 {case}: f32 max abs err {f32:.3e} (tol 1e-4 abs + "
+              f"rel), bf16 y max abs err {bf:.3e} (tol 5e-2), per-tile rel "
+              f"err {rel:.3e} (limit {K9_REL_TOL}); contiguous and strided, "
+              f"y the same bits with and without the state; h the plain "
+              f"version's bits: {same}")
+    args = k9_inputs(K9_FAULT_CASE, torch.bfloat16, dev, 50, True)
+    sound, want = check_k9(args, f"{K9_FAULT_CASE} fault case")
+    print(f"parity K9 {K9_FAULT_CASE} bf16 strided, fault case: per-tile "
+          f"rel err y {sound['rel_y']:.3e}, h {sound['rel_h']:.3e}")
+    return {"fault_case": K9_FAULT_CASE, "sound": sound,
+            "planted_faults": k9_faults(args, want)}
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], check=True, capture_output=True, text=True,
+        timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def k9_bound(x, a, return_state) -> dict:
+    """The least time for K9 on these inputs, the largest of: the bytes
+    (x, dt read and y written, b, c, a, d read, h written) at 3.35 TB/s;
+    4 float32 FMAs per (t, i, j) at 67 TFLOP/s; one exponential per
+    (t, i, j) at SFU_PER_CLOCK_SM a clock on each SM at the card's maximum
+    SM clock."""
+    bsz, seq, di = x.shape
+    n = a.shape[1]
+    es = x.element_size()
+    nbytes = (3 * bsz * seq * di + 2 * bsz * seq * n) * es \
+        + 4 * (di * n + di) + (4 * bsz * di * n if return_state else 0)
+    steps = bsz * seq * di * n
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    clock = sm_clock_hz()
+    ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+          "fma": 8 * steps / F32_FLOPS * 1e3,
+          "exp": steps / (SFU_PER_CLOCK_SM * sms * clock) * 1e3}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": "bytes" if by == "bytes"
+            else "operations", "binds": by, "bytes": nbytes,
+            "exps": steps, "fmas": 4 * steps, "sms": sms,
+            "sm_clock_mhz": clock / 1e6,
+            **{f"bound_{k}_ms": v for k, v in ms.items()}}
+
+
+def fm_prefill(cfg, params, dev, seq=PREFILL_LEN):
+    """The main path: 1 × ``seq`` tokens through ``lm.prefill`` with every
+    launch count set to 0 just before it and nothing wrapped around it."""
+    lm.prefill(params, lm_inputs(cfg, 1, 256, dev, SEED + 1), cfg)  # warm-up
+    inputs = lm_inputs(cfg, 1, seq, dev, SEED)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(params, inputs, cfg)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches, peak = dict(MS.LAUNCHES), torch.cuda.max_memory_allocated(dev)
+    expect(launches == {"mamba_scan": cfg.n_layers}, launches)
+    expect(not any(FA.LAUNCHES.values()) and not any(K.LAUNCHES.values()),
+           (dict(FA.LAUNCHES), dict(K.LAUNCHES)))
+    expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
+    expect(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    di, n = cfg.d_inner, cfg.ssm_state
+    expect(len(caches["ssm"]) == cfg.n_layers and all(
+        st.conv.shape == (1, cfg.ssm_conv - 1, di) and st.h.shape ==
+        (1, di, n) and bool(torch.isfinite(st.h).all())
+        for st in caches["ssm"]), "prefill states")
+    res = {"tokens": seq, "wall_s": wall, "tokens_per_s": seq / wall,
+           "peak_bytes": peak, "launches": launches}
+    print(f"prefill: {cfg.name} bf16 1 x {seq} tokens, {wall:.3f} s wall, "
+          f"{seq / wall:.0f} tokens/s, peak {peak} bytes, K9 launches "
+          f"{launches['mamba_scan']}")
+    return inputs, logits, caches, res
+
+
+def fm_capture(cfg, params, inputs, wall, dev):
+    """A second prefill of the main path's inputs through ``Capture``:
+    the scan inputs of the first and last layers, K9's time by CUDA events
+    as a share of the main path's wall; then K9 against the plain version
+    over all the steps of those two layers, by both checks, and the
+    planted faults there."""
+    last = cfg.n_layers - 1
+    MS.reset_launches()
+    with Capture("mamba_scan", keep=(0, last)) as cap:
+        lm.prefill(params, inputs, cfg)
+        sync(dev)
+    expect(MS.LAUNCHES["mamba_scan"] == cfg.n_layers, dict(MS.LAUNCHES))
+    k9_ms = cap.kernel_ms()
+    res = {"k9_ms": k9_ms, "k9_share": k9_ms / 1e3 / wall}
+    print(f"prefill K9 time: {cfg.n_layers} launches taking {k9_ms:.1f} ms "
+          f"by CUDA events ({100 * res['k9_share']:.1f}% of the main path's "
+          f"wall)")
+    res["layers"] = {}
+    for i in (0, last):
+        args = cap.calls[i][0]
+        e, want = check_k9(args, f"prefill layer {i}")
+        print(f"parity K9 prefill layer {i} x {tuple(args[0].shape)} "
+              f"{args[0].dtype}: y max abs err {e['max_abs_y']:.3e}, h max "
+              f"abs err {e['max_abs_h']:.3e} (h the plain version's bits: "
+              f"{e['h_same_bits']}), per-tile rel err y {e['rel_y']:.3e}, h "
+              f"{e['rel_h']:.3e} (tol elementwise 5e-2 on y, 1e-4 on h; per "
+              f"tile {K9_REL_TOL})")
+        res["layers"][i] = {"sound": e, "planted_faults": k9_faults(args,
+                                                                    want)}
+        del want
+    return cap.calls[0][0], res
+
+
+def phase_k9_times(args) -> dict:
+    """K9 at the prefill's shape (layer 0's captured inputs, with its final
+    state, as the prefill calls it): CUDA events, median of 20, beside the
+    bound and the plain version (median of 3).  No library call: PyTorch
+    has none that computes a selective scan."""
+    ms = median_ms(lambda: MS.mamba_scan(*args, return_state=True))
+    plain = median_ms(lambda: R.mamba_scan_seq_stateful(*args),
+                      reps=PLAIN_REPS)
+    b = k9_bound(args[0], args[2], True)
+    res = {"ms": ms, "plain_ms": plain, **b, "library_ms": None,
+           "shape": f"x {tuple(args[0].shape)} {args[0].dtype}, N "
+                    f"{args[2].shape[1]}, with the final state"}
+    print(f"time: K9 {res['shape']}: {ms:.3f} ms, bound {b['bound_ms']:.3f} "
+          f"ms ({b['binds']} binds: {b['exps']:.3e} exponentials at "
+          f"{SFU_PER_CLOCK_SM}/clock/SM x {b['sms']} SMs x "
+          f"{b['sm_clock_mhz']:.0f} MHz = {b['bound_exp_ms']:.3f} ms; "
+          f"{b['fmas']:.3e} f32 FMAs at 67 TFLOP/s = {b['bound_fma_ms']:.3f} "
+          f"ms; {b['bytes']} bytes at 3.35 TB/s = {b['bound_bytes_ms']:.3f} "
+          f"ms), {b['bound_ms'] / ms:.1%} of the bound, plain {plain:.3f} ms "
+          f"(median of {PLAIN_REPS}); library: none (no PyTorch call "
+          f"computes a selective scan)")
+    return res
+
+
+def fm_forward(cfg, params, dev, seq=FM_FORWARD_LEN) -> dict:
+    """``lm.forward_hidden`` + ``logits_fn`` over 1 × ``seq`` tokens: K9
+    launched once a layer."""
+    inputs = lm_inputs(cfg, 1, seq, dev, SEED + 3)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits = lm.logits_fn(params, lm.forward_hidden(params, inputs, cfg), cfg)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(MS.LAUNCHES)
+    expect(launches == {"mamba_scan": cfg.n_layers}, launches)
+    expect(logits.shape == (1, seq, cfg.vocab_padded), logits.shape)
+    expect(bool(torch.isfinite(logits).all()), "forward logits not finite")
+    print(f"forward: {cfg.name} forward_hidden + logits_fn over 1 x {seq} "
+          f"tokens, {wall:.3f} s, K9 launches {launches['mamba_scan']}")
+    return {"tokens": seq, "wall_s": wall, "launches": launches}
+
+
+def stepwise_vs_forward(cfg, params, dev, s=EQUIV_PREFIX, b=2,
+                        rel_tol=BF16_LOGIT_REL_TOL) -> dict:
+    """s decode steps from empty caches give the forward's logits column
+    by column (tests/test_models.py:61-96)."""
+    inputs = lm_inputs(cfg, b, s, dev, SEED + 4)
+    full = lm.logits_fn(params, lm.forward_hidden(params, inputs, cfg), cfg)
+    caches = lm.make_cache(cfg, b, s, device=dev)
+    cols = []
+    for t in range(s):
+        lg, caches = lm.decode_step(
+            params, {"tokens": inputs["tokens"][:, t:t + 1],
+                     "positions": inputs["positions"][:, t:t + 1]}, caches,
+            cfg)
+        cols.append(lg[:, 0])
+    sync(dev)
+    v = cfg.vocab_size
+    return logits_agree(torch.stack(cols, 1)[..., :v], full[..., :v],
+                        f"equivalence: {cfg.name} {cfg.dtype} {s} decode "
+                        f"steps == forward, column by column", rel_tol)
+
+
+def fm_prefill_plain(cfg, params, dev, seq=FM_PLAIN_LEN) -> dict:
+    """The same prefill (``seq`` tokens) through K9 and through the plain
+    scan: the last logits agree (bfloat16 per row within FM_LOGIT_REL_TOL,
+    float32 elementwise).  Then K9 prefills with planted faults in every
+    layer, read the same way: D dropped must break the limit, and in
+    float32 so must the state faults (in bfloat16 they hide in the
+    rounding drift; K9's own checks catch them)."""
+    inputs = lm_inputs(cfg, 1, seq, dev, SEED + 5)
+    logits, _ = lm.prefill(params, inputs, cfg)
+    MS.reset_launches()
+    t0 = time.perf_counter()
+    ref_logits, _ = lm.prefill(params, inputs, cfg.replace(kernels="ref"))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    expect(MS.LAUNCHES["mamba_scan"] == 0, dict(MS.LAUNCHES))
+    print(f"prefill plain scan: {cfg.dtype} 1 x {seq} tokens, {wall:.3f} s "
+          f"wall")
+    v = cfg.vocab_size
+    ref_logits = ref_logits[..., :v]
+    errs = logit_errors(logits[..., :v], ref_logits,
+                        f"{cfg.dtype} prefill({seq}) K9 vs plain scan, last "
+                        f"logits", FM_LOGIT_REL_TOL)
+
+    def chunked(i, orig, args, kw):
+        x, dt, a, b, c, d = args
+        parts = [orig(x[:, t:t + K9_CHUNK], dt[:, t:t + K9_CHUNK], a,
+                      b[:, t:t + K9_CHUNK], c[:, t:t + K9_CHUNK], d, **kw)
+                 for t in range(0, x.shape[1], K9_CHUNK)]
+        return (torch.cat([p[0] for p in parts], 1), parts[-1][1])
+    faults = {
+        "K9 with D dropped in every layer": lambda i, orig, args, kw: orig(
+            *args[:5], torch.zeros_like(args[5]), **kw),
+        "K9 with A's decay off by one state in every layer":
+            lambda i, orig, args, kw: orig(*args[:2], args[2].roll(1, dims=1),
+                                           *args[3:], **kw),
+        f"K9 with the state reset every {K9_CHUNK} steps in every layer":
+            chunked,
+    }
+    controls = {}
+    for name, fault in faults.items():
+        with Capture("mamba_scan", fault=fault):
+            bad, _ = lm.prefill(params, inputs, cfg)
+        controls[name] = logit_errors(bad[..., :v], ref_logits,
+                                      f"planted fault, {name}, vs plain",
+                                      FM_LOGIT_REL_TOL)
+        del bad
+    expect(errs["ok"], f"prefill logits: {errs}")
+    must = (controls if cfg.dtype == "float32"
+            else ["K9 with D dropped in every layer"])
+    for name in must:
+        expect(not controls[name]["ok"],
+               f"the logits check misses {name}: {controls[name]}")
+    return {"tokens": seq, "plain_wall_s": wall, "logits_vs_plain": errs,
+            "planted_faults": controls}
+
+
+def phase_falcon_mamba(dev) -> dict:
+    """falcon-mamba-7b FULL in bfloat16, params from the port's
+    init_params on a seeded generator: K9's edge cases, the 32k prefill
+    (the main path), K9 on its captured layers and at its shape, decode
+    and its profile, the forward, the plain-scan prefill, the
+    equivalences in bf16 and f32, the Server."""
+    parity = phase_k9_parity_edges(dev)
+    cfg = get_config(FM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync(dev)
+    print(f"init: {cfg.name}, {cfg.param_count()} params in bfloat16, "
+          f"{time.perf_counter() - t0:.3f} s")
+    inputs, logits, caches, prefill = fm_prefill(cfg, params, dev)
+    args, captured = fm_capture(cfg, params, inputs, prefill["wall_s"], dev)
+    prefill.update(k9_ms=captured["k9_ms"], k9_share=captured["k9_share"])
+    times = phase_k9_times(args)
+    del args
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    profile = phase_profile(cfg, params, inputs, caches, dev)
+    del caches, inputs
+    torch.cuda.empty_cache()
+    forward = fm_forward(cfg, params, dev)
+    plain = fm_prefill_plain(cfg, params, dev)
+    tol = dict(rel_tol=FM_LOGIT_REL_TOL)
+    equiv = {"bfloat16": {
+        "stepwise_vs_forward": stepwise_vs_forward(cfg, params, dev, **tol),
+        "prefill_vs_stepwise": prefill_vs_stepwise(cfg, params, dev, **tol)}}
+    cfg32 = cfg.replace(dtype="float32")
+    params = T.tree_map(lambda x: x.float(), params)
+    plain32 = fm_prefill_plain(cfg32, params, dev, FM_PLAIN_LEN_F32)
+    equiv["float32"] = {
+        "stepwise_vs_forward": stepwise_vs_forward(cfg32, params, dev),
+        "prefill_vs_stepwise": prefill_vs_stepwise(cfg32, params, dev)}
+    del params
+    torch.cuda.empty_cache()
+    served = phase_serve(("--arch", FM_ARCH))
+    print(json.dumps({"falcon_mamba": {
+        "arch": FM_ARCH, "k9_parity": parity, "prefill": prefill,
+        "captured_layers": captured["layers"], "k9_times": times,
+        "decode": decode, "profile": profile, "forward": forward,
+        "prefill_plain": plain, "prefill_plain_f32": plain32,
+        "equivalence": equiv, "serve": served}},
+        default=str))
+    return {"launches": prefill["launches"]["mamba_scan"],
+            "forward_launches": forward["launches"]["mamba_scan"],
+            "decode_launches_per_step": decode["k9_launches"] / decode[
+                "steps"], "times": times}
+
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -1549,6 +2050,8 @@ def main() -> None:
     k7 = phase_k7_times(dev)
     torch.cuda.empty_cache()
     trained = phase_training(dev)
+    torch.cuda.empty_cache()
+    fm = phase_falcon_mamba(dev)
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -1609,6 +2112,23 @@ def main() -> None:
         "window_library_ms": win["bwd"]["library_ms"],
         "planted_faults_rel": {k: v["rel"] for k, v in
                                k7_parity["planted_faults"].items()}})
+    t9 = fm["times"]
+    kernels.append({
+        "name": "mamba_scan", "route": "cuda", "source": K9_SOURCE,
+        "replaces": K9_REPLACES, "launches": fm["launches"],
+        "max_abs_err": MAX_ERR["mamba_scan"],
+        "max_rel_err_per_tile": MAX_REL["mamba_scan"], "ms": t9["ms"],
+        "plain_ms": t9["plain_ms"], "bound_ms": t9["bound_ms"],
+        "bound_by": t9["bound_by"], "library_ms": None,
+        "library": "none: PyTorch has no call that computes a selective "
+                   "scan, and no package of one (mamba_ssm) is installed",
+        "shape": "falcon-mamba-7b prefill layer 0, x 1x32768x8192 bf16, "
+                 "N 16, with the final state",
+        "bound_binds": t9["binds"], "bound_exp_ms": t9["bound_exp_ms"],
+        "bound_fma_ms": t9["bound_fma_ms"],
+        "bound_bytes_ms": t9["bound_bytes_ms"],
+        "launches_per_forward": fm["forward_launches"],
+        "launches_per_decode_step": fm["decode_launches_per_step"]})
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card_line())

@@ -7,9 +7,9 @@ The port knows those whose path it carries; for the others
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import gemma2_2b
+from . import falcon_mamba_7b, gemma2_2b
 
-_MODULES = {"gemma2-2b": gemma2_2b}
+_MODULES = {"gemma2-2b": gemma2_2b, "falcon-mamba-7b": falcon_mamba_7b}
 
 #: Architectures of the reference not ported yet → the ROADMAP item that
 #: ports each one.
@@ -19,7 +19,6 @@ NOT_PORTED = {
     "nemotron-4-15b": "9.2 (dense configs; relu2 MLP, untied head)",
     "phi3.5-moe-42b-a6.6b": "9.4 (models/moe.py over core/delayed)",
     "granite-moe-3b-a800m": "9.4 (models/moe.py over core/delayed)",
-    "falcon-mamba-7b": "9.3 (models/ssm.py over K9)",
     "zamba2-1.2b": "9.5 (hybrid mamba2 + shared attention)",
     "musicgen-medium": "9.6 (frontend-stub audio)",
     "qwen2-vl-2b": "9.6 (frontend-stub vision, M-RoPE)",

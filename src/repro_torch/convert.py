@@ -20,6 +20,7 @@ from . import tree as T
 from .core import bitarray as BA
 from .core import paged
 from .core import ranking as R
+from .models.ssm import SSMState
 from .optim import AdamWState
 
 
@@ -88,7 +89,13 @@ def opt_state_from_jax(state, cfg, device=None):
 
 def lm_caches_from_jax(caches, cfg, device=None) -> dict:
     """The reference's decode caches ({"kv": PagedKV with stacked
-    leaves}) → the port's ({"kv": [PagedKV] * L})."""
+    leaves}, or {"ssm": SSMState with (L, …) leaves}) → the port's
+    ({"kv": [PagedKV] * L} or {"ssm": [SSMState] * L})."""
+    if "ssm" in caches:
+        st = caches["ssm"]
+        return {"ssm": [SSMState(*(array_to_torch(np.asarray(leaf)[i], device)
+                                   for leaf in (st.conv, st.h)))
+                        for i in range(cfg.n_layers)]}
     kv = caches["kv"]
     return {"kv": [paged.PagedKV(*(array_to_torch(
         _layer(getattr(kv, f), i, cfg), device) for f in paged.PagedKV._fields))

@@ -1,6 +1,6 @@
 """Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
-flash attention with its gradient (``:39-85``) and the bit-pack kernels
-(``:129-170``).
+flash attention with its gradient (``:39-85``), the selective scan
+(``:88-113``) and the bit-pack kernels (``:129-170``).
 
 ``impl``:
   * ``"auto"`` goes by the tensor's device: the CUDA kernel for a CUDA
@@ -16,6 +16,7 @@ import torch
 from . import bitpack as _bp
 from . import flash_attention as _fa
 from . import flash_attention_bwd as _fab
+from . import mamba_scan as _ms
 from . import ref as _ref
 
 IMPLS = ("auto", "cuda", "ref")
@@ -105,3 +106,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                   softcap=softcap, scale=scale)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale)
+
+
+def mamba_scan(x, dt, a, b, c, d, *, impl="auto", return_state=False):
+    """The selective scan (K9): x, dt (B, L, Di), a (Di, N), b, c
+    (B, L, N), d (Di,) → y (B, L, Di) in x.dtype, and with
+    ``return_state`` also the final state h_last (B, Di, N) in float32.
+    The plain version (``impl="ref"``, or a CPU tensor) is
+    ``ref.mamba_scan_plain``: the sequential form with the state, else the
+    associative form up to 512 steps, as the reference dispatches."""
+    if _use_ref(impl, x):
+        return _ref.mamba_scan_plain(x, dt, a, b, c, d, return_state)
+    return _ms.mamba_scan(x, dt, a, b, c, d, return_state=return_state)

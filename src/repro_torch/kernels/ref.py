@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (``kernels/csrc/*.cu``).
 
-Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-281``
-and the attention functions of ``:23-123``, plus the forward with its
-log-sum-exp and the backward of ``repro/kernels/flash_attention.py:100-111``
-and ``flash_attention_bwd.py`` (K6's LSE output and K7).  They are
+Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-281``,
+the attention functions of ``:23-123`` and the selective scans of
+``:126-169`` (K9), plus the forward with its log-sum-exp and the backward
+of ``repro/kernels/flash_attention.py:100-111`` and
+``flash_attention_bwd.py`` (K6's LSE output and K7).  They are
 device-agnostic: the CPU tests run them as the port's only path there,
 and ``chip_smoke.py`` runs them on CUDA tensors to hold each kernel
 against them (bit for bit for the bit-pack kernels, within the float
@@ -13,8 +14,8 @@ Packed words are int32 tensors holding the uint32 bits.  Unpacking shifts
 arithmetically, which is harmless because every field is masked with 3;
 repacking ORs ``field << 2j``, and ``3 << 30`` wraps to the sign bit.
 
-Attention computes in float32 whatever the input type and casts the
-result to ``q.dtype``, as the reference does.
+Attention and the scans compute in float32 whatever the input type and
+cast the result to the input's dtype, as the reference does.
 """
 from __future__ import annotations
 
@@ -228,3 +229,67 @@ def decode_attention_ref(q, k, v, mask, *, softcap=None, scale=None):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+# ------------------------------------------------------------ mamba scan
+
+# Above this length the dispatchers run the sequential form: the
+# associative one materialises (B, L, Di, N) several times over
+# (``repro/kernels/ops.py:107-113``).
+ASSOC_MAX_LEN = 512
+
+
+def mamba_scan_ref(x, dt, a, b, c, d):
+    """The associative form of the selective scan (``ref.py:126-142``):
+    each step is the affine map h -> exp(dt·A)·h + (dt·x)·B, composed over
+    time by a doubling (Hillis-Steele) scan, in float32.  x, dt (B, L, Di),
+    a (Di, N), b, c (B, L, N), d (Di,) → y (B, L, Di) in x.dtype."""
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b.float(), c.float()
+    da = torch.exp(dtf[..., None] * a.float())                # (B, L, Di, N)
+    h = (dtf * xf)[..., None] * bf[:, :, None, :]             # (B, L, Di, N)
+    k = 1
+    while k < x.shape[1]:
+        # (a1, b1) then (a2, b2) compose to (a1·a2, b1·a2 + b2)
+        h = torch.cat([h[:, :k], h[:, :-k] * da[:, k:] + h[:, k:]], dim=1)
+        da = torch.cat([da[:, :k], da[:, :-k] * da[:, k:]], dim=1)
+        k *= 2
+    y = torch.einsum("blin,bln->bli", h, cf) + xf * d.float()
+    return y.to(x.dtype)
+
+
+def mamba_scan_seq_stateful(x, dt, a, b, c, d, h0=None):
+    """The sequential form with its final state, the prefill's
+    (``ref.py:145-164``): a loop over time, vectorised over batch, channel
+    and state, in float32.  Returns (y (B, L, Di) in x.dtype, h_last
+    (B, Di, N) float32); ``h0`` (B, Di, N) is the state before step 0
+    (zeros when None)."""
+    bsz, seq, di = x.shape
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b.float(), c.float()
+    af, df = a.float(), d.float()
+    h = (torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    y = torch.empty((bsz, seq, di), dtype=torch.float32, device=x.device)
+    for t in range(seq):
+        dtt, xt = dtf[:, t], xf[:, t]
+        h = h * torch.exp(dtt[..., None] * af) \
+            + (dtt * xt)[..., None] * bf[:, t, None, :]
+        y[:, t] = (h * cf[:, t, None, :]).sum(-1) + xt * df
+    return y.to(x.dtype), h
+
+
+def mamba_scan_seq_ref(x, dt, a, b, c, d):
+    """The sequential form's y alone (``ref.py:167-169``)."""
+    return mamba_scan_seq_stateful(x, dt, a, b, c, d)[0]
+
+
+def mamba_scan_plain(x, dt, a, b, c, d, return_state=False):
+    """The plain version the dispatchers run: with ``return_state`` the
+    sequential form's (y, h_last); otherwise the associative form up to
+    ``ASSOC_MAX_LEN`` steps and the sequential one above."""
+    if return_state:
+        return mamba_scan_seq_stateful(x, dt, a, b, c, d)
+    if x.shape[1] > ASSOC_MAX_LEN:
+        return mamba_scan_seq_ref(x, dt, a, b, c, d)
+    return mamba_scan_ref(x, dt, a, b, c, d)

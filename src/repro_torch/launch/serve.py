@@ -4,12 +4,13 @@ server (``runtime/serve_loop.py``) over Roomy paged KV caches.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
 
 The flags and defaults of ``repro/launch/serve.py``, plus ``--device``
-(default "cuda"; raises without a card).  The full config keeps its
-params in bfloat16; the smoke config runs in float32.  Params are random,
-from ``--seed``; the prompts come from numpy's generator on the same seed,
-as in the reference.
+(default "cuda"; raises without a card).  A full config keeps its params
+in bfloat16 (falcon-mamba-7b: 14.0 GB); a smoke config runs in float32.
+Params are random, from ``--seed``; the prompts come from numpy's
+generator on the same seed, as in the reference.
 """
 from __future__ import annotations
 

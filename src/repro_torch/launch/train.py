@@ -10,13 +10,15 @@ The flags and defaults of ``repro/launch/train.py``, plus ``--device``
 with its plain attention (the Pallas kernels do not run on its CPU); the
 port keeps ``kernels="auto"``, which runs the plain versions for CPU
 tensors and K6/K7 on the card.  ``--tp > 1`` (a tensor-parallel mesh)
-waits for the distributed slice.
+waits for the distributed slice, and the ssm family (falcon-mamba) for a
+backward of K9.
 """
 from __future__ import annotations
 
 import argparse
 
 from ..configs import get_config
+from ..models import lm
 from ..runtime import TrainSettings, train
 
 
@@ -49,6 +51,7 @@ def main(argv=None):
             "repro_torch yet: ROADMAP item 9.8")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    lm.check_trainable(cfg)
     settings = TrainSettings(
         batch=args.batch, seq=args.seq, steps=args.steps, lr=args.lr,
         schedule=args.schedule, num_microbatches=args.microbatches,

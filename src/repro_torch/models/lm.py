@@ -1,5 +1,6 @@
 """Model assembly: init, forward, prefill, decode — the dense family, with
-gemma2's alternating local/global layers.
+gemma2's alternating local/global layers, and the ssm family (falcon-mamba,
+mamba1 blocks over K9).
 
 Port of ``repro/models/lm.py``.  Entry points:
 
@@ -15,14 +16,16 @@ Port of ``repro/models/lm.py``.  Entry points:
 Layout: the reference stacks its blocks and caches over layers ((L, …),
 or (L/2, 2, …) local/global pairs for gemma2) to scan over them; the port
 runs eagerly and keeps one entry per layer, in order: ``params["blocks"]``
-is a list of L block dicts and ``caches["kv"]`` a list of L ``PagedKV``.
+is a list of L block dicts, and ``caches["kv"]`` a list of L ``PagedKV``
+(``caches["ssm"]`` a list of L ``SSMState`` for the ssm family).
 With ``cfg.local_global_pattern`` the even layers are local (sliding
 window ``cfg.local_window``) and the odd ones global.
 ``convert.lm_params_from_jax`` / ``lm_caches_from_jax`` carry the
 reference's stacked pytrees across.
 
-The ssm, hybrid, MoE and frontend families raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+The hybrid, MoE and frontend families raise ``NotImplementedError``
+naming the ROADMAP item that ports them, and so does ``loss_fn`` for the
+ssm family (K9 has no backward).
 """
 from __future__ import annotations
 
@@ -35,24 +38,40 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..core import paged
-from .blocks import (init_transformer_block, transformer_block,
-                     transformer_block_decode)
+from .blocks import (init_mamba_block, init_transformer_block, mamba_block,
+                     mamba_block_decode, mamba_block_prefill,
+                     transformer_block, transformer_block_decode)
 from .config import ModelConfig
 from .layers import cdtype, embed_tokens, init_embedding, lm_head, rms_norm
+from .ssm import init_ssm_state
 
 PAGE_SIZE = 128
 
-_NOT_PORTED = {"ssm": "9.3 (models/ssm.py over K9)",
-               "moe": "9.4 (models/moe.py over core/delayed)",
+_NOT_PORTED = {"moe": "9.4 (models/moe.py over core/delayed)",
                "hybrid": "9.5 (hybrid mamba2 + shared attention)",
                "audio": "9.6 (frontend stubs)", "vlm": "9.6 (frontend stubs)"}
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _ported(cfg: ModelConfig) -> None:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
             f"repro_torch yet: ROADMAP item {_NOT_PORTED[cfg.family]}")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: the untied LM head is not ported to repro_torch "
+            "yet: ROADMAP item 9.2")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a family whose training is not ported: the ssm family
+    needs a backward for K9, which the reference lacks too (it trains SSMs
+    with ``kernels="ref"``)."""
+    _ported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"training {cfg.name} is not ported to repro_torch yet: ROADMAP "
+            "item 9.10 (falcon-mamba training: a backward for K9)")
 
 
 def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
@@ -68,15 +87,17 @@ def init_params(cfg: ModelConfig, gen, *, device=None,
                 dtype: torch.dtype = torch.float32) -> dict:
     """Random params on ``device`` (default "cuda"), stored in ``dtype``.
     ``gen`` is a ``torch.Generator`` on that device, or an int seed."""
-    _dense_only(cfg)
+    _ported(cfg)
     if cfg.local_global_pattern and cfg.n_layers % 2:
         raise ValueError("the local/global pattern needs an even n_layers")
     dev = _device.resolve(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
     kw = dict(device=dev, dtype=dtype)
+    init_block = (init_mamba_block if cfg.family == "ssm"
+                  else init_transformer_block)
     return {"embed": init_embedding(gen, cfg, **kw),
-            "blocks": [init_transformer_block(gen, cfg, **kw)
+            "blocks": [init_block(gen, cfg, **kw)
                        for _ in range(cfg.n_layers)],
             "final_norm": torch.zeros((cfg.d_model,), **kw)}
 
@@ -95,9 +116,15 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
     """With ``cfg.remat`` and grad mode on, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     and recomputed in the backward, as the reference's ``_maybe_remat``
-    does with ``jax.checkpoint`` (``repro/models/lm.py:120-121``)."""
-    _dense_only(cfg)
+    does with ``jax.checkpoint`` (``repro/models/lm.py:120-121``).  The
+    ssm family runs its mamba1 blocks one after the other (serving: no
+    remat, since K9 has no backward)."""
+    _ported(cfg)
     x = _embed(params, inputs, cfg)
+    if cfg.family == "ssm":
+        for p_l in params["blocks"]:
+            x = mamba_block(p_l, x, cfg)
+        return rms_norm(x, params["final_norm"], cfg.rms_eps)
     remat = cfg.remat and torch.is_grad_enabled()
     for p_l, w in zip(params["blocks"], layer_windows(cfg)):
         if remat:
@@ -116,6 +143,7 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is >= 0, on
     float32 logits (``repro/models/lm.py:192-216`` on one device).
     ``batch``: {"inputs": {"tokens", "positions"}, "labels": (B, S)}."""
+    check_trainable(cfg)
     hidden = forward_hidden(params, batch["inputs"], cfg)
     logits = logits_fn(params, hidden, cfg).float()
     labels = batch["labels"].long()
@@ -145,9 +173,13 @@ def _kv_to_pages(k, v, max_len: int, cfg: ModelConfig):
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Empty decode caches: one ``PagedKV`` per layer."""
-    _dense_only(cfg)
+    """Empty decode caches: one ``PagedKV`` per layer, or for the ssm
+    family one zero ``SSMState`` per layer (``max_len`` unused)."""
+    _ported(cfg)
     dev = _device.resolve(device)
+    if cfg.family == "ssm":
+        return {"ssm": [init_ssm_state(cfg, batch, dev)
+                        for _ in range(cfg.n_layers)]}
     max_len = _round_len(max_len)
     return {"kv": [paged.make(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
                               page_size=PAGE_SIZE, dtype=cdtype(cfg),
@@ -158,9 +190,18 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 def prefill(params, inputs: Dict, cfg: ModelConfig,
             max_len: Optional[int] = None):
     """Full forward that builds the decode caches; returns (logits of the
-    last position (B, 1, V), caches)."""
-    _dense_only(cfg)
+    last position (B, 1, V), caches).  For the ssm family the caches are
+    each layer's ``SSMState`` after the prompt (K9's final state and the
+    conv's last inputs); ``max_len`` is unused."""
+    _ported(cfg)
     x = _embed(params, inputs, cfg)
+    if cfg.family == "ssm":
+        states = []
+        for p_l in params["blocks"]:
+            x, st = mamba_block_prefill(p_l, x, cfg)
+            states.append(st)
+        hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
+        return logits_fn(params, hidden, cfg), {"ssm": states}
     b, s = x.shape[0], x.shape[1]
     max_len = _round_len(max_len or s)
     if max_len < s:
@@ -181,8 +222,15 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig):
     """One-token step.  inputs: {"tokens": (B, 1)}; rope positions come
     from the caches' lengths.  Returns (logits (B, 1, V), new caches);
     the caches passed in are left as they were."""
-    _dense_only(cfg)
+    _ported(cfg)
     x = _embed(params, inputs, cfg)
+    if cfg.family == "ssm":
+        states = []
+        for p_l, st in zip(params["blocks"], caches["ssm"]):
+            x, st = mamba_block_decode(p_l, x, st, cfg)
+            states.append(st)
+        hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        return logits_fn(params, hidden, cfg), {"ssm": states}
     new = []
     for p_l, c, w in zip(params["blocks"], caches["kv"], layer_windows(cfg)):
         x, c = transformer_block_decode(p_l, x, c, cfg, window=w)

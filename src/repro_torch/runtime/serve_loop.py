@@ -4,9 +4,11 @@ Port of ``repro/runtime/serve_loop.py``, with its behaviour kept as it is:
 requests arrive as prompt token lists; up to ``max_batch`` sequences are
 active; a new arrival is prefilled by decode steps, one per prompt token,
 in which only its slot's caches advance (the per-slot merge of
-``_masked_step``); then all slots decode in lockstep, one token a wave,
-until each request has ``max_new`` tokens.  A freed slot is reused as it
-stands — its lengths and pages are not reset, as in the reference.
+``_masked_step``: pages, table row and length of a paged KV cache; the
+conv tail and scan state of an SSM cache); then all slots decode in
+lockstep, one token a wave, until each request has ``max_new`` tokens.  A
+freed slot is reused as it stands — its lengths and pages, or its SSM
+state, are not reset, as in the reference.
 Greedy sampling (argmax, first index on ties).
 
 The Server never calls ``lm.prefill``: the reference's does not either.
@@ -22,6 +24,7 @@ from .. import device as _device
 from ..core import paged
 from ..models import lm
 from ..models.config import ModelConfig
+from ..models.ssm import SSMState
 
 
 @dataclass
@@ -48,6 +51,16 @@ def _merge(new: paged.PagedKV, old: paged.PagedKV, slot: int,
         page_table=torch.where(row_m[:, None], new.page_table,
                                old.page_table),
         lengths=torch.where(row_m, new.lengths, old.lengths))
+
+
+def _merge_ssm(new: SSMState, old: SSMState, slot: int) -> SSMState:
+    """``new``'s conv tail (B, k-1, C) and state (B, Di, N) for row
+    ``slot``, ``old``'s for every other row
+    (``repro/runtime/serve_loop.py:84-91``)."""
+    row_m = (torch.arange(old.h.shape[0], device=old.h.device)
+             == slot)[:, None, None]
+    return SSMState(conv=torch.where(row_m, new.conv, old.conv),
+                    h=torch.where(row_m, new.h, old.h))
 
 
 class Server:
@@ -80,6 +93,9 @@ class Server:
         logits, new = lm.decode_step(self.params, inputs, caches, self.cfg)
         if slot is None:
             return logits, new
+        if "ssm" in new:
+            return logits, {"ssm": [_merge_ssm(n, o, slot) for n, o in
+                                    zip(new["ssm"], caches["ssm"])]}
         return logits, {"kv": [_merge(n, o, slot, self.max_batch)
                                for n, o in zip(new["kv"], caches["kv"])]}
 

@@ -162,6 +162,9 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {os.path.relpath(p, REPO) for p in files}
+    assert {"src/repro_torch/models/ssm.py",
+            "src/repro_torch/kernels/mamba_scan.py"} <= names
     for path in files:
         for mod, level in _imports(path):
             top = mod.split(".")[0]

@@ -364,7 +364,7 @@ def test_cli_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="9.8"):
         tlaunch.main(["--arch", "gemma2-2b", "--smoke", "--tp", "2",
                       "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="9.3"):
+    with pytest.raises(NotImplementedError, match="9.10"):
         tlaunch.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
                       "cpu"])
 
