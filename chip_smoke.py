@@ -55,13 +55,18 @@ caught:
       row ‖a − b‖ ≤ 3.5e-2 ‖b‖); K6 prefills with planted attention faults
       (every local window a tile short; a global layer given the local
       window) must break that limit;
-   e. 16 ``decode_step``s from the prefill's caches (decode tokens/s),
-      then one prefill and 4 decode steps under ``torch.profiler``:
-      device time by kernel group and the device's idle share;
+   e. K8 on the decode's first step, its global layers 1 and 25 captured
+      and held to the plain version; 16 ``decode_step``s from the
+      prefill's caches (decode tokens/s; K8 launched 13 times a step, once
+      a global layer, counted after every step; the 13 local layers gather
+      their cache for the plain windowed decode), then one prefill and 4
+      decode steps under ``torch.profiler``: device time by kernel group
+      and the device's idle share;
    f. prefill-then-decode ≡ stepwise decode on a 64-token prefix, in
       bfloat16 and in float32;
    g. ``python -m repro_torch.launch.serve --arch gemma2-2b`` with its
-      defaults: 4 requests, 8-token prompts, 12 new tokens each.
+      defaults: 4 requests, 8-token prompts, 12 new tokens each (43 decode
+      steps, 13 K8 launches each).
 9. K7 (flash-attention backward) parity against its plain version:
    every case of ``tests/test_kernels.py:332-339``, head_dim 256 with
    window 4096 and softcap 50 at 8192 rows with GQA 1, 2 and 4, the train
@@ -133,7 +138,42 @@ caught:
       in float32;
    i. ``python -m repro_torch.launch.serve --arch falcon-mamba-7b`` with
       its defaults.
-13. the ``kernels`` JSON line (K1–K3, K6, K6-with-LSE, K7 and K9), the
+13. K8 (paged decode attention) and the dense configs (``phase_dense``):
+   a. K8 parity against its plain version on the card: the cases of
+      ``tests/test_kernels.py:402-406``, groups 1, 2, 6 and 48 at head
+      dims 64, 128 and 256, pages of 8, 16 and 128, the four models'
+      layouts, a whole 32k table, head_dim 12; shuffled tables with spare
+      pages; lengths 1, a page, a page and one, the whole table and 0;
+      float32 (atol = rtol = 2e-5) and bfloat16 (2e-2, and per (batch,
+      query head) 1e-2 of the output's norm); the same bits twice, and
+      with garbage table entries past each length; four planted faults
+      that must break the per-(b, h) limit (the table ignored, the mask
+      off by one, the softcap dropped, one split's partials dropped in
+      the merge);
+   b. nemotron-4-15b FULL in bfloat16, params from ``lm.init_params`` on a
+      seeded generator: ``lm.prefill`` over 1 × 32768 tokens (32 K6
+      launches, no K8); one decode step with layers 0 and 31 captured,
+      K8 held to the plain version there and timed at layer 0 beside its
+      bound (the live K/V bytes at 3.35 TB/s), the plain version and
+      scaled_dot_product_attention(enable_gqa=True) with and without the
+      gather through the table; the main path of K8: 16 ``decode_step``s
+      at batch 1 with every count set to 0 just before, exactly 32 K8
+      launches after each step; 4 decode steps under the profiler; the
+      last logits of a 2048-token prefill with K6 and with the plain
+      attention (per row 3.5e-2), and K6 prefills with planted faults
+      (every window cut to 16 keys must break it); prefill-then-decode ≡
+      stepwise in bfloat16; a batched decode at batch 8 (``decode_32k``'s
+      global batch of 128 cut to what the card holds beside 31.3 GB of
+      params) over 32k-token caches of seeded random K/V under shuffled
+      tables with ragged lengths, donated to each step (K8 on layer 0
+      there against the plain version and timed; 16 steps, 32 K8
+      launches a step, step time and tokens/s); the same equivalence in
+      float32 (the params converted in place); ``launch/serve.py --arch
+      nemotron-4-15b`` with its defaults;
+   c. minicpm-2b FULL in bfloat16 (MHA, head_dim 64): a 4096-token
+      prefill (40 K6 launches), K8 on a captured decode layer and its
+      time, 16 decode steps (40 K8 launches a step), the Server.
+14. the ``kernels`` JSON line (K1–K3, K6, K6-with-LSE, K7, K8 and K9), the
    card line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -164,11 +204,13 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as FAB  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import ops as OPS  # noqa: E402
+from repro_torch.kernels import paged_decode as PD  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
 from repro_torch.data.pipeline import batch_to_torch, make_batch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.core import paged  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.runtime import (FaultInjector, TrainSettings,  # noqa: E402
                                  make_train_step, train)
@@ -189,9 +231,10 @@ KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
 ]
 MAX_ERR = {name: 0 for name, _ in KERNELS}
 MAX_ERR.update(flash_attention=0.0, flash_attention_lse=0.0,
-               flash_attention_bwd=0.0, mamba_scan=0.0)
+               flash_attention_bwd=0.0, mamba_scan=0.0,
+               paged_decode_attention=0.0)
 MAX_REL = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-           "mamba_scan": 0.0}
+           "mamba_scan": 0.0, "paged_decode_attention": 0.0}
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:41-42,57-58
 # The elementwise tolerances above are about as large as a bfloat16 output
@@ -266,6 +309,7 @@ def phase_build() -> None:
     FA._lib()
     FAB._lib()
     MS._lib()
+    PD._lib()
 
 
 # ------------------------------------------------------------------ parity
@@ -605,6 +649,15 @@ def reset_all_launches() -> None:
     K.reset_launches()
     FA.reset_launches()
     MS.reset_launches()
+    PD.reset_launches()
+
+
+def unwindowed_layers(cfg) -> int:
+    """The attention layers that read their cache with K8 in decode (every
+    layer without a window; none in the ssm family)."""
+    if cfg.family == "ssm":
+        return 0
+    return sum(w is None for w in lm.layer_windows(cfg))
 
 
 def logit_errors(got, want, what, rel_tol=BF16_LOGIT_REL_TOL) -> dict:
@@ -688,8 +741,7 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     inputs = lm_inputs(cfg, 1, seq, dev, SEED)
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    K.reset_launches()
-    FA.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     logits, caches = lm.prefill(params, inputs, cfg,
                                 max_len=seq + DECODE_STEPS)
@@ -700,7 +752,8 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     expect(launches == {"flash_attention": cfg.n_layers,
                         "flash_attention_lse": 0, "flash_attention_bwd": 0},
            launches)
-    expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
+    expect(not any(K.LAUNCHES.values()) and not any(PD.LAUNCHES.values()),
+           (dict(K.LAUNCHES), dict(PD.LAUNCHES)))
     expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
     expect(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     expect(len(caches["kv"]) == cfg.n_layers and all(
@@ -709,7 +762,7 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
            "peak_bytes": peak, "launches": launches}
     print(f"prefill: {cfg.name} bf16 1 x {seq} tokens, {wall:.3f} s wall, "
           f"{seq / wall:.0f} tokens/s, peak {peak} bytes, K6 launches "
-          f"{launches['flash_attention']}")
+          f"{launches['flash_attention']}, K8 launches 0")
     return inputs, logits, caches, res
 
 
@@ -893,29 +946,41 @@ def phase_prefill_plain(cfg, params, inputs, logits, dev):
 
 
 def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
-    """``steps`` greedy decode steps from the prefill's caches; the decode
-    step runs plain PyTorch (no K9), as the reference's does."""
+    """``steps`` greedy decode steps from the prefill's caches, with every
+    launch count set to 0 just before and read after each step: K8 once
+    for every layer without a window (gemma2's 13 global layers, every
+    dense layer of the other archs), no other kernel (the ssm family's
+    decode step is plain PyTorch, as the reference's)."""
     tok = logits[:, -1].argmax(-1, keepdim=True)
     zeros = torch.zeros_like(tok)
     seq = int(caches["kv"][0].lengths[0]) if "kv" in caches else None
+    per_step = unwindowed_layers(cfg)
     reset_all_launches()
     sync(dev)
     t0 = time.perf_counter()
+    k8_steps = []
     for _ in range(steps):
         lg, caches = lm.decode_step(params, {"tokens": tok,
                                              "positions": zeros}, caches, cfg)
         tok = lg[:, -1].argmax(-1, keepdim=True)
+        k8_steps.append(PD.LAUNCHES["paged_decode_attention"])
     sync(dev)
     wall = time.perf_counter() - t0
-    k9 = MS.LAUNCHES["mamba_scan"]
+    k9, k8 = MS.LAUNCHES["mamba_scan"], PD.LAUNCHES["paged_decode_attention"]
     expect(k9 == 0, dict(MS.LAUNCHES))
+    expect(k8_steps == [per_step * (i + 1) for i in range(steps)],
+           f"K8 launches after each step {k8_steps}, want {per_step} a step")
+    expect(not any(FA.LAUNCHES.values()) and not any(K.LAUNCHES.values()),
+           (dict(FA.LAUNCHES), dict(K.LAUNCHES)))
     expect(bool(torch.isfinite(lg).all()), "decode logits not finite")
     if seq is not None:
         expect(all(int(c.lengths[0]) == seq + steps for c in caches["kv"]),
                "decode cache lengths")
     print(f"decode: {cfg.name} {steps} steps after the prefill, {wall:.3f} "
-          f"s, {steps / wall:.2f} tokens/s (batch 1), K9 launches {k9}")
+          f"s, {steps / wall:.2f} tokens/s (batch 1), K8 launches {k8} "
+          f"({per_step} a step), K9 launches {k9}")
     return {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall,
+            "k8_launches": k8, "k8_launches_per_step": per_step,
             "k9_launches": k9}
 
 
@@ -943,8 +1008,11 @@ def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2,
 
 
 def phase_serve(argv=("--arch", ARCH)):
-    """``python -m repro_torch.launch.serve --arch gemma2-2b`` with its
-    defaults: 4 requests of 8 tokens, 12 new tokens each."""
+    """``python -m repro_torch.launch.serve --arch <arch>`` with its
+    defaults: 4 requests of 8 tokens, 12 new tokens each.  Every decode
+    step (32 prompt tokens fed one a step, then 11 waves) launches K8 once
+    for every layer without a window."""
+    reset_all_launches()
     outs, server, wall = serve.main(list(argv))
     toks = sum(len(v) for v in outs.values())
     expect(sorted(outs) == [0, 1, 2, 3], sorted(outs))
@@ -953,10 +1021,14 @@ def phase_serve(argv=("--arch", ARCH)):
            outs)
     expect(server.stats == {"prefills": 4, "decode_steps": 11,
                             "tokens_out": 44}, server.stats)
-    print(f"serve: {toks} tokens in {wall:.3f} s, {toks / wall:.2f} "
-          f"tokens/s, stats {server.stats}")
+    k8 = PD.LAUNCHES["paged_decode_attention"]
+    expect(k8 == (4 * 8 + 11) * unwindowed_layers(server.cfg),
+           f"Server K8 launches {k8}")
+    print(f"serve: {server.cfg.name} {toks} tokens in {wall:.3f} s, "
+          f"{toks / wall:.2f} tokens/s, stats {server.stats}, K8 launches "
+          f"{k8}")
     return {"tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
-            "stats": server.stats}
+            "stats": server.stats, "k8_launches": k8}
 
 
 def kernel_group(name: str) -> str:
@@ -965,6 +1037,8 @@ def kernel_group(name: str) -> str:
         return "flash_attention (K6)"
     if "scan_kernel<" in low:
         return "mamba_scan (K9)"
+    if "partial_kernel<" in low or "merge_kernel<" in low:
+        return "paged_decode_attention (K8)"
     if any(w in low for w in ("dkdv_bf16_kernel", "dq_bf16_kernel",
                               "dkdv_f32_kernel", "dq_f32_kernel",
                               "dvec_kernel")):
@@ -1018,9 +1092,11 @@ def device_profile(fn, dev, what, tail=None) -> dict:
     return res
 
 
-def phase_profile(cfg, params, inputs, caches, dev, steps=4) -> dict:
-    """Where the time goes: one prefill of the main path's inputs and
-    ``steps`` decode steps from its caches, under the profiler."""
+def phase_profile(cfg, params, inputs, caches, dev, steps=4,
+                  prefill=True) -> dict:
+    """Where the time goes: one prefill of the main path's inputs (unless
+    ``prefill`` is False) and ``steps`` decode steps from its caches,
+    under the profiler."""
     tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
 
     def decode():
@@ -1028,11 +1104,14 @@ def phase_profile(cfg, params, inputs, caches, dev, steps=4) -> dict:
         for _ in range(steps):
             _, c = lm.decode_step(params, {"tokens": tok, "positions": tok},
                                   c, cfg)
-    return {"prefill": device_profile(
-                lambda: lm.prefill(params, inputs, cfg), dev,
-                f"prefill 1 x {inputs['tokens'].shape[1]}"),
-            f"decode_{steps}_steps": device_profile(
-                decode, dev, f"{steps} decode steps")}
+    out = {}
+    if prefill:
+        out["prefill"] = device_profile(
+            lambda: lm.prefill(params, inputs, cfg), dev,
+            f"prefill 1 x {inputs['tokens'].shape[1]}")
+    out[f"decode_{steps}_steps"] = device_profile(
+        decode, dev, f"{cfg.name} {steps} decode steps")
+    return out
 
 
 def phase_lm(dev):
@@ -1053,7 +1132,12 @@ def phase_lm(dev):
     k6_times = phase_k6_times(calls)
     del calls
     prefill.update(phase_prefill_plain(cfg, params, inputs, logits, dev))
+    k8_calls, _ = k8_capture(cfg, params, caches, dev, keep=(0, 12))
+    k8_captured = k8_on_captured(cfg, k8_calls, f"{cfg.name} decode "
+                                 f"(global layers 1 and 25)")
+    del k8_calls
     decode = phase_decode(cfg, params, logits, caches, dev)
+    decode["k8_captured"] = k8_captured
     profile = phase_profile(cfg, params, inputs, caches, dev)
     del caches
     torch.cuda.empty_cache()
@@ -2027,6 +2111,561 @@ def phase_falcon_mamba(dev) -> dict:
                 "steps"], "times": times}
 
 
+# ------------------------ K8 and the dense configs (nemotron, minicpm)
+
+DENSE_ARCH = "nemotron-4-15b"
+MINICPM_ARCH = "minicpm-2b"
+MINICPM_PREFILL_LEN = 4096
+K8_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
+K8_REPLACES = "src/repro/kernels/paged_decode.py:78"
+# float32 elementwise (abs + rel), the reference's own tolerance
+# (tests/test_kernels.py:426-427); bfloat16 elementwise as K6's (2e-2),
+# and per (batch, query head) ‖got − want‖ ≤ K8_REL_TOL ‖want‖, as K6 is
+# held; four planted faults must break the per-(b, h) limit.
+K8_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+K8_REL_TOL = 1e-2
+K8_CASES = [  # b, hq, kvh, ps, pps, hd, softcap
+    # tests/test_kernels.py:402-406
+    (2, 4, 2, 16, 4, 32, None), (3, 6, 2, 8, 5, 16, 30.0),
+    (1, 4, 4, 16, 3, 32, None),
+    # groups 1 (minicpm), 2 (gemma2), 6 (nemotron) and 48 (granite) at head
+    # dims 64, 128 and 256; pages of 8, 16 and 128 (lm.PAGE_SIZE); the
+    # models' own layouts (minicpm 36 x 64, gemma2 8/4 x 256 softcap 50,
+    # nemotron 48/8 x 128, granite 48/1 x 128)
+    (5, 4, 4, 8, 4, 64, None), (5, 36, 36, 128, 3, 64, None),
+    (5, 4, 2, 16, 3, 128, 50.0), (5, 8, 4, 128, 3, 256, 50.0),
+    (5, 12, 2, 8, 4, 128, None), (5, 48, 8, 128, 3, 128, None),
+    (5, 6, 1, 16, 3, 256, 30.0), (5, 48, 1, 8, 4, 128, 50.0),
+    (5, 48, 1, 128, 3, 128, None), (5, 48, 1, 16, 2, 64, None),
+    (5, 48, 1, 8, 3, 256, None),
+    # a whole 32k table (257 pages of 128) at nemotron's layout; the SMOKE
+    # configs' head_dim 12
+    (2, 48, 8, 128, 257, 128, None), (2, 4, 2, 8, 4, 12, 50.0),
+]
+K8_FAULT_CASE = (5, 12, 2, 16, 4, 128, 20.0)
+K8_CAP_SIGMA = 30.0           # q at this σ: logits of std ~30, capped at 20
+# The dense prefill's last logits against a plain-attention prefill, per
+# row, bfloat16 (the rule of BF16_LOGIT_REL_TOL), over DENSE_PLAIN_LEN
+# tokens; planted K6 faults in the same prefill must break the limit.
+DENSE_PLAIN_LEN = 2048
+DENSE_FAULT_WINDOW = 16
+BATCH_DECODE = 8              # decode_32k's global batch 128, cut to one card
+
+
+def k8_lengths(b, ps, pps):
+    """1, a whole page, a page and one, the whole table and 0, in turn."""
+    fixed = [1, ps, ps + 1, pps * ps, 0]
+    if b < len(fixed):
+        fixed = [pps * ps, 1, ps + 1, ps][:b]
+    return fixed
+
+
+def k8_inputs(case, dtype, dev, seed, q_sigma=1.0):
+    """q, k_pages, v_pages, page_table, lengths of one K8 case from a seeded
+    generator on the card: pages in a shuffled order with three spare, so
+    the table is honoured and not assumed to be the identity."""
+    b, hq, kvh, ps, pps, hd, _ = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = b * pps + 3
+    kp = torch.randn((num_pages, ps, kvh, hd), generator=gen, device=dev)
+    vp = torch.randn((num_pages, ps, kvh, hd), generator=gen, device=dev)
+    q = torch.randn((b, hq, hd), generator=gen, device=dev) * q_sigma
+    table = torch.randperm(num_pages, generator=gen, device=dev)[
+        :b * pps].reshape(b, pps).to(torch.int32)
+    lengths = torch.tensor(k8_lengths(b, ps, pps), dtype=torch.int32,
+                           device=dev)
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), table, lengths
+
+
+def k8_errors(got, want) -> dict:
+    """Max abs err, the worst per-(batch, query head) ‖got − want‖ /
+    ‖want‖ (0/0 reads 0, x/0 reads inf), and whether each check holds."""
+    g, w = got.float(), want.float()
+    tol = K8_TOL[got.dtype]
+    rel = ((g - w).norm(dim=-1) / w.norm(dim=-1))
+    rel = float(rel.nan_to_num(nan=0.0, posinf=math.inf).max())
+    return {"max_abs": float((g - w).abs().max()), "rel": rel,
+            "mean_want": float(w.abs().mean()),
+            "elementwise_ok": bool(torch.isfinite(g).all()) and bool(
+                ((g - w).abs() <= tol + tol * w.abs()).all()),
+            "rel_ok": rel <= K8_REL_TOL}
+
+
+def check_k8(q, kp, vp, table, lengths, softcap, what) -> dict:
+    """K8 against its plain version on the same inputs, by both checks; a
+    second launch gives the same bits (the splits merge in a fixed
+    order)."""
+    got = PD.paged_decode_attention(q, kp, vp, table, lengths,
+                                    softcap=softcap)
+    again = PD.paged_decode_attention(q, kp, vp, table, lengths,
+                                      softcap=softcap)
+    want = R.paged_decode_attention_ref(q, kp, vp, table, lengths,
+                                        softcap=softcap)
+    torch.cuda.synchronize()
+    expect(got.dtype == q.dtype and got.shape == q.shape, what)
+    expect(torch.equal(got, again), f"K8 changes from run to run: {what}")
+    e = k8_errors(got, want)
+    MAX_ERR["paged_decode_attention"] = max(
+        MAX_ERR["paged_decode_attention"], e["max_abs"])
+    MAX_REL["paged_decode_attention"] = max(
+        MAX_REL["paged_decode_attention"], e["rel"])
+    if not (e["elementwise_ok"] and e["rel_ok"]):
+        raise AssertionError(f"paged_decode_attention disagrees with its "
+                             f"plain version ({what}): {e}")
+    return e
+
+
+def k8_garbage_table(table, lengths, ps):
+    """``table`` with every entry at or past a row's last live page
+    replaced by ids outside the pool (never to be read)."""
+    bad = table.clone()
+    live = (lengths.long().clamp(0, table.shape[1] * ps) + ps - 1) // ps
+    col = torch.arange(table.shape[1], device=table.device)[None, :]
+    junk = torch.tensor([-7, 10 ** 6, 2 ** 31 - 1, -2 ** 31],
+                        dtype=torch.int32, device=table.device)
+    return torch.where(col >= live[:, None], junk[col % 4], bad)
+
+
+def k8_faults(dev) -> dict:
+    """Planted faults at K8_FAULT_CASE (bf16), each run through the kernel
+    and read against the plain version by the per-(b, h) check, which each
+    must break: the page table ignored (identity pages), the mask off by
+    one (pos <= length), the softcap dropped (at logits of std ~30), and
+    split 0's partials dropped in the merge."""
+    b, hq, kvh, ps, pps, hd, cap = K8_FAULT_CASE
+    q, kp, vp, table, lengths = k8_inputs(K8_FAULT_CASE, torch.bfloat16, dev,
+                                          70)
+    want = R.paged_decode_attention_ref(q, kp, vp, table, lengths,
+                                        softcap=cap)
+    check_k8(q, kp, vp, table, lengths, cap, "fault case")
+    runs = {
+        "page table ignored (identity pages)": PD.paged_decode_attention(
+            q, kp, vp, paged.identity_table(b, pps, dev), lengths,
+            softcap=cap),
+        "mask off by one (pos <= length)": PD.paged_decode_attention(
+            q, kp, vp, table, lengths + 1, softcap=cap)}
+    qs, kps, vps, ts, ls = k8_inputs(K8_FAULT_CASE, torch.bfloat16, dev, 71,
+                                     K8_CAP_SIGMA)
+    want_cap = R.paged_decode_attention_ref(qs, kps, vps, ts, ls,
+                                            softcap=cap)
+    check_k8(qs, kps, vps, ts, ls, cap, f"fault case, q at sigma "
+             f"{K8_CAP_SIGMA}")
+    runs["softcap dropped"] = PD.paged_decode_attention(qs, kps, vps, ts, ls)
+    out, parts = PD._launch(q, kp, vp, table, lengths, cap,
+                            1 / math.sqrt(hd), stage=1)
+    expect(parts.acc.shape[2] > 1, f"one split only: {parts.acc.shape}")
+    parts.ml[:, :, 0, :, 0] = R.NEG_INF
+    parts.ml[:, :, 0, :, 1] = 0.0
+    parts.acc[:, :, 0] = 0.0
+    runs["split 0's partials dropped in the merge"] = PD._launch(
+        q, kp, vp, table, lengths, cap, 1 / math.sqrt(hd), stage=2,
+        parts=parts, out=out)[0]
+    out = {}
+    for name, got in runs.items():
+        e = k8_errors(got, want_cap if name == "softcap dropped" else want)
+        out[name] = {k: e[k] for k in ("max_abs", "rel")}
+        print(f"planted K8 fault, {name}: max abs err {e['max_abs']:.3e}, "
+              f"per-(b, h) rel err {e['rel']:.3e}; per-(b, h) check "
+              f"{'passes' if e['rel_ok'] else 'fails'}")
+        expect(not e["rel_ok"], f"the per-(b, h) check misses {name}: {e}")
+    return out
+
+
+def phase_k8_parity_edges(dev) -> dict:
+    """K8 against its plain version on the card: every case in float32 and
+    bfloat16, then the same with garbage table entries past each length
+    (the same bits: they are never read), then the planted faults."""
+    for i, case in enumerate(K8_CASES):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, table, lengths = k8_inputs(case, dtype, dev, i)
+            errs[dtype] = check_k8(q, kp, vp, table, lengths, case[6],
+                                   f"{case} {dtype}")
+            got = PD.paged_decode_attention(q, kp, vp, table, lengths,
+                                            softcap=case[6])
+            bad = PD.paged_decode_attention(
+                q, kp, vp, k8_garbage_table(table, lengths, case[3]),
+                lengths, softcap=case[6])
+            expect(torch.equal(got, bad),
+                   f"K8 reads table entries past the length: {case}")
+        f32, bf = errs[torch.float32], errs[torch.bfloat16]
+        lens = k8_lengths(case[0], case[3], case[4])
+        print(f"parity K8 {case} lengths {lens}: f32 max abs err {f32['max_abs']:.3e} (tol 2e-5 abs + rel), "
+              f"bf16 max abs err {bf['max_abs']:.3e} (tol 2e-2), per-(b, h) "
+              f"rel err {max(f32['rel'], bf['rel']):.3e} (limit "
+              f"{K8_REL_TOL}); same bits twice and with garbage past the "
+              f"lengths")
+    return {"planted_faults": k8_faults(dev)}
+
+
+def k8_capture(cfg, params, caches, dev, keep, donate=False):
+    """One decode step from ``caches`` through ``Capture``: the K8 calls in
+    ``keep`` (call i is the i-th layer without a window) with their
+    arguments.  Returns ({i: (args, kw)}, the new caches)."""
+    b = caches["kv"][0].lengths.shape[0]
+    tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    with Capture("paged_decode_attention", keep=keep) as cap:
+        _, caches = lm.decode_step(params, {"tokens": tok, "positions": tok},
+                                   caches, cfg, donate=donate)
+        sync(dev)
+    expect(len(cap.events) == unwindowed_layers(cfg), len(cap.events))
+    return cap.calls, caches
+
+
+def k8_on_captured(cfg, calls, what) -> dict:
+    """K8 on captured decode layers by both checks."""
+    out = {}
+    for i, (args, kw) in sorted(calls.items()):
+        q, kp, _, _, lengths = args
+        e = check_k8(*args, kw["softcap"], f"{what} call {i}")
+        out[i] = e
+        print(f"parity K8 {what} call {i}: q {tuple(q.shape)} pages "
+              f"{tuple(kp.shape)} {q.dtype} lengths "
+              f"{lengths.tolist()[:8]} softcap {kw['softcap']}: max abs err "
+              f"{e['max_abs']:.3e}, per-(b, h) rel err {e['rel']:.3e} (tol "
+              f"elementwise 2e-2, rel {K8_REL_TOL})")
+    return out
+
+
+def k8_bound(q, kp, table, lengths) -> dict:
+    """The least time for K8 on these inputs: the live K and V rows, q and
+    the output, the live table entries and the lengths, each moved once,
+    at 3.35 TB/s; the products (4·hd per query head and live position) at
+    the bf16 tensor-core peak.  The bytes bind."""
+    b, hq, hd = q.shape
+    ps, kvh = kp.shape[1], kp.shape[2]
+    live = lengths.long().clamp(0, table.shape[1] * ps)
+    n = int(live.sum())
+    pages = int(((live + ps - 1) // ps).sum())
+    es = q.element_size()
+    nbytes = 2 * n * kvh * hd * es + 2 * q.numel() * es + 4 * pages + 4 * b
+    flops = 4 * hq * hd * n
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": nbytes, "flops": flops, "live_positions": n}
+
+
+SPIN_CYCLES = 2_000_000       # ~1 ms of torch.cuda._sleep at ~2 GHz
+
+
+def device_ms(fn, reps=REPS) -> float:
+    """Median device time of ``fn`` by CUDA events, with a spin kernel
+    queued before each start event: while it runs the host enqueues the
+    event, ``fn``'s launches and the end event, so the reading is the
+    device's time for ``fn`` and not the host's time to launch it (a K8
+    call takes less time on the card than its Python wrapper takes)."""
+    fn()                                   # warm-up
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_k8_times(args, kw, what, library=True) -> dict:
+    """K8 on captured inputs (device time by CUDA events behind a spin
+    kernel, median of 20; ``ms_host`` without the spin, as the earlier
+    kernels are timed, which adds the wrapper's launch time) beside its
+    bound and its plain version (median of 3).  With ``library`` (batch 1, no
+    softcap: nemotron), scaled_dot_product_attention(enable_gqa=True) over
+    the live cache, which computes the same function there: once with the
+    gather through the table inside the timing, once over a gathered
+    cache; each held to K8's per-(b, h) limit against K8."""
+    q, kp, vp, table, lengths = args
+    sc = kw["softcap"]
+    def run():
+        return PD.paged_decode_attention(q, kp, vp, table, lengths,
+                                         softcap=sc)
+    ms = device_ms(run)
+    ms_host = median_ms(run)
+    plain = device_ms(lambda: R.paged_decode_attention_ref(
+        q, kp, vp, table, lengths, softcap=sc), reps=PLAIN_REPS)
+    res = {"ms": ms, "ms_host": ms_host, "plain_ms": plain,
+           **k8_bound(q, kp, table, lengths),
+           "library_ms": None, "library_ms_no_gather": None,
+           "shape": f"{what}: q {tuple(q.shape)}, pages {tuple(kp.shape)} "
+                    f"{q.dtype}, lengths {lengths.tolist()[:8]}"}
+    line = (f"time: K8 {res['shape']}: {ms:.4f} ms on the device "
+            f"({ms_host:.4f} ms with the wrapper's launch), bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {res['bytes']} "
+            f"bytes at 3.35 TB/s, {res['flops']:.3e} flops at 989 TFLOP/s), "
+            f"{res['bound_ms'] / ms:.1%} of the bound, "
+            f"{res['bytes'] / ms / 1e6:.1f} GB/s, plain {plain:.4f} ms "
+            f"(median of {PLAIN_REPS})")
+    if library:
+        expect(q.shape[0] == 1 and sc is None, "the library call is timed "
+               "at batch 1 without a softcap")
+        n, hd, kvh = int(lengths[0]), q.shape[2], kp.shape[2]
+
+        def gathered():
+            k = kp[table[0].long()].reshape(-1, kvh, hd)[:n]
+            v = vp[table[0].long()].reshape(-1, kvh, hd)[:n]
+            return k.transpose(0, 1)[None], v.transpose(0, 1)[None]
+
+        def sdpa(k, v):
+            return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                  enable_gqa=True)[:, :, 0]
+        k4, v4 = (t.contiguous() for t in gathered())
+        agree = bh_rel(sdpa(k4, v4)[:, :, None], run()[:, :, None])
+        expect(agree <= K8_REL_TOL, f"SDPA vs K8: {agree}")
+        res["library_ms"] = device_ms(lambda: sdpa(*gathered()))
+        res["library_ms_no_gather"] = device_ms(lambda: sdpa(k4, v4))
+        res["library_rel_vs_kernel"] = agree
+        del k4, v4
+        line += (f"; library scaled_dot_product_attention(enable_gqa=True) "
+                 f"{res['library_ms']:.4f} ms with the gather through the "
+                 f"table, {res['library_ms_no_gather']:.4f} ms over a "
+                 f"gathered cache; per-(b, h) rel to K8 {agree:.3e}")
+    print(line)
+    return res
+
+
+def dense_prefill_plain(cfg, params, dev, seq=DENSE_PLAIN_LEN) -> dict:
+    """The same prefill (``seq`` tokens) with K6 and with the plain
+    attention: the last logits agree per row.  Then K6 prefills with
+    planted attention faults, read the same way: every layer's K6 with a
+    window of DENSE_FAULT_WINDOW keys must break the limit; layer 0 without
+    its causal mask is read and printed."""
+    inputs = lm_inputs(cfg, 1, seq, dev, SEED + 6)
+    logits, _ = lm.prefill(params, inputs, cfg)
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    ref_logits, _ = lm.prefill(params, inputs, cfg.replace(kernels="ref"))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    expect(FA.LAUNCHES["flash_attention"] == 0, dict(FA.LAUNCHES))
+    v = cfg.vocab_size
+    ref_logits = ref_logits[..., :v]
+    errs = logit_errors(logits[..., :v], ref_logits,
+                        f"{cfg.name} prefill({seq}) K6 vs plain attention, "
+                        f"last logits")
+    window = f"every layer's K6 with a window of {DENSE_FAULT_WINDOW} keys"
+    faults = {
+        window: lambda i, orig, a, kw: orig(
+            *a, **{**kw, "window": DENSE_FAULT_WINDOW}),
+        "layer 0's K6 without its causal mask": lambda i, orig, a, kw: orig(
+            *a, **{**kw, "causal": kw["causal"] and i != 0}),
+    }
+    controls = {}
+    for name, fault in faults.items():
+        with Capture("flash_attention", fault=fault):
+            bad, _ = lm.prefill(params, inputs, cfg)
+        controls[name] = logit_errors(bad[..., :v], ref_logits,
+                                      f"planted fault, {name}, vs plain")
+        del bad
+    expect(errs["ok"], f"prefill logits: {errs}")
+    expect(not controls[window]["ok"],
+           f"the logits check misses {window}: {controls[window]}")
+    return {"tokens": seq, "plain_wall_s": wall, "logits_vs_plain": errs,
+            "planted_faults": controls}
+
+
+def random_caches(cfg, dev, batch, seq, steps, seed) -> dict:
+    """Decode caches of every layer holding seeded random K/V in the
+    config's dtype: room
+    for ``seq`` + ``steps`` tokens a sequence, pages in a shuffled order
+    (a table of its own per layer), ragged lengths up to ``seq`` (the
+    first exactly ``seq``)."""
+    ps = lm.PAGE_SIZE
+    pps = -(-(seq + steps) // ps)
+    num_pages = batch * pps
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    lengths = torch.from_numpy(np.concatenate(
+        [[seq], rng.integers(seq // 2, seq + 1, batch - 1)]).astype(
+            np.int32)).to(dev)
+    shape = (num_pages, ps, cfg.n_kv_heads, cfg.head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    kv = []
+    for _ in range(cfg.n_layers):
+        table = torch.randperm(num_pages, generator=gen, device=dev).reshape(
+            batch, pps).to(torch.int32)
+        kv.append(paged.PagedKV(
+            torch.randn(shape, generator=gen, device=dev, dtype=dtype),
+            torch.randn(shape, generator=gen, device=dev, dtype=dtype),
+            table, lengths))
+    return {"kv": kv}
+
+
+def phase_batched_decode(cfg, params, dev, batch=BATCH_DECODE,
+                         seq=PREFILL_LEN, steps=DECODE_STEPS) -> dict:
+    """Decode at batch ``batch`` over caches of ``seq`` tokens (random K/V
+    from a seed, shuffled tables, ragged lengths), the caches donated to
+    each step (written in place, as the reference's decode_32k step
+    donates them).  A first step through ``Capture`` gives layer 0's K8
+    inputs: K8 against its plain version and its time there.  Then
+    ``steps`` greedy steps with every launch count set to 0 just before:
+    32 K8 launches a step; step time and tokens/s."""
+    caches = random_caches(cfg, dev, batch, seq, steps + 1, SEED + 7)
+    nbytes = sum(2 * c.k_pages.numel() * c.k_pages.element_size()
+                 for c in caches["kv"])
+    lengths0 = caches["kv"][0].lengths.clone()
+    sync(dev)
+    calls, caches = k8_capture(cfg, params, caches, dev, keep=(0,),
+                               donate=True)
+    parity = k8_on_captured(cfg, calls, f"{cfg.name} batch {batch}")
+    times = phase_k8_times(*calls[0], f"{cfg.name} decode layer 0, batch "
+                           f"{batch}", library=False)
+    del calls
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 8)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 1))).to(
+        dev)
+    zeros = torch.zeros_like(tok)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, caches = lm.decode_step(params, {"tokens": tok,
+                                             "positions": zeros}, caches,
+                                    cfg, donate=True)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    k8 = PD.LAUNCHES["paged_decode_attention"]
+    expect(k8 == cfg.n_layers * steps, dict(PD.LAUNCHES))
+    expect(not any(FA.LAUNCHES.values()), dict(FA.LAUNCHES))
+    expect(all(torch.equal(c.lengths, lengths0 + 1 + steps)
+               for c in caches["kv"]), "batched decode lengths")
+    expect(bool(torch.isfinite(lg).all()), "batched decode logits")
+    res = {"batch": batch, "steps": steps, "wall_s": wall,
+           "step_ms": wall / steps * 1e3,
+           "tokens_per_s": batch * steps / wall, "cache_bytes": nbytes,
+           "peak_bytes": peak, "k8_launches": k8,
+           "lengths": lengths0.tolist(), "k8": times, "k8_parity": parity}
+    print(f"decode batch {batch}: {cfg.name} {steps} steps over caches of "
+          f"{nbytes} bytes (lengths {lengths0.tolist()}), {wall:.3f} s, "
+          f"{res['step_ms']:.2f} ms a step, {res['tokens_per_s']:.1f} "
+          f"tokens/s, peak {peak} bytes, K8 launches {k8}")
+    return res
+
+
+def to_float_in_place(tree):
+    """Every tensor of a params tree as float32, replaced one at a time so
+    the bfloat16 copy of each goes as its float32 one comes."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in list(items):
+        if isinstance(val, torch.Tensor):
+            tree[key] = val.float()
+        else:
+            to_float_in_place(val)
+    return tree
+
+
+def phase_nemotron(dev) -> dict:
+    """nemotron-4-15b FULL in bfloat16, params from the port's init_params
+    on a seeded generator: the 32k prefill, the decode at batch 1 (the main
+    path of K8: 32 launches a step) with K8 on two captured layers and its
+    times and profile, the plain-attention prefill, the equivalences, the
+    batched decode, the Server."""
+    cfg = get_config(DENSE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync(dev)
+    print(f"init: {cfg.name}, {cfg.param_count()} params in bfloat16, "
+          f"{time.perf_counter() - t0:.3f} s")
+    inputs, logits, caches, prefill = phase_prefill(cfg, params, dev)
+    last = cfg.n_layers - 1
+    calls, _ = k8_capture(cfg, params, caches, dev, keep=(0, last))
+    captured = k8_on_captured(cfg, calls, f"{cfg.name} decode")
+    times = phase_k8_times(*calls[0], f"{cfg.name} decode layer 0, batch 1")
+    del calls
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    profile = phase_profile(cfg, params, inputs, caches, dev, prefill=False)
+    del caches, inputs
+    torch.cuda.empty_cache()
+    plain = dense_prefill_plain(cfg, params, dev)
+    equiv = {"bfloat16": prefill_vs_stepwise(cfg, params, dev)}
+    torch.cuda.empty_cache()
+    batched = phase_batched_decode(cfg, params, dev)
+    torch.cuda.empty_cache()
+    params = to_float_in_place(params)
+    equiv["float32"] = prefill_vs_stepwise(cfg.replace(dtype="float32"),
+                                           params, dev)
+    del params
+    torch.cuda.empty_cache()
+    served = phase_serve(("--arch", DENSE_ARCH))
+    return {"arch": DENSE_ARCH, "prefill": prefill, "k8_captured": captured,
+            "k8_times": times, "decode": decode, "profile": profile,
+            "prefill_plain": plain, "equivalence": equiv,
+            "batched_decode": batched, "serve": served}
+
+
+def phase_minicpm(dev) -> dict:
+    """minicpm-2b FULL in bfloat16 (MHA, head 64): a prefill of
+    MINICPM_PREFILL_LEN tokens (40 K6 launches), K8 on a captured decode
+    layer, 16 decode steps (40 K8 launches a step), the Server."""
+    cfg = get_config(MINICPM_ARCH)
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    inputs, logits, caches, prefill = phase_prefill(cfg, params, dev,
+                                                    MINICPM_PREFILL_LEN)
+    calls, _ = k8_capture(cfg, params, caches, dev, keep=(0,))
+    captured = k8_on_captured(cfg, calls, f"{cfg.name} decode")
+    times = phase_k8_times(*calls[0], f"{cfg.name} decode layer 0, batch 1",
+                           library=False)
+    del calls
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    del params, caches, inputs
+    torch.cuda.empty_cache()
+    served = phase_serve(("--arch", MINICPM_ARCH))
+    return {"arch": MINICPM_ARCH, "prefill": prefill, "k8_captured": captured,
+            "k8_times": times, "decode": decode, "serve": served}
+
+
+def phase_dense(dev) -> dict:
+    """K8's edge cases, then nemotron-4-15b and minicpm-2b."""
+    parity = phase_k8_parity_edges(dev)
+    torch.cuda.empty_cache()
+    nemotron = phase_nemotron(dev)
+    torch.cuda.empty_cache()
+    minicpm = phase_minicpm(dev)
+    print(json.dumps({"dense": {"k8_parity": parity, "nemotron": nemotron,
+                                "minicpm": minicpm}}, default=str))
+    return {"nemotron": nemotron, "minicpm": minicpm}
+
+
+K4_REPLACES = "src/repro/kernels/bitpack.py:389"
+K5_REPLACES = "src/repro/kernels/bucket_scatter.py:65"
+# The shapes of the JAX tests: K4 (W, M) at tests/test_kernels.py:240-244,
+# K5 (N, M, D) at :129-134.
+K4_TEST_SHAPES = [(1000, 4096), (64, 7), (4096, 20000)]
+K5_TEST_SHAPES = [(16, 100, 8), (64, 37, 4), (8, 256, 16), (32, 5, 8)]
+
+
+def to_port_bounds() -> list:
+    """The least time the card could take for the two kernels still to
+    port, at the shapes of their JAX tests: bytes at 3.35 TB/s (neither
+    does arithmetic worth a bound).  K4 reads W packed words and M int32
+    indices and writes M int32 fields; K5 reads and writes the (N, D)
+    float32 table and reads M int32 indices and the (M, D) float32
+    payload."""
+    out = []
+    for w, m in K4_TEST_SHAPES:
+        nbytes = 4 * w + 4 * m + 4 * m
+        out.append({"name": "bitpack_gather2", "replaces": K4_REPLACES,
+                    "status": "to port", "shape": f"W {w}, M {m}",
+                    "bytes": nbytes,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes"})
+    for n, m, d in K5_TEST_SHAPES:
+        nbytes = 2 * 4 * n * d + 4 * m + 4 * m * d
+        out.append({"name": "bucket_scatter_add", "replaces": K5_REPLACES,
+                    "status": "to port", "shape": f"N {n}, M {m}, D {d}",
+                    "bytes": nbytes,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes"})
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_card()
@@ -2052,6 +2691,8 @@ def main() -> None:
     trained = phase_training(dev)
     torch.cuda.empty_cache()
     fm = phase_falcon_mamba(dev)
+    torch.cuda.empty_cache()
+    dense = phase_dense(dev)
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -2129,6 +2770,28 @@ def main() -> None:
         "bound_bytes_ms": t9["bound_bytes_ms"],
         "launches_per_forward": fm["forward_launches"],
         "launches_per_decode_step": fm["decode_launches_per_step"]})
+    nem = dense["nemotron"]
+    t8, b8 = nem["k8_times"], nem["batched_decode"]["k8"]
+    kernels.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": K8_SOURCE, "replaces": K8_REPLACES,
+        "launches": nem["decode"]["k8_launches"],
+        "max_abs_err": MAX_ERR["paged_decode_attention"],
+        "max_rel_err_per_bh": MAX_REL["paged_decode_attention"],
+        "ms": t8["ms"], "ms_host": t8["ms_host"], "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
+        "library_ms": t8["library_ms"],
+        "library": "scaled_dot_product_attention(enable_gqa=True) with the "
+                   "gather through the page table",
+        "library_ms_no_gather": t8["library_ms_no_gather"],
+        "shape": "nemotron-4-15b decode layer 0, batch 1 after 32768 "
+                 "tokens, q 1x48x128 bf16, pages 257x128x8x128",
+        "launches_per_step": nem["decode"]["k8_launches_per_step"],
+        "batch8_ms": b8["ms"], "batch8_plain_ms": b8["plain_ms"],
+        "batch8_bound_ms": b8["bound_ms"],
+        "minicpm_ms": dense["minicpm"]["k8_times"]["ms"],
+        "minicpm_bound_ms": dense["minicpm"]["k8_times"]["bound_ms"]})
+    print(json.dumps({"to_port": to_port_bounds()}))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card_line())

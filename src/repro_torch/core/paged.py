@@ -12,7 +12,8 @@ access.
 The functions are out of place, as in the reference: ``append`` and
 ``bulk_fill`` return a new ``PagedKV`` and leave their argument as it was,
 which the serving loop's per-slot merge relies on
-(``runtime/serve_loop.py``).
+(``runtime/serve_loop.py``).  ``append(..., inplace=True)`` writes into
+the pages it is given instead, for a caller that donates the cache.
 """
 from __future__ import annotations
 
@@ -61,8 +62,8 @@ def make(batch: int, max_len: int, kv_heads: int, head_dim: int,
     )
 
 
-def append(cache: PagedKV, k_new: torch.Tensor,
-           v_new: torch.Tensor) -> PagedKV:
+def append(cache: PagedKV, k_new: torch.Tensor, v_new: torch.Tensor, *,
+           inplace: bool = False) -> PagedKV:
     """Append one token's K/V per sequence (decode step).
 
     k_new, v_new: (batch, kv_heads, head_dim).  The whole batch of writes
@@ -70,7 +71,10 @@ def append(cache: PagedKV, k_new: torch.Tensor,
     its last page has its write dropped and its length still advanced, as
     in the reference (an out-of-range page lookup, then a dropped scatter);
     here it writes its last page's current value back in place, so no
-    host synchronisation is needed to find it."""
+    host synchronisation is needed to find it.  With ``inplace`` the rows
+    are written into ``cache``'s own pages, which the result shares (the
+    caller donates the cache: no copy of the pages); ``cache.lengths`` is
+    left as it was either way."""
     lengths = cache.lengths.long()
     page_logical = lengths // cache.page_size
     offset = lengths % cache.page_size
@@ -80,6 +84,8 @@ def append(cache: PagedKV, k_new: torch.Tensor,
 
     def write(pages, new):
         new = torch.where(inside, new.to(pages.dtype), pages[phys, offset])
+        if inplace:
+            return pages.index_put_((phys, offset), new)
         return pages.index_put((phys, offset), new)
     return cache._replace(k_pages=write(cache.k_pages, k_new),
                           v_pages=write(cache.v_pages, v_new),

@@ -1,6 +1,8 @@
 """Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
 flash attention with its gradient (``:39-85``), the selective scan
-(``:88-113``) and the bit-pack kernels (``:129-170``).
+(``:88-113``), the bit-pack kernels (``:129-170``) and paged decode
+attention (the kernel of ``repro/kernels/paged_decode.py``, which the
+reference's ops module leaves out).
 
 ``impl``:
   * ``"auto"`` goes by the tensor's device: the CUDA kernel for a CUDA
@@ -17,6 +19,7 @@ from . import bitpack as _bp
 from . import flash_attention as _fa
 from . import flash_attention_bwd as _fab
 from . import mamba_scan as _ms
+from . import paged_decode as _pd
 from . import ref as _ref
 
 IMPLS = ("auto", "cuda", "ref")
@@ -106,6 +109,20 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                   softcap=softcap, scale=scale)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           softcap=None, scale=None, impl="auto"):
+    """One-token attention over a paged KV cache (K8): q (B, Hq, hd),
+    k_pages, v_pages (P, ps, kvh, hd), page_table (B, pps) int32, lengths
+    (B,) int32 → (B, Hq, hd) in q.dtype.  The plain version is
+    ``ref.paged_decode_attention_ref``."""
+    if _use_ref(impl, q):
+        return _ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                               page_table, lengths,
+                                               softcap=softcap, scale=scale)
+    return _pd.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                      lengths, softcap=softcap, scale=scale)
 
 
 def mamba_scan(x, dt, a, b, c, d, *, impl="auto", return_state=False):

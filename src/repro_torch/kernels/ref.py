@@ -4,7 +4,8 @@ Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-281``,
 the attention functions of ``:23-123`` and the selective scans of
 ``:126-169`` (K9), plus the forward with its log-sum-exp and the backward
 of ``repro/kernels/flash_attention.py:100-111`` and
-``flash_attention_bwd.py`` (K6's LSE output and K7).  They are
+``flash_attention_bwd.py`` (K6's LSE output and K7), and the paged decode
+attention of ``repro/kernels/paged_decode.py`` (K8).  They are
 device-agnostic: the CPU tests run them as the port's only path there,
 and ``chip_smoke.py`` runs them on CUDA tensors to hold each kernel
 against them (bit for bit for the bit-pack kernels, within the float
@@ -228,6 +229,40 @@ def decode_attention_ref(q, k, v, mask, *, softcap=None, scale=None):
     logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
+                               softcap=None, scale=None):
+    """Plain version of K8 (``repro/kernels/paged_decode.py:33-76``): one
+    query position over a paged cache, read through the page table.
+
+    q: (B, Hq, D); k_pages, v_pages: (P, ps, Hkv, D); page_table: (B, pps)
+    integer page ids; lengths: (B,).  Positions past min(length, pps·ps)
+    are masked, and their table entries are replaced by page 0 before the
+    gather, so they may hold anything.  Scores, probabilities and P·V are
+    float32 (where ``decode_attention_ref`` casts p to ``v.dtype``); a row
+    of length 0 gives 0, as the TPU kernel's ``safe_l``."""
+    b, hq, d = q.shape
+    _, ps, hkv, _ = k_pages.shape
+    pps = page_table.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    n = lengths.long().clamp(0, pps * ps)
+    live = (torch.arange(pps, device=q.device)[None, :] * ps) < n[:, None]
+    table = torch.where(live, page_table.long(), 0)
+    k = k_pages[table].reshape(b, pps * ps, hkv, d).float()
+    v = v_pages[table].reshape(b, pps * ps, hkv, d).float()
+    mask = (torch.arange(pps * ps, device=q.device)[None, :]
+            < n[:, None])[:, None, None, :]
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v) / torch.where(l == 0, 1.0, l)
     return out.reshape(b, hq, d).to(q.dtype)
 
 

@@ -5,10 +5,15 @@ server (``runtime/serve_loop.py``) over Roomy paged KV caches.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-15b
 
-The flags and defaults of ``repro/launch/serve.py``, plus ``--device``
-(default "cuda"; raises without a card).  A full config keeps its params
-in bfloat16 (falcon-mamba-7b: 14.0 GB); a smoke config runs in float32.
+``--arch``: gemma2-2b, falcon-mamba-7b, nemotron-4-15b, minicpm-2b or
+granite-34b (whose 93.9 GB of bfloat16 params no single 80 GB card holds:
+``--smoke`` only, until the mesh).  The flags and defaults of
+``repro/launch/serve.py``, plus ``--device`` (default "cuda"; raises
+without a card).  A full config keeps its params in bfloat16
+(falcon-mamba-7b: 14.0 GB, nemotron-4-15b: 31.3 GB); a smoke config runs
+in float32.
 Params are random, from ``--seed``; the prompts come from numpy's
 generator on the same seed, as in the reference.
 """

@@ -5,10 +5,12 @@ Port of ``repro/models/attention.py`` for one device.  Activations are
 (the kernel takes strides) and gets its output back in the same layout.
 
 Decode uses the Roomy paged-KV store (``core/paged.py``): append is one
-scatter, the attention read one batched gather, then the plain
-``decode_attention_ref`` with the window mask — as the reference's
-single-host branch does (``attention.py:148-158``).  The reference's
-``shard_map`` branches wait for ``distributed/``.
+scatter; then a global layer reads the pages through the table with K8
+(the paged-decode kernel), and a windowed layer gathers them for the
+plain ``decode_attention_ref`` with the window mask, as the reference's
+single-host branch does (``attention.py:145-156``, which splits on
+``window is None`` too).  The reference's ``shard_map`` branches wait for
+``distributed/``.
 """
 from __future__ import annotations
 
@@ -71,22 +73,33 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache: paged.PagedKV,
-                     cfg: ModelConfig, *, window: Optional[int] = None
+                     cfg: ModelConfig, *, window: Optional[int] = None,
+                     donate: bool = False
                      ) -> Tuple[torch.Tensor, paged.PagedKV]:
     """One-token decode step against the paged cache.
 
-    x: (B, 1, d).  Rope positions are the cache's lengths.  Returns
-    (out (B, 1, d), the updated cache)."""
+    x: (B, 1, d).  Rope positions are the cache's lengths.  After the
+    append, a layer without a window reads the pages through the table
+    with K8 (``ops.paged_decode_attention``); a windowed layer gathers the
+    cache and runs the plain ``decode_attention_ref`` under the window
+    mask, as the reference does (K8 has no window).  ``donate``: append in
+    place (``paged.append``).  Returns (out (B, 1, d), the updated
+    cache)."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg)                       # (B, 1, H/KVH, D)
     q, k = _apply_rope(q, k, cache.lengths[:, None], cfg)
-    cache = paged.append(cache, k[:, 0], v[:, 0])
-    kf, vf, mask = paged.gather(cache)              # batched access
-    if window is not None:
+    cache = paged.append(cache, k[:, 0], v[:, 0], inplace=donate)
+    softcap = cfg.attn_softcap or None
+    if window is None:
+        out = kops.paged_decode_attention(
+            q[:, 0], cache.k_pages, cache.v_pages, cache.page_table,
+            cache.lengths, softcap=softcap, impl=cfg.kernels)
+    else:
+        kf, vf, mask = paged.gather(cache)          # batched access
         pos_in_seq = torch.arange(mask.shape[1], device=mask.device)[None, :]
         cur = cache.lengths[:, None] - 1
         mask = mask & (pos_in_seq >= cur - window)
-    out = kref.decode_attention_ref(q[:, 0], kf, vf, mask,
-                                    softcap=cfg.attn_softcap or None)
+        out = kref.decode_attention_ref(q[:, 0], kf, vf, mask,
+                                        softcap=softcap)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(cdtype(cfg)), cache

@@ -52,10 +52,12 @@ def transformer_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def transformer_block_decode(p: dict, x: torch.Tensor, cache: paged.PagedKV,
                              cfg: ModelConfig, *,
-                             window: Optional[int] = None
+                             window: Optional[int] = None,
+                             donate: bool = False
                              ) -> Tuple[torch.Tensor, paged.PagedKV]:
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
-    h, cache = decode_attention(p["attn"], h, cache, cfg, window=window)
+    h, cache = decode_attention(p["attn"], h, cache, cfg, window=window,
+                                donate=donate)
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
     return _mlp_half(p, x + h, cfg), cache

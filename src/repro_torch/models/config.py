@@ -1,9 +1,10 @@
 """Model configuration: the port's own copy of ``repro/models/config.py``.
 
-It keeps the fields and derived properties that the dense, gemma2 and
-mamba1 (falcon-mamba) paths read.  The MoE, mamba2, hybrid and frontend
-fields, M-RoPE and the untied LM head come with the slices that port
-them (ROADMAP item 9).  Frozen, so a config can be shared and compared.
+It keeps the fields and derived properties that the dense (gemma2,
+nemotron, minicpm, granite) and mamba1 (falcon-mamba) paths read.  The
+MoE, mamba2, hybrid and frontend fields and M-RoPE come with the slices
+that port them (ROADMAP item 9).  Frozen, so a config can be shared and
+compared.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ class ModelConfig:
     mlp_gated: bool = True
 
     # --- embeddings / head ---
-    tie_embeddings: bool = True      # the ported paths run the tied head only
+    tie_embeddings: bool = True      # False: an own (d, vocab) LM head
     scale_embeddings: bool = False   # gemma2: multiply embeds by sqrt(d)
 
     # --- numerics ---

@@ -2,10 +2,11 @@
 
 Port of ``repro/models/layers.py`` for the dense path.  Initialization
 follows the reference's distributions on an explicit ``torch.Generator``:
-fan-in truncated normal (±2σ) for projections, N(0, 0.02²) for the
-embedding table, zeros for norm gains (applied as ``1 + gain``).  The two
-packages draw different numbers from one seed, so the tests carry the
-reference's params across with ``convert.lm_params_from_jax``.
+fan-in truncated normal (±2σ) for projections and the untied LM head,
+N(0, 0.02²) for the embedding table, zeros for norm gains (applied as
+``1 + gain``).  The two packages draw different numbers from one seed, so
+the tests carry the reference's params across with
+``convert.lm_params_from_jax``.
 
 Params may be stored in float32 or in the compute dtype; every layer casts
 to ``cdtype(cfg)`` at use, which is a no-op for params already stored in
@@ -84,7 +85,11 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *, device,
     e = torch.empty((cfg.vocab_padded, cfg.d_model), dtype=torch.float32,
                     device=device)
     e.normal_(0.0, 1.0, generator=gen)
-    return {"table": (e * 0.02).to(dtype)}
+    p = {"table": (e * 0.02).to(dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_padded),
+                               device=device, dtype=dtype)
+    return p
 
 
 def embed_tokens(p: dict, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -93,9 +98,12 @@ def embed_tokens(p: dict, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def lm_head(p_embed: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Logits against the tied embedding table, softcapped; the pad rows
-    past ``vocab_size`` are -1e30."""
-    logits = x @ p_embed["table"].to(cdtype(cfg)).T
+    """Logits against the tied embedding table, or the untied ``head``
+    (d, vocab_padded), softcapped; the pad rows past ``vocab_size`` are
+    -1e30."""
+    w = (p_embed["table"].to(cdtype(cfg)).T if cfg.tie_embeddings
+         else p_embed["head"].to(cdtype(cfg)))
+    logits = x @ w
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     if cfg.vocab_padded != cfg.vocab_size:      # mask pad-to-shard rows

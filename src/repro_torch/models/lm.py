@@ -1,6 +1,6 @@
-"""Model assembly: init, forward, prefill, decode — the dense family, with
-gemma2's alternating local/global layers, and the ssm family (falcon-mamba,
-mamba1 blocks over K9).
+"""Model assembly: init, forward, prefill, decode — the dense family (with
+gemma2's alternating local/global layers, and the untied LM head of
+nemotron), and the ssm family (falcon-mamba, mamba1 blocks over K9).
 
 Port of ``repro/models/lm.py``.  Entry points:
 
@@ -9,7 +9,8 @@ Port of ``repro/models/lm.py``.  Entry points:
   logits_fn(params, hidden, cfg)              → (B, S, vocab_padded)
   loss_fn(params, batch, cfg)                 → scalar mean cross-entropy
   prefill(params, inputs, cfg, max_len=)      → (last logits (B, 1, V), caches)
-  decode_step(params, inputs, caches, cfg)    → (logits (B, 1, V), caches)
+  decode_step(params, inputs, caches, cfg,
+              donate=False)                   → (logits (B, 1, V), caches)
   make_cache(cfg, batch, max_len, device=)    → empty caches
 
 ``inputs``: {"tokens": (B, S) integer, "positions": (B, S) integer}.
@@ -57,10 +58,6 @@ def _ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
             f"repro_torch yet: ROADMAP item {_NOT_PORTED[cfg.family]}")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: the untied LM head is not ported to repro_torch "
-            "yet: ROADMAP item 9.2")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -218,10 +215,16 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
     return logits_fn(params, hidden, cfg), {"kv": caches}
 
 
-def decode_step(params, inputs: Dict, caches, cfg: ModelConfig):
+def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
+                donate: bool = False):
     """One-token step.  inputs: {"tokens": (B, 1)}; rope positions come
     from the caches' lengths.  Returns (logits (B, 1, V), new caches);
-    the caches passed in are left as they were."""
+    the caches passed in are left as they were, unless ``donate``: then
+    each layer's new K/V row is written into the pages passed in (the
+    returned caches share them), as the reference's decode step donates
+    its caches to ``jit`` (``repro/launch/dryrun.py:188-191``), so a step
+    holds one copy of the cache and moves none of it.  Every unwindowed
+    attention layer reads its cache with K8."""
     _ported(cfg)
     x = _embed(params, inputs, cfg)
     if cfg.family == "ssm":
@@ -233,7 +236,8 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig):
         return logits_fn(params, hidden, cfg), {"ssm": states}
     new = []
     for p_l, c, w in zip(params["blocks"], caches["kv"], layer_windows(cfg)):
-        x, c = transformer_block_decode(p_l, x, c, cfg, window=w)
+        x, c = transformer_block_decode(p_l, x, c, cfg, window=w,
+                                        donate=donate)
         new.append(c)
     hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return logits_fn(params, hidden, cfg), {"kv": new}

@@ -164,7 +164,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 10
     names = {os.path.relpath(p, REPO) for p in files}
     assert {"src/repro_torch/models/ssm.py",
-            "src/repro_torch/kernels/mamba_scan.py"} <= names
+            "src/repro_torch/kernels/mamba_scan.py",
+            "src/repro_torch/kernels/paged_decode.py",
+            "src/repro_torch/configs/nemotron4_15b.py",
+            "src/repro_torch/configs/minicpm_2b.py",
+            "src/repro_torch/configs/granite_34b.py"} <= names
     for path in files:
         for mod, level in _imports(path):
             top = mod.split(".")[0]

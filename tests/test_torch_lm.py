@@ -80,7 +80,8 @@ def test_config_matches_the_reference():
         assert t.param_count() == j.param_count()
     assert get_config("gemma2-2b").param_count() == 2_614_222_080
     assert get_config("gemma2-2b", True).vocab_padded == 256
-    assert ARCH_IDS == ("gemma2-2b", "falcon-mamba-7b")
+    assert ARCH_IDS == ("gemma2-2b", "falcon-mamba-7b", "nemotron-4-15b",
+                        "minicpm-2b", "granite-34b")
 
 
 @pytest.mark.parametrize("arch", sorted(registry.NOT_PORTED))
