@@ -25,7 +25,34 @@ caught:
    the two runs up.
 6. fused ≡ unfused at n = 11 (bit-identical words), kernels ≡ plain
    versions at n = 9, both on the card.
-7. K6 (flash attention) parity against its plain version on the card,
+7. K4 (the 2-bit gather) and the distance oracle (``phase_oracle``):
+   a. K4 bit-exact against its plain version at the JAX tests' (W, M)
+      (indices in [-50, 16W + 50)), misaligned, and empty (no launch),
+      all-negative and all-past-the-end batches;
+   b. main path of the serving tier, every count set to 0 just before
+      and read just after: ``apps.pancake_bits.publish`` (n = 12, 16
+      chunks; ``label_distances_mod3`` on the card, K1 15, K2 16, K3 4
+      times: level sizes == the BFS's of 5., diameter 14, the per-code
+      counts hold), a ``DistanceOracle`` that holds the artifact,
+      ``codes`` (one K4 launch per touched chunk), ``paths`` and
+      ``distance`` of 4096 ranks, every path held structurally (length
+      d + 1, neighbours, ends at the start); each K4 call of the run held
+      bit for bit to the plain version on its chunk, and the codes to the
+      plain gather over the label words joined from the chunks;
+   c. K4 on those 29,937,600 words at M = 4096 and 1,048,576 random
+      ranks, bit-exact, a planted fault (one field flipped) caught, and
+      its device time (a fresh batch each repetition) beside its bound
+      (bytes: 8M plus 32 B for each distinct sector the batch touches)
+      and the plain version's;
+   d. queries/s and K4 launches a batch of ``codes`` (M = 4096 and
+      1,048,576), ``distance`` and ``paths`` (M = 4096); the same at 20%
+      of the artifact, with the ``oracle`` counters and resident_peak ≤
+      budget; the rle2 publish (identical chunk_sha256 and codes);
+   e. n = 10: the labels through the kernels == through their plain
+      versions on the card (``impl="ref"``: levels and words) == the
+      published chunks; ``distance`` of all 3,628,800 ranks == a plain
+      BFS distance table made on the card.
+8. K6 (flash attention) parity against its plain version on the card,
    float32 (atol = rtol = 2e-5, never TF32) and bfloat16 (2e-2), the
    tolerances of ``tests/test_kernels.py:41-42,57-58``, and per (batch,
    head) ‖got − want‖ ≤ 1e-2 ‖want‖; K6 with its LSE output gives the
@@ -34,7 +61,7 @@ caught:
    ``tests/test_kernels.py:16-26``, head_dim 256 with window 4096 and
    softcap 50 at Sq = Skv = 4100 with GQA 1, 2 and 4, Sq = 1, head_dim 12
    and 100, rows that see no key; contiguous and as strided views.
-8. gemma2-2b FULL in bfloat16, params from ``lm.init_params`` on a seeded
+9. gemma2-2b FULL in bfloat16, params from ``lm.init_params`` on a seeded
    generator (``phase_lm``):
    a. main path: ``lm.prefill`` over 1 × 32768 tokens (``prefill_32k``
       with its global batch of 32 cut to 1), nothing wrapped around it,
@@ -67,23 +94,25 @@ caught:
    g. ``python -m repro_torch.launch.serve --arch gemma2-2b`` with its
       defaults: 4 requests, 8-token prompts, 12 new tokens each (43 decode
       steps, 13 K8 launches each).
-9. K7 (flash-attention backward) parity against its plain version:
+10. K7 (flash-attention backward) parity against its plain version:
    every case of ``tests/test_kernels.py:332-339``, head_dim 256 with
    window 4096 and softcap 50 at 8192 rows with GQA 1, 2 and 4, the train
-   shape, Sq != Skv, rows that see no key, head_dims 12 and 100; float32
+   shape, Sq != Skv, rows that see no key, head_dims 12 and 100, and the
+   dense configs' layouts (head 128 at groups 6 and 48, head 64 at group
+   1); float32
    elementwise 3e-4, bfloat16 per (batch, head) 1e-2 for each of dq, dk,
    dv; contiguous and strided; two runs give the same bits; the bf16
    check also holds at logits of std 16 and 4; three planted faults, each
    with finite output, must break the bf16 limit 2x: the backward without
    the softcap at logits of std 4, without the term D = rowsum(dO ∘ O),
    and with the window one 32-key tile short.
-10. K7 and K6-with-LSE times at the train shape and at 8192 rows with the
+11. K7 and K6-with-LSE times at the train shape and at 8192 rows with the
    window cutting, beside the bound, the plain version and the library
    call (``flex_attention``, compiled: its backward alone, and its forward
    with the LSE; each held to the kernel's limits against the kernel);
    with the softcap off, scaled_dot_product_attention's backward and
    forward beside K7 and K6-with-LSE.
-11. gemma2-2b training (``phase_training``):
+12. gemma2-2b training (``phase_training``):
    a. main path: ``runtime.train_loop.train`` on FULL, float32 master
       params and bfloat16 compute, remat on, 1 × 4096 tokens a step
       (``train_4k`` with its global batch of 256 cut to 1), 6 steps,
@@ -102,7 +131,7 @@ caught:
    d. SMOKE (float32, head_dim 12) on the card: the loss decreases over
       15 steps, and a crash at step 7 with a checkpoint every 3 steps
       replays to the uninterrupted final loss within rtol 1e-5.
-12. K9 (selective scan) and falcon-mamba-7b (``phase_falcon_mamba``):
+13. K9 (selective scan) and falcon-mamba-7b (``phase_falcon_mamba``):
    a. K9 parity against its plain version (the sequential form, with the
       final state) on the card: the cases of ``tests/test_kernels.py:
       85-90`` (L = 100 unaligned) and ``:112-127``, SMOKE's Di 64 / N 4,
@@ -138,7 +167,7 @@ caught:
       in float32;
    i. ``python -m repro_torch.launch.serve --arch falcon-mamba-7b`` with
       its defaults.
-13. K8 (paged decode attention) and the dense configs (``phase_dense``):
+14. K8 (paged decode attention) and the dense configs (``phase_dense``):
    a. K8 parity against its plain version on the card: the cases of
       ``tests/test_kernels.py:402-406``, groups 1, 2, 6 and 48 at head
       dims 64, 128 and 256, pages of 8, 16 and 128, the four models'
@@ -173,13 +202,16 @@ caught:
    c. minicpm-2b FULL in bfloat16 (MHA, head_dim 64): a 4096-token
       prefill (40 K6 launches), K8 on a captured decode layer and its
       time, 16 decode steps (40 K8 launches a step), the Server.
-14. the ``kernels`` JSON line (K1–K3, K6, K6-with-LSE, K7, K8 and K9), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+15. the ``to_port`` line (K5), the ``kernels`` JSON line (K1–K4, K6,
+   K6-with-LSE, K7, K8 and K9), the card line, and last ``{"ok": true, "device": {...}}``.
 """
+import contextlib
+import itertools
 import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -211,6 +243,7 @@ from repro_torch import tree as T  # noqa: E402
 from repro_torch.data.pipeline import batch_to_torch, make_batch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import paged  # noqa: E402
+from repro_torch.core.disk import oracle as O  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.runtime import (FaultInjector, TrainSettings,  # noqa: E402
                                  make_train_step, train)
@@ -230,7 +263,7 @@ KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
     ("lut_count", "src/repro/kernels/bitpack.py:90"),
 ]
 MAX_ERR = {name: 0 for name, _ in KERNELS}
-MAX_ERR.update(flash_attention=0.0, flash_attention_lse=0.0,
+MAX_ERR.update(gather2=0, flash_attention=0.0, flash_attention_lse=0.0,
                flash_attention_bwd=0.0, mamba_scan=0.0,
                paged_decode_attention=0.0)
 MAX_REL = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
@@ -571,7 +604,7 @@ def phase_main_path(dev):
     expect(len(sizes) == 15 and sum(sizes) == total, sizes)
     expect(len(sizes) - 1 == P.DIAMETERS[n] == 14, sizes)
     expect(fused == {"mark_rotate_count": 15, "scatter_mark": 1,
-                     "lut_count": 0}, fused)
+                     "lut_count": 0, "gather2": 0}, fused)
     expect(BA.count_value(bits, BA.DONE, total) == total, "unreached states")
     levels = []
     expands = [s for s in spans if s["sid"] == "bfs.expand"]
@@ -587,7 +620,7 @@ def phase_main_path(dev):
     expect(sizes_u == sizes, (sizes_u, sizes))
     expect(torch.equal(bits_u.data, bits.data), "fused and unfused differ")
     expect(unfused == {"mark_rotate_count": 0, "scatter_mark": 16,
-                       "lut_count": 15}, unfused)
+                       "lut_count": 15, "gather2": 0}, unfused)
     print(f"main path: pancake n=12 unfused, {secs_u:.3f} s wall, "
           f"launches {unfused}; levels and words == fused")
     print(json.dumps({"main_path": {
@@ -595,7 +628,7 @@ def phase_main_path(dev):
         "states_per_s": total / secs, "peak_bytes": peak,
         "launches": fused, "unfused_wall_s": secs_u,
         "unfused_launches": unfused, "levels": levels}}))
-    return {k: fused[k] + unfused[k] for k in fused}
+    return {k: fused[k] + unfused[k] for k in fused}, sizes
 
 
 def phase_equivalence(dev) -> None:
@@ -613,6 +646,334 @@ def phase_equivalence(dev) -> None:
     expect(torch.equal(bk.data, br.data), "kernel and plain words differ")
     print("equivalence: n=11 fused == unfused (levels and words), "
           "n=9 kernels == plain versions on the card")
+
+
+# ------------------------------------------------ distance oracle (K4)
+
+K4_REPLACES = "src/repro/kernels/bitpack.py:389"
+# (W, M) of the JAX tests, tests/test_kernels.py:240-244
+K4_TEST_SHAPES = [(1000, 4096), (64, 7), (4096, 20000)]
+ORACLE_N = 12
+ORACLE_BATCHES = (4096, 1 << 20)     # a serving batch, and a bulk one
+ORACLE_SMALL_BUDGET = 0.2            # of the artifact, as benchmarks/serve.py
+ORACLE_REPS = 5
+ORACLE_EXACT_N = 10                  # every rank against a BFS table
+
+
+def k4_check(words, idx, what, got=None) -> None:
+    """K4 (or ``got``, a result K4 gave) against its plain version on the
+    same inputs, bit for bit."""
+    if got is None:
+        got = K.bitpack_gather2(words, idx)
+    want = R.bitpack_gather2_ref(words, idx)
+    torch.cuda.synchronize()
+    expect(got.dtype == torch.int32 and got.shape == idx.shape, what)
+    err = int((got - want).abs().max()) if got.numel() else 0
+    MAX_ERR["gather2"] = max(MAX_ERR["gather2"], err)
+    if err:
+        raise AssertionError(f"gather2 disagrees with its plain version "
+                             f"({what}): max abs err {err}")
+
+
+def phase_k4_parity_edges(dev) -> None:
+    rng = np.random.default_rng(4)
+    for w, m in K4_TEST_SHAPES:
+        words = random_words(rng, w + 1, dev)
+        idx = torch.from_numpy(rng.integers(-50, 16 * w + 50, m + 1)
+                               .astype(np.int32)).to(dev)
+        k4_check(words[:w], idx[:m], f"W={w} M={m}")
+        k4_check(words[1:], idx[1:], f"W={w} M={m} misaligned")
+    words = random_words(rng, 10, dev)
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    for idx, what in ((empty, "empty"),
+                      (torch.full((5,), -3, dtype=torch.int32, device=dev),
+                       "all negative"),
+                      (torch.full((3,), 16 * 10 + 7, dtype=torch.int32,
+                                  device=dev), "all past the end")):
+        k4_check(words, idx, what)
+    before = K.LAUNCHES["gather2"]
+    K.bitpack_gather2(words, empty)
+    expect(K.LAUNCHES["gather2"] == before, "an empty batch launched K4")
+    print("parity: K4 bit-exact at the JAX test shapes (indices in [-50, "
+          "16W + 50)), misaligned, empty (no launch), all negative, all "
+          "past the end")
+
+
+@contextlib.contextmanager
+def k4_held_to_plain(calls):
+    """Wraps ``ops.bitpack_gather2`` (the call the oracle makes) for one
+    run: each result K4 gives is held bit for bit against the plain version
+    on the same chunk words and chunk-local indices, and its batch size is
+    appended to ``calls``.  The launch count stays in the kernel's wrapper,
+    and the plain version launches nothing that it counts."""
+    orig = OPS.bitpack_gather2
+
+    def held(packed, idx, **kw):
+        got = orig(packed, idx, **kw)
+        k4_check(packed, idx, f"oracle call {len(calls)}, M={idx.numel()}",
+                 got=got)
+        calls.append(idx.numel())
+        return got
+    OPS.bitpack_gather2 = held
+    try:
+        yield calls
+    finally:
+        OPS.bitpack_gather2 = orig
+
+
+def published_words(orc) -> torch.Tensor:
+    """The label words of an open oracle whose chunks hold a whole number
+    of words, joined from its cache's chunk words (each chunk of pancake
+    n = 10 and 12 holds exactly n!/16 fields)."""
+    expect(orc.chunk_elems % 16 == 0, "chunks that share a word")
+    return torch.cat([orc.cache.get(c).words for c in range(orc.n_chunks)])
+
+
+def random_ranks(rng, total, m, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, total, m)).to(dev)
+
+
+def k4_bound(words, idx) -> dict:
+    """Bytes at 3.35 TB/s: the M int32 indices read and the M int32 fields
+    written once, and each distinct 32-byte sector of the words that the
+    valid indices touch read once (a sector is 8 words, 128 fields)."""
+    i = idx.long()
+    i = i[(i >= 0) & (i < 16 * words.shape[0])]
+    sectors = int(torch.unique(i >> 7).numel())
+    nbytes = 8 * idx.numel() + 32 * sectors
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "sectors": sectors}
+
+
+def phase_k4_serving(words, total, dev) -> dict:
+    """K4 on the n = 12 label words at M = 4096 and M = 1,048,576 random
+    ranks: bit-exact against its plain version, a planted fault (one field
+    of the words flipped) caught, and its device time (a fresh batch each
+    repetition, so the words come cold from memory as a new query's do)
+    beside its bound and the plain version's."""
+    rng = np.random.default_rng(12)
+    out = {}
+    for m in ORACLE_BATCHES:
+        batches = [random_ranks(rng, total, m, dev).to(torch.int32)
+                   for _ in range(REPS + 1)]
+        idx = batches[0]
+        k4_check(words, idx, f"n=12 words, M={m}")
+        e = int(idx[0])
+        faulted = words.clone()
+        faulted[e >> 4] ^= 1 << (2 * (e & 15))
+        got = K.bitpack_gather2(faulted, idx)
+        want = R.bitpack_gather2_ref(words, idx)
+        caught = int((got - want).abs().max())
+        expect(caught > 0, f"the K4 check misses a flipped field (M={m})")
+        del faulted
+        fresh = itertools.cycle(batches)
+        ms = device_ms(lambda: K.bitpack_gather2(words, next(fresh)))
+        plain = device_ms(lambda: R.bitpack_gather2_ref(words, idx),
+                          reps=PLAIN_REPS)
+        res = {"ms": ms, "plain_ms": plain, **k4_bound(words, idx),
+               "planted_fault_err": caught}
+        out[m] = res
+        print(f"time: K4 n={ORACLE_N} words ({words.shape[0]}), M={m}: "
+              f"{ms:.4f} ms on the device, bound {res['bound_ms']:.4f} ms (bytes: "
+              f"{res['bytes']} = 8M + 32 x {res['sectors']} sectors at 3.35 "
+              f"TB/s), {res['bound_ms'] / ms:.1%} of the bound, "
+              f"{m / ms * 1e3:.3e} fields/s; plain {plain:.4f} ms (median "
+              f"of {PLAIN_REPS}); library none; planted fault (one field "
+              f"flipped) read {caught}")
+    return out
+
+
+def check_paths(dist, chains, ranks, start, gen) -> None:
+    """Each chain: length d + 1, begins at its rank, ends at the start
+    rank, and each step goes to a neighbour."""
+    lens = [ch.numel() for ch in chains]
+    expect(lens == [max(d, 0) + 1 for d in dist.tolist()], "path lengths")
+    expect(torch.equal(torch.stack([ch[0] for ch in chains]), ranks),
+           "paths begin at their ranks")
+    reached = [ch for ch, d in zip(chains, dist.tolist()) if d >= 0]
+    expect(all(int(ch[-1]) == start for ch in reached),
+           "paths end at the start rank")
+    a = torch.cat([ch[:-1] for ch in reached])
+    b = torch.cat([ch[1:] for ch in reached])
+    expect(bool((gen(a) == b[:, None]).any(dim=1).all()),
+           "a path steps to a non-neighbour")
+
+
+def serve_batches(fn, rng, total, m, dev, reps=ORACLE_REPS) -> dict:
+    """Median wall (host clock, synchronised) of ``fn`` over ``reps`` fresh
+    batches of m random ranks, and its K4 launches per batch."""
+    fn(random_ranks(rng, total, m, dev))                   # warm-up
+    torch.cuda.synchronize()
+    before, walls = K.LAUNCHES["gather2"], []
+    for _ in range(reps):
+        ranks = random_ranks(rng, total, m, dev)
+        t0 = time.perf_counter()
+        fn(ranks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    return {"m": m, "wall_s": wall, "queries_per_s": m / wall,
+            "k4_launches_per_batch": (K.LAUNCHES["gather2"] - before) / reps}
+
+
+def phase_oracle_serve(root, n, sizes, dev):
+    """The main path of the serving tier: pancake n = 12 labelled and
+    published through the app's ``publish`` (level sizes == the BFS's, the
+    per-code counts hold) and served by ``DistanceOracle``, with every
+    count set to 0 just before and read just after, and every K4 call of
+    the run held to the plain version; then K4 on the published words
+    (``phase_k4_serving``), the readings at a budget that holds the
+    artifact and at 20% of it, and the compressed artifact.  Returns the
+    readings and K4's."""
+    total, start = math.factorial(n), P.start_rank(n)
+    gen = P.neighbors(n)
+    rng = np.random.default_rng(7)
+    art = os.path.join(root, f"pancake{n}")
+    reset_all_launches()
+    O.reset_stats()
+    t0 = time.perf_counter()
+    meta = P.publish(n, sizes, art, device=dev)
+    publish_s = time.perf_counter() - t0
+    expect(meta["level_sizes"] == sizes and meta["n_chunks"] == 16
+           and len(sizes) - 1 == P.DIAMETERS[n] == 14, meta)
+    label_launches = dict(K.LAUNCHES)
+    expect(label_launches == {"mark_rotate_count": len(sizes),
+                              "scatter_mark": len(sizes) + 1,
+                              "lut_count": 4, "gather2": 0}, label_launches)
+    full = O.DistanceOracle(art, cache_bytes=1 << 30, gen_neighbors=gen,
+                            device=dev)
+    probe = random_ranks(rng, total, ORACLE_BATCHES[0], dev)
+    before = K.LAUNCHES["gather2"]
+    with k4_held_to_plain([]) as calls:
+        codes = full.codes(probe)
+        touched = int(torch.unique(probe // full.chunk_elems).numel())
+        expect(K.LAUNCHES["gather2"] - before == touched == len(calls),
+               "codes launches K4 once per touched chunk")
+        dist, chains = full.paths(probe)
+        check_paths(dist, chains, probe, start, gen)
+        expect(torch.equal(full.distance(probe), dist), "distance != paths")
+    expect(bool(((dist % 3 + 1) == codes.long()).all()),
+           "a distance disagrees with its code")
+    launches = dict(K.LAUNCHES)
+    expect(launches["gather2"] > 0 and launches["gather2"] == len(calls),
+           (launches, len(calls)))
+    words = published_words(full)
+    expect(words.numel() == -(-total // 16), words.shape)
+    expect(torch.equal(codes.int(), R.bitpack_gather2_ref(
+        words, probe.int())), "codes != the plain gather over the label words")
+    art_bytes = full.artifact_bytes
+    print(f"oracle: labelled and published pancake n={n} in {publish_s:.3f} "
+          f"s ({total / publish_s:.0f} states/s; {art_bytes} bytes in "
+          f"{meta['n_chunks']} chunks), level sizes == the BFS's, diameter "
+          f"{P.DIAMETERS[n]}, per-code counts hold; launches {launches} (the "
+          f"publish alone {label_launches}); {touched} K4 launches for "
+          f"{probe.numel()} codes; each of the run's {len(calls)} K4 calls "
+          f"(M {min(calls)}..{max(calls)}) == the plain version, and the "
+          f"codes == the plain gather over the joined label words; every "
+          f"path of the sample holds (length d + 1, neighbours, ending at "
+          f"the start; longest {int(dist.max())})")
+    res = {"publish_s": publish_s, "artifact_bytes": art_bytes,
+           "launches": launches, "k4_launches_first_codes": touched,
+           "k4_calls_held": len(calls)}
+    k4 = phase_k4_serving(words, total, dev)
+    del words
+    m = ORACLE_BATCHES[0]
+    for b in ORACLE_BATCHES:
+        res[f"codes_{b}"] = serve_batches(full.codes, rng, total, b, dev)
+    res[f"distance_{m}"] = serve_batches(full.distance, rng, total, m, dev,
+                                         reps=3)
+    res[f"paths_{m}"] = serve_batches(full.paths, rng, total, m, dev,
+                                      reps=3)
+    full.close()
+    for key, r in list(res.items()):
+        if isinstance(r, dict) and "queries_per_s" in r:
+            print(f"oracle: {key} at a budget holding the artifact: "
+                  f"{r['queries_per_s']:.1f} queries/s ({r['wall_s']:.4f} s "
+                  f"a batch of {r['m']}), {r['k4_launches_per_batch']:.1f} "
+                  f"K4 launches a batch")
+    budget = int(ORACLE_SMALL_BUDGET * art_bytes)
+    O.reset_stats()
+    with O.DistanceOracle(art, cache_bytes=budget, gen_neighbors=gen,
+                          device=dev) as small:
+        expect(torch.equal(small.codes(probe), codes), "codes at 20%")
+        small_codes = serve_batches(small.codes, rng, total, m, dev)
+        small_dist = serve_batches(small.distance, rng, total, m, dev,
+                                   reps=1)
+        stats = dict(O.STATS)
+    expect(stats["resident_peak"] <= budget and stats["evictions"] > 0
+           and O.STATS["resident_bytes"] == 0, (stats, budget))
+    print(f"oracle: budget {budget} bytes (20% of the artifact): codes "
+          f"{small_codes['queries_per_s']:.1f} queries/s, distance "
+          f"{small_dist['queries_per_s']:.1f} queries/s (batches of {m}); "
+          f"counters {stats}; resident_peak <= budget")
+    t0 = time.perf_counter()
+    packed = P.publish(n, sizes, art + "_rle2", compress=True, device=dev)
+    compress_s = time.perf_counter() - t0
+    expect(packed["chunk_sha256"] == meta["chunk_sha256"]
+           and packed["format"] == 2, "the compressed publish differs")
+    stored = sum(os.path.getsize(os.path.join(art + "_rle2", "v000001",
+                                              f"b{c:06d}.rmz"))
+                 for c in range(packed["n_chunks"]))
+    with O.DistanceOracle(art + "_rle2", cache_bytes=1 << 30,
+                          device=dev) as rle:
+        expect(torch.equal(rle.codes(probe), codes), "rle2 codes differ")
+    print(f"oracle: compressed publish in {compress_s:.3f} s, {stored} "
+          f"bytes stored for {art_bytes}; identical chunk_sha256 and codes")
+    res.update(small_budget=budget, small_codes=small_codes,
+               small_distance=small_dist, small_stats=stats,
+               compressed_publish_s=compress_s, compressed_bytes=stored)
+    return res, k4
+
+
+def phase_oracle_exact(root, dev, n=ORACLE_EXACT_N) -> dict:
+    """Every rank of pancake n = 10 through the oracle's ``distance`` on the
+    card, against a plain BFS distance table made there; and the labelling
+    through the kernels (K1 + K2, K3) against the same labelling through
+    their plain versions on the card (``impl="ref"``): the same level sizes
+    and bit-identical label words, which are the published chunks'."""
+    total, start = math.factorial(n), [P.start_rank(n)]
+    art = os.path.join(root, f"pancake{n}")
+    P.publish(n, None, art, device=dev)
+    ref = P.ram_distances(n, dev)
+    sk, wk = O.label_distances_mod3(total, start, P.neighbors(n), device=dev)
+    sr, wr = O.label_distances_mod3(total, start, P.neighbors(n),
+                                    impl="ref", device=dev)
+    expect(sk == sr and torch.equal(wk, wr),
+           f"n={n}: kernel and plain labels differ")
+    with O.DistanceOracle(art, cache_bytes=1 << 30,
+                          gen_neighbors=P.neighbors(n), device=dev) as orc:
+        expect(torch.equal(published_words(orc), wk),
+               f"n={n}: published chunks != the label words")
+        t0 = time.perf_counter()
+        dist = orc.distance(torch.arange(total, device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sizes = orc.level_sizes
+    expect(torch.equal(dist, ref), f"n={n}: oracle distances != BFS table")
+    expect(sizes == torch.bincount(ref).tolist() == sk
+           and len(sizes) - 1 == P.DIAMETERS[n], sizes)
+    print(f"oracle: n={n}, labels through the kernels == through the plain "
+          f"versions on the card (levels and words) == the published chunks;"
+          f" all {total} distances == the plain BFS table on the card "
+          f"({secs:.3f} s, {total / secs:.0f} queries/s in one batch)")
+    return {"n": n, "states": total, "wall_s": secs,
+            "queries_per_s": total / secs}
+
+
+def phase_oracle(dev, sizes) -> dict:
+    """K4 parity, then the serving tier at n = 12 (labels, publish, K4 on
+    the published words, serving), and exactness at n = 10."""
+    phase_k4_parity_edges(dev)
+    root = tempfile.mkdtemp(prefix="oracle_")
+    try:
+        serve, k4 = phase_oracle_serve(root, ORACLE_N, sizes, dev)
+        exact = phase_oracle_exact(root, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"k4": {str(m): r for m, r in k4.items()}, "serve": serve,
+           "exact": exact}
+    print(json.dumps({"oracle": out}))
+    return out
 
 
 # ------------------------------------------------- LM serving (gemma2-2b)
@@ -1189,6 +1550,11 @@ K7_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
     (1, 8, 4, 1, 300, 256, False, None, 50.0),
     (2, 4, 2, 70, 70, 12, True, 8, 50.0),
     (1, 3, 1, 130, 150, 100, False, 20, None),
+    # the dense configs' layouts: nemotron-4-15b (head 128, group 6),
+    # granite-34b (head 128, MQA: group 48), minicpm-2b (head 64, MHA)
+    (1, 12, 2, 512, 512, 128, True, None, None),
+    (1, 48, 1, 512, 512, 128, True, None, None),
+    (1, 4, 4, 512, 512, 64, True, None, None),
 ]
 K7_MODEL_CASE = K7_CASES[5]
 # q and k drawn with this σ give logits of std σ² = 16, where the softcap
@@ -2633,29 +2999,17 @@ def phase_dense(dev) -> dict:
     return {"nemotron": nemotron, "minicpm": minicpm}
 
 
-K4_REPLACES = "src/repro/kernels/bitpack.py:389"
 K5_REPLACES = "src/repro/kernels/bucket_scatter.py:65"
-# The shapes of the JAX tests: K4 (W, M) at tests/test_kernels.py:240-244,
-# K5 (N, M, D) at :129-134.
-K4_TEST_SHAPES = [(1000, 4096), (64, 7), (4096, 20000)]
+# The shapes of K5's JAX tests, (N, M, D) at tests/test_kernels.py:129-134.
 K5_TEST_SHAPES = [(16, 100, 8), (64, 37, 4), (8, 256, 16), (32, 5, 8)]
 
 
 def to_port_bounds() -> list:
-    """The least time the card could take for the two kernels still to
-    port, at the shapes of their JAX tests: bytes at 3.35 TB/s (neither
-    does arithmetic worth a bound).  K4 reads W packed words and M int32
-    indices and writes M int32 fields; K5 reads and writes the (N, D)
-    float32 table and reads M int32 indices and the (M, D) float32
-    payload."""
+    """The least time the card could take for K5, the kernel still to
+    port, at the shapes of its JAX tests: bytes at 3.35 TB/s (it does no
+    arithmetic worth a bound).  It reads and writes the (N, D) float32
+    table and reads M int32 indices and the (M, D) float32 payload."""
     out = []
-    for w, m in K4_TEST_SHAPES:
-        nbytes = 4 * w + 4 * m + 4 * m
-        out.append({"name": "bitpack_gather2", "replaces": K4_REPLACES,
-                    "status": "to port", "shape": f"W {w}, M {m}",
-                    "bytes": nbytes,
-                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "bound_by": "bytes"})
     for n, m, d in K5_TEST_SHAPES:
         nbytes = 2 * 4 * n * d + 4 * m + 4 * m * d
         out.append({"name": "bucket_scatter_add", "replaces": K5_REPLACES,
@@ -2677,8 +3031,10 @@ def main() -> None:
     times = phase_times(data, tgt)
     del data, tgt
     torch.cuda.empty_cache()
-    launches = phase_main_path(dev)
+    launches, sizes = phase_main_path(dev)
     phase_equivalence(dev)
+    torch.cuda.empty_cache()
+    oracle = phase_oracle(dev, sizes)
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
@@ -2700,6 +3056,24 @@ def main() -> None:
                 "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
                for name, replaces in KERNELS]
+    t4 = oracle["k4"]
+    big, small = (t4[str(m)] for m in reversed(ORACLE_BATCHES))
+    serve_ = oracle["serve"]
+    kernels.append({
+        "name": "bitpack_gather2", "route": "cuda", "source": SOURCE,
+        "replaces": K4_REPLACES, "launches": serve_["launches"]["gather2"],
+        "max_abs_err": MAX_ERR["gather2"], "ms": big["ms"],
+        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"], "library_ms": None,
+        "library": "none: no one PyTorch call gathers 2-bit fields",
+        "shape": f"pancake n = 12 label words (29937600), "
+                 f"M = {ORACLE_BATCHES[1]} random ranks",
+        "ms_4096": small["ms"], "plain_ms_4096": small["plain_ms"],
+        "bound_ms_4096": small["bound_ms"],
+        "launches_per_codes_batch": serve_[f"codes_{ORACLE_BATCHES[0]}"][
+            "k4_launches_per_batch"],
+        "launches_per_distance_batch": serve_[
+            f"distance_{ORACLE_BATCHES[0]}"]["k4_launches_per_batch"]})
     g, loc = k6["global"], k6["local"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": K6_SOURCE,

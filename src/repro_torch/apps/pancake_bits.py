@@ -3,9 +3,15 @@
 Port of the Tier J part of ``examples/pancake_bits.py``: each stack of n
 pancakes is a permutation, its Myrvold–Ruskey rank indexes a packed 2-bit
 array, and every level is one fused kernel pass over that array.
+``--publish DIR`` then seals the search as a distance-oracle artifact
+(``core/disk/oracle.py``), labelled on the device; ``--check`` (n ≤ 8)
+holds the level sizes and the published oracle's distances against an
+in-memory BFS distance table.
 
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 12
-  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 7 --device cpu
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 12 --publish DIR
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 7 --device cpu \
+      --publish DIR --check
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 11 --unfused
 
 n ≤ 12: the packed kernels index elements with int32 (16·W < 2³¹).
@@ -18,11 +24,13 @@ import argparse
 import math
 import time
 
+import numpy as np
 import torch
 
 from .. import device as _device
 from ..core import constructs as C
 from ..core import ranking as R
+from ..core.disk import oracle as O
 
 DIAMETERS = {4: 4, 5: 5, 6: 7, 7: 8, 8: 9, 9: 10, 10: 11, 11: 13, 12: 14}
 
@@ -50,6 +58,79 @@ def neighbors(n: int) -> PancakeNeighbors:
 def start_rank(n: int) -> int:
     """Rank of the sorted stack."""
     return int(R.rank(torch.arange(n).unsqueeze(0))[0])
+
+
+def ram_distances(n: int, device=None) -> torch.Tensor:
+    """In-memory BFS distance table of all n! ranks (-1 = unreached), int64
+    on ``device``: the independent check of the oracle's distances (the
+    counterpart of ``examples/pancake_bits.py:94-108``)."""
+    dev = _device.resolve(device)
+    gen = neighbors(n)
+    dist = torch.full((math.factorial(n),), -1, dtype=torch.int64,
+                      device=dev)
+    frontier = torch.tensor([start_rank(n)], dtype=torch.int64, device=dev)
+    dist[frontier] = 0
+    d = 0
+    while frontier.numel():
+        nb = torch.unique(gen(frontier).reshape(-1))
+        nb = nb[dist[nb] < 0]
+        d += 1
+        dist[nb] = d
+        frontier = nb
+    return dist
+
+
+def oracle_chunk_elems(total: int) -> int:
+    """About 16 chunks whatever n, so that a cache budget below the artifact
+    evicts (a multiple of 4, as the packing needs), as the reference's
+    ``examples/pancake_bits.py`` chunks its artifacts."""
+    return max(4, (-(-total // 16) + 3) // 4 * 4)
+
+
+def publish(n: int, sizes, publish_dir: str, compress: bool = False,
+            device=None) -> dict:
+    """Seal a completed pancake search as a distance-oracle artifact."""
+    meta = O.publish_oracle(
+        publish_dir, math.factorial(n), [start_rank(n)], neighbors(n),
+        level_sizes=sizes, chunk_elems=oracle_chunk_elems(math.factorial(n)),
+        compress=compress, device=device,
+        codec={"space": "pancake", "n": n, "ranking": "myrvold-ruskey"})
+    print(f"published distance oracle v{meta['version']:06d} -> "
+          f"{publish_dir} ({meta['n_chunks']} chunks, diameter "
+          f"{len(meta['level_sizes']) - 1}; serve it with "
+          "repro_torch.core.disk.oracle.DistanceOracle)")
+    return meta
+
+
+def check(n: int, sizes, publish_dir=None, device=None) -> None:
+    """Hold the level sizes, and the published oracle's distances, against
+    ``ram_distances`` (meant for n ≤ 8): every rank up to n = 7, 4096
+    sampled ones above."""
+    total = math.factorial(n)
+    ref = ram_distances(n, device)
+    hist = torch.bincount(ref[ref >= 0]).tolist()
+    if hist != list(sizes):
+        raise SystemExit(f"check: level sizes {list(sizes)} != the "
+                         f"in-memory BFS's {hist}")
+    print("check: level sizes match the in-memory BFS distance table")
+    if publish_dir is None:
+        return
+    with O.DistanceOracle(publish_dir, cache_bytes=1 << 16,
+                          gen_neighbors=neighbors(n), device=device) as orc:
+        if orc.level_sizes != list(sizes):
+            raise SystemExit("check: the published histogram drifted from "
+                             "the search's")
+        if total <= math.factorial(7):
+            sample = torch.arange(total, dtype=torch.int64)
+        else:
+            sample = torch.from_numpy(np.random.default_rng(0).choice(
+                total, 4096, replace=False).astype(np.int64))
+        sample = sample.to(ref.device)
+        if not torch.equal(orc.lookup(sample), ref[sample]):
+            raise SystemExit("check: oracle distances disagree with the "
+                             "in-memory BFS")
+    print(f"check: oracle distances match the in-memory BFS on "
+          f"{sample.numel()} ranks")
 
 
 def run(n: int, fused: bool = True, device=None):
@@ -94,11 +175,32 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--publish", default=None, metavar="DIR",
+                    help="after the search, seal it as an immutable "
+                         "versioned distance-oracle artifact under DIR "
+                         "(labelled on the device)")
+    ap.add_argument("--compress", action="store_true",
+                    help="seal --publish artifacts with rle2-coded chunks "
+                         "(format 2)")
+    ap.add_argument("--check", action="store_true",
+                    help="n <= 8: hold the level sizes, and with --publish "
+                         "the oracle's distances, against an in-memory BFS "
+                         "distance table (the reference's cross-check "
+                         "against the sorted-list engine waits for that "
+                         "engine's port, ROADMAP item 6)")
     args = ap.parse_args(argv)
+    if args.compress and args.publish is None:
+        ap.error("--compress seals --publish artifacts; give --publish DIR")
+    if args.check and args.n > 8:
+        ap.error("--check needs n <= 8")
     sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
     want = DIAMETERS.get(args.n)
     if want is not None and len(sizes) - 1 != want:
         raise SystemExit(f"diameter {len(sizes) - 1} != known {want}")
+    if args.publish is not None:
+        publish(args.n, sizes, args.publish, args.compress, args.device)
+    if args.check:
+        check(args.n, sizes, args.publish, args.device)
 
 
 if __name__ == "__main__":

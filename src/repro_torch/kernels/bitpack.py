@@ -1,6 +1,6 @@
 """Wrappers of the Hopper bit-pack kernels (``csrc/bitpack.cu``).
 
-Port of ``repro/kernels/bitpack.py`` (K1–K3 of the kernel table in
+Port of ``repro/kernels/bitpack.py`` (K1–K4 of the kernel table in
 PERF.md).  Each wrapper checks dtype, device, contiguity and shape,
 allocates its outputs with ``torch.empty``, launches on the current CUDA
 stream and books one launch in ``LAUNCHES``.  For a tensor on the CPU it
@@ -26,7 +26,8 @@ MAX_FIELDS = 1 << 31
 
 #: Kernel launches per wrapper (launches only, never plain-version calls).
 LAUNCHES = obs.counters("kernels", {"mark_rotate_count": 0,
-                                    "scatter_mark": 0, "lut_count": 0})
+                                    "scatter_mark": 0, "lut_count": 0,
+                                    "gather2": 0})
 
 
 def reset_launches() -> None:
@@ -50,6 +51,8 @@ _SIGNATURES = {
     # in, out, n_words, idx, m, mark, only_if, lut, count_val, count, stream
     "roomy_mark_rotate_count": [_P, _P, _I64, _P, _I64, _I32, _I32, _I32,
                                 _I32, _P, _P],
+    # words, n_words, idx, m, out, stream
+    "roomy_gather2": [_P, _I64, _P, _I64, _P, _P],
 }
 _LIB = None
 
@@ -158,3 +161,18 @@ def bitpack_mark_rotate_count(packed: torch.Tensor, idx: torch.Tensor,
             mark, only_if, lut, count_val, cnt.data_ptr())
     LAUNCHES["mark_rotate_count"] += 1
     return out, cnt
+
+
+def bitpack_gather2(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K4: the 2-bit field at each element index, as (M,) int32 in 0..3.
+    Negative and ≥ 16·W indices give 0; duplicates are fine.  An empty
+    index tensor gives an empty result and launches nothing."""
+    if not _on_card(packed, idx):
+        return _ref.bitpack_gather2_ref(packed, idx)
+    out = torch.empty(idx.shape[0], dtype=torch.int32, device=packed.device)
+    if idx.shape[0] == 0:
+        return out
+    _launch("roomy_gather2", packed, packed.data_ptr(), packed.shape[0],
+            idx.data_ptr(), idx.shape[0], out.data_ptr())
+    LAUNCHES["gather2"] += 1
+    return out

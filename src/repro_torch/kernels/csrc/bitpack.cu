@@ -1,6 +1,7 @@
-// Hopper (sm_90a) kernels for the packed 2-bit arrays of the implicit BFS.
+// Hopper (sm_90a) kernels for the packed 2-bit arrays of the implicit BFS
+// and of the distance oracle's lookup.
 //
-// 16 two-bit fields per 32-bit word, field j at bits [2j, 2j+2).  The three
+// 16 two-bit fields per 32-bit word, field j at bits [2j, 2j+2).  The four
 // kernels replace the Pallas TPU kernels of repro/kernels/bitpack.py:
 //
 //   roomy_scatter_mark       K2  _scatter_mark_kernel (bitpack.py:142,
@@ -9,6 +10,9 @@
 //                                pallas_call at :115)
 //   roomy_mark_rotate_count  K1  _mark_rotate_count_kernel (bitpack.py:221,
 //                                pallas_call at :297)
+//   roomy_gather2            K4  _gather2_kernel (bitpack.py:327, wrapper
+//                                bitpack_gather2 at :389, pallas_call at
+//                                :426)
 //
 // What bounds them on an H100 is memory traffic, not arithmetic: a word
 // needs a dozen integer operations, far below the ~300 operations per byte
@@ -20,6 +24,10 @@
 // The marks are random single-word read-modify-writes, so for large M the
 // real limit is the L2 atomic rate; that is later work (tile-binned marks
 // in shared memory, ROADMAP).
+//   K4: read M indices, write M fields, and read each distinct 32-byte
+//      sector of the words that the indices touch -> 8M + 32*sectors
+// K4 is a random gather: at serving batch sizes it is bound by the
+// latency of the dependent index -> word load chain, not by bytes.
 //
 // Design, simple and right first:
 // * A mark is an atomicCAS loop that sets the field only while it still
@@ -37,6 +45,13 @@
 //   and count of every word in place.  All loads of the words go through
 //   L2 (__ldcg): phase 2 must see marks that other SMs made with atomics,
 //   and L1 is not coherent across SMs.
+// * K4 needs none of the TPU kernel's page table: there the host bins the
+//   queries by page so that one page at a time fits VMEM.  Here each
+//   thread takes four queries (one 16-byte load of indices when both
+//   buffers are 16-byte aligned), reads each word through the read-only
+//   path (__ldg), and writes its four fields with one 16-byte store.  The
+//   four word loads are independent, so a warp keeps 128 in flight.
+//   Negative and >= 16*W indices give 0; duplicates are harmless.
 //
 // Plain C interface, loaded with ctypes.  Each function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -169,6 +184,36 @@ mark_rotate_count_kernel(const uint32_t* in, uint32_t* out, long long n_words,
   block_add(lut_pass(out, out, n_words, vec, lut, cval, tid, stride), count);
 }
 
+__device__ __forceinline__ int32_t field2(const uint32_t* __restrict__ words,
+                                          long long cap, int32_t e) {
+  if (e < 0 || (long long)e >= cap) return 0;
+  return (int32_t)((__ldg(words + (e >> 4)) >> (2u * (uint32_t)(e & 15))) &
+                   3u);
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather2_kernel(const uint32_t* __restrict__ words, long long n_words,
+               const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+               long long m, int vec) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long cap = n_words * 16;
+  const long long n_vec = vec ? (m >> 2) : 0;
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  int4* out4 = reinterpret_cast<int4*>(out);
+  for (long long i = tid; i < n_vec; i += stride) {
+    const int4 e = __ldg(idx4 + i);
+    int4 r;
+    r.x = field2(words, cap, e.x);
+    r.y = field2(words, cap, e.y);
+    r.z = field2(words, cap, e.z);
+    r.w = field2(words, cap, e.w);
+    out4[i] = r;
+  }
+  for (long long i = (n_vec << 2) + tid; i < m; i += stride)
+    out[i] = field2(words, cap, __ldg(idx + i));
+}
+
 // Blocks of `kernel` that all SMs hold at once (occupancy x SM count).
 // Grids never exceed it: a block that waited for a second wave would
 // leave most of the card idle while it ran alone.
@@ -261,6 +306,18 @@ int roomy_mark_rotate_count(const void* in, void* out, long long n_words,
                                         dim3((unsigned int)resident),
                                         dim3(kThreads),
                                         args, 0, s));
+  return (int)cudaGetLastError();
+}
+
+int roomy_gather2(const void* words, long long n_words, const void* idx,
+                  long long m, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  long long resident = 0;
+  ROOMY_TRY(resident_blocks(gather2_kernel, &resident));
+  const int vec = aligned16(idx, out);
+  gather2_kernel<<<grid_for(vec ? (m + 3) / 4 : m, resident), kThreads, 0,
+                   s>>>((const uint32_t*)words, n_words,
+                        (const int32_t*)idx, (int32_t*)out, m, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
 flash attention with its gradient (``:39-85``), the selective scan
-(``:88-113``), the bit-pack kernels (``:129-170``) and paged decode
+(``:88-113``), the bit-pack kernels (``:129-185``) and paged decode
 attention (the kernel of ``repro/kernels/paged_decode.py``, which the
 reference's ops module leaves out).
 
@@ -62,6 +62,17 @@ def bitpack_mark_rotate_count(packed, idx, lut, count_val, *, mark=2,
     return _bp.bitpack_mark_rotate_count(packed, idx, lut, count_val,
                                          mark=mark, only_if=only_if,
                                          inplace=inplace)
+
+
+def bitpack_gather2(packed, idx, *, impl="auto"):
+    """The 2-bit field at each int32 element index, (M,) int32 in 0..3;
+    negative and out-of-range indices give 0 — the serving tier's batched
+    lookup (K4).  The reference's ``page_words`` / ``block_m`` and its host
+    page binning exist to stream one TPU page into VMEM per query block;
+    the Hopper kernel reads the words directly and needs neither."""
+    if _use_ref(impl, packed):
+        return _ref.bitpack_gather2_ref(packed, idx)
+    return _bp.bitpack_gather2(packed, idx)
 
 
 class _FlashAttention(torch.autograd.Function):

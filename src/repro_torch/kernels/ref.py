@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (``kernels/csrc/*.cu``).
 
-Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-281``,
+Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-294``,
 the attention functions of ``:23-123`` and the selective scans of
 ``:126-169`` (K9), plus the forward with its log-sum-exp and the backward
 of ``repro/kernels/flash_attention.py:100-111`` and
@@ -78,6 +78,19 @@ def bitpack_mark_rotate_count_ref(packed: torch.Tensor, idx: torch.Tensor,
     passes the fused kernel does in one launch."""
     marked = bitpack_scatter_mark_ref(packed, idx, mark, only_if)
     return bitpack_lut_count_ref(marked, lut, count_val)
+
+
+def bitpack_gather2_ref(packed: torch.Tensor, idx: torch.Tensor):
+    """Plain version of the 2-bit gather (K4): unpack every field, gather
+    the one at each index; negative and out-of-range indices give 0.
+    Returns (M,) int32."""
+    fields = unpack_fields(packed).reshape(-1)
+    idx = idx.to(torch.int64).reshape(-1)
+    if fields.numel() == 0:
+        return torch.zeros(idx.shape, dtype=torch.int32, device=idx.device)
+    ok = (idx >= 0) & (idx < fields.shape[0])
+    safe = idx.clamp(0, fields.shape[0] - 1)
+    return torch.where(ok, fields[safe], 0).to(torch.int32)
 
 
 # ------------------------------------------------------------- attention

@@ -1,6 +1,8 @@
 """Port parity: the plain versions behind the bit-pack kernel wrappers of
 ``repro_torch`` vs ``repro.kernels.ops.*(impl="ref")`` (and K3 vs its
-Pallas kernel in interpret mode).
+Pallas kernel in interpret mode), K1–K4.  K4's Pallas kernel is not run:
+under jax 0.9.0 its interpret mode raises (``pl.load``), so its plain
+version is held against ``impl="ref"`` and the disk tier's ``pack2``.
 
 Tolerance: none — every result is bit-packed or an integer count, so all
 comparisons are bit-exact.  Inputs come from ``np.random.default_rng`` and
@@ -159,5 +161,85 @@ def test_launch_counters_stay_zero_on_cpu():
     tbp.bitpack_lut_count(_t(words), ROTATE, 1)
     tbp.bitpack_scatter_mark(_t(words), idx)
     tbp.bitpack_mark_rotate_count(_t(words), idx, ROTATE, 1, inplace=True)
+    tbp.bitpack_gather2(_t(words), idx)
     assert tbp.LAUNCHES == {"mark_rotate_count": 0, "scatter_mark": 0,
-                            "lut_count": 0}
+                            "lut_count": 0, "gather2": 0}
+
+
+# ------------------------------------------------------------------- K4
+
+@pytest.mark.parametrize("w,m", [(1000, 4096), (64, 7), (4096, 20000)])
+def test_gather2_matches_jax(w, m):
+    """The JAX tests' shapes (tests/test_kernels.py:240-244), indices in
+    [-50, 16W + 50) — negative and past the end — and a quarter of them
+    again as duplicates."""
+    rng = np.random.default_rng(w + m)
+    words = _words(rng, w)
+    idx = rng.integers(-50, w * 16 + 50, m).astype(np.int64)
+    idx = np.concatenate([idx, idx[: m // 4 + 1]])
+    want = jops.bitpack_gather2(jnp.asarray(words), idx, impl="ref")
+    for impl in ("auto", "ref"):
+        got = tops.bitpack_gather2(_t(words),
+                                   torch.from_numpy(idx.astype(np.int32)),
+                                   impl=impl)
+        assert got.dtype == torch.int32 and got.shape == idx.shape
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_gather2_empty_and_all_oob():
+    words = np.arange(10, dtype=np.uint32) | 0xC0000000   # field 15 is 3
+    for idx in (np.asarray([], np.int64), np.full(5, -3, np.int64),
+                np.full(3, 10 * 16 + 7, np.int64), np.asarray([-(1 << 31)]),
+                np.asarray([160, 159, -1, 0, 161, 160])):      # cap = 160
+        got = tbp.bitpack_gather2(_t(words),
+                                  torch.from_numpy(idx.astype(np.int32)))
+        want = jops.bitpack_gather2(jnp.asarray(words), idx, impl="ref")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.shape == idx.shape and got.dtype == torch.int32
+    empty = tbp.bitpack_gather2(_t(words[:0]), torch.tensor([0, -1, 5],
+                                                            dtype=torch.int32))
+    np.testing.assert_array_equal(empty.numpy(), [0, 0, 0])
+
+
+def test_gather2_matches_disk_packing():
+    """The bridge of tests/test_kernels.py:268-284: bytes packed by the disk
+    tier (4 fields a byte, field j at bits 2j), viewed little-endian as
+    32-bit words, gather to the fields that were packed."""
+    from repro.core.disk.bitarray import pack2
+    rng = np.random.default_rng(5)
+    for n in (1000, 1001, 1003, 4096):
+        vals = rng.integers(0, 4, n).astype(np.uint8)
+        raw = pack2(vals)
+        pad = (-raw.size) % 4
+        words = np.frombuffer(np.concatenate(
+            [raw, np.zeros(pad, np.uint8)]).tobytes(), dtype="<u4")
+        idx = np.concatenate([rng.integers(0, n, 500), [0, n - 1]])
+        got = tops.bitpack_gather2(_t(words), torch.from_numpy(
+            idx.astype(np.int32)))
+        np.testing.assert_array_equal(got.numpy(), vals[idx])
+
+
+def test_gather2_field_15_needs_the_mask():
+    """Field 15 holds the sign bit of an int32 word: the arithmetic shift
+    of the plain version must be masked back to 0..3."""
+    words = np.full(3, 0xC0000000, np.uint32)
+    idx = torch.tensor([15, 31, 47, 14], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        tbp.bitpack_gather2(_t(words), idx).numpy(), [3, 3, 3, 0])
+
+
+def test_gather2_dispatch_and_checks():
+    words = _t(_words(np.random.default_rng(6), 4))
+    idx = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.bitpack_gather2(words, idx, impl="cuda")
+    with pytest.raises(ValueError, match="impl must be"):
+        tops.bitpack_gather2(words, idx, impl="pallas")
+    with pytest.raises(TypeError):
+        tbp.bitpack_gather2(words, idx.to(torch.int64))
+    with pytest.raises(TypeError):
+        tbp.bitpack_gather2(words.to(torch.int64), idx)
+    with pytest.raises(TypeError):
+        tbp.bitpack_gather2(words, idx.reshape(3, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        tbp.bitpack_gather2(words, torch.zeros(6, dtype=torch.int32)[::2])

@@ -1,6 +1,7 @@
 """Port parity: gemma2-2b training in ``repro_torch`` against the JAX
-package, at the SMOKE size in float32, plus the reference's behaviour
-tests of the training runtime, run in the port.
+package, at the SMOKE size in float32 (the loss and gradient also for
+nemotron-4-15b, minicpm-2b and granite-34b), plus the reference's
+behaviour tests of the training runtime, run in the port.
 
 The reference's params cross over with ``convert.lm_params_from_jax`` and
 its optimizer state with ``convert.opt_state_from_jax``.  The reference
@@ -16,6 +17,7 @@ fed the reference's gradient, see the test).  Batches come from both
 packages' ``make_batch`` (bit-identical, ``tests/test_torch_data.py``).
 """
 import dataclasses
+import functools
 import json
 import os
 
@@ -54,12 +56,21 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg = jget_config("gemma2-2b", smoke=True).replace(kernels="ref")
-    cfg = get_config("gemma2-2b", smoke=True)
+#: The dense archs the training entry point accepts, held at SMOKE.
+DENSE_ARCHS = ["gemma2-2b", "nemotron-4-15b", "minicpm-2b", "granite-34b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _make_model(arch):
+    jcfg = jget_config(arch, smoke=True).replace(kernels="ref")
+    cfg = get_config(arch, smoke=True)
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     return jcfg, cfg, jp
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _make_model("gemma2-2b")
 
 
 def _port_params(jp, cfg):
@@ -84,9 +95,18 @@ def _leafwise(t_tree, j_tree, cfg):
 
 # ---------------------------------------------------------- loss + grad
 
+def _n_leaves(jtree, cfg):
+    """Leaves of the reference's tree in the port's layout: each leaf under
+    ``blocks`` is stacked over the layers, the others are one leaf."""
+    return sum(cfg.n_layers if jax.tree_util.keystr(path).startswith(
+        "['blocks']") else 1
+        for path, _ in jax.tree_util.tree_leaves_with_path(jtree))
+
+
 @pytest.mark.parametrize("remat", [True, False])
-def test_loss_and_grad_match_jax(model, remat):
-    jcfg, cfg, jp = model
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_loss_and_grad_match_jax(arch, remat):
+    jcfg, cfg, jp = _make_model(arch)
     cfg = cfg.replace(remat=remat)
     batch = jmake_batch(jcfg, 3, 0, B, S)
     jloss, jgrads = jax.value_and_grad(jlm.loss_fn)(
@@ -96,7 +116,9 @@ def test_loss_and_grad_match_jax(model, remat):
     grads = torch.autograd.grad(loss, T.leaves(params))
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     pairs = _leafwise(T.unflatten(params, grads), jgrads, cfg)
-    assert len(pairs) == 2 + 11 * cfg.n_layers    # embed, final norm, blocks
+    assert len(pairs) == len(grads) == _n_leaves(jgrads, cfg)
+    if arch == "gemma2-2b":                 # embed, final norm, blocks
+        assert len(pairs) == 2 + 11 * cfg.n_layers
     for path, g, want in pairs:
         assert _rel(g, want.numpy()) <= 1e-4, path
 
