@@ -1,8 +1,19 @@
-"""Implicit BFS over a packed 2-bit array (port of ``repro/core/constructs.py:234-295``).
+"""The paper's §3 programming constructs (port of ``repro/core/constructs.py``):
+chain reduction, parallel prefix and pair reduction on a ``RoomyArray``
+(``:69-130``), and the implicit BFS over a packed 2-bit array
+(``:234-295``).
 
-The paper's second BFS engine: a state IS its rank, an index into a
-``RoomyBitArray`` of BFS marks, so a level needs no frontier list, no sort
-and no duplicate elimination.  Per level:
+Chain reduction ``a[i] = f(a[i], a[i-1])`` issues ``update(i+1, a[i])``
+for every i and syncs, so every write reads the old array.  Parallel
+prefix is ⌈log₂ n⌉ chain reductions with the stride doubling.  Each index
+receives at most one update a round, so the sync's combine never runs;
+when the user's combine is ``array.add`` the round hands the sync
+``combine=add, apply=add``, which on float32 data is one launch of the
+segment scatter-add kernel (K5), and the result is the same.
+
+The implicit BFS is the paper's second engine: a state IS its rank, an
+index into a ``RoomyBitArray`` of BFS marks, so a level needs no frontier
+list, no sort and no duplicate elimination.  Per level:
 
 1. expand: the CUR states' neighbour ranks become one int32 target buffer;
 2. mark every target NEXT where it is UNSEEN, rotate CUR→DONE and
@@ -24,8 +35,74 @@ from typing import Callable, List
 
 import torch
 
+from . import array as RA
 from . import bitarray as BA
 from . import obs
+from . import types as T
+
+# ------------------------------------------------------- chain reduction
+
+def _chain_round(ra: RA.RoomyArray, combine: Callable, stride: int,
+                 impl: str) -> RA.RoomyArray:
+    """a[i] = combine(a[i], a[i - stride]) for i >= stride, old values
+    throughout: one batch of delayed updates and one sync."""
+    n = ra.size
+    idx = torch.arange(n, dtype=torch.int32, device=ra.data.device) + stride
+    ra, _ = RA.update(ra, idx, ra.data, idx < n)
+    if combine is RA.add:
+        return RA.sync(ra, RA.add, RA.add, impl=impl)
+    return RA.sync(ra, combine=lambda p, q: p,
+                   apply=lambda old, pay: combine(old, pay), impl=impl)
+
+
+def chain_reduce(ra: RA.RoomyArray, combine: Callable,
+                 impl: str = "auto") -> RA.RoomyArray:
+    """a[i] = combine(a[i], a[i-1]) for i in 1..N-1, old values throughout
+    (paper §3: map issues update(i+1, a[i]); sync applies them against the
+    old state).  The queue must hold N - 1 payloads of the data's shape."""
+    return _chain_round(ra, combine, 1, impl)
+
+
+def parallel_prefix(ra: RA.RoomyArray, combine: Callable,
+                    impl: str = "auto") -> RA.RoomyArray:
+    """Inclusive scan via ⌈log₂ N⌉ chain reductions with stride doubling."""
+    k = 1
+    while k < ra.size:
+        ra = _chain_round(ra, combine, k, impl)
+        k *= 2
+    return ra
+
+
+# -------------------------------------------------------- pair reduction
+
+def pair_reduce(ra: RA.RoomyArray, pair_fn: Callable, merge_fn: Callable,
+                identity, block: int = 256):
+    """Fold pair_fn(a[i], a[j]) over all N² ordered pairs, block × block
+    at a time (the batched form of the paper's map issuing accesses).
+    ``pair_fn(x, y)`` broadcasts: x is (B, 1, *elt), y is (1, B, *elt)."""
+    n = ra.size
+    dev = ra.data.device
+    nblocks = -(-n // block)
+    pad = nblocks * block - n
+    data = torch.cat([ra.data, torch.zeros((pad,) + tuple(ra.data.shape[1:]),
+                                           dtype=ra.data.dtype, device=dev)])
+    valid = torch.arange(nblocks * block, device=dev) < n
+    data_b = data.reshape((nblocks, block) + tuple(ra.data.shape[1:]))
+    valid_b = valid.reshape(nblocks, block)
+    acc = torch.as_tensor(identity, device=dev)
+    for o_dat, o_val in zip(data_b, valid_b):
+        for i_dat, i_val in zip(data_b, valid_b):
+            vals = pair_fn(o_dat[:, None], i_dat[None, :])
+            mask = o_val[:, None] & i_val[None, :]
+            mask = mask.reshape(mask.shape + (1,) * (vals.ndim - 2))
+            vals = torch.where(mask, vals, torch.as_tensor(
+                identity, dtype=vals.dtype, device=dev))
+            flat = vals.reshape((-1,) + tuple(vals.shape[2:]))
+            acc = merge_fn(acc, T.tree_reduce(flat, merge_fn, identity))
+    return acc
+
+
+# ----------------------------------------------------------- implicit BFS
 
 #: CUR states expanded per neighbour_fn call, and packed words unpacked per
 #: scan step; they bound the level's temporaries, not its result.

@@ -1,6 +1,7 @@
 """Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
 flash attention with its gradient (``:39-85``), the selective scan
-(``:88-113``), the bit-pack kernels (``:129-185``) and paged decode
+(``:88-113``), the segment scatter-add (``:116-124``), the bit-pack
+kernels (``:129-185``) and paged decode
 attention (the kernel of ``repro/kernels/paged_decode.py``, which the
 reference's ops module leaves out).
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import bitpack as _bp
+from . import bucket_scatter as _bs
 from . import flash_attention as _fa
 from . import flash_attention_bwd as _fab
 from . import mamba_scan as _ms
@@ -32,6 +34,18 @@ def _use_ref(impl: str, packed: torch.Tensor) -> bool:
         raise ValueError(f"impl='cuda' needs a CUDA tensor, got one on "
                          f"{packed.device}")
     return impl == "ref"
+
+
+def bucket_scatter_add(table, idx, payload, *, impl="auto"):
+    """``table[idx[i]] += payload[i]`` for every i, out of place, summed in
+    float32 (K5): table (N, D), idx (M,) int32, payload (M, D).  Indices in
+    [-N, 0) wrap and the rest outside [0, N) drop, as the reference's
+    oracle does.  The kernel takes float32 only; the plain version any
+    float dtype.  The reference's ``block_m`` sets the TPU kernel's op
+    block and has no counterpart here."""
+    if _use_ref(impl, table):
+        return _ref.bucket_scatter_add_ref(table, idx, payload)
+    return _bs.bucket_scatter_add(table, idx, payload)
 
 
 def bitpack_lut_count(packed, lut, count_val, *, impl="auto"):

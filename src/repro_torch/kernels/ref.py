@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (``kernels/csrc/*.cu``).
 
 Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-294``,
-the attention functions of ``:23-123`` and the selective scans of
-``:126-169`` (K9), plus the forward with its log-sum-exp and the backward
-of ``repro/kernels/flash_attention.py:100-111`` and
+the segment scatter-add of ``:240-246`` (K5), the attention functions of
+``:23-123`` and the selective scans of ``:126-169`` (K9), plus the
+forward with its log-sum-exp and the backward of
+``repro/kernels/flash_attention.py:100-111`` and
 ``flash_attention_bwd.py`` (K6's LSE output and K7), and the paged decode
 attention of ``repro/kernels/paged_decode.py`` (K8).  They are
 device-agnostic: the CPU tests run them as the port's only path there,
@@ -91,6 +92,23 @@ def bitpack_gather2_ref(packed: torch.Tensor, idx: torch.Tensor):
     ok = (idx >= 0) & (idx < fields.shape[0])
     safe = idx.clamp(0, fields.shape[0] - 1)
     return torch.where(ok, fields[safe], 0).to(torch.int32)
+
+
+# ------------------------------------------------------- bucket scatter
+
+def bucket_scatter_add_ref(table: torch.Tensor, idx: torch.Tensor,
+                           payload: torch.Tensor) -> torch.Tensor:
+    """Plain version of the segment scatter-add (K5): ``table[idx[i]] +=
+    payload[i]`` accumulated in float32 and cast back to ``table.dtype``,
+    out of place.  Indices follow the oracle's ``.at[idx].add(mode="drop")``:
+    one in [-N, 0) wraps to idx + N, one below -N or at or above N drops."""
+    n = table.shape[0]
+    idx = idx.to(torch.int64).reshape(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    keep = (idx >= 0) & (idx < n)
+    acc = table.to(torch.float32, copy=True)
+    acc.index_add_(0, idx[keep], payload[keep].to(torch.float32))
+    return acc.to(table.dtype)
 
 
 # ------------------------------------------------------------- attention

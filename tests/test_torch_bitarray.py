@@ -13,6 +13,15 @@ from repro_torch import convert
 from repro_torch.core import bitarray as TB
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny tensors: torch's CPU thread pool costs far more than it saves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(words):
     return convert.words_to_torch(words, device="cpu")
 
@@ -157,3 +166,58 @@ def test_count_value_matches(value):
     for n in (None, 150, 77):
         assert TB.count_value(ba, value, n) == \
             int(JB.count_value(jba, value, n))
+
+
+# ------------------------------------------------- the queued half (sync)
+
+def _queue_both(n, qcap, batches):
+    """The same ``update`` batches through both packages' queues."""
+    jb, tb = JB.make(n, qcap), TB.make(n, qcap, device="cpu")
+    for idx, vals, valid in batches:
+        jb, jov = JB.update(jb, jnp.asarray(idx), jnp.asarray(vals),
+                            None if valid is None else jnp.asarray(valid))
+        tb, tov = TB.update(tb, torch.from_numpy(idx),
+                            torch.from_numpy(vals.astype(np.int32)),
+                            None if valid is None else torch.from_numpy(valid))
+        assert bool(jov) == bool(tov)
+    assert int(tb.q_n) == int(jb.q_n)
+    np.testing.assert_array_equal(tb.q_idx.numpy(), np.asarray(jb.q_idx))
+    np.testing.assert_array_equal(tb.q_val.numpy(), np.asarray(jb.q_val))
+    return jb, tb
+
+
+@pytest.mark.parametrize("combine", ["or", "max", "first"])
+@pytest.mark.parametrize("n,qcap", [(37, 64), (250, 200), (16, 8)])
+def test_queued_sync_matches(n, qcap, combine):
+    """``update`` then ``sync`` (the disjoint-bit packed write): the words
+    bit for bit, duplicates, indices past the capacity, a valid mask and a
+    queue that overflows."""
+    rng = np.random.default_rng(n + qcap)
+    batches = []
+    for _ in range(2):
+        m = qcap // 2 + 5
+        idx = rng.integers(0, n + 20, m).astype(np.int32)
+        idx[: m // 5] = idx[0]
+        batches.append((idx, rng.integers(0, 4, m).astype(np.uint32),
+                        rng.random(m) < 0.8))
+    jb, tb = _queue_both(n, qcap, batches)
+    jb = jb._replace(data=jnp.asarray(_bfs_words(rng, n)))
+    tb = tb._replace(data=_t(np.asarray(jb.data)))
+    comb, app = {
+        "or": ((None, None), (None, None)),
+        "max": ((torch.maximum, jnp.maximum),
+                (lambda o, a: torch.maximum(o, a),
+                 lambda o, a: jnp.maximum(o, a))),
+        "first": ((lambda p, q: p, lambda p, q: p),
+                  (lambda o, a: (o + a) & 3, lambda o, a: (o + a) & 3)),
+    }[combine]
+    got = TB.sync(tb, comb[0], app[0])
+    want = JB.sync(jb, comb[1], app[1])
+    np.testing.assert_array_equal(_np(got.data), np.asarray(want.data))
+    assert int(got.q_n) == 0 and got.queue_capacity == qcap
+
+
+def test_sync_without_queue_is_a_no_op():
+    tb = TB.make(20, device="cpu")
+    assert TB.sync(tb) is tb and tb.queue_capacity == 0
+    assert TB.RoomyBitArray(tb.data).queue_capacity == 0

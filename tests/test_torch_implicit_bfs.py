@@ -171,7 +171,13 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/configs/granite_34b.py",
             "src/repro_torch/core/disk/oracle.py",
             "src/repro_torch/core/disk/codec.py",
-            "src/repro_torch/core/disk/buckets.py"} <= names
+            "src/repro_torch/core/disk/buckets.py",
+            "src/repro_torch/kernels/bucket_scatter.py",
+            "src/repro_torch/core/types.py",
+            "src/repro_torch/core/array.py",
+            "src/repro_torch/core/hashtable.py",
+            "src/repro_torch/core/sharding.py",
+            "src/repro_torch/core/delayed.py"} <= names
     for path in files:
         for mod, level in _imports(path):
             top = mod.split(".")[0]
