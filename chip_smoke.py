@@ -9,7 +9,10 @@ caught:
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    exits non-zero when ``torch.cuda.is_available()`` is false.
 2. build: nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` for
-   sm_90a into ``build/`` (one nvcc per source, all started together).
+   sm_90a into ``build/`` (one nvcc per source, all started together;
+   flash_attention links libcuda for its TMA maps); the ptxas report of
+   K6's wgmma kernel at head dims 64, 128, 256 (registers, spills, stack)
+   beside its dynamic shared memory.
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
    counts) — edge cases at small widths, then W = 29,937,600 words (12!
@@ -85,6 +88,10 @@ caught:
       ``dropped`` exact at half capacity; ``sharded_mark_sync`` with K2 ==
       ``mark_packed`` bit for bit.
 9. K6 (flash attention) parity against its plain version on the card,
+   each case's route asserted (``flash_attention.route``: the wgmma
+   kernel, TMA + warp specialisation, for bfloat16 at head dims 64, 128
+   and 256; the classic mma.sync / FMA kernels for float32 and the other
+   head dims),
    float32 (atol = rtol = 2e-5, never TF32) and bfloat16 (2e-2), the
    tolerances of ``tests/test_kernels.py:41-42,57-58``, and per (batch,
    head) ‖got − want‖ ≤ 1e-2 ‖want‖; K6 with its LSE output gives the
@@ -92,24 +99,29 @@ caught:
    absolute of ``attention_lse_ref``: every case of
    ``tests/test_kernels.py:16-26``, head_dim 256 with window 4096 and
    softcap 50 at Sq = Skv = 4100 with GQA 1, 2 and 4, Sq = 1, head_dim 12
-   and 100, rows that see no key; contiguous and as strided views.
+   and 100, rows that see no key; the wgmma route's edges: head dims 64
+   and 128 at groups 1, 6 and 48, Sq 1, 127, 129 and 4100, Sq != Skv with
+   rows that see no key, windows of 37, 45, 100 and 203 keys (a multiple
+   of no tile); contiguous and as strided views.
 10. gemma2-2b FULL in bfloat16, params from ``lm.init_params`` on a seeded
    generator (``phase_lm``):
    a. main path: ``lm.prefill`` over 1 × 32768 tokens (``prefill_32k``
       with its global batch of 32 cut to 1), nothing wrapped around it,
       launch counts set to 0 just before and read just after: K6 launched
-      26 times, once a layer; tokens/s, wall, peak memory;
+      26 times, once a layer, every launch on the wgmma route (its route
+      counter); tokens/s, wall, peak memory;
    b. the same prefill again, with q/k/v of layer 0 (local) and layer 1
       (global) captured and K6 timed by CUDA events (its share of a.'s
       wall); K6 parity on the captured layers by both checks, and two
       planted faults the per-(b, h) check must reject (the local window
       one 32-key tile short; the global output zeroed past row 4096);
-   c. K6 times at those two shapes (CUDA events, median of 20) beside the
-      bound (max of flops at 989 TFLOP/s and bytes at 3.35 TB/s) and the
-      plain version's time; at the global shape the library call
-      (``library_ms``): ``flex_attention``, compiled, with the softcap as
-      its score_mod, held to K6's per-(b, h) limit against K6; SDPA with
-      the softcap off, against K6 with the softcap off;
+   c. K6 times at those two shapes (CUDA events, median of 20; the wgmma
+      route) beside the bound (max of flops at 989 TFLOP/s and bytes at
+      3.35 TB/s) and the plain version's time; at the global shape the
+      library call (``library_ms``): ``flex_attention``, compiled, with the
+      softcap as its score_mod, held to K6's per-(b, h) limit against K6,
+      and K6 must be the faster; SDPA with the softcap off, against K6
+      with the softcap off;
    d. the same prefill with the plain attention: last logits agree (per
       row ‖a − b‖ ≤ 3.5e-2 ‖b‖); K6 prefills with planted attention faults
       (every local window a tile short; a global layer given the local
@@ -138,10 +150,12 @@ caught:
    with finite output, must break the bf16 limit 2x: the backward without
    the softcap at logits of std 4, without the term D = rowsum(dO ∘ O),
    and with the window one 32-key tile short.
-12. K7 and K6-with-LSE times at the train shape and at 8192 rows with the
-   window cutting, beside the bound, the plain version and the library
-   call (``flex_attention``, compiled: its backward alone, and its forward
-   with the LSE; each held to the kernel's limits against the kernel);
+12. K7 and K6-with-LSE times (K6 on the wgmma route) at the train shape
+   and at 8192 rows with the window cutting, beside the bound, the plain
+   version and the library call (``flex_attention``, compiled: its
+   backward alone, and its forward with the LSE; each held to the
+   kernel's limits against the kernel; at the train shape K6-with-LSE
+   must be the faster);
    with the softcap off, scaled_dot_product_attention's backward and
    forward beside K7 and K6-with-LSE.
 13. gemma2-2b training (``phase_training``):
@@ -150,7 +164,8 @@ caught:
       (``train_4k`` with its global batch of 256 cut to 1), 6 steps,
       nothing wrapped around the loop, launch counts set to 0 just before
       and read just after: each step (its ``train.step`` span) launches
-      K6-with-LSE 52 times, K7 26 times and K6 without LSE never; losses,
+      K6-with-LSE 52 times, all on the wgmma route, K7 26 times and K6
+      without LSE never; losses,
       median step time of steps 1-5, tokens/s, peak memory;
    b. one call of the step function (``make_train_step``: gradient, then
       the AdamW update) under ``torch.profiler``: device time by group
@@ -160,9 +175,10 @@ caught:
       ``GRAD_REL_TOL``; planted faults in the backward read the same way,
       and two (every local window halved; D = rowsum(dO ∘ O) dropped) must
       break the limit;
-   d. SMOKE (float32, head_dim 12) on the card: the loss decreases over
-      15 steps, and a crash at step 7 with a checkpoint every 3 steps
-      replays to the uninterrupted final loss within rtol 1e-5.
+   d. SMOKE (float32, head_dim 12: K6 on the classic route) on the card:
+      the loss decreases over 15 steps, and a crash at step 7 with a
+      checkpoint every 3 steps replays to the uninterrupted final loss
+      within rtol 1e-5.
 14. K9 (selective scan) and falcon-mamba-7b (``phase_falcon_mamba``):
    a. K9 parity against its plain version (the sequential form, with the
       final state) on the card: the cases of ``tests/test_kernels.py:
@@ -213,7 +229,12 @@ caught:
       the merge);
    b. nemotron-4-15b FULL in bfloat16, params from ``lm.init_params`` on a
       seeded generator: ``lm.prefill`` over 1 × 32768 tokens (32 K6
-      launches, no K8); one decode step with layers 0 and 31 captured,
+      launches, all on the wgmma route, no K8); the prefill again with
+      layer 0's q, k, v captured and K6's share of the wall; K6 there
+      (1 × 48 × 32768 × 128, 8 kv heads) held to its plain version and
+      timed beside its bound, the plain version and
+      scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
+      same function; one decode step with layers 0 and 31 captured,
       K8 held to the plain version there and timed at layer 0 beside its
       bound (the live K/V bytes at 3.35 TB/s), the plain version and
       scaled_dot_product_attention(enable_gqa=True) with and without the
@@ -232,10 +253,13 @@ caught:
       float32 (the params converted in place); ``launch/serve.py --arch
       nemotron-4-15b`` with its defaults;
    c. minicpm-2b FULL in bfloat16 (MHA, head_dim 64): a 4096-token
-      prefill (40 K6 launches), K8 on a captured decode layer and its
-      time, 16 decode steps (40 K8 launches a step), the Server.
+      prefill (40 K6 launches, all on the wgmma route), K8 on a captured
+      decode layer and its time, 16 decode steps (40 K8 launches a step),
+      the Server.
 16. the ``to_port`` line (an empty list: every kernel is ported), the
-   ``kernels`` JSON line (K1–K9, K6-with-LSE), the card line, and last
+   ``kernels`` JSON line (K1–K9, K6-with-LSE; K6's and K6-with-LSE's
+   entries name the kernel that ran, their launches by route and the
+   ptxas report), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -317,7 +341,10 @@ K6_REL_TOL = 1e-2
 # K6's row log-sum-exp, absolute (|lse| is up to ~60 with the softcap; a
 # row that sees no key has -1e30 in both).
 K6_LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
-K6_TILE = 32                  # the kernel's kv tile (flash_attention.cu)
+# The size of the planted window faults (a window this many keys short):
+# 32 keys, the classic kernel's kv tile at head dim 256 when the faults were
+# set; kept so that the faults keep their size under either route.
+K6_TILE = 32
 K6_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
     # tests/test_kernels.py:16-26
     (1, 4, 4, 64, 64, 32, True, None, None),
@@ -340,6 +367,23 @@ K6_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
     (2, 4, 2, 70, 70, 12, True, 8, 50.0),
     (1, 3, 1, 130, 150, 100, False, 20, None),
     (1, 2, 1, 100, 10, 64, True, 5, None),
+    # the wgmma route's edges (bf16 at head dims 64, 128, 256): groups 1, 6
+    # and 48 (minicpm-2b, nemotron-4-15b, granite-34b); Sq 1, 127, 129 and
+    # 4100 around its 128-row q tile; Sq != Skv with rows that see no key;
+    # windows that are a multiple of no tile
+    (1, 4, 4, 129, 129, 64, True, None, None),
+    (1, 12, 2, 4100, 4100, 64, True, None, None),
+    (1, 48, 1, 1, 1, 64, True, None, None),
+    (1, 4, 4, 200, 90, 64, False, 45, 30.0),
+    (1, 6, 6, 127, 127, 128, True, None, None),
+    (1, 6, 1, 129, 129, 128, True, None, None),
+    (1, 48, 1, 127, 127, 128, True, None, None),
+    (1, 48, 1, 4100, 4100, 128, True, None, None),
+    (1, 6, 1, 1, 4100, 128, True, None, None),
+    (2, 6, 1, 300, 70, 128, True, 37, None),
+    (1, 12, 2, 700, 700, 128, True, 203, None),
+    (1, 8, 4, 129, 129, 256, True, 4096, 50.0),
+    (1, 8, 4, 1000, 1000, 256, True, 100, 50.0),
 ]
 
 
@@ -369,11 +413,41 @@ def phase_card() -> str:
     return line
 
 
-def phase_build() -> None:
+def k6_ptxas() -> dict:
+    """The ptxas report of K6's wgmma kernel at each head dim (registers at
+    launch, spills, stack) from this process's build, beside the dynamic
+    shared memory it asks for.  The consumers' 240 registers a thread come
+    from setmaxnreg at run time; ptxas reports the launch's 168 (384
+    threads) and warns (C7508) if it had to ignore setmaxnreg."""
+    lines = _build.BUILD_LOGS.get("flash_attention", "").splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or \
+                "fa_hopper_kernel" not in line:
+            continue
+        d = int(line.split("fa_hopper_kernelILi")[1].split("E")[0])
+        smem = FA._lib().roomy_flash_attention_tma_smem(d)
+        rec = {"smem_dynamic_bytes": smem}
+        for nxt in lines[i + 1:i + 5]:
+            if "spill stores" in nxt:
+                n = [int(w) for w in nxt.replace(",", " ").split()
+                     if w.isdigit()]
+                rec.update(stack_bytes=n[0], spill_store_bytes=n[1],
+                           spill_load_bytes=n[2])
+            if "Used" in nxt and "registers" in nxt:
+                rec["registers"] = int(nxt.split("Used")[1].split()[0])
+        out[d] = rec
+    rec = {"setmaxnreg_ignored": any("C7508" in x for x in lines)}
+    print(f"ptxas K6 wgmma kernel (fa_hopper_kernel<D>): {out} {rec}")
+    return {**{str(d): r for d, r in out.items()}, **rec}
+
+
+def phase_build() -> dict:
     names = _build.sources()
     secs = _build.build(names)
     print(f"build: {secs:.3f} s for {names} "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)}; flash_attention also "
+          f"{' '.join(_build.LINK['flash_attention'])})")
     for name, log in _build.BUILD_LOGS.items():
         print(f"[{name}] {log.strip()}")
     K._lib()
@@ -382,6 +456,7 @@ def phase_build() -> None:
     FAB._lib()
     MS._lib()
     PD._lib()
+    return k6_ptxas()
 
 
 # ------------------------------------------------------------------ parity
@@ -501,20 +576,35 @@ def k6_errors(got, want) -> dict:
             "rel_ok": rel <= K6_REL_TOL}
 
 
+def k6_route(dtype, d) -> str:
+    """The route a K6 case's fresh inputs must take: the wgmma kernel for
+    bfloat16 at head dims 64, 128 and 256 (their strides are multiples of 8
+    and their bases aligned), the classic kernels otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and d in FA.TMA_TILES else \
+        "classic"
+
+
 def check_k6(q, k, v, causal, window, softcap, what) -> dict:
     """K6 against its plain version on the same inputs, by both checks;
     then K6 with its LSE output: the same output bit for bit, and the LSE
-    within ``K6_LSE_TOL`` of the plain version's."""
+    within ``K6_LSE_TOL`` of the plain version's.  Both launches must take
+    the route ``k6_route`` names."""
     kw = dict(causal=causal, window=window, softcap=softcap)
+    before = dict(FA.ROUTE_LAUNCHES)
     got = FA.flash_attention(q, k, v, **kw)
     got_l, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
     want, want_lse = R.attention_lse_ref(q, k, v, **kw)
     torch.cuda.synchronize()
+    path = k6_route(q.dtype, q.shape[-1])
+    routed = {n: FA.ROUTE_LAUNCHES[n] - before[n] for n in before}
+    expect(routed == {**{n: 0 for n in before}, path: 2},
+           f"K6 routes {routed}, want 2 launches on {path}: {what}")
     expect(got.dtype == q.dtype and got.shape == q.shape, what)
     expect(lse.dtype == torch.float32 and lse.shape == q.shape[:3], what)
     expect(torch.equal(got_l, got), f"K6 with LSE changes the output: {what}")
     e = k6_errors(got, want)
     e["lse_abs"] = float((lse - want_lse).abs().max()) if lse.numel() else 0.0
+    e["route"] = path
     MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], e["max_abs"])
     MAX_REL["flash_attention"] = max(MAX_REL["flash_attention"], e["rel"])
     MAX_ERR["flash_attention_lse"] = max(MAX_ERR["flash_attention_lse"],
@@ -544,7 +634,8 @@ def phase_k6_parity_edges(dev) -> None:
                 q, k, v = k6_inputs(case, dtype, dev, i, strided)
                 errs.append(check_k6(q, k, v, causal, window, softcap,
                                      f"{case} {dtype} strided={strided}"))
-        print(f"parity K6 {case}: f32 {k6_summary(errs[:2])}; bf16 "
+        print(f"parity K6 {case}: f32 ({errs[0]['route']}) "
+              f"{k6_summary(errs[:2])}; bf16 ({errs[2]['route']}) "
               f"{k6_summary(errs[2:])} (tol elementwise 2e-5 / 2e-2, rel "
               f"{K6_REL_TOL}, LSE 2e-5 / 1e-3)")
 
@@ -1582,9 +1673,12 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     wall = time.perf_counter() - t0
     launches = dict(FA.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
+    routes = dict(FA.ROUTE_LAUNCHES)
     expect(launches == {"flash_attention": cfg.n_layers,
                         "flash_attention_lse": 0, "flash_attention_bwd": 0},
            launches)
+    expect(routes == {"wgmma": cfg.n_layers, "classic": 0},
+           f"K6 routes of the prefill: {routes}")
     expect(not any(K.LAUNCHES.values()) and not any(PD.LAUNCHES.values()),
            (dict(K.LAUNCHES), dict(PD.LAUNCHES)))
     expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
@@ -1592,28 +1686,31 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     expect(len(caches["kv"]) == cfg.n_layers and all(
         int(c.lengths[0]) == seq for c in caches["kv"]), "cache lengths")
     res = {"tokens": seq, "wall_s": wall, "tokens_per_s": seq / wall,
-           "peak_bytes": peak, "launches": launches}
+           "peak_bytes": peak, "launches": launches, "k6_routes": routes}
     print(f"prefill: {cfg.name} bf16 1 x {seq} tokens, {wall:.3f} s wall, "
           f"{seq / wall:.0f} tokens/s, peak {peak} bytes, K6 launches "
-          f"{launches['flash_attention']}, K8 launches 0")
+          f"{launches['flash_attention']} (routes {routes}), K8 launches 0")
     return inputs, logits, caches, res
 
 
-def phase_capture(cfg, params, inputs, wall, dev):
+def phase_capture(cfg, params, inputs, wall, dev, keep=(0, 1)):
     """A second prefill of the main path's inputs through ``Capture``: the
-    q, k, v of layer 0 (local) and layer 1 (global), and K6's time by CUDA
-    events as a share of the main path's wall."""
+    q, k, v of the layers in ``keep`` (gemma2-2b: layer 0, local, and layer
+    1, global), and K6's time by CUDA events as a share of the main path's
+    wall."""
     FA.reset_launches()
-    with Capture("flash_attention", keep=(0, 1)) as cap:
+    with Capture("flash_attention", keep=keep) as cap:
         lm.prefill(params, inputs, cfg)
         sync(dev)
     expect(FA.LAUNCHES["flash_attention"] == cfg.n_layers, dict(FA.LAUNCHES))
+    expect(dict(FA.ROUTE_LAUNCHES) == {"wgmma": cfg.n_layers, "classic": 0},
+           dict(FA.ROUTE_LAUNCHES))
     k6_ms = cap.kernel_ms()
     res = {"k6_ms": k6_ms, "k6_share": k6_ms / 1e3 / wall}
-    print(f"prefill K6 time: {cfg.n_layers} launches taking {k6_ms:.1f} ms "
-          f"by CUDA events ({100 * res['k6_share']:.1f}% of the main "
-          f"path's wall)")
-    return [(*cap.calls[i][0], cap.calls[i][1]) for i in (0, 1)], res
+    print(f"prefill K6 time: {cfg.name}, {cfg.n_layers} launches on the "
+          f"wgmma route taking {k6_ms:.1f} ms by CUDA events "
+          f"({100 * res['k6_share']:.1f}% of the main path's wall)")
+    return [(*cap.calls[i][0], cap.calls[i][1]) for i in keep], res
 
 
 def phase_k6_parity_real(calls) -> dict:
@@ -1709,7 +1806,8 @@ def phase_k6_times(calls):
         bound, by, flops, nbytes = k6_bound(q, k, True, w)
         out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                      "bound_by": by, "flops": flops, "bytes": nbytes}
-        print(f"time: K6 {name} {tuple(q.shape)} window {w} softcap {sc}: "
+        print(f"time: K6 ({FA.route(q, k, v, q)} route) {name} "
+              f"{tuple(q.shape)} window {w} softcap {sc}: "
               f"{ms:.3f} ms, bound {bound:.3f} ms ({by}: {flops:.3e} flops "
               f"at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s), "
               f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms "
@@ -1725,6 +1823,9 @@ def phase_k6_times(calls):
     print(f"time: K6 global, library flex_attention (compiled, softcap "
           f"score_mod, causal block mask, GQA) {lib_ms:.3f} ms; per-(b, h) "
           f"rel to K6 {agree:.3e}")
+    expect(out["global"]["ms"] < lib_ms, f"K6 at the global layer "
+           f"({out['global']['ms']:.3f} ms) is not faster than "
+           f"flex_attention ({lib_ms:.3f} ms)")
     off = median_ms(lambda: FA.flash_attention(q, k, v))
     sdpa = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
@@ -1866,7 +1967,8 @@ def phase_serve(argv=("--arch", ARCH)):
 
 def kernel_group(name: str) -> str:
     low = name.lower()
-    if "fa_bf16_kernel" in low or "fa_f32_kernel" in low:
+    if any(w in low for w in ("fa_hopper_kernel", "fa_bf16_kernel",
+                              "fa_f32_kernel")):
         return "flash_attention (K6)"
     if "scan_kernel<" in low:
         return "mamba_scan (K9)"
@@ -1986,7 +2088,8 @@ def phase_lm(dev):
                              "profile": profile,
                              "equivalence": equiv,
                              "k6_times": k6_times}}))
-    return prefill["launches"]["flash_attention"], k6_times
+    return prefill["launches"]["flash_attention"], {
+        **k6_times, "routes": prefill["k6_routes"]}
 
 
 # ------------------------------------------- K7 and training (gemma2-2b)
@@ -2231,6 +2334,10 @@ def phase_k7_times(dev) -> dict:
         fbound = max(fflops / BF16_FLOPS, fbytes / HBM_BYTES_PER_S) * 1e3
         lib = library_k7(q, k, v, do, kw, o, lse,
                          FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        expect(name != "train" or fms < lib["fwd_lse_ms"],
+               f"K6 with LSE at the {name} shape "
+               f"({fms:.3f} ms) is not faster than flex_attention's forward "
+               f"with its LSE ({lib['fwd_lse_ms']:.3f} ms)")
         out[name] = {
             "shape": f"{tuple(q.shape)} kv {tuple(k.shape)} window "
                      f"{kw['window']} softcap {kw['softcap']}",
@@ -2249,6 +2356,7 @@ def phase_k7_times(dev) -> dict:
               f"plain {plain:.3f} ms (median of {PLAIN_REPS}), library "
               f"flex_attention backward {lib['bwd_ms']:.3f} ms (per-(b, h) "
               f"rel to K7 {lib['bwd_rel_vs_kernel']:.3e}); K6 with LSE "
+              f"({FA.route(q, k, v, q)} route) "
               f"{fms:.3f} ms, bound {fbound:.3f} ms, plain {fplain:.3f} ms, "
               f"library flex_attention forward with LSE "
               f"{lib['fwd_lse_ms']:.3f} ms (per-(b, h) rel to K6 "
@@ -2278,10 +2386,11 @@ def phase_k7_times(dev) -> dict:
     return out
 
 
-def step_launches(spans) -> list:
-    """Each ``train.step`` span's attention launches."""
+def step_launches(spans, namespace="attention") -> list:
+    """Each ``train.step`` span's counts in ``namespace``: the attention
+    launches, or with ``attention_route`` K6's launches by route."""
     return [{k.split(".", 1)[1]: v for k, v in sp.get("metrics", {}).items()
-             if k.startswith("attention.")}
+             if k.startswith(namespace + ".")}
             for sp in spans if sp["sid"] == "train.step"]
 
 
@@ -2311,6 +2420,10 @@ def phase_train(cfg, dev):
     expect(launches == {"flash_attention": 0,
                         "flash_attention_lse": 2 * n * TRAIN_STEPS,
                         "flash_attention_bwd": n * TRAIN_STEPS}, launches)
+    routes, step_routes = dict(FA.ROUTE_LAUNCHES), step_launches(
+        spans, "attention_route")
+    expect(step_routes == [{"wgmma": 2 * n}] * TRAIN_STEPS, step_routes)
+    expect(routes == {"wgmma": 2 * n * TRAIN_STEPS, "classic": 0}, routes)
     expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
     losses = out["losses"]
     expect(len(losses) == TRAIN_STEPS and out["restarts"] == 0, losses)
@@ -2320,12 +2433,13 @@ def phase_train(cfg, dev):
            "losses": losses, "step_seconds": out["step_seconds"],
            "median_step_s_1_5": med, "tokens_per_s": TRAIN_SEQ / med,
            "wall_s": wall, "peak_bytes": peak, "launches": launches,
-           "launches_per_step": per_step[0]}
+           "launches_per_step": per_step[0], "k6_routes": routes}
     print(f"train: {cfg.name} 1 x {TRAIN_SEQ} tokens a step, {TRAIN_STEPS} "
           f"steps, losses {[round(x, 4) for x in losses]}; median step of "
           f"steps 1-5 {med:.3f} s, {TRAIN_SEQ / med:.0f} tokens/s; steps "
           f"{[round(x, 3) for x in out['step_seconds']]} s; peak {peak} "
-          f"bytes; launches per step {per_step[0]}, in all {launches}")
+          f"bytes; launches per step {per_step[0]}, in all {launches}; "
+          f"K6-with-LSE routes {routes}")
     return out["final_params"], s, res
 
 
@@ -2465,6 +2579,8 @@ def phase_train_smoke(dev) -> dict:
                                  "flash_attention_lse": 2 * n * 15,
                                  "flash_attention_bwd": n * 15},
            dict(FA.LAUNCHES))
+    expect(dict(FA.ROUTE_LAUNCHES) == {"wgmma": 0, "classic": 2 * n * 15},
+           dict(FA.ROUTE_LAUNCHES))
     expect(out["losses"][-1] < out["losses"][0], out["losses"])
     base = dict(batch=2, seq=16, steps=10, lr=1e-3, warmup_steps=2,
                 log_every=100)
@@ -3399,6 +3515,42 @@ def to_float_in_place(tree):
     return tree
 
 
+def phase_k6_dense_times(cfg, call) -> dict:
+    """K6 on the dense prefill's captured layer 0 (nemotron-4-15b: 1 × 48 ×
+    32768 × 128, 8 kv heads, causal, no softcap, no window): held to its
+    plain version by both checks, then timed (CUDA events, median of 20)
+    beside its bound, the plain version (median of 3) and the library call
+    that computes exactly this function, scaled_dot_product_attention(
+    is_causal=True, enable_gqa=True), held to K6's per-(b, h) limit
+    against K6."""
+    q, k, v, kw = call
+    expect(kw["causal"] and kw["window"] is None and not kw["softcap"], kw)
+    e = check_k6(q, k, v, True, None, None, f"{cfg.name} prefill layer 0")
+    ms = median_ms(lambda: FA.flash_attention(q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    agree = bh_rel(lib(), FA.flash_attention(q, k, v))
+    expect(agree <= K6_REL_TOL, f"SDPA vs K6 at {cfg.name}: {agree}")
+    lib_ms = median_ms(lib)
+    plain = median_ms(lambda: R.attention_ref(q, k, v), reps=PLAIN_REPS)
+    bound, by, flops, nbytes = k6_bound(q, k, True, None)
+    res = {"shape": f"{tuple(q.shape)} kv {tuple(k.shape)}",
+           "route": e["route"], "ms": ms, "plain_ms": plain,
+           "bound_ms": bound, "bound_by": by, "flops": flops,
+           "bytes": nbytes, "library_ms": lib_ms,
+           "library_rel_vs_kernel": agree, "max_abs_err": e["max_abs"],
+           "rel_err": e["rel"], "lse_abs_err": e["lse_abs"]}
+    print(f"time: K6 ({e['route']} route) {cfg.name} prefill layer 0 "
+          f"{res['shape']}: {ms:.3f} ms, bound {bound:.3f} ms ({by}: "
+          f"{flops:.3e} flops at 989 TFLOP/s), {flops / ms / 1e9:.1f} "
+          f"TFLOP/s, plain {plain:.3f} ms (median of {PLAIN_REPS}), library "
+          f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+          f"{lib_ms:.3f} ms (per-(b, h) rel to K6 {agree:.3e})")
+    return res
+
+
 def phase_nemotron(dev) -> dict:
     """nemotron-4-15b FULL in bfloat16, params from the port's init_params
     on a seeded generator: the 32k prefill, the decode at batch 1 (the main
@@ -3412,6 +3564,11 @@ def phase_nemotron(dev) -> dict:
     print(f"init: {cfg.name}, {cfg.param_count()} params in bfloat16, "
           f"{time.perf_counter() - t0:.3f} s")
     inputs, logits, caches, prefill = phase_prefill(cfg, params, dev)
+    k6_calls, k6_share = phase_capture(cfg, params, inputs,
+                                       prefill["wall_s"], dev, keep=(0,))
+    prefill.update(k6_share)
+    k6_times = phase_k6_dense_times(cfg, k6_calls[0])
+    del k6_calls
     last = cfg.n_layers - 1
     calls, _ = k8_capture(cfg, params, caches, dev, keep=(0, last))
     captured = k8_on_captured(cfg, calls, f"{cfg.name} decode")
@@ -3433,7 +3590,7 @@ def phase_nemotron(dev) -> dict:
     torch.cuda.empty_cache()
     served = phase_serve(("--arch", DENSE_ARCH))
     return {"arch": DENSE_ARCH, "prefill": prefill, "k8_captured": captured,
-            "k8_times": times, "decode": decode, "profile": profile,
+            "k6_times": k6_times, "k8_times": times, "decode": decode, "profile": profile,
             "prefill_plain": plain, "equivalence": equiv,
             "batched_decode": batched, "serve": served}
 
@@ -3483,7 +3640,7 @@ def main() -> None:
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    ptxas = phase_build()
     phase_parity_edges(dev)
     data, tgt = phase_parity_full(dev)
     times = phase_times(data, tgt)
@@ -3546,9 +3703,13 @@ def main() -> None:
         "library": "torch.index_add (out of place)", "shape": emb["shape"],
         "launches_per_prefix": roomy["prefix"]["launches"]})
     g, loc = k6["global"], k6["local"]
+    nem6 = dense["nemotron"]["k6_times"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": K6_SOURCE,
         "replaces": K6_REPLACES, "launches": k6_launches,
+        "kernel": "fa_hopper_kernel (the wgmma route: TMA ring, warp "
+                  "specialisation, wgmma)",
+        "launches_by_route": k6["routes"], "ptxas": ptxas,
         "max_abs_err": MAX_ERR["flash_attention"],
         "max_rel_err_per_bh": MAX_REL["flash_attention"], "ms": g["ms"],
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
@@ -3558,11 +3719,21 @@ def main() -> None:
         "ms_softcap_off": g["ms_softcap_off"],
         "library_ms_softcap_off": g["library_ms_softcap_off"],
         "local_ms": loc["ms"], "local_plain_ms": loc["plain_ms"],
-        "local_bound_ms": loc["bound_ms"]})
+        "local_bound_ms": loc["bound_ms"],
+        "nemotron_ms": nem6["ms"], "nemotron_plain_ms": nem6["plain_ms"],
+        "nemotron_bound_ms": nem6["bound_ms"],
+        "nemotron_library_ms": nem6["library_ms"],
+        "nemotron_library": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True)",
+        "nemotron_prefill_share": dense["nemotron"]["prefill"]["k6_share"],
+        "nemotron_launches_by_route": dense["nemotron"]["prefill"][
+            "k6_routes"]})
     tr, win = k7["train"], k7["window"]
     kernels.append({
         "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
         "replaces": K6_LSE_REPLACES,
+        "kernel": "fa_hopper_kernel (the wgmma route), with the LSE pointer",
+        "launches_by_route": trained["k6_routes"],
         "launches": trained["launches"]["flash_attention_lse"],
         "max_abs_err": MAX_ERR["flash_attention_lse"],
         "ms": tr["fwd_lse"]["ms"], "plain_ms": tr["fwd_lse"]["plain_ms"],

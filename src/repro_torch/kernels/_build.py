@@ -23,6 +23,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+#: Libraries a source links beyond the runtime: the flash-attention source
+#: encodes TMA tensor maps with the driver API (cuTensorMapEncodeTiled);
+#: nvcc's own library path holds the toolkit's libcuda stub.
+LINK = {"flash_attention": ["-lcuda"]}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each build this process ran.
 BUILD_LOGS: Dict[str, str] = {}
@@ -39,7 +44,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + LINK.get(name, [])
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -54,7 +60,8 @@ def build(names: Iterable[str]) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *LINK.get(name, [])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, out)

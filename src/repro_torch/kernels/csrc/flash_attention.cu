@@ -25,7 +25,18 @@
 // q, k, v once, far above the ~300 flops per byte where the card stops
 // being bandwidth-bound, so the bound is the bf16 tensor-core rate.
 //
-// Design, simple and right first:
+// Two routes; the wrapper (flash_attention.py, `route`) picks one before
+// launch from dtype, shape, strides and alignment:
+// * the wgmma route, fa_hopper_kernel (its section below): bf16 at head
+//   dims 64, 128 and 256 with 16-byte aligned bases and strides that are
+//   multiples of 8 elements.  TMA loads into a K/V ring, a producer
+//   warpgroup and two consumer warpgroups, wgmma.  Entry point
+//   roomy_flash_attention_tma; the library links libcuda for
+//   cuTensorMapEncodeTiled.
+// * the classic route, everything else (float32, other head dims, odd
+//   strides): the kernels that follow, simple and right first.
+//
+// Classic route:
 // * bf16: one CTA of 4 warps per (q tile of 64 rows, q head, batch); each
 //   warp owns 16 rows.  Q, then each K/V tile, are staged in shared memory
 //   (rows padded by 16 bytes so ldmatrix is free of bank conflicts).  S =
@@ -53,6 +64,7 @@
 // Plain C interface, loaded with ctypes.  The launch goes on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,7 +85,9 @@ struct Params {
   int vec;              // every row start 16-byte aligned and D % 8 == 0
 };
 
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+// P: Params or HParams (the Hopper route's), which share these fields.
+template <class P>
+__device__ __forceinline__ bool visible(const P& p, int qpos, int kpos) {
   return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (p.window < 0 || kpos >= qpos - p.window);
 }
@@ -85,7 +99,8 @@ __device__ __forceinline__ float logit(const Params& p, float s) {
 }
 
 // Keys [*lo, *hi) that rows [qlo, qhi] can see at all.
-__device__ __forceinline__ void kv_range(const Params& p, int qlo, int qhi,
+template <class P>
+__device__ __forceinline__ void kv_range(const P& p, int qlo, int qhi,
                                          int* lo, int* hi) {
   int l = 0, h = p.Skv;
   if (p.causal && qhi + 1 < h) h = qhi + 1;
@@ -412,6 +427,509 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- bf16 on Hopper: TMA + wgmma
+//
+// The route for bf16 at head dims 64, 128 and 256 (the wrapper's `route`):
+// one CTA of three warpgroups per (128 q rows, q head, batch row).
+// Warpgroup 0 is the producer: it gives up registers (setmaxnreg 24) and
+// one of its threads issues every copy as a TMA load (cp.async.bulk.tensor
+// over a 4-D map (D, S, H, B) of the strided view, so a box never leaves
+// its head and rows past S come in as zeros): Q once, then K and V tiles
+// into a ring of STAGES slots guarded by full/empty mbarriers with
+// expect_tx byte counts.  Warpgroups 1 and 2 are the consumers (setmaxnreg
+// 240), 64 q rows each: S = Q·Kᵀ is wgmma m64nBKk16 with both operands in
+// shared memory (K-major, 128-byte swizzle, one box of 64 columns per
+// 128-byte row); O += P·V is wgmma with P in registers (the S accumulator
+// rounded to bf16 pairs in place: its fragment is the A operand's) and V
+// read MN-major through the descriptor's transpose bit.  The online
+// softmax keeps 4 lanes a row (shfl_xor 1, 2) in log2 units (exp2 with
+// log2(e) folded into the scale); the row sum stays a per-thread partial
+// until the end.  The mask runs only on tiles that cut the diagonal, the
+// window's edge or Skv; the softcap's tanh is 1 - 2/(1 + 2^(2x·log2 e))
+// from ex2.approx and rcp.approx (sign-safe; tanh.approx's error times
+// the cap would move the LSE by up to ~0.025).  Tiles (BK kv rows, ring
+// STAGES), inside 227 KB of shared memory with Q resident:
+//   D = 256: BK 64, 2 stages: 64 KB + 2 x (32 + 32) KB = 192 KB
+//   D = 128: BK 128, 2 stages: 32 KB + 2 x (32 + 32) KB = 160 KB
+//   D = 64:  BK 128, 4 stages: 16 KB + 4 x (16 + 16) KB = 144 KB
+// At D = 256 a consumer thread holds O (128 f32), S (32) and P (16).  The
+// CTAs run heaviest q tile first, and the q heads of one kv group are
+// adjacent in the grid, so their K and V tiles meet in L2.
+
+constexpr int kBQ = 128;        // q rows a CTA: 64 a consumer warpgroup
+constexpr int kWsThreads = 384; // producer warpgroup + 2 consumer ones
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D> struct Tile;   // kv rows a tile, ring stages
+template <> struct Tile<64> { static constexpr int BK = 128, STAGES = 4; };
+template <> struct Tile<128> { static constexpr int BK = 128, STAGES = 2; };
+template <> struct Tile<256> { static constexpr int BK = 64, STAGES = 2; };
+
+// Byte offsets in the CTA's shared memory, from a 1024-byte aligned base
+// (the 128-byte swizzle repeats every 8 rows of 128 bytes).
+template <int D> struct Layout {
+  static constexpr int BK = Tile<D>::BK, STAGES = Tile<D>::STAGES;
+  static constexpr int Q = kBQ * D * 2, KV = BK * D * 2;  // a tile's bytes
+  static constexpr int BAR = Q + 2 * STAGES * KV;
+  static constexpr int NBAR = 1 + 3 * STAGES;  // q_full; k/v_full, empty
+  static constexpr int BYTES = BAR + 8 * NBAR + 1024;     // + alignment
+};
+
+struct HParams {
+  int Hq, Sq, Skv, group;
+  long long o_sb, o_sh, o_ss;
+  int causal, window;  // window < 0: none
+  float softcap;       // 0: none
+  float qk_log2;       // scale·log2(e): a dot product to a log2 logit
+  float cap_in;        // 2·scale·log2(e)/softcap: the exponent of e^(2x)
+  float cap_out;       // softcap·log2(e)
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Arrive, and expect `bytes` of transactions before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the 4-D map at (column, row, head, batch) into dst; the
+// barrier's transaction count falls by the box's bytes when it lands.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma operand descriptor over 128-byte swizzled rows: start address,
+// leading and stride byte offsets (16-byte units), layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous instructions that own them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= a·b, m64n64k16, both operands in shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= a·b, m64n128k16, both operands in shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += a·b, m64n64k16, a (bf16 pairs) in registers, b in shared memory
+// with N contiguous (MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += a·b, m64n128k16, a (bf16 pairs) in registers, b in shared memory
+// with N contiguous (MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += a·b, m64n256k16, a (bf16 pairs) in registers, b in shared memory
+// with N contiguous (MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_hopper_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     bf16* __restrict__ o, float* __restrict__ lse,
+                     HParams p) {
+  using L = Layout<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_ws[];
+  const uint32_t base = (smem_addr(smem_ws) + 1023u) & ~1023u;
+  const uint32_t sq = base, bar = base + L::BAR;
+  // slot s: K at sk(s), V at sk(s) + KV; each tile is NC boxes of
+  // (rows x 128 bytes), one per 64 columns
+  auto sk = [&](int s) { return base + L::Q + 2 * s * L::KV; };
+  auto q_full = [&]() { return bar; };
+  auto k_full = [&](int s) { return bar + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bar + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bar + 8 * (1 + 2 * STAGES + s); };
+
+  const int nq = (p.Sq + kBQ - 1) / kBQ;
+  const int h = (int)(blockIdx.x % p.Hq), b = blockIdx.y, hk = h / p.group;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / p.Hq)) * kBQ;  // heaviest first
+  int lo, hi;
+  kv_range(p, q0, min(q0 + kBQ, p.Sq) - 1, &lo, &hi);
+  const int t_lo = lo / BK, t_hi = hi > lo ? (hi + BK - 1) / BK : t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full(), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 2);   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full(), L::Q);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_load(sq + c * kBQ * 128, &mq, q_full(), 64 * c, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = t_lo; j < t_hi; ++j) {
+        mbar_wait(empty(stage), phase ^ 1);   // the first round passes
+        mbar_expect_tx(k_full(stage), L::KV);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load(sk(stage) + c * BK * 128, &mk, k_full(stage), 64 * c,
+                   j * BK, hk, b);
+        mbar_expect_tx(v_full(stage), L::KV);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load(sk(stage) + L::KV + c * BK * 128, &mv, v_full(stage),
+                   64 * c, j * BK, hk, b);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int ra = q0 + 64 * cw;                 // the warpgroup's rows
+    const int row0 = ra + 16 * warp + g;         // this thread's: +0, +8
+    const bool active = ra < p.Sq;
+    int wlo = 0, whi = 0;
+    if (active) kv_range(p, ra, min(ra + 63, p.Sq - 1), &wlo, &whi);
+    const uint32_t qa = sq + cw * 64 * 128;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};   // running max, log2 units
+    float l[2] = {0.f, 0.f};           // this thread's part of the row sum
+
+    mbar_wait(q_full(), 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = t_lo; j < t_hi; ++j) {
+      const int k0 = j * BK;
+      mbar_wait(k_full(stage), phase);
+      if (active && k0 < whi && k0 + BK > wlo) {
+        // S = Q·Kᵀ: 64 rows x BK keys, D/16 steps of k16.
+        float s[BK / 2];
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(s,
+                     sw128_desc(qa + c * kBQ * 128 + kk * 32, 16, 1024),
+                     sw128_desc(sk(stage) + c * BK * 128 + kk * 32, 16, 1024),
+                     (c | kk) != 0);
+        wg_commit();
+        wg_wait0();
+        fence_regs(s);
+
+        // Logits in log2 units; the mask only where the tile needs it.
+        if (p.softcap != 0.f) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const float e = ex2(s[i] * p.cap_in);
+            s[i] = (1.f - 2.f * rcp(1.f + e)) * p.cap_out;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) s[i] *= p.qk_log2;
+        }
+        const bool interior = k0 + BK <= p.Skv &&
+                              (!p.causal || k0 + BK - 1 <= ra) &&
+                              (p.window < 0 || k0 >= ra + 63 - p.window);
+        if (!interior) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i)
+            if (!visible(p, row0 + 8 * ((i >> 1) & 1),
+                         k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+              s[i] = kNegInf;
+        }
+        float mx[2] = {m[0], m[1]}, alpha[2];
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = ex2(m[r] - mx[r]);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+        }
+        if (interior) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+            l[(i >> 1) & 1] += s[i];
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            s[i] = visible(p, row0 + 8 * r,
+                           k0 + 8 * (i >> 2) + 2 * t + (i & 1))
+                       ? ex2(s[i] - m[r])
+                       : 0.f;
+            l[r] += s[i];
+          }
+        }
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+        // O += P·V: BK/16 steps of k16 over the whole head dim.
+        mbar_wait(v_full(stage), phase);
+        fence_regs(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs(acc, pa[kk],
+                   sw128_desc(sk(stage) + L::KV + kk * 16 * 128, BK * 128,
+                              1024));
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      } else {
+        mbar_wait(v_full(stage), phase);   // the slot is free only once
+      }                                    // both of its loads landed
+      if (tid == 0) mbar_arrive(empty(stage));
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    bf16* og = o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (!active || row >= p.Sq) continue;
+      const float inv = l[r] == 0.f ? 1.f : 1.f / l[r];
+      if (lse != nullptr && t == 0)
+        lse[((long long)b * p.Hq + h) * p.Sq + row] =
+            l[r] == 0.f ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
+      bf16* orow = og + row * p.o_ss;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv,
+                                  acc[4 * n + 2 * r + 1] * inv);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <int DP, int BK>
@@ -430,11 +948,66 @@ int launch_bf16(dim3 grid, cudaStream_t stream, const void* q, const void* k,
 
 int aligned16(const void* ptr) { return (((uintptr_t)ptr) & 15u) == 0; }
 
+// ------------------------------------------------------- Hopper launch
+
+constexpr int kDriverError = 10000;   // + CUresult of the tensor-map encode
+
+// One 4-D map from the wrapper's geometry g: dims (D, S, H, B), byte
+// strides of S, H and B, box (64 columns, rows, 1, 1).
+int encode_map(CUtensorMap* map, const void* ptr, const long long* g) {
+  const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1],
+                              (cuuint64_t)g[2], (cuuint64_t)g[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5],
+                                 (cuuint64_t)g[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8],
+                             (cuuint32_t)g[9], (cuuint32_t)g[10]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out of bounds: zeros
+  return r == CUDA_SUCCESS ? 0 : kDriverError + (int)r;
+}
+
+template <int D>
+int launch_hopper(cudaStream_t stream, int B, const void* q, const void* k,
+                  const void* v, void* o, float* lse, const long long* maps,
+                  const HParams& p) {
+  using L = Layout<D>;
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {kBQ, L::BK, L::BK};
+  CUtensorMap tm[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long* g = maps + 11 * i;
+    // the wrapper's geometry must be this instantiation's tiles
+    if (g[0] != D || g[7] != 64 || g[8] != rows[i] || g[9] != 1 ||
+        g[10] != 1)
+      return (int)cudaErrorInvalidValue;
+    const int e = encode_map(&tm[i], ptrs[i], g);
+    if (e) return e;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      fa_hopper_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const long long ctas = (long long)((p.Sq + kBQ - 1) / kBQ) * p.Hq;
+  fa_hopper_kernel<D><<<dim3((unsigned)ctas, B), kWsThreads, L::BYTES,
+                        stream>>>(tm[0], tm[1], tm[2],
+                                  static_cast<bf16*>(o), lse, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* roomy_fa_error_string(int code) {
+  if (code >= kDriverError) {
+    const char* s = nullptr;
+    cuGetErrorString((CUresult)(code - kDriverError), &s);
+    return s != nullptr ? s : "unknown driver error";
+  }
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -481,6 +1054,44 @@ int roomy_flash_attention(const void* q, const void* k, const void* v,
   if (D <= 64) return launch_bf16<64, 64>(grid, s, q, k, v, o, lse, p);
   if (D <= 128) return launch_bf16<128, 64>(grid, s, q, k, v, o, lse, p);
   return launch_bf16<256, 32>(grid, s, q, k, v, o, lse, p);
+}
+
+// Dynamic shared memory of the Hopper route's kernel at head dim D, -1 for
+// a head dim it does not take.
+int roomy_flash_attention_tma_smem(int D) {
+  return D == 64 ? Layout<64>::BYTES
+         : D == 128 ? Layout<128>::BYTES
+         : D == 256 ? Layout<256>::BYTES
+                    : -1;
+}
+
+// The Hopper route: bf16, D in {64, 128, 256}, q/k/v/o 16-byte aligned and
+// every stride a multiple of 8 elements (the wrapper's `route`).  maps: 3 x
+// 11 values, the 4-D tensor-map geometry of q, k and v (dims D, S, H, B;
+// byte strides of S, H, B; box 64 x rows x 1 x 1); o_strides: o's (batch,
+// head, seq) element strides.  lse as for roomy_flash_attention.
+int roomy_flash_attention_tma(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int B, int Hq, int Hkv,
+                              int Sq, int Skv, int D,
+                              const long long* o_strides,
+                              const long long* maps, int causal, int window,
+                              float softcap, float scale, void* stream) {
+  if (Hkv < 1 || Hq < 1 || Hq % Hkv != 0 || B < 1 || B > 65535 || Sq < 1 ||
+      Skv < 1 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  HParams p;
+  p.Hq = Hq; p.Sq = Sq; p.Skv = Skv; p.group = Hq / Hkv;
+  p.o_sb = o_strides[0]; p.o_sh = o_strides[1]; p.o_ss = o_strides[2];
+  p.causal = causal; p.window = window; p.softcap = softcap;
+  p.qk_log2 = scale * kLog2e;
+  p.cap_in = softcap > 0.f ? 2.f * scale * kLog2e / softcap : 0.f;
+  p.cap_out = softcap * kLog2e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64) return launch_hopper<64>(s, B, q, k, v, o, lse, maps, p);
+  if (D == 128) return launch_hopper<128>(s, B, q, k, v, o, lse, maps, p);
+  if (D == 256) return launch_hopper<256>(s, B, q, k, v, o, lse, maps, p);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -11,6 +11,21 @@ CUDA stream and books one launch in ``LAUNCHES``, under
 ``flash_attention`` or ``flash_attention_lse``.  For CPU tensors it
 returns the plain version (``ref.attention_ref`` / ``attention_lse_ref``);
 for CUDA tensors it launches the kernel or raises — there is no fallback.
+
+Two routes, chosen by ``route`` before launch from dtype, shape, strides
+and alignment alone, and booked in ``ROUTE_LAUNCHES``:
+
+* ``"wgmma"``: bfloat16 at head dims 64, 128 and 256 (minicpm-2b,
+  nemotron-4-15b and granite-34b, gemma2-2b) with q, k, v, o 16-byte
+  aligned and every stride a multiple of 8 elements (TMA's 16-byte rule):
+  ``fa_hopper_kernel``, TMA loads of K/V into a ring, warp-specialised,
+  wgmma.  The wrapper passes each of q, k, v as a 4-D tensor map
+  (``tma_geometry``).
+* ``"classic"``: everything else (float32, the smoke configs' head dims,
+  odd strides): ``fa_bf16_kernel`` (mma.sync) and ``fa_f32_kernel``.
+
+A route's kernel that fails to build or launch raises; neither route
+stands in for the other.
 """
 from __future__ import annotations
 
@@ -33,9 +48,54 @@ LAUNCHES = obs.counters("attention", {"flash_attention": 0,
                                       "flash_attention_bwd": 0})
 
 
+#: K6 launches (with and without the LSE) by route; K7 books none here.
+ROUTE_LAUNCHES = obs.counters("attention_route", {"wgmma": 0, "classic": 0})
+
+#: The Hopper route's tiles by head dim: (q rows, kv rows) a CTA, as
+#: ``Tile`` in ``csrc/flash_attention.cu``.
+TMA_TILES = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
+#: Columns of a TMA box: one 128-byte row of the 128-byte swizzle.
+TMA_BOX_COLS = 64
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def route(q, k, v, o) -> str:
+    """The kernel that takes a call (q, k, v, o of one dtype, as
+    ``check_inputs`` and the wrapper make them): ``"wgmma"`` when they are
+    bfloat16 with a head dim in ``TMA_TILES``, none is empty, the last dim
+    is contiguous, every base pointer is 16-byte aligned and the stride of
+    every dim longer than 1 is a positive multiple of 8 elements;
+    ``"classic"`` otherwise."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TMA_TILES:
+        return "classic"
+    for x in (q, k, v, o):
+        if x.numel() == 0 or x.stride(-1) != 1 or x.data_ptr() % 16:
+            return "classic"
+        if any(n > 1 and (st <= 0 or st % 8)
+               for n, st in zip(x.shape[:3], x.stride()[:3])):
+            return "classic"
+    return "wgmma"
+
+
+def tma_geometry(x: torch.Tensor, rows: int) -> tuple:
+    """The 4-D TMA map of a (B, H, S, D) view, as 11 ints: dims innermost
+    first (D, S, H, B), the byte strides of S, H and B, and the box
+    (``TMA_BOX_COLS`` columns, ``rows`` rows, 1 head, 1 batch row).  A box
+    spans one head and one batch row, so a tile never reads into the next
+    head; rows past S come in as zeros.  A dim of extent 1 is never
+    stepped over, so its stride is given as D's row (any multiple of 16
+    bytes does)."""
+    b, h, s, d = x.shape
+    es = x.element_size()
+    strides = tuple((st if n > 1 else d) * es
+                    for n, st in ((s, x.stride(2)), (h, x.stride(1)),
+                                  (b, x.stride(0))))
+    return (d, s, h, b) + strides + (TMA_BOX_COLS, rows, 1, 1)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -52,6 +112,14 @@ def _lib() -> ctypes.CDLL:
                                               _I, _I, _I, _I, _P, _I, _I, _F,
                                               _F, _P]
         lib.roomy_flash_attention.restype = _I
+        # q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, o_strides, maps, causal,
+        # window, softcap, scale, stream
+        lib.roomy_flash_attention_tma.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+                                                  _I, _I, _I, _I, _P, _P, _I,
+                                                  _I, _F, _F, _P]
+        lib.roomy_flash_attention_tma.restype = _I
+        lib.roomy_flash_attention_tma_smem.argtypes = [_I]
+        lib.roomy_flash_attention_tma_smem.restype = _I
         lib.roomy_fa_error_string.argtypes = [_I]
         lib.roomy_fa_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -113,21 +181,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     hkv, skv = k.shape[1], k.shape[2]
-    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
-                                         for s in x.stride()[:3]))
+    path = route(q, k, v, out)
     lib = _lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    mask = (int(causal), -1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.roomy_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            DTYPES[q.dtype], b, hq, hkv, sq, skv, d,
-            ctypes.cast(strides, ctypes.c_void_p), int(causal),
-            -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), float(scale), stream)
+        if path == "wgmma":
+            bq, bk = TMA_TILES[d]
+            maps = (ctypes.c_longlong * 33)(*tma_geometry(q, bq),
+                                            *tma_geometry(k, bk),
+                                            *tma_geometry(v, bk))
+            ostr = (ctypes.c_longlong * 3)(*out.stride()[:3])
+            name = "roomy_flash_attention_tma"
+            code = lib.roomy_flash_attention_tma(
+                *ptrs, b, hq, hkv, sq, skv, d,
+                ctypes.cast(ostr, ctypes.c_void_p),
+                ctypes.cast(maps, ctypes.c_void_p), *mask, stream)
+        else:
+            strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
+                                                 for s in x.stride()[:3]))
+            name = "roomy_flash_attention"
+            code = lib.roomy_flash_attention(
+                *ptrs, DTYPES[q.dtype], b, hq, hkv, sq, skv, d,
+                ctypes.cast(strides, ctypes.c_void_p), *mask, stream)
     if code:
-        raise RuntimeError(f"roomy_flash_attention: CUDA error {code}: "
+        raise RuntimeError(f"{name}: CUDA error {code}: "
                            f"{lib.roomy_fa_error_string(code).decode()}")
+    ROUTE_LAUNCHES[path] += 1
     if return_lse:
         LAUNCHES["flash_attention_lse"] += 1
         return out, lse
