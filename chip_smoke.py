@@ -10,9 +10,10 @@ caught:
    exits non-zero when ``torch.cuda.is_available()`` is false.
 2. build: nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` for
    sm_90a into ``build/`` (one nvcc per source, all started together;
-   flash_attention links libcuda for its TMA maps); the ptxas report of
-   K6's wgmma kernel at head dims 64, 128, 256 (registers, spills, stack)
-   beside its dynamic shared memory.
+   flash_attention and flash_attention_bwd link libcuda for their TMA
+   maps); the ptxas report of K6's wgmma kernel and of K7's two (dK/dV
+   and dQ) at head dims 64, 128, 256 (registers, spills, stack) beside
+   their dynamic shared memory; K7's must show no spills and no stack.
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
    counts) — edge cases at small widths, then W = 29,937,600 words (12!
@@ -145,27 +146,31 @@ caught:
    dense configs' layouts (head 128 at groups 6 and 48, head 64 at group
    1); float32
    elementwise 3e-4, bfloat16 per (batch, head) 1e-2 for each of dq, dk,
-   dv; contiguous and strided; two runs give the same bits; the bf16
-   check also holds at logits of std 16 and 4; three planted faults, each
-   with finite output, must break the bf16 limit 2x: the backward without
-   the softcap at logits of std 4, without the term D = rowsum(dO ∘ O),
-   and with the window one 32-key tile short.
+   dv; contiguous and strided; each call on the route its dtype and head
+   dim call for (by ``BWD_ROUTE_LAUNCHES``: bf16 at head dims 64, 128,
+   256 on the wgmma route, the rest classic); two runs give the same bits;
+   the bf16 check also holds at logits of std 16 and 4; three planted
+   faults, each with finite output, must break the bf16 limit 2x: the
+   backward without the softcap at logits of std 4, without the term D =
+   rowsum(dO ∘ O), and with the window one 32-key tile short.
 12. K7 and K6-with-LSE times (K6 on the wgmma route) at the train shape
    and at 8192 rows with the window cutting, beside the bound, the plain
    version and the library call (``flex_attention``, compiled: its
    backward alone, and its forward with the LSE; each held to the
    kernel's limits against the kernel; at the train shape K6-with-LSE
-   must be the faster);
-   with the softcap off, scaled_dot_product_attention's backward and
-   forward beside K7 and K6-with-LSE.
+   and K7 must each be the faster); K7's route and its TFLOP/s under 10·D
+   and 14·D flops a visible pair; with the softcap off,
+   scaled_dot_product_attention's backward and forward beside K7 and
+   K6-with-LSE; K7 beside SDPA's backward at the nemotron-4-15b,
+   granite-34b and minicpm-2b layouts (1 × 4096).
 13. gemma2-2b training (``phase_training``):
    a. main path: ``runtime.train_loop.train`` on FULL, float32 master
       params and bfloat16 compute, remat on, 1 × 4096 tokens a step
       (``train_4k`` with its global batch of 256 cut to 1), 6 steps,
       nothing wrapped around the loop, launch counts set to 0 just before
       and read just after: each step (its ``train.step`` span) launches
-      K6-with-LSE 52 times, all on the wgmma route, K7 26 times and K6
-      without LSE never; losses,
+      K6-with-LSE 52 times, all on the wgmma route, K7 26 times, all on
+      the wgmma route, and K6 without LSE never; losses,
       median step time of steps 1-5, tokens/s, peak memory;
    b. one call of the step function (``make_train_step``: gradient, then
       the AdamW update) under ``torch.profiler``: device time by group
@@ -413,21 +418,18 @@ def phase_card() -> str:
     return line
 
 
-def k6_ptxas() -> dict:
-    """The ptxas report of K6's wgmma kernel at each head dim (registers at
-    launch, spills, stack) from this process's build, beside the dynamic
-    shared memory it asks for.  The consumers' 240 registers a thread come
-    from setmaxnreg at run time; ptxas reports the launch's 168 (384
-    threads) and warns (C7508) if it had to ignore setmaxnreg."""
-    lines = _build.BUILD_LOGS.get("flash_attention", "").splitlines()
+def ptxas_report(source, kernel, smem) -> dict:
+    """The ptxas report of ``kernel``'s instantiation at each head dim in
+    this process's build of ``source`` (registers at launch, spills,
+    stack), beside the dynamic shared memory ``smem(d)`` it asks for."""
+    lines = _build.BUILD_LOGS.get(source, "").splitlines()
     out = {}
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line or \
-                "fa_hopper_kernel" not in line:
+                f"{kernel}ILi" not in line:
             continue
-        d = int(line.split("fa_hopper_kernelILi")[1].split("E")[0])
-        smem = FA._lib().roomy_flash_attention_tma_smem(d)
-        rec = {"smem_dynamic_bytes": smem}
+        d = int(line.split(f"{kernel}ILi")[1].split("E")[0])
+        rec = {"smem_dynamic_bytes": smem(d)}
         for nxt in lines[i + 1:i + 5]:
             if "spill stores" in nxt:
                 n = [int(w) for w in nxt.replace(",", " ").split()
@@ -437,9 +439,46 @@ def k6_ptxas() -> dict:
             if "Used" in nxt and "registers" in nxt:
                 rec["registers"] = int(nxt.split("Used")[1].split()[0])
         out[d] = rec
+    return out
+
+
+def k6_ptxas() -> dict:
+    """The ptxas report of K6's wgmma kernel at each head dim.  The
+    consumers' 240 registers a thread come from setmaxnreg at run time;
+    ptxas reports the launch's 168 (384 threads) and warns (C7508) if it
+    had to ignore setmaxnreg."""
+    lines = _build.BUILD_LOGS.get("flash_attention", "").splitlines()
+    out = ptxas_report("flash_attention", "fa_hopper_kernel",
+                       FA._lib().roomy_flash_attention_tma_smem)
     rec = {"setmaxnreg_ignored": any("C7508" in x for x in lines)}
     print(f"ptxas K6 wgmma kernel (fa_hopper_kernel<D>): {out} {rec}")
     return {**{str(d): r for d, r in out.items()}, **rec}
+
+
+def k7_ptxas() -> dict:
+    """The ptxas report of K7's two wgmma kernels at head dims 64, 128 and
+    256: every one built, with no spills and no stack; ptxas warned
+    neither that it ignored setmaxnreg (C7508) nor that it serialised
+    wgmma (C7520)."""
+    lines = _build.BUILD_LOGS.get("flash_attention_bwd", "").splitlines()
+    smem = FAB._lib().roomy_flash_attention_bwd_tma_smem
+    out = {name: ptxas_report("flash_attention_bwd", name,
+                              lambda d, w=which: smem(d, w))
+           for which, name in ((0, "dkdv_hopper_kernel"),
+                               (1, "dq_hopper_kernel"))}
+    rec = {"setmaxnreg_ignored": any("C7508" in x for x in lines),
+           "wgmma_serialised": any("C7520" in x for x in lines)}
+    print(f"ptxas K7 wgmma kernels (dkdv_hopper_kernel<D>, "
+          f"dq_hopper_kernel<D>): {out} {rec}")
+    for name, by_d in out.items():
+        expect(sorted(by_d) == [64, 128, 256], f"ptxas K7 {name}: {by_d}")
+        for d, r in by_d.items():
+            expect(r.get("spill_store_bytes") == 0 and
+                   r.get("spill_load_bytes") == 0 and
+                   r.get("stack_bytes") == 0, f"ptxas K7 {name}<{d}>: {r}")
+    expect(not any(rec.values()), f"ptxas K7: {rec}")
+    return {**{name: {str(d): r for d, r in by_d.items()}
+               for name, by_d in out.items()}, **rec}
 
 
 def phase_build() -> dict:
@@ -456,7 +495,7 @@ def phase_build() -> dict:
     FAB._lib()
     MS._lib()
     PD._lib()
-    return k6_ptxas()
+    return k6_ptxas(), k7_ptxas()
 
 
 # ------------------------------------------------------------------ parity
@@ -1974,7 +2013,9 @@ def kernel_group(name: str) -> str:
         return "mamba_scan (K9)"
     if "partial_kernel<" in low or "merge_kernel<" in low:
         return "paged_decode_attention (K8)"
-    if any(w in low for w in ("dkdv_bf16_kernel", "dq_bf16_kernel",
+    if any(w in low for w in ("dkdv_hopper_kernel", "dq_hopper_kernel",
+                              "bwd_rows_kernel",
+                              "dkdv_bf16_kernel", "dq_bf16_kernel",
                               "dkdv_f32_kernel", "dq_f32_kernel",
                               "dvec_kernel")):
         return "flash_attention_bwd (K7)"
@@ -2141,6 +2182,11 @@ K7_CAP_SIGMA = 4.0
 K7_FAULT_SIGMA = 2.0
 TRAIN_SEQ = 4096        # train_4k (repro/configs/shapes.py:22); batch 256 cut to 1
 TRAIN_STEPS = 6
+# K7 at the dense configs' layouts, 1 × 4096, causal, timed beside SDPA's
+# backward: b, hq, hkv, sq, skv, d
+K7_DENSE_TIMES = {"nemotron-4-15b": (1, 48, 8, 4096, 4096, 128),
+                  "granite-34b": (1, 48, 1, 4096, 4096, 128),
+                  "minicpm-2b": (1, 36, 36, 4096, 4096, 64)}
 
 
 def k7_inputs(case, dtype, dev, seed, strided=False, qk_sigma=1.0):
@@ -2178,14 +2224,29 @@ def k7_errors(got, want) -> dict:
     return out
 
 
+def k7_route(dtype, d) -> str:
+    """The route a K7 case's fresh inputs must take, as ``k6_route``'s: the
+    wgmma kernels for bfloat16 at head dims 64, 128 and 256, the classic
+    kernels otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and d in FAB.DQ_TILES else \
+        "classic"
+
+
 def run_k7(q, k, v, do, kw, bwd_kw=None, drop_d=False):
     """K6 with LSE forward, then K7 and its plain version on the same
-    (q, k, v, o, lse, dO).  A planted fault, if asked for: K7 run with
-    ``bwd_kw``, or (``drop_d``) given o = 0, which drops the term
-    D = rowsum(dO ∘ O) (K7 reads o for D alone) and nothing else."""
+    (q, k, v, o, lse, dO); K7 must take the route ``k7_route`` names.  A
+    planted fault, if asked for: K7 run with ``bwd_kw``, or (``drop_d``)
+    given o = 0, which drops the term D = rowsum(dO ∘ O) (K7 reads o for
+    D alone) and nothing else."""
     o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(FA.BWD_ROUTE_LAUNCHES)
     got = FAB.flash_attention_bwd(q, k, v, torch.zeros_like(o) if drop_d
                                   else o, lse, do, **(bwd_kw or kw))
+    path = k7_route(q.dtype, q.shape[-1])
+    routed = {n: FA.BWD_ROUTE_LAUNCHES[n] - before[n] for n in before}
+    expect(routed == {**{n: 0 for n in before}, path: 1},
+           f"K7 routes {routed}, want 1 launch on {path}: {tuple(q.shape)} "
+           f"{q.dtype}")
     want = R.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     for g, x in zip(got, (q, k, v)):
@@ -2215,8 +2276,9 @@ def phase_k7_parity(dev) -> dict:
         f32 = max(e["max_abs"] for (dt, _), e in errs.items()
                   if dt == torch.float32)
         bf = [e for (dt, _), e in errs.items() if dt == torch.bfloat16]
-        print(f"parity K7 {case}: f32 max abs err {f32:.3e} (tol "
-              f"{K7_F32_TOL} abs + rel); bf16 per-(b, h) rel err dq "
+        print(f"parity K7 {case}: f32 (classic) max abs err {f32:.3e} (tol "
+              f"{K7_F32_TOL} abs + rel); bf16 "
+              f"({k7_route(torch.bfloat16, case[5])}) per-(b, h) rel err dq "
               f"{max(e['dq']['rel'] for e in bf):.3e} dk "
               f"{max(e['dk']['rel'] for e in bf):.3e} dv "
               f"{max(e['dv']['rel'] for e in bf):.3e} (limit {K7_REL_TOL})")
@@ -2303,16 +2365,36 @@ def library_k7(q, k, v, do, kw, o, lse, grads) -> dict:
             "bwd_rel_vs_kernel": bwd_rel}
 
 
+def k7_rates(ms, flops) -> str:
+    """Achieved TFLOP/s of K7 under the least work (10·D flops a visible
+    pair, ``bwd_bound``'s count) and under what the two-kernel design does
+    (14·D: S and dP in both kernels)."""
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s at 10·D, "
+            f"{1.4 * flops / ms / 1e9:.1f} at 14·D")
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """The backward of scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) alone, its forward run once before."""
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                         enable_gqa=True)
+    return median_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                                 retain_graph=True))
+
+
 def phase_k7_times(dev) -> dict:
     """K7 and K6 with its LSE at the train shape (1 × 8 × 4096 × 256, GQA 2,
     softcap 50, causal: a local layer's window 4096 sees every earlier
     position at this length) and at 8192 rows with the window cutting:
     CUDA events, median of 20, beside the bound, the plain version (median
     of 3) and the library call (``flex_attention``, compiled: forward with
-    LSE, and backward alone).  At the train shape with the softcap off, the
-    backward of scaled_dot_product_attention(is_causal=True,
-    enable_gqa=True) alone and its forward, beside K7 and K6-with-LSE with
-    the softcap off."""
+    LSE, and backward alone); K7 on the wgmma route, and at the train
+    shape faster than the library's backward.  At the train shape with the
+    softcap off, the backward of scaled_dot_product_attention(is_causal=
+    True, enable_gqa=True) alone and its forward, beside K7 and
+    K6-with-LSE with the softcap off; then K7 beside SDPA's backward at the
+    dense configs' layouts (``K7_DENSE_TIMES``)."""
     out = {}
     for name, case in (("train", (1, 8, 4, TRAIN_SEQ, TRAIN_SEQ, 256, True,
                                   None, 50.0)),
@@ -2334,15 +2416,22 @@ def phase_k7_times(dev) -> dict:
         fbound = max(fflops / BF16_FLOPS, fbytes / HBM_BYTES_PER_S) * 1e3
         lib = library_k7(q, k, v, do, kw, o, lse,
                          FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        path = FAB.route(q, k, v, o, do)
+        expect(path == "wgmma", f"K7 at the {name} shape takes {path}")
         expect(name != "train" or fms < lib["fwd_lse_ms"],
                f"K6 with LSE at the {name} shape "
                f"({fms:.3f} ms) is not faster than flex_attention's forward "
                f"with its LSE ({lib['fwd_lse_ms']:.3f} ms)")
+        expect(name != "train" or ms < lib["bwd_ms"],
+               f"K7 at the {name} shape ({ms:.3f} ms) is not faster than "
+               f"flex_attention's backward ({lib['bwd_ms']:.3f} ms)")
         out[name] = {
             "shape": f"{tuple(q.shape)} kv {tuple(k.shape)} window "
                      f"{kw['window']} softcap {kw['softcap']}",
             "bwd": {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                     "bound_by": by, "flops": flops, "bytes": nbytes,
+                    "route": path, "tflops_10d": flops / ms / 1e9,
+                    "tflops_14d": 1.4 * flops / ms / 1e9,
                     "library_ms": lib["bwd_ms"],
                     "library_rel_vs_kernel": lib["bwd_rel_vs_kernel"]},
             "fwd_lse": {"ms": fms, "plain_ms": fplain, "bound_ms": fbound,
@@ -2350,9 +2439,10 @@ def phase_k7_times(dev) -> dict:
                         "library_ms": lib["fwd_lse_ms"],
                         "library_rel_vs_kernel": lib["fwd_rel_vs_kernel"],
                         "library_lse_abs_vs_kernel": lib["lse_abs_vs_kernel"]}}
-        print(f"time: K7 {out[name]['shape']}: {ms:.3f} ms, bound "
-              f"{bound:.3f} ms ({by}: {flops:.3e} flops at 989 TFLOP/s, "
-              f"{nbytes} bytes at 3.35 TB/s), {flops / ms / 1e9:.1f} TFLOP/s, "
+        print(f"time: K7 {out[name]['shape']} ({path} route): {ms:.3f} ms, "
+              f"bound {bound:.3f} ms ({by}: {flops:.3e} flops at 989 "
+              f"TFLOP/s, {nbytes} bytes at 3.35 TB/s), "
+              f"{k7_rates(ms, flops)}, "
               f"plain {plain:.3f} ms (median of {PLAIN_REPS}), library "
               f"flex_attention backward {lib['bwd_ms']:.3f} ms (per-(b, h) "
               f"rel to K7 {lib['bwd_rel_vs_kernel']:.3e}); K6 with LSE "
@@ -2368,11 +2458,7 @@ def phase_k7_times(dev) -> dict:
     o, lse = FA.flash_attention(q, k, v, return_lse=True)
     k7_off = median_ms(lambda: FAB.flash_attention_bwd(q, k, v, o, lse, do))
     k6_off = median_ms(lambda: FA.flash_attention(q, k, v, return_lse=True))
-    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
-    ref_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
-                                             enable_gqa=True)
-    sdpa_bwd = median_ms(lambda: torch.autograd.grad(
-        ref_out, (qq, kk, vv), do, retain_graph=True))
+    sdpa_bwd = sdpa_bwd_ms(q, k, v, do)
     with torch.no_grad():
         sdpa_fwd = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
@@ -2380,9 +2466,32 @@ def phase_k7_times(dev) -> dict:
                                library_ms_softcap_off=sdpa_bwd)
     out["train"]["fwd_lse"].update(ms_softcap_off=k6_off,
                                    library_ms_softcap_off=sdpa_fwd)
-    print(f"time: train shape, softcap off: K7 {k7_off:.3f} ms, library "
+    flops = bwd_bound(q, k, True, None)[2]
+    print(f"time: train shape, softcap off: K7 {k7_off:.3f} ms "
+          f"({k7_rates(k7_off, flops)}), library "
           f"scaled_dot_product_attention backward {sdpa_bwd:.3f} ms; K6 with "
           f"LSE {k6_off:.3f} ms, library forward {sdpa_fwd:.3f} ms")
+    del q, k, v, do, o, lse
+    out["dense"] = {}
+    for arch, case in K7_DENSE_TIMES.items():
+        q, k, v, do = k7_inputs(case, torch.bfloat16, dev, 9, True)
+        o, lse = FA.flash_attention(q, k, v, return_lse=True)
+        path = FAB.route(q, k, v, o, do)
+        expect(path == "wgmma", f"K7 at {arch}'s layout takes {path}")
+        ms = median_ms(lambda: FAB.flash_attention_bwd(q, k, v, o, lse, do))
+        bound, by, flops, _ = bwd_bound(q, k, True, None)
+        sdpa = sdpa_bwd_ms(q, k, v, do)
+        out["dense"][arch] = {"shape": f"{tuple(q.shape)} kv "
+                                       f"{tuple(k.shape)}, causal",
+                              "ms": ms, "bound_ms": bound, "bound_by": by,
+                              "route": path, "library_ms": sdpa,
+                              "tflops_10d": flops / ms / 1e9,
+                              "tflops_14d": 1.4 * flops / ms / 1e9}
+        print(f"time: K7 at {arch}'s layout {out['dense'][arch]['shape']} "
+              f"({path} route): {ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+              f"{k7_rates(ms, flops)}; library scaled_dot_product_attention "
+              f"backward {sdpa:.3f} ms")
+        del q, k, v, do, o, lse
     return out
 
 
@@ -2424,6 +2533,11 @@ def phase_train(cfg, dev):
         spans, "attention_route")
     expect(step_routes == [{"wgmma": 2 * n}] * TRAIN_STEPS, step_routes)
     expect(routes == {"wgmma": 2 * n * TRAIN_STEPS, "classic": 0}, routes)
+    bwd_routes, step_bwd = dict(FA.BWD_ROUTE_LAUNCHES), step_launches(
+        spans, "attention_bwd_route")
+    expect(step_bwd == [{"wgmma": n}] * TRAIN_STEPS, step_bwd)
+    expect(bwd_routes == {"wgmma": n * TRAIN_STEPS, "classic": 0},
+           bwd_routes)
     expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
     losses = out["losses"]
     expect(len(losses) == TRAIN_STEPS and out["restarts"] == 0, losses)
@@ -2433,13 +2547,14 @@ def phase_train(cfg, dev):
            "losses": losses, "step_seconds": out["step_seconds"],
            "median_step_s_1_5": med, "tokens_per_s": TRAIN_SEQ / med,
            "wall_s": wall, "peak_bytes": peak, "launches": launches,
-           "launches_per_step": per_step[0], "k6_routes": routes}
+           "launches_per_step": per_step[0], "k6_routes": routes,
+           "k7_routes": bwd_routes}
     print(f"train: {cfg.name} 1 x {TRAIN_SEQ} tokens a step, {TRAIN_STEPS} "
           f"steps, losses {[round(x, 4) for x in losses]}; median step of "
           f"steps 1-5 {med:.3f} s, {TRAIN_SEQ / med:.0f} tokens/s; steps "
           f"{[round(x, 3) for x in out['step_seconds']]} s; peak {peak} "
           f"bytes; launches per step {per_step[0]}, in all {launches}; "
-          f"K6-with-LSE routes {routes}")
+          f"K6-with-LSE routes {routes}; K7 routes {bwd_routes}")
     return out["final_params"], s, res
 
 
@@ -2525,6 +2640,8 @@ def phase_grad_parity(cfg, params, batch, dev) -> dict:
     expect(dict(FA.LAUNCHES) == {"flash_attention": 0,
                                  "flash_attention_lse": 2 * n,
                                  "flash_attention_bwd": n}, dict(FA.LAUNCHES))
+    expect(dict(FA.BWD_ROUTE_LAUNCHES) == {"wgmma": n, "classic": 0},
+           dict(FA.BWD_ROUTE_LAUNCHES))
     sound = leaf_errors(got, want, params)
     loss_k, loss_r = float(loss_k), float(loss_r)
     sound["loss_rel"] = abs(loss_k - loss_r) / abs(loss_r)
@@ -2581,6 +2698,8 @@ def phase_train_smoke(dev) -> dict:
            dict(FA.LAUNCHES))
     expect(dict(FA.ROUTE_LAUNCHES) == {"wgmma": 0, "classic": 2 * n * 15},
            dict(FA.ROUTE_LAUNCHES))
+    expect(dict(FA.BWD_ROUTE_LAUNCHES) == {"wgmma": 0, "classic": n * 15},
+           dict(FA.BWD_ROUTE_LAUNCHES))
     expect(out["losses"][-1] < out["losses"][0], out["losses"])
     base = dict(batch=2, seq=16, steps=10, lr=1e-3, warmup_steps=2,
                 log_every=100)
@@ -3640,7 +3759,7 @@ def main() -> None:
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    ptxas = phase_build()
+    ptxas, k7_ptx = phase_build()
     phase_parity_edges(dev)
     data, tgt = phase_parity_full(dev)
     times = phase_times(data, tgt)
@@ -3752,6 +3871,9 @@ def main() -> None:
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": K7_SOURCE,
         "replaces": K7_REPLACES,
+        "kernel": "bwd_rows_kernel, dkdv_hopper_kernel, dq_hopper_kernel "
+                  "(the wgmma route: TMA rings, warp specialisation, wgmma)",
+        "launches_by_route": trained["k7_routes"], "ptxas": k7_ptx,
         "launches": trained["launches"]["flash_attention_bwd"],
         "max_abs_err": MAX_ERR["flash_attention_bwd"],
         "max_rel_err_per_bh": MAX_REL["flash_attention_bwd"],
@@ -3767,6 +3889,9 @@ def main() -> None:
         "window_ms": win["bwd"]["ms"], "window_plain_ms": win["bwd"][
             "plain_ms"], "window_bound_ms": win["bwd"]["bound_ms"],
         "window_library_ms": win["bwd"]["library_ms"],
+        "tflops_10d": tr["bwd"]["tflops_10d"],
+        "tflops_14d": tr["bwd"]["tflops_14d"],
+        "dense_layouts": k7["dense"],
         "planted_faults_rel": {k: v["rel"] for k, v in
                                k7_parity["planted_faults"].items()}})
     t9 = fm["times"]

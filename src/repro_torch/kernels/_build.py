@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/lib<name>-<hash>.so`` at the root of the checkout; the
-hash covers the source and the flags, so an edited source builds anew and
-an unchanged one loads from the earlier build.  The build happens at first
-use, never at import: the CPU tests import every module, and this machine
-may have no nvcc.  A failed build raises with nvcc's stderr.
+hash covers the source, the headers under ``csrc/`` and the flags, so an
+edited source builds anew and an unchanged one loads from the earlier
+build.  The build happens at first use, never at import: the CPU tests
+import every module, and this machine may have no nvcc.  A failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -23,10 +23,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-#: Libraries a source links beyond the runtime: the flash-attention source
-#: encodes TMA tensor maps with the driver API (cuTensorMapEncodeTiled);
-#: nvcc's own library path holds the toolkit's libcuda stub.
-LINK = {"flash_attention": ["-lcuda"]}
+#: Libraries a source links beyond the runtime: the flash-attention sources
+#: (forward and backward) encode TMA tensor maps with the driver API
+#: (cuTensorMapEncodeTiled); nvcc's own library path holds the toolkit's
+#: libcuda stub.
+LINK = {"flash_attention": ["-lcuda"], "flash_attention_bwd": ["-lcuda"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each build this process ran.
@@ -43,9 +44,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library's path; its hash covers the source, every header under
+    ``csrc/`` (a source may include any of them) and the flags."""
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + LINK.get(name, [])
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -24,7 +24,20 @@
 // card stops being bandwidth-bound, so the bound is the bf16 tensor-core
 // rate.
 //
-// Design, simple and right first (FlashAttention-2's two passes, no atomics):
+// Two routes; the wrapper (flash_attention_bwd.py, `route`) picks one
+// before launch, from the dtype, shape, strides and alignment of q, k, v, o
+// and dO:
+// * the wgmma route (its section below): bf16 at head dims 64, 128 and
+//   256 with 16-byte aligned bases and strides that are multiples of 8
+//   elements.  A row pass, then a dK/dV kernel and a dQ kernel, each with
+//   TMA loads into rings, a producer warpgroup and two consumer
+//   warpgroups, and wgmma for all five products.  Entry point
+//   roomy_flash_attention_bwd_tma; the library links libcuda for
+//   cuTensorMapEncodeTiled.
+// * the classic route, everything else (float32, other head dims, odd
+//   strides): the kernels that follow, simple and right first.
+//
+// Classic route (FlashAttention-2's two passes, no atomics):
 // * A small pass writes Dv, one warp per row, into f32 scratch.
 // * dk/dv: one CTA per (kv tile of 64 keys, kv head, batch).  It keeps its
 //   K and V tile in shared memory and loops, in a fixed order, over the
@@ -54,13 +67,14 @@
 // Plain C interface, loaded with ctypes.  The three launches go on the
 // given stream, do not synchronise, and the call returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 enum { Q = 0, K = 1, V = 2, O = 3, DO = 4, DQ = 5, DK = 6, DV = 7 };
 
@@ -72,7 +86,9 @@ struct Params {
   int vec;              // q, k, v, dO rows all 16-byte aligned, D % 8 == 0
 };
 
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+// P: Params or HParams (the wgmma route's), which share these fields.
+template <class P>
+__device__ __forceinline__ bool visible(const P& p, int qpos, int kpos) {
   return qpos < p.Sq && kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (p.window < 0 || kpos >= qpos - p.window);
 }
@@ -97,7 +113,8 @@ __device__ __forceinline__ float dlogit(const Params& p, float pv, float dp,
 }
 
 // Keys [*lo, *hi) that rows [qlo, qhi] can see at all.
-__device__ __forceinline__ void kv_range(const Params& p, int qlo, int qhi,
+template <class P>
+__device__ __forceinline__ void kv_range(const P& p, int qlo, int qhi,
                                          int* lo, int* hi) {
   int l = 0, h = p.Skv;
   if (p.causal && qhi + 1 < h) h = qhi + 1;
@@ -107,7 +124,8 @@ __device__ __forceinline__ void kv_range(const Params& p, int qlo, int qhi,
 }
 
 // Rows [*lo, *hi) that can see any of keys [klo, khi].
-__device__ __forceinline__ void q_range(const Params& p, int klo, int khi,
+template <class P>
+__device__ __forceinline__ void q_range(const P& p, int klo, int khi,
                                         int* lo, int* hi) {
   int l = 0, h = p.Sq;
   if (p.causal && klo > 0) l = klo;
@@ -148,10 +166,6 @@ __global__ void dvec_kernel(const T* __restrict__ o, const T* __restrict__ dO,
 
 // ----------------------------------------------------------------- bf16
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -176,11 +190,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Two adjacent m16n8 accumulators (16 × 16) as the A operand of a k16 step.
@@ -798,13 +807,631 @@ int launch_f32(cudaStream_t s, int B, int Hkv, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-int aligned16(const void* ptr) { return (((uintptr_t)ptr) & 15u) == 0; }
+// ------------------------------------------- bf16 on Hopper: TMA + wgmma
+//
+// The route for bf16 at head dims 64, 128 and 256 (the wrapper's `route`).
+// Three launches:
+// * bwd_rows_kernel, one warp per row: lse2 = lse·log2(e) and Dv =
+//   rowsum(dO ∘ O) in f32, each (B, Hq, Sqp) with Sqp = Sq rounded up to
+//   kRowPad and zeros past Sq, so that a tile's rows are one aligned bulk
+//   copy.  A separate pass, not folded into the dQ kernel, so that the
+//   dK/dV kernel does not wait on dQ's.
+// * dkdv_hopper_kernel: one CTA of three warpgroups per (64 keys, kv head,
+//   batch row), the lowest keys (the most rows under the causal mask)
+//   launched first.  Warpgroup 0 is the producer (setmaxnreg 24): one of
+//   its threads TMA-loads K and V once, then streams the Q and dO tiles
+//   (BQ rows, 4-D maps as K6's) with their lse2 and Dv rows (bulk copies)
+//   into a ring of STAGES slots behind full/empty mbarriers, over every q
+//   head of the group and every q tile that sees the keys, in a fixed
+//   order.  The two consumer warpgroups (setmaxnreg 240) share the 64
+//   keys and split the work by gradient: warpgroup 1 holds dV, warpgroup 2
+//   dK, each 64 × D in f32 (128 registers a thread at D = 256).  Per tile:
+//     wg 1: Sᵀ = K·Qᵀ (SS), P = exp2(Sᵀ·scale·log2 e − lse2) masked, X =
+//           P ∘ (1 − (s/c)²) · scale to shared memory, then dV += Pᵀ·dO
+//           (RS: P rounded to bf16 pairs in place, dO MN-major);
+//     wg 2: dPᵀ = V·dOᵀ (SS), then dSᵀ = X ∘ (dPᵀ − Dv) and dK += dSᵀ·Q
+//           (RS).
+//   X passes on two named barriers (ready, free).  Both warpgroups run the
+//   same products with operands picked by warpgroup, so no wgmma sits on a
+//   divergent path, and each does two of the four products: the work is
+//   even, and the softmax of one overlaps the other's products.  The GQA
+//   sum stays in the CTA's registers, in a fixed order, so every run gives
+//   the same bits.
+// * dq_hopper_kernel: one CTA per (128 q rows, q head, batch row), the
+//   heaviest q tiles first.  The producer TMA-loads Q and dO once, then K
+//   and V tiles into two rings (KST and VST slots: V is free after dP, K
+//   only after dQ).  Each consumer warpgroup owns 64 rows: S = Q·Kᵀ and dP
+//   = dO·Vᵀ (SS), p = exp2(S·scale·log2 e − lse2), dS = p ∘ (dP − Dv) ∘ (1
+//   − (s/c)²) · scale in registers, dQ += dS·K (RS, K MN-major through the
+//   transpose bit, as K6 reads V).  At D = 256 a consumer thread holds dQ
+//   (128 f32), S (32) and dP (32).
+// Masks run only on tiles that cut the diagonal, the window's edge, Sq or
+// Skv; the softcap's tanh is 1 − 2/(1 + 2^(2x·log2 e)) from ex2.approx and
+// rcp.approx, as in K6.  The elementwise loops are written once with the
+// softcap and once without, and a tile's lse2 and Dv come into registers
+// before them (a branch and a shared-memory load per element made K7 at
+// the train shape 1.46x slower: PERF.md, PR 19).  Shared memory (from a
+// 1024-byte aligned base):
+//   dK/dV, D = 256: BQ 64, 2 stages: 64 KB K, V + 2 × 64 KB + 16 KB X
+//          D = 128: BQ 128, 2 stages: 32 KB + 2 × 64 KB + 32 KB X
+//          D = 64:  BQ 128, 3 stages: 16 KB + 3 × 32 KB + 32 KB X
+//   dQ,    D = 256: BK 64, K ring 2, V ring 1: 128 KB Q, dO + 3 × 32 KB
+//          D = 128: BK 128, 2 + 2: 64 KB + 4 × 32 KB
+//          D = 64:  BK 128, 2 + 2: 32 KB + 4 × 16 KB
+
+constexpr int kWsThreads = 384;  // producer warpgroup + 2 consumer ones
+constexpr int kBKV = 64;         // keys a dK/dV CTA
+constexpr int kBQ = 128;         // q rows a dQ CTA: 64 a consumer warpgroup
+constexpr int kRowPad = 128;     // Sqp: Sq rounded up to this
+constexpr int kXReady = 1, kXFree = 2;   // named barriers of the X exchange
+
+struct HParams {
+  int Hq, Sq, Skv, group, Sqp;
+  long long st[5][3];   // (batch, head, seq) element strides: O, DO, and
+                        // the outputs dq, dk, dv
+  int causal, window;   // window < 0: none
+  float softcap;        // 0: none
+  float scale;
+  float qk_log2;        // scale·log2(e): a dot product to a log2 logit
+  float cap_in;         // 2·scale·log2(e)/softcap: the exponent of e^(2x)
+  float cap_out;        // softcap·log2(e)
+};
+enum { HO = 0, HDO = 1, HDQ = 2, HDK = 3, HDV = 4 };
+
+// The capped logit in log2 units, c·log2(e)·tanh(s/c), from a raw dot
+// product x (tanh = 1 - 2/(1 + e^(2x·scale/c)), as K6), and its tanh.
+__device__ __forceinline__ float capped(const HParams& p, float x,
+                                        float* th) {
+  *th = 1.f - 2.f * rcp(1.f + ex2(x * p.cap_in));
+  return *th * p.cap_out;
+}
+
+// lse2 and Dv of one padded row (b, h, s < Sqp) per warp; 16-byte loads
+// (the route's rows are 16-byte aligned and D % 8 == 0).
+__global__ void bwd_rows_kernel(const bf16* __restrict__ o,
+                                const bf16* __restrict__ dO,
+                                const float* __restrict__ lse,
+                                float* __restrict__ lse2,
+                                float* __restrict__ dvec, HParams p, int D,
+                                long long rows) {
+  const long long row =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const long long s = row % p.Sqp, bh = row / p.Sqp;
+  const long long h = bh % p.Hq, b = bh / p.Hq;
+  float acc = 0.f, l2 = 0.f;
+  if (s < p.Sq) {
+    const bf16* orow = o + b * p.st[HO][0] + h * p.st[HO][1] +
+                       s * p.st[HO][2];
+    const bf16* drow = dO + b * p.st[HDO][0] + h * p.st[HDO][1] +
+                       s * p.st[HDO][2];
+    for (int d = lane * 8; d < D; d += 256) {
+      const uint4 a = *reinterpret_cast<const uint4*>(orow + d);
+      const uint4 c = *reinterpret_cast<const uint4*>(drow + d);
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t cw[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&aw[j]));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&cw[j]));
+        acc += x.x * y.x + x.y * y.y;
+      }
+    }
+    acc = warp_sum(acc);
+    l2 = lse[bh * p.Sq + s] * kLog2e;
+  }
+  if (lane == 0) {
+    lse2[row] = l2;
+    dvec[row] = acc;
+  }
+}
+
+template <int D> struct KvTile;   // q rows a tile, ring stages
+template <> struct KvTile<64> { static constexpr int BQ = 128, STAGES = 3; };
+template <> struct KvTile<128> { static constexpr int BQ = 128, STAGES = 2; };
+template <> struct KvTile<256> { static constexpr int BQ = 64, STAGES = 2; };
+
+// Byte offsets of the dK/dV kernel's shared memory.
+template <int D> struct KvLayout {
+  static constexpr int BQ = KvTile<D>::BQ, STAGES = KvTile<D>::STAGES;
+  static constexpr int KV = kBKV * D * 2;   // K or V
+  static constexpr int T = BQ * D * 2;      // a Q or dO tile
+  static constexpr int STAGE0 = 2 * KV;     // slot s: Q, then dO
+  static constexpr int ROWS = STAGE0 + 2 * STAGES * T;  // slot s: lse2, Dv
+  static constexpr int X = ROWS + 2 * STAGES * BQ * 4;  // 64 × BQ f32
+  static constexpr int BAR = X + kBKV * BQ * 4;
+  static constexpr int NBAR = 1 + 2 * STAGES;   // kv_full; full, empty
+  static constexpr int BYTES = BAR + 8 * NBAR + 1024;   // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    dkdv_hopper_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const float* __restrict__ lse2,
+                       const float* __restrict__ dvec, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, HParams p) {
+  using L = KvLayout<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_ws[];
+  const uint32_t raw = smem_addr(smem_ws);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_ws + (base - raw);   // the same, generic
+  const uint32_t sk = base, sv = base + L::KV, bar = base + L::BAR;
+  // slot s: Q at sq(s), dO at sq(s) + T, each NC boxes of (BQ x 128 bytes)
+  auto sq = [&](int s) { return base + L::STAGE0 + 2 * s * L::T; };
+  auto kv_full = [&]() { return bar; };
+  auto full = [&](int s) { return bar + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar + 8 * (1 + STAGES + s); };
+
+  const int hkv = p.Hq / p.group;
+  const int hk = (int)(blockIdx.x % hkv), b = blockIdx.y;
+  const int k0 = (int)(blockIdx.x / hkv) * kBKV;   // lowest keys first
+  const int h0 = hk * p.group;                        // the group's first
+  int lo, hi;
+  q_range(p, k0, min(k0 + kBKV, p.Skv) - 1, &lo, &hi);
+  const int t_lo = lo / BQ, nt = hi > lo ? (hi + BQ - 1) / BQ - t_lo : 0;
+  const int tiles = p.group * nt;                     // head, q tile
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full(), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full(), 2 * L::KV);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load(sk + c * kBKV * 128, &mk, kv_full(), 64 * c, k0, hk, b);
+        tma_load(sv + c * kBKV * 128, &mv, kv_full(), 64 * c, k0, hk, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int n = 0; n < tiles; ++n) {
+        const int h = h0 + n / nt, q0 = (t_lo + n % nt) * BQ;
+        mbar_wait(empty(stage), phase ^ 1);   // the first round passes
+        mbar_expect_tx(full(stage), 2 * L::T + 2 * BQ * 4);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          tma_load(sq(stage) + c * BQ * 128, &mq, full(stage), 64 * c, q0,
+                   h, b);
+          tma_load(sq(stage) + L::T + c * BQ * 128, &mdo, full(stage),
+                   64 * c, q0, h, b);
+        }
+        const long long r = ((long long)b * p.Hq + h) * p.Sqp + q0;
+        const uint32_t rows = base + L::ROWS + 2 * stage * BQ * 4;
+        bulk_load(rows, lse2 + r, BQ * 4, full(stage));
+        bulk_load(rows + BQ * 4, dvec + r, BQ * 4, full(stage));
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;  // 0: dV
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int key0 = k0 + 16 * warp + g;   // this thread's keys: +0, +8
+    float* X = reinterpret_cast<float*>(gbase + L::X);
+    const uint32_t a_op = cw ? sv : sk;    // Sᵀ = K·Qᵀ or dPᵀ = V·dOᵀ
+
+    float acc[D / 2];   // dV (cw 0) or dK (cw 1), keys x D
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kv_full(), 0);
+    if (cw == 1 && tiles > 0) named_arrive(kXFree, 256);   // X starts free
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n = 0; n < tiles; ++n) {
+      const int q0 = (t_lo + n % nt) * BQ;
+      const uint32_t tq = sq(stage), tdo = tq + L::T;
+      const float* rl = reinterpret_cast<const float*>(
+          gbase + L::ROWS + 2 * stage * BQ * 4);   // lse2, then Dv
+      mbar_wait(full(stage), phase);
+
+      // Sᵀ or dPᵀ: 64 keys x BQ rows, D/16 steps of k16.
+      float s[BQ / 2];
+      const uint32_t b_op = cw ? tdo : tq;
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(s, sw128_desc(a_op + c * kBKV * 128 + kk * 32, 16, 1024),
+                   sw128_desc(b_op + c * BQ * 128 + kk * 32, 16, 1024),
+                   (c | kk) != 0);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+
+      // element i: key key0 + 8·((i >> 1) & 1), row q0 + col(i)
+      const bool interior = k0 + kBKV <= p.Skv && q0 + BQ <= p.Sq &&
+                            (!p.causal || q0 >= k0 + kBKV - 1) &&
+                            (p.window < 0 || q0 + BQ - 1 - k0 <= p.window);
+      if (cw == 0) {
+        float2 l2[BQ / 8];   // lse2 of this thread's columns, in registers
+#pragma unroll
+        for (int c = 0; c < BQ / 8; ++c)
+          l2[c] = *reinterpret_cast<const float2*>(rl + 8 * c + 2 * t);
+        named_sync(kXFree, 256);   // wg 2 has read the last tile's X
+        if (p.softcap != 0.f) {
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) {
+            float th;
+            const float x = capped(p, s[i], &th);
+            float pv = ex2(x - ((i & 1) ? l2[i >> 2].y : l2[i >> 2].x));
+            if (!interior && !visible(p, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
+                                      key0 + 8 * ((i >> 1) & 1)))
+              pv = 0.f;
+            s[i] = pv;
+            X[i * 128 + tid] = pv * (1.f - th * th) * p.scale;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) {
+            float pv = ex2(s[i] * p.qk_log2 -
+                           ((i & 1) ? l2[i >> 2].y : l2[i >> 2].x));
+            if (!interior && !visible(p, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
+                                      key0 + 8 * ((i >> 1) & 1)))
+              pv = 0.f;
+            s[i] = pv;
+            X[i * 128 + tid] = pv * p.scale;
+          }
+        }
+        named_arrive(kXReady, 256);
+      } else {
+        float2 dd[BQ / 8];   // Dv of this thread's columns
+#pragma unroll
+        for (int c = 0; c < BQ / 8; ++c)
+          dd[c] = *reinterpret_cast<const float2*>(rl + BQ + 8 * c + 2 * t);
+        named_sync(kXReady, 256);
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i)
+          s[i] = X[i * 128 + tid] *
+                 (s[i] - ((i & 1) ? dd[i >> 2].y : dd[i >> 2].x));
+        if (n + 1 < tiles) named_arrive(kXFree, 256);
+      }
+
+      // dV += Pᵀ·dO or dK += dSᵀ·Q: BQ/16 steps of k16 over the whole D.
+      uint32_t pa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+      const uint32_t b2 = cw ? tq : tdo;
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(acc, pa[kk],
+                 sw128_desc(b2 + kk * 16 * 128, BQ * 128, 1024));
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(empty(stage));
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const int o = cw ? HDK : HDV;
+    bf16* og = (cw ? dk : dv) + b * p.st[o][0] + hk * p.st[o][1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= p.Skv) continue;
+      bf16* orow = og + key * p.st[o][2];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D> struct DqTile;   // kv rows a tile, K ring, V ring
+template <> struct DqTile<64> {
+  static constexpr int BK = 128, KST = 2, VST = 2;
+};
+template <> struct DqTile<128> {
+  static constexpr int BK = 128, KST = 2, VST = 2;
+};
+template <> struct DqTile<256> {
+  static constexpr int BK = 64, KST = 2, VST = 1;
+};
+
+// Byte offsets of the dQ kernel's shared memory.
+template <int D> struct DqLayout {
+  static constexpr int BK = DqTile<D>::BK, KST = DqTile<D>::KST,
+                       VST = DqTile<D>::VST;
+  static constexpr int Q = kBQ * D * 2, KV = BK * D * 2;  // a tile's bytes
+  static constexpr int KS = 2 * Q;               // Q, dO, then the K ring
+  static constexpr int VS = KS + KST * KV;       // the V ring
+  static constexpr int BAR = VS + VST * KV;
+  static constexpr int NBAR = 1 + 2 * KST + 2 * VST;
+  static constexpr int BYTES = BAR + 8 * NBAR + 1024;   // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    dq_hopper_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mdo,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const float* __restrict__ lse2,
+                     const float* __restrict__ dvec, bf16* __restrict__ dq,
+                     HParams p) {
+  using L = DqLayout<D>;
+  constexpr int BK = L::BK, KST = L::KST, VST = L::VST, NC = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_ws[];
+  const uint32_t base = (smem_addr(smem_ws) + 1023u) & ~1023u;
+  const uint32_t sq = base, sdo = base + L::Q, bar = base + L::BAR;
+  auto sk = [&](int s) { return base + L::KS + s * L::KV; };
+  auto sv = [&](int s) { return base + L::VS + s * L::KV; };
+  auto q_full = [&]() { return bar; };
+  auto k_full = [&](int s) { return bar + 8 * (1 + s); };
+  auto k_empty = [&](int s) { return bar + 8 * (1 + KST + s); };
+  auto v_full = [&](int s) { return bar + 8 * (1 + 2 * KST + s); };
+  auto v_empty = [&](int s) { return bar + 8 * (1 + 2 * KST + VST + s); };
+
+  const int nq = (p.Sq + kBQ - 1) / kBQ;
+  const int h = (int)(blockIdx.x % p.Hq), b = blockIdx.y, hk = h / p.group;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / p.Hq)) * kBQ;  // heaviest first
+  int lo, hi;
+  kv_range(p, q0, min(q0 + kBQ, p.Sq) - 1, &lo, &hi);
+  const int t_lo = lo / BK, t_hi = hi > lo ? (hi + BK - 1) / BK : t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full(), 1);
+    for (int s = 0; s < KST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 2);   // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full(), 2 * L::Q);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load(sq + c * kBQ * 128, &mq, q_full(), 64 * c, q0, h, b);
+        tma_load(sdo + c * kBQ * 128, &mdo, q_full(), 64 * c, q0, h, b);
+      }
+      int ks = 0, vs = 0;
+      uint32_t kph = 0, vph = 0;
+      for (int j = t_lo; j < t_hi; ++j) {
+        mbar_wait(k_empty(ks), kph ^ 1);   // the first round passes
+        mbar_expect_tx(k_full(ks), L::KV);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load(sk(ks) + c * BK * 128, &mk, k_full(ks), 64 * c, j * BK,
+                   hk, b);
+        mbar_wait(v_empty(vs), vph ^ 1);
+        mbar_expect_tx(v_full(vs), L::KV);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load(sv(vs) + c * BK * 128, &mv, v_full(vs), 64 * c, j * BK,
+                   hk, b);
+        if (++ks == KST) {
+          ks = 0;
+          kph ^= 1;
+        }
+        if (++vs == VST) {
+          vs = 0;
+          vph ^= 1;
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int ra = q0 + 64 * cw;                 // the warpgroup's rows
+    const int row0 = ra + 16 * warp + g;         // this thread's: +0, +8
+    const bool active = ra < p.Sq;
+    int wlo = 0, whi = 0;
+    if (active) kv_range(p, ra, min(ra + 63, p.Sq - 1), &wlo, &whi);
+    const uint32_t qa = sq + cw * 64 * 128, da = sdo + cw * 64 * 128;
+    const long long rb = ((long long)b * p.Hq + h) * p.Sqp;
+    // rows past Sq (< Sqp) read the padding's zeros
+    const float l2[2] = {lse2[rb + row0], lse2[rb + row0 + 8]};
+    const float dd[2] = {dvec[rb + row0], dvec[rb + row0 + 8]};
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full(), 0);
+    int ks = 0, vs = 0;
+    uint32_t kph = 0, vph = 0;
+    for (int j = t_lo; j < t_hi; ++j) {
+      const int k0 = j * BK;
+      mbar_wait(k_full(ks), kph);
+      mbar_wait(v_full(vs), vph);
+      if (active && k0 < whi && k0 + BK > wlo) {
+        // S = Q·Kᵀ and dP = dO·Vᵀ: 64 rows x BK keys, D/16 steps of k16.
+        float s[BK / 2], dp[BK / 2];
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(s, sw128_desc(qa + c * kBQ * 128 + kk * 32, 16, 1024),
+                     sw128_desc(sk(ks) + c * BK * 128 + kk * 32, 16, 1024),
+                     (c | kk) != 0);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(dp, sw128_desc(da + c * kBQ * 128 + kk * 32, 16, 1024),
+                     sw128_desc(sv(vs) + c * BK * 128 + kk * 32, 16, 1024),
+                     (c | kk) != 0);
+        wg_commit();
+        wg_wait0();
+        fence_regs(s);
+        fence_regs(dp);
+        if (tid == 0) mbar_arrive(v_empty(vs));   // V's last read
+
+        // dS in place of S; the mask only where the tile needs it.
+        const bool interior = k0 + BK <= p.Skv &&
+                              (!p.causal || k0 + BK - 1 <= ra) &&
+                              (p.window < 0 || k0 >= ra + 63 - p.window);
+        if (p.softcap != 0.f) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            float th;
+            float pv = ex2(capped(p, s[i], &th) - l2[r]);
+            if (!interior && !visible(p, row0 + 8 * r,
+                                      k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+              pv = 0.f;
+            s[i] = pv * (dp[i] - dd[r]) * (1.f - th * th) * p.scale;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            float pv = ex2(s[i] * p.qk_log2 - l2[r]);
+            if (!interior && !visible(p, row0 + 8 * r,
+                                      k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+              pv = 0.f;
+            s[i] = pv * (dp[i] - dd[r]) * p.scale;
+          }
+        }
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+
+        // dQ += dS·K: BK/16 steps of k16 over the whole head dim.
+        fence_regs(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs(acc, pa[kk],
+                   sw128_desc(sk(ks) + kk * 16 * 128, BK * 128, 1024));
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      } else if (tid == 0) {
+        mbar_arrive(v_empty(vs));   // free only once both loads landed
+      }
+      if (tid == 0) mbar_arrive(k_empty(ks));
+      if (++ks == KST) {
+        ks = 0;
+        kph ^= 1;
+      }
+      if (++vs == VST) {
+        vs = 0;
+        vph ^= 1;
+      }
+    }
+
+    bf16* og = dq + b * p.st[HDQ][0] + h * p.st[HDQ][1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (!active || row >= p.Sq) continue;
+      bf16* orow = og + row * p.st[HDQ][2];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// The three launches of the wgmma route at head dim D.  maps: 8 x 11
+// values, tma_geometry's of q, dO, k, v for the dQ kernel (boxes of kBQ, BK,
+// BK rows), then of q, dO, k, v for the dK/dV kernel (BQ, BQ, kBKV, kBKV).
+template <int D>
+int launch_hopper(cudaStream_t stream, int B, const void* o, const void* dO,
+                  const float* lse, float* lse2, float* dvec, void* dq,
+                  void* dk, void* dv, const void* const* ptrs,
+                  const long long* maps, const HParams& p) {
+  using LQ = DqLayout<D>;
+  using LK = KvLayout<D>;
+  const int rows[8] = {kBQ, kBQ, LQ::BK, LQ::BK, LK::BQ, LK::BQ, kBKV, kBKV};
+  CUtensorMap tm[8];
+  for (int i = 0; i < 8; ++i) {
+    const long long* g = maps + 11 * i;
+    // the wrapper's geometry must be this instantiation's tiles
+    if (g[0] != D || g[7] != 64 || g[8] != rows[i] || g[9] != 1 ||
+        g[10] != 1)
+      return (int)cudaErrorInvalidValue;
+    const int e = encode_map(&tm[i], ptrs[i % 4], g);
+    if (e) return e;
+  }
+  const long long nrows = (long long)B * p.Hq * p.Sqp;
+  bwd_rows_kernel<<<(unsigned)((nrows * 32 + 255) / 256), 256, 0,
+                    stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dO), lse, lse2,
+      dvec, p, D, nrows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dkdv_hopper_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           LK::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const long long nk = (p.Skv + kBKV - 1) / kBKV;
+  dkdv_hopper_kernel<D><<<dim3((unsigned)(nk * (p.Hq / p.group)), B),
+                          kWsThreads, LK::BYTES, stream>>>(
+      tm[4], tm[5], tm[6], tm[7], lse2, dvec, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dq_hopper_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           LQ::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const long long nq = (p.Sq + kBQ - 1) / kBQ;
+  dq_hopper_kernel<D><<<dim3((unsigned)(nq * p.Hq), B), kWsThreads,
+                        LQ::BYTES, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], lse2, dvec, static_cast<bf16*>(dq), p);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 const char* roomy_fab_error_string(int code) {
+  if (code >= kDriverError) {
+    const char* s = nullptr;
+    cuGetErrorString((CUresult)(code - kDriverError), &s);
+    return s != nullptr ? s : "unknown driver error";
+  }
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -864,6 +1491,61 @@ int roomy_flash_attention_bwd(const void* q, const void* k, const void* v,
                                    dv, p);
   return launch_bf16<256, 2, 32>(s, B, Hkv, q, k, v, dO, lse, dvec, dq, dk,
                                  dv, p);
+}
+
+// Dynamic shared memory of the wgmma route's dK/dV and dQ kernels at head
+// dim D (which = 0, 1), -1 for a head dim it does not take.
+int roomy_flash_attention_bwd_tma_smem(int D, int which) {
+  if (D == 64) return which ? DqLayout<64>::BYTES : KvLayout<64>::BYTES;
+  if (D == 128) return which ? DqLayout<128>::BYTES : KvLayout<128>::BYTES;
+  if (D == 256) return which ? DqLayout<256>::BYTES : KvLayout<256>::BYTES;
+  return -1;
+}
+
+// The wgmma route: bf16, D in {64, 128, 256}, q, k, v, o, dO 16-byte
+// aligned and every stride a multiple of 8 elements (the wrapper's
+// `route`).  strides: 15 element strides, (batch, head, seq) of o, dO, dq,
+// dk and dv in that order.  maps: 8 x 11 values, the 4-D tensor-map
+// geometry (dims D, S, H, B; byte strides of S, H, B; box 64 x rows x 1 x
+// 1) of q, dO, k, v with the dQ kernel's rows, then of q, dO, k, v with
+// the dK/dV kernel's.  lse: B·Hq·Sq contiguous floats; rows: 2·B·Hq·Sqp
+// floats of scratch, Sqp = Sq rounded up to a multiple of 128.
+int roomy_flash_attention_bwd_tma(const void* q, const void* k, const void* v,
+                                  const void* o, const void* dO,
+                                  const float* lse, float* rows, void* dq,
+                                  void* dk, void* dv, int B, int Hq, int Hkv,
+                                  int Sq, int Skv, int D,
+                                  const long long* strides,
+                                  const long long* maps, int causal,
+                                  int window, float softcap, float scale,
+                                  void* stream) {
+  if (Hkv < 1 || Hq < 1 || Hq % Hkv != 0 || B < 1 || B > 65535 || Sq < 1 ||
+      Skv < 1 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(o) || !aligned16(dO))
+    return (int)cudaErrorInvalidValue;
+  HParams p;
+  p.Hq = Hq; p.Sq = Sq; p.Skv = Skv; p.group = Hq / Hkv;
+  p.Sqp = (Sq + kRowPad - 1) / kRowPad * kRowPad;
+  for (int i = 0; i < 5; ++i)
+    for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
+  p.causal = causal; p.window = window; p.softcap = softcap; p.scale = scale;
+  p.qk_log2 = scale * kLog2e;
+  p.cap_in = softcap > 0.f ? 2.f * scale * kLog2e / softcap : 0.f;
+  p.cap_out = softcap * kLog2e;
+  float* lse2 = rows;
+  float* dvec = rows + (long long)B * Hq * p.Sqp;
+  const void* ptrs[4] = {q, dO, k, v};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return launch_hopper<64>(s, B, o, dO, lse, lse2, dvec, dq, dk, dv,
+                              ptrs, maps, p);
+  if (D == 128)
+    return launch_hopper<128>(s, B, o, dO, lse, lse2, dvec, dq, dk, dv,
+                               ptrs, maps, p);
+  if (D == 256)
+    return launch_hopper<256>(s, B, o, dO, lse, lse2, dvec, dq, dk, dv,
+                               ptrs, maps, p);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -51,6 +51,10 @@ LAUNCHES = obs.counters("attention", {"flash_attention": 0,
 #: K6 launches (with and without the LSE) by route; K7 books none here.
 ROUTE_LAUNCHES = obs.counters("attention_route", {"wgmma": 0, "classic": 0})
 
+#: K7 launches by route (booked by ``flash_attention_bwd.py``).
+BWD_ROUTE_LAUNCHES = obs.counters("attention_bwd_route",
+                                  {"wgmma": 0, "classic": 0})
+
 #: The Hopper route's tiles by head dim: (q rows, kv rows) a CTA, as
 #: ``Tile`` in ``csrc/flash_attention.cu``.
 TMA_TILES = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
@@ -59,27 +63,29 @@ TMA_BOX_COLS = 64
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+    for counts in (LAUNCHES, ROUTE_LAUNCHES, BWD_ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """TMA can read the (B, H, S, D) view ``x`` as a 4-D map: not empty, the
+    last dim contiguous, a 16-byte aligned base, and the stride of every
+    dim longer than 1 a positive multiple of 8 elements (16 bytes)."""
+    if x.numel() == 0 or x.stride(-1) != 1 or x.data_ptr() % 16:
+        return False
+    return not any(n > 1 and (st <= 0 or st % 8)
+                   for n, st in zip(x.shape[:3], x.stride()[:3]))
 
 
 def route(q, k, v, o) -> str:
     """The kernel that takes a call (q, k, v, o of one dtype, as
     ``check_inputs`` and the wrapper make them): ``"wgmma"`` when they are
-    bfloat16 with a head dim in ``TMA_TILES``, none is empty, the last dim
-    is contiguous, every base pointer is 16-byte aligned and the stride of
-    every dim longer than 1 is a positive multiple of 8 elements;
+    bfloat16 with a head dim in ``TMA_TILES`` and each is ``tma_ready``;
     ``"classic"`` otherwise."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in TMA_TILES:
         return "classic"
-    for x in (q, k, v, o):
-        if x.numel() == 0 or x.stride(-1) != 1 or x.data_ptr() % 16:
-            return "classic"
-        if any(n > 1 and (st <= 0 or st % 8)
-               for n, st in zip(x.shape[:3], x.stride()[:3])):
-            return "classic"
-    return "wgmma"
+    return "wgmma" if all(tma_ready(x) for x in (q, k, v, o)) else "classic"
 
 
 def tma_geometry(x: torch.Tensor, rows: int) -> tuple:

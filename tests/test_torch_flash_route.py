@@ -1,22 +1,26 @@
-"""K6's two routes and the Hopper route's TMA geometry, in pure Python.
+"""K6's and K7's two routes and the Hopper routes' TMA geometry, in pure Python.
 
 ``repro_torch.kernels.flash_attention.route`` sends a call to the wgmma
 kernel (TMA loads into a ring, warp specialisation) or to the classic
 kernels from dtype, shape, strides and alignment alone, before launch;
 ``tma_geometry`` turns a (B, H, S, D) view into the 4-D tensor map the
-wgmma kernel's TMA loads read.  Neither needs a card: the layouts here are
-CPU tensors with the models' strides.  A TMA box load is emulated over the
-view's storage (the element at coordinates (c0, c1, c2, c3) lives at byte
+wgmma kernel's TMA loads read.  K7's ``flash_attention_bwd.route`` does
+the same for the backward, with dO beside q, k, v and o, and
+``tma_maps`` gives its two kernels' maps.  Neither needs a card: the
+layouts here are CPU tensors with the models' strides, and dO is the one
+autograd hands the backward.  A TMA box load is emulated over the view's
+storage (the element at coordinates (c0, c1, c2, c3) lives at byte
 c0·2 + c1·stride_S + c2·stride_H + c3·stride_B; a row past S reads zero)
 and compared with the view itself, so the dims and byte strides are the
-view's and a tile never reads into the next head.  The kernel is held to
-its plain version on the card by ``chip_smoke.py``.
+view's and a tile never reads into the next head.  The kernels are held
+to their plain versions on the card by ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -29,6 +33,16 @@ MODELS = {
     "granite-34b": (1, 40, 48, 1, 128),     # group 48
     "minicpm-2b": (2, 40, 36, 36, 64),      # MHA 36
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One CPU thread: the bit-for-bit CPU checks then add in one order, and
+    tiny tensors lose more to torch's thread pool than they gain."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _views(b, s, hq, hkv, d, dtype=BF16):
@@ -191,3 +205,167 @@ def test_reset_launches_clears_the_route_counter():
     tfa.reset_launches()
     assert dict(tfa.ROUTE_LAUNCHES) == {"wgmma": 0, "classic": 0}
     assert not any(tfa.LAUNCHES.values())
+
+
+# ------------------------------------------------------------- K7's routes
+
+def _autograd_bwd_args(b, s, hq, hkv, d, layout, monkeypatch):
+    """q, k, v, o, lse, dO as the autograd Function hands them to K7's
+    wrapper when the model runs attention on (B, S, H, D) activations
+    (``models/attention.py``: heads moved to dim 1 by a transpose, the
+    output moved back and flattened into a projection); o as the CUDA
+    wrapper allocates it, ``torch.empty_like(q)``."""
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+          .to(BF16).requires_grad_(True) for h in (hq, hkv, hkv)]
+    q, k, v = (x.transpose(1, 2) for x in xs)
+    if layout == "contiguous":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    seen = {}
+
+    def record(*args, **kw):
+        seen["args"] = args
+        return tref.flash_attention_bwd_ref(*args, **kw)
+    monkeypatch.setattr(tops._fab, "flash_attention_bwd", record)
+    out = tops.flash_attention(q, k, v, softcap=50.0)
+    flat = out.transpose(1, 2).reshape(b, s, hq * d)
+    w = torch.from_numpy(rng.standard_normal((hq * d, 8), np.float32))
+    (flat.float() @ w).sum().backward()
+    q, k, v, _, lse, do = seen["args"]
+    return q, k, v, torch.empty_like(q), lse, do
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+def test_bwd_model_layouts_take_the_wgmma_route(model, layout, monkeypatch):
+    q, k, v, o, _, do = _autograd_bwd_args(*MODELS[model], layout,
+                                           monkeypatch)
+    assert do.shape == q.shape and do.dtype == BF16
+    assert tfab.route(q, k, v, o, do) == "wgmma"
+    assert len(tfab.tma_maps(q, k, v, do)) == 8 * 11
+
+
+@pytest.mark.parametrize("d", [12, 16, 32, 100])
+def test_bwd_other_head_dims_take_the_classic_route(d):
+    q, k, v, o = _views(1, 40, 4, 2, d)
+    assert tfab.route(q, k, v, o, torch.zeros_like(q)) == "classic"
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bwd_float32_takes_the_classic_route(d):
+    q, k, v, o = _views(1, 40, 4, 2, d, torch.float32)
+    assert tfab.route(q, k, v, o, torch.zeros_like(q)) == "classic"
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "o", "do"])
+def test_bwd_a_misaligned_base_takes_the_classic_route(which):
+    q, k, v, o = _views(1, 40, 4, 2, 128)
+    xs = dict(q=q, k=k, v=v, o=o, do=torch.zeros_like(q))
+    xs[which] = _misaligned(tuple(xs[which].shape))
+    assert xs[which].data_ptr() % 16 != 0
+    assert tfab.route(**xs) == "classic"
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "o", "do"])
+def test_bwd_a_stride_off_the_16_byte_rule_takes_the_classic_route(which):
+    q, k, v, o = _views(1, 40, 4, 2, 64)
+    xs = dict(q=q, k=k, v=v, o=o, do=torch.zeros_like(q))
+    b, h, s, d = xs[which].shape
+    # rows of 68 elements (136 bytes) with the head dim's 64 in front
+    xs[which] = torch.zeros((b, s, h, d + 4), dtype=BF16)[..., :d] \
+        .transpose(1, 2)
+    assert xs[which].stride(1) % 8 != 0
+    assert tfab.route(**xs) == "classic"
+
+
+@pytest.mark.parametrize("d", sorted(tfa.TMA_TILES))
+def test_bwd_maps_carry_each_kernels_tile_rows(d):
+    q, k, v, _ = _views(1, 40, 4, 2, d)
+    do = torch.zeros_like(q)
+    g = tfab.tma_maps(q, k, v, do)
+    maps = [g[11 * i:11 * i + 11] for i in range(8)]
+    (bq, bk), (bkv, bq2) = tfab.DQ_TILES[d], tfab.DKDV_TILES[d]
+    assert bq == 128 and bkv == tfab.DKDV_KEYS == 64   # 2 x 64-row wgmma
+    for rows in (bq, bk, bkv, bq2):
+        assert rows % 16 == 0 and rows <= 256   # k16 steps, TMA's extent
+    # the entry point's order: q, dO, k, v for dQ, then for dK/dV
+    for m, x, rows in zip(maps, (q, do, k, v) * 2,
+                          (bq, bq, bk, bk, bq2, bq2, bkv, bkv)):
+        assert m == tfa.tma_geometry(x, rows)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_bwd_emulated_do_boxes_read_the_view_and_never_cross_a_head(
+        model, monkeypatch):
+    b, s, hq, hkv, d = MODELS[model]
+    hkv = min(hkv, 2)              # keep each model's group, up to 3 heads
+    hq = hkv * min(MODELS[model][2] // MODELS[model][3], 3)
+    _, _, _, _, _, do = _autograd_bwd_args(b, 70, hq, hkv, d, "strided",
+                                           monkeypatch)
+    # element ids in dO's storage, 1-based so that the zero fill stands
+    # apart; the view keeps dO's strides
+    ids = torch.arange(1, do.numel() + 1, dtype=torch.int64)
+    view = torch.as_strided(ids, do.shape, do.stride())
+    storage = ids.numpy()
+    want = view.numpy()
+    for rows in sorted({tfab.DQ_TILES[d][0], tfab.DKDV_TILES[d][1]}):
+        g = tfa.tma_geometry(do, rows)
+        for bat in range(b):
+            for head in (0, hq - 1):
+                for c1 in range(0, 70, rows):               # every q tile
+                    for c0 in range(0, d, tfa.TMA_BOX_COLS):
+                        box = _tma_box(storage, g, (c0, c1, head, bat))[0, 0]
+                        n = min(rows, 70 - c1)
+                        np.testing.assert_array_equal(
+                            box[:n], want[bat, head, c1:c1 + n,
+                                          c0:c0 + tfa.TMA_BOX_COLS])
+                        assert not box[n:].any()   # past S: zeros
+                        got = box[:n].ravel() - 1  # this head's ids only
+                        assert (got // d % hq == head).all()
+                        assert (got // (d * hq * 70) == bat).all()
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_bwd_group_sum_is_the_sum_of_its_heads_gradients(model):
+    # dk, dv per kv head are the sums of the group's per-q-head gradients,
+    # as one dK/dV CTA adds them over its group
+    b, s, hq, hkv, d = MODELS[model]
+    g = hq // hkv
+    rng = np.random.default_rng(19)
+    q, do = (torch.from_numpy(rng.standard_normal((b, hq, s, d),
+                                                  dtype=np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, hkv, s, d),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    o, lse = tref.attention_lse_ref(q, k, v, softcap=50.0)
+    dq, dk, dv = tfab.flash_attention_bwd(q, k, v, o, lse, do, softcap=50.0)
+    kh, vh = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    dqh, dkh, dvh = tfab.flash_attention_bwd(q, kh, vh, o, lse, do,
+                                             softcap=50.0)
+    torch.testing.assert_close(dq, dqh, rtol=0, atol=0)
+    for got, heads in ((dk, dkh), (dv, dvh)):
+        torch.testing.assert_close(
+            got, heads.view(b, hkv, g, s, d).sum(2), rtol=1e-5, atol=1e-5)
+
+
+def test_bwd_cpu_calls_take_no_route_and_book_nothing():
+    q, k, v, _ = _views(1, 40, 8, 4, 256)
+    q, k, v = (torch.randn(x.shape).to(BF16) for x in (q, k, v))
+    o, lse = tref.attention_lse_ref(q, k, v, softcap=50.0)
+    do = torch.randn(q.shape).to(BF16)
+    routes, launches = dict(tfa.BWD_ROUTE_LAUNCHES), dict(tfa.LAUNCHES)
+    got = tfab.flash_attention_bwd(q, k, v, o, lse, do, softcap=50.0)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=50.0,
+                                        scale=256 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert dict(tfa.BWD_ROUTE_LAUNCHES) == routes
+    assert dict(tfa.LAUNCHES) == launches
+
+
+def test_reset_launches_clears_the_bwd_route_counter():
+    tfa.BWD_ROUTE_LAUNCHES["wgmma"] += 2
+    tfa.BWD_ROUTE_LAUNCHES["classic"] += 1
+    tfa.reset_launches()
+    assert dict(tfa.BWD_ROUTE_LAUNCHES) == {"wgmma": 0, "classic": 0}
+    assert dict(tfa.ROUTE_LAUNCHES) == {"wgmma": 0, "classic": 0}
