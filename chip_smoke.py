@@ -10,10 +10,13 @@ caught:
    exits non-zero when ``torch.cuda.is_available()`` is false.
 2. build: nvcc builds every ``src/repro_torch/kernels/csrc/*.cu`` for
    sm_90a into ``build/`` (one nvcc per source, all started together;
-   flash_attention and flash_attention_bwd link libcuda for their TMA
-   maps); the ptxas report of K6's wgmma kernel and of K7's two (dK/dV
-   and dQ) at head dims 64, 128, 256 (registers, spills, stack) beside
-   their dynamic shared memory; K7's must show no spills and no stack.
+   flash_attention, flash_attention_bwd and paged_decode link libcuda for
+   their TMA maps); the ptxas report of K6's wgmma kernel, of K7's two
+   (dK/dV and dQ) and of K8's TMA-route kernel at head dims 64, 128, 256
+   (registers, spills, stack) beside their dynamic shared memory, and of
+   K9's kernel for each dtype and threads a channel; K7's and K8's must
+   show no spills and no stack, K9's falcon-mamba instantiation (bf16 and
+   f32 at 4 threads a channel) no spills.
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
    counts) — edge cases at small widths, then W = 29,937,600 words (12!
@@ -128,9 +131,11 @@ caught:
       (every local window a tile short; a global layer given the local
       window) must break that limit;
    e. K8 on the decode's first step, its global layers 1 and 25 captured
-      and held to the plain version; 16 ``decode_step``s from the
-      prefill's caches (decode tokens/s; K8 launched 13 times a step, once
-      a global layer, counted after every step; the 13 local layers gather
+      and held to the plain version, and timed at layer 1 beside its
+      bound and its plain version (softcap 50: no library call computes
+      it); 16 ``decode_step``s from the prefill's caches (decode tokens/s;
+      K8 launched 13 times a step, once a global layer, all on the TMA
+      route, counted after every step; the 13 local layers gather
       their cache for the plain windowed decode), then one prefill and 4
       decode steps under ``torch.profiler``: device time by kernel group
       and the device's idle share;
@@ -193,7 +198,11 @@ caught:
       with and without the state (y the same bits); y and h also per
       (batch, 32-channel tile) ‖got − want‖ ≤ 1e-2 ‖want‖, which three
       planted faults with finite output must break (the state reset every
-      128 steps, D·x dropped, A's decay off by one state);
+      128 steps, D·x dropped, A's decay off by one state); every case also
+      against the mirror of the kernel's own order of sums
+      (``ref.mamba_scan_segmented``), per tile within 1e-5 (h, and y for
+      float32 inputs); h is no longer the plain version's bits (time is
+      summed in segments), which the run reports;
    b. FULL in bfloat16, params from ``lm.init_params`` on a seeded
       generator; main path: ``lm.prefill`` over 1 × 32768 tokens
       (``prefill_32k``, global batch 32 cut to 1), nothing wrapped around
@@ -223,15 +232,19 @@ caught:
 15. K8 (paged decode attention) and the dense configs (``phase_dense``):
    a. K8 parity against its plain version on the card: the cases of
       ``tests/test_kernels.py:402-406``, groups 1, 2, 6 and 48 at head
-      dims 64, 128 and 256, pages of 8, 16 and 128, the four models'
-      layouts, a whole 32k table, head_dim 12; shuffled tables with spare
-      pages; lengths 1, a page, a page and one, the whole table and 0;
-      float32 (atol = rtol = 2e-5) and bfloat16 (2e-2, and per (batch,
-      query head) 1e-2 of the output's norm); the same bits twice, and
-      with garbage table entries past each length; four planted faults
-      that must break the per-(b, h) limit (the table ignored, the mask
-      off by one, the softcap dropped, one split's partials dropped in
-      the merge);
+      dims 64, 128 and 256, pages of 8, 16, 64, 128 and 256, the four
+      models' layouts, a whole 32k table, head_dim 12; shuffled tables
+      with spare pages; lengths 1, a page, a page and one, the whole table
+      and 0; float32 (atol = rtol = 2e-5) and bfloat16 (2e-2, and per
+      (batch, query head) 1e-2 of the output's norm); each call on the
+      route its dtype, head dim and page size call for (by
+      ``paged_decode.ROUTE_LAUNCHES``: bf16 at head dims 64, 128, 256 with
+      pages of a multiple of 64 tokens on the TMA route, the rest
+      classic); the same bits twice, and with garbage table entries past
+      each length; on each route four planted faults that must break the
+      per-(b, h) limit (the table ignored, the mask off by one, the
+      softcap dropped, one split's partials dropped in the merge), and
+      the two stages launched apart give the one launch's bits;
    b. nemotron-4-15b FULL in bfloat16, params from ``lm.init_params`` on a
       seeded generator: ``lm.prefill`` over 1 × 32768 tokens (32 K6
       launches, all on the wgmma route, no K8); the prefill again with
@@ -245,7 +258,8 @@ caught:
       scaled_dot_product_attention(enable_gqa=True) with and without the
       gather through the table; the main path of K8: 16 ``decode_step``s
       at batch 1 with every count set to 0 just before, exactly 32 K8
-      launches after each step; 4 decode steps under the profiler; the
+      launches after each step, every one on the TMA route; 4 decode
+      steps under the profiler; the
       last logits of a 2048-token prefill with K6 and with the plain
       attention (per row 3.5e-2), and K6 prefills with planted faults
       (every window cut to 16 keys must break it); prefill-then-decode ≡
@@ -253,14 +267,16 @@ caught:
       global batch of 128 cut to what the card holds beside 31.3 GB of
       params) over 32k-token caches of seeded random K/V under shuffled
       tables with ragged lengths, donated to each step (K8 on layer 0
-      there against the plain version and timed; 16 steps, 32 K8
-      launches a step, step time and tokens/s); the same equivalence in
+      there against the plain version and timed beside SDPA with a mask
+      past each length, with and without the gather; 16 steps, 32 K8
+      launches a step, all on the TMA route, step time and tokens/s); the
+      same equivalence in
       float32 (the params converted in place); ``launch/serve.py --arch
       nemotron-4-15b`` with its defaults;
    c. minicpm-2b FULL in bfloat16 (MHA, head_dim 64): a 4096-token
       prefill (40 K6 launches, all on the wgmma route), K8 on a captured
-      decode layer and its time, 16 decode steps (40 K8 launches a step),
-      the Server.
+      decode layer and its time, 16 decode steps (40 K8 launches a step,
+      all on the TMA route), the Server.
 16. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE; K6's and K6-with-LSE's
    entries name the kernel that ran, their launches by route and the
@@ -481,11 +497,58 @@ def k7_ptxas() -> dict:
                for name, by_d in out.items()}, **rec}
 
 
+def k8_ptxas() -> dict:
+    """The ptxas report of K8's TMA-route kernel at head dims 64, 128 and
+    256: every one built, with no spills and no stack."""
+    out = ptxas_report("paged_decode", "pd_hopper_kernel",
+                       PD._lib().roomy_pd_tma_smem)
+    print(f"ptxas K8 TMA kernel (pd_hopper_kernel<HD>): {out}")
+    expect(sorted(out) == [64, 128, 256], f"ptxas K8: {out}")
+    for d, r in out.items():
+        expect(r.get("spill_store_bytes") == 0 and
+               r.get("spill_load_bytes") == 0 and r.get("stack_bytes") == 0,
+               f"ptxas K8 pd_hopper_kernel<{d}>: {r}")
+    return {str(d): r for d, r in out.items()}
+
+
+def k9_ptxas() -> dict:
+    """The ptxas report of K9's kernel for each dtype and threads a channel
+    (registers, spills, stack); the falcon-mamba instantiation (bf16, 4
+    threads a channel) and its float32 twin must not spill."""
+    lines = _build.BUILD_LOGS.get("mamba_scan", "").splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or \
+                "scan_seg_kernelI" not in line:
+            continue
+        tail = line.split("scan_seg_kernelI")[1]
+        dtype = "bf16" if tail.startswith("13__nv_bfloat16") else "f32"
+        tpc = int(tail.split("Li")[1].split("E")[0])
+        rec = {}
+        for nxt in lines[i + 1:i + 5]:
+            if "spill stores" in nxt:
+                n = [int(w) for w in nxt.replace(",", " ").split()
+                     if w.isdigit()]
+                rec.update(stack_bytes=n[0], spill_store_bytes=n[1],
+                           spill_load_bytes=n[2])
+            if "Used" in nxt and "registers" in nxt:
+                rec["registers"] = int(nxt.split("Used")[1].split()[0])
+        out[f"{dtype} tpc {tpc}"] = rec
+    print(f"ptxas K9 kernel (scan_seg_kernel<T, TPC>): {out}")
+    expect(len(out) == 10, f"ptxas K9: {out}")
+    for key in ("bf16 tpc 4", "f32 tpc 4"):
+        r = out[key]
+        expect(r.get("spill_store_bytes") == 0 and
+               r.get("spill_load_bytes") == 0, f"ptxas K9 {key}: {r}")
+    return out
+
+
 def phase_build() -> dict:
     names = _build.sources()
     secs = _build.build(names)
     print(f"build: {secs:.3f} s for {names} "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)}; flash_attention also "
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)}; "
+          f"{', '.join(sorted(_build.LINK))} also "
           f"{' '.join(_build.LINK['flash_attention'])})")
     for name, log in _build.BUILD_LOGS.items():
         print(f"[{name}] {log.strip()}")
@@ -495,7 +558,7 @@ def phase_build() -> dict:
     FAB._lib()
     MS._lib()
     PD._lib()
-    return k6_ptxas(), k7_ptxas()
+    return k6_ptxas(), k7_ptxas(), k8_ptxas(), k9_ptxas()
 
 
 # ------------------------------------------------------------------ parity
@@ -1943,6 +2006,10 @@ def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
     expect(k9 == 0, dict(MS.LAUNCHES))
     expect(k8_steps == [per_step * (i + 1) for i in range(steps)],
            f"K8 launches after each step {k8_steps}, want {per_step} a step")
+    # every decode config here is bf16 at head dim 64, 128 or 256 with
+    # lm.PAGE_SIZE pages: all of K8's launches take the TMA route
+    expect(dict(PD.ROUTE_LAUNCHES) == {"tma": k8, "classic": 0},
+           dict(PD.ROUTE_LAUNCHES))
     expect(not any(FA.LAUNCHES.values()) and not any(K.LAUNCHES.values()),
            (dict(FA.LAUNCHES), dict(K.LAUNCHES)))
     expect(bool(torch.isfinite(lg).all()), "decode logits not finite")
@@ -1951,10 +2018,11 @@ def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
                "decode cache lengths")
     print(f"decode: {cfg.name} {steps} steps after the prefill, {wall:.3f} "
           f"s, {steps / wall:.2f} tokens/s (batch 1), K8 launches {k8} "
-          f"({per_step} a step), K9 launches {k9}")
+          f"({per_step} a step; by route {dict(PD.ROUTE_LAUNCHES)}), K9 "
+          f"launches {k9}")
     return {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall,
             "k8_launches": k8, "k8_launches_per_step": per_step,
-            "k9_launches": k9}
+            "k8_routes": dict(PD.ROUTE_LAUNCHES), "k9_launches": k9}
 
 
 def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2,
@@ -2009,9 +2077,10 @@ def kernel_group(name: str) -> str:
     if any(w in low for w in ("fa_hopper_kernel", "fa_bf16_kernel",
                               "fa_f32_kernel")):
         return "flash_attention (K6)"
-    if "scan_kernel<" in low:
+    if "scan_seg_kernel<" in low:
         return "mamba_scan (K9)"
-    if "partial_kernel<" in low or "merge_kernel<" in low:
+    if any(w in low for w in ("pd_hopper_kernel<", "merge_tma_kernel<",
+                              "partial_kernel<", "merge_kernel<")):
         return "paged_decode_attention (K8)"
     if any(w in low for w in ("dkdv_hopper_kernel", "dq_hopper_kernel",
                               "bwd_rows_kernel",
@@ -2111,9 +2180,12 @@ def phase_lm(dev):
     k8_calls, _ = k8_capture(cfg, params, caches, dev, keep=(0, 12))
     k8_captured = k8_on_captured(cfg, k8_calls, f"{cfg.name} decode "
                                  f"(global layers 1 and 25)")
+    k8_times = phase_k8_times(*k8_calls[0], f"{cfg.name} decode global "
+                              f"layer 1, batch 1", library=False)
     del k8_calls
     decode = phase_decode(cfg, params, logits, caches, dev)
     decode["k8_captured"] = k8_captured
+    decode["k8_times"] = k8_times
     profile = phase_profile(cfg, params, inputs, caches, dev)
     del caches
     torch.cuda.empty_cache()
@@ -2130,7 +2202,7 @@ def phase_lm(dev):
                              "equivalence": equiv,
                              "k6_times": k6_times}}))
     return prefill["launches"]["flash_attention"], {
-        **k6_times, "routes": prefill["k6_routes"]}
+        **k6_times, "routes": prefill["k6_routes"], "k8_times": k8_times}
 
 
 # ------------------------------------------- K7 and training (gemma2-2b)
@@ -2770,14 +2842,23 @@ FM_PLAIN_LEN_F32 = 256
 FM_FORWARD_LEN = 4096
 # Per row of bfloat16 logits of falcon-mamba-7b: ‖a − b‖ ≤ FM_LOGIT_REL_TOL
 # · ‖b‖ for K9 against the plain scan over the same prefill and for the
-# equivalences.  K9's state is the plain version's bits and its y differs
-# in rare one-ulp roundings, but each bfloat16 residual add of 64 layers
-# can turn such a difference into a one-ulp step of the residual, so the
-# last logits drift apart by a few percent; in float32 the same comparison
-# holds elementwise to F32_TOL.  The limit lies between the sound readings
-# and a planted fault's (K9 with D dropped in every layer), which every
-# run re-reads and requires to exceed it.
+# equivalences.  K9 sums in another order than the plain sequential scan
+# (time in segments folded from a carried prefix), so its state agrees with
+# the plain version's within float32 rounding and its bfloat16 y differs in
+# one-ulp roundings; each bfloat16 residual add of 64 layers can turn such
+# a difference into a one-ulp step of the residual, so the last logits
+# drift apart by a few percent; in float32 the same comparison holds
+# elementwise to F32_TOL.  The limit lies between the sound readings and a
+# planted fault's (K9 with D dropped in every layer), which every run
+# re-reads and requires to exceed it.
 FM_LOGIT_REL_TOL = 0.1
+# K9 against the mirror of its own order of sums (ref.mamba_scan_segmented,
+# the same expf on the card), per (batch, tile of K9_TILE channels): what
+# differs is the FMA contraction and the order in which the state groups'
+# parts of y add up, a few float32 ulps, so the limit is a thousandth of
+# the plain version's K9_REL_TOL.  Held on h, and on y for float32 inputs
+# (a bfloat16 y can round the other way on a tie of the last bit).
+K9_MIRROR_REL_TOL = 1e-5
 
 
 def k9_inputs(case, dtype, dev, seed, strided=False):
@@ -2833,10 +2914,12 @@ def k9_errors(got, want) -> dict:
     return res
 
 
-def check_k9(args, what):
+def check_k9(args, what, mirror=True):
     """K9 with and without its final state against the plain sequential
     form on the same inputs, by both checks; y is the same bits either
-    way.  Returns (errors, the plain version's (y, h))."""
+    way.  With ``mirror``, also against the mirror of its own order of sums
+    (``ref.mamba_scan_segmented``) within K9_MIRROR_REL_TOL per tile.
+    Returns (errors, the plain version's (y, h))."""
     y = MS.mamba_scan(*args)
     got = MS.mamba_scan(*args, return_state=True)
     want = R.mamba_scan_seq_stateful(*args)
@@ -2852,6 +2935,19 @@ def check_k9(args, what):
     MAX_REL["mamba_scan"] = max(MAX_REL["mamba_scan"], e["rel"])
     expect(e["elementwise_ok"] and e["rel_ok"],
            f"K9 disagrees with its plain version ({what}): {e}")
+    if mirror:
+        my, mh = R.mamba_scan_segmented(*args, seg_len=MS.SEG_LEN)
+        e["mirror_rel_h"] = tile_rel(got[1], mh, 1)
+        e["mirror_rel_y"] = (tile_rel(got[0], my, 2)
+                             if x.dtype == torch.float32 else None)
+        e["mirror_max_abs_h"] = float((got[1] - mh).abs().max())
+        worst = max(e["mirror_rel_h"], e["mirror_rel_y"] or 0.0)
+        MAX_REL["mamba_scan_mirror"] = max(
+            MAX_REL.get("mamba_scan_mirror", 0.0), worst)
+        expect(worst <= K9_MIRROR_REL_TOL,
+               f"K9 disagrees with the mirror of its order of sums "
+               f"({what}): {e}")
+        del my, mh
     return e, want
 
 
@@ -2905,11 +3001,15 @@ def phase_k9_parity_edges(dev) -> dict:
                  if dt == torch.bfloat16)
         rel = max(e["rel"] for e in errs.values())
         same = all(e["h_same_bits"] for e in errs.values())
+        mir = max(max(e["mirror_rel_h"], e["mirror_rel_y"] or 0.0)
+                  for e in errs.values())
         print(f"parity K9 {case}: f32 max abs err {f32:.3e} (tol 1e-4 abs + "
               f"rel), bf16 y max abs err {bf:.3e} (tol 5e-2), per-tile rel "
-              f"err {rel:.3e} (limit {K9_REL_TOL}); contiguous and strided, "
-              f"y the same bits with and without the state; h the plain "
-              f"version's bits: {same}")
+              f"err {rel:.3e} (limit {K9_REL_TOL}); against the mirror of "
+              f"its order of sums per-tile rel {mir:.3e} (limit "
+              f"{K9_MIRROR_REL_TOL}); contiguous and strided, y the same "
+              f"bits with and without the state; h the plain version's "
+              f"bits: {same} (another order of sums)")
     args = k9_inputs(K9_FAULT_CASE, torch.bfloat16, dev, 50, True)
     sound, want = check_k9(args, f"{K9_FAULT_CASE} fault case")
     print(f"parity K9 {K9_FAULT_CASE} bf16 strided, fault case: per-tile "
@@ -3002,11 +3102,13 @@ def fm_capture(cfg, params, inputs, wall, dev):
     res["layers"] = {}
     for i in (0, last):
         args = cap.calls[i][0]
-        e, want = check_k9(args, f"prefill layer {i}")
+        # the mirror of 32768 steps would hold (L, Di, N) weights: 17 GB
+        e, want = check_k9(args, f"prefill layer {i}", mirror=False)
         print(f"parity K9 prefill layer {i} x {tuple(args[0].shape)} "
               f"{args[0].dtype}: y max abs err {e['max_abs_y']:.3e}, h max "
               f"abs err {e['max_abs_h']:.3e} (h the plain version's bits: "
-              f"{e['h_same_bits']}), per-tile rel err y {e['rel_y']:.3e}, h "
+              f"{e['h_same_bits']}; another order of sums), per-tile rel err "
+              f"y {e['rel_y']:.3e}, h "
               f"{e['rel_h']:.3e} (tol elementwise 5e-2 on y, 1e-4 on h; per "
               f"tile {K9_REL_TOL})")
         res["layers"][i] = {"sound": e, "planted_faults": k9_faults(args,
@@ -3214,8 +3316,18 @@ K8_CASES = [  # b, hq, kvh, ps, pps, hd, softcap
     # a whole 32k table (257 pages of 128) at nemotron's layout; the SMOKE
     # configs' head_dim 12
     (2, 48, 8, 128, 257, 128, None), (2, 4, 2, 8, 4, 12, 50.0),
+    # the TMA route's edges (bf16 at head dims 64, 128, 256, pages of a
+    # multiple of its 64-token tile): pages of 64 (a tile each) and 256
+    # (four), group 6 at head dim 256, group 48 (three m-tiles) at head dim
+    # 64; lengths 1, ps, ps + 1, the whole table and 0 cut tiles at every
+    # edge
+    (5, 12, 2, 64, 4, 128, 20.0), (5, 6, 1, 256, 3, 256, 30.0),
+    (5, 48, 1, 64, 5, 64, None),
 ]
-K8_FAULT_CASE = (5, 12, 2, 16, 4, 128, 20.0)
+# The planted faults run on each route: the classic kernels (pages of 16)
+# and the TMA route (pages of 128).
+K8_FAULT_CASES = {"classic": (5, 12, 2, 16, 4, 128, 20.0),
+                  "tma": (5, 12, 2, 128, 4, 128, 20.0)}
 K8_CAP_SIGMA = 30.0           # q at this σ: logits of std ~30, capped at 20
 # The dense prefill's last logits against a plain-attention prefill, per
 # row, bfloat16 (the rule of BF16_LOGIT_REL_TOL), over DENSE_PLAIN_LEN
@@ -3231,6 +3343,14 @@ def k8_lengths(b, ps, pps):
     if b < len(fixed):
         fixed = [pps * ps, 1, ps + 1, ps][:b]
     return fixed
+
+
+def k8_route(dtype, ps, hd) -> str:
+    """The route K8 must take (``paged_decode.route``): the TMA kernel for
+    bfloat16 at head dims 64, 128 and 256 with pages of a whole number of
+    its tiles; the classic kernels otherwise."""
+    return "tma" if (dtype == torch.bfloat16 and hd in PD.TMA_HEAD_DIMS and
+                     ps % PD.TMA_TILE == 0) else "classic"
 
 
 def k8_inputs(case, dtype, dev, seed, q_sigma=1.0):
@@ -3267,7 +3387,9 @@ def k8_errors(got, want) -> dict:
 def check_k8(q, kp, vp, table, lengths, softcap, what) -> dict:
     """K8 against its plain version on the same inputs, by both checks; a
     second launch gives the same bits (the splits merge in a fixed
-    order)."""
+    order); both launches take the route the dtype, head dim and page size
+    call for (``k8_route``)."""
+    before = dict(PD.ROUTE_LAUNCHES)
     got = PD.paged_decode_attention(q, kp, vp, table, lengths,
                                     softcap=softcap)
     again = PD.paged_decode_attention(q, kp, vp, table, lengths,
@@ -3275,9 +3397,14 @@ def check_k8(q, kp, vp, table, lengths, softcap, what) -> dict:
     want = R.paged_decode_attention_ref(q, kp, vp, table, lengths,
                                         softcap=softcap)
     torch.cuda.synchronize()
+    route = k8_route(q.dtype, kp.shape[1], q.shape[-1])
+    routed = {n: PD.ROUTE_LAUNCHES[n] - before[n] for n in before}
+    expect(routed == {"tma": 0, "classic": 0, route: 2},
+           f"K8 took {routed}, want 2 on {route}: {what}")
     expect(got.dtype == q.dtype and got.shape == q.shape, what)
     expect(torch.equal(got, again), f"K8 changes from run to run: {what}")
     e = k8_errors(got, want)
+    e["route"] = route
     MAX_ERR["paged_decode_attention"] = max(
         MAX_ERR["paged_decode_attention"], e["max_abs"])
     MAX_REL["paged_decode_attention"] = max(
@@ -3299,48 +3426,59 @@ def k8_garbage_table(table, lengths, ps):
     return torch.where(col >= live[:, None], junk[col % 4], bad)
 
 
-def k8_faults(dev) -> dict:
-    """Planted faults at K8_FAULT_CASE (bf16), each run through the kernel
-    and read against the plain version by the per-(b, h) check, which each
-    must break: the page table ignored (identity pages), the mask off by
-    one (pos <= length), the softcap dropped (at logits of std ~30), and
-    split 0's partials dropped in the merge."""
-    b, hq, kvh, ps, pps, hd, cap = K8_FAULT_CASE
-    q, kp, vp, table, lengths = k8_inputs(K8_FAULT_CASE, torch.bfloat16, dev,
-                                          70)
+def k8_faults(dev, route) -> dict:
+    """Planted faults at K8_FAULT_CASES[route] (bf16), each run through the
+    kernel of that route and read against the plain version by the
+    per-(b, h) check, which each must break: the page table ignored
+    (identity pages), the mask off by one (pos <= length), the softcap
+    dropped (at logits of std ~30), and split 0's partials dropped in the
+    merge (the two stages launched apart, the merge on the route's own
+    merge code: the TMA route's is the one its kernel runs in the same
+    launch, and its two stages apart give the one launch's bits)."""
+    case = K8_FAULT_CASES[route]
+    b, hq, kvh, ps, pps, hd, cap = case
+    expect(k8_route(torch.bfloat16, ps, hd) == route, (case, route))
+    q, kp, vp, table, lengths = k8_inputs(case, torch.bfloat16, dev, 70)
     want = R.paged_decode_attention_ref(q, kp, vp, table, lengths,
                                         softcap=cap)
-    check_k8(q, kp, vp, table, lengths, cap, "fault case")
+    check_k8(q, kp, vp, table, lengths, cap, f"{route} fault case")
     runs = {
         "page table ignored (identity pages)": PD.paged_decode_attention(
             q, kp, vp, paged.identity_table(b, pps, dev), lengths,
             softcap=cap),
         "mask off by one (pos <= length)": PD.paged_decode_attention(
             q, kp, vp, table, lengths + 1, softcap=cap)}
-    qs, kps, vps, ts, ls = k8_inputs(K8_FAULT_CASE, torch.bfloat16, dev, 71,
+    qs, kps, vps, ts, ls = k8_inputs(case, torch.bfloat16, dev, 71,
                                      K8_CAP_SIGMA)
     want_cap = R.paged_decode_attention_ref(qs, kps, vps, ts, ls,
                                             softcap=cap)
-    check_k8(qs, kps, vps, ts, ls, cap, f"fault case, q at sigma "
+    check_k8(qs, kps, vps, ts, ls, cap, f"{route} fault case, q at sigma "
              f"{K8_CAP_SIGMA}")
     runs["softcap dropped"] = PD.paged_decode_attention(qs, kps, vps, ts, ls)
-    out, parts = PD._launch(q, kp, vp, table, lengths, cap,
-                            1 / math.sqrt(hd), stage=1)
+    scale = 1 / math.sqrt(hd)
+    out, parts = PD._launch(q, kp, vp, table, lengths, cap, scale, stage=1,
+                            path=route)
     expect(parts.acc.shape[2] > 1, f"one split only: {parts.acc.shape}")
+    whole = PD.paged_decode_attention(q, kp, vp, table, lengths, softcap=cap)
+    apart = PD._launch(q, kp, vp, table, lengths, cap, scale, stage=2,
+                       parts=parts, path=route)[0]
+    expect(torch.equal(apart, whole), f"K8's {route} stages apart differ "
+           "from its one launch")
     parts.ml[:, :, 0, :, 0] = R.NEG_INF
     parts.ml[:, :, 0, :, 1] = 0.0
     parts.acc[:, :, 0] = 0.0
     runs["split 0's partials dropped in the merge"] = PD._launch(
-        q, kp, vp, table, lengths, cap, 1 / math.sqrt(hd), stage=2,
-        parts=parts, out=out)[0]
+        q, kp, vp, table, lengths, cap, scale, stage=2, parts=parts, out=out,
+        path=route)[0]
     out = {}
     for name, got in runs.items():
         e = k8_errors(got, want_cap if name == "softcap dropped" else want)
         out[name] = {k: e[k] for k in ("max_abs", "rel")}
-        print(f"planted K8 fault, {name}: max abs err {e['max_abs']:.3e}, "
-              f"per-(b, h) rel err {e['rel']:.3e}; per-(b, h) check "
-              f"{'passes' if e['rel_ok'] else 'fails'}")
-        expect(not e["rel_ok"], f"the per-(b, h) check misses {name}: {e}")
+        print(f"planted K8 fault ({route} route), {name}: max abs err "
+              f"{e['max_abs']:.3e}, per-(b, h) rel err {e['rel']:.3e}; "
+              f"per-(b, h) check {'passes' if e['rel_ok'] else 'fails'}")
+        expect(not e["rel_ok"], f"the per-(b, h) check misses {name} on "
+               f"the {route} route: {e}")
     return out
 
 
@@ -3363,12 +3501,14 @@ def phase_k8_parity_edges(dev) -> dict:
                    f"K8 reads table entries past the length: {case}")
         f32, bf = errs[torch.float32], errs[torch.bfloat16]
         lens = k8_lengths(case[0], case[3], case[4])
-        print(f"parity K8 {case} lengths {lens}: f32 max abs err {f32['max_abs']:.3e} (tol 2e-5 abs + rel), "
-              f"bf16 max abs err {bf['max_abs']:.3e} (tol 2e-2), per-(b, h) "
-              f"rel err {max(f32['rel'], bf['rel']):.3e} (limit "
-              f"{K8_REL_TOL}); same bits twice and with garbage past the "
-              f"lengths")
-    return {"planted_faults": k8_faults(dev)}
+        print(f"parity K8 {case} lengths {lens}: f32 ({f32['route']} route) "
+              f"max abs err {f32['max_abs']:.3e} (tol 2e-5 abs + rel), "
+              f"bf16 ({bf['route']} route) max abs err {bf['max_abs']:.3e} "
+              f"(tol 2e-2), per-(b, h) rel err "
+              f"{max(f32['rel'], bf['rel']):.3e} (limit {K8_REL_TOL}); same "
+              f"bits twice and with garbage past the lengths")
+    return {"planted_faults": {route: k8_faults(dev, route)
+                               for route in K8_FAULT_CASES}}
 
 
 def k8_capture(cfg, params, caches, dev, keep, donate=False):
@@ -3446,11 +3586,13 @@ def phase_k8_times(args, kw, what, library=True) -> dict:
     """K8 on captured inputs (device time by CUDA events behind a spin
     kernel, median of 20; ``ms_host`` without the spin, as the earlier
     kernels are timed, which adds the wrapper's launch time) beside its
-    bound and its plain version (median of 3).  With ``library`` (batch 1, no
-    softcap: nemotron), scaled_dot_product_attention(enable_gqa=True) over
-    the live cache, which computes the same function there: once with the
-    gather through the table inside the timing, once over a gathered
-    cache; each held to K8's per-(b, h) limit against K8."""
+    bound and its plain version (median of 3).  With ``library`` (no
+    softcap), scaled_dot_product_attention(enable_gqa=True) over the live
+    cache, which computes the same function there: once with the gather
+    through the table inside the timing, once over a gathered cache; each
+    held to K8's per-(b, h) limit against K8.  At batch 1 the gather takes
+    the row's live positions; at a larger batch every row's whole table,
+    with a mask past each length."""
     q, kp, vp, table, lengths = args
     sc = kw["softcap"]
     def run():
@@ -3461,30 +3603,45 @@ def phase_k8_times(args, kw, what, library=True) -> dict:
     plain = device_ms(lambda: R.paged_decode_attention_ref(
         q, kp, vp, table, lengths, softcap=sc), reps=PLAIN_REPS)
     res = {"ms": ms, "ms_host": ms_host, "plain_ms": plain,
+           "route": PD.route(q, kp, vp),
            **k8_bound(q, kp, table, lengths),
            "library_ms": None, "library_ms_no_gather": None,
            "shape": f"{what}: q {tuple(q.shape)}, pages {tuple(kp.shape)} "
                     f"{q.dtype}, lengths {lengths.tolist()[:8]}"}
-    line = (f"time: K8 {res['shape']}: {ms:.4f} ms on the device "
-            f"({ms_host:.4f} ms with the wrapper's launch), bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {res['bytes']} "
-            f"bytes at 3.35 TB/s, {res['flops']:.3e} flops at 989 TFLOP/s), "
-            f"{res['bound_ms'] / ms:.1%} of the bound, "
+    line = (f"time: K8 ({res['route']} route) {res['shape']}: {ms:.4f} ms "
+            f"on the device ({ms_host:.4f} ms with the wrapper's launch), "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+            f"{res['bytes']} bytes at 3.35 TB/s, {res['flops']:.3e} flops at "
+            f"989 TFLOP/s), {res['bound_ms'] / ms:.1%} of the bound, "
             f"{res['bytes'] / ms / 1e6:.1f} GB/s, plain {plain:.4f} ms "
             f"(median of {PLAIN_REPS})")
     if library:
-        expect(q.shape[0] == 1 and sc is None, "the library call is timed "
-               "at batch 1 without a softcap")
-        n, hd, kvh = int(lengths[0]), q.shape[2], kp.shape[2]
+        expect(sc is None, "the library call is timed without a softcap")
+        b, hd, kvh = q.shape[0], q.shape[2], kp.shape[2]
+        ps, pps = kp.shape[1], table.shape[1]
+        mask = None
+        if b == 1:
+            n = int(lengths[0])
 
-        def gathered():
-            k = kp[table[0].long()].reshape(-1, kvh, hd)[:n]
-            v = vp[table[0].long()].reshape(-1, kvh, hd)[:n]
-            return k.transpose(0, 1)[None], v.transpose(0, 1)[None]
+            def gathered():
+                k = kp[table[0].long()].reshape(-1, kvh, hd)[:n]
+                v = vp[table[0].long()].reshape(-1, kvh, hd)[:n]
+                return k.transpose(0, 1)[None], v.transpose(0, 1)[None]
+        else:
+            n = lengths.long().clamp(0, pps * ps)
+            live = (torch.arange(pps, device=q.device)[None] * ps) < n[:, None]
+            rows = torch.where(live, table.long(), 0)
+            mask = (torch.arange(pps * ps, device=q.device)[None]
+                    < n[:, None])[:, None, None, :]
+
+            def gathered():
+                k = kp[rows].reshape(b, pps * ps, kvh, hd)
+                v = vp[rows].reshape(b, pps * ps, kvh, hd)
+                return k.transpose(1, 2), v.transpose(1, 2)
 
         def sdpa(k, v):
-            return F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                                  enable_gqa=True)[:, :, 0]
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
         k4, v4 = (t.contiguous() for t in gathered())
         agree = bh_rel(sdpa(k4, v4)[:, :, None], run()[:, :, None])
         expect(agree <= K8_REL_TOL, f"SDPA vs K8: {agree}")
@@ -3492,7 +3649,8 @@ def phase_k8_times(args, kw, what, library=True) -> dict:
         res["library_ms_no_gather"] = device_ms(lambda: sdpa(k4, v4))
         res["library_rel_vs_kernel"] = agree
         del k4, v4
-        line += (f"; library scaled_dot_product_attention(enable_gqa=True) "
+        line += (f"; library scaled_dot_product_attention(enable_gqa=True"
+                 f"{'' if mask is None else ', a mask past each length'}) "
                  f"{res['library_ms']:.4f} ms with the gather through the "
                  f"table, {res['library_ms_no_gather']:.4f} ms over a "
                  f"gathered cache; per-(b, h) rel to K8 {agree:.3e}")
@@ -3585,7 +3743,7 @@ def phase_batched_decode(cfg, params, dev, batch=BATCH_DECODE,
                                donate=True)
     parity = k8_on_captured(cfg, calls, f"{cfg.name} batch {batch}")
     times = phase_k8_times(*calls[0], f"{cfg.name} decode layer 0, batch "
-                           f"{batch}", library=False)
+                           f"{batch}")
     del calls
     torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED + 8)
@@ -3606,6 +3764,8 @@ def phase_batched_decode(cfg, params, dev, batch=BATCH_DECODE,
     peak = torch.cuda.max_memory_allocated(dev)
     k8 = PD.LAUNCHES["paged_decode_attention"]
     expect(k8 == cfg.n_layers * steps, dict(PD.LAUNCHES))
+    expect(dict(PD.ROUTE_LAUNCHES) == {"tma": k8, "classic": 0},
+           dict(PD.ROUTE_LAUNCHES))
     expect(not any(FA.LAUNCHES.values()), dict(FA.LAUNCHES))
     expect(all(torch.equal(c.lengths, lengths0 + 1 + steps)
                for c in caches["kv"]), "batched decode lengths")
@@ -3618,7 +3778,8 @@ def phase_batched_decode(cfg, params, dev, batch=BATCH_DECODE,
     print(f"decode batch {batch}: {cfg.name} {steps} steps over caches of "
           f"{nbytes} bytes (lengths {lengths0.tolist()}), {wall:.3f} s, "
           f"{res['step_ms']:.2f} ms a step, {res['tokens_per_s']:.1f} "
-          f"tokens/s, peak {peak} bytes, K8 launches {k8}")
+          f"tokens/s, peak {peak} bytes, K8 launches {k8} (all on the TMA "
+          f"route)")
     return res
 
 
@@ -3759,7 +3920,7 @@ def main() -> None:
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    ptxas, k7_ptx = phase_build()
+    ptxas, k7_ptx, k8_ptx, k9_ptx = phase_build()
     phase_parity_edges(dev)
     data, tgt = phase_parity_full(dev)
     times = phase_times(data, tgt)
@@ -3898,8 +4059,12 @@ def main() -> None:
     kernels.append({
         "name": "mamba_scan", "route": "cuda", "source": K9_SOURCE,
         "replaces": K9_REPLACES, "launches": fm["launches"],
+        "kernel": "scan_seg_kernel (time in segments of a block's threads, "
+                  "folded from a carried prefix)", "ptxas": k9_ptx,
         "max_abs_err": MAX_ERR["mamba_scan"],
-        "max_rel_err_per_tile": MAX_REL["mamba_scan"], "ms": t9["ms"],
+        "max_rel_err_per_tile": MAX_REL["mamba_scan"],
+        "max_rel_err_per_tile_vs_mirror": MAX_REL["mamba_scan_mirror"],
+        "ms": t9["ms"],
         "plain_ms": t9["plain_ms"], "bound_ms": t9["bound_ms"],
         "bound_by": t9["bound_by"], "library_ms": None,
         "library": "none: PyTorch has no call that computes a selective "
@@ -3913,10 +4078,15 @@ def main() -> None:
         "launches_per_decode_step": fm["decode_launches_per_step"]})
     nem = dense["nemotron"]
     t8, b8 = nem["k8_times"], nem["batched_decode"]["k8"]
+    g8 = k6["k8_times"]
     kernels.append({
         "name": "paged_decode_attention", "route": "cuda",
         "source": K8_SOURCE, "replaces": K8_REPLACES,
         "launches": nem["decode"]["k8_launches"],
+        "kernel": "pd_hopper_kernel (the TMA route: a TMA ring of K/V tiles "
+                  "through the page table, mma.sync, the split merge in the "
+                  "same launch)",
+        "launches_by_route": nem["decode"]["k8_routes"], "ptxas": k8_ptx,
         "max_abs_err": MAX_ERR["paged_decode_attention"],
         "max_rel_err_per_bh": MAX_REL["paged_decode_attention"],
         "ms": t8["ms"], "ms_host": t8["ms_host"], "plain_ms": t8["plain_ms"],
@@ -3930,6 +4100,10 @@ def main() -> None:
         "launches_per_step": nem["decode"]["k8_launches_per_step"],
         "batch8_ms": b8["ms"], "batch8_plain_ms": b8["plain_ms"],
         "batch8_bound_ms": b8["bound_ms"],
+        "batch8_library_ms": b8["library_ms"],
+        "batch8_library_ms_no_gather": b8["library_ms_no_gather"],
+        "gemma2_ms": g8["ms"], "gemma2_plain_ms": g8["plain_ms"],
+        "gemma2_bound_ms": g8["bound_ms"],
         "minicpm_ms": dense["minicpm"]["k8_times"]["ms"],
         "minicpm_bound_ms": dense["minicpm"]["k8_times"]["bound_ms"]})
     print(json.dumps({"to_port": to_port_bounds()}))

@@ -24,10 +24,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 #: Libraries a source links beyond the runtime: the flash-attention sources
-#: (forward and backward) encode TMA tensor maps with the driver API
-#: (cuTensorMapEncodeTiled); nvcc's own library path holds the toolkit's
-#: libcuda stub.
-LINK = {"flash_attention": ["-lcuda"], "flash_attention_bwd": ["-lcuda"]}
+#: (forward and backward) and the paged decode encode TMA tensor maps with
+#: the driver API (cuTensorMapEncodeTiled); nvcc's own library path holds
+#: the toolkit's libcuda stub.
+LINK = {"flash_attention": ["-lcuda"], "flash_attention_bwd": ["-lcuda"],
+        "paged_decode": ["-lcuda"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each build this process ran.

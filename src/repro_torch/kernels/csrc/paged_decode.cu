@@ -13,57 +13,80 @@
 //   s_t = q·k_t · scale, then tanh(s_t / c) · c when a softcap c is set;
 //   out = sum_t softmax(s)_t · v_t, and 0 for a row with n = 0.
 // q, k, v are read in their dtype (float32 or bfloat16, one for all
-// three); scores, probabilities and sums are float32; the output is
-// written in q's dtype, contiguous (B, Hq, hd).
+// three); scores, the softmax and the sums are float32; the output is
+// written in q's dtype, contiguous (B, Hq, hd).  A table entry at or past
+// the length is never read; an entry outside [0, P) within the length is
+// skipped.  The output is the same bits run to run.
 //
 // What bounds it on an H100: each live K and V row is read once (2·n·kvh·hd
 // elements a sequence) and each q row is used against it: 2·g FMAs a K/V
-// element, below the card's ~20 float32 operations a byte for g <= 6
-// (nemotron, gemma2, minicpm), so the bytes bind.  At nemotron-4-15b's
-// decode after 32768 tokens (kvh 8, hd 128, bf16) that is 134 MB a layer,
-// 0.040 ms at 3.35 TB/s.
+// element, far below the card's ~295 bf16 tensor-core operations a byte,
+// so the bytes bind.  At nemotron-4-15b's decode after 32768 tokens (kvh 8,
+// hd 128, bf16) that is 134 MB a layer, 0.040 ms at 3.35 TB/s.
 //
-// Design, simple and right first.  The TPU kernel walks a sequence's pages
-// as the sequential grid axis of (batch, kv head, page), carrying the
-// online softmax in VMEM.  Copied as it stands that is B·kvh blocks, 8 at
-// nemotron's batch 1 for 132 SMs.  So the pages of each sequence are split
-// (flash-decoding):
-// * partial_kernel: one block per (split, kv head, batch row) takes an
-//   even share of that row's live pages (the share is worked out from
-//   lengths[b] on the card, so ragged lengths spread over all splits, and
-//   a page table entry at or past the length is never read) and runs the
-//   online softmax over them in tiles of TILE tokens within one page.  A
-//   tile's K and V rows are loaded in 16-byte vectors along hd (a token
-//   row of one kv head is hd contiguous elements; rows are kvh·hd apart),
-//   kept in shared memory in their dtype with rows padded by 16 bytes so
-//   that a quarter warp reading 8 rows at one column hits 32 distinct
-//   banks.  Scores: one (query row, token) per thread, a full-hd dot
-//   against q in float32 in shared memory (a broadcast); the row max and
-//   sum: one warp a query row; P·V: one (query row, column pair) per
-//   thread, summed over the tile in registers and folded into the float32
-//   accumulator (g × hd, in shared memory, so granite's g = 48 costs no
-//   registers).  The block writes its (m, l, acc) to a float32 workspace.
-// * merge_kernel: one block per query row adds the splits' partials in a
-//   fixed order (weights exp(m_s − m), a block reduction in a fixed tree
-//   for l), so the output is the same bits every run, and divides by l
-//   (1 where l == 0, as the TPU kernel's safe_l).
-// * hd up to 256 (the block's layout is sized for 64, 128 or 256; a
-//   smaller hd is zero-padded in shared memory and read with scalar loads
-//   when its rows are not 16-byte multiples).
-// * A table entry outside [0, P) within the length is skipped, not read.
-// Later work (not here): cp.async or TMA double-buffering of the pages,
-// tensor-core products for large groups.
+// Two routes, chosen by the wrapper (paged_decode.py `route`) before
+// launch; neither stands in for the other:
+//
+// * The TMA route (pd_hopper_kernel, the section at the end): bf16 at head
+//   dims 64, 128 and 256 (minicpm-2b, nemotron-4-15b and granite-34b,
+//   gemma2-2b) with pages of a multiple of TILE = 64 tokens and 16-byte
+//   aligned pools.  One block per (split, 16-row m-tile of the group, kv
+//   head, batch row): one producer warp and four consumer warps.
+//   - The pools are one 4-D tensor map each, (hd, kvh, ps, P), box 64
+//     columns x 1 head x 64 tokens x 1 page, 128-byte swizzle, so a box
+//     never leaves its kv head or page.  One producer thread walks the
+//     split's share of the page table (the Hopper form of the TPU kernel's
+//     scalar-prefetch index map), skips an entry outside [0, P) before it
+//     can reach a coordinate, and issues each tile's K and V boxes into a
+//     ring of STAGES slots behind full/empty mbarriers, with the tile's
+//     live token count beside it; a count of 0 ends the walk.
+//   - Each consumer warp takes 16 of a tile's 64 tokens and keeps its own
+//     online softmax: S = Q·Kᵀ and O += P·V are mma.sync m16n8k16 (bf16
+//     in, f32 accumulate; ldmatrix over the swizzled tile, V through the
+//     .trans form).  The group's rows are padded to 16 (g = 1, 2, 6) or
+//     taken in m-tiles of 16 by separate blocks (g = 48) whose K/V reads
+//     meet in L2.  mma.sync and not wgmma: wgmma's 64 rows would multiply
+//     the products by 10 at g = 6, and the products are far below the
+//     byte bound either way.  Softcap, mask and softmax stay in float32
+//     registers, in log2 units (tanh from ex2.approx and rcp.approx, as
+//     K6's wgmma route).  On the tile that holds the length's edge, P is
+//     0 past it and the V fragments of those tokens are zeroed, so a stale
+//     row (even a NaN) past the length adds nothing.
+//   - The four warps' states merge in shared memory in a fixed order and
+//     the block writes its (m, l, acc) partial (m in log2 units).  The
+//     last block of its (batch row, kv head, m-tile) to finish (a ticket
+//     from an atomic counter, which that block resets to 0, so no memset
+//     runs) merges the splits' partials in their fixed order: one launch
+//     in all.  merge_tma_kernel runs the same merge alone, for checks
+//     that plant a fault between the two.
+//   - Splits (paged_decode.py `tma_splits`, from the shapes alone): one
+//     wave of blocks at the kernel's occupancy, at most 16 pages a split
+//     (a batch of ragged lengths spreads over waves), and at most
+//     sqrt(pps·ps / 16) splits, so the last block's merge stays small.
+//
+// * The classic route (partial_kernel + merge_kernel): everything else
+//   (float32, the smoke configs' head dims 12/16/32, pages of 8 or 16
+//   tokens, unaligned pools).  One block per (split, kv head, batch row)
+//   runs the online softmax over its share of the live pages in tiles of
+//   TILE tokens within one page: K and V rows loaded in 16-byte vectors
+//   into shared memory (rows padded by 16 bytes), one (query row, token)
+//   dot a thread, one warp a row's softmax, one (query row, column pair)
+//   of P·V a thread, a float32 accumulator in shared memory; then
+//   merge_kernel, one block per query row, adds the splits' partials in a
+//   fixed order and divides by l (1 where l == 0, as the TPU kernel's
+//   safe_l).
 //
 // Plain C interface, loaded with ctypes.  The launches go on the given
-// stream, do not synchronise, and return cudaGetLastError().
+// stream, do not synchronise, and return cudaGetLastError() (a tensor-map
+// encode failure returns kDriverError + its CUresult).
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -374,6 +397,492 @@ int dispatch(const Params& p, int B, int stage, cudaStream_t stream) {
   return 0;
 }
 
+// ------------------------------------------- bf16 on Hopper: the TMA route
+
+constexpr int kTile = 64;               // tokens a TMA tile (a box's rows)
+constexpr int kConsumers = 4;           // consumer warps, 16 tokens each
+constexpr int kTmaThreads = 32 * (1 + kConsumers);   // + the producer warp
+constexpr int kCThreads = 32 * kConsumers;           // the consumers
+constexpr int kRows = 16;               // query rows a block: one m16 tile
+constexpr int kMaxTmaSplits = 512;
+
+template <int HD> struct TmaStages;      // ring depth by head dim
+template <> struct TmaStages<64> { static constexpr int N = 4; };
+template <> struct TmaStages<128> { static constexpr int N = 3; };
+template <> struct TmaStages<256> { static constexpr int N = 2; };
+
+// Byte offsets from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows of 128 bytes).  After the walk the ring holds the four
+// warps' accumulators, then the split merge's weights.
+template <int HD> struct TmaLayout {
+  static constexpr int STAGES = TmaStages<HD>::N;
+  static constexpr int KV = kTile * HD * 2;             // a K or V tile
+  static constexpr int RING = STAGES * 2 * KV;
+  static constexpr int QLD = HD + 8;                    // q row, elements
+  static constexpr int Q = RING;
+  static constexpr int ML = Q + kRows * QLD * 2;        // [4][16][2] f32
+  static constexpr int INV = ML + kConsumers * kRows * 2 * 4;  // [16] f32
+  static constexpr int META = INV + kRows * 4;          // [STAGES] int
+  static constexpr int FLAG = META + STAGES * 4;        // int
+  static constexpr int BAR = (FLAG + 4 + 7) / 8 * 8;    // full, empty
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;
+  static_assert(kConsumers * kRows * HD * 4 <= RING, "warp accumulators");
+  static_assert(kRows * kMaxTmaSplits * 4 <= RING, "merge weights");
+};
+
+struct TmaParams {
+  const bf16* q;            // (B, Hq, hd), strides q_sb, q_sh, last dim 1
+  const int* table;         // (B, pps) contiguous
+  const int* lengths;       // (B,)
+  float* part_acc;          // (B, kvh, S, g, hd)
+  float* part_ml;           // (B, kvh, S, g, 2): m (log2 units), l
+  int* counters;            // (B, kvh, mt) tickets, 0 between launches
+  bf16* out;                // (B, Hq, hd) contiguous
+  long long q_sb, q_sh;
+  int ps, kvh, g, mt, pps, splits, num_pages, merge;
+  float qk_log2;            // scale·log2(e)
+  float cap_in;             // 2·scale·log2(e)/softcap; 0: no softcap
+  float cap_out;            // softcap·log2(e)
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a · b for one m16n8k16 tile, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The shared address of (token r, column c) of a TMA tile: NC boxes of
+// kTile rows x 128 bytes, 16-byte chunks swizzled by the row's low 3 bits.
+__device__ __forceinline__ uint32_t swz(uint32_t tile, int r, int c) {
+  return tile + (c >> 6) * (kTile * 128) + r * 128 +
+         ((((c & 63) >> 3) ^ (r & 7)) << 4);
+}
+
+// Zero the bf16 halves of a .trans V fragment whose tokens are past nt.
+__device__ __forceinline__ uint32_t keep_live(uint32_t v, int tok, int nt) {
+  return v & ((tok < nt ? 0x0000FFFFu : 0u) |
+              (tok + 1 < nt ? 0xFFFF0000u : 0u));
+}
+
+// The splits' partials of (b, h, m-tile mt), rows [0, rows), merged in
+// their fixed order into out, by the kCThreads threads tid of the calling
+// block (bar 1).  ws: kRows x splits floats; inv: kRows floats.
+template <int HD>
+__device__ void merge_splits(const TmaParams& p, int b, int h, int mt,
+                             int rows, float* ws, float* inv, int tid) {
+  const int S = p.splits;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long slot0 = ((long long)b * p.kvh + h) * S;
+  for (int r = warp; r < rows; r += kConsumers) {
+    // One pass over the splits' (m, l): each lane's running (max, sum) is
+    // rescaled as the max grows, then the lanes' pairs merge in a fixed
+    // tree; m waits in ws for the weights.
+    const int gi = kRows * mt + r;
+    float mx = kNegInf, lsum = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+          p.part_ml + ((slot0 + s) * p.g + gi) * 2));
+      ws[r * S + s] = ml.x;
+      const float mn = fmaxf(mx, ml.x);
+      lsum = lsum * ex2(mx - mn) + ml.y * ex2(ml.x - mn);
+      mx = mn;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, mx, o);
+      const float lo = __shfl_xor_sync(0xffffffffu, lsum, o);
+      const float mn = fmaxf(mx, mo);
+      lsum = lsum * ex2(mx - mn) + lo * ex2(mo - mn);
+      mx = mn;
+    }
+    __syncwarp();
+    for (int s = lane; s < S; s += 32) ws[r * S + s] = ex2(ws[r * S + s] - mx);
+    if (lane == 0) inv[r] = lsum == 0.f ? 1.f : 1.f / lsum;
+  }
+  named_sync(1, kCThreads);
+  const int hq_n = p.kvh * p.g;
+  for (int e = tid; e < rows * (HD / 4); e += kCThreads) {
+    const int r = e / (HD / 4), d = (e % (HD / 4)) * 4;
+    const int gi = kRows * mt + r;
+    const float* pa = p.part_acc + (slot0 * p.g + gi) * HD + d;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int s = 0; s < S; ++s) {
+      const float w = ws[r * S + s];
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          pa + (long long)s * p.g * HD));
+      acc.x += w * v.x;
+      acc.y += w * v.y;
+      acc.z += w * v.z;
+      acc.w += w * v.w;
+    }
+    const float iv = inv[r];
+    bf16* o = p.out + ((long long)b * hq_n + h * p.g + gi) * HD + d;
+    *reinterpret_cast<__nv_bfloat162*>(o) =
+        __floats2bfloat162_rn(acc.x * iv, acc.y * iv);
+    *reinterpret_cast<__nv_bfloat162*>(o + 2) =
+        __floats2bfloat162_rn(acc.z * iv, acc.w * iv);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTmaThreads)
+    pd_hopper_kernel(const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const TmaParams p) {
+  using L = TmaLayout<HD>;
+  constexpr int STAGES = L::STAGES, NC = HD / 64, NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_pd[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smem_pd + 1023) & ~(uintptr_t)1023);
+  const uint32_t base = smem_addr(sm);
+  volatile int* meta = reinterpret_cast<volatile int*>(sm + L::META);
+  const uint32_t bar = base + L::BAR;
+  auto full = [&](int s) { return bar + 8 * s; };
+  auto empty = [&](int s) { return bar + 8 * (STAGES + s); };
+  auto ktile = [&](int s) { return base + 2 * s * L::KV; };   // V at + KV
+
+  const int mt = blockIdx.x % p.mt, split = blockIdx.x / p.mt;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // This split's share of the row's live pages.
+  int n = p.lengths[b];
+  n = n < 0 ? 0 : (n > p.pps * p.ps ? p.pps * p.ps : n);
+  const int npages = (n + p.ps - 1) / p.ps;
+  const int per = (npages + p.splits - 1) / p.splits;
+  const int pg0 = min(npages, split * per);
+  const int pg1 = min(npages, pg0 + per);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);   // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int pg = pg0; pg < pg1; ++pg) {
+        const int phys = p.table[(long long)b * p.pps + pg];
+        if (phys < 0 || phys >= p.num_pages) continue;
+        const int valid = min(p.ps, n - pg * p.ps);
+        for (int t0 = 0; t0 < valid; t0 += kTile) {
+          mbar_wait(empty(stage), phase ^ 1);   // the first round passes
+          meta[stage] = min(kTile, valid - t0);
+          mbar_expect_tx(full(stage), 2 * L::KV);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            tma_load(ktile(stage) + c * kTile * 128, &mk, full(stage), 64 * c,
+                     h, t0, phys);
+            tma_load(ktile(stage) + L::KV + c * kTile * 128, &mv,
+                     full(stage), 64 * c, h, t0, phys);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      mbar_wait(empty(stage), phase ^ 1);
+      meta[stage] = 0;                      // the end of the walk
+      mbar_arrive(full(stage));
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int cw = warp - 1, tid = threadIdx.x - 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rows = min(kRows, p.g - kRows * mt);   // real rows of the tile
+  bf16* sq = reinterpret_cast<bf16*>(sm + L::Q);
+  {
+    const bf16* qb = p.q + (long long)b * p.q_sb +
+                     (long long)(h * p.g + kRows * mt) * p.q_sh;
+    for (int e = tid; e < kRows * HD; e += kCThreads) {
+      const int r = e / HD, d = e % HD;
+      sq[r * L::QLD + d] =
+          r < rows ? qb[(long long)r * p.q_sh + d] : __float2bfloat16(0.f);
+    }
+  }
+  named_sync(1, kCThreads);
+  const uint32_t sq_a = smem_addr(sq) +
+                        ((lane & 15) * L::QLD + (lane >> 4) * 8) * 2;
+  const int tok0 = cw * 16;                        // this warp's 16 tokens
+  const int krow = tok0 + (lane & 7) + (lane >> 4) * 8;
+  const int kcol = ((lane >> 3) & 1) * 8;
+  const int vrow = tok0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int vcol = (lane >> 4) * 8;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // running max, log2 units
+  float l[2] = {0.f, 0.f};           // this thread's part of the row sum
+
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(full(stage), phase);
+    const int nt = meta[stage];
+    if (nt == 0) break;
+    const uint32_t kt = ktile(stage), vt = kt + L::KV;
+
+    // S = Q·Kᵀ: 16 rows x this warp's 16 tokens, HD/16 steps of k16.
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t a[4], bb[4];
+      ldsm_x4(a, sq_a + ks * 32);
+      ldsm_x4(bb, swz(kt, krow, ks * 16 + kcol));
+      mma16816(s[0], a, bb[0], bb[1]);
+      mma16816(s[1], a, bb[2], bb[3]);
+    }
+
+    // Logits in log2 units, masked past the tile's live tokens.
+    const bool edge = nt < kTile;
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[nn][i];
+        if (p.cap_in != 0.f) {
+          const float e = ex2(x * p.cap_in);
+          x = (1.f - 2.f * rcp(1.f + e)) * p.cap_out;
+        } else {
+          x *= p.qk_log2;
+        }
+        s[nn][i] = (edge && tok0 + nn * 8 + 2 * tq + (i & 1) >= nt)
+                       ? kNegInf : x;
+      }
+    float mx[2] = {m[0], m[1]}, alpha[2];
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[nn][i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool dead = edge && tok0 + nn * 8 + 2 * tq + (i & 1) >= nt;
+        const float e = dead ? 0.f : ex2(s[nn][i] - m[i >> 1]);
+        s[nn][i] = e;
+        l[i >> 1] += e;
+      }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+
+    // O += P·V: the two S accumulators are one A operand (k = 16 tokens).
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+    const int vt0 = tok0 + 2 * tq;       // this thread's V fragment tokens
+#pragma unroll
+    for (int i = 0; i < NO; i += 2) {
+      uint32_t bb[4];
+      ldsm_x4_t(bb, swz(vt, vrow, i * 8 + vcol));
+      if (edge) {
+        bb[0] = keep_live(bb[0], vt0, nt);
+        bb[1] = keep_live(bb[1], vt0 + 8, nt);
+        bb[2] = keep_live(bb[2], vt0, nt);
+        bb[3] = keep_live(bb[3], vt0 + 8, nt);
+      }
+      mma16816(acc[i], pa, bb[0], bb[1]);
+      mma16816(acc[i + 1], pa, bb[2], bb[3]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage));
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // The four warps' states: m, l a row, then the accumulators rescaled to
+  // the block's max and added in warp order.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* wml = reinterpret_cast<float*>(sm + L::ML);      // [4][16][2]
+  float* wacc = reinterpret_cast<float*>(sm);             // [4][16][HD]
+  if (tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      wml[(cw * kRows + gq + 8 * r) * 2] = m[r];
+      wml[(cw * kRows + gq + 8 * r) * 2 + 1] = l[r];
+    }
+  }
+  named_sync(1, kCThreads);      // every warp is past the ring
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gq + 8 * r;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w)
+      mb = fmaxf(mb, wml[(w * kRows + row) * 2]);
+    const float sc = ex2(m[r] - mb);
+    float* dst = wacc + (cw * kRows + row) * HD + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2(acc[i][2 * r] * sc, acc[i][2 * r + 1] * sc);
+  }
+  named_sync(1, kCThreads);
+  const long long slot = ((long long)b * p.kvh + h) * p.splits + split;
+  float* part = p.part_acc + (slot * p.g + kRows * mt) * HD;
+  for (int e = tid; e < rows * (HD / 4); e += kCThreads) {
+    const int r = e / (HD / 4), d = (e % (HD / 4)) * 4;
+    float4 sum = *reinterpret_cast<const float4*>(wacc + r * HD + d);
+#pragma unroll
+    for (int w = 1; w < kConsumers; ++w) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(wacc + (w * kRows + r) * HD + d);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    *reinterpret_cast<float4*>(part + r * HD + d) = sum;
+  }
+  if (tid < rows) {
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w)
+      mb = fmaxf(mb, wml[(w * kRows + tid) * 2]);
+    float lb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w)
+      lb += ex2(wml[(w * kRows + tid) * 2] - mb) *
+            wml[(w * kRows + tid) * 2 + 1];
+    float* pml = p.part_ml + (slot * p.g + kRows * mt + tid) * 2;
+    pml[0] = mb;
+    pml[1] = lb;
+  }
+  if (!p.merge) return;
+
+  // The last block of (b, h, mt) to get here merges the splits.
+  volatile int* flag = reinterpret_cast<volatile int*>(sm + L::FLAG);
+  __threadfence();
+  named_sync(1, kCThreads);
+  if (tid == 0) {
+    int* cnt = p.counters + ((long long)b * p.kvh + h) * p.mt + mt;
+    const int last = atomicAdd(cnt, 1) == p.splits - 1;
+    if (last) *cnt = 0;                    // ready for the next launch
+    *flag = last;
+  }
+  named_sync(1, kCThreads);
+  if (!*flag) return;
+  __threadfence();
+  merge_splits<HD>(p, b, h, mt, rows, reinterpret_cast<float*>(sm),
+                   reinterpret_cast<float*>(sm + L::INV), tid);
+}
+
+// The split merge alone, one block of kCThreads per (m-tile, kv head,
+// batch row), over partials written by pd_hopper_kernel with merge = 0.
+template <int HD>
+__global__ void __launch_bounds__(kCThreads)
+    merge_tma_kernel(const TmaParams p) {
+  extern __shared__ float ms_pd[];   // [kRows][splits] weights, [kRows] inv
+  const int mt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  merge_splits<HD>(p, b, h, mt, min(kRows, p.g - kRows * mt), ms_pd,
+                   ms_pd + kRows * p.splits, threadIdx.x);
+}
+
+template <int HD>
+int launch_tma(const TmaParams& p, int B, const void* k, const void* v,
+               const long long* maps, int stage, cudaStream_t stream) {
+  using L = TmaLayout<HD>;
+  if (stage & 1) {
+    const void* ptrs[2] = {k, v};
+    CUtensorMap tm[2];
+    for (int i = 0; i < 2; ++i) {
+      const long long* g = maps + 11 * i;
+      // the wrapper's geometry must be this instantiation's tile
+      if (g[0] != HD || g[7] != 64 || g[8] != 1 || g[9] != kTile ||
+          g[10] != 1 || g[2] % kTile != 0)
+        return (int)cudaErrorInvalidValue;
+      const int e = encode_map(&tm[i], ptrs[i], g);
+      if (e) return e;
+    }
+    const cudaError_t e = cudaFuncSetAttribute(
+        pd_hopper_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    TmaParams q = p;
+    q.merge = stage == 3;
+    dim3 grid((unsigned)(p.splits * p.mt), p.kvh, B);
+    pd_hopper_kernel<HD><<<grid, kTmaThreads, L::BYTES, stream>>>(
+        tm[0], tm[1], q);
+    const int code = (int)cudaGetLastError();
+    if (code || stage == 3) return code;
+  }
+  if (stage == 2) {
+    const int smem = kRows * (p.splits + 1) * (int)sizeof(float);
+    merge_tma_kernel<HD><<<dim3(p.mt, p.kvh, B), kCThreads, smem, stream>>>(
+        p);
+    return (int)cudaGetLastError();
+  }
+  return 0;
+}
+
+template <int HD>
+int tma_blocks_per_sm() {
+  using L = TmaLayout<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      pd_hopper_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, pd_hopper_kernel<HD>, kTmaThreads, L::BYTES);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -418,6 +927,59 @@ int roomy_paged_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return dispatch<float>(p, B, stage, s);
   if (dtype == 1) return dispatch<bf16>(p, B, stage, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The TMA route's dynamic shared memory at head dim hd, -1 for one it does
+// not take.
+int roomy_pd_tma_smem(int hd) {
+  return hd == 64 ? TmaLayout<64>::BYTES
+       : hd == 128 ? TmaLayout<128>::BYTES
+       : hd == 256 ? TmaLayout<256>::BYTES : -1;
+}
+
+// Blocks of the TMA route's kernel an SM holds at head dim hd (the split
+// plan's occupancy); <= 0 on an error or a head dim it does not take.
+int roomy_pd_tma_blocks_per_sm(int hd) {
+  return hd == 64 ? tma_blocks_per_sm<64>()
+       : hd == 128 ? tma_blocks_per_sm<128>()
+       : hd == 256 ? tma_blocks_per_sm<256>() : -1;
+}
+
+// The TMA route: bf16, hd in {64, 128, 256}, pages of a multiple of 64
+// tokens, k and v 16-byte aligned and contiguous (P, ps, kvh, hd) (the
+// wrapper's `route`).  maps: 2 x 11 values, the 4-D tensor-map geometry of
+// k and v (dims hd, kvh, ps, P; byte strides of kvh, ps, P; box 64 x 1 x
+// 64 x 1).  counters: B·kvh·mt ints, 0 on entry, left 0 by stage 3.
+// part_acc, part_ml as for roomy_paged_decode (m in log2 units).  stage: 1
+// the partials, 2 their merge, 3 both in one launch.
+int roomy_paged_decode_tma(const void* q, const void* k, const void* v,
+                           const int* table, const int* lengths,
+                           float* part_acc, float* part_ml, int* counters,
+                           void* out, int B, int Hq, int kvh, int hd, int ps,
+                           int pps, int num_pages, int splits, long long q_sb,
+                           long long q_sh, const long long* maps, float scale,
+                           float softcap, int stage, void* stream) {
+  if (B < 0 || kvh < 1 || Hq % kvh || ps < kTile || ps % kTile || pps < 1 ||
+      num_pages < 1 || splits < 1 || splits > kMaxTmaSplits || kvh > 65535 ||
+      B > 65535 || stage < 1 || stage > 3 || !aligned16(k) || !aligned16(v))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Hq == 0) return 0;
+  TmaParams p;
+  p.q = static_cast<const bf16*>(q);
+  p.table = table; p.lengths = lengths;
+  p.part_acc = part_acc; p.part_ml = part_ml; p.counters = counters;
+  p.out = static_cast<bf16*>(out);
+  p.q_sb = q_sb; p.q_sh = q_sh;
+  p.ps = ps; p.kvh = kvh; p.g = Hq / kvh; p.mt = (p.g + kRows - 1) / kRows;
+  p.pps = pps; p.splits = splits; p.num_pages = num_pages; p.merge = 0;
+  p.qk_log2 = scale * kLog2e;
+  p.cap_in = softcap > 0.f ? 2.f * scale * kLog2e / softcap : 0.f;
+  p.cap_out = softcap * kLog2e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd == 64) return launch_tma<64>(p, B, k, v, maps, stage, s);
+  if (hd == 128) return launch_tma<128>(p, B, k, v, maps, stage, s);
+  if (hd == 256) return launch_tma<256>(p, B, k, v, maps, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,12 +5,15 @@ PERF.md): y = the selective scan of x, dt, A, B, C, D, and with
 ``return_state=True`` also the final (B, Di, N) float32 state, as
 ``repro/kernels/ref.py:145-164`` (``mamba_scan_seq_stateful``) returns it
 for the prefill.  The wrapper checks shapes, types and devices, allocates
-the outputs, launches on the current CUDA stream and books one launch in
-``LAUNCHES["mamba_scan"]``.  For CPU tensors it returns the plain version
-(``ref.mamba_scan_plain``); for CUDA tensors it launches the kernel or
-raises — there is no fallback.  The kernel has no backward (the
-reference has none either): a CUDA call whose inputs require a gradient
-raises.
+the outputs, launches ``scan_seg_kernel`` (time split across the threads
+of a block, a carried prefix; ``geometry`` gives its launch) on the
+current CUDA stream and books one launch in ``LAUNCHES["mamba_scan"]``.
+The kernel takes every case the wrapper accepts (float32 and bfloat16,
+N <= 64, any L and Di, strided inputs), so there is one route.  For CPU
+tensors it returns the plain version (``ref.mamba_scan_plain``); for CUDA
+tensors it launches the kernel or raises — there is no fallback.  The
+kernel has no backward (the reference has none either): a CUDA call
+whose inputs require a gradient raises.
 """
 from __future__ import annotations
 
@@ -24,6 +27,17 @@ from . import ref as _ref
 
 MAX_STATE = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The kernel's block, as ``csrc/mamba_scan.cu``: states a thread, time
+#: segments of a chunk, steps a segment, (channel, state group) pairs a
+#: block (its threads are LANES x SEGMENTS), and the blocks an SM holds
+#: (its launch bounds).
+SPT = 4
+SEGMENTS = 4
+SEG_LEN = 8
+CHUNK = SEGMENTS * SEG_LEN
+LANES = 64
+BLOCKS_PER_SM = 2
 
 #: Kernel launches only, never plain-version calls.
 LAUNCHES = obs.counters("ssm", {"mamba_scan": 0})
@@ -42,9 +56,10 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("mamba_scan")
-        # x, dt, a, b, c, d, y, h_last, dtype, B, L, Di, N, strides, stream
+        # x, dt, a, b, c, d, y, h_last, dtype, B, L, Di, N, strides, tpc,
+        # stream
         lib.roomy_mamba_scan.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _I, _I, _P, _P]
+                                         _I, _I, _I, _I, _P, _I, _P]
         lib.roomy_mamba_scan.restype = _I
         lib.roomy_ms_error_string.argtypes = [_I]
         lib.roomy_ms_error_string.restype = ctypes.c_char_p
@@ -72,6 +87,20 @@ def check_inputs(x, dt, a, b, c, d) -> None:
         raise ValueError("x, dt, a, b, c, d must lie on one device")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+
+
+def geometry(batch: int, seq: int, d_inner: int, n_state: int) -> dict:
+    """The launch of ``scan_seg_kernel`` for a call: ``tpc`` threads a
+    channel (the next power of two of ceil(N / SPT)), ``channels`` a block,
+    ``states`` a channel with the padding, the grid (channel tiles, batch
+    rows), ``threads`` a block and the ``chunks`` of CHUNK steps that cover
+    L (the last one ragged)."""
+    groups = max(1, -(-n_state // SPT))
+    tpc = 1 << (groups - 1).bit_length()
+    ch = LANES // tpc
+    return {"tpc": tpc, "channels": ch, "states": tpc * SPT,
+            "grid": (-(-d_inner // ch), batch), "threads": LANES * SEGMENTS,
+            "chunks": -(-seq // CHUNK)}
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -115,7 +144,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), d.data_ptr(), y.data_ptr(),
             None if h is None else h.data_ptr(), DTYPES[x.dtype], bsz, seq,
-            di, n, ctypes.cast(strides, ctypes.c_void_p), stream)
+            di, n, ctypes.cast(strides, ctypes.c_void_p),
+            geometry(bsz, seq, di, n)["tpc"], stream)
     if code:
         raise RuntimeError(f"roomy_mamba_scan: CUDA error {code}: "
                            f"{lib.roomy_ms_error_string(code).decode()}")

@@ -350,6 +350,55 @@ def mamba_scan_seq_ref(x, dt, a, b, c, d):
     return mamba_scan_seq_stateful(x, dt, a, b, c, d)[0]
 
 
+def mamba_scan_segmented(x, dt, a, b, c, d, seg_len=8):
+    """K9's order of sums (``csrc/mamba_scan.cu``), in plain PyTorch: time
+    cut into segments of ``seg_len`` steps (the tail padded with dt = 0,
+    x = 0, which leaves h as it was).  Each segment is walked from h = 0:
+    with e = exp(dt·a) and u = dt·x·b, P <- P·e (the product of its
+    decays) and B <- B·e + u (its state), its part of y_t = d·x_t +
+    sum_j c_t[j]·B_t[j], and the weights c_t[j]·P_t[j].  The segments'
+    maps (P, B) fold in time order from h = 0, h <- P·h + B, the fold before
+    each segment being its prefix h_in; then y_t += sum_j c_t[j]·P_t[j]·
+    h_in[j].  The kernel's chunks of segments fold in the same order, so
+    their boundaries do not show.  Float32 throughout; returns (y (B, L,
+    Di) in x.dtype, h_last (B, Di, N) float32).  Used by the tests and
+    ``chip_smoke.py`` only: the plain version the port runs is
+    ``mamba_scan_plain``."""
+    bsz, seq, di = x.shape
+    n = a.shape[1]
+    pad = (-seq) % seg_len
+    segs = (seq + pad) // seg_len
+
+    def cut(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+        return t.reshape(bsz, segs, seg_len, t.shape[-1])
+    xs, dts, bs, cs = cut(x), cut(dt), cut(b), cut(c)
+    af, df = a.float(), d.float()
+    big_p = torch.ones((bsz, segs, di, n), dtype=torch.float32,
+                       device=x.device)
+    big_b = torch.zeros_like(big_p)
+    y = torch.empty((bsz, segs, seg_len, di), dtype=torch.float32,
+                    device=x.device)
+    c_p = torch.empty((bsz, segs, seg_len, di, n), dtype=torch.float32,
+                      device=x.device)
+    for k in range(seg_len):
+        e = torch.exp(dts[:, :, k, :, None] * af)
+        u = (dts[:, :, k] * xs[:, :, k])[..., None] * bs[:, :, k, None, :]
+        big_p = big_p * e
+        big_b = big_b * e + u
+        ck = cs[:, :, k, None, :]
+        y[:, :, k] = (ck * big_b).sum(-1) + xs[:, :, k] * df
+        c_p[:, :, k] = ck * big_p
+    h = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+    prefix = torch.empty_like(big_p)
+    for s in range(segs):
+        prefix[:, s] = h
+        h = big_p[:, s] * h + big_b[:, s]
+    y = y + (c_p * prefix[:, :, None]).sum(-1)
+    y = y.reshape(bsz, segs * seg_len, di)[:, :seq]
+    return y.to(x.dtype), h
+
+
 def mamba_scan_plain(x, dt, a, b, c, d, return_state=False):
     """The plain version the dispatchers run: with ``return_state`` the
     sequential form's (y, h_last); otherwise the associative form up to

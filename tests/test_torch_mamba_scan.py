@@ -162,3 +162,41 @@ def test_wrapper_checks_its_inputs():
         tms.mamba_scan(x, dt, a, b.bfloat16(), c, d)
     with pytest.raises(ValueError, match="must share one of"):
         tms.mamba_scan(x.double(), dt.double(), a, b.double(), c.double(), d)
+
+
+# K9's order of sums (time in segments of tms.SEG_LEN steps, each composed
+# on its own, the segments folded from the carried state, then walked again
+# from their prefixes), mirrored in plain PyTorch by
+# ``ref.mamba_scan_segmented``: held in float32 to the reference's
+# sequential scan within the float32 tolerance.  The card's kernel is held
+# to the same mirror by chip_smoke.py.
+
+@pytest.mark.parametrize("case", MAMBA_CASES)
+def test_segmented_order_matches_jax(case):
+    b, l, di, n = case[:4]
+    arrs = _inputs(b, l, di, n, 8)
+    jy, jh = jref.mamba_scan_seq_stateful(*_jax(arrs))
+    y, h = tref.mamba_scan_segmented(*_torch(arrs), seg_len=tms.SEG_LEN)
+    assert y.dtype == torch.float32 and h.shape == (b, di, n)
+    np.testing.assert_allclose(_np(y), _np(jy), **TOL)
+    np.testing.assert_allclose(_np(h), _np(jh), **TOL)
+
+
+@pytest.mark.parametrize("dt_scale", [1e-3, 1e-4])
+def test_segmented_order_holds_with_decay_near_one(dt_scale):
+    """dt·a near 0: each step's decay is near 1, so the state remembers
+    thousands of steps and a reordered sum has the longest run to drift
+    over.  L = 4096 (128 of the kernel's chunks), Di and N as falcon-mamba's
+    N, one ragged time tail."""
+    b, l, di, n = 1, 4096 + 5, 16, 16
+    x, dt, a, bb, cc, d = _inputs(b, l, di, n, 9)
+    dt = dt / 0.1 * dt_scale          # |N| · dt_scale
+    arrs = (x, dt, a, bb, cc, d)
+    jy, jh = jref.mamba_scan_seq_stateful(*_jax(arrs))
+    assert float(np.max(np.exp(np.asarray(dt)[0, :, :, None] * a))) > 0.999
+    y, h = tref.mamba_scan_segmented(*_torch(arrs), seg_len=tms.SEG_LEN)
+    np.testing.assert_allclose(_np(y), _np(jy), **TOL)
+    np.testing.assert_allclose(_np(h), _np(jh), **TOL)
+    # the state carries many steps: h is far from the last step's input
+    assert float(np.abs(_np(jh)).max()) > 10 * float(
+        np.abs(dt[0, -1, :, None] * x[0, -1, :, None] * bb[0, -1]).max())
