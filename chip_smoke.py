@@ -16,20 +16,36 @@ caught:
    (registers, spills, stack) beside their dynamic shared memory, and of
    K9's kernel for each dtype and threads a channel; K7's and K8's must
    show no spills and no stack, K9's falcon-mamba instantiation (bf16 and
-   f32 at 4 threads a channel) no spills.
+   f32 at 4 threads a channel) no spills; the ``ptxas K1`` and ``ptxas
+   K2`` lines (the binned route's kernels: registers, spills, stack,
+   shared memory; none may spill).
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
-   counts) — edge cases at small widths, then W = 29,937,600 words (12!
-   states) with the real level-6 targets of pancake n = 12, K1 in place vs
-   out of place.
+   counts), K1 and K2 through their wrappers and on each route
+   (``binned``, ``atomic``), out of place and in place — edge cases at
+   small widths and at W = T − 1, T, T + 1, 2T + 1 (T = 4096 words, the
+   binned route's tile) with targets on the first and last field of every
+   tile, misaligned words and targets; three planted faults of the binned
+   route (copies of its source with one line changed, built here), each
+   of which must break bit-exactness: one bin's last target dropped, one
+   offset sent to the neighbouring tile, the tail tile's count skipped;
+   then W = 29,937,600 words (12! states) with the real level-6 targets
+   of pancake n = 12, K1 in place vs out of place.
 4. times: CUDA events, median of 20 launches, at those n = 12 shapes, beside
-   the byte bound at 3.35 TB/s and the plain version's time.
+   the byte bound at 3.35 TB/s and the plain version's time; then K1 and
+   K2 on each route at every level of n = 12 (``phase_k12_levels``), each
+   held bit for bit to the plain version (the targets in chunks, the
+   widest level's 1.86e9 included) and timed beside its byte bound (8W +
+   4M) and the bytes its design moves, with the sums over a fused BFS, an
+   unfused one and a publish.
 5. main path: pancake n = 12 through ``repro_torch.apps.pancake_bits.run``,
    fused (the default: 15 levels summing to 12!, diameter 14, K1 launched
    15 times, K2 once, K3 never), then unfused (K2 16 times, K3 15 times;
-   the same levels and bit-identical words).  Launch counts are set to 0
-   just before each run and read just after; the ``kernels`` line adds
-   the two runs up.
+   the same levels and bit-identical words); every K1 and K2 launch on
+   the route ``bitpack.route`` names for its (W, M) (by
+   ``ROUTE_LAUNCHES``); wall, states/s and peak of each.  Launch counts
+   are set to 0 just before each run and read just after; the
+   ``kernels`` line adds the two runs up.
 6. fused ≡ unfused at n = 11 (bit-identical words), kernels ≡ plain
    versions at n = 9, both on the card.
 7. K4 (the 2-bit gather) and the distance oracle (``phase_oracle``):
@@ -39,8 +55,9 @@ caught:
    b. main path of the serving tier, every count set to 0 just before
       and read just after: ``apps.pancake_bits.publish`` (n = 12, 16
       chunks; ``label_distances_mod3`` on the card, K1 15, K2 16, K3 4
-      times: level sizes == the BFS's of 5., diameter 14, the per-code
-      counts hold), a ``DistanceOracle`` that holds the artifact,
+      times, each K1 and K2 launch on the route ``bitpack.route`` names:
+      level sizes == the BFS's of 5., diameter 14, the per-code counts
+      hold), a ``DistanceOracle`` that holds the artifact,
       ``codes`` (one K4 launch per touched chunk), ``paths`` and
       ``distance`` of 4096 ranks, every path held structurally (length
       d + 1, neighbours, ends at the start); each K4 call of the run held
@@ -244,7 +261,10 @@ caught:
       each length; on each route four planted faults that must break the
       per-(b, h) limit (the table ignored, the mask off by one, the
       softcap dropped, one split's partials dropped in the merge), and
-      the two stages launched apart give the one launch's bits;
+      the two stages launched apart give the one launch's bits; two TMA
+      launches at once on two streams, ten times over, each == the call
+      alone and held to the plain version, with a ticket buffer a stream
+      and every ticket back at 0;
    b. nemotron-4-15b FULL in bfloat16, params from ``lm.init_params`` on a
       seeded generator: ``lm.prefill`` over 1 × 32768 tokens (32 K6
       launches, all on the wgmma route, no K8); the prefill again with
@@ -284,6 +304,7 @@ caught:
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import ctypes
 import itertools
 import json
 import math
@@ -294,6 +315,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -340,6 +362,8 @@ LUTS = [(ROTATE, BA.CUR), (K.make_lut([0, 0, 2, 1]), 0),
         (K.make_lut([3, 2, 1, 0]), 3), (K.make_lut([1, 1, 1, 1]), 1)]
 MARKS = [(2, 0), (1, 0), (3, 1), (0, 2), (2, 2)]
 SOURCE = "src/repro_torch/kernels/csrc/bitpack.cu"
+TILE = K.TILE_WORDS           # the binned route's tile of words
+K12_ROUTES = ("binned", "atomic")
 KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
     ("mark_rotate_count", "src/repro/kernels/bitpack.py:268"),
     ("scatter_mark", "src/repro/kernels/bitpack.py:184"),
@@ -543,6 +567,57 @@ def k9_ptxas() -> dict:
     return out
 
 
+def entry_ptxas(source, marker) -> dict:
+    """Registers, static shared memory, spills and stack of the one entry
+    function of ``source``'s build in this process whose mangled name holds
+    ``marker``."""
+    lines = _build.BUILD_LOGS.get(source, "").splitlines()
+    found = [i for i, line in enumerate(lines)
+             if "Compiling entry function" in line and marker in line]
+    expect(len(found) == 1, f"ptxas: {len(found)} entries match {marker}")
+    rec = {}
+    for nxt in lines[found[0] + 1:found[0] + 5]:
+        if "spill stores" in nxt:
+            n = [int(w) for w in nxt.replace(",", " ").split() if w.isdigit()]
+            rec.update(stack_bytes=n[0], spill_store_bytes=n[1],
+                       spill_load_bytes=n[2])
+        if "Used" in nxt and "registers" in nxt:
+            rec["registers"] = int(nxt.split("Used")[1].split()[0])
+            if "bytes smem" in nxt:
+                rec["smem_static_bytes"] = int(
+                    nxt.split("bytes smem")[0].split()[-1])
+    return rec
+
+
+def k12_ptxas() -> dict:
+    """The ptxas report of the binned route's kernels: the three binning
+    kernels K1 and K2 share (their dynamic shared memory is 4 bytes a
+    tile: 29,236 at n = 12) and each one's tile pass (its dynamic shared
+    memory beside it); none may spill."""
+    smem = K._lib().roomy_bin_tile_smem()
+    out = {}
+    for name, marker in (("bin_count_kernel", "bin_count_kernel"),
+                         ("bin_scan_kernel", "bin_scan_kernel"),
+                         ("bin_scatter_kernel", "bin_scatter_kernel"),
+                         ("tile_pass_kernel<true>", "tile_pass_kernelILb1E"),
+                         ("tile_pass_kernel<false>", "tile_pass_kernelILb0E")):
+        out[name] = entry_ptxas("bitpack", marker)
+        expect(out[name].get("spill_store_bytes") == 0 and
+               out[name].get("spill_load_bytes") == 0,
+               f"ptxas {name}: {out[name]}")
+    for name in ("tile_pass_kernel<true>", "tile_pass_kernel<false>"):
+        out[name]["smem_dynamic_bytes"] = smem
+    bins = {k: out[k] for k in ("bin_count_kernel", "bin_scan_kernel",
+                                "bin_scatter_kernel")}
+    print(f"ptxas K1 (binned: {', '.join(bins)}, tile_pass_kernel<true>): "
+          f"{bins} {{'tile_pass_kernel<true>': "
+          f"{out['tile_pass_kernel<true>']}}}")
+    print(f"ptxas K2 (binned: the same binning kernels, "
+          f"tile_pass_kernel<false>): {{'tile_pass_kernel<false>': "
+          f"{out['tile_pass_kernel<false>']}}}")
+    return out
+
+
 def phase_build() -> dict:
     names = _build.sources()
     secs = _build.build(names)
@@ -558,7 +633,7 @@ def phase_build() -> dict:
     FAB._lib()
     MS._lib()
     PD._lib()
-    return k6_ptxas(), k7_ptxas(), k8_ptxas(), k9_ptxas()
+    return k6_ptxas(), k7_ptxas(), k8_ptxas(), k9_ptxas(), k12_ptxas()
 
 
 # ------------------------------------------------------------------ parity
@@ -582,7 +657,11 @@ def check(name, got, want, gcnt=None, wcnt=None, what="") -> None:
                              f"({what}): max abs err {err}")
 
 
-def check_all(words, idx, what, luts=LUTS, marks=MARKS) -> None:
+def check_all(words, idx, what, luts=LUTS, marks=MARKS,
+              routes=K12_ROUTES) -> None:
+    """K3, K1 and K2 against their plain versions on ``words``: K1 and K2
+    through their wrappers (the route ``K.route`` names) and on each of
+    ``routes``, out of place and in place."""
     for lut, cval in luts:
         got, gc = K.bitpack_lut_count(words, lut, cval)
         want, wc = R.bitpack_lut_count_ref(words, lut, cval)
@@ -598,10 +677,25 @@ def check_all(words, idx, what, luts=LUTS, marks=MARKS) -> None:
                                                   mark=mark, only_if=only_if,
                                                   inplace=True)
             check("mark_rotate_count", work, want, gc, wc, what + " inplace")
+            for path in routes:
+                out = torch.empty_like(words)
+                gc = K._mark(words, idx, out, mark, only_if, lut, cval,
+                             path=path)
+                check("mark_rotate_count", out, want, gc, wc,
+                      f"{what} {path}")
+                work = words.clone()
+                gc = K._mark(work, idx, work, mark, only_if, lut, cval,
+                             path=path)
+                check("mark_rotate_count", work, want, gc, wc,
+                      f"{what} {path} inplace")
     for mark, only_if in marks:
         got = K.bitpack_scatter_mark(words, idx, mark=mark, only_if=only_if)
         want = R.bitpack_scatter_mark_ref(words, idx, mark, only_if)
         check("scatter_mark", got, want, what=what)
+        for path in routes:
+            out = torch.empty_like(words)
+            K._mark(words, idx, out, mark, only_if, path=path)
+            check("scatter_mark", out, want, what=f"{what} {path}")
 
 
 def random_words(rng, w, dev):
@@ -609,21 +703,124 @@ def random_words(rng, w, dev):
     return torch.from_numpy(raw.view(np.int32)).to(dev)
 
 
+def tile_edges(w) -> list:
+    """The first and last field of every binned tile of ``w`` words."""
+    cap, tf = 16 * w, 16 * TILE
+    return [f for t in range(-(-w // TILE))
+            for f in (t * tf, min(cap, (t + 1) * tf) - 1)]
+
+
 def phase_parity_edges(dev) -> None:
     rng = np.random.default_rng(0)
-    for w in (1, 3, 37, 129, 1000, 4099):
+    for w in (1, 3, 37, 129, 1000, 4099, TILE - 1, TILE, TILE + 1,
+              2 * TILE + 1):
         cap = 16 * w
         idx = np.concatenate([rng.integers(-20, cap + 20, 4 * w + 5),
                               [0, 0, cap - 1, cap - 1, cap, cap + 1,
-                               cap + 1000, -1, -cap]]).astype(np.int32)
-        idx = torch.from_numpy(idx).to(dev)
+                               cap + 1000, -1, -cap], tile_edges(w)])
+        idx = torch.from_numpy(rng.permutation(idx).astype(np.int32)).to(dev)
         words = random_words(rng, w + 1, dev)
         check_all(words[:w], idx, f"W={w}")
         check_all(words[1:], idx, f"W={w} misaligned")   # scalar path
         check_all(words[:w], idx[:0], f"W={w} no targets")
-    print("parity: edge cases bit-exact (widths 1..4099, duplicate, == cap, "
-          "> cap and negative indices, only_if != 0, lut[0] == count_val, "
-          "misaligned words, no targets)")
+        check_all(words[:w], idx[1:], f"W={w} misaligned targets",
+                  luts=LUTS[:1], marks=MARKS[:2])
+    print(f"parity: edge cases bit-exact on the routes {K12_ROUTES} and "
+          f"through the wrappers (widths 1..4099 and {TILE} +- 1, "
+          f"{2 * TILE + 1}: the first and last field of every {TILE}-word "
+          "tile, duplicate, == cap, > cap and negative indices, only_if != "
+          "0, lut[0] == count_val, misaligned words and targets, no "
+          "targets)")
+
+
+# The planted faults of the binned route: copies of csrc/bitpack.cu with one
+# text substitution each, built here; each must break K1's bit-exactness
+# (and K2's where it marks) on FAULT_W zeroed words with distinct targets.
+BIN_FAULTS = {
+    "one bin's last target dropped": (
+        "const long long b1 = tile_start[t + 1];",
+        "const long long b1 = tile_start[t + 1] - (t == 0);", True),
+    "one offset sent to the neighbouring tile": (
+        "return e >> kTileShift;", "return (e >> kTileShift) + (e == 65535);",
+        True),
+    "the tail tile's count skipped": (
+        "cnt += __popc(match);",
+        "cnt += t == n_tiles - 1 ? 0u : __popc(match);", False),
+}
+FAULT_W = 2 * TILE + 1
+
+
+def build_variant(stem, text) -> ctypes.CDLL:
+    """``text`` (a variant of csrc/bitpack.cu) built with nvcc into
+    build/variants/``stem``.so and loaded with the wrapper's signatures."""
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / f"{stem}.cu"
+    src.write_text(text)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                        str(_build.CSRC), "-o", str(src.with_suffix(".so")),
+                        str(src)], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"variant {stem} failed to build:\n{r.stderr}")
+    lib = ctypes.CDLL(str(src.with_suffix(".so")))
+    base = K._lib()
+    for name in list(K._SIGNATURES) + ["roomy_error_string",
+                                       "roomy_bin_tile_words"]:
+        getattr(lib, name).argtypes = getattr(base, name).argtypes
+        getattr(lib, name).restype = getattr(base, name).restype
+    return lib
+
+
+def fault_libs() -> dict:
+    """Build every planted fault's variant, one nvcc each, all at once."""
+    text = (_build.CSRC / "bitpack.cu").read_text()
+    jobs = {}
+    for i, (name, (old, new, _)) in enumerate(BIN_FAULTS.items()):
+        if text.count(old) != 1:
+            raise SystemExit(f"fault {name!r}: csrc/bitpack.cu no longer "
+                             f"holds {old!r} once")
+        jobs[name] = (f"bitpack_fault{i}", text.replace(old, new))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(build_variant, *job)
+                for name, job in jobs.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def phase_bin_faults(dev) -> dict:
+    """Each planted fault breaks bit-exactness: K1 (rotate, count CUR) and
+    K2 on the binned route against the plain versions, on zeroed words
+    with distinct targets (so every target marks a field of its own) that
+    include the first and last field of each tile."""
+    libs = fault_libs()
+    rng = np.random.default_rng(3)
+    cap = 16 * FAULT_W
+    idx = np.unique(np.concatenate([rng.integers(0, cap, 20000),
+                                    tile_edges(FAULT_W)]))
+    idx = torch.from_numpy(rng.permutation(idx).astype(np.int32)).to(dev)
+    words = torch.zeros(FAULT_W, dtype=torch.int32, device=dev)
+    want1, wc = R.bitpack_mark_rotate_count_ref(words, idx, ROTATE, BA.CUR,
+                                                2, 0)
+    want2 = R.bitpack_scatter_mark_ref(words, idx, 2, 0)
+    good = K._LIB
+    out = {}
+    try:
+        for name, lib in libs.items():
+            K._LIB = lib
+            got = torch.empty_like(words)
+            gc = K._mark(words, idx, got, 2, 0, ROTATE, BA.CUR, path="binned")
+            torch.cuda.synchronize()
+            err1 = max(_err(got, want1), abs(int(gc) - int(wc)))
+            K._mark(words, idx, got, 2, 0, path="binned")
+            torch.cuda.synchronize()
+            err2 = _err(got, want2)
+            out[name] = {"k1_err": err1, "k2_err": err2}
+            expect(err1 > 0 and (err2 > 0 or not BIN_FAULTS[name][2]),
+                   f"planted fault {name!r} kept bit-exactness: {out[name]}")
+    finally:
+        K._LIB = good
+    print(f"parity: every planted fault of the binned route breaks "
+          f"bit-exactness: {out}")
+    return out
 
 
 def phase_parity_full(dev):
@@ -642,8 +839,8 @@ def phase_parity_full(dev):
     check_all(random_words(rng, data.shape[0], dev), tgt,
               "n=12 random words", luts=rot + [LUTS[1]],
               marks=[(2, 0), (3, 1)])
-    print("parity: n=12 shapes bit-exact (K1 in place == out of place == "
-          "plain; K2, K3 == plain)")
+    print("parity: n=12 shapes bit-exact on both routes (K1 in place == out "
+          "of place == plain; K2, K3 == plain)")
     return data, tgt
 
 
@@ -797,7 +994,7 @@ def phase_times(data, tgt):
         "scatter_mark": lambda: R.bitpack_scatter_mark_ref(data, tgt, 2, 0),
         "lut_count": lambda: R.bitpack_lut_count_ref(data, ROTATE, BA.CUR),
     }
-    out = {}
+    out = {"route": K.route(w, m)}
     for name, _ in KERNELS:
         setup = restore if name == "mark_rotate_count" else None
         out[name] = {
@@ -812,16 +1009,151 @@ def phase_times(data, tgt):
     return out
 
 
+# ------------------------------------------------- K1 and K2 at every level
+
+K12_REPS = 10
+PLAIN_CHUNK = 1 << 27         # targets a plain-version call takes at once
+
+
+def plain_marked(words, tgt, mark, only_if):
+    """The plain version of K2 applied to the targets PLAIN_CHUNK at a
+    time: exact, since a field is marked iff it held ``only_if`` before
+    (so a later chunk never marks a field an earlier one marked), and it
+    keeps the plain version's int64 temporaries in bounds at the widest
+    level."""
+    out = words.clone()
+    for c in range(0, tgt.shape[0], PLAIN_CHUNK):
+        out = R.bitpack_scatter_mark_ref(out, tgt[c:c + PLAIN_CHUNK], mark,
+                                         only_if)
+    return out
+
+
+def design_bytes(path, w, m, sms) -> int:
+    """The bytes a K1 or K2 call moves by its route's design: binned, the
+    words read and written once, the targets read twice, the uint16 bins
+    written and read, 16 bytes a (tile, block) count; atomic, the words'
+    rotate pass, the targets once and a 32-byte sector read and written a
+    mark (the words are more than twice L2)."""
+    if path == "binned":
+        plan = K.bin_plan(w, m, sms)
+        return 8 * w + 12 * m + 16 * plan.n_tiles * plan.blocks
+    return 8 * w + 4 * m + 64 * m
+
+
+def bfs_levels(dev, n=12):
+    """Walk the pancake BFS level by level, as the fused main path does:
+    yields (level, n_cur, words, targets); once the caller is done with
+    them, K1 (in place, through its wrapper) makes the next level."""
+    total = math.factorial(n)
+    nbr = P.neighbors(n)
+    data = BA.mark_packed(BA.make(total, device=dev).data,
+                          torch.tensor([P.start_rank(n)], device=dev),
+                          mark=BA.CUR)
+    n_cur, level = 1, 0
+    while n_cur:
+        tgt = C.frontier_targets(data, total, n_cur, nbr)
+        yield level, n_cur, data, tgt
+        data, cnt = K.bitpack_mark_rotate_count(data, tgt, ROTATE, BA.CUR,
+                                                inplace=True)
+        n_cur, level = int(cnt), level + 1
+        del tgt
+
+
+def level_sums(k1, k2) -> dict:
+    """Sums of per-level readings of K1 and K2: a fused BFS runs K1 at
+    every level, an unfused one K2; a publish runs K1 at every level and
+    K2 at every level that has a next one."""
+    return {"fused_bfs_k1": sum(k1), "unfused_bfs_k2": sum(k2),
+            "publish_k1_k2": sum(k1) + sum(k2[:-1])}
+
+
+def phase_k12_levels(dev, n=12) -> dict:
+    """K1 (rotate, count CUR, in place) and K2 (out of place) on each route
+    at every level of pancake n = 12, on the level's words and targets:
+    each held bit for bit to the plain version (the targets in chunks),
+    timed by CUDA events (median of K12_REPS, a spin kernel ahead) beside
+    the byte bound (8W + 4M at 3.35 TB/s) and the bytes its design moves;
+    the sums over a fused BFS (K1), an unfused one (K2) and a publish."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    levels = []
+    for level, n_cur, data, tgt in bfs_levels(dev, n):
+        w, m = data.shape[0], tgt.shape[0]
+        want2 = plain_marked(data, tgt, 2, 0)
+        want1, wc = R.bitpack_lut_count_ref(want2, ROTATE, BA.CUR)
+        work, out = torch.empty_like(data), torch.empty_like(data)
+        rec = {"level": level, "n_cur": n_cur, "M": m,
+               "route": K.route(w, m),
+               "bound_ms": (8 * w + 4 * m) / HBM_BYTES_PER_S * 1e3,
+               "design_bytes": {p: design_bytes(p, w, m, sms)
+                                for p in K12_ROUTES},
+               "k1_ms": {}, "k2_ms": {}}
+        for path in K12_ROUTES:
+            work.copy_(data)
+            gc = K._mark(work, tgt, work, 2, 0, ROTATE, BA.CUR, path=path)
+            check("mark_rotate_count", work, want1, gc, wc,
+                  f"n={n} level {level} {path}")
+            K._mark(data, tgt, out, 2, 0, path=path)
+            check("scatter_mark", out, want2, what=f"n={n} level {level} "
+                  f"{path}")
+            rec["k1_ms"][path] = device_ms(
+                lambda p=path: K._mark(work, tgt, work, 2, 0, ROTATE, BA.CUR,
+                                       path=p),
+                reps=K12_REPS, setup=lambda: work.copy_(data))
+            rec["k2_ms"][path] = device_ms(
+                lambda p=path: K._mark(data, tgt, out, 2, 0, path=p),
+                reps=K12_REPS)
+        rec["k1_ms"]["routed"] = rec["k1_ms"][rec["route"]]
+        rec["k2_ms"]["routed"] = rec["k2_ms"][rec["route"]]
+        print(f"time: n={n} level {level}: M={m}, route {rec['route']}; K1 "
+              + ", ".join(f"{p} {rec['k1_ms'][p]:.4f}" for p in K12_ROUTES)
+              + " ms; K2 " + ", ".join(f"{p} {rec['k2_ms'][p]:.4f}"
+                                       for p in K12_ROUTES)
+              + f" ms; bound {rec['bound_ms']:.4f} ms; design bytes "
+              f"{rec['design_bytes']}", flush=True)
+        levels.append(rec)
+        del want1, want2, work, out
+    sizes = [r["n_cur"] for r in levels]
+    expect(len(sizes) == P.DIAMETERS[n] + 1 and
+           sum(sizes) == math.factorial(n), sizes)
+    widest = max(levels, key=lambda r: r["M"])
+    sums = {p: level_sums([r["k1_ms"][p] for r in levels],
+                          [r["k2_ms"][p] for r in levels])
+            for p in K12_ROUTES + ("routed",)}
+    sums["bound"] = level_sums(*[[r["bound_ms"] for r in levels]] * 2)
+    sums["design_bytes"] = {p: level_sums(
+        *[[r["design_bytes"][p] for r in levels]] * 2) for p in K12_ROUTES}
+    print(f"time: K1/K2 summed over n={n} (ms; fused BFS K1, unfused BFS K2, "
+          f"publish K1 + K2): {sums}; widest level {widest['level']} "
+          f"(M={widest['M']}) held to the plain version in chunks of "
+          f"{PLAIN_CHUNK}", flush=True)
+    return {"levels": levels, "sums": sums, "widest": widest["level"]}
+
+
+def level_routes(w, ms) -> dict:
+    """The launches by route that calls over ``w`` words with the target
+    counts ``ms`` make, by ``K.route``."""
+    out = {p: 0 for p in K.ROUTE_LAUNCHES}
+    for m in ms:
+        out[K.route(w, m)] += 1
+    return out
+
+
 # --------------------------------------------------------------- main path
 
 def drive(n, fused, dev, spans=None):
     """One run of the user's entry point with every launch count set to 0
-    just before it; returns (sizes, bits, secs, launches)."""
+    just before it; returns (sizes, bits, secs, launches); K1's and K2's
+    launches by route must be those ``K.route`` names for each call (the
+    start mark, then one a level)."""
     K.reset_launches()
     if spans is not None:
         obs.enable(sink=spans.append)
     sizes, bits, secs = P.run(n, fused=fused, device=dev)
     obs.disable()
+    w = -(-math.factorial(n) // 16)
+    want = level_routes(w, [1] + [s * (n - 1) for s in sizes])
+    expect(dict(K.ROUTE_LAUNCHES) == want,
+           f"K1/K2 routes {dict(K.ROUTE_LAUNCHES)}, want {want}")
     return sizes, bits, secs, dict(K.LAUNCHES)
 
 
@@ -831,8 +1163,10 @@ def phase_main_path(dev):
     of both runs added up."""
     n, total = 12, math.factorial(12)
     spans = []
+    torch.cuda.reset_peak_memory_stats(dev)
     sizes, bits, secs, fused = drive(n, True, dev, spans)
     peak = torch.cuda.max_memory_allocated(dev)
+    routes_f = dict(K.ROUTE_LAUNCHES)
     expect(len(sizes) == 15 and sum(sizes) == total, sizes)
     expect(len(sizes) - 1 == P.DIAMETERS[n] == 14, sizes)
     expect(fused == {"mark_rotate_count": 15, "scatter_mark": 1,
@@ -847,20 +1181,30 @@ def phase_main_path(dev):
                        "expand_ms": e["dur_us"] / 1e3,
                        "launches": s.get("metrics", {})})
     print(f"main path: pancake n=12 fused, {secs:.3f} s wall, "
-          f"{total / secs:.0f} states/s, peak {peak} bytes, launches {fused}")
+          f"{total / secs:.0f} states/s, peak {peak} bytes, launches {fused}, "
+          f"K1/K2 by route {dict(K.ROUTE_LAUNCHES)} (each the route "
+          f"K.route names)")
+    torch.cuda.reset_peak_memory_stats(dev)
     sizes_u, bits_u, secs_u, unfused = drive(n, False, dev)
+    peak_u = torch.cuda.max_memory_allocated(dev)
     expect(sizes_u == sizes, (sizes_u, sizes))
     expect(torch.equal(bits_u.data, bits.data), "fused and unfused differ")
     expect(unfused == {"mark_rotate_count": 0, "scatter_mark": 16,
                        "lut_count": 15, "gather2": 0}, unfused)
+    routes_u = dict(K.ROUTE_LAUNCHES)
     print(f"main path: pancake n=12 unfused, {secs_u:.3f} s wall, "
-          f"launches {unfused}; levels and words == fused")
+          f"{total / secs_u:.0f} states/s, peak {peak_u} bytes, launches "
+          f"{unfused}, K1/K2 by route {dict(K.ROUTE_LAUNCHES)}; levels and "
+          "words == fused")
     print(json.dumps({"main_path": {
         "n": n, "level_sizes": sizes, "wall_s": secs,
         "states_per_s": total / secs, "peak_bytes": peak,
         "launches": fused, "unfused_wall_s": secs_u,
-        "unfused_launches": unfused, "levels": levels}}))
-    return {k: fused[k] + unfused[k] for k in fused}, sizes
+        "unfused_peak_bytes": peak_u,
+        "unfused_launches": unfused, "routes": routes_f,
+        "unfused_routes": routes_u, "levels": levels}}))
+    return ({k: fused[k] + unfused[k] for k in fused}, sizes,
+            {k: routes_f[k] + routes_u[k] for k in routes_f})
 
 
 def phase_equivalence(dev) -> None:
@@ -1072,6 +1416,13 @@ def phase_oracle_serve(root, n, sizes, dev):
     expect(label_launches == {"mark_rotate_count": len(sizes),
                               "scatter_mark": len(sizes) + 1,
                               "lut_count": 4, "gather2": 0}, label_launches)
+    # K2 marks the start twice, then K1 and K2 take each level's targets
+    # (K2 only where the level has a next one)
+    ms = [s * (n - 1) for s in sizes]
+    want = level_routes(-(-total // 16), [1, 1] + ms + ms[:-1])
+    expect(dict(K.ROUTE_LAUNCHES) == want,
+           f"publish K1/K2 routes {dict(K.ROUTE_LAUNCHES)}, want {want}")
+    label_routes = dict(K.ROUTE_LAUNCHES)
     full = O.DistanceOracle(art, cache_bytes=1 << 30, gen_neighbors=gen,
                             device=dev)
     probe = random_ranks(rng, total, ORACLE_BATCHES[0], dev)
@@ -1098,14 +1449,16 @@ def phase_oracle_serve(root, n, sizes, dev):
           f"s ({total / publish_s:.0f} states/s; {art_bytes} bytes in "
           f"{meta['n_chunks']} chunks), level sizes == the BFS's, diameter "
           f"{P.DIAMETERS[n]}, per-code counts hold; launches {launches} (the "
-          f"publish alone {label_launches}); {touched} K4 launches for "
+          f"publish alone {label_launches}, K1/K2 by route {label_routes}, "
+          f"each the route K.route names); {touched} K4 launches for "
           f"{probe.numel()} codes; each of the run's {len(calls)} K4 calls "
           f"(M {min(calls)}..{max(calls)}) == the plain version, and the "
           f"codes == the plain gather over the joined label words; every "
           f"path of the sample holds (length d + 1, neighbours, ending at "
           f"the start; longest {int(dist.max())})")
     res = {"publish_s": publish_s, "artifact_bytes": art_bytes,
-           "launches": launches, "k4_launches_first_codes": touched,
+           "launches": launches, "label_routes": label_routes,
+           "k4_launches_first_codes": touched,
            "k4_calls_held": len(calls)}
     k4 = phase_k4_serving(words, total, dev)
     del words
@@ -3508,7 +3861,59 @@ def phase_k8_parity_edges(dev) -> dict:
               f"{max(f32['rel'], bf['rel']):.3e} (limit {K8_REL_TOL}); same "
               f"bits twice and with garbage past the lengths")
     return {"planted_faults": {route: k8_faults(dev, route)
-                               for route in K8_FAULT_CASES}}
+                               for route in K8_FAULT_CASES},
+            "two_streams": k8_two_streams(dev)}
+
+
+# A whole 32k table at nemotron's layout: the TMA route, with many splits
+# and so many tickets in use in each launch.
+K8_STREAM_CASE = (2, 48, 8, 128, 257, 128, None)
+K8_STREAM_ROUNDS = 10
+
+
+def k8_two_streams(dev) -> dict:
+    """Two TMA-route K8 launches at once on two streams of the card, each
+    queued behind a spin kernel on its own stream so that they overlap,
+    K8_STREAM_ROUNDS times over: each output equals the same call's bits
+    on one stream alone and is held to its plain version; each stream
+    counts into its own ticket buffer, and every ticket is back at 0."""
+    args = [k8_inputs(K8_STREAM_CASE, torch.bfloat16, dev, seed)
+            for seed in (41, 42)]
+    alone = [PD.paged_decode_attention(*a) for a in args]
+    wants = [R.paged_decode_attention_ref(*a) for a in args]
+    streams = [torch.cuda.Stream(dev) for _ in args]
+    torch.cuda.synchronize()
+    before = dict(PD.ROUTE_LAUNCHES)
+    outs = []
+    for _ in range(K8_STREAM_ROUNDS):
+        for st, a in zip(streams, args):
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(SPIN_CYCLES // 20)
+                outs.append(PD.paged_decode_attention(*a))
+    torch.cuda.synchronize()
+    routed = {n: PD.ROUTE_LAUNCHES[n] - before[n] for n in before}
+    expect(routed == {"tma": 2 * K8_STREAM_ROUNDS, "classic": 0},
+           f"K8 on two streams took {routed}")
+    worst = 0.0
+    for i, got in enumerate(outs):
+        expect(torch.equal(got, alone[i % 2]),
+               f"K8 on two streams differs from K8 alone (launch {i})")
+        e = k8_errors(got, wants[i % 2])
+        expect(e["elementwise_ok"] and e["rel_ok"],
+               f"K8 on two streams disagrees with its plain version: {e}")
+        worst = max(worst, e["rel"])
+    bufs = [PD._COUNTERS[(torch.device(dev), st.cuda_stream)]
+            for st in streams]
+    expect(bufs[0].data_ptr() != bufs[1].data_ptr(),
+           "two streams share K8's ticket buffer")
+    left = sum(int(b.count_nonzero()) for b in PD._COUNTERS.values())
+    expect(left == 0, f"{left} K8 tickets left non-zero")
+    print(f"parity K8 on two streams at once: {2 * K8_STREAM_ROUNDS} TMA "
+          f"launches, each == the call alone, per-(b, h) rel err {worst:.3e} "
+          f"(limit {K8_REL_TOL}); a ticket buffer per stream, every ticket "
+          "back at 0")
+    return {"launches": 2 * K8_STREAM_ROUNDS, "max_rel": worst,
+            "tickets_left": left}
 
 
 def k8_capture(cfg, params, caches, dev, keep, donate=False):
@@ -3562,15 +3967,18 @@ def k8_bound(q, kp, table, lengths) -> dict:
 SPIN_CYCLES = 2_000_000       # ~1 ms of torch.cuda._sleep at ~2 GHz
 
 
-def device_ms(fn, reps=REPS) -> float:
+def device_ms(fn, reps=REPS, setup=None) -> float:
     """Median device time of ``fn`` by CUDA events, with a spin kernel
     queued before each start event: while it runs the host enqueues the
     event, ``fn``'s launches and the end event, so the reading is the
     device's time for ``fn`` and not the host's time to launch it (a K8
-    call takes less time on the card than its Python wrapper takes)."""
+    call takes less time on the card than its Python wrapper takes).
+    ``setup`` runs before each spin, untimed."""
     fn()                                   # warm-up
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
@@ -3920,13 +4328,16 @@ def main() -> None:
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    ptxas, k7_ptx, k8_ptx, k9_ptx = phase_build()
+    ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx = phase_build()
     phase_parity_edges(dev)
+    bin_faults = phase_bin_faults(dev)
     data, tgt = phase_parity_full(dev)
     times = phase_times(data, tgt)
     del data, tgt
     torch.cuda.empty_cache()
-    launches, sizes = phase_main_path(dev)
+    k12 = phase_k12_levels(dev)
+    torch.cuda.empty_cache()
+    launches, sizes, k12_routes = phase_main_path(dev)
     phase_equivalence(dev)
     torch.cuda.empty_cache()
     oracle = phase_oracle(dev, sizes)
@@ -3953,6 +4364,28 @@ def main() -> None:
                 "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
                for name, replaces in KERNELS]
+    for rec, key, tile in ((kernels[0], "fused_bfs_k1", "true"),
+                           (kernels[1], "unfused_bfs_k2", "false")):
+        sums = k12["sums"]
+        rec.update({
+            "kernel": f"bin_count_kernel, bin_scan_kernel, "
+                      f"bin_scatter_kernel, tile_pass_kernel<{tile}> (the "
+                      f"binned route, from half as many targets as words); "
+                      f"the atomic route below",
+            "shape": f"pancake n = 12 level {LEVEL} (on the "
+                     f"{times['route']} route); the sums over every level "
+                     f"of n = 12 beside",
+            "launches_by_route": k12_routes,
+            "ptxas": {k: v for k, v in k12_ptx.items()
+                      if not k.startswith("tile_pass") or tile in k},
+            "bfs_ms": sums["routed"][key], "bfs_bound_ms": sums["bound"][key],
+            "bfs_ms_binned": sums["binned"][key],
+            "bfs_ms_atomic": sums["atomic"][key],
+            "publish_ms": sums["routed"]["publish_k1_k2"],
+            "publish_bound_ms": sums["bound"]["publish_k1_k2"],
+            "publish_ms_atomic": sums["atomic"]["publish_k1_k2"],
+            "planted_faults": {k: v["k1_err" if tile == "true" else "k2_err"]
+                               for k, v in bin_faults.items()}})
     t4 = oracle["k4"]
     big, small = (t4[str(m)] for m in reversed(ORACLE_BATCHES))
     serve_ = oracle["serve"]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""K8 and K9 beside the designs their sources left behind, on one NVIDIA GPU.
+"""K1/K2, K8 and K9 beside the designs their sources left behind, on one
+NVIDIA GPU.
 
     python3 chip_variants.py
 
@@ -18,6 +19,14 @@ paths' shapes:
   16) against the plain sequential scan, with ``chip_smoke.py``'s K9_TOL
   (1e-4 abs + rel on y and h) read as passed or broken.
 
+* K1 and K2 (the marks of the implicit BFS) at every level of pancake
+  n = 12, on the level's words and targets: the binned route as it
+  launches, beside the designs in ``BITPACK_VARIANTS`` (source appended to
+  ``csrc/bitpack.cu``, built here with nvcc, each held bit for bit to the
+  binned route at every level); per level and summed over a fused BFS (K1),
+  an unfused one (K2) and a publish (``chip_smoke.level_sums``); at levels
+  8-13 also the binned route's steps (``BINNED_STEPS``).
+
 A variant is its source with text substitutions; if the committed source no
 longer holds a substitution's text, the script says which and exits
 non-zero.  It prints one JSON line and exits non-zero without CUDA.
@@ -35,7 +44,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bitpack as K  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import paged_decode as PD  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
@@ -61,10 +72,12 @@ VARIANTS = {
 }
 
 
-def device_ms(fn, reps=REPS) -> float:
+def device_ms(fn, reps=REPS, setup=None) -> float:
     fn()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
@@ -192,6 +205,303 @@ def k9(dev) -> dict:
     return out
 
 
+# Each variant defines roomy_mark_variant(in, out, n_words, idx, m, mark,
+# only_if, lut, count_val, count, work, stream), K1 when count is not null
+# and K2 otherwise, with `work` of roomy_variant_work_bytes(n_words, m).
+BITPACK_VARIANTS = {
+    # every mark sets its field's bit in a W*16-bit bitmap in global memory
+    # (atomicOr, a RED, into 2W bytes: about L2's size at n = 12); then one
+    # streaming pass marks where hit and the field held only_if, rotates,
+    # counts and writes every word
+    "hit bitmap": r"""
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+hit_set_kernel(const int32_t* __restrict__ idx, long long m, long long cap,
+               uint32_t* hit) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = tid; i < m; i += stride) {
+    const int32_t e = __ldcs(idx + i);
+    if (e >= 0 && (long long)e < cap)
+      atomicOr(hit + (e >> 5), 1u << (e & 31));
+  }
+}
+
+template <bool kLut>
+__global__ void __launch_bounds__(kThreads)
+hit_apply_kernel(const uint32_t* in, uint32_t* out, long long n_words,
+                 const uint32_t* __restrict__ hit, uint32_t mark,
+                 uint32_t only_if, uint32_t lut, uint32_t cval,
+                 unsigned int* count) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  unsigned int cnt = 0;
+  for (long long i = tid; i < n_words; i += stride) {
+    uint32_t w = mark_word(in[i], spread16(hit[i >> 1] >> ((i & 1) << 4)),
+                           mark, only_if);
+    if (kLut) {
+      uint32_t match;
+      w = lut_word(w, lut, cval, &match);
+      cnt += __popc(match);
+    }
+    out[i] = w;
+  }
+  if (kLut) block_add(cnt, count);
+}
+
+}  // namespace
+
+extern "C" long long roomy_variant_work_bytes(long long n_words, long long m) {
+  return (n_words + 1) / 2 * 4;
+}
+
+extern "C" int roomy_mark_variant(const void* in, void* out,
+                                  long long n_words, const void* idx,
+                                  long long m, int mark, int only_if, int lut,
+                                  int count_val, void* count, void* work,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  long long set = 0, apply = 0;
+  ROOMY_TRY(resident_blocks(hit_set_kernel, &set));
+  ROOMY_TRY(resident_blocks(hit_apply_kernel<true>, &apply));
+  ROOMY_TRY(cudaMemsetAsync(work, 0, (size_t)((n_words + 1) / 2) * 4, s));
+  hit_set_kernel<<<grid_for(m, set), kThreads, 0, s>>>(
+      (const int32_t*)idx, m, n_words * 16, (uint32_t*)work);
+  if (count) {
+    ROOMY_TRY(cudaMemsetAsync(count, 0, sizeof(unsigned int), s));
+    hit_apply_kernel<true><<<grid_for(n_words, apply), kThreads, 0, s>>>(
+        (const uint32_t*)in, (uint32_t*)out, n_words, (const uint32_t*)work,
+        (uint32_t)mark, (uint32_t)only_if, (uint32_t)lut,
+        (uint32_t)count_val, (unsigned int*)count);
+  } else {
+    hit_apply_kernel<false><<<grid_for(n_words, apply), kThreads, 0, s>>>(
+        (const uint32_t*)in, (uint32_t*)out, n_words, (const uint32_t*)work,
+        (uint32_t)mark, (uint32_t)only_if, 0u, 0u, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+""",
+    # the binned route with the first port's scatter: no sort in shared
+    # memory, each target's offset stored at its tile's cursor on its own
+    # (an L2 transaction a target)
+    "binned, a store a target": r"""
+namespace {
+
+__global__ void __launch_bounds__(kBinThreads)
+scatter_unsorted_kernel(const int32_t* __restrict__ idx, long long m,
+                        long long cap, int vec, int n_tiles,
+                        long long per_block,
+                        const unsigned int* __restrict__ counts,
+                        const unsigned int* __restrict__ tile_total,
+                        unsigned int* __restrict__ tile_start,
+                        uint16_t* __restrict__ bins) {
+  extern __shared__ unsigned int cursor[];
+  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
+  const int t0 = min(n_tiles, (int)threadIdx.x * per);
+  const int t1 = min(n_tiles, t0 + per);
+  unsigned int sum = 0;
+  for (int t = t0; t < t1; ++t) sum += tile_total[t];
+  const unsigned int incl = block_scan(sum);
+  unsigned int run = incl - sum;
+  for (int t = t0; t < t1; ++t) {
+    if (blockIdx.x == 0) tile_start[t] = run;
+    cursor[t] = run + counts[(long long)t * gridDim.x + blockIdx.x];
+    run += tile_total[t];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == blockDim.x - 1)
+    tile_start[n_tiles] = incl;
+  __syncthreads();
+  const long long lo = blockIdx.x * per_block;
+  const long long hi = lo + per_block < m ? lo + per_block : m;
+  for_targets(idx, lo, hi, vec, [&](int32_t e) {
+    if (e >= 0 && (long long)e < cap) {
+      const unsigned int pos = atomicAdd(&cursor[tile_of(e)], 1u);
+      bins[pos] = (uint16_t)(e & ((1 << kTileShift) - 1));
+    }
+  });
+}
+
+struct Plan {
+  int n_tiles, g;
+  long long per_block;
+};
+
+Plan plan_of(long long n_words, long long m) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  Plan p;
+  p.n_tiles = (int)((n_words + kTileWords - 1) / kTileWords);
+  long long g = (m + (1 << 14) - 1) >> 14;
+  p.g = (int)(g < 1 ? 1 : (g > sms ? sms : g));
+  p.per_block = ((m + p.g - 1) / p.g + 3) / 4 * 4;
+  return p;
+}
+
+}  // namespace
+
+extern "C" long long roomy_variant_work_bytes(long long n_words, long long m) {
+  const Plan p = plan_of(n_words, m);
+  return 4 * ((long long)p.n_tiles * p.g + 2 * p.n_tiles + 1) + 2 * m + 64;
+}
+
+extern "C" int roomy_mark_variant(const void* in, void* out,
+                                  long long n_words, const void* idx,
+                                  long long m, int mark, int only_if, int lut,
+                                  int count_val, void* count, void* work,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Plan p = plan_of(n_words, m);
+  unsigned int* counts = (unsigned int*)work;
+  unsigned int* tile_total = counts + (long long)p.n_tiles * p.g;
+  unsigned int* tile_start = tile_total + p.n_tiles;
+  uint16_t* bins = (uint16_t*)(((uintptr_t)(tile_start + p.n_tiles + 1) +
+                                15) & ~(uintptr_t)15);
+  const size_t hist = (size_t)p.n_tiles * 4;
+  ROOMY_TRY(cudaFuncSetAttribute(bin_count_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)hist));
+  ROOMY_TRY(cudaFuncSetAttribute(scatter_unsorted_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)hist));
+  long long resident = 0;
+  ROOMY_TRY(resident_blocks(tile_pass_kernel<true>, &resident, kThreads,
+                            kTileSmem));
+  const long long cap = n_words * 16;
+  const int vec = ((uintptr_t)idx & 15u) == 0;
+  bin_count_kernel<<<p.g, kBinThreads, hist, s>>>(
+      (const int32_t*)idx, m, cap, vec, p.n_tiles, p.per_block, counts);
+  bin_scan_kernel<<<(p.n_tiles + kScanWarps - 1) / kScanWarps,
+                    kScanWarps * 32, 0, s>>>(counts, p.n_tiles, p.g,
+                                             tile_total);
+  scatter_unsorted_kernel<<<p.g, kBinThreads, hist, s>>>(
+      (const int32_t*)idx, m, cap, vec, p.n_tiles, p.per_block, counts,
+      tile_total, tile_start, bins);
+  const unsigned int grid =
+      (unsigned int)(resident < p.n_tiles ? resident : p.n_tiles);
+  if (count) {
+    ROOMY_TRY(cudaMemsetAsync(count, 0, sizeof(unsigned int), s));
+    tile_pass_kernel<true><<<grid, kThreads, kTileSmem, s>>>(
+        (const uint32_t*)in, (uint32_t*)out, n_words, p.n_tiles, tile_start,
+        bins, (uint32_t)mark, (uint32_t)only_if, (uint32_t)lut,
+        (uint32_t)count_val, (unsigned int*)count);
+  } else {
+    tile_pass_kernel<false><<<grid, kThreads, kTileSmem, s>>>(
+        (const uint32_t*)in, (uint32_t*)out, n_words, p.n_tiles, tile_start,
+        bins, (uint32_t)mark, (uint32_t)only_if, 0u, 0u, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+""",
+}
+
+
+# The binned route's steps: copies of its source with the later launches
+# cut out (the count alone; the count, scan and scatter), timed as K2 at
+# the wide levels; the whole route less the latter is the tile pass.
+CUT = {k: (f"  {k}<<<", f"  if (0) {k}<<<") for k in (
+    "bin_scan_kernel", "bin_scatter_kernel", "tile_pass_kernel<kLut>")}
+BINNED_STEPS = {
+    "count": list(CUT.values()),
+    "count, scan, scatter": [CUT["tile_pass_kernel<kLut>"]],
+}
+STEP_LEVELS = range(8, 14)
+
+
+def step_libs() -> dict:
+    text = (_build.CSRC / "bitpack.cu").read_text()
+    libs = {}
+    for i, (name, subs) in enumerate(BINNED_STEPS.items()):
+        t = text
+        for old, new in subs:
+            if t.count(old) != 1:
+                raise SystemExit(f"step {name!r}: csrc/bitpack.cu no longer "
+                                 f"holds {old!r} once")
+            t = t.replace(old, new)
+        libs[name] = CS.build_variant(f"bitpack_steps{i}", t)
+    return libs
+
+
+def bitpack_variant_lib(name, source) -> ctypes.CDLL:
+    stem = "bitpack_" + "".join(c if c.isalnum() else "_" for c in name)
+    lib = CS.build_variant(stem, (_build.CSRC / "bitpack.cu").read_text()
+                           + source)
+    lib.roomy_variant_work_bytes.argtypes = [ctypes.c_longlong] * 2
+    lib.roomy_variant_work_bytes.restype = ctypes.c_longlong
+    lib.roomy_mark_variant.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.roomy_mark_variant.restype = ctypes.c_int
+    return lib
+
+
+def variant_mark(lib, words, tgt, out, lut=None, cval=0):
+    """K1 (``lut`` given; returns the count) or K2 through a variant."""
+    w, m = words.shape[0], tgt.shape[0]
+    work = torch.empty(lib.roomy_variant_work_bytes(w, m), dtype=torch.uint8,
+                       device=words.device)
+    cnt = None if lut is None else torch.empty(
+        (), dtype=torch.int32, device=words.device)
+    code = lib.roomy_mark_variant(
+        words.data_ptr(), out.data_ptr(), w, tgt.data_ptr(), m, 2, 0,
+        lut or 0, cval, None if cnt is None else cnt.data_ptr(),
+        work.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise SystemExit(f"variant launch failed: CUDA error {code}")
+    return cnt
+
+
+def bitpack(dev) -> dict:
+    libs = {name: bitpack_variant_lib(name, src)
+            for name, src in BITPACK_VARIANTS.items()}
+    steps = step_libs()
+    rot, cur = CS.ROTATE, CS.BA.CUR
+    levels = []
+    for level, n_cur, data, tgt in CS.bfs_levels(dev):
+        work, out, ref = (torch.empty_like(data) for _ in range(3))
+        ref.copy_(data)
+        wc = K._mark(ref, tgt, ref, 2, 0, rot, cur, path="binned")
+        want2 = torch.empty_like(data)
+        K._mark(data, tgt, want2, 2, 0, path="binned")
+        runs = {"binned": (
+            lambda: K._mark(work, tgt, work, 2, 0, rot, cur, path="binned"),
+            lambda: K._mark(data, tgt, out, 2, 0, path="binned"))}
+        for name, lib in libs.items():
+            work.copy_(data)
+            gc = variant_mark(lib, work, tgt, work, rot, cur)
+            variant_mark(lib, data, tgt, out)
+            torch.cuda.synchronize()
+            if not (torch.equal(work, ref) and int(gc) == int(wc)
+                    and torch.equal(out, want2)):
+                raise SystemExit(f"variant {name!r} differs from the binned "
+                                 f"route at n=12 level {level}")
+            runs[name] = (
+                lambda lib=lib: variant_mark(lib, work, tgt, work, rot, cur),
+                lambda lib=lib: variant_mark(lib, data, tgt, out))
+        rec = {"level": level, "M": tgt.shape[0], "k1_ms": {}, "k2_ms": {}}
+        for name, (k1, k2) in runs.items():
+            rec["k1_ms"][name] = device_ms(k1, setup=lambda: work.copy_(data))
+            rec["k2_ms"][name] = device_ms(k2)
+        if level in STEP_LEVELS:
+            good = K._lib()
+            try:
+                for name, lib in steps.items():
+                    K._LIB = lib
+                    rec["k2_ms"][f"binned: {name}"] = device_ms(
+                        lambda: K._mark(data, tgt, out, 2, 0, path="binned"))
+            finally:
+                K._LIB = good
+        print(f"K1/K2 n=12 level {level} (M={rec['M']}): {rec}", flush=True)
+        levels.append(rec)
+        del work, out, ref, want2
+    names = ["binned"] + list(libs)
+    sums = {n: CS.level_sums([r["k1_ms"][n] for r in levels],
+                             [r["k2_ms"][n] for r in levels]) for n in names}
+    print(f"K1/K2 summed over n=12: {sums}", flush=True)
+    return {"levels": levels, "sums": sums}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: torch.cuda.is_available() is False")
@@ -201,8 +511,9 @@ def main() -> None:
     print(f"card: {card}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    _build.build(["paged_decode", "mamba_scan"])
-    res = {"card": card, "k8": k8(dev), "k9": k9(dev)}
+    _build.build(["bitpack", "paged_decode", "mamba_scan"])
+    res = {"card": card, "bitpack": bitpack(dev), "k8": k8(dev),
+           "k9": k9(dev)}
     print(json.dumps({"variants": res}))
 
 

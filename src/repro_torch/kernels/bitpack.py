@@ -2,10 +2,16 @@
 
 Port of ``repro/kernels/bitpack.py`` (K1–K4 of the kernel table in
 PERF.md).  Each wrapper checks dtype, device, contiguity and shape,
-allocates its outputs with ``torch.empty``, launches on the current CUDA
-stream and books one launch in ``LAUNCHES``.  For a tensor on the CPU it
-returns the plain version (``ref.py``) instead; for a CUDA tensor it
-launches the kernel or raises — there is no fallback.
+allocates its outputs (and K1's and K2's workspace) with ``torch.empty``,
+launches on the current CUDA stream and books one launch in ``LAUNCHES``.
+For a tensor on the CPU it returns the plain version (``ref.py``) instead;
+for a CUDA tensor it launches the kernel or raises — there is no fallback.
+
+K1 and K2 have two routes, chosen by ``route`` from (W, M) alone:
+``"binned"`` sorts the marks by tile of ``TILE_WORDS`` words and applies
+each tile's marks in shared memory (``bin_plan`` sizes its workspace);
+``"atomic"`` marks each field with a global atomic where it lands.
+``ROUTE_LAUNCHES`` books each launch under its route.
 
 Packed words are int32 tensors holding the uint32 bits; the kernels read
 the same storage as ``uint32_t*``.  Element indices are int32, so a packed
@@ -14,6 +20,7 @@ array holds fewer than 2³¹ fields (16·W < 2³¹, pancake n ≤ 12).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,16 +30,31 @@ from . import ref as _ref
 from .ref import FIELDS_PER_WORD
 
 MAX_FIELDS = 1 << 31
+#: Words a tile of the binned route holds (``kTileWords`` in the source):
+#: 65,536 fields, so a target's offset in its tile fits a uint16.
+TILE_WORDS = _ref.BIN_TILE_WORDS
+#: The binned route's count and scatter passes: a block of 1024 threads an
+#: SM at most, and none for fewer than this many targets.
+BIN_TARGETS_PER_BLOCK = 1 << 14
+#: Bin positions are uint32 in the kernels.
+MAX_TARGETS = (1 << 32) - 1
+#: The most tiles the binned route's scatter holds in shared memory
+#: (``kMaxTiles``): 102M words; wider arrays take the atomic route.
+BIN_MAX_TILES = 24927
 
 #: Kernel launches per wrapper (launches only, never plain-version calls).
 LAUNCHES = obs.counters("kernels", {"mark_rotate_count": 0,
                                     "scatter_mark": 0, "lut_count": 0,
                                     "gather2": 0})
 
+#: K1's and K2's launches by route.
+ROUTE_LAUNCHES = obs.counters("bitpack_route", {"binned": 0, "atomic": 0})
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def make_lut(table) -> int:
@@ -51,6 +73,15 @@ _SIGNATURES = {
     # in, out, n_words, idx, m, mark, only_if, lut, count_val, count, stream
     "roomy_mark_rotate_count": [_P, _P, _I64, _P, _I64, _I32, _I32, _I32,
                                 _I32, _P, _P],
+    # in, out, n_words, idx, m, mark, only_if, blocks, per_block, counts,
+    # tile_total, tile_start, bins, stream
+    "roomy_scatter_mark_binned": [_P, _P, _I64, _P, _I64, _I32, _I32, _I32,
+                                  _I64, _P, _P, _P, _P, _P],
+    # in, out, n_words, idx, m, mark, only_if, lut, count_val, count,
+    # blocks, per_block, counts, tile_total, tile_start, bins, stream
+    "roomy_mark_rotate_count_binned": [_P, _P, _I64, _P, _I64, _I32, _I32,
+                                       _I32, _I32, _P, _I32, _I64, _P, _P,
+                                       _P, _P, _P],
     # words, n_words, idx, m, out, stream
     "roomy_gather2": [_P, _I64, _P, _I64, _P, _P],
 }
@@ -67,6 +98,15 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.roomy_error_string.argtypes = [ctypes.c_int]
         lib.roomy_error_string.restype = ctypes.c_char_p
+        for name in ("roomy_bin_tile_words", "roomy_bin_tile_smem",
+                     "roomy_bin_max_tiles"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        got = (lib.roomy_bin_tile_words(), lib.roomy_bin_max_tiles())
+        if got != (TILE_WORDS, BIN_MAX_TILES):
+            raise RuntimeError(f"csrc/bitpack.cu tiles {got[0]} words, at "
+                               f"most {got[1]}; the wrapper {TILE_WORDS}, "
+                               f"{BIN_MAX_TILES}")
         _LIB = lib
     return _LIB
 
@@ -128,6 +168,104 @@ def bitpack_lut_count(packed: torch.Tensor, lut: int, count_val: int):
     return out, cnt
 
 
+def route(n_words: int, m: int) -> str:
+    """The route of a K1 or K2 call over ``n_words`` words and ``m``
+    targets: ``"binned"`` for at least half as many targets as words,
+    where its passes over the targets cost less than the atomic route's
+    marks (at pancake n = 12 the two cross between 0.2 and 1.1 targets a
+    word), and for no more tiles than its scatter holds; ``"atomic"``
+    otherwise."""
+    if 2 * m < n_words or -(-n_words // TILE_WORDS) > BIN_MAX_TILES:
+        return "atomic"
+    return "binned"
+
+
+class BinPlan(NamedTuple):
+    """The binned route's launch and workspace: ``blocks`` count and
+    scatter blocks, each over ``per_block`` targets (a multiple of 4); the
+    workspace's byte offsets of counts (n_tiles x blocks uint32),
+    tile_total (n_tiles), tile_start (n_tiles + 1) and the bins (m uint16),
+    and its size."""
+    n_tiles: int
+    blocks: int
+    per_block: int
+    counts: int
+    tile_total: int
+    tile_start: int
+    bins: int
+    nbytes: int
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bin_plan(n_words: int, m: int, sms: int) -> BinPlan:
+    """The plan of a binned call over ``n_words`` words and ``m`` targets on
+    a card of ``sms`` SMs: one block an SM at most (fewer partly written
+    bin sectors held in L2 at once), none for fewer than
+    ``BIN_TARGETS_PER_BLOCK`` targets."""
+    n_tiles = -(-n_words // TILE_WORDS)
+    blocks = max(1, min(sms, -(-m // BIN_TARGETS_PER_BLOCK)))
+    per_block = -(-(-(-m // blocks)) // 4) * 4
+    counts = 0
+    tile_total = counts + _align16(4 * n_tiles * blocks)
+    tile_start = tile_total + _align16(4 * n_tiles)
+    bins = tile_start + _align16(4 * (n_tiles + 1))
+    return BinPlan(n_tiles, blocks, per_block, counts, tile_total,
+                   tile_start, bins, bins + _align16(2 * m))
+
+
+_SMS = {}
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _mark(packed, idx, out, mark, only_if, lut=None, count_val=None,
+          path=None):
+    """Launch K1 (``lut`` given: mark, rotate, count into ``out``) or K2
+    (mark into ``out``) on ``path`` (``route``'s choice when None); returns
+    K1's count, or None.  Books no launch: the wrappers do."""
+    w, m = packed.shape[0], idx.shape[0]
+    if m > MAX_TARGETS:
+        raise ValueError(f"{m} targets; K1 and K2 take at most "
+                         f"{MAX_TARGETS}")
+    path = path or route(w, m)
+    cnt = None
+    if lut is not None:
+        cnt = torch.empty((), dtype=torch.int32, device=packed.device)
+    if path == "atomic":
+        if lut is None:
+            _launch("roomy_scatter_mark", packed, packed.data_ptr(),
+                    out.data_ptr(), w, idx.data_ptr(), m, mark, only_if)
+        else:
+            _launch("roomy_mark_rotate_count", packed, packed.data_ptr(),
+                    out.data_ptr(), w, idx.data_ptr(), m, mark, only_if,
+                    lut, count_val, cnt.data_ptr())
+        return cnt
+    if path != "binned":
+        raise ValueError(f"unknown route {path!r}")
+    plan = bin_plan(w, m, _sms(packed.device))
+    work = torch.empty(plan.nbytes, dtype=torch.uint8, device=packed.device)
+    base = work.data_ptr()
+    tail = (plan.blocks, plan.per_block, base + plan.counts,
+            base + plan.tile_total, base + plan.tile_start, base + plan.bins)
+    if lut is None:
+        _launch("roomy_scatter_mark_binned", packed, packed.data_ptr(),
+                out.data_ptr(), w, idx.data_ptr(), m, mark, only_if, *tail)
+    else:
+        _launch("roomy_mark_rotate_count_binned", packed, packed.data_ptr(),
+                out.data_ptr(), w, idx.data_ptr(), m, mark, only_if, lut,
+                count_val, cnt.data_ptr(), *tail)
+    return cnt
+
+
 def bitpack_scatter_mark(packed: torch.Tensor, idx: torch.Tensor, *,
                          mark: int = 2, only_if: int = 0) -> torch.Tensor:
     """K2: ``packed[idx] ← mark`` where the field holds ``only_if``;
@@ -136,9 +274,10 @@ def bitpack_scatter_mark(packed: torch.Tensor, idx: torch.Tensor, *,
     if not _on_card(packed, idx):
         return _ref.bitpack_scatter_mark_ref(packed, idx, mark, only_if)
     out = torch.empty_like(packed)
-    _launch("roomy_scatter_mark", packed, packed.data_ptr(), out.data_ptr(),
-            packed.shape[0], idx.data_ptr(), idx.shape[0], mark, only_if)
+    path = route(packed.shape[0], idx.shape[0])
+    _mark(packed, idx, out, mark, only_if, path=path)
     LAUNCHES["scatter_mark"] += 1
+    ROUTE_LAUNCHES[path] += 1
     return out
 
 
@@ -146,20 +285,19 @@ def bitpack_mark_rotate_count(packed: torch.Tensor, idx: torch.Tensor,
                               lut: int, count_val: int, *, mark: int = 2,
                               only_if: int = 0, inplace: bool = False):
     """K1: the scatter-mark of K2, then the rotate+count of K3, in one
-    launch.  With ``inplace=True`` the result is written over ``packed``
-    (one read and one write of the words) and ``packed`` is returned.
-    Returns (new (W,) int32, count () int32)."""
+    pass over the words.  With ``inplace=True`` the result is written over
+    ``packed`` (one read and one write of the words) and ``packed`` is
+    returned.  Returns (new (W,) int32, count () int32)."""
     _check_values(count_val, mark, only_if, lut=lut)
     if not _on_card(packed, idx):
         new, cnt = _ref.bitpack_mark_rotate_count_ref(packed, idx, lut,
                                                       count_val, mark, only_if)
         return (packed.copy_(new) if inplace else new), cnt
     out = packed if inplace else torch.empty_like(packed)
-    cnt = torch.empty((), dtype=torch.int32, device=packed.device)
-    _launch("roomy_mark_rotate_count", packed, packed.data_ptr(),
-            out.data_ptr(), packed.shape[0], idx.data_ptr(), idx.shape[0],
-            mark, only_if, lut, count_val, cnt.data_ptr())
+    path = route(packed.shape[0], idx.shape[0])
+    cnt = _mark(packed, idx, out, mark, only_if, lut, count_val, path=path)
     LAUNCHES["mark_rotate_count"] += 1
+    ROUTE_LAUNCHES[path] += 1
     return out, cnt
 
 

@@ -222,13 +222,17 @@ def _tma_slots(device, hd: int) -> int:
     return _SLOTS[idx, hd]
 
 
-def _counters(device, n: int) -> torch.Tensor:
-    """A zeroed int32 buffer of at least n tickets on ``device``; each
-    launch leaves the ones it took at 0 again."""
-    buf = _COUNTERS.get(device)
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least n tickets for launches on
+    ``stream`` (a raw stream handle) of ``device``; each launch leaves the
+    ones it took at 0 again.  One buffer a (device, stream): launches on
+    one stream run in order, while two streams' launches may overlap and
+    must not count into the same tickets."""
+    key = (torch.device(device), stream)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
-        buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                              device=device)
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
     return buf
 
 
@@ -276,7 +280,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, softcap, scale,
         if path == "tma":
             maps = (ctypes.c_longlong * 22)(*tma_geometry(k_pages),
                                             *tma_geometry(v_pages))
-            cnt = _counters(q.device, b * kvh * -(-g // TMA_ROWS))
+            cnt = _counters(q.device, stream, b * kvh * -(-g // TMA_ROWS))
             name = "roomy_paged_decode_tma"
             code = lib.roomy_paged_decode_tma(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -81,6 +81,59 @@ def bitpack_mark_rotate_count_ref(packed: torch.Tensor, idx: torch.Tensor,
     return bitpack_lut_count_ref(marked, lut, count_val)
 
 
+#: Words a tile of K1's and K2's binned route holds: 65,536 fields, so a
+#: target's offset in its tile fits a uint16 (``csrc/bitpack.cu``).
+BIN_TILE_WORDS = 4096
+
+
+def bitpack_mark_binned(packed: torch.Tensor, idx: torch.Tensor, mark: int,
+                        only_if: int, *, tile_words: int = BIN_TILE_WORDS,
+                        blocks: int = 1, per_block: int | None = None):
+    """The scatter-mark in the binned route's order (``csrc/bitpack.cu``):
+    block b's slice of targets is [b·per_block, (b+1)·per_block); each
+    block counts its targets per tile of ``tile_words`` words, an exclusive
+    scan of the (tile, block) counts in tile-major order gives each run its
+    cursor, each target's offset in its tile goes to its run's next slot,
+    and each tile sets a hit bit a field from its bin and marks where hit
+    and the field held ``only_if``.  The words equal
+    ``bitpack_scatter_mark_ref``'s, since a mark does not depend on order.
+    Returns (words, tile_start (n_tiles + 1,), bins) as int64/int32."""
+    w, m = packed.shape[0], idx.shape[0]
+    dev = packed.device
+    tile_fields = tile_words * FIELDS_PER_WORD
+    n_tiles = -(-w // tile_words)
+    per_block = max(1, m if per_block is None else per_block)
+    e = idx.to(torch.int64)
+    blk = torch.arange(m, device=dev) // per_block
+    keep = (e >= 0) & (e < w * FIELDS_PER_WORD)   # the rest never bin
+    e, blk = e[keep], blk[keep]
+    tile = e // tile_fields
+    key = tile * blocks + blk
+    # 1. counts[t, b]: block b's targets in tile t
+    counts = torch.zeros(n_tiles * blocks, dtype=torch.int64, device=dev)
+    counts.index_add_(0, key, torch.ones_like(key))
+    # 2. exclusive scan in tile-major order: each (tile, block) run's cursor
+    cursor = torch.cumsum(counts, 0) - counts
+    tile_start = torch.cat([cursor.view(n_tiles, blocks)[:, 0],
+                            counts.sum().view(1)])
+    # 3. each target at its run's cursor plus its rank in the run
+    order = torch.argsort(key, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=dev) - cursor[key[order]]
+    bins = torch.full((e.numel(),), -1, dtype=torch.int32, device=dev)
+    bins[cursor[key] + rank] = (e - tile * tile_fields).to(torch.int32)
+    # 4. per tile: hit bits from its bin, marks where the field held only_if
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                      tile_start.diff())
+    hit = torch.zeros(n_tiles * tile_fields, dtype=torch.bool, device=dev)
+    hit[tile_of * tile_fields + bins.to(torch.int64)] = True
+    fields = unpack_fields(packed).reshape(-1)
+    fields = torch.where(hit[:fields.numel()] & (fields == only_if),
+                         torch.tensor(mark, dtype=fields.dtype, device=dev),
+                         fields)
+    return pack_fields(fields.view(w, FIELDS_PER_WORD)), tile_start, bins
+
+
 def bitpack_gather2_ref(packed: torch.Tensor, idx: torch.Tensor):
     """Plain version of the 2-bit gather (K4): unpack every field, gather
     the one at each index; negative and out-of-range indices give 0.

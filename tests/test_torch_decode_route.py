@@ -387,3 +387,21 @@ def test_falcon_mamba_fills_the_card():
     slots = 132 * tms.BLOCKS_PER_SM
     assert blocks == 512 and 0.95 < blocks / (2 * slots) <= 1   # two waves
     assert tms.BLOCKS_PER_SM * g["threads"] // 32 == 16         # warps an SM
+
+
+def test_ticket_buffers_are_per_stream():
+    """K8's TMA route takes its merge tickets from a buffer keyed by
+    (device, stream): two streams never share one, one stream keeps its
+    buffer, and a larger need gives that stream a larger zeroed one."""
+    dev = torch.device("cpu")
+    a = tpd._counters(dev, 11, 8)
+    b = tpd._counters(dev, 12, 8)
+    assert a.data_ptr() != b.data_ptr()
+    assert tpd._counters(dev, 11, 8) is a
+    assert tpd._counters("cpu", 11, 1024) is a
+    big = tpd._counters(dev, 12, 5000)
+    assert big.numel() >= 5000 and not big.any()
+    assert big.data_ptr() != a.data_ptr()
+    assert tpd._counters(dev, 11, 8) is a
+    for key in [(dev, 11), (dev, 12)]:
+        del tpd._COUNTERS[key]
