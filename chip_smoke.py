@@ -48,6 +48,21 @@ caught:
    ``kernels`` line adds the two runs up.
 6. fused ≡ unfused at n = 11 (bit-identical words), kernels ≡ plain
    versions at n = 9, both on the card.
+6b. the sorted-list BFS (``phase_sorted_bfs``; no kernel of its own:
+   torch sorts): first pancake n = 8 on the card == on the CPU (levels
+   and ``all.data``), which also loads the sort kernels before the timed
+   runs; pancake n = 11 through ``apps.pancake_bfs.run``, fused and
+   unfused, with the level sizes of ``apps.pancake_bits.run(11)``,
+   diameter 13, 11! rows in ``all``, each once, and the unfused ``all``
+   == the fused one bit for bit; Cayley n = 11 through
+   ``apps.cayley_bfs.run`` (the Mahonian profile, also from the implicit
+   engine over the same graph, diameter 55).  Each timed run starts from
+   an empty allocator cache and prints its wall, states/s beside the
+   implicit engine's, peak device memory (reset just before), its
+   lexsorts and scatters a level (1 and 1 fused, 2 and 2 unfused, checked
+   for every level), the ``bfs.level`` / ``bfs.expand`` span totals, the
+   widest level's ms and the allocator's device allocations and retries;
+   one ``{"sorted_bfs": …}`` line.
 7. K4 (the 2-bit gather) and the distance oracle (``phase_oracle``):
    a. K4 bit-exact against its plain version at the JAX tests' (W, M)
       (indices in [-50, 16W + 50)), misaligned, and empty (no launch),
@@ -326,6 +341,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.apps import cayley_bfs as CB  # noqa: E402
+from repro_torch.apps import pancake_bfs as PB  # noqa: E402
 from repro_torch.apps import pancake_bits as P  # noqa: E402
 from repro_torch.core import array as RA  # noqa: E402
 from repro_torch.core import bitarray as BA  # noqa: E402
@@ -333,6 +350,7 @@ from repro_torch.core import constructs as C  # noqa: E402
 from repro_torch.core import delayed as DL  # noqa: E402
 from repro_torch.core import hashtable as HT  # noqa: E402
 from repro_torch.core import obs  # noqa: E402
+from repro_torch.core import types as TY  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitpack as K  # noqa: E402
@@ -1222,6 +1240,147 @@ def phase_equivalence(dev) -> None:
     expect(torch.equal(bk.data, br.data), "kernel and plain words differ")
     print("equivalence: n=11 fused == unfused (levels and words), "
           "n=9 kernels == plain versions on the card")
+
+
+# ------------------------------------------------ the sorted-list BFS
+
+SORTED_N = 11          # the largest n whose sorted BFS fits one card
+SORTED_CPU_N = 8       # the card against the CPU, bit for bit
+
+
+def sorted_run(run, n, fused, dev):
+    """One sorted-list BFS through ``run()``, an app's ``run`` at n, with
+    the sort counters set to 0 just before it and the spans recorded: the
+    wall, peak device memory (reset in ``pancake_bfs.search`` just before
+    the search), the lexsorts and scatters of every level (each must be
+    the fused or unfused budget), the span totals, the widest level's ms
+    and the caching allocator's device allocations and retries (a retry
+    frees the whole cache and synchronises).  Returns (BFSResult,
+    record)."""
+    spans = []
+    TY.reset_sort_stats()
+    before = torch.cuda.memory_stats(dev)
+    obs.enable(sink=spans.append)
+    try:
+        sizes, res, secs = run()
+    finally:
+        obs.disable()
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = torch.cuda.memory_stats(dev)
+    levels = [s for s in spans if s["sid"] == "bfs.level"]
+    expands = [s for s in spans if s["sid"] == "bfs.expand"]
+    expect(len(levels) == len(expands) == res.levels_run, "spans")
+    budget = 1 if fused else 2
+    per_level = [(s["metrics"].get("tierj.lexsorts", 0),
+                  s["metrics"].get("tierj.scatters", 0)) for s in levels]
+    expect(all(p == (budget, budget) for p in per_level),
+           f"lexsorts, scatters per level {per_level}, want {budget} each")
+    widest = max(levels, key=lambda s: s["attrs"]["frontier"])
+    return res, {
+        "n": n, "fused": fused, "level_sizes": sizes, "wall_s": secs,
+        "states_per_s": math.factorial(n) / secs, "peak_bytes": peak,
+        "lexsorts_scatters_per_level": [budget, budget],
+        "levels": len(levels), "sort_stats": dict(TY.SORT_STATS),
+        "level_span_ms": sum(s["dur_us"] for s in levels) / 1e3,
+        "expand_span_ms": sum(s["dur_us"] for s in expands) / 1e3,
+        "widest_frontier": widest["attrs"]["frontier"],
+        "widest_level_ms": widest["dur_us"] / 1e3,
+        **{k: after.get(k, 0) - before.get(k, 0)
+           for k in ("num_device_alloc", "num_alloc_retries")}}
+
+
+def all_unique(res) -> bool:
+    """Every visited row occurs once: one more lexsort and first_of_run,
+    outside the timed wall."""
+    rows = res.all.data[:int(res.all.count)]
+    return bool(TY.first_of_run(rows[TY.lexsort_columns(rows)]).all())
+
+
+def cayley_implicit(n, dev):
+    """The implicit engine over the bubble-sort graph: the rank
+    neighbour function (unrank, permute, rank) over the adjacent swaps'
+    table.  Returns (level sizes, wall seconds)."""
+    nb = P.RankNeighbors(n, CB.adjacent_swaps(n).table)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    sizes, _ = C.implicit_bfs(math.factorial(n), [P.start_rank(n)], nb,
+                              device=dev)
+    torch.cuda.synchronize(dev)
+    return sizes, time.perf_counter() - t0
+
+
+def sorted_line(what, rec, implicit_secs) -> None:
+    total = math.factorial(rec["n"])
+    print(f"sorted_bfs: {what} n={rec['n']} "
+          f"{'fused' if rec['fused'] else 'unfused'}, "
+          f"{rec['wall_s']:.3f} s wall, {rec['states_per_s']:.0f} states/s "
+          f"(implicit engine {total / implicit_secs:.0f}), peak "
+          f"{rec['peak_bytes']} bytes, {rec['levels']} levels at "
+          f"{rec['lexsorts_scatters_per_level']} lexsorts/scatters each, "
+          f"spans bfs.level {rec['level_span_ms']:.1f} ms / bfs.expand "
+          f"{rec['expand_span_ms']:.1f} ms, widest level (frontier "
+          f"{rec['widest_frontier']}) {rec['widest_level_ms']:.1f} ms, "
+          f"{rec['num_device_alloc']} device allocations, "
+          f"{rec['num_alloc_retries']} allocator retries")
+
+
+def phase_sorted_bfs(dev, n=SORTED_N, m=SORTED_CPU_N) -> dict:
+    """The Tier J sorted-list engine on the card: pancake n = 8 on the card
+    against the CPU bit for bit (first, so that the timed runs find the
+    sort kernels loaded), pancake n = 11 fused and unfused against the
+    implicit engine's level sizes (diameter 13, 11! unique rows), and
+    Cayley n = 11 (the Mahonian profile, diameter 55).  Each timed run
+    starts from an empty allocator cache."""
+    t0 = time.perf_counter()
+    total = math.factorial(n)
+    on_card, _, _ = PB.search(m, PB.prefix_flips(m), device=dev)
+    on_cpu, _, _ = PB.search(m, PB.prefix_flips(m), device="cpu")
+    expect(on_card.level_sizes == on_cpu.level_sizes, f"n={m} levels")
+    expect(torch.equal(on_card.all.data.cpu(), on_cpu.all.data),
+           f"n={m} all.data differs between the card and the CPU")
+    expect(int(on_card.all.count) == math.factorial(m), f"n={m} count")
+    print(f"sorted_bfs: n={m} on the card == on the CPU (levels, all.data "
+          "bit for bit)")
+    del on_card, on_cpu
+    want, _, imp_secs = P.run(n, device=dev)
+    torch.cuda.empty_cache()
+    res_f, fused = sorted_run(lambda: PB.run(n, device=dev), n, True, dev)
+    expect(fused["level_sizes"] == want, (fused["level_sizes"], want))
+    expect(len(want) - 1 == P.DIAMETERS[n], want)
+    expect(int(res_f.all.count) == total, f"all.count != {n}!")
+    expect(all_unique(res_f), "a row of all occurs twice")
+    sorted_line("pancake", fused, imp_secs)
+    # kept off the card, so that the unfused peak counts its own run only
+    all_f = res_f.all.data.cpu()
+    del res_f
+    torch.cuda.empty_cache()
+    res_u, unfused = sorted_run(lambda: PB.run(n, fused=False, device=dev),
+                                n, False, dev)
+    expect(unfused["level_sizes"] == want, (unfused["level_sizes"], want))
+    expect(torch.equal(res_u.all.data.cpu(), all_f),
+           "unfused all differs from fused")
+    sorted_line("pancake", unfused, imp_secs)
+    del res_u, all_f
+    cay_imp, cay_imp_secs = cayley_implicit(n, dev)
+    torch.cuda.empty_cache()
+    res_c, cayley = sorted_run(lambda: CB.run(n, device=dev), n, True, dev)
+    mahonian = CB.mahonian(n)
+    expect(cayley["level_sizes"] == mahonian == cay_imp, "Mahonian")
+    expect(len(mahonian) - 1 == n * (n - 1) // 2, mahonian)
+    expect(all_unique(res_c), "a Cayley row occurs twice")
+    sorted_line("cayley", cayley, cay_imp_secs)
+    del res_c
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"sorted_bfs: phase {secs:.1f} s")
+    out = {"pancake_fused": fused, "pancake_unfused": unfused,
+           "cayley": cayley, "implicit_pancake_wall_s": imp_secs,
+           "implicit_pancake_states_per_s": total / imp_secs,
+           "implicit_cayley_wall_s": cay_imp_secs,
+           "implicit_cayley_states_per_s": total / cay_imp_secs,
+           "phase_s": secs}
+    print(json.dumps({"sorted_bfs": out}))
+    return out
 
 
 # ------------------------------------------------ distance oracle (K4)
@@ -4339,6 +4498,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches, sizes, k12_routes = phase_main_path(dev)
     phase_equivalence(dev)
+    torch.cuda.empty_cache()
+    phase_sorted_bfs(dev)
     torch.cuda.empty_cache()
     oracle = phase_oracle(dev, sizes)
     torch.cuda.empty_cache()

@@ -1,0 +1,79 @@
+"""Cayley-graph BFS on the GPU: S_n under adjacent transpositions (the
+bubble-sort graph), with the sorted-list engine (Tier J).
+
+Port of the ``--tier j`` path of ``examples/cayley_bfs.py``.  Ground truth
+is exact: the distance of a permutation from the identity is its
+inversion count, so
+
+  level sizes  == Mahonian numbers T(n, k)   (# permutations, k inversions)
+  diameter     == n(n-1)/2
+
+States are rows of 4-bit codes, as in ``apps.pancake_bfs`` (ceil(n / 8)
+words a row; the reference's one uint32 word at n ≤ 8).
+
+  PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 11
+  PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 6 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import math
+
+from .pancake_bfs import Moves, report, search
+
+
+def mahonian(n: int) -> list:
+    """T(n, k) for k = 0..n(n-1)/2 via the classic DP."""
+    t = [1]
+    for m in range(2, n + 1):
+        new = [0] * (len(t) + m - 1)
+        for k, v in enumerate(t):
+            for j in range(m):
+                new[k + j] += v
+        t = new
+    return t
+
+
+def adjacent_swaps(n: int) -> Moves:
+    """The n − 1 transpositions of positions i and i + 1."""
+    table = []
+    for i in range(n - 1):
+        idx = list(range(n))
+        idx[i], idx[i + 1] = idx[i + 1], idx[i]
+        table.append(idx)
+    return Moves(n, table)
+
+
+def run(n: int, device=None):
+    """Full BFS of the bubble-sort graph of S_n; holds the level sizes to
+    the Mahonian numbers and the diameter to n(n-1)/2, and prints
+    states/s.  Returns (level_sizes, BFSResult, wall seconds)."""
+    if not 3 <= n <= 12:
+        raise ValueError(f"n={n}: the 4-bit encoding takes 3 <= n <= 12")
+    total = math.factorial(n)
+    print(f"S_{n} bubble-sort Cayley graph: {total} vertices, diameter "
+          f"should be {n * (n - 1) // 2}")
+    res, secs, peak = search(n, adjacent_swaps(n), device=device)
+    sizes = res.level_sizes
+    report(res, total, secs, peak)
+    want = mahonian(n)
+    if sizes != want:
+        raise SystemExit(f"Mahonian mismatch!\n got {sizes}\nwant {want}")
+    if len(sizes) - 1 != n * (n - 1) // 2:
+        raise SystemExit(f"diameter {len(sizes) - 1} != n(n-1)/2")
+    print(f"✓ level sizes == Mahonian numbers T({n},k); "
+          f"diameter {len(sizes) - 1} == n(n-1)/2")
+    return sizes, res, secs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=11)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs on the CPU)")
+    args = ap.parse_args(argv)
+    run(args.n, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

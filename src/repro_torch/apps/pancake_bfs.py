@@ -1,0 +1,167 @@
+"""Pancake sorting via the sorted-list BFS on the GPU (Tier J), the paper's
+first BFS engine.
+
+Port of the ``--tier j`` path of ``examples/pancake_bfs.py``: a stack of n
+pancakes is a row of 4-bit codes, and ``core.constructs.
+breadth_first_search`` keeps the frontier and the visited set as lists of
+such rows.  A level expands the frontier through all n − 1 prefix flips,
+then takes one lexsort and one append scatter.
+
+Encoding: ``words(n) = ceil(n / 8)`` 32-bit words a row, 8 nibbles a
+word; position i is nibble i % 8 of word i // 8.  At n ≤ 8 that is the
+reference's single uint32 word, bit for bit; the reference's one word
+overflows at n ≥ 9.
+
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 11
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 11 --unfused
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 8 --device cpu \
+      --check
+
+n = 11 fits one 80 GB card (the widest level sorts 172M rows).  n = 12
+would sort 2.3e9 rows, past one card and the int32 run ids: the implicit
+engine (``apps.pancake_bits``) runs it.  ``--check`` holds the level sizes
+against that engine at the same n.  Known diameters (OEIS A058986):
+4→4 5→5 6→7 7→8 8→9 9→10 10→11 11→13 12→14.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import time
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from ..core import constructs as C
+from ..core import types as T
+from . import pancake_bits as P
+
+NIBBLES = 8        # 4-bit codes a 32-bit word holds
+
+
+def words(n: int) -> int:
+    return -(-n // NIBBLES)
+
+
+def start_code(n: int) -> np.ndarray:
+    """(words(n),) uint32: the sorted stack, position i holding i."""
+    code = [0] * words(n)
+    for i in range(n):
+        code[i // NIBBLES] |= i << (4 * (i % NIBBLES))
+    return np.asarray(code, np.uint32)
+
+
+def _shifts(n: int, dev) -> torch.Tensor:
+    return 4 * (torch.arange(n, device=dev) % NIBBLES)
+
+
+def unpack(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """(m, words) int32 rows → (m, n) int64 positions."""
+    word = torch.arange(n, device=rows.device) // NIBBLES
+    return (rows[:, word].to(torch.int64) >> _shifts(n, rows.device)) & 0xF
+
+
+def pack(perms: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) int64 positions → (..., words) int32 rows."""
+    vals = perms << _shifts(n, perms.device)
+    return torch.stack([T.to_int32_bits(vals[..., j:j + NIBBLES].sum(-1))
+                        for j in range(0, n, NIBBLES)], dim=-1)
+
+
+class Moves:
+    """A batched generator for the sorted BFS: row k of ``table`` lists,
+    for each position, the position its code comes from after move k.
+    Maps (m, words) int32 rows to ((m, fanout, words) int32 rows,
+    (m, fanout) bool), every move valid."""
+
+    def __init__(self, n: int, table):
+        self.n = n
+        self.table = torch.tensor(table, dtype=torch.int64)
+        self.fanout = self.table.shape[0]
+
+    def __call__(self, rows: torch.Tensor):
+        perms = unpack(rows, self.n)
+        moved = perms[:, self.table.to(rows.device)]      # (m, fanout, n)
+        ok = torch.ones(moved.shape[:2], dtype=torch.bool, device=rows.device)
+        return pack(moved, self.n), ok
+
+
+def prefix_flips(n: int) -> Moves:
+    """The n − 1 prefix reversals of 2..n pancakes."""
+    return Moves(n, P.prefix_flip_table(n))
+
+
+def search(n: int, moves: Moves, fused: bool = True, device=None):
+    """The full BFS from the sorted stack at the reference's capacities
+    (n! + 8 rows for the visited list and each level).  Returns
+    (BFSResult, wall seconds, peak device bytes or None on the CPU)."""
+    dev = _device.resolve(device)
+    total = math.factorial(n)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = C.breadth_first_search(start_code(n)[None], moves,
+                                 fanout=moves.fanout, width=words(n),
+                                 all_capacity=total + 8,
+                                 level_capacity=total + 8, fused=fused,
+                                 device=dev)
+    peak = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+    return res, time.perf_counter() - t0, peak
+
+
+def report(res, total: int, secs: float, peak) -> None:
+    print("level sizes:", res.level_sizes)
+    print(f"{total / secs:.0f} states/s ({secs:.3f}s), peak device memory "
+          + (f"{peak} bytes" if peak is not None else "not measured (cpu)"))
+
+
+def run(n: int, fused: bool = True, device=None):
+    """Full pancake BFS for n; prints the level sizes, the diameter,
+    states/s and peak device memory.  Returns (level_sizes, BFSResult,
+    wall seconds)."""
+    if not 3 <= n <= 12:
+        raise ValueError(f"n={n}: the 4-bit encoding takes 3 <= n <= 12")
+    total = math.factorial(n)
+    print(f"pancake n={n}: {total} states, sorted-list BFS "
+          f"({'fused' if fused else 'unfused'}), {words(n)} word(s) a row")
+    res, secs, peak = search(n, prefix_flips(n), fused, device)
+    sizes = res.level_sizes
+    if sum(sizes) != total or int(res.all.count) != total:
+        raise SystemExit("did not enumerate the full graph!")
+    report(res, total, secs, peak)
+    print(f"diameter (max flips to sort): {len(sizes) - 1}")
+    want = P.DIAMETERS.get(n)
+    if want is not None and len(sizes) - 1 != want:
+        raise SystemExit(f"diameter {len(sizes) - 1} != known {want}")
+    return sizes, res, secs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=11)
+    ap.add_argument("--unfused", action="store_true",
+                    help="add, removeDupes, removeAll, addAll (2 lexsorts "
+                         "and 2 scatters a level) instead of the fused "
+                         "level (1 and 1)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs on the CPU)")
+    ap.add_argument("--check", action="store_true",
+                    help="hold the level sizes against the implicit 2-bit "
+                         "engine (apps.pancake_bits) at the same n")
+    args = ap.parse_args(argv)
+    sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
+    if args.check:
+        want, _, _ = P.run(args.n, device=args.device)
+        if sizes != want:
+            raise SystemExit(f"check: level sizes {sizes} != the implicit "
+                             f"engine's {want}")
+        print("check: level sizes match the implicit engine's")
+
+
+if __name__ == "__main__":
+    main()

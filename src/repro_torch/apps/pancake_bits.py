@@ -5,8 +5,9 @@ pancakes is a permutation, its Myrvold–Ruskey rank indexes a packed 2-bit
 array, and every level is one fused kernel pass over that array.
 ``--publish DIR`` then seals the search as a distance-oracle artifact
 (``core/disk/oracle.py``), labelled on the device; ``--check`` (n ≤ 8)
-holds the level sizes and the published oracle's distances against an
-in-memory BFS distance table.
+holds the level sizes against the sorted-list engine
+(``apps.pancake_bfs``) and an in-memory BFS distance table, and the
+published oracle's distances against that table.
 
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 12
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 12 --publish DIR
@@ -35,24 +36,31 @@ from ..core.disk import oracle as O
 DIAMETERS = {4: 4, 5: 5, 6: 7, 7: 8, 8: 9, 9: 10, 10: 11, 11: 13, 12: 14}
 
 
-class PancakeNeighbors:
-    """(m,) int64 ranks → (m, n-1) int64 ranks of all n-1 prefix flips."""
+def prefix_flip_table(n: int) -> list:
+    """Row k-2 reverses the first k positions (k = 2..n): the n − 1 moves
+    of the pancake graph, as the positions each move reads."""
+    return [list(range(k - 1, -1, -1)) + list(range(k, n))
+            for k in range(2, n + 1)]
 
-    def __init__(self, n: int):
+
+class RankNeighbors:
+    """(m,) int64 ranks → (m, k) int64 ranks of the permutations that the
+    k moves of ``table`` (rows of n positions, as ``prefix_flip_table``
+    gives them) take each state to: unrank, permute, rank."""
+
+    def __init__(self, n: int, table):
         self.n = n
-        # row k-2 of the table reverses the first k positions (k = 2..n)
-        self.flips = torch.tensor(
-            [list(range(k - 1, -1, -1)) + list(range(k, n))
-             for k in range(2, n + 1)], dtype=torch.int64)
+        self.moves = torch.tensor(table, dtype=torch.int64)
 
     def __call__(self, states: torch.Tensor) -> torch.Tensor:
         perms = R.unrank(self.n, states)                    # (m, n)
-        flipped = perms[:, self.flips.to(perms.device)]     # (m, n-1, n)
-        return R.rank(flipped.reshape(-1, self.n)).view(-1, self.n - 1)
+        moved = perms[:, self.moves.to(perms.device)]       # (m, k, n)
+        return R.rank(moved.reshape(-1, self.n)).view(-1, len(self.moves))
 
 
-def neighbors(n: int) -> PancakeNeighbors:
-    return PancakeNeighbors(n)
+def neighbors(n: int) -> RankNeighbors:
+    """The pancake graph's neighbour function: all n − 1 prefix flips."""
+    return RankNeighbors(n, prefix_flip_table(n))
 
 
 def start_rank(n: int) -> int:
@@ -103,10 +111,18 @@ def publish(n: int, sizes, publish_dir: str, compress: bool = False,
 
 
 def check(n: int, sizes, publish_dir=None, device=None) -> None:
-    """Hold the level sizes, and the published oracle's distances, against
+    """Hold the level sizes against the sorted-list engine and
+    ``ram_distances``, and the published oracle's distances against
     ``ram_distances`` (meant for n ≤ 8): every rank up to n = 7, 4096
     sampled ones above."""
+    from . import pancake_bfs   # it imports this module
     total = math.factorial(n)
+    res, _, _ = pancake_bfs.search(n, pancake_bfs.prefix_flips(n),
+                                   device=device)
+    if res.level_sizes != list(sizes):
+        raise SystemExit(f"check: level sizes {list(sizes)} != the "
+                         f"sorted-list engine's {res.level_sizes}")
+    print("check: level sizes match the sorted-list BFS")
     ref = ram_distances(n, device)
     hist = torch.bincount(ref[ref >= 0]).tolist()
     if hist != list(sizes):
@@ -183,11 +199,10 @@ def main(argv=None):
                     help="seal --publish artifacts with rle2-coded chunks "
                          "(format 2)")
     ap.add_argument("--check", action="store_true",
-                    help="n <= 8: hold the level sizes, and with --publish "
-                         "the oracle's distances, against an in-memory BFS "
-                         "distance table (the reference's cross-check "
-                         "against the sorted-list engine waits for that "
-                         "engine's port, ROADMAP item 6)")
+                    help="n <= 8: hold the level sizes against the "
+                         "sorted-list engine and an in-memory BFS distance "
+                         "table, and with --publish the oracle's distances "
+                         "against that table")
     args = ap.parse_args(argv)
     if args.compress and args.publish is None:
         ap.error("--compress seals --publish artifacts; give --publish DIR")

@@ -20,6 +20,8 @@ from . import tree as T
 from .core import bitarray as BA
 from .core import paged
 from .core import ranking as R
+from .core import rlist as RL
+from .core import rset as RS
 from .models.ssm import SSMState
 from .optim import AdamWState
 
@@ -51,6 +53,22 @@ def ranks_from_rows(rows, device=None) -> torch.Tensor:
 def ranks_to_numpy(ranks: torch.Tensor) -> np.ndarray:
     """(m,) int64 ranks → (m,) uint64 numpy ranks (the numpy tier's type)."""
     return ranks.detach().cpu().numpy().astype(np.uint64)
+
+
+def _count(count, dev) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev)
+
+
+def rlist_from_jax(rl, device=None) -> RL.RoomyList:
+    """A JAX ``RoomyList`` (uint32 data, int32 count) as the port's: every
+    row's bits, those past ``count`` too, and a 0-d int32 count."""
+    data = RL.as_rows(np.asarray(rl.data), device)
+    return RL.RoomyList(data, _count(rl.count, data.device))
+
+
+def rset_from_jax(s, device=None) -> RS.RoomySet:
+    """A JAX ``RoomySet`` as the port's, as ``rlist_from_jax``."""
+    return RS.RoomySet(*rlist_from_jax(s, device))
 
 
 # ------------------------------------------------------------ LM state

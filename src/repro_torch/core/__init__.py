@@ -1,3 +1,5 @@
 """Core structures of the port: ranking, element codecs (types), RoomyArray,
-packed bit arrays, the hash table, owner maps, the bucket exchange
-(delayed), constructs, paged KV caches, obs."""
+RoomyList (rlist), RoomySet (rset), packed bit arrays, the hash table,
+owner maps, the bucket exchange (delayed), constructs (the set
+operations, chain/prefix/pair reduction, the sorted-list and implicit
+BFS), paged KV caches, obs."""

@@ -1,7 +1,22 @@
 """The paper's §3 programming constructs (port of ``repro/core/constructs.py``):
-chain reduction, parallel prefix and pair reduction on a ``RoomyArray``
-(``:69-130``), and the implicit BFS over a packed 2-bit array
-(``:234-295``).
+the set operations on ``RoomyList`` (``:37-63``), chain reduction,
+parallel prefix and pair reduction on a ``RoomyArray`` (``:69-130``), the
+sorted-list BFS (``:135-231``, ``:298-354``) and the implicit BFS over a
+packed 2-bit array (``:234-295``).
+
+The sorted-list BFS is the paper's first engine: the frontier and the
+visited set are ``RoomyList``s of state rows, and a level expands the
+frontier through ``gen_next`` then removes duplicates and visited states.
+Fused (the default), that is ``dedupe_subtract_fold``: one lexsort over
+the tagged concatenation [expansion; visited] and one append scatter
+(``types.SORT_STATS``: 1 lexsort + 1 scatter a level); unfused, the
+paper's composition add → removeDupes → removeAll → addAll, 2 lexsorts +
+2 scatters.  The JAX level expands every slot of the frontier's capacity
+and sorts every slot of the visited list's; here only the live rows are
+expanded (in batches of ``EXPAND_BATCH`` states) and, fused, only the
+live rows sorted.  The next frontier is then padded or cut to
+``next_cap`` rows as the reference's is, so the lists are the same bit
+for bit, rows past ``count`` included.
 
 Chain reduction ``a[i] = f(a[i], a[i-1])`` issues ``update(i+1, a[i])``
 for every i and syncs, so every write reads the old array.  Parallel
@@ -35,10 +50,43 @@ from typing import Callable, List
 
 import torch
 
+from .. import device as _device
 from . import array as RA
 from . import bitarray as BA
 from . import obs
+from . import rlist as RL
 from . import types as T
+
+
+# ---------------------------------------------------------------- set ops
+
+def set_union(a: RL.RoomyList, b: RL.RoomyList) -> RL.RoomyList:
+    """A = A ∪ B   (paper: addAll + removeDupes)."""
+    out, _ = RL.add_all(a, b)
+    return RL.remove_dupes(out)
+
+
+def set_difference(a: RL.RoomyList, b: RL.RoomyList) -> RL.RoomyList:
+    """A = A − B   (paper: removeAll; assumes a, b are sets)."""
+    return RL.remove_all(a, b)
+
+
+def set_intersection(a: RL.RoomyList, b: RL.RoomyList,
+                     capacity: int | None = None) -> RL.RoomyList:
+    """C = A ∩ B via the paper's recipe: (A+B) − (A−B) − (B−A)."""
+    cap = capacity or (a.capacity + b.capacity)
+    dev = a.data.device
+    a_and_b = RL.make(cap, a.width, dev)
+    a_and_b, _ = RL.add_all(a_and_b, a)
+    a_and_b, _ = RL.add_all(a_and_b, b)
+    a_and_b = RL.remove_dupes(a_and_b)
+    a_minus_b = RL.remove_all(a, b)
+    b_minus_a = RL.remove_all(b, a)
+    c = RL.make(cap, a.width, dev)
+    c, _ = RL.add_all(c, a_and_b)
+    c = RL.remove_all(c, a_minus_b)
+    return RL.remove_all(c, b_minus_a)
+
 
 # ------------------------------------------------------- chain reduction
 
@@ -177,3 +225,156 @@ def implicit_bfs(n_states: int, start_idx, neighbor_fn: Callable,
             break
         level_sizes.append(c)
     return level_sizes, ba._replace(data=data)
+
+
+# -------------------------------------------------------- sorted-list BFS
+
+class BFSResult:
+    def __init__(self):
+        self.level_sizes: List[int] = []
+        self.all: RL.RoomyList | None = None
+        self.levels_run: int = 0
+
+
+def expand(cur: RL.RoomyList, gen_next: Callable, fanout: int,
+           batch: int = EXPAND_BATCH):
+    """The neighbours of cur's rows [0, count), in row order: returns
+    ((count·fanout, width) int32 rows, (count·fanout,) bool valid).
+    ``gen_next`` maps (m, width) int32 rows to ((m, fanout, width) int32
+    rows, (m, fanout) bool), called on ``batch`` rows at a time."""
+    k, w = int(cur.count), cur.width
+    dev = cur.data.device
+    rows = torch.empty((k * fanout, w), dtype=torch.int32, device=dev)
+    valid = torch.empty(k * fanout, dtype=torch.bool, device=dev)
+    for b0 in range(0, k, batch):
+        b1 = min(b0 + batch, k)
+        nbr, ok = gen_next(cur.data[b0:b1])
+        rows[b0 * fanout:b1 * fanout] = nbr.reshape(-1, w)
+        valid[b0 * fanout:b1 * fanout] = ok.reshape(-1)
+    return rows, valid
+
+
+def dedupe_subtract_fold(nxt_rows: torch.Tensor, nxt_valid: torch.Tensor,
+                         all_lst: RL.RoomyList, next_cap: int):
+    """Fused removeDupes ∘ removeAll ∘ addAll — ONE lexsort, ONE scatter.
+
+    One lexsort over the tagged concatenation [valid nxt rows; all's rows
+    [0, count)] decides all three at once: within an equal-run, any member
+    tagged "old" kills the run (visited-set subtraction), otherwise the
+    first member survives (intra-level dedup); the survivors, already in
+    sorted order, are compacted and folded into ``all`` with one append.
+    Only live rows are sorted (the reference sorts every slot, invalid
+    ones as sentinels, which sort last and drop): the survivors are the
+    same, and ``nxt`` is padded with sentinels or cut to ``next_cap`` rows
+    as the reference's is.
+
+    Returns (nxt, all2, overflow) like the composition it replaces.
+    """
+    dev = all_lst.data.device
+    # Each temporary goes as soon as it is dead, the expansion first (the
+    # caller passes it on and keeps no reference): the widest level of
+    # pancake n = 11 sorts 172M rows, and these set the peak.
+    new = nxt_rows.to(torch.int32)[nxt_valid]
+    del nxt_rows, nxt_valid
+    n_new = new.shape[0]
+    rows = torch.cat([new, all_lst.data[:int(all_lst.count)]])
+    del new
+    is_old = torch.arange(rows.shape[0], device=dev) >= n_new
+    perm = T.lexsort_rows(rows)
+    rows_s = rows[perm]
+    del rows
+    keep = (T.first_of_run(rows_s) & T.rows_valid(rows_s)
+            & ~RL.segment_any(is_old[perm], T.run_ids(rows_s)))
+    del perm
+    rows_c, count = T.compact_valid_first(rows_s, keep)   # stays sorted
+    del rows_s, keep
+    pad = next_cap - rows_c.shape[0]
+    nxt_data = (torch.cat([rows_c, T.sentinel_rows(pad, all_lst.width, dev)])
+                if pad > 0 else rows_c[:next_cap])
+    nxt = RL.RoomyList(nxt_data, torch.clamp(count, max=next_cap))
+    all2, ov2 = RL.add(all_lst, nxt_data,
+                       torch.arange(next_cap, device=dev) < count)
+    return nxt, all2, (count > next_cap) | ov2
+
+
+def _traced_expand(cur: RL.RoomyList, gen_next: Callable, fanout: int):
+    """``expand`` in a ``bfs.expand`` span; while tracing, the span waits
+    for the device, so that it times the expansion and not its enqueue."""
+    with obs.span("bfs.expand", n_cur=int(cur.count)):
+        rows, valid = expand(cur, gen_next, fanout)
+        if obs.ACTIVE and rows.is_cuda:
+            torch.cuda.synchronize(rows.device)
+    return rows, valid
+
+
+def _bfs_level(cur: RL.RoomyList, all_lst: RL.RoomyList, gen_next: Callable,
+               fanout: int, next_cap: int):
+    """One level: expand cur, then one fused dedupe/subtract/fold pass,
+    which owns the expansion and drops it once it has the valid rows."""
+    return dedupe_subtract_fold(*_traced_expand(cur, gen_next, fanout),
+                                all_lst, next_cap)
+
+
+def _bfs_level_reference(cur: RL.RoomyList, all_lst: RL.RoomyList,
+                         gen_next: Callable, fanout: int, next_cap: int):
+    """Unfused reference level (2 lexsorts + 2 scatters): the paper's
+    add → removeDupes → removeAll → addAll; same lists as _bfs_level."""
+    rows, valid = _traced_expand(cur, gen_next, fanout)
+    nxt = RL.make(next_cap, cur.width, cur.data.device)
+    nxt, overflow = RL.add(nxt, rows, valid)
+    del rows, valid
+    nxt = RL.remove_dupes(nxt)                 # dedup within level
+    nxt = RL.remove_all(nxt, all_lst)          # dedup against previous levels
+    all2, ov2 = RL.add_all(all_lst, nxt)       # record new elements
+    return nxt, all2, overflow | ov2
+
+
+def breadth_first_search(start_rows, gen_next: Callable, fanout: int,
+                         width: int, all_capacity: int, level_capacity: int,
+                         max_levels: int = 1_000, fused: bool = True,
+                         device=None) -> BFSResult:
+    """Paper §3 BFS over an implicit graph, with capacity growth.
+
+    ``start_rows`` are (m, width) rows (a tensor or uint32 array-like),
+    ``gen_next`` as ``expand`` takes it.  A level whose result overflows
+    the visited list doubles its capacity and runs once more; a second
+    overflow raises ``MemoryError``.  ``fused=False`` runs the unfused
+    composition.  Each level is a ``bfs.level`` span (``tier="torch"``,
+    ``engine="sorted"``) around a ``bfs.expand`` one.
+    """
+    dev = _device.resolve(device)
+    start_rows = RL.as_rows(start_rows, dev).reshape(-1, width)
+    all_lst, _ = RL.add(RL.make(all_capacity, width, dev), start_rows)
+    cur, _ = RL.add(RL.make(level_capacity, width, dev), start_rows)
+    level_fn = _bfs_level if fused else _bfs_level_reference
+
+    res = BFSResult()
+    res.level_sizes.append(int(cur.count))
+    for _ in range(max_levels):
+        frontier = res.level_sizes[-1]
+        if frontier == 0:
+            res.level_sizes.pop()              # last level was empty
+            break
+        with obs.span("bfs.level", level=res.levels_run + 1, tier="torch",
+                      engine="sorted", frontier=frontier):
+            next_cap = max(level_capacity, frontier * fanout)
+            nxt, all2, overflow = level_fn(cur, all_lst, gen_next, fanout,
+                                           next_cap)
+            if bool(overflow):
+                # Grow the visited list and redo the level (the failed
+                # attempt changed no state).
+                all_capacity *= 2
+                all_lst, _ = RL.add_all(RL.make(all_capacity, width, dev),
+                                        all_lst)
+                nxt, all2, overflow = level_fn(cur, all_lst, gen_next,
+                                               fanout, next_cap)
+                if bool(overflow):
+                    raise MemoryError("BFS capacity growth failed twice")
+            cur, all_lst = nxt, all2
+            res.levels_run += 1
+            res.level_sizes.append(int(cur.count))
+        if res.level_sizes[-1] == 0:
+            res.level_sizes.pop()
+            break
+    res.all = all_lst
+    return res

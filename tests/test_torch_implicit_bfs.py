@@ -177,7 +177,12 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/core/array.py",
             "src/repro_torch/core/hashtable.py",
             "src/repro_torch/core/sharding.py",
-            "src/repro_torch/core/delayed.py"} <= names
+            "src/repro_torch/core/delayed.py",
+            "src/repro_torch/core/rlist.py",
+            "src/repro_torch/core/rset.py",
+            "src/repro_torch/apps/pancake_bfs.py",
+            "src/repro_torch/apps/cayley_bfs.py",
+            "src/repro_torch/apps/quickstart.py"} <= names
     for path in files:
         for mod, level in _imports(path):
             top = mod.split(".")[0]
