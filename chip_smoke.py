@@ -18,7 +18,8 @@ caught:
    show no spills and no stack, K9's falcon-mamba instantiation (bf16 and
    f32 at 4 threads a channel) no spills; the ``ptxas K1`` and ``ptxas
    K2`` lines (the binned route's kernels: registers, spills, stack,
-   shared memory; none may spill).
+   shared memory; none may spill); the ``ptxas K4`` line (both
+   instantiations of the chunk-table gather; no spill, no stack).
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
    counts), K1 and K2 through their wrappers and on each route
@@ -63,30 +64,42 @@ caught:
    for every level), the ``bfs.level`` / ``bfs.expand`` span totals, the
    widest level's ms and the allocator's device allocations and retries;
    one ``{"sorted_bfs": …}`` line.
-7. K4 (the 2-bit gather) and the distance oracle (``phase_oracle``):
-   a. K4 bit-exact against its plain version at the JAX tests' (W, M)
-      (indices in [-50, 16W + 50)), misaligned, and empty (no launch),
-      all-negative and all-past-the-end batches;
+7. K4 (the 2-bit gather over a chunk table) and the distance oracle
+   (``phase_oracle``):
+   a. K4's flat form bit-exact against its plain version at the JAX tests'
+      (W, M) (indices in [-50, 16W + 50)), misaligned, and empty (no
+      launch), all-negative and all-past-the-end batches; its chunked form
+      at the same shapes, in chunks of 16W fields, of whole words, of
+      words shared between chunks and of 100 fields, ranks at every chunk
+      boundary, misaligned, with null entries (their bytes kept), and the
+      divide at chunks of 2^40 + 7 fields; the chunked plain version ==
+      the flat one over the joined words;
    b. main path of the serving tier, every count set to 0 just before
       and read just after: ``apps.pancake_bits.publish`` (n = 12, 16
       chunks; ``label_distances_mod3`` on the card, K1 15, K2 16, K3 4
       times, each K1 and K2 launch on the route ``bitpack.route`` names:
-      level sizes == the BFS's of 5., diameter 14, the per-code counts
+      level sizes == the BFS's, diameter 14, the per-code counts
       hold), a ``DistanceOracle`` that holds the artifact,
-      ``codes`` (one K4 launch per touched chunk), ``paths`` and
-      ``distance`` of 4096 ranks, every path held structurally (length
-      d + 1, neighbours, ends at the start); each K4 call of the run held
-      bit for bit to the plain version on its chunk, and the codes to the
-      plain gather over the label words joined from the chunks;
-   c. K4 on those 29,937,600 words at M = 4096 and 1,048,576 random
-      ranks, bit-exact, a planted fault (one field flipped) caught, and
-      its device time (a fresh batch each repetition) beside its bound
-      (bytes: 8M plus 32 B for each distinct sector the batch touches)
-      and the plain version's;
+      ``codes`` (one K4 launch over the chunks the batch touches),
+      ``paths`` and ``distance`` of 4096 ranks (at most diameter + 1 = 15
+      launches a batch), every path held structurally (length d + 1,
+      neighbours, ends at the start); what each K4 call of the run wrote
+      held bit for bit to the plain version on its table, and the codes
+      to the plain gather over the label words joined from the chunks;
+   c. K4 over those 16 chunks at M = 4096 and 1,048,576 random ranks (and
+      every chunk boundary), bit-exact against its plain version and the
+      flat plain gather over the joined words, a planted fault (one field
+      of one chunk flipped) caught, a null chunk's bytes kept, and its
+      device time (a fresh batch each repetition) over a prebuilt device
+      table and through the wrapper, beside its bound (bytes: 9M plus 32 B
+      for each distinct sector the batch touches), the flat form's time
+      over the joined words and the plain version's;
    d. queries/s and K4 launches a batch of ``codes`` (M = 4096 and
-      1,048,576), ``distance`` and ``paths`` (M = 4096); the same at 20%
-      of the artifact, with the ``oracle`` counters and resident_peak ≤
-      budget; the rle2 publish (identical chunk_sha256 and codes);
+      1,048,576: one launch a batch), ``distance`` and ``paths`` (M =
+      4096); at 20% of the artifact the codes held again and K4 launched
+      once per ascending group of chunks within the budget (6 for 16
+      chunks), with the ``oracle`` counters and resident_peak <= budget;
+      the rle2 publish (identical chunk_sha256 and codes);
    e. n = 10: the labels through the kernels == through their plain
       versions on the card (``impl="ref"``: levels and words) == the
       published chunks; ``distance`` of all 3,628,800 ranks == a plain
@@ -636,6 +649,25 @@ def k12_ptxas() -> dict:
     return out
 
 
+def k4_ptxas() -> dict:
+    """The ptxas report of K4's two instantiations: int64 ranks to uint8
+    codes over a chunk table (the oracle's) and int32 to int32 (the flat
+    form); neither may spill or use a stack (a thread keeps its 8 word
+    addresses live)."""
+    out = {}
+    for name, marker in (("gather2_kernel<long long, uint8_t>",
+                          "gather2_kernelIxhE"),
+                         ("gather2_kernel<int32_t, int32_t>",
+                          "gather2_kernelIiiE")):
+        out[name] = entry_ptxas("bitpack", marker)
+        expect(out[name].get("spill_store_bytes") == 0
+               and out[name].get("spill_load_bytes") == 0
+               and out[name].get("stack_bytes") == 0,
+               f"ptxas {name}: {out[name]}")
+    print(f"ptxas K4 (the chunk-table gather): {out}")
+    return out
+
+
 def phase_build() -> dict:
     names = _build.sources()
     secs = _build.build(names)
@@ -651,7 +683,8 @@ def phase_build() -> dict:
     FAB._lib()
     MS._lib()
     PD._lib()
-    return k6_ptxas(), k7_ptxas(), k8_ptxas(), k9_ptxas(), k12_ptxas()
+    return (k6_ptxas(), k7_ptxas(), k8_ptxas(), k9_ptxas(), k12_ptxas(),
+            k4_ptxas())
 
 
 # ------------------------------------------------------------------ parity
@@ -1396,8 +1429,8 @@ ORACLE_EXACT_N = 10                  # every rank against a BFS table
 
 
 def k4_check(words, idx, what, got=None) -> None:
-    """K4 (or ``got``, a result K4 gave) against its plain version on the
-    same inputs, bit for bit."""
+    """K4's flat form (or ``got``, a result it gave) against its plain
+    version on the same inputs, bit for bit."""
     if got is None:
         got = K.bitpack_gather2(words, idx)
     want = R.bitpack_gather2_ref(words, idx)
@@ -1408,6 +1441,43 @@ def k4_check(words, idx, what, got=None) -> None:
     if err:
         raise AssertionError(f"gather2 disagrees with its plain version "
                              f"({what}): max abs err {err}")
+
+
+def k4c_check(table, ce, ranks, before, what, got=None) -> torch.Tensor:
+    """K4's chunked form (or ``got``, what it wrote over a copy of
+    ``before``) against its plain version over another copy, bit for bit;
+    returns the plain version's codes."""
+    if got is None:
+        got = K.bitpack_gather2_chunked(table, ce, ranks, before.clone())
+    want = R.bitpack_gather2_chunked_ref(table, ce, ranks, before.clone())
+    torch.cuda.synchronize()
+    expect(got.dtype == torch.uint8 and got.shape == ranks.shape, what)
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    MAX_ERR["gather2"] = max(MAX_ERR["gather2"], err)
+    if err:
+        raise AssertionError(f"gather2 (chunked) disagrees with its plain "
+                             f"version ({what}): max abs err {err}")
+    return want
+
+
+def chunked_inputs(rng, w, ce, dev):
+    """Random words of 16·w fields cut into chunks of ``ce`` fields, each
+    packed into words of its own; returns (the joined words, the chunks'
+    words)."""
+    words = random_words(rng, w, dev)
+    fields = R.unpack_fields(words).reshape(-1)
+    chunks = []
+    for lo in range(0, fields.numel(), ce):
+        f = fields[lo:lo + ce]
+        pad = torch.zeros((-f.numel()) % 16, dtype=f.dtype, device=dev)
+        chunks.append(R.pack_fields(torch.cat([f, pad]).view(-1, 16)))
+    return words, chunks
+
+
+def chunk_edges(n_chunks, ce, dev) -> torch.Tensor:
+    return torch.tensor([e for c in range(n_chunks + 1)
+                         for e in (c * ce - 1, c * ce, c * ce + 1)],
+                        dtype=torch.int64, device=dev)
 
 
 def phase_k4_parity_edges(dev) -> None:
@@ -1429,31 +1499,95 @@ def phase_k4_parity_edges(dev) -> None:
     before = K.LAUNCHES["gather2"]
     K.bitpack_gather2(words, empty)
     expect(K.LAUNCHES["gather2"] == before, "an empty batch launched K4")
+    # the chunked form at the same shapes: one chunk, chunks of whole
+    # words, of words shared between chunks, of 100 fields, of one word
+    # (at W = 4096 a table past the shared-memory cap, read through
+    # __ldg); ranks in [-50, 16W + 50) and at every boundary; out bytes
+    # random; a table with null entries; misaligned ranks and out (the
+    # one-at-a-time path)
+    expect(4096 > K._lib().roomy_gather2_smem_chunks(), "no table past the "
+           "shared-memory cap")
+    for w, m in K4_TEST_SHAPES:
+        for ce in (16 * w, 16 * (w // 3) + 16, 4 * (w // 3) + 4, 100, 16):
+            joined, chunks = chunked_inputs(rng, w, ce, dev)
+            ranks = torch.cat([
+                torch.from_numpy(rng.integers(-50, 16 * w + 50, m)).to(dev),
+                chunk_edges(len(chunks), ce, dev)])
+            out = torch.from_numpy(rng.integers(0, 256, ranks.numel() + 1)
+                                   .astype(np.uint8)).to(dev)
+            want = k4c_check(chunks, ce, ranks, out[:-1],
+                             f"W={w} M={m} chunks of {ce}")
+            inside = (ranks >= 0) & (ranks < 16 * w)
+            expect(torch.equal(want.int(), torch.where(
+                inside, R.bitpack_gather2_ref(
+                    joined, ranks.clamp(-1, 16 * w).int()), 0)),
+                f"the chunked plain version != the flat one, W={w} ce={ce}")
+            for lo in (0, 1):      # ranks and out misaligned
+                buf = out.clone()
+                got = K.bitpack_gather2_chunked(chunks, ce, ranks[1:],
+                                                buf[1 + lo:-1 + lo or None])
+                k4c_check(chunks, ce, ranks[1:], out[1 + lo:-1 + lo or None],
+                          f"W={w} M={m} chunks of {ce}, misaligned", got=got)
+            nulls = [None if c % 3 == 1 else t for c, t in enumerate(chunks)]
+            got = K.bitpack_gather2_chunked(nulls, ce, ranks, out[:-1].clone())
+            k4c_check(nulls, ce, ranks, out[:-1], f"W={w} nulls", got=got)
+            chunk = torch.div(ranks, ce, rounding_mode="floor")
+            kept = (ranks >= 0) & (chunk < len(chunks)) & (chunk % 3 == 1)
+            expect((len(chunks) < 2 or bool(kept.any()))
+                   and torch.equal(got[kept], out[:-1][kept]),
+                   f"a null entry's bytes changed, W={w} ce={ce}")
+    # the divide at large ranks: chunks of 2^40 + 7 fields, the first null
+    ce = (1 << 40) + 7
+    small = random_words(rng, 4, dev)
+    ranks = torch.tensor([ce - 1, ce, ce + 1, ce + 63, ce + 64, 2 * ce - 1,
+                          2 * ce, (1 << 62) + 5, -1, 0], device=dev)
+    out = torch.full((ranks.numel(),), 0xAB, dtype=torch.uint8, device=dev)
+    got = K.bitpack_gather2_chunked([None, small], ce, ranks, out.clone())
+    k4c_check([None, small], ce, ranks, out, "chunks of 2^40 + 7", got=got)
+    expect(got[[0, -1]].tolist() == [0xAB, 0xAB] and got[4:8].tolist()
+           == [0, 0, 0, 0] and torch.equal(got[1:4].int(),
+           R.bitpack_gather2_ref(small, torch.tensor([0, 1, 63],
+                                                     dtype=torch.int32,
+                                                     device=dev))),
+           f"the divide at 2^40 + 7: {got.tolist()}")
+    before = K.LAUNCHES["gather2"]
+    e64 = torch.empty(0, dtype=torch.int64, device=dev)
+    K.bitpack_gather2_chunked([small], 64, e64,
+                              torch.empty(0, dtype=torch.uint8, device=dev))
+    expect(K.LAUNCHES["gather2"] == before,
+           "an empty batch launched K4 (chunked)")
     print("parity: K4 bit-exact at the JAX test shapes (indices in [-50, "
           "16W + 50)), misaligned, empty (no launch), all negative, all "
-          "past the end")
+          "past the end; chunked: chunks of 16W, of whole words, of shared "
+          "words, of 100 fields and of one word (4096 chunks, past the "
+          "shared-memory cap), ranks at every chunk boundary, "
+          "misaligned ranks and out, null entries (bytes kept), the divide "
+          "at chunks of 2^40 + 7, empty (no launch)")
 
 
 @contextlib.contextmanager
 def k4_held_to_plain(calls):
-    """Wraps ``ops.bitpack_gather2`` (the call the oracle makes) for one
-    run: each result K4 gives is held bit for bit against the plain version
-    on the same chunk words and chunk-local indices, and its batch size is
-    appended to ``calls``.  The launch count stays in the kernel's wrapper,
-    and the plain version launches nothing that it counts."""
-    orig = OPS.bitpack_gather2
+    """Wraps ``ops.bitpack_gather2_chunked`` (the call the oracle makes)
+    for one run: what each call writes is held bit for bit against the
+    plain version on the same table, ranks and prior bytes, and its batch
+    size and non-null chunks are appended to ``calls``.  The launch count
+    stays in the kernel's wrapper, and the plain version launches nothing
+    that it counts."""
+    orig = OPS.bitpack_gather2_chunked
 
-    def held(packed, idx, **kw):
-        got = orig(packed, idx, **kw)
-        k4_check(packed, idx, f"oracle call {len(calls)}, M={idx.numel()}",
-                 got=got)
-        calls.append(idx.numel())
+    def held(table, ce, ranks, out, **kw):
+        before = out.clone()
+        got = orig(table, ce, ranks, out, **kw)
+        k4c_check(table, ce, ranks, before,
+                  f"oracle call {len(calls)}, M={ranks.numel()}", got=got)
+        calls.append((ranks.numel(),
+                      [c for c, w in enumerate(table) if w is not None]))
         return got
-    OPS.bitpack_gather2 = held
+    OPS.bitpack_gather2_chunked = held
     try:
         yield calls
     finally:
-        OPS.bitpack_gather2 = orig
+        OPS.bitpack_gather2_chunked = orig
 
 
 def published_words(orc) -> torch.Tensor:
@@ -1469,9 +1603,10 @@ def random_ranks(rng, total, m, dev) -> torch.Tensor:
 
 
 def k4_bound(words, idx) -> dict:
-    """Bytes at 3.35 TB/s: the M int32 indices read and the M int32 fields
-    written once, and each distinct 32-byte sector of the words that the
-    valid indices touch read once (a sector is 8 words, 128 fields)."""
+    """K4's flat form: bytes at 3.35 TB/s, the M int32 indices read and the
+    M int32 fields written once, and each distinct 32-byte sector of the
+    words that the valid indices touch read once (a sector is 8 words,
+    128 fields)."""
     i = idx.long()
     i = i[(i >= 0) & (i < 16 * words.shape[0])]
     sectors = int(torch.unique(i >> 7).numel())
@@ -1480,41 +1615,104 @@ def k4_bound(words, idx) -> dict:
             "bytes": nbytes, "sectors": sectors}
 
 
-def phase_k4_serving(words, total, dev) -> dict:
-    """K4 on the n = 12 label words at M = 4096 and M = 1,048,576 random
-    ranks: bit-exact against its plain version, a planted fault (one field
-    of the words flipped) caught, and its device time (a fresh batch each
-    repetition, so the words come cold from memory as a new query's do)
-    beside its bound and the plain version's."""
+def k4c_bound(table, ce, ranks) -> dict:
+    """K4's chunked form: bytes at 3.35 TB/s, the M int64 ranks read and
+    the M uint8 codes written once, and each distinct 32-byte sector of
+    the chunks' words that the ranks touch read once (one sector: a
+    chunk's words 8 at a time from its first)."""
+    chunk = torch.div(ranks, ce, rounding_mode="floor")
+    local = ranks - chunk * ce
+    words = torch.tensor([-1 if w is None else w.shape[0] for w in table],
+                         device=ranks.device)
+    ok = ((ranks >= 0) & (chunk < len(table))
+          & (local < 16 * words[chunk.clamp(0, len(table) - 1)]))
+    key = chunk[ok] * (1 << 40) + (local[ok] >> 7)
+    sectors = int(torch.unique(key).numel())
+    nbytes = 9 * ranks.numel() + 32 * sectors
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "sectors": sectors}
+
+
+def k4_groups(chunk_bytes, budget) -> int:
+    """The K4 launches of a ``codes`` batch that touches every chunk: the
+    chunks in ascending runs whose bytes fit ``budget``, a chunk larger
+    than it a run of its own."""
+    runs, size = 0, None
+    for b in chunk_bytes:
+        if size is None or size + b > budget:
+            runs, size = runs + 1, 0
+        size += b
+    return runs
+
+
+def phase_k4_serving(orc, words, total, dev) -> dict:
+    """K4 on the n = 12 oracle's 16 chunks (``orc``'s cache) at M = 4096
+    and M = 1,048,576 random ranks: the chunked form bit-exact against its
+    plain version and, over the joined label words, against the flat plain
+    gather; ranks at every chunk boundary (the divide); a planted fault
+    (one field of one chunk's words flipped) caught; a null entry's bytes
+    kept.  Device times (a fresh batch each repetition, so the words come
+    cold from memory as a new query's do) of the kernel over a prebuilt
+    device table, of the wrapper (which stages the table), and of the flat
+    form over the joined words, beside their bounds and the plain
+    version's."""
     rng = np.random.default_rng(12)
+    ce = orc.chunk_elems
+    table = [orc.cache.get(c).words for c in range(orc.n_chunks)]
+    edges = chunk_edges(orc.n_chunks, ce, dev)
     out = {}
     for m in ORACLE_BATCHES:
-        batches = [random_ranks(rng, total, m, dev).to(torch.int32)
-                   for _ in range(REPS + 1)]
-        idx = batches[0]
-        k4_check(words, idx, f"n=12 words, M={m}")
-        e = int(idx[0])
-        faulted = words.clone()
-        faulted[e >> 4] ^= 1 << (2 * (e & 15))
-        got = K.bitpack_gather2(faulted, idx)
-        want = R.bitpack_gather2_ref(words, idx)
-        caught = int((got - want).abs().max())
+        batches = [random_ranks(rng, total, m, dev) for _ in range(REPS + 1)]
+        ranks = torch.cat([batches[0][:m - edges.numel()], edges])
+        before = torch.full((m,), 0xAB, dtype=torch.uint8, device=dev)
+        want = k4c_check(table, ce, ranks, before, f"n=12 chunks, M={m}")
+        flat = R.bitpack_gather2_ref(words, ranks.clamp(-1, total).int())
+        expect(torch.equal(want.int(), flat),
+               f"K4 over the chunks != the flat plain gather (M={m})")
+        e = int(ranks[0])
+        c, loc = e // ce, e % ce
+        faulted = list(table)
+        faulted[c] = table[c].clone()
+        faulted[c][loc >> 4] ^= 1 << (2 * (loc & 15))
+        got = K.bitpack_gather2_chunked(faulted, ce, ranks, before.clone())
+        caught = int((got.int() - want.int()).abs().max())
         expect(caught > 0, f"the K4 check misses a flipped field (M={m})")
         del faulted
+        nulls = list(table)
+        nulls[c] = None
+        got = K.bitpack_gather2_chunked(nulls, ce, ranks, before.clone())
+        k4c_check(nulls, ce, ranks, before, f"n=12, chunk {c} null", got=got)
+        mine = torch.div(ranks, ce, rounding_mode="floor") == c
+        expect(bool((got[mine] == 0xAB).all())
+               and torch.equal(got[~mine], want[~mine]),
+               f"a null entry's bytes changed (M={m})")
+        codes = torch.empty(m, dtype=torch.uint8, device=dev)
         fresh = itertools.cycle(batches)
-        ms = device_ms(lambda: K.bitpack_gather2(words, next(fresh)))
-        plain = device_ms(lambda: R.bitpack_gather2_ref(words, idx),
-                          reps=PLAIN_REPS)
-        res = {"ms": ms, "plain_ms": plain, **k4_bound(words, idx),
+        dev_table = K.chunk_table(table, dev)
+        ms = device_ms(lambda: K.launch_gather2_chunked(
+            dev_table, ce, next(fresh), codes))
+        wrapper_ms = device_ms(lambda: K.bitpack_gather2_chunked(
+            table, ce, next(fresh), codes))
+        idx32 = [b.int() for b in batches]
+        fresh32 = itertools.cycle(idx32)
+        flat_ms = device_ms(lambda: K.bitpack_gather2(words, next(fresh32)))
+        plain = device_ms(lambda: R.bitpack_gather2_chunked_ref(
+            table, ce, batches[0], codes), reps=PLAIN_REPS)
+        res = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain,
+               **k4c_bound(table, ce, batches[0]), "flat_ms": flat_ms,
+               "flat_bound_ms": k4_bound(words, idx32[0])["bound_ms"],
                "planted_fault_err": caught}
         out[m] = res
-        print(f"time: K4 n={ORACLE_N} words ({words.shape[0]}), M={m}: "
-              f"{ms:.4f} ms on the device, bound {res['bound_ms']:.4f} ms (bytes: "
-              f"{res['bytes']} = 8M + 32 x {res['sectors']} sectors at 3.35 "
+        print(f"time: K4 over the n={ORACLE_N} oracle's {len(table)} chunks "
+              f"(chunks of {ce} fields), M={m}: {ms:.4f} ms on the device "
+              f"(through the wrapper, which stages the table: "
+              f"{wrapper_ms:.4f}), bound {res['bound_ms']:.4f} ms (bytes: "
+              f"{res['bytes']} = 9M + 32 x {res['sectors']} sectors at 3.35 "
               f"TB/s), {res['bound_ms'] / ms:.1%} of the bound, "
-              f"{m / ms * 1e3:.3e} fields/s; plain {plain:.4f} ms (median "
-              f"of {PLAIN_REPS}); library none; planted fault (one field "
-              f"flipped) read {caught}")
+              f"{m / ms * 1e3:.3e} codes/s; the flat form over the joined "
+              f"words {flat_ms:.4f} ms (bound {res['flat_bound_ms']:.4f}); "
+              f"plain {plain:.4f} ms (median of {PLAIN_REPS}); library none;"
+              f" planted fault (one field flipped) read {caught}")
     return out
 
 
@@ -1585,15 +1783,25 @@ def phase_oracle_serve(root, n, sizes, dev):
     full = O.DistanceOracle(art, cache_bytes=1 << 30, gen_neighbors=gen,
                             device=dev)
     probe = random_ranks(rng, total, ORACLE_BATCHES[0], dev)
-    before = K.LAUNCHES["gather2"]
+    touched_chunks = torch.unique(probe // full.chunk_elems).tolist()
+    touched = len(touched_chunks)
+    diameter = P.DIAMETERS[n]
     with k4_held_to_plain([]) as calls:
+        before = K.LAUNCHES["gather2"]
         codes = full.codes(probe)
-        touched = int(torch.unique(probe // full.chunk_elems).numel())
-        expect(K.LAUNCHES["gather2"] - before == touched == len(calls),
-               "codes launches K4 once per touched chunk")
+        expect(K.LAUNCHES["gather2"] - before == 1 == len(calls)
+               and len(calls[0][1]) == touched,
+               f"codes at a budget holding the artifact launched K4 "
+               f"{K.LAUNCHES['gather2'] - before} times over {calls}, want "
+               f"once over the {touched} chunks it touches")
         dist, chains = full.paths(probe)
         check_paths(dist, chains, probe, start, gen)
+        before = K.LAUNCHES["gather2"]
         expect(torch.equal(full.distance(probe), dist), "distance != paths")
+        dist_launches = K.LAUNCHES["gather2"] - before
+        expect(0 < dist_launches <= diameter + 1,
+               f"a distance batch launched K4 {dist_launches} times, more "
+               f"than the diameter + 1 ({diameter + 1})")
     expect(bool(((dist % 3 + 1) == codes.long()).all()),
            "a distance disagrees with its code")
     launches = dict(K.LAUNCHES)
@@ -1609,25 +1817,34 @@ def phase_oracle_serve(root, n, sizes, dev):
           f"{meta['n_chunks']} chunks), level sizes == the BFS's, diameter "
           f"{P.DIAMETERS[n]}, per-code counts hold; launches {launches} (the "
           f"publish alone {label_launches}, K1/K2 by route {label_routes}, "
-          f"each the route K.route names); {touched} K4 launches for "
-          f"{probe.numel()} codes; each of the run's {len(calls)} K4 calls "
-          f"(M {min(calls)}..{max(calls)}) == the plain version, and the "
+          f"each the route K.route names); one K4 launch for "
+          f"{probe.numel()} codes over the {touched} chunks they touch, "
+          f"{dist_launches} for a distance batch (diameter + 1 = "
+          f"{diameter + 1} at most); each of the run's {len(calls)} K4 calls "
+          f"(M {min(c[0] for c in calls)}..{max(c[0] for c in calls)}) == "
+          f"the plain version, and the "
           f"codes == the plain gather over the joined label words; every "
           f"path of the sample holds (length d + 1, neighbours, ending at "
           f"the start; longest {int(dist.max())})")
     res = {"publish_s": publish_s, "artifact_bytes": art_bytes,
            "launches": launches, "label_routes": label_routes,
-           "k4_launches_first_codes": touched,
+           "k4_launches_first_codes": 1, "k4_touched_first_codes": touched,
+           "k4_launches_first_distance": dist_launches,
            "k4_calls_held": len(calls)}
-    k4 = phase_k4_serving(words, total, dev)
+    k4 = phase_k4_serving(full, words, total, dev)
     del words
     m = ORACLE_BATCHES[0]
     for b in ORACLE_BATCHES:
         res[f"codes_{b}"] = serve_batches(full.codes, rng, total, b, dev)
+        expect(res[f"codes_{b}"]["k4_launches_per_batch"] == 1,
+               f"codes batches of {b}: {res[f'codes_{b}']}")
     res[f"distance_{m}"] = serve_batches(full.distance, rng, total, m, dev,
                                          reps=3)
     res[f"paths_{m}"] = serve_batches(full.paths, rng, total, m, dev,
                                       reps=3)
+    for key in (f"distance_{m}", f"paths_{m}"):
+        expect(res[key]["k4_launches_per_batch"] <= diameter + 1, res[key])
+    chunk_bytes = [full._chunk_bytes(c) for c in range(full.n_chunks)]
     full.close()
     for key, r in list(res.items()):
         if isinstance(r, dict) and "queries_per_s" in r:
@@ -1636,20 +1853,33 @@ def phase_oracle_serve(root, n, sizes, dev):
                   f"a batch of {r['m']}), {r['k4_launches_per_batch']:.1f} "
                   f"K4 launches a batch")
     budget = int(ORACLE_SMALL_BUDGET * art_bytes)
+    groups = k4_groups(chunk_bytes, budget)
     O.reset_stats()
     with O.DistanceOracle(art, cache_bytes=budget, gen_neighbors=gen,
                           device=dev) as small:
-        expect(torch.equal(small.codes(probe), codes), "codes at 20%")
+        with k4_held_to_plain([]) as small_calls:
+            expect(torch.equal(small.codes(probe), codes), "codes at 20%")
+        expect([c for _, cs in small_calls for c in cs] == touched_chunks
+               and len(small_calls) == k4_groups(
+                   [chunk_bytes[c] for c in touched_chunks], budget) and all(
+            sum(chunk_bytes[c] for c in cs) <= budget or len(cs) == 1
+            for _, cs in small_calls),
+            f"codes at 20%: K4 over {[cs for _, cs in small_calls]}, want "
+            f"{groups} ascending groups within {budget} bytes")
         small_codes = serve_batches(small.codes, rng, total, m, dev)
+        expect(small_codes["k4_launches_per_batch"] == groups, small_codes)
         small_dist = serve_batches(small.distance, rng, total, m, dev,
                                    reps=1)
         stats = dict(O.STATS)
     expect(stats["resident_peak"] <= budget and stats["evictions"] > 0
            and O.STATS["resident_bytes"] == 0, (stats, budget))
     print(f"oracle: budget {budget} bytes (20% of the artifact): codes "
-          f"{small_codes['queries_per_s']:.1f} queries/s, distance "
-          f"{small_dist['queries_per_s']:.1f} queries/s (batches of {m}); "
-          f"counters {stats}; resident_peak <= budget")
+          f"{small_codes['queries_per_s']:.1f} queries/s, "
+          f"{small_codes['k4_launches_per_batch']:.1f} K4 launches a batch "
+          f"({groups} groups of chunks within the budget), distance "
+          f"{small_dist['queries_per_s']:.1f} queries/s, "
+          f"{small_dist['k4_launches_per_batch']:.1f} K4 launches a batch "
+          f"(batches of {m}); counters {stats}; resident_peak <= budget")
     t0 = time.perf_counter()
     packed = P.publish(n, sizes, art + "_rle2", compress=True, device=dev)
     compress_s = time.perf_counter() - t0
@@ -1663,7 +1893,8 @@ def phase_oracle_serve(root, n, sizes, dev):
         expect(torch.equal(rle.codes(probe), codes), "rle2 codes differ")
     print(f"oracle: compressed publish in {compress_s:.3f} s, {stored} "
           f"bytes stored for {art_bytes}; identical chunk_sha256 and codes")
-    res.update(small_budget=budget, small_codes=small_codes,
+    res.update(small_budget=budget, small_groups=groups,
+               small_codes=small_codes,
                small_distance=small_dist, small_stats=stats,
                compressed_publish_s=compress_s, compressed_bytes=stored)
     return res, k4
@@ -4487,7 +4718,7 @@ def main() -> None:
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx = phase_build()
+    ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx, k4_ptx = phase_build()
     phase_parity_edges(dev)
     bin_faults = phase_bin_faults(dev)
     data, tgt = phase_parity_full(dev)
@@ -4553,18 +4784,26 @@ def main() -> None:
     kernels.append({
         "name": "bitpack_gather2", "route": "cuda", "source": SOURCE,
         "replaces": K4_REPLACES, "launches": serve_["launches"]["gather2"],
+        "kernel": "gather2_kernel<long long, uint8_t> (the chunk-table "
+                  "gather: one launch a codes batch; the flat form is "
+                  "gather2_kernel<int32_t, int32_t>)", "ptxas": k4_ptx,
         "max_abs_err": MAX_ERR["gather2"], "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": None,
         "library": "none: no one PyTorch call gathers 2-bit fields",
-        "shape": f"pancake n = 12 label words (29937600), "
-                 f"M = {ORACLE_BATCHES[1]} random ranks",
-        "ms_4096": small["ms"], "plain_ms_4096": small["plain_ms"],
+        "shape": f"the pancake n = 12 oracle's 16 chunks (29937600 fields "
+                 f"each), M = {ORACLE_BATCHES[1]} random int64 ranks",
+        "wrapper_ms": big["wrapper_ms"], "flat_ms": big["flat_ms"],
+        "flat_bound_ms": big["flat_bound_ms"],
+        "ms_4096": small["ms"], "wrapper_ms_4096": small["wrapper_ms"],
+        "plain_ms_4096": small["plain_ms"],
         "bound_ms_4096": small["bound_ms"],
         "launches_per_codes_batch": serve_[f"codes_{ORACLE_BATCHES[0]}"][
             "k4_launches_per_batch"],
         "launches_per_distance_batch": serve_[
-            f"distance_{ORACLE_BATCHES[0]}"]["k4_launches_per_batch"]})
+            f"distance_{ORACLE_BATCHES[0]}"]["k4_launches_per_batch"],
+        "launches_per_codes_batch_20pct": serve_["small_codes"][
+            "k4_launches_per_batch"]})
     emb = roomy["embedding"]
     kernels.append({
         "name": "bucket_scatter_add", "route": "cuda", "source": K5_SOURCE,

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""K1/K2, K8 and K9 beside the designs their sources left behind, on one
-NVIDIA GPU.
+"""K1/K2, K4, K8 and K9 beside the designs their sources left behind, on
+one NVIDIA GPU.
 
-    python3 chip_variants.py
+    python3 chip_variants.py [bitpack] [k4] [k8] [k9]
+
+(no argument: every section, in that order)
 
 Times, by CUDA events behind a spin kernel (median of 20), at the main
 paths' shapes:
@@ -27,11 +29,21 @@ paths' shapes:
   an unfused one (K2) and a publish (``chip_smoke.level_sums``); at levels
   8-13 also the binned route's steps (``BINNED_STEPS``).
 
+* K4 (the 2-bit gather over a chunk table) over 16 chunks of random
+  words shaped as the pancake n = 12 oracle's, at M = 4096, 45,056,
+  1,048,576 and 8,388,608 random ranks: the kept kernel (8 queries a
+  thread) beside the designs in ``K4_VARIANTS`` (substitutions in and a
+  source appended to ``csrc/bitpack.cu``): 16 a thread, the first port's
+  four a thread, and cp.async gathers into a shared-memory ring; each held
+  bit for bit to the kept kernel; and the kept kernel over one batch again
+  (warm in L2) and over that batch sorted.
+
 A variant is its source with text substitutions; if the committed source no
 longer holds a substitution's text, the script says which and exits
 non-zero.  It prints one JSON line and exits non-zero without CUDA.
 """
 import ctypes
+import itertools
 import json
 import math
 import statistics
@@ -397,6 +409,192 @@ extern "C" int roomy_mark_variant(const void* in, void* out,
 }
 
 
+
+# K4's designs left behind, each over the same chunk table as the kept
+# kernel (gather2_kernel<long long, uint8_t>: 8 queries a thread, every
+# word load issued before any use, one 8-byte store): substitutions in
+# csrc/bitpack.cu and a source appended to it that exports
+# roomy_gather2_variant with roomy_gather2_chunked's signature.
+K4_SAME = r"""
+extern "C" int roomy_gather2_variant(const void* table, int n_chunks,
+                                     long long ce, const void* ranks,
+                                     long long m, void* out, void* stream) {
+  return roomy_gather2_chunked(table, n_chunks, ce, ranks, m, out, stream);
+}
+"""
+K4_VARIANTS = {
+    # 16 queries a thread, their codes in one 16-byte store
+    "16 a thread": ([("constexpr int kG2Per = 8; ",
+                      "constexpr int kG2Per = 16;")], K4_SAME),
+    # the first port's design: four queries a thread (two 16-byte rank
+    # loads, four dependent word loads, one 4-byte store) in a grid-stride
+    # loop over a grid capped at the resident blocks
+    "four a thread (the first port's)": ([], r"""
+namespace {
+
+__device__ __forceinline__ uint32_t g2_one(long long r, const G2Table& t,
+                                           const longlong2* s_tab,
+                                           uint32_t old) {
+  const uint32_t* a = nullptr;
+  uint32_t sh = 0;
+  const int st = g2_locate(r, t, s_tab, &a, &sh);
+  if (st == kG2Keep) return old;
+  return st == kG2Load ? (__ldg(a) >> sh) & 3u : 0u;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather2_four_kernel(G2Table t, const long long* __restrict__ ranks,
+                    uint8_t* __restrict__ out, long long m, int vec) {
+  extern __shared__ longlong2 s_tab[];
+  g2_stage_table(t, s_tab);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n4 = vec ? (m >> 2) : 0;
+  const longlong2* r2 = reinterpret_cast<const longlong2*>(ranks);
+  uint32_t* o4 = reinterpret_cast<uint32_t*>(out);
+  for (long long i = tid; i < n4; i += stride) {
+    const longlong2 a = __ldg(r2 + 2 * i), b = __ldg(r2 + 2 * i + 1);
+    const uint32_t old = o4[i];
+    o4[i] = g2_one(a.x, t, s_tab, old & 0xFFu) |
+            g2_one(a.y, t, s_tab, (old >> 8) & 0xFFu) << 8 |
+            g2_one(b.x, t, s_tab, (old >> 16) & 0xFFu) << 16 |
+            g2_one(b.y, t, s_tab, old >> 24) << 24;
+  }
+  for (long long i = (n4 << 2) + tid; i < m; i += stride)
+    out[i] = (uint8_t)g2_one(__ldg(ranks + i), t, s_tab, out[i]);
+}
+
+}  // namespace
+
+extern "C" int roomy_gather2_variant(const void* table, int n_chunks,
+                                     long long ce, const void* ranks,
+                                     long long m, void* out, void* stream) {
+  if (m <= 0) return 0;
+  const G2Table t = g2_table(table, n_chunks, make_longlong2(0, 0), ce);
+  const size_t smem = t.in_smem ? (size_t)n_chunks * sizeof(longlong2) : 0;
+  long long resident = 0;
+  ROOMY_TRY(resident_blocks(gather2_four_kernel, &resident, kThreads, smem));
+  const int vec = aligned16(ranks, out);
+  gather2_four_kernel<<<grid_for(vec ? (m + 3) / 4 : m, resident), kThreads,
+                        smem, (cudaStream_t)stream>>>(
+      t, (const long long*)ranks, (uint8_t*)out, m, vec);
+  return (int)cudaGetLastError();
+}
+"""),
+    # one block an SM walks its tiles of 256 x 8 queries through a ring of
+    # two stages in shared memory: each query's word comes in by a 4-byte
+    # cp.async, so a tile's 2048 loads are in flight while the thread
+    # drains the tile before it, with no registers held for them
+    "cp.async ring in shared memory": ([], r"""
+namespace {
+
+constexpr int kRingThreads = 256;
+
+__device__ __forceinline__ void ring_issue(const G2Table& t,
+                                           const longlong2* s_tab,
+                                           const long long* ranks,
+                                           uint32_t* slots, long long base,
+                                           long long m, int vec,
+                                           uint8_t (&meta)[kG2Per]) {
+  const int n = m - base < kG2Per ? (int)(m - base) : kG2Per;
+  long long r[kG2Per];
+  g2_load_ranks(ranks + base, r, n, vec && n == kG2Per);
+#pragma unroll
+  for (int j = 0; j < kG2Per; ++j) {
+    const uint32_t* a = nullptr;
+    uint32_t sh = 0;
+    const int st = j < n ? g2_locate(r[j], t, s_tab, &a, &sh) : kG2Keep;
+    if (st == kG2Load)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(slots + j * kRingThreads)),
+                   "l"(a));
+    meta[j] = (uint8_t)(st | sh << 2);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void ring_drain(const uint32_t* slots,
+                                           uint8_t* out, long long base,
+                                           long long m, int vec,
+                                           const uint8_t (&meta)[kG2Per]) {
+  const int n = m - base < kG2Per ? (int)(m - base) : kG2Per;
+  uint32_t code[kG2Per];
+  int st[kG2Per];
+#pragma unroll
+  for (int j = 0; j < kG2Per; ++j) {
+    st[j] = meta[j] & 3;
+    code[j] = st[j] == kG2Load
+                  ? (slots[j * kRingThreads] >> (meta[j] >> 2)) & 3u : 0u;
+  }
+  g2_store(out + base, code, st, n, vec && n == kG2Per);
+}
+
+__global__ void __launch_bounds__(kRingThreads)
+gather2_ring_kernel(G2Table t, const long long* __restrict__ ranks,
+                    uint8_t* __restrict__ out, long long m, int vec) {
+  extern __shared__ longlong2 s_tab[];
+  g2_stage_table(t, s_tab);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(
+      s_tab + (t.in_smem ? t.n_chunks : 0));
+  const long long per_tile = (long long)kRingThreads * kG2Per;
+  const long long n_tiles = (m + per_tile - 1) / per_tile;
+  long long tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  uint8_t cur[kG2Per], nxt[kG2Per];
+  const long long lane = (long long)threadIdx.x * kG2Per;
+  // a thread's slot j of stage s: ring[(s * kG2Per + j) * kRingThreads + tid]
+  uint32_t* const mine = ring + threadIdx.x;
+  const int stage_words = kG2Per * kRingThreads;
+  ring_issue(t, s_tab, ranks, mine, tile * per_tile + lane, m, vec, cur);
+  int stage = 0;
+  for (;;) {
+    const long long next = tile + gridDim.x;
+    const bool more = next < n_tiles;
+    if (more) {
+      ring_issue(t, s_tab, ranks, mine + (stage ^ 1) * stage_words,
+                 next * per_tile + lane, m, vec, nxt);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    if (tile * per_tile + lane < m)
+      ring_drain(mine + stage * stage_words, out, tile * per_tile + lane, m,
+                 vec, cur);
+    if (!more) break;
+#pragma unroll
+    for (int j = 0; j < kG2Per; ++j) cur[j] = nxt[j];
+    tile = next;
+    stage ^= 1;
+  }
+}
+
+}  // namespace
+
+extern "C" int roomy_gather2_variant(const void* table, int n_chunks,
+                                     long long ce, const void* ranks,
+                                     long long m, void* out, void* stream) {
+  if (m <= 0) return 0;
+  const G2Table t = g2_table(table, n_chunks, make_longlong2(0, 0), ce);
+  const size_t smem = (t.in_smem ? (size_t)n_chunks * sizeof(longlong2) : 0)
+                      + 2 * kG2Per * kRingThreads * 4;
+  if (smem > 48 * 1024)
+    ROOMY_TRY(cudaFuncSetAttribute(
+        gather2_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem));
+  int dev = 0, sms = 0;
+  ROOMY_TRY(cudaGetDevice(&dev));
+  ROOMY_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev));
+  const long long tiles = (m + kRingThreads * kG2Per - 1) /
+                          (kRingThreads * kG2Per);
+  gather2_ring_kernel<<<(unsigned int)(tiles < sms ? tiles : sms),
+                        kRingThreads, smem, (cudaStream_t)stream>>>(
+      t, (const long long*)ranks, (uint8_t*)out, m, aligned16(ranks, out));
+  return (int)cudaGetLastError();
+}
+"""),
+}
+
 # The binned route's steps: copies of its source with the later launches
 # cut out (the count alone; the count, scan and scatter), timed as K2 at
 # the wide levels; the whole route less the latter is the tile pass.
@@ -502,6 +700,90 @@ def bitpack(dev) -> dict:
     return {"levels": levels, "sums": sums}
 
 
+
+K4_CHUNKS, K4_CE = 16, 29_937_600     # the pancake n = 12 oracle's chunks
+K4_BATCHES = (4096, 45056, 1 << 20, 1 << 23)
+
+
+def k4_variant_lib(name, subs, source) -> ctypes.CDLL:
+    text = (_build.CSRC / "bitpack.cu").read_text()
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise SystemExit(f"K4 variant {name!r}: csrc/bitpack.cu no "
+                             f"longer holds {old!r} once")
+        text = text.replace(old, new)
+    stem = "bitpack_k4_" + "".join(c if c.isalnum() else "_" for c in name)
+    lib = CS.build_variant(stem, text + source)
+    lib.roomy_gather2_variant.argtypes = \
+        K._lib().roomy_gather2_chunked.argtypes
+    lib.roomy_gather2_variant.restype = ctypes.c_int
+    return lib
+
+
+def k4(dev) -> dict:
+    """K4 as kept and its dropped designs over 16 chunks of random words
+    shaped as the n = 12 oracle's (29,937,600 fields each), at M = 4096,
+    45,056 (a distance step's 4096 walkers x 11 neighbours), 1,048,576 and
+    8,388,608 random ranks with every chunk boundary; each design held bit
+    for bit to the kept kernel, then timed over a fresh batch each
+    repetition (the words cold, as a new query finds them).  Beside them,
+    the kept kernel over one batch again and again (its sectors warm in
+    L2) and over that batch sorted (the sort untimed)."""
+    libs = {name: k4_variant_lib(name, subs, src)
+            for name, (subs, src) in K4_VARIANTS.items()}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    words = K4_CE // 16
+    table = [torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
+                           device=dev, generator=gen)
+             for _ in range(K4_CHUNKS)]
+    dev_table = K.chunk_table(table, dev)
+    total = K4_CHUNKS * K4_CE
+    edges = CS.chunk_edges(K4_CHUNKS, K4_CE, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def variant(lib, ranks, out):
+        code = lib.roomy_gather2_variant(dev_table.data_ptr(), K4_CHUNKS,
+                                         K4_CE, ranks.data_ptr(),
+                                         ranks.numel(), out.data_ptr(),
+                                         stream)
+        if code:
+            raise SystemExit(f"K4 variant launch failed: CUDA error {code}")
+
+    def kept(lib, ranks, out):
+        K.launch_gather2_chunked(dev_table, K4_CE, ranks, out)
+
+    designs = {"8 a thread (kept)": (None, kept)}
+    designs.update({name: (lib, variant) for name, lib in libs.items()})
+    res = {}
+    for m in K4_BATCHES:
+        batches = [torch.randint(0, total, (m,), device=dev, generator=gen)
+                   for _ in range(REPS + 1)]
+        batches[0][-edges.numel():] = edges
+        want = torch.full((m,), 0xAB, dtype=torch.uint8, device=dev)
+        kept(None, batches[0], want)
+        out = torch.empty(m, dtype=torch.uint8, device=dev)
+        rec = {}
+        for name, (lib, fn) in designs.items():
+            got = torch.full((m,), 0xAB, dtype=torch.uint8, device=dev)
+            fn(lib, batches[0], got)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"K4 {name} differs from the kept kernel "
+                                 f"at M={m}")
+            fresh = itertools.cycle(batches)
+            rec[name] = device_ms(lambda: fn(lib, next(fresh), out))
+        one = batches[1]
+        rec["kept, one batch again"] = device_ms(lambda: kept(None, one, out))
+        ordered = torch.sort(one).values
+        rec["kept, that batch sorted"] = device_ms(
+            lambda: kept(None, ordered, out))
+        rec["bound_ms"] = CS.k4c_bound(table, K4_CE, batches[0])["bound_ms"]
+        print(f"K4 over 16 chunks of {K4_CE} fields, M={m}: {rec}",
+              flush=True)
+        res[str(m)] = rec
+        del batches, ordered
+    return res
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: torch.cuda.is_available() is False")
@@ -512,8 +794,15 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.build(["bitpack", "paged_decode", "mamba_scan"])
-    res = {"card": card, "bitpack": bitpack(dev), "k8": k8(dev),
-           "k9": k9(dev)}
+    sections = {"bitpack": bitpack, "k4": k4, "k8": k8, "k9": k9}
+    wanted = sys.argv[1:] or list(sections)
+    unknown = sorted(set(wanted) - set(sections))
+    if unknown:
+        raise SystemExit(f"unknown sections {unknown}; pick from "
+                         f"{list(sections)}")
+    res = {"card": card}
+    for name in wanted:
+        res[name] = sections[name](dev)
     print(json.dumps({"variants": res}))
 
 

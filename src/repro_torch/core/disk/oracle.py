@@ -6,8 +6,9 @@ checksummed artifact, and a read-only :class:`DistanceOracle` serves
 batched ``rank → distance`` lookups (and paths) over it through an LRU
 chunk cache whose budget can be a fraction of the artifact.  The chunks
 live on the oracle's device as int32 words, and each batch gathers its
-codes there with the 2-bit gather kernel (K4), one launch per chunk the
-batch touches.
+codes there with the 2-bit gather kernel (K4) over a table of the chunks
+it touches: one launch a batch when the budget holds them all, else one
+per group of chunks that fits the budget.
 
 Labels: code 0 = unreached, code ``(d % 3) + 1`` = reached at distance
 ``d``.  :func:`label_distances_mod3` runs the port's implicit BFS array A
@@ -403,7 +404,7 @@ class _Serving:
 
     def _ranks(self, ranks) -> torch.Tensor:
         return torch.as_tensor(ranks, dtype=torch.int64).reshape(-1).to(
-            self.device)
+            self.device).contiguous()
 
     def _check_range(self, idx: torch.Tensor) -> None:
         lo, hi = torch.aminmax(idx)
@@ -586,7 +587,7 @@ class DistanceOracle(_Serving):
             except (OSError, ValueError) as e:
                 raise OracleError(f"unreadable oracle chunk {path}: {e}"
                                   ) from None
-        rows = -(-self._chunk_rows(c) // VALS_PER_BYTE)
+        rows = self._chunk_bytes(c)
         if packed.dtype != np.uint8 or packed.shape != (rows,):
             raise OracleError(
                 f"oracle chunk {path} has shape {packed.shape} "
@@ -601,38 +602,70 @@ class DistanceOracle(_Serving):
         return Chunk(torch.from_numpy(words.astype(np.int32)).to(self.device),
                      packed.nbytes)
 
+    def _chunk_bytes(self, c: int) -> int:
+        return -(-self._chunk_rows(c) // VALS_PER_BYTE)
+
     @property
     def artifact_bytes(self) -> int:
         """Total packed chunk bytes of the open version."""
-        return sum(-(-self._chunk_rows(c) // VALS_PER_BYTE)
-                   for c in range(self.n_chunks))
+        return sum(self._chunk_bytes(c) for c in range(self.n_chunks))
 
     # ------------------------------------------------------------ serving
+    def _touched(self, idx: torch.Tensor) -> Tuple[int, int, List[int]]:
+        """The batch's min and max rank and its touched chunks, ascending:
+        a few ops on the device and one host sync.  Ranks out of range are
+        clamped here; the caller raises on them."""
+        chunk = torch.div(idx.clamp(0, self.n_states - 1), self.chunk_elems,
+                          rounding_mode="floor")
+        flags = torch.zeros(self.n_chunks, dtype=torch.int64,
+                            device=idx.device).index_fill_(0, chunk, 1)
+        lo, hi = torch.aminmax(idx)
+        got = torch.cat((lo.view(1), hi.view(1), flags)).tolist()
+        return got[0], got[1], [c for c, f in enumerate(got[2:]) if f]
+
+    def _groups(self, touched: List[int]) -> List[List[int]]:
+        """The touched chunks cut into ascending runs whose bytes fit the
+        cache budget; a chunk larger than the budget is a run of its own."""
+        groups, size = [], 0
+        for c in touched:
+            nbytes = self._chunk_bytes(c)
+            if not groups or size + nbytes > self.cache.budget:
+                groups.append([])
+                size = 0
+            groups[-1].append(c)
+            size += nbytes
+        return groups
+
     def codes(self, ranks) -> torch.Tensor:
         """Batched raw mod-3 codes (0 = unreached) for int64 ranks, as
-        uint8 on the oracle's device.  Binned by chunk: one cache lookup
-        per distinct chunk in ascending chunk order, then one K4 launch
-        per chunk over its chunk-local indices."""
+        uint8 on the oracle's device.  One cache lookup per distinct chunk
+        in ascending chunk order, and one K4 launch per group of chunks
+        that fits the cache budget: one a batch when the budget holds the
+        artifact."""
         idx = self._ranks(ranks)
         with _STATS_LOCK:
             STATS["lookups"] += int(idx.numel())
             STATS["batches"] += 1
-        out = torch.zeros(idx.shape, dtype=torch.uint8, device=self.device)
+        out = torch.empty(idx.shape, dtype=torch.uint8, device=self.device)
         if idx.numel() == 0:
             return out
-        self._check_range(idx)
-        chunk_of = idx // self.chunk_elems
-        order = torch.argsort(chunk_of, stable=True)
-        counts = torch.bincount(chunk_of, minlength=self.n_chunks).tolist()
-        first = 0
-        for c, k in enumerate(counts):
-            if not k:
-                continue
-            sel = order[first:first + k]
-            first += k
-            local = (idx[sel] - c * self.chunk_elems).to(torch.int32)
-            out[sel] = K.bitpack_gather2(self.cache.get(c).words,
-                                         local).to(torch.uint8)
+        lo, hi, touched = self._touched(idx)
+        if lo < 0 or hi >= self.n_states:
+            raise ValueError(f"rank out of range [0, {self.n_states}) in "
+                             "oracle query")
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        for group in self._groups(touched):
+            # The table holds the group's chunks until K4 is enqueued: an
+            # evicted chunk's memory goes back to the caching allocator,
+            # and only stream order keeps it from reuse while K4 reads it.
+            # A chunk loaded on another stream is recorded on this one.
+            table: List[Optional[torch.Tensor]] = [None] * self.n_chunks
+            for c in group:
+                table[c] = self.cache.get(c).words
+                if stream is not None:
+                    table[c].record_stream(stream)
+            K.bitpack_gather2_chunked(table, self.chunk_elems, idx, out)
         return out
 
     def close(self) -> None:

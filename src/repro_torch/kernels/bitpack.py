@@ -15,7 +15,8 @@ each tile's marks in shared memory (``bin_plan`` sizes its workspace);
 
 Packed words are int32 tensors holding the uint32 bits; the kernels read
 the same storage as ``uint32_t*``.  Element indices are int32, so a packed
-array holds fewer than 2³¹ fields (16·W < 2³¹, pancake n ≤ 12).
+array holds fewer than 2³¹ fields (16·W < 2³¹, pancake n ≤ 12); K4's
+chunked form takes int64 global ranks over a table of such arrays.
 """
 from __future__ import annotations
 
@@ -84,6 +85,8 @@ _SIGNATURES = {
                                        _P, _P, _P],
     # words, n_words, idx, m, out, stream
     "roomy_gather2": [_P, _I64, _P, _I64, _P, _P],
+    # table, n_chunks, chunk_elems, ranks, m, out, stream
+    "roomy_gather2_chunked": [_P, _I32, _I64, _P, _I64, _P, _P],
 }
 _LIB = None
 
@@ -99,7 +102,7 @@ def _lib() -> ctypes.CDLL:
         lib.roomy_error_string.argtypes = [ctypes.c_int]
         lib.roomy_error_string.restype = ctypes.c_char_p
         for name in ("roomy_bin_tile_words", "roomy_bin_tile_smem",
-                     "roomy_bin_max_tiles"):
+                     "roomy_bin_max_tiles", "roomy_gather2_smem_chunks"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         got = (lib.roomy_bin_tile_words(), lib.roomy_bin_max_tiles())
@@ -302,9 +305,10 @@ def bitpack_mark_rotate_count(packed: torch.Tensor, idx: torch.Tensor,
 
 
 def bitpack_gather2(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K4: the 2-bit field at each element index, as (M,) int32 in 0..3.
-    Negative and ≥ 16·W indices give 0; duplicates are fine.  An empty
-    index tensor gives an empty result and launches nothing."""
+    """K4 over one flat array: the 2-bit field at each element index, as
+    (M,) int32 in 0..3.  Negative and ≥ 16·W indices give 0; duplicates
+    are fine.  An empty index tensor gives an empty result and launches
+    nothing.  The kernel is the chunked one's, with a one-entry table."""
     if not _on_card(packed, idx):
         return _ref.bitpack_gather2_ref(packed, idx)
     out = torch.empty(idx.shape[0], dtype=torch.int32, device=packed.device)
@@ -314,3 +318,79 @@ def bitpack_gather2(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             idx.data_ptr(), idx.shape[0], out.data_ptr())
     LAUNCHES["gather2"] += 1
     return out
+
+
+def _check_chunked(table, chunk_elems: int, ranks: torch.Tensor,
+                   out: torch.Tensor) -> bool:
+    """Validate K4's chunked arguments; True for CUDA tensors."""
+    if ranks.dtype != torch.int64 or ranks.dim() != 1:
+        raise TypeError(f"ranks must be a 1-D int64 tensor, got "
+                        f"{ranks.dtype} of shape {tuple(ranks.shape)}")
+    if out.dtype != torch.uint8 or out.shape != ranks.shape:
+        raise TypeError(f"out must be a uint8 tensor of the ranks' shape "
+                        f"{tuple(ranks.shape)}, got {out.dtype} of shape "
+                        f"{tuple(out.shape)}")
+    if not (ranks.is_contiguous() and out.is_contiguous()):
+        raise ValueError("ranks and out must be contiguous")
+    if out.device != ranks.device:
+        raise ValueError(f"out on {out.device}, ranks on {ranks.device}")
+    if not 1 <= len(table) < 1 << 31:
+        raise ValueError(f"a table of {len(table)} chunks")
+    if not 1 <= chunk_elems < 1 << 62:
+        raise ValueError(f"chunk_elems {chunk_elems} outside [1, 2^62)")
+    for c, words in enumerate(table):
+        if words is None:
+            continue
+        if words.dtype != torch.int32 or words.dim() != 1:
+            raise TypeError(f"chunk {c}: words must be a 1-D int32 tensor, "
+                            f"got {words.dtype} of shape "
+                            f"{tuple(words.shape)}")
+        if not words.is_contiguous():
+            raise ValueError(f"chunk {c}: words must be contiguous")
+        if words.device != ranks.device:
+            raise ValueError(f"chunk {c} on {words.device}, ranks on "
+                             f"{ranks.device}")
+    if ranks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {ranks.device}")
+    return ranks.device.type == "cuda"
+
+
+def bitpack_gather2_chunked(table, chunk_elems: int, ranks: torch.Tensor,
+                            out: torch.Tensor) -> torch.Tensor:
+    """K4 over a chunk table, one launch a batch: ``table[c]`` holds the
+    int32 words of the ``chunk_elems`` fields from ``c·chunk_elems`` on, or
+    None for a chunk another call serves.  Writes the (M,) uint8 code of
+    each int64 global rank into ``out`` in place and returns it; a rank in
+    a None chunk leaves its byte as it was, a rank below 0 or past the last
+    chunk, or past its chunk's words, gives 0.  An empty batch launches
+    nothing."""
+    chunk_elems = int(chunk_elems)
+    if not _check_chunked(table, chunk_elems, ranks, out):
+        return _ref.bitpack_gather2_chunked_ref(table, chunk_elems, ranks,
+                                                out)
+    if ranks.shape[0] == 0:
+        return out
+    launch_gather2_chunked(chunk_table(table, ranks.device), chunk_elems,
+                           ranks, out)
+    LAUNCHES["gather2"] += 1
+    return out
+
+
+def chunk_table(table, device: torch.device) -> torch.Tensor:
+    """K4's device table: an int64 (word pointer, n_words) row a chunk,
+    (0, -1) for None.  It travels from a pinned tensor made for this call:
+    the caching host allocator holds that block until the non-blocking copy
+    has run, so no later call rewrites it while the copy is in flight."""
+    entries = [(0, -1) if w is None else (w.data_ptr(), w.shape[0])
+               for w in table]
+    staged = torch.tensor(entries, dtype=torch.int64, pin_memory=True)
+    return staged.to(device, non_blocking=True)
+
+
+def launch_gather2_chunked(dev_table: torch.Tensor, chunk_elems: int,
+                           ranks: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch K4 over a device table made by ``chunk_table``; checks
+    nothing and books no launch (``bitpack_gather2_chunked`` does both)."""
+    _launch("roomy_gather2_chunked", ranks, dev_table.data_ptr(),
+            dev_table.shape[0], chunk_elems, ranks.data_ptr(), ranks.shape[0],
+            out.data_ptr())

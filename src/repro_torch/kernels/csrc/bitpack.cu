@@ -10,8 +10,8 @@
 //                                       pallas_call at :115)
 //   roomy_mark_rotate_count_binned  K1  _mark_rotate_count_kernel
 //   roomy_mark_rotate_count (atomic)    (bitpack.py:221, pallas_call at :297)
-//   roomy_gather2                   K4  _gather2_kernel (bitpack.py:327,
-//                                       wrapper bitpack_gather2 at :389,
+//   roomy_gather2_chunked           K4  _gather2_kernel (bitpack.py:327,
+//   roomy_gather2 (one-entry table)     wrapper bitpack_gather2 at :389,
 //                                       pallas_call at :426)
 //
 // What bounds them on an H100 is memory traffic, not arithmetic: a word
@@ -19,10 +19,11 @@
 // where the card stops being bandwidth-bound.
 //   K3: read W words, write W words            -> 8W bytes
 //   K1, K2: read and write W words once, read M targets -> 8W + 4M
-//   K4: read M indices, write M fields, and read each distinct 32-byte
-//      sector of the words that the indices touch -> 8M + 32*sectors
+//   K4: read M int64 ranks, write M uint8 codes, and read each distinct
+//      32-byte sector of the words that the ranks touch
+//      -> 9M + 32*sectors (the int32 form: 8M + 32*sectors)
 // K4 is a random gather: at serving batch sizes it is bound by the
-// latency of the dependent index -> word load chain, not by bytes.
+// latency of the dependent rank -> word load chain, not by bytes.
 //
 // K1 and K2, the binned route.  A mark sets a field to `mark` iff the field
 // held `only_if` before the call (repro/kernels/ref.py:262-273), so the
@@ -73,12 +74,35 @@
 // the new low and high bits, and __popc of the mask of values that map to
 // count_val counts the word.
 //
-// K4 needs none of the TPU kernel's page table: there the host bins the
-// queries by page so that one page at a time fits VMEM.  Here each thread
-// takes four queries (one 16-byte load of indices when both buffers are
-// 16-byte aligned), reads each word through the read-only path (__ldg),
-// and writes its four fields with one 16-byte store.  Negative and
-// >= 16*W indices give 0; duplicates are harmless.
+// K4, the gather over a chunk table.  The TPU kernel sends each block of
+// queries, through a scalar-prefetched page table, to the page that holds
+// them, so that one call serves every page.  Here the pages are the
+// distance oracle's cache chunks: the table holds one (word pointer,
+// n_words) entry a chunk, null (n_words = -1) for a chunk that another
+// launch serves, and one launch takes a whole batch of global ranks.  For
+// rank r: chunk c = r / chunk_elems, local = r - c * chunk_elems; a null
+// entry leaves the output byte as it was, a rank below 0 or past the last
+// chunk and a local at or past 16 * n_words give 0.  The divide is by a
+// constant: q = umulhi(r, floor((2^64 - 1) / chunk_elems)) is c or c - 1
+// for 0 <= r < 2^63, and one compare fixes it.  Each thread takes
+// kG2Per = 8 queries: its ranks in 16-byte loads, issued before the block
+// stages the table in shared memory (up to kG2SmemChunks entries; else
+// the table is read through __ldg), then all 8 word loads through the
+// read-only path before any result is used, then its 8 codes in one
+// 8-byte store (read first where a null entry keeps a byte).  What bounds
+// it on an H100 is neither bytes nor the latency chain: at M = 1,048,576
+// random ranks over the n = 12 oracle's chunks every design tried took
+// 36.4-38.4 us (chip_variants.py), about 28G random sectors a second, and
+// the same batch again, its sectors warm in L2, took as long (37.0); the
+// same ranks sorted took 29.3, and at M = 8M 69.7 against 243.4.  16
+// queries a thread (one 16-byte store) was the slowest at every size
+// (9.5 against 7.8 us at M = 4096, where fewer threads land on fewer
+// SMs).  The designs left behind (16 a thread; four a thread in a grid
+// capped at the resident blocks, the first port's; cp.async gathers into
+// a shared-memory ring) are variants in chip_variants.py.  roomy_gather2,
+// the reference's single-array API (int32 indices and codes), is the same
+// kernel with a one-entry table passed by value and chunk_elems = 2^31;
+// int32 in and out is a template parameter and costs nothing else.
 //
 // Plain C interface, loaded with ctypes.  Each function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -559,34 +583,181 @@ tile_pass_kernel(const uint32_t* in, uint32_t* out, long long n_words,
   if (kLut) block_add(cnt, count);
 }
 
-__device__ __forceinline__ int32_t field2(const uint32_t* __restrict__ words,
-                                          long long cap, int32_t e) {
-  if (e < 0 || (long long)e >= cap) return 0;
-  return (int32_t)((__ldg(words + (e >> 4)) >> (2u * (uint32_t)(e & 15))) &
-                   3u);
+// K4.  A table entry is (word pointer, n_words); n_words < 0 is null.
+constexpr int kG2Threads = 128;
+constexpr int kG2Per = 8;              // queries a thread
+constexpr int kG2SmemChunks = 2048;    // table entries held in shared memory
+enum { kG2Load = 0, kG2Zero = 1, kG2Keep = 2 };
+
+struct G2Table {
+  const longlong2* table;    // device table, or null: `single` is the entry
+  longlong2 single;
+  int n_chunks;
+  int in_smem;
+  unsigned long long chunk_elems, magic;   // magic = floor((2^64 - 1) / ce)
+};
+
+// Copies a device table into shared memory where it goes there; every
+// thread of the block calls it.
+__device__ __forceinline__ void g2_stage_table(const G2Table& t,
+                                               longlong2* s_tab) {
+  if (!t.table || !t.in_smem) return;
+  for (int i = threadIdx.x; i < t.n_chunks; i += blockDim.x)
+    s_tab[i] = __ldg(t.table + i);
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather2_kernel(const uint32_t* __restrict__ words, long long n_words,
-               const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-               long long m, int vec) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long cap = n_words * 16;
-  const long long n_vec = vec ? (m >> 2) : 0;
-  const int4* idx4 = reinterpret_cast<const int4*>(idx);
-  int4* out4 = reinterpret_cast<int4*>(out);
-  for (long long i = tid; i < n_vec; i += stride) {
-    const int4 e = __ldg(idx4 + i);
-    int4 r;
-    r.x = field2(words, cap, e.x);
-    r.y = field2(words, cap, e.y);
-    r.z = field2(words, cap, e.z);
-    r.w = field2(words, cap, e.w);
-    out4[i] = r;
+// Where rank r's field lives: kG2Load with its word's address and shift,
+// kG2Zero for code 0, kG2Keep for a null entry.
+__device__ __forceinline__ int g2_locate(long long r, const G2Table& t,
+                                         const longlong2* s_tab,
+                                         const uint32_t** word,
+                                         uint32_t* shift) {
+  if (r < 0) return kG2Zero;
+  const unsigned long long u = (unsigned long long)r;
+  unsigned long long c = __umul64hi(u, t.magic);
+  unsigned long long local = u - c * t.chunk_elems;
+  if (local >= t.chunk_elems) {
+    ++c;
+    local -= t.chunk_elems;
   }
-  for (long long i = (n_vec << 2) + tid; i < m; i += stride)
-    out[i] = field2(words, cap, __ldg(idx + i));
+  if (c >= (unsigned long long)t.n_chunks) return kG2Zero;
+  const longlong2 e = !t.table ? t.single
+                      : t.in_smem ? s_tab[c] : __ldg(t.table + c);
+  if (e.y < 0) return kG2Keep;
+  if (local >= 16ull * (unsigned long long)e.y) return kG2Zero;
+  *word = reinterpret_cast<const uint32_t*>(e.x) + (local >> 4);
+  *shift = 2u * (uint32_t)(local & 15u);
+  return kG2Load;
+}
+
+// The thread's kG2Per ranks: 16-byte streaming loads when `full` (a whole
+// aligned run), else one at a time, -1 past the end.
+template <typename Idx>
+__device__ __forceinline__ void g2_load_ranks(const Idx* __restrict__ p,
+                                              long long (&r)[kG2Per], int n,
+                                              bool full) {
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < kG2Per; ++j) r[j] = j < n ? (long long)p[j] : -1;
+  } else if constexpr (sizeof(Idx) == 8) {
+    const longlong2* p2 = reinterpret_cast<const longlong2*>(p);
+#pragma unroll
+    for (int k = 0; k < kG2Per / 2; ++k) {
+      const longlong2 v = __ldcs(p2 + k);
+      r[2 * k] = v.x;
+      r[2 * k + 1] = v.y;
+    }
+  } else {
+    const int4* p4 = reinterpret_cast<const int4*>(p);
+#pragma unroll
+    for (int k = 0; k < kG2Per / 4; ++k) {
+      const int4 v = __ldcs(p4 + k);
+      r[4 * k] = v.x;
+      r[4 * k + 1] = v.y;
+      r[4 * k + 2] = v.z;
+      r[4 * k + 3] = v.w;
+    }
+  }
+}
+
+// Stores a thread's run of codes: 8 or 16 bytes at a time when `full`,
+// else one at a time; a kG2Keep query's value stays.
+template <typename Out>
+__device__ __forceinline__ void g2_store(Out* o, const uint32_t (&code)[kG2Per],
+                                         const int (&st)[kG2Per], int n,
+                                         bool full) {
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < kG2Per; ++j)
+      if (j < n && st[j] != kG2Keep) o[j] = (Out)code[j];
+    return;
+  }
+  if constexpr (sizeof(Out) == 1) {
+    bool keep = false;
+#pragma unroll
+    for (int j = 0; j < kG2Per; ++j) keep |= st[j] == kG2Keep;
+    constexpr int kWords = kG2Per / 4;   // four codes a 32-bit word
+    static_assert(kWords % 2 == 0, "codes go out 8 or 16 bytes at a time");
+    uint32_t v[kWords], old[kWords];
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)
+      v[k] = code[4 * k] | code[4 * k + 1] << 8 | code[4 * k + 2] << 16 |
+             code[4 * k + 3] << 24;
+    uint2* o2 = reinterpret_cast<uint2*>(o);
+    uint4* o4 = reinterpret_cast<uint4*>(o);
+    if (keep) {                          // null entries keep their bytes
+#pragma unroll
+      for (int k = 0; k < kWords; k += 2) {
+        if constexpr (kWords % 4 == 0) {
+          if (k % 4 == 0) {
+            const uint4 x = o4[k / 4];
+            old[k] = x.x, old[k + 1] = x.y, old[k + 2] = x.z;
+            old[k + 3] = x.w;
+          }
+        } else {
+          const uint2 x = o2[k / 2];
+          old[k] = x.x, old[k + 1] = x.y;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kG2Per; ++j)
+        if (st[j] == kG2Keep)
+          v[j / 4] = (v[j / 4] & ~(0xFFu << (8 * (j % 4)))) |
+                     (old[j / 4] & (0xFFu << (8 * (j % 4))));
+    }
+#pragma unroll
+    for (int k = 0; k < kWords; k += 2) {
+      if constexpr (kWords % 4 == 0) {
+        if (k % 4 == 0) o4[k / 4] = make_uint4(v[k], v[k + 1], v[k + 2],
+                                               v[k + 3]);
+      } else {
+        o2[k / 2] = make_uint2(v[k], v[k + 1]);
+      }
+    }
+  } else {            // the flat form: its one entry is never null
+    int4* o4 = reinterpret_cast<int4*>(o);
+#pragma unroll
+    for (int k = 0; k < kG2Per / 4; ++k)
+      o4[k] = make_int4((int)code[4 * k], (int)code[4 * k + 1],
+                        (int)code[4 * k + 2], (int)code[4 * k + 3]);
+  }
+}
+
+// K4: one thread a run of kG2Per queries, codes written in query order.
+// The bound of one block an SM is no limit in practice (the kernel takes
+// ~50 registers); without it ptxas spilled a word address of the int32
+// instantiation to the stack at 48 registers.
+template <typename Idx, typename Out>
+__global__ void __launch_bounds__(kG2Threads, 1)
+gather2_kernel(G2Table t, const Idx* __restrict__ ranks,
+               Out* __restrict__ out, long long m, int vec) {
+  extern __shared__ longlong2 s_tab[];
+  const long long base =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kG2Per;
+  const int n = base >= m ? 0 : m - base < kG2Per ? (int)(m - base) : kG2Per;
+  const bool full = vec && n == kG2Per;
+  long long r[kG2Per];
+  g2_load_ranks(ranks + base, r, n, full);   // in flight while the table
+  g2_stage_table(t, s_tab);                  // comes in
+  if (n == 0) return;
+  const uint32_t* addr[kG2Per];
+  uint32_t shift[kG2Per];
+  int st[kG2Per];
+#pragma unroll
+  for (int j = 0; j < kG2Per; ++j) {
+    addr[j] = nullptr;
+    shift[j] = 0;
+    st[j] = j < n ? g2_locate(r[j], t, s_tab, &addr[j], &shift[j]) : kG2Keep;
+  }
+  uint32_t w[kG2Per];
+#pragma unroll
+  for (int j = 0; j < kG2Per; ++j)       // every load before any use
+    w[j] = st[j] == kG2Load ? __ldg(addr[j]) : 0u;
+  uint32_t code[kG2Per];
+#pragma unroll
+  for (int j = 0; j < kG2Per; ++j) code[j] = (w[j] >> shift[j]) & 3u;
+  g2_store(out + base, code, st, n, full);
 }
 
 // Blocks of `kernel` that all SMs hold at once (occupancy x SM count) with
@@ -617,6 +788,35 @@ unsigned int grid_for(long long work, long long resident) {
 
 int aligned16(const void* a, const void* b) {
   return ((((uintptr_t)a) | ((uintptr_t)b)) & 15u) == 0;
+}
+
+// The launch's view of a chunk table: `table` on the device (n_chunks
+// entries), or null with `single` its one entry.
+G2Table g2_table(const void* table, int n_chunks, longlong2 single,
+                 long long chunk_elems) {
+  G2Table t;
+  t.table = (const longlong2*)table;
+  t.single = single;
+  t.n_chunks = n_chunks;
+  t.in_smem = table != nullptr && n_chunks <= kG2SmemChunks;
+  t.chunk_elems = (unsigned long long)chunk_elems;
+  t.magic = ~0ull / t.chunk_elems;
+  return t;
+}
+
+template <typename Idx, typename Out>
+int gather2(const void* table, int n_chunks, longlong2 single,
+            long long chunk_elems, const void* ranks, long long m, void* out,
+            cudaStream_t s) {
+  if (m <= 0) return 0;
+  if (n_chunks < 1 || chunk_elems < 1) return (int)cudaErrorInvalidValue;
+  const G2Table t = g2_table(table, n_chunks, single, chunk_elems);
+  const size_t smem = t.in_smem ? (size_t)n_chunks * sizeof(longlong2) : 0;
+  const long long per_block = (long long)kG2Threads * kG2Per;
+  gather2_kernel<Idx, Out>
+      <<<(unsigned int)((m + per_block - 1) / per_block), kG2Threads, smem,
+         s>>>(t, (const Idx*)ranks, (Out*)out, m, aligned16(ranks, out));
+  return (int)cudaGetLastError();
 }
 
 // Steps 1-4 of the binned route; the workspace comes from the wrapper's
@@ -686,6 +886,9 @@ const char* roomy_error_string(int code) {
 int roomy_bin_tile_words() { return kTileWords; }
 int roomy_bin_tile_smem() { return kTileSmem; }
 int roomy_bin_max_tiles() { return kMaxTiles; }
+// K4's table entries held in shared memory; a longer table is read
+// through __ldg.
+int roomy_gather2_smem_chunks() { return kG2SmemChunks; }
 
 int roomy_lut_count(const void* in, void* out, long long n_words, int lut,
                     int count_val, void* count, void* stream) {
@@ -766,16 +969,22 @@ int roomy_mark_rotate_count_binned(const void* in, void* out,
                       count, s);
 }
 
+// K4 over one flat array (the reference's API): int32 indices, int32 codes.
 int roomy_gather2(const void* words, long long n_words, const void* idx,
                   long long m, void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  long long resident = 0;
-  ROOMY_TRY(resident_blocks(gather2_kernel, &resident));
-  const int vec = aligned16(idx, out);
-  gather2_kernel<<<grid_for(vec ? (m + 3) / 4 : m, resident), kThreads, 0,
-                   s>>>((const uint32_t*)words, n_words,
-                        (const int32_t*)idx, (int32_t*)out, m, vec);
-  return (int)cudaGetLastError();
+  return gather2<int32_t, int32_t>(
+      nullptr, 1, make_longlong2((long long)(uintptr_t)words, n_words),
+      1ll << 31, idx, m, out, (cudaStream_t)stream);
+}
+
+// K4 over a device table of n_chunks (word pointer, n_words) entries:
+// int64 ranks, uint8 codes; a null entry's bytes are left as they were.
+int roomy_gather2_chunked(const void* table, int n_chunks,
+                          long long chunk_elems, const void* ranks,
+                          long long m, void* out, void* stream) {
+  return gather2<long long, uint8_t>(table, n_chunks, make_longlong2(0, 0),
+                                     chunk_elems, ranks, m, out,
+                                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

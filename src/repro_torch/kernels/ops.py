@@ -81,12 +81,25 @@ def bitpack_mark_rotate_count(packed, idx, lut, count_val, *, mark=2,
 def bitpack_gather2(packed, idx, *, impl="auto"):
     """The 2-bit field at each int32 element index, (M,) int32 in 0..3;
     negative and out-of-range indices give 0 — the serving tier's batched
-    lookup (K4).  The reference's ``page_words`` / ``block_m`` and its host
-    page binning exist to stream one TPU page into VMEM per query block;
-    the Hopper kernel reads the words directly and needs neither."""
+    lookup's kernel (K4) with a one-entry table.  The reference's
+    ``page_words`` / ``block_m`` size the TPU page streamed into VMEM per
+    query block; the Hopper kernel reads the words directly and needs
+    neither."""
     if _use_ref(impl, packed):
         return _ref.bitpack_gather2_ref(packed, idx)
     return _bp.bitpack_gather2(packed, idx)
+
+
+def bitpack_gather2_chunked(table, chunk_elems, ranks, out, *, impl="auto"):
+    """K4 over a chunk table, one launch a batch: the uint8 code of each
+    int64 global rank written into ``out``, from ``table[rank //
+    chunk_elems]`` (int32 words, or None to leave the byte as it was);
+    ranks outside the table give 0.  The TPU kernel's page table, with the
+    oracle's cache chunks as the pages."""
+    if _use_ref(impl, ranks):
+        return _ref.bitpack_gather2_chunked_ref(table, chunk_elems, ranks,
+                                                out)
+    return _bp.bitpack_gather2_chunked(table, chunk_elems, ranks, out)
 
 
 class _FlashAttention(torch.autograd.Function):

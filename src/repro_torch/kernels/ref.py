@@ -147,6 +147,23 @@ def bitpack_gather2_ref(packed: torch.Tensor, idx: torch.Tensor):
     return torch.where(ok, fields[safe], 0).to(torch.int32)
 
 
+def bitpack_gather2_chunked_ref(table, chunk_elems: int, ranks: torch.Tensor,
+                                out: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4 over a chunk table: for each non-None entry c,
+    the plain gather over its words at ``rank − c·chunk_elems`` for the
+    ranks of chunk c.  Ranks in a None chunk keep their ``out`` values;
+    ranks below 0 or past the last chunk give 0.  In place; returns
+    ``out``."""
+    ranks = ranks.to(torch.int64)
+    chunk = torch.div(ranks, chunk_elems, rounding_mode="floor")
+    outside = (ranks < 0) | (chunk >= len(table))
+    res = torch.where(outside, torch.zeros_like(out), out)
+    for c, words in enumerate(table):
+        if words is not None:
+            got = bitpack_gather2_ref(words, ranks - c * chunk_elems)
+            res = torch.where(chunk == c, got.to(out.dtype), res)
+    return out.copy_(res)
+
 # ------------------------------------------------------- bucket scatter
 
 def bucket_scatter_add_ref(table: torch.Tensor, idx: torch.Tensor,

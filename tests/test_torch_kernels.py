@@ -243,3 +243,100 @@ def test_gather2_dispatch_and_checks():
         tbp.bitpack_gather2(words, idx.reshape(3, 1))
     with pytest.raises(ValueError, match="contiguous"):
         tbp.bitpack_gather2(words, torch.zeros(6, dtype=torch.int32)[::2])
+
+
+# ------------------------------------------------- K4 over a chunk table
+
+def _chunked(rng, total, ce):
+    """``total`` random fields cut into chunks of ``ce``, each chunk packed
+    into words of its own (16 fields a word from its first field); returns
+    (the words of the fields joined, the chunks' word arrays)."""
+    fields = rng.integers(0, 4, total).astype(np.uint32)
+
+    def pack(f):
+        f = np.concatenate([f, np.zeros((-f.size) % 16, np.uint32)])
+        return (f.reshape(-1, 16) << (2 * np.arange(16, dtype=np.uint32))
+                ).sum(axis=1, dtype=np.uint64).astype(np.uint32)
+
+    return pack(fields), [pack(fields[c:c + ce]) for c in range(0, total, ce)]
+
+
+def _chunk_ranks(rng, total, ce, m):
+    """Random ranks in [-50, total + 50) and every chunk's boundaries."""
+    n_chunks = -(-total // ce)
+    edges = [e for c in range(n_chunks + 1)
+             for e in (c * ce - 1, c * ce, c * ce + 1)]
+    return np.concatenate([rng.integers(-50, total + 50, m), edges,
+                           [total - 1, total, -(1 << 40), 1 << 40]])
+
+
+@pytest.mark.parametrize("total,ce", [
+    (1003, 100),        # a short last chunk; chunks that share words
+    (1000, 96),         # chunks of whole words, a short last chunk
+    (4096 * 3 + 5, 4096),
+    (50, 7),            # chunk_elems no multiple of 4
+])
+def test_gather2_chunked_matches_jax_over_the_joined_words(total, ce):
+    """The chunked plain version == JAX ``bitpack_gather2(impl="ref")`` over
+    the chunks' fields joined, for ranks in and out of range and at every
+    chunk boundary; uint8 codes in query order."""
+    rng = np.random.default_rng(total + ce)
+    joined, chunks = _chunked(rng, total, ce)
+    ranks = _chunk_ranks(rng, total, ce, 3000)
+    inside = (ranks >= 0) & (ranks < 16 * joined.size)
+    want = np.asarray(jops.bitpack_gather2(
+        jnp.asarray(joined), np.where(inside, ranks, -1), impl="ref"))
+    table = [_t(w) for w in chunks]
+    for impl in ("auto", "ref"):
+        out = torch.full((ranks.size,), 0xAB, dtype=torch.uint8)
+        got = tops.bitpack_gather2_chunked(table, ce, torch.from_numpy(ranks),
+                                           out, impl=impl)
+        assert got is out and got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather2_chunked_null_entries_leave_their_bytes():
+    """A None entry's ranks keep the bytes ``out`` held; the others get
+    their codes, ranks outside the table 0."""
+    rng = np.random.default_rng(11)
+    total, ce = 1003, 100
+    joined, chunks = _chunked(rng, total, ce)
+    ranks = _chunk_ranks(rng, total, ce, 2000)
+    inside = (ranks >= 0) & (ranks < 16 * joined.size)
+    want = np.asarray(jops.bitpack_gather2(
+        jnp.asarray(joined), np.where(inside, ranks, -1), impl="ref"))
+    null = {0, 3, 4, 10}
+    table = [None if c in null else _t(w) for c, w in enumerate(chunks)]
+    before = rng.integers(0, 256, ranks.size).astype(np.uint8)
+    got = tbp.bitpack_gather2_chunked(table, ce, torch.from_numpy(ranks),
+                                      torch.from_numpy(before.copy()))
+    chunk = np.floor_divide(ranks, ce)
+    kept = (ranks >= 0) & np.isin(chunk, sorted(null))
+    np.testing.assert_array_equal(got.numpy(), np.where(kept, before, want))
+
+
+def test_gather2_chunked_empty_batch_and_checks():
+    tbp.reset_launches()
+    words = _t(_words(np.random.default_rng(12), 4))
+    out = torch.empty(0, dtype=torch.uint8)
+    got = tbp.bitpack_gather2_chunked([words, None], 64,
+                                      torch.empty(0, dtype=torch.int64), out)
+    assert got is out and got.numel() == 0
+    assert tbp.LAUNCHES["gather2"] == 0
+    ranks, out = torch.zeros(3, dtype=torch.int64), torch.zeros(
+        3, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.bitpack_gather2_chunked([words], 64, ranks, out, impl="cuda")
+    with pytest.raises(TypeError):
+        tbp.bitpack_gather2_chunked([words], 64, ranks.int(), out)
+    with pytest.raises(TypeError):
+        tbp.bitpack_gather2_chunked([words], 64, ranks, out.int())
+    with pytest.raises(TypeError):
+        tbp.bitpack_gather2_chunked([words.long()], 64, ranks, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbp.bitpack_gather2_chunked(
+            [words], 64, torch.zeros(6, dtype=torch.int64)[::2], out)
+    with pytest.raises(ValueError, match="chunk_elems"):
+        tbp.bitpack_gather2_chunked([words], 0, ranks, out)
+    with pytest.raises(ValueError, match="table"):
+        tbp.bitpack_gather2_chunked([], 64, ranks, out)

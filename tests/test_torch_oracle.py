@@ -355,27 +355,41 @@ class TestServeEdges:
         assert dist.tolist() == want.tolist() == [2]
         assert trail[:, 0].tolist() == chains[0] == [0, order[0], 3]
 
-    def test_codes_gather_once_per_chunk_in_ascending_order(self, pair,
-                                                            monkeypatch):
+    @pytest.mark.parametrize("budget,groups", [
+        ("artifact", [[0, 5, 9]]),          # a budget holding every chunk
+        (2, [[0, 5], [9]]),                 # two chunks
+        (0.99, [[0], [5], [9]]),            # below one chunk
+    ])
+    def test_codes_gather_a_launch_a_group_in_ascending_order(
+            self, pair, monkeypatch, budget, groups):
+        """One chunked K4 call per group of touched chunks that fits the
+        budget, in ascending chunk order, each call's table holding that
+        group's chunks and no other; the chunks load once each, in
+        ascending order."""
         p = pair(7)
         calls, loads = [], []
-        real = O.K.bitpack_gather2
+        real = O.K.bitpack_gather2_chunked
 
-        def spy(words, idx, **kw):
-            calls.append((int(idx.min()), int(idx.max()), idx.dtype))
-            return real(words, idx, **kw)
+        def spy(table, chunk_elems, ranks, out, **kw):
+            calls.append([c for c, w in enumerate(table) if w is not None])
+            return real(table, chunk_elems, ranks, out, **kw)
 
-        monkeypatch.setattr(O.K, "bitpack_gather2", spy)
-        with O.DistanceOracle(p["port"], cache_bytes=1 << 20,
+        monkeypatch.setattr(O.K, "bitpack_gather2_chunked", spy)
+        with O.DistanceOracle(p["port"], device=CPU) as probe:
+            chunk = probe._chunk_bytes(0)
+            cache = (probe.artifact_bytes if budget == "artifact"
+                     else int(budget * chunk))
+        with O.DistanceOracle(p["port"], cache_bytes=cache,
                               device=CPU) as orc:
             real_load = orc._load_chunk
             orc.cache._loader = lambda c: loads.append(c) or real_load(c)
             ce = orc.chunk_elems
             q = torch.tensor([5 * ce + 3, 2, 9 * ce, 5 * ce, 1, 9 * ce + 7])
             got = orc.codes(q)
+            sizes = [sum(orc._chunk_bytes(c) for c in g) for g in calls]
         assert loads == [0, 5, 9]
-        assert calls == [(1, 2, torch.int32), (0, 3, torch.int32),
-                         (0, 7, torch.int32)]
+        assert calls == groups
+        assert all(b <= cache or len(g) == 1 for g, b in zip(calls, sizes))
         ref = _ram_distances(7, p["start"], p["total"])
         np.testing.assert_array_equal(got.numpy(), ref[q.numpy()] % 3 + 1)
 
