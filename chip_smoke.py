@@ -325,10 +325,40 @@ caught:
       prefill (40 K6 launches, all on the wgmma route), K8 on a captured
       decode layer and its time, 16 decode steps (40 K8 launches a step,
       all on the TMA route), the Server.
-16. the ``to_port`` line (an empty list: every kernel is ported), the
+16. the MoE and hybrid families (``phase_moe_hybrid``), bf16, params from
+   ``lm.init_params`` on a seeded generator:
+   a. granite-moe-3b-a800m FULL (40 experts padded to 48, top-8; K6 and
+      K8 at head dim 64, group 3): the 1 × 32768 prefill with exactly 32
+      K6 launches, all wgmma; K6 on captured layer 0 against its plain
+      version, timed beside its bound and SDPA(enable_gqa); the MoE
+      layer's share of the prefill wall by CUDA events and the count of
+      (token, choice) pairs dropped at the reference's capacity; K8 on a
+      captured decode layer against its plain version and timed; 16
+      decode steps with exactly 32 K8 launches a step, all tma; the
+      profile of a prefill and of 4 decode steps; ``launch/serve.py
+      --arch granite-moe-3b-a800m``;
+   b. zamba2-1.2b FULL (38 mamba2 layers, the shared block 6 times; K6
+      and K8 at MHA 32 x 64): the 1 × 32768 prefill with exactly 6 K6
+      launches and no K9 (the SSD form), K6 on a captured application,
+      K8 likewise, 16 decode steps with exactly 6 K8 launches a step, the
+      profile; one ``forward_hidden`` over 1 × 4096 with
+      ``mamba2_use_ssd=False``: exactly 38 K9 launches at N = 64, K9 on
+      the captured layer 0 against its plain version (under K9_TOL and
+      the per-tile limit, and the mirror of its order of sums) and timed
+      beside its bound, with the ptxas line of its N = 64 instantiation;
+      prefill-then-decode ≡ stepwise in float32 (the params converted in
+      place) within 2e-3; the Server;
+   c. phi3.5-moe-42b-a6.6b at full width and 8 of its 32 layers (83.7 GB
+      whole; 8 layers are 21.3 GB; K6 and K8 at head dim 128, group 4):
+      a 1 × 4096 prefill with exactly 8 K6 launches, K6 on a captured
+      layer and its times, the MoE share and drops, K8 on a captured
+      decode layer and its time, 16 decode steps with exactly 8 K8
+      launches a step, the profile.
+17. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE; K6's and K6-with-LSE's
    entries name the kernel that ran, their launches by route and the
-   ptxas report), the card line, and last
+   ptxas report; K6's, K8's and K9's launches on the MoE and hybrid
+   paths), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -380,7 +410,9 @@ from repro_torch.data.pipeline import batch_to_torch, make_batch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import paged  # noqa: E402
 from repro_torch.core.disk import oracle as O  # noqa: E402
+from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.runtime import (FaultInjector, TrainSettings,  # noqa: E402
                                  make_train_step, train)
 from repro_torch.runtime.train_loop import loss_and_grads  # noqa: E402
@@ -460,6 +492,11 @@ K6_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, softcap
     (1, 12, 2, 700, 700, 128, True, 203, None),
     (1, 8, 4, 129, 129, 256, True, 4096, 50.0),
     (1, 8, 4, 1000, 1000, 256, True, 100, 50.0),
+    # the MoE and hybrid layouts: group 3 at head dim 64 (granite-moe), MHA
+    # 32 x 64 (zamba2's shared block), group 4 at head dim 128 (phi3.5-moe)
+    (1, 24, 8, 1000, 1000, 64, True, None, None),
+    (1, 32, 32, 129, 129, 64, True, None, None),
+    (1, 32, 8, 1000, 1000, 128, True, None, None),
 ]
 
 
@@ -2421,11 +2458,22 @@ def reset_all_launches() -> None:
     PD.reset_launches()
 
 
-def unwindowed_layers(cfg) -> int:
-    """The attention layers that read their cache with K8 in decode (every
-    layer without a window; none in the ssm family)."""
+def attention_layers(cfg) -> int:
+    """K6 launches a prefill: one per attention layer (none in the ssm
+    family; one per application of the hybrid's shared block)."""
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "hybrid":
+        return lm.n_shared_applications(cfg)
+    return cfg.n_layers
+
+
+def unwindowed_layers(cfg) -> int:
+    """The attention layers that read their cache with K8 in decode (every
+    layer without a window; none in the ssm family; each application of
+    the hybrid's shared block)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return attention_layers(cfg)
     return sum(w is None for w in lm.layer_windows(cfg))
 
 
@@ -2519,17 +2567,25 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     launches = dict(FA.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     routes = dict(FA.ROUTE_LAUNCHES)
-    expect(launches == {"flash_attention": cfg.n_layers,
+    n_attn = attention_layers(cfg)
+    expect(launches == {"flash_attention": n_attn,
                         "flash_attention_lse": 0, "flash_attention_bwd": 0},
            launches)
-    expect(routes == {"wgmma": cfg.n_layers, "classic": 0},
+    expect(routes == {"wgmma": n_attn, "classic": 0},
            f"K6 routes of the prefill: {routes}")
-    expect(not any(K.LAUNCHES.values()) and not any(PD.LAUNCHES.values()),
-           (dict(K.LAUNCHES), dict(PD.LAUNCHES)))
+    expect(not any(K.LAUNCHES.values()) and not any(PD.LAUNCHES.values())
+           and not any(MS.LAUNCHES.values()),
+           (dict(K.LAUNCHES), dict(PD.LAUNCHES), dict(MS.LAUNCHES)))
     expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
     expect(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    expect(len(caches["kv"]) == cfg.n_layers and all(
+    expect(len(caches["kv"]) == n_attn and all(
         int(c.lengths[0]) == seq for c in caches["kv"]), "cache lengths")
+    if cfg.family == "hybrid":
+        di, n = cfg.d_inner, cfg.ssm_state
+        expect(len(caches["ssm"]) == cfg.n_layers and all(
+            st.conv.shape == (1, cfg.ssm_conv - 1, di + 2 * n) and
+            st.h.shape == (1, di, n) and bool(torch.isfinite(st.h).all())
+            for st in caches["ssm"]), "prefill states")
     res = {"tokens": seq, "wall_s": wall, "tokens_per_s": seq / wall,
            "peak_bytes": peak, "launches": launches, "k6_routes": routes}
     print(f"prefill: {cfg.name} bf16 1 x {seq} tokens, {wall:.3f} s wall, "
@@ -2544,15 +2600,16 @@ def phase_capture(cfg, params, inputs, wall, dev, keep=(0, 1)):
     1, global), and K6's time by CUDA events as a share of the main path's
     wall."""
     FA.reset_launches()
+    n_attn = attention_layers(cfg)
     with Capture("flash_attention", keep=keep) as cap:
         lm.prefill(params, inputs, cfg)
         sync(dev)
-    expect(FA.LAUNCHES["flash_attention"] == cfg.n_layers, dict(FA.LAUNCHES))
-    expect(dict(FA.ROUTE_LAUNCHES) == {"wgmma": cfg.n_layers, "classic": 0},
+    expect(FA.LAUNCHES["flash_attention"] == n_attn, dict(FA.LAUNCHES))
+    expect(dict(FA.ROUTE_LAUNCHES) == {"wgmma": n_attn, "classic": 0},
            dict(FA.ROUTE_LAUNCHES))
     k6_ms = cap.kernel_ms()
     res = {"k6_ms": k6_ms, "k6_share": k6_ms / 1e3 / wall}
-    print(f"prefill K6 time: {cfg.name}, {cfg.n_layers} launches on the "
+    print(f"prefill K6 time: {cfg.name}, {n_attn} launches on the "
           f"wgmma route taking {k6_ms:.1f} ms by CUDA events "
           f"({100 * res['k6_share']:.1f}% of the main path's wall)")
     return [(*cap.calls[i][0], cap.calls[i][1]) for i in keep], res
@@ -4066,6 +4123,11 @@ K8_CASES = [  # b, hq, kvh, ps, pps, hd, softcap
     # edge
     (5, 12, 2, 64, 4, 128, 20.0), (5, 6, 1, 256, 3, 256, 30.0),
     (5, 48, 1, 64, 5, 64, None),
+    # the MoE and hybrid layouts: group 3 at head dim 64 (granite-moe, with
+    # pages of 64 too), MHA 32 x 64 (zamba2), group 4 at head dim 128
+    # (phi3.5-moe)
+    (5, 24, 8, 128, 3, 64, None), (5, 24, 8, 64, 5, 64, None),
+    (5, 32, 32, 128, 3, 64, None), (5, 32, 8, 128, 3, 128, None),
 ]
 # The planted faults run on each route: the classic kernels (pages of 16)
 # and the TMA route (pages of 128).
@@ -4706,6 +4768,207 @@ def phase_dense(dev) -> dict:
     return {"nemotron": nemotron, "minicpm": minicpm}
 
 
+# ------------------- the MoE and hybrid families (granite-moe, zamba2, phi)
+
+GRANITE_MOE_ARCH = "granite-moe-3b-a800m"
+ZAMBA_ARCH = "zamba2-1.2b"
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 8                # of 32: 83.7 GB whole, 21.3 GB at 8 layers
+PHI_PREFILL_LEN = 4096
+ZAMBA_FORWARD_LEN = 4096      # the K9 form's forward (mamba2_use_ssd=False)
+
+
+def phase_moe_share(cfg, params, inputs, wall, dev) -> dict:
+    """A prefill of the main path's inputs with the MoE layer wrapped: its
+    time by CUDA events as a share of the main path's wall, and, outside
+    the timed span, the (token, choice) pairs each layer drops at the
+    config's capacity (its router and slots run again on the same input)."""
+    events, dropped = [], []
+    orig = BL.moe
+
+    def wrapped(p, x, cfg_, group=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(p, x, cfg_, group)
+        b.record()
+        events.append((a, b))
+        _, keep, _ = MOE.dispatch_slots(MOE._route(p, x, cfg_)[1], cfg_)
+        dropped.append((~keep).sum())
+        return out
+    BL.moe = wrapped
+    try:
+        lm.prefill(params, inputs, cfg)
+        sync(dev)
+    finally:
+        BL.moe = orig
+    expect(len(events) == cfg.n_layers, len(events))
+    seq = inputs["tokens"].shape[1]
+    moe_ms = sum(a.elapsed_time(b) for a, b in events)
+    drops = [int(d) for d in dropped]
+    pairs = seq * cfg.top_k
+    res = {"moe_ms": moe_ms, "moe_share": moe_ms / 1e3 / wall,
+           "capacity": MOE.capacity(seq, cfg),
+           "dropped_pairs": sum(drops), "pairs": pairs * cfg.n_layers,
+           "dropped_by_layer": drops}
+    print(f"prefill MoE time: {cfg.name}, {cfg.n_layers} MoE layers taking "
+          f"{moe_ms:.1f} ms by CUDA events ({100 * res['moe_share']:.1f}% of "
+          f"the main path's wall); dropped {sum(drops)} of "
+          f"{pairs * cfg.n_layers} (token, choice) pairs at capacity "
+          f"{res['capacity']} a row ({min(drops)}-{max(drops)} a layer of "
+          f"{pairs})")
+    return res
+
+
+def moe_model_phase(cfg, dev, seq) -> dict:
+    """A MoE config's serving path in bfloat16: the prefill (the main
+    path of K6), K6 on captured layer 0 and its times, the MoE share and
+    drops, K8 on a captured decode layer and its times, 16 decode steps
+    (the main path of K8), the profile of a prefill and of decode steps."""
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync(dev)
+    print(f"init: {cfg.name} ({cfg.n_layers} layers), "
+          f"{sum(t.numel() for t in T.leaves(params))} params in bfloat16 "
+          f"(param_count {cfg.param_count()}: {cfg.n_experts} of "
+          f"{cfg.experts_padded} experts), {time.perf_counter() - t0:.3f} s")
+    inputs, logits, caches, prefill = phase_prefill(cfg, params, dev, seq)
+    k6_calls, k6_share = phase_capture(cfg, params, inputs,
+                                       prefill["wall_s"], dev, keep=(0,))
+    prefill.update(k6_share)
+    k6_times = phase_k6_dense_times(cfg, k6_calls[0])
+    del k6_calls
+    prefill.update(phase_moe_share(cfg, params, inputs, prefill["wall_s"],
+                                   dev))
+    calls, _ = k8_capture(cfg, params, caches, dev, keep=(0,))
+    captured = k8_on_captured(cfg, calls, f"{cfg.name} decode")
+    times = phase_k8_times(*calls[0], f"{cfg.name} decode layer 0, batch 1")
+    del calls
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    profile = phase_profile(cfg, params, inputs, caches, dev)
+    del params, caches, inputs
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "prefill": prefill,
+            "k6_times": k6_times, "k8_captured": captured, "k8_times": times,
+            "decode": decode, "profile": profile}
+
+
+def k9_ptxas_at(k9_ptx, n) -> dict:
+    """K9's ptxas report for the instantiation a state of ``n`` launches
+    (``mamba_scan.geometry``'s threads a channel), both dtypes."""
+    tpc = MS.geometry(1, 1, 1, n)["tpc"]
+    rec = {key: k9_ptx[key] for key in (f"bf16 tpc {tpc}", f"f32 tpc {tpc}")}
+    print(f"ptxas K9 at N = {n} (scan_seg_kernel<T, {tpc}>): {rec}")
+    return rec
+
+
+def zamba_k9_forward(cfg, params, dev, k9_ptx, seq=ZAMBA_FORWARD_LEN):
+    """``lm.forward_hidden`` + ``logits_fn`` over 1 × ``seq`` tokens with
+    ``mamba2_use_ssd=False``: mamba2's head scalars broadcast into K9's
+    form, exactly one K9 launch a layer, at N = 64.  Layer 0's scan inputs
+    captured: K9 against its plain version (and the mirror of its order of
+    sums) and timed beside its bound; K9's ptxas line at N = 64."""
+    cfg_k9 = cfg.replace(mamba2_use_ssd=False)
+    inputs = lm_inputs(cfg, 1, seq, dev, SEED + 3)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits = lm.logits_fn(params, lm.forward_hidden(params, inputs, cfg_k9),
+                          cfg_k9)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(MS.LAUNCHES)
+    expect(launches == {"mamba_scan": cfg.n_layers}, launches)
+    expect(FA.LAUNCHES["flash_attention"] == attention_layers(cfg),
+           dict(FA.LAUNCHES))
+    expect(logits.shape == (1, seq, cfg.vocab_padded), logits.shape)
+    expect(bool(torch.isfinite(logits).all()), "forward logits not finite")
+    print(f"forward: {cfg.name} forward_hidden + logits_fn over 1 x {seq} "
+          f"tokens with mamba2_use_ssd=False, {wall:.3f} s, K9 launches "
+          f"{launches['mamba_scan']} (N = {cfg.ssm_state})")
+    MS.reset_launches()
+    with Capture("mamba_scan", keep=(0,)) as cap:
+        lm.forward_hidden(params, inputs, cfg_k9)
+        sync(dev)
+    expect(MS.LAUNCHES["mamba_scan"] == cfg.n_layers, dict(MS.LAUNCHES))
+    args = cap.calls[0][0]
+    expect(args[2].shape == (cfg.d_inner, cfg.ssm_state), args[2].shape)
+    e, _ = check_k9(args, f"{cfg.name} forward layer 0 (N = "
+                          f"{cfg.ssm_state})")
+    print(f"parity K9 {cfg.name} forward layer 0 x {tuple(args[0].shape)} "
+          f"{args[0].dtype} N {args[2].shape[1]}: y max abs err "
+          f"{e['max_abs_y']:.3e}, h max abs err {e['max_abs_h']:.3e}, "
+          f"per-tile rel err y {e['rel_y']:.3e}, h {e['rel_h']:.3e} (tol "
+          f"elementwise {K9_TOL[args[0].dtype]} on y, 1e-4 on h; per tile "
+          f"{K9_REL_TOL}); against the mirror of its order of sums per tile "
+          f"h {e['mirror_rel_h']:.3e} (limit {K9_MIRROR_REL_TOL})")
+    times = phase_k9_times(args)
+    del args, cap
+    return {"tokens": seq, "wall_s": wall, "launches": launches,
+            "k9_parity": e, "k9_times": times,
+            "k9_ptxas": k9_ptxas_at(k9_ptx, cfg.ssm_state)}
+
+
+def phase_zamba2(dev, k9_ptx) -> dict:
+    """zamba2-1.2b FULL in bfloat16: the 32k prefill (SSD mamba2, the
+    shared block's 6 K6 launches), K6 on a captured application and its
+    times, K8 on a captured decode application and its times, 16 decode
+    steps (6 K8 launches a step) and their profile, the K9 form's forward
+    at N = 64, prefill ≡ stepwise in float32, the Server."""
+    cfg = get_config(ZAMBA_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync(dev)
+    print(f"init: {cfg.name}, {cfg.param_count()} params in bfloat16, "
+          f"{time.perf_counter() - t0:.3f} s; the shared block after "
+          f"segments {lm._hybrid_segments(cfg)}")
+    inputs, logits, caches, prefill = phase_prefill(cfg, params, dev)
+    k6_calls, k6_share = phase_capture(cfg, params, inputs,
+                                       prefill["wall_s"], dev, keep=(0,))
+    prefill.update(k6_share)
+    k6_times = phase_k6_dense_times(cfg, k6_calls[0])
+    del k6_calls
+    calls, _ = k8_capture(cfg, params, caches, dev, keep=(0,))
+    captured = k8_on_captured(cfg, calls, f"{cfg.name} decode")
+    times = phase_k8_times(*calls[0], f"{cfg.name} decode application 0, "
+                           f"batch 1")
+    del calls
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    profile = phase_profile(cfg, params, inputs, caches, dev)
+    del caches, inputs
+    torch.cuda.empty_cache()
+    forward = zamba_k9_forward(cfg, params, dev, k9_ptx)
+    torch.cuda.empty_cache()
+    params = to_float_in_place(params)
+    equiv = {"float32": prefill_vs_stepwise(cfg.replace(dtype="float32"),
+                                            params, dev)}
+    del params
+    torch.cuda.empty_cache()
+    served = phase_serve(("--arch", ZAMBA_ARCH))
+    return {"arch": ZAMBA_ARCH, "prefill": prefill, "k6_times": k6_times,
+            "k8_captured": captured, "k8_times": times, "decode": decode,
+            "profile": profile, "forward_k9": forward, "equivalence": equiv,
+            "serve": served}
+
+
+def phase_moe_hybrid(dev, k9_ptx) -> dict:
+    """granite-moe-3b FULL, zamba2-1.2b FULL, phi3.5-moe at full width and
+    PHI_LAYERS layers."""
+    granite = moe_model_phase(get_config(GRANITE_MOE_ARCH), dev, PREFILL_LEN)
+    granite["serve"] = phase_serve(("--arch", GRANITE_MOE_ARCH))
+    torch.cuda.empty_cache()
+    zamba = phase_zamba2(dev, k9_ptx)
+    torch.cuda.empty_cache()
+    phi_cfg = get_config(PHI_ARCH).replace(n_layers=PHI_LAYERS)
+    print(f"phi3.5-moe: {PHI_LAYERS} of {get_config(PHI_ARCH).n_layers} "
+          f"layers at full width ({get_config(PHI_ARCH).param_count()} "
+          f"params whole, {phi_cfg.param_count()} at {PHI_LAYERS} layers)")
+    phi = moe_model_phase(phi_cfg, dev, PHI_PREFILL_LEN)
+    torch.cuda.empty_cache()
+    print(json.dumps({"moe_hybrid": {"granite_moe": granite, "zamba2": zamba,
+                                     "phi35_moe": phi}}, default=str))
+    return {"granite_moe": granite, "zamba2": zamba, "phi35_moe": phi}
+
+
 def to_port_bounds() -> list:
     """The bounds of the TPU kernels still to port: none.  K5, the last,
     is ported (``phase_roomy``; its bound is in the ``kernels`` line), so
@@ -4749,6 +5012,9 @@ def main() -> None:
     fm = phase_falcon_mamba(dev)
     torch.cuda.empty_cache()
     dense = phase_dense(dev)
+    torch.cuda.empty_cache()
+    mh = phase_moe_hybrid(dev, k9_ptx)
+    gm, zb, ph = mh["granite_moe"], mh["zamba2"], mh["phi35_moe"]
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -4840,7 +5106,14 @@ def main() -> None:
                             "enable_gqa=True)",
         "nemotron_prefill_share": dense["nemotron"]["prefill"]["k6_share"],
         "nemotron_launches_by_route": dense["nemotron"]["prefill"][
-            "k6_routes"]})
+            "k6_routes"],
+        **{f"{key}_{f}": rec["k6_times"][f] for key, rec in (
+            ("granite_moe", gm), ("zamba2", zb), ("phi35_moe", ph))
+           for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "launches_by_route_moe_hybrid": {
+            "granite-moe-3b-a800m": gm["prefill"]["k6_routes"],
+            "zamba2-1.2b": zb["prefill"]["k6_routes"],
+            "phi3.5-moe-42b-a6.6b (8 layers)": ph["prefill"]["k6_routes"]}})
     tr, win = k7["train"], k7["window"]
     kernels.append({
         "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
@@ -4908,7 +5181,15 @@ def main() -> None:
         "bound_fma_ms": t9["bound_fma_ms"],
         "bound_bytes_ms": t9["bound_bytes_ms"],
         "launches_per_forward": fm["forward_launches"],
-        "launches_per_decode_step": fm["decode_launches_per_step"]})
+        "launches_per_decode_step": fm["decode_launches_per_step"],
+        "zamba2_launches_per_forward": zb["forward_k9"]["launches"][
+            "mamba_scan"],
+        "zamba2_ms": zb["forward_k9"]["k9_times"]["ms"],
+        "zamba2_plain_ms": zb["forward_k9"]["k9_times"]["plain_ms"],
+        "zamba2_bound_ms": zb["forward_k9"]["k9_times"]["bound_ms"],
+        "zamba2_bound_binds": zb["forward_k9"]["k9_times"]["binds"],
+        "zamba2_shape": zb["forward_k9"]["k9_times"]["shape"],
+        "zamba2_ptxas": zb["forward_k9"]["k9_ptxas"]})
     nem = dense["nemotron"]
     t8, b8 = nem["k8_times"], nem["batched_decode"]["k8"]
     g8 = k6["k8_times"]
@@ -4938,7 +5219,19 @@ def main() -> None:
         "gemma2_ms": g8["ms"], "gemma2_plain_ms": g8["plain_ms"],
         "gemma2_bound_ms": g8["bound_ms"],
         "minicpm_ms": dense["minicpm"]["k8_times"]["ms"],
-        "minicpm_bound_ms": dense["minicpm"]["k8_times"]["bound_ms"]})
+        "minicpm_bound_ms": dense["minicpm"]["k8_times"]["bound_ms"],
+        **{f"{key}_{f}": rec["k8_times"][f] for key, rec in (
+            ("granite_moe", gm), ("zamba2", zb), ("phi35_moe", ph))
+           for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "launches_by_route_moe_hybrid": {
+            "granite-moe-3b-a800m": gm["decode"]["k8_routes"],
+            "zamba2-1.2b": zb["decode"]["k8_routes"],
+            "phi3.5-moe-42b-a6.6b (8 layers)": ph["decode"]["k8_routes"]},
+        "launches_per_step_moe_hybrid": {
+            "granite-moe-3b-a800m": gm["decode"]["k8_launches_per_step"],
+            "zamba2-1.2b": zb["decode"]["k8_launches_per_step"],
+            "phi3.5-moe-42b-a6.6b (8 layers)": ph["decode"][
+                "k8_launches_per_step"]}})
     print(json.dumps({"to_port": to_port_bounds()}))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))

@@ -7,19 +7,19 @@ The port knows those whose path it carries; for the others
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import (falcon_mamba_7b, gemma2_2b, granite_34b, minicpm_2b,
-               nemotron4_15b)
+from . import (falcon_mamba_7b, gemma2_2b, granite_34b, granite_moe_3b,
+               minicpm_2b, nemotron4_15b, phi35_moe_42b, zamba2_1p2b)
 
 _MODULES = {"gemma2-2b": gemma2_2b, "falcon-mamba-7b": falcon_mamba_7b,
             "nemotron-4-15b": nemotron4_15b, "minicpm-2b": minicpm_2b,
-            "granite-34b": granite_34b}
+            "granite-34b": granite_34b,
+            "granite-moe-3b-a800m": granite_moe_3b,
+            "phi3.5-moe-42b-a6.6b": phi35_moe_42b,
+            "zamba2-1.2b": zamba2_1p2b}
 
 #: Architectures of the reference not ported yet → the ROADMAP item that
 #: ports each one.
 NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": "9.4 (models/moe.py over core/delayed)",
-    "granite-moe-3b-a800m": "9.4 (models/moe.py over core/delayed)",
-    "zamba2-1.2b": "9.5 (hybrid mamba2 + shared attention)",
     "musicgen-medium": "9.6 (frontend-stub audio)",
     "qwen2-vl-2b": "9.6 (frontend-stub vision, M-RoPE)",
 }

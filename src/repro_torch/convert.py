@@ -87,13 +87,18 @@ def _layer(stacked, i: int, cfg):
 
 def lm_params_from_jax(params, cfg, device=None) -> dict:
     """The reference's ``lm.init_params`` pytree (dicts of array-likes)
-    → the port's params: the same dicts, ``blocks`` as a list of L."""
+    → the port's params: the same dicts, ``blocks`` as a list of L (each
+    with its ``moe`` subtree for the MoE family, its mamba2 leaves for the
+    hybrid), and the hybrid's one ``shared`` block as it is."""
     conv = lambda a: array_to_torch(a, device)  # noqa: E731
-    return {"embed": T.tree_map(conv, params["embed"]),
-            "final_norm": conv(params["final_norm"]),
-            "blocks": [T.tree_map(lambda a: conv(_layer(a, i, cfg)),
-                                  params["blocks"])
-                       for i in range(cfg.n_layers)]}
+    out = {"embed": T.tree_map(conv, params["embed"]),
+           "final_norm": conv(params["final_norm"]),
+           "blocks": [T.tree_map(lambda a: conv(_layer(a, i, cfg)),
+                                 params["blocks"])
+                      for i in range(cfg.n_layers)]}
+    if "shared" in params:
+        out["shared"] = T.tree_map(conv, params["shared"])
+    return out
 
 
 def opt_state_from_jax(state, cfg, device=None):
@@ -107,14 +112,21 @@ def opt_state_from_jax(state, cfg, device=None):
 
 def lm_caches_from_jax(caches, cfg, device=None) -> dict:
     """The reference's decode caches ({"kv": PagedKV with stacked
-    leaves}, or {"ssm": SSMState with (L, …) leaves}) → the port's
-    ({"kv": [PagedKV] * L} or {"ssm": [SSMState] * L})."""
+    leaves}, {"ssm": SSMState with (L, …) leaves}, or the hybrid's both,
+    its kv stacked over the shared block's applications) → the port's
+    ({"kv": [PagedKV] * L}, {"ssm": [SSMState] * L}, or both, with a
+    ``PagedKV`` per application)."""
+    out = {}
     if "ssm" in caches:
         st = caches["ssm"]
-        return {"ssm": [SSMState(*(array_to_torch(np.asarray(leaf)[i], device)
-                                   for leaf in (st.conv, st.h)))
-                        for i in range(cfg.n_layers)]}
-    kv = caches["kv"]
-    return {"kv": [paged.PagedKV(*(array_to_torch(
-        _layer(getattr(kv, f), i, cfg), device) for f in paged.PagedKV._fields))
-        for i in range(cfg.n_layers)]}
+        out["ssm"] = [SSMState(*(array_to_torch(np.asarray(leaf)[i], device)
+                                 for leaf in (st.conv, st.h)))
+                      for i in range(cfg.n_layers)]
+    if "kv" in caches:
+        kv = caches["kv"]
+        n = np.asarray(kv.lengths).shape[0] * (
+            2 if cfg.local_global_pattern else 1)
+        out["kv"] = [paged.PagedKV(*(array_to_torch(
+            _layer(getattr(kv, f), i, cfg), device)
+            for f in paged.PagedKV._fields)) for i in range(n)]
+    return out

@@ -6,7 +6,13 @@ the segment scatter-add of ``:240-246`` (K5), the attention functions of
 forward with its log-sum-exp and the backward of
 ``repro/kernels/flash_attention.py:100-111`` and
 ``flash_attention_bwd.py`` (K6's LSE output and K7), and the paged decode
-attention of ``repro/kernels/paged_decode.py`` (K8).  They are
+attention of ``repro/kernels/paged_decode.py`` (K8).  Beside them sit two
+pieces of model math that no kernel replaces: mamba2's chunked SSD form
+(``mamba2_ssd``, ``ref.py:174-236``), which the zamba2 path runs as torch
+matmuls, as mamba1's prefill runs ``mamba_scan_seq_stateful`` in the
+reference, and the MoE one-hot dispatch (``moe_einsum_onehot``,
+``repro/models/moe.py:64-92``), the plain form ``models/moe.py``'s index
+dispatch is held to.  They are
 device-agnostic: the CPU tests run them as the port's only path there,
 and ``chip_smoke.py`` runs them on CUDA tensors to hold each kernel
 against them (bit for bit for the bit-pack kernels, within the float
@@ -478,3 +484,89 @@ def mamba_scan_plain(x, dt, a, b, c, d, return_state=False):
     if x.shape[1] > ASSOC_MAX_LEN:
         return mamba_scan_seq_ref(x, dt, a, b, c, d)
     return mamba_scan_ref(x, dt, a, b, c, d)
+
+
+# ------------------------------------------------------- mamba2 SSD form
+
+def mamba2_ssd(x, dt, a, b, c, d, *, chunk: int = 128, h0=None):
+    """The chunked state-space-dual (matmul) form of mamba2
+    (``ref.py:174-236``), valid for a scalar decay a head.  Within a chunk
+    of Q steps everything is matmuls; one (H, P, N) state crosses chunks,
+    handed on by a loop over the chunks (the reference's ``lax.scan``).
+    Float32 throughout.  x (B, L, H, P); dt (B, L, H) after the softplus;
+    a (H,) negative; b, c (B, L, N) (one group); d (H,) → (y (B, L, H, P)
+    float32, h_last (B, H, P, N) float32).  The (B, NC, Q, Q, H)
+    temporaries (1.07 GB each at zamba2's 1 × 32768) are worked in place
+    and freed as soon as they are used."""
+    bs, seq, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, seq)
+    pad = (-seq) % q
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf, bf, cf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                       for t in (dtf, bf, cf))
+    nc = xf.shape[1] // q
+    xf = xf.reshape(bs, nc, q, h, p)
+    dtf = dtf.reshape(bs, nc, q, h)
+    bf = bf.reshape(bs, nc, q, n)
+    cf = cf.reshape(bs, nc, q, n)
+    # per-chunk log-decay prefix: cum[t] = sum_{r <= t} dt_r·a  (<= 0)
+    cum = torch.cumsum(dtf * a.float(), dim=2)                # (B, NC, Q, H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    m = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,NC,Qt,Qs,H)
+    m.exp_().masked_fill_(~tri[None, None, :, :, None], 0.0)
+    m.mul_(torch.einsum("bktn,bksn->bkts", cf, bf)[..., None])
+    m.mul_(dtf[:, :, None, :, :])
+    y = torch.einsum("bktsh,bkshp->bkthp", m, xf)            # intra-chunk
+    del m
+    # the state each chunk injects: sum_s exp(cum_last - cum_s)·dt_s·x_s ⊗ B_s
+    wsrc = torch.exp(cum[:, :, -1:, :] - cum) * dtf           # (B, NC, Q, H)
+    inj = torch.einsum("bkqhp,bkqn->bkhpn", xf * wsrc[..., None], bf)
+    decay = torch.exp(cum[:, :, -1])                          # (B, NC, H)
+    h_in = torch.empty_like(inj)                              # pre-chunk states
+    hcur = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
+            if h0 is None else h0.float())
+    for k in range(nc):
+        h_in[:, k] = hcur
+        hcur = hcur * decay[:, k, :, None, None] + inj[:, k]
+    del inj
+    y += torch.einsum("bkqn,bkhpn->bkqhp", cf, h_in) * torch.exp(cum)[
+        ..., None]
+    del h_in
+    y = y.reshape(bs, nc * q, h, p)[:, :seq]
+    y = y + x.float() * d.float()[None, None, :, None]
+    return y, hcur
+
+
+# --------------------------------------------------------- MoE dispatch
+
+def moe_einsum_onehot(x, w, ids, n_experts: int, cap: int, expert_ffn):
+    """The reference's one-hot dispatch and combine
+    (``repro/models/moe.py:64-92``), the plain version of
+    ``models/moe.py``'s index form: x (B, S, d), router weights w and
+    expert ids (B, S, k) → (B, S, d) in x.dtype.  Slots from the cumsum of
+    the one-hot ids over the flattened (S·k) axis; a pair at or past
+    ``cap`` parks on a slot the one-hot leaves empty and adds 0;
+    ``expert_ffn`` maps (E, B·cap, d) → (E, B·cap, d).  Materialises
+    (B, S, k, E, cap): small shapes only."""
+    one_hot = torch.nn.functional.one_hot
+    b, s, d = x.shape
+    k = ids.shape[-1]
+    dt = x.dtype
+    flat = ids.reshape(b, s * k).long()
+    oh = one_hot(flat, n_experts)                             # (b, sk, e)
+    slot = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1         # (b, sk)
+    keep = (slot >= 0) & (slot < cap)
+    slot = torch.where(keep, slot, cap)                       # parked
+    disp = (one_hot(flat, n_experts).to(dt)[..., :, None]
+            * one_hot(slot, cap + 1)[..., :cap].to(dt)[..., None, :]
+            * keep[..., None, None].to(dt))                   # (b, sk, e, c)
+    disp = disp.reshape(b, s, k, n_experts, cap)
+    disp_x = disp.sum(2)                                      # (b, s, e, c)
+    comb = (disp * w[..., None, None].to(dt)).sum(2)
+    xin = torch.einsum("bsd,bsec->ebcd", x, disp_x).reshape(
+        n_experts, b * cap, d)
+    hout = expert_ffn(xin).reshape(n_experts, b, cap, d)
+    return torch.einsum("ebcd,bsec->bsd", hout, comb)

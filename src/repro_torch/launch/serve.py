@@ -6,14 +6,19 @@ server (``runtime/serve_loop.py``) over Roomy paged KV caches.
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-15b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
 
-``--arch``: gemma2-2b, falcon-mamba-7b, nemotron-4-15b, minicpm-2b or
-granite-34b (whose 93.9 GB of bfloat16 params no single 80 GB card holds:
-``--smoke`` only, until the mesh).  The flags and defaults of
-``repro/launch/serve.py``, plus ``--device`` (default "cuda"; raises
-without a card).  A full config keeps its params in bfloat16
-(falcon-mamba-7b: 14.0 GB, nemotron-4-15b: 31.3 GB); a smoke config runs
-in float32.
+``--arch``: gemma2-2b, falcon-mamba-7b, nemotron-4-15b, minicpm-2b,
+granite-34b, granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b or zamba2-1.2b.
+granite-34b's 93.9 GB and phi3.5-moe's 83.7 GB of bfloat16 params no
+single 80 GB card holds: ``--smoke`` only for those two, until the mesh.
+The flags and defaults of ``repro/launch/serve.py``, plus ``--device``
+(default "cuda"; raises without a card).  A full config keeps its params
+in bfloat16 (falcon-mamba-7b: 14.0 GB, nemotron-4-15b: 31.3 GB,
+granite-moe-3b-a800m: 7.8 GB with its padded experts, zamba2-1.2b: 2.2
+GB); a smoke config runs in float32.
 Params are random, from ``--seed``; the prompts come from numpy's
 generator on the same seed, as in the reference.
 """

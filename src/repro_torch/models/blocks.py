@@ -1,9 +1,11 @@
-"""The transformer and mamba1 blocks, for prefill and for one decode step.
+"""The transformer and mamba blocks, for prefill and for one decode step.
 
 Port of ``repro/models/blocks.py``: the transformer block (pre-norm
-attention and MLP, each followed by gemma2's post-norm when
-``cfg.post_norm``) and the mamba1 block (pre-norm mamba1, residual).  The
-mamba2 and MoE blocks come with their slices (ROADMAP items 9.4, 9.5).
+attention and an MLP, or the MoE layer when ``cfg.is_moe``, each followed
+by gemma2's post-norm when ``cfg.post_norm``) and the mamba block
+(pre-norm mamba1 or mamba2 by ``version``, residual).  zamba2's shared
+block is a transformer block with one weight set and a KV cache for each
+place it runs (``lm.py``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from ..core import paged
 from .attention import attention, decode_attention, init_attention
 from .config import ModelConfig
 from .layers import init_mlp, mlp, rms_norm
-from .ssm import SSMState, init_mamba1, mamba1, mamba1_decode, mamba1_prefill
+from .moe import init_moe, moe
+from .ssm import (SSMState, init_mamba1, init_mamba2, mamba1, mamba1_decode,
+                  mamba1_prefill, mamba2, mamba2_decode, mamba2_prefill)
 
 
 def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
@@ -23,8 +27,11 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)  # noqa: E731
     p = {"ln1": zeros(), "ln2": zeros(),
-         "attn": init_attention(gen, cfg, device=device, dtype=dtype),
-         "mlp": init_mlp(gen, cfg, device=device, dtype=dtype)}
+         "attn": init_attention(gen, cfg, device=device, dtype=dtype)}
+    if cfg.is_moe:
+        p["moe"] = init_moe(gen, cfg, device=device, dtype=dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device=device, dtype=dtype)
     if cfg.post_norm:
         p["post_ln1"] = zeros()
         p["post_ln2"] = zeros()
@@ -32,7 +39,8 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _mlp_half(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.rms_eps), cfg)
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    h = moe(p["moe"], h, cfg) if cfg.is_moe else mlp(p["mlp"], h, cfg)
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln2"], cfg.rms_eps)
     return x + h
@@ -63,27 +71,31 @@ def transformer_block_decode(p: dict, x: torch.Tensor, cache: paged.PagedKV,
     return _mlp_half(p, x + h, cfg), cache
 
 
-# ------------------------------------------------------ mamba1 block
+# ------------------------------------------------------- mamba blocks
 
 def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *, device,
-                     dtype) -> dict:
+                     dtype, version: int = 1) -> dict:
+    init = init_mamba1 if version == 1 else init_mamba2
     return {"ln": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
-            "mamba": init_mamba1(gen, cfg, device=device, dtype=dtype)}
+            "mamba": init(gen, cfg, device=device, dtype=dtype)}
 
 
-def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + mamba1(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg)
+def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                version: int = 1) -> torch.Tensor:
+    fn = mamba1 if version == 1 else mamba2
+    return x + fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg)
 
 
 def mamba_block_decode(p: dict, x: torch.Tensor, state: SSMState,
-                       cfg: ModelConfig) -> Tuple[torch.Tensor, SSMState]:
-    h, state = mamba1_decode(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps),
-                             state, cfg)
+                       cfg: ModelConfig, version: int = 1
+                       ) -> Tuple[torch.Tensor, SSMState]:
+    fn = mamba1_decode if version == 1 else mamba2_decode
+    h, state = fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), state, cfg)
     return x + h, state
 
 
-def mamba_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig
-                        ) -> Tuple[torch.Tensor, SSMState]:
-    h, state = mamba1_prefill(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps),
-                              cfg)
+def mamba_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        version: int = 1) -> Tuple[torch.Tensor, SSMState]:
+    fn = mamba1_prefill if version == 1 else mamba2_prefill
+    h, state = fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg)
     return x + h, state

@@ -1,10 +1,11 @@
 """Model configuration: the port's own copy of ``repro/models/config.py``.
 
 It keeps the fields and derived properties that the dense (gemma2,
-nemotron, minicpm, granite) and mamba1 (falcon-mamba) paths read.  The
-MoE, mamba2, hybrid and frontend fields and M-RoPE come with the slices
-that port them (ROADMAP item 9).  Frozen, so a config can be shared and
-compared.
+nemotron, minicpm, granite), mamba1 (falcon-mamba), MoE (granite-moe,
+phi3.5-moe) and hybrid (zamba2: mamba2 with a shared attention block)
+paths read.  The frontend fields and M-RoPE come with the slice that
+ports them (ROADMAP item 9.6), the mesh fields with item 9.8.  Frozen, so
+a config can be shared and compared.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense, ssm (ported) | moe | hybrid | audio | vlm
+    family: str                  # dense | moe | ssm | hybrid (ported) | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int                 # query heads; 0 for attention-free archs
@@ -25,11 +26,20 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
 
-    # --- SSM (mamba1) ---
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_dispatch: str = "roomy"      # roomy (needs a mesh: 9.8) | einsum
+    capacity_factor: float = 1.25
+
+    # --- SSM (mamba) ---
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
-    mamba_version: int = 0           # 0=none, 1=mamba1 (2=mamba2: item 9.5)
+    mamba_version: int = 0           # 0=none, 1=mamba1, 2=mamba2
+    mamba2_head_dim: int = 64
+    mamba2_use_ssd: bool = True      # chunked matmul (SSD) form, else K9
+    ssd_chunk: int = 128
 
     # --- attention variants ---
     local_window: int = 0            # sliding-window size (gemma2 local layers)
@@ -42,6 +52,9 @@ class ModelConfig:
     # --- MLP ---
     mlp_act: str = "silu"            # silu | gelu | relu2
     mlp_gated: bool = True
+
+    # --- hybrid (zamba2) ---
+    shared_attn_every: int = 0       # shared attn+mlp block every k layers
 
     # --- embeddings / head ---
     tie_embeddings: bool = True      # False: an own (d, vocab) LM head
@@ -67,41 +80,81 @@ class ModelConfig:
         return max(1, math.ceil(self.d_model / 16))
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def vocab_padded(self) -> int:
         """Vocab rounded up to a multiple of 256 (the reference pads so the
         vocab dim shards over a model axis); ``lm_head`` masks the pad rows
         to -1e30."""
         return -(-self.vocab_size // 256) * 256
 
+    @property
+    def experts_padded(self) -> int:
+        """Experts rounded up to a multiple of 16, as the reference pads
+        them to shard over a model axis; the router masks the padded ones
+        to -inf, so they are never chosen."""
+        if not self.is_moe:
+            return 0
+        return -(-self.n_experts // 16) * 16
+
     def param_count(self) -> int:
         """Analytic parameter count, as the reference counts it
         (``repro/models/config.py:111-160``): the embedding once if tied,
         two norm gains per layer (a mamba block has one, but the reference
-        counts two), the final norm."""
-        if self.family not in ("dense", "ssm"):
-            raise NotImplementedError(
-                f"param_count of family {self.family!r}: only dense and ssm "
-                "are ported (ROADMAP item 9)")
+        counts two), the hybrid's one shared block, the final norm.  MoE
+        counts ``n_experts``, not the padded experts the params hold."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         if self.family == "ssm":
-            per_layer = self._mamba1_params()
+            per_layer = self._mamba_params(1)
+        elif self.family == "hybrid":
+            per_layer = self._mamba_params(2)
         else:
-            hd, ff = self.head_dim, self.d_ff
-            per_layer = (self.n_heads * hd * d * 2
-                         + self.n_kv_heads * hd * d * 2
-                         + d * ff * (3 if self.mlp_gated else 2))
+            per_layer = self._attn_params() + self._mlp_params()
         n += self.n_layers * (per_layer + 2 * d)
+        if self.family == "hybrid" and self.shared_attn_every:
+            n += self._attn_params() + self._mlp_params() + 2 * d
         return n + d
 
-    def _mamba1_params(self) -> int:
-        d, di, n, r = self.d_model, self.d_inner, self.ssm_state, self.dt_rank
-        return (d * 2 * di                       # in_proj
-                + di * self.ssm_conv             # conv
-                + di * (r + 2 * n)               # x_proj
-                + r * di + di                    # dt_proj
-                + di * n + di                    # A, D
-                + di * d)                        # out_proj
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: ``top_k`` experts a layer)."""
+        if not self.is_moe:
+            return self.param_count()
+        return self.param_count() - self.n_layers * (
+            self.n_experts - self.top_k) * self._expert_params()
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return (self.n_heads * hd * d * 2            # q, o
+                + self.n_kv_heads * hd * d * 2)      # k, v
+
+    def _expert_params(self) -> int:
+        return self.d_model * self.d_ff * (3 if self.mlp_gated else 2)
+
+    def _mlp_params(self) -> int:
+        if self.is_moe:
+            return (self.n_experts * self._expert_params()
+                    + self.d_model * self.n_experts)        # + router
+        return self._expert_params()
+
+    def _mamba_params(self, version: int) -> int:
+        d, di, n = self.d_model, self.d_inner, self.ssm_state
+        if version == 1:
+            r = self.dt_rank
+            return (d * 2 * di                       # in_proj
+                    + di * self.ssm_conv             # conv
+                    + di * (r + 2 * n)               # x_proj
+                    + r * di + di                    # dt_proj
+                    + di * n + di                    # A, D
+                    + di * d)                        # out_proj
+        heads = di // self.mamba2_head_dim
+        return (d * (2 * di + 2 * n + heads)         # in_proj (z, x, B, C, dt)
+                + (di + 2 * n) * self.ssm_conv       # conv
+                + heads * 2                          # A, D a head
+                + di                                 # norm
+                + di * d)                            # out_proj
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

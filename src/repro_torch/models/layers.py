@@ -28,13 +28,13 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def dense_init(gen: torch.Generator, shape, *, device,
-               dtype) -> torch.Tensor:
-    """Truncated normal on [-2, 2], divided by sqrt(fan_in = shape[0]);
-    drawn in float32, then cast."""
+def dense_init(gen: torch.Generator, shape, *, device, dtype,
+               in_axis: int = 0) -> torch.Tensor:
+    """Truncated normal on [-2, 2], divided by sqrt(fan_in =
+    shape[in_axis]); drawn in float32, then cast."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w / math.sqrt(shape[0])).to(dtype)
+    return (w / math.sqrt(shape[in_axis])).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:

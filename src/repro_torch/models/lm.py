@@ -1,6 +1,9 @@
 """Model assembly: init, forward, prefill, decode — the dense family (with
 gemma2's alternating local/global layers, and the untied LM head of
-nemotron), and the ssm family (falcon-mamba, mamba1 blocks over K9).
+nemotron), the MoE family (granite-moe, phi3.5-moe: the dense block with
+``models/moe.py`` for its MLP), the ssm family (falcon-mamba, mamba1
+blocks over K9) and the hybrid family (zamba2: mamba2 blocks with one
+shared attention block between segments of them).
 
 Port of ``repro/models/lm.py``.  Entry points:
 
@@ -20,13 +23,18 @@ runs eagerly and keeps one entry per layer, in order: ``params["blocks"]``
 is a list of L block dicts, and ``caches["kv"]`` a list of L ``PagedKV``
 (``caches["ssm"]`` a list of L ``SSMState`` for the ssm family).
 With ``cfg.local_global_pattern`` the even layers are local (sliding
-window ``cfg.local_window``) and the odd ones global.
+window ``cfg.local_window``) and the odd ones global.  The hybrid family
+has ``params["shared"]``, one transformer block, run after each segment
+of ``_hybrid_segments`` that asks for it, and caches {"ssm": one
+``SSMState`` a mamba2 layer, "kv": one ``PagedKV`` an application of the
+shared block}.
 ``convert.lm_params_from_jax`` / ``lm_caches_from_jax`` carry the
 reference's stacked pytrees across.
 
-The hybrid, MoE and frontend families raise ``NotImplementedError``
-naming the ROADMAP item that ports them, and so does ``loss_fn`` for the
-ssm family (K9 has no backward).
+The frontend families raise ``NotImplementedError`` naming the ROADMAP
+item that ports them; so does ``loss_fn`` for the ssm family (K9 has no
+backward) and for the MoE and hybrid families (their training is not
+ported).
 """
 from __future__ import annotations
 
@@ -48,9 +56,7 @@ from .ssm import init_ssm_state
 
 PAGE_SIZE = 128
 
-_NOT_PORTED = {"moe": "9.4 (models/moe.py over core/delayed)",
-               "hybrid": "9.5 (hybrid mamba2 + shared attention)",
-               "audio": "9.6 (frontend stubs)", "vlm": "9.6 (frontend stubs)"}
+_NOT_PORTED = {"audio": "9.6 (frontend stubs)", "vlm": "9.6 (frontend stubs)"}
 
 
 def _ported(cfg: ModelConfig) -> None:
@@ -63,12 +69,34 @@ def _ported(cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a family whose training is not ported: the ssm family
     needs a backward for K9, which the reference lacks too (it trains SSMs
-    with ``kernels="ref"``)."""
+    with ``kernels="ref"``); the MoE and hybrid families are served only."""
     _ported(cfg)
     if cfg.family == "ssm":
         raise NotImplementedError(
             f"training {cfg.name} is not ported to repro_torch yet: ROADMAP "
             "item 9.10 (falcon-mamba training: a backward for K9)")
+    if cfg.family in ("moe", "hybrid"):
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) is not ported to "
+            "repro_torch yet: ROADMAP item 9.13 (MoE and hybrid training)")
+
+
+def _hybrid_segments(cfg: ModelConfig):
+    """[(start, end, apply_shared_after)] covering all layers
+    (``repro/models/lm.py:39-50``)."""
+    k = cfg.shared_attn_every
+    segs, start = [], 0
+    for i in range(cfg.n_layers):
+        if k and (i + 1) % k == 0:
+            segs.append((start, i + 1, True))
+            start = i + 1
+    if start < cfg.n_layers:
+        segs.append((start, cfg.n_layers, False))
+    return segs
+
+
+def n_shared_applications(cfg: ModelConfig) -> int:
+    return sum(1 for *_, shared in _hybrid_segments(cfg) if shared)
 
 
 def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
@@ -91,12 +119,18 @@ def init_params(cfg: ModelConfig, gen, *, device=None,
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
     kw = dict(device=dev, dtype=dtype)
-    init_block = (init_mamba_block if cfg.family == "ssm"
-                  else init_transformer_block)
-    return {"embed": init_embedding(gen, cfg, **kw),
-            "blocks": [init_block(gen, cfg, **kw)
-                       for _ in range(cfg.n_layers)],
-            "final_norm": torch.zeros((cfg.d_model,), **kw)}
+    params = {"embed": init_embedding(gen, cfg, **kw),
+              "final_norm": torch.zeros((cfg.d_model,), **kw)}
+    if cfg.family in ("ssm", "hybrid"):
+        version = 1 if cfg.family == "ssm" else 2
+        params["blocks"] = [init_mamba_block(gen, cfg, version=version, **kw)
+                            for _ in range(cfg.n_layers)]
+    else:
+        params["blocks"] = [init_transformer_block(gen, cfg, **kw)
+                            for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        params["shared"] = init_transformer_block(gen, cfg, **kw)
+    return params
 
 
 # ------------------------------------------------------------- forward
@@ -114,13 +148,22 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     and recomputed in the backward, as the reference's ``_maybe_remat``
     does with ``jax.checkpoint`` (``repro/models/lm.py:120-121``).  The
-    ssm family runs its mamba1 blocks one after the other (serving: no
-    remat, since K9 has no backward)."""
+    ssm and hybrid families run their mamba blocks one after the other
+    (serving: no remat, since neither trains), the hybrid's shared block
+    after each segment that asks for it."""
     _ported(cfg)
     x = _embed(params, inputs, cfg)
     if cfg.family == "ssm":
         for p_l in params["blocks"]:
             x = mamba_block(p_l, x, cfg)
+        return rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if cfg.family == "hybrid":
+        for s0, s1, shared in _hybrid_segments(cfg):
+            for p_l in params["blocks"][s0:s1]:
+                x = mamba_block(p_l, x, cfg, version=2)
+            if shared:
+                x = transformer_block(params["shared"], x,
+                                      inputs["positions"], cfg)
         return rms_norm(x, params["final_norm"], cfg.rms_eps)
     remat = cfg.remat and torch.is_grad_enabled()
     for p_l, w in zip(params["blocks"], layer_windows(cfg)):
@@ -170,18 +213,26 @@ def _kv_to_pages(k, v, max_len: int, cfg: ModelConfig):
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Empty decode caches: one ``PagedKV`` per layer, or for the ssm
-    family one zero ``SSMState`` per layer (``max_len`` unused)."""
+    """Empty decode caches: one ``PagedKV`` per layer; for the ssm family
+    one zero ``SSMState`` per layer (``max_len`` unused); for the hybrid
+    family one mamba2 ``SSMState`` per layer and one ``PagedKV`` per
+    application of the shared block."""
     _ported(cfg)
     dev = _device.resolve(device)
-    if cfg.family == "ssm":
-        return {"ssm": [init_ssm_state(cfg, batch, dev)
-                        for _ in range(cfg.n_layers)]}
     max_len = _round_len(max_len)
-    return {"kv": [paged.make(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                              page_size=PAGE_SIZE, dtype=cdtype(cfg),
-                              device=dev)
-                   for _ in range(cfg.n_layers)]}
+
+    def kv(n):
+        return [paged.make(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                           page_size=PAGE_SIZE, dtype=cdtype(cfg), device=dev)
+                for _ in range(n)]
+    if cfg.family in ("ssm", "hybrid"):
+        version = 1 if cfg.family == "ssm" else 2
+        caches = {"ssm": [init_ssm_state(cfg, batch, dev, version)
+                          for _ in range(cfg.n_layers)]}
+        if cfg.family == "hybrid":
+            caches["kv"] = kv(n_shared_applications(cfg))
+        return caches
+    return {"kv": kv(cfg.n_layers)}
 
 
 def prefill(params, inputs: Dict, cfg: ModelConfig,
@@ -189,7 +240,9 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
     """Full forward that builds the decode caches; returns (logits of the
     last position (B, 1, V), caches).  For the ssm family the caches are
     each layer's ``SSMState`` after the prompt (K9's final state and the
-    conv's last inputs); ``max_len`` is unused."""
+    conv's last inputs); ``max_len`` is unused.  The hybrid family's are
+    each mamba2 layer's ``SSMState`` and each shared-block application's
+    ``PagedKV``."""
     _ported(cfg)
     x = _embed(params, inputs, cfg)
     if cfg.family == "ssm":
@@ -205,12 +258,27 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
         raise ValueError(f"max_len {max_len} < prompt length {s}")
     table = paged.identity_table(b, max_len // PAGE_SIZE, x.device)
     lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    caches = []
-    for p_l, w in zip(params["blocks"], layer_windows(cfg)):
+
+    def attend(p_l, x, window=None):
         x, (k, v) = transformer_block(p_l, x, inputs["positions"], cfg,
-                                      window=w, return_kv=True)
+                                      window=window, return_kv=True)
         kp, vp = _kv_to_pages(k, v, max_len, cfg)
-        caches.append(paged.PagedKV(kp, vp, table, lengths))
+        return x, paged.PagedKV(kp, vp, table, lengths)
+    caches = []
+    if cfg.family == "hybrid":
+        states = []
+        for s0, s1, shared in _hybrid_segments(cfg):
+            for p_l in params["blocks"][s0:s1]:
+                x, st = mamba_block_prefill(p_l, x, cfg, version=2)
+                states.append(st)
+            if shared:
+                x, c = attend(params["shared"], x)
+                caches.append(c)
+        hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
+        return logits_fn(params, hidden, cfg), {"ssm": states, "kv": caches}
+    for p_l, w in zip(params["blocks"], layer_windows(cfg)):
+        x, c = attend(p_l, x, w)
+        caches.append(c)
     hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     return logits_fn(params, hidden, cfg), {"kv": caches}
 
@@ -224,7 +292,8 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
     returned caches share them), as the reference's decode step donates
     its caches to ``jit`` (``repro/launch/dryrun.py:188-191``), so a step
     holds one copy of the cache and moves none of it.  Every unwindowed
-    attention layer reads its cache with K8."""
+    attention layer reads its cache with K8 (the hybrid's shared block
+    once per application, each over its own cache)."""
     _ported(cfg)
     x = _embed(params, inputs, cfg)
     if cfg.family == "ssm":
@@ -234,6 +303,20 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
             states.append(st)
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
         return logits_fn(params, hidden, cfg), {"ssm": states}
+    if cfg.family == "hybrid":
+        states, new = [], []
+        kv = iter(caches["kv"])
+        for s0, s1, shared in _hybrid_segments(cfg):
+            for p_l, st in zip(params["blocks"][s0:s1],
+                               caches["ssm"][s0:s1]):
+                x, st = mamba_block_decode(p_l, x, st, cfg, version=2)
+                states.append(st)
+            if shared:
+                x, c = transformer_block_decode(params["shared"], x,
+                                                next(kv), cfg, donate=donate)
+                new.append(c)
+        hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        return logits_fn(params, hidden, cfg), {"ssm": states, "kv": new}
     new = []
     for p_l, c, w in zip(params["blocks"], caches["kv"], layer_windows(cfg)):
         x, c = transformer_block_decode(p_l, x, c, cfg, window=w,

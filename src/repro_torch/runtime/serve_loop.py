@@ -93,11 +93,14 @@ class Server:
         logits, new = lm.decode_step(self.params, inputs, caches, self.cfg)
         if slot is None:
             return logits, new
+        merged = {}
         if "ssm" in new:
-            return logits, {"ssm": [_merge_ssm(n, o, slot) for n, o in
-                                    zip(new["ssm"], caches["ssm"])]}
-        return logits, {"kv": [_merge(n, o, slot, self.max_batch)
-                               for n, o in zip(new["kv"], caches["kv"])]}
+            merged["ssm"] = [_merge_ssm(n, o, slot) for n, o in
+                             zip(new["ssm"], caches["ssm"])]
+        if "kv" in new:
+            merged["kv"] = [_merge(n, o, slot, self.max_batch)
+                            for n, o in zip(new["kv"], caches["kv"])]
+        return logits, merged
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         waiting = list(requests)
