@@ -19,7 +19,9 @@ caught:
    f32 at 4 threads a channel) no spills; the ``ptxas K1`` and ``ptxas
    K2`` lines (the binned route's kernels: registers, spills, stack,
    shared memory; none may spill); the ``ptxas K4`` line (both
-   instantiations of the chunk-table gather; no spill, no stack).
+   instantiations of the chunk-table gather; no spill, no stack); the
+   ``ptxas K9-bwd`` line (every dtype and states a channel, and the
+   reduce kernel; falcon-mamba's, bf16 at 16 states, must not spill).
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
    counts), K1 and K2 through their wrappers and on each route
@@ -227,9 +229,9 @@ caught:
       (the update's kernels as the optimizer group) and the idle share;
    c. one step's gradient through the kernels and through the plain
       versions from the same params and batch: each leaf's ‖Δ‖/‖g‖ within
-      ``GRAD_REL_TOL``; planted faults in the backward read the same way,
-      and two (every local window halved; D = rowsum(dO ∘ O) dropped) must
-      break the limit;
+      ``GRAD_REL_TOL``, their median within ``GRAD_MEDIAN_TOL``; planted
+      faults in the backward read the same way, and two (every local
+      window halved; D = rowsum(dO ∘ O) dropped) must break the limit;
    d. SMOKE (float32, head_dim 12: K6 on the classic route) on the card:
       the loss decreases over 15 steps, and a crash at step 7 with a
       checkpoint every 3 steps replays to the uninterrupted final loss
@@ -266,7 +268,7 @@ caught:
    f. ``forward_hidden`` + ``logits_fn`` over 1 × 4096 tokens (K9 launched
       64 times);
    g. the same prefill through K9 and through the plain scan at full
-      width and depth over 2048 tokens: the last logits agree per row
+      width and depth over 1024 tokens: the last logits agree per row
       (1e-2); K9 prefills with planted faults in every layer are read the
       same way, and D dropped must break the limit;
    h. stepwise decode ≡ the forward column by column on a 64-token
@@ -354,12 +356,50 @@ caught:
       layer and its times, the MoE share and drops, K8 on a captured
       decode layer and its time, 16 decode steps with exactly 8 K8
       launches a step, the profile.
-17. the ``to_port`` line (an empty list: every kernel is ported), the
-   ``kernels`` JSON line (K1–K9, K6-with-LSE; K6's and K6-with-LSE's
-   entries name the kernel that ran, their launches by route and the
-   ptxas report; K6's, K8's and K9's launches on the MoE and hybrid
-   paths), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+17. training the ssm, MoE and hybrid families
+   (``phase_training_families``):
+   a. K9-bwd (the selective scan's backward) against its plain version
+      from the same chunk states (per output ‖Δ‖/‖want‖ ≤ 1e-5) and
+      against autograd of the mirror of K9's order of sums (1e-4 float32,
+      1e-2 bfloat16), K9's y the same bits with and without its chunk
+      states, two launches the same bits: one step, 31, 32, 33 and 4101
+      steps, N of 1, 4, 16 and 64, channels no multiple of the block's,
+      batch 3, strided inputs, the decay near 1 and a large dt, the
+      model's Di, each in float32 and bfloat16; three planted faults
+      (copies of its source with one line changed, built here) must break
+      the limit: the adjoint carried across a chunk boundary dropped,
+      exp(dt_t·a) where exp(dt_{t+1}·a) belongs, db's sum over the tiles
+      without the last tile;
+   b. K9-bwd's time at falcon-mamba's train layer (1 × 4096 × 8192, N 16)
+      and zamba2's K9-form layer (1 × 4096 × 4096, N 64), beside the
+      bound (the largest of the exponentials, 10 f32 FMAs a (t, i, j) and
+      the bytes) and the plain version;
+   c. main path of each family: ``runtime.train_loop.train`` (float32
+      master params, bfloat16 compute, remat on, 1 × 4096 tokens a step,
+      6 steps), every count set to 0 just before and read just after, the
+      launches of each ``train.step`` span exact: falcon-mamba-7b at 32 of
+      64 layers (K9 64 and K9-bwd 32 a step), zamba2-1.2b FULL (the SSD
+      form: K6-with-LSE 6 and K7 6 a step, no K9), granite-moe-3b FULL
+      (K6-with-LSE 64, K7 32 a step), every K6-with-LSE and K7 launch on
+      the wgmma route; losses, median step of steps 1-5, tokens/s, peak;
+      a step under the profiler (device time by group, idle share);
+      granite's (token, choice) pairs dropped on the train batch;
+   d. one step's gradient through the kernels against the plain versions
+      (``kernels="ref"``), the loss and per leaf ‖Δ‖/‖g‖, the largest within
+      5e-2 (zamba2 0.2, granite-moe 1.0: ``FAMILY_GRAD_TOL``) and the median
+      within 0.1: falcon-mamba at full width, 2 layers and 1 × 512 (the
+      plain scan walks time in Python), with K9-bwd's planted faults in
+      every layer read the same way (the dropped carry must break the
+      limit); zamba2 and granite at the main path's depth and batch, with
+      K7 without D = rowsum(dO ∘ O) in every layer, which must break it;
+      one zamba2 block in the K9 form (N = 64, one K9 and one K9-bwd
+      launch) against the same block through the plain versions.
+18. the ``to_port`` line (an empty list: every kernel is ported), the
+   ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K6's and
+   K6-with-LSE's entries name the kernel that ran, their launches by
+   route and the ptxas report; K6's, K8's and K9's launches on the MoE and
+   hybrid paths; K6-with-LSE's, K7's and K9's on the training paths), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import ctypes
@@ -434,10 +474,11 @@ KERNELS = [  # (launch-counter name, TPU wrapper that reaches pallas_call)
 ]
 MAX_ERR = {name: 0 for name, _ in KERNELS}
 MAX_ERR.update(gather2=0, flash_attention=0.0, flash_attention_lse=0.0,
-               flash_attention_bwd=0.0, mamba_scan=0.0,
+               flash_attention_bwd=0.0, mamba_scan=0.0, mamba_scan_bwd=0.0,
                paged_decode_attention=0.0, bucket_scatter_add=0.0)
 MAX_REL = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-           "mamba_scan": 0.0, "paged_decode_attention": 0.0}
+           "mamba_scan": 0.0, "mamba_scan_bwd": 0.0,
+           "paged_decode_attention": 0.0}
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:41-42,57-58
 # The elementwise tolerances above are about as large as a bfloat16 output
@@ -605,8 +646,10 @@ def k8_ptxas() -> dict:
 
 def k9_ptxas() -> dict:
     """The ptxas report of K9's kernel for each dtype and threads a channel
-    (registers, spills, stack); the falcon-mamba instantiation (bf16, 4
-    threads a channel) and its float32 twin must not spill."""
+    (registers, spills, stack), serving's instantiation and, keyed
+    ``chunks``, training's (it also writes the state after each chunk);
+    serving's falcon-mamba instantiation (bf16, 4 threads a channel) and
+    its float32 twin must not spill."""
     lines = _build.BUILD_LOGS.get("mamba_scan", "").splitlines()
     out = {}
     for i, line in enumerate(lines):
@@ -616,6 +659,7 @@ def k9_ptxas() -> dict:
         tail = line.split("scan_seg_kernelI")[1]
         dtype = "bf16" if tail.startswith("13__nv_bfloat16") else "f32"
         tpc = int(tail.split("Li")[1].split("E")[0])
+        chunks = " chunks" if "Lb1E" in tail else ""
         rec = {}
         for nxt in lines[i + 1:i + 5]:
             if "spill stores" in nxt:
@@ -625,13 +669,49 @@ def k9_ptxas() -> dict:
                            spill_load_bytes=n[2])
             if "Used" in nxt and "registers" in nxt:
                 rec["registers"] = int(nxt.split("Used")[1].split()[0])
-        out[f"{dtype} tpc {tpc}"] = rec
-    print(f"ptxas K9 kernel (scan_seg_kernel<T, TPC>): {out}")
-    expect(len(out) == 10, f"ptxas K9: {out}")
+        out[f"{dtype} tpc {tpc}{chunks}"] = rec
+    print(f"ptxas K9 kernel (scan_seg_kernel<T, TPC, chunks>): {out}")
+    expect(len(out) == 20, f"ptxas K9: {out}")
     for key in ("bf16 tpc 4", "f32 tpc 4"):
         r = out[key]
         expect(r.get("spill_store_bytes") == 0 and
                r.get("spill_load_bytes") == 0, f"ptxas K9 {key}: {r}")
+    return out
+
+
+def k9_bwd_ptxas() -> dict:
+    """The ptxas report of K9-bwd's kernel for each dtype and states a
+    channel (registers, spills, stack), and of its reduce kernel; the
+    falcon-mamba instantiation (bf16, 16 states a channel) must not
+    spill."""
+    lines = _build.BUILD_LOGS.get("mamba_scan_bwd", "").splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or "scan_bwd_" not in line:
+            continue
+        if "scan_bwd_kernelI" in line:
+            tail = line.split("scan_bwd_kernelI")[1]
+            dtype = "bf16" if tail.startswith("13__nv_bfloat16") else "f32"
+            key = f"{dtype} np {int(tail.split('Li')[1].split('E')[0])}"
+        else:
+            key = "scan_bwd_reduce_kernel"
+        rec = {}
+        for nxt in lines[i + 1:i + 5]:
+            if "spill stores" in nxt:
+                n = [int(w) for w in nxt.replace(",", " ").split()
+                     if w.isdigit()]
+                rec.update(stack_bytes=n[0], spill_store_bytes=n[1],
+                           spill_load_bytes=n[2])
+            if "Used" in nxt and "registers" in nxt:
+                rec["registers"] = int(nxt.split("Used")[1].split()[0])
+        out[key] = rec
+    print(f"ptxas K9-bwd (scan_bwd_kernel<T, NP>, scan_bwd_reduce_kernel; "
+          f"dynamic shared memory {MS.bwd_geometry(1, 1, 1, 16)['smem_bytes']}"
+          f" B at NP 16): {out}")
+    expect(len(out) == 15, f"ptxas K9-bwd: {out}")
+    r = out["bf16 np 16"]
+    expect(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
+           f"ptxas K9-bwd bf16 np 16: {r}")
     return out
 
 
@@ -719,9 +799,10 @@ def phase_build() -> dict:
     FA._lib()
     FAB._lib()
     MS._lib()
+    MS._bwd_lib()
     PD._lib()
     return (k6_ptxas(), k7_ptxas(), k8_ptxas(), k9_ptxas(), k12_ptxas(),
-            k4_ptxas())
+            k4_ptxas(), k9_bwd_ptxas())
 
 
 # ------------------------------------------------------------------ parity
@@ -2879,6 +2960,8 @@ def kernel_group(name: str) -> str:
         return "flash_attention (K6)"
     if "scan_seg_kernel<" in low:
         return "mamba_scan (K9)"
+    if "scan_bwd_kernel<" in low or "scan_bwd_reduce_kernel" in low:
+        return "mamba_scan_bwd (K9-bwd)"
     if any(w in low for w in ("pd_hopper_kernel<", "merge_tma_kernel<",
                               "partial_kernel<", "merge_kernel<")):
         return "paged_decode_attention (K8)"
@@ -3375,58 +3458,83 @@ def step_launches(spans, namespace="attention") -> list:
             for sp in spans if sp["sid"] == "train.step"]
 
 
-def phase_train(cfg, dev):
-    """The main path of this slice: ``runtime.train_loop.train`` on
-    gemma2-2b FULL (float32 master params, bfloat16 compute, remat on),
-    1 × 4096 tokens a step, 6 steps, nothing wrapped around the loop; every
-    launch count set to 0 just before and read just after.  Each step's
-    launches come from its ``train.step`` span."""
+def train_expected(cfg) -> dict:
+    """The launches of one training step with remat on: a rematted
+    block's forward runs twice (K6-with-LSE 2 a layer, K9 2 a mamba
+    layer), the hybrid's shared block once; one backward each."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"ssm": {"mamba_scan": 2 * n, "mamba_scan_bwd": n},
+                "attention": {}}
+    if cfg.family == "hybrid":
+        a = lm.n_shared_applications(cfg)
+        k9 = {} if cfg.mamba2_use_ssd else {"mamba_scan": 2 * n,
+                                            "mamba_scan_bwd": n}
+        return {"ssm": k9, "attention": {"flash_attention_lse": a,
+                                         "flash_attention_bwd": a}}
+    return {"ssm": {}, "attention": {"flash_attention_lse": 2 * n,
+                                     "flash_attention_bwd": n}}
+
+
+def phase_train(cfg, dev) -> tuple:
+    """A training main path: ``runtime.train_loop.train`` on ``cfg``
+    (float32 master params, bfloat16 compute, remat on), 1 × 4096 tokens a
+    step, 6 steps, nothing wrapped around the loop, every count set to 0
+    just before and read just after; each step's launches from its
+    ``train.step`` span, exact (``train_expected``), every K6-with-LSE and
+    K7 launch on the wgmma route."""
     s = TrainSettings(batch=1, seq=TRAIN_SEQ, steps=TRAIN_STEPS, log_every=1)
     spans = []
+    torch.cuda.empty_cache()
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    K.reset_launches()
-    FA.reset_launches()
+    reset_all_launches()
     obs.enable(sink=spans.append)
     t0 = time.perf_counter()
     out = train(cfg, s, device=dev)
     sync(dev)
     wall = time.perf_counter() - t0
     obs.disable()
-    launches, peak = dict(FA.LAUNCHES), torch.cuda.max_memory_allocated(dev)
-    n = cfg.n_layers
-    per_step = step_launches(spans)
-    expect(per_step == [{"flash_attention_lse": 2 * n,
-                         "flash_attention_bwd": n}] * TRAIN_STEPS, per_step)
-    expect(launches == {"flash_attention": 0,
-                        "flash_attention_lse": 2 * n * TRAIN_STEPS,
-                        "flash_attention_bwd": n * TRAIN_STEPS}, launches)
-    routes, step_routes = dict(FA.ROUTE_LAUNCHES), step_launches(
-        spans, "attention_route")
-    expect(step_routes == [{"wgmma": 2 * n}] * TRAIN_STEPS, step_routes)
-    expect(routes == {"wgmma": 2 * n * TRAIN_STEPS, "classic": 0}, routes)
-    bwd_routes, step_bwd = dict(FA.BWD_ROUTE_LAUNCHES), step_launches(
-        spans, "attention_bwd_route")
-    expect(step_bwd == [{"wgmma": n}] * TRAIN_STEPS, step_bwd)
-    expect(bwd_routes == {"wgmma": n * TRAIN_STEPS, "classic": 0},
-           bwd_routes)
-    expect(not any(K.LAUNCHES.values()), dict(K.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = train_expected(cfg)
+    steps = {ns: step_launches(spans, ns) for ns in ("ssm", "attention")}
+    for ns in ("ssm", "attention"):
+        expect(steps[ns] == [want[ns]] * TRAIN_STEPS,
+               f"{cfg.name} {ns} launches a step: {steps[ns]}")
+    launches = {**dict(MS.LAUNCHES), **dict(FA.LAUNCHES)}
+    total = {k: v * TRAIN_STEPS for ns in want.values() for k, v in
+             ns.items()}
+    expect({k: v for k, v in launches.items() if v} == total, launches)
+    a = want["attention"]
+    routes = (dict(FA.ROUTE_LAUNCHES), dict(FA.BWD_ROUTE_LAUNCHES))
+    expect(routes == ({"wgmma": a.get("flash_attention_lse", 0) * TRAIN_STEPS,
+                       "classic": 0},
+                      {"wgmma": a.get("flash_attention_bwd", 0) * TRAIN_STEPS,
+                       "classic": 0}), routes)
+    expect(not any(K.LAUNCHES.values()) and not any(PD.LAUNCHES.values()),
+           (dict(K.LAUNCHES), dict(PD.LAUNCHES)))
     losses = out["losses"]
     expect(len(losses) == TRAIN_STEPS and out["restarts"] == 0, losses)
     expect(all(math.isfinite(x) for x in losses), f"losses {losses}")
     med = statistics.median(out["step_seconds"][1:TRAIN_STEPS])
-    res = {"tokens_per_step": TRAIN_SEQ, "steps": TRAIN_STEPS,
-           "losses": losses, "step_seconds": out["step_seconds"],
-           "median_step_s_1_5": med, "tokens_per_s": TRAIN_SEQ / med,
-           "wall_s": wall, "peak_bytes": peak, "launches": launches,
-           "launches_per_step": per_step[0], "k6_routes": routes,
-           "k7_routes": bwd_routes}
-    print(f"train: {cfg.name} 1 x {TRAIN_SEQ} tokens a step, {TRAIN_STEPS} "
-          f"steps, losses {[round(x, 4) for x in losses]}; median step of "
-          f"steps 1-5 {med:.3f} s, {TRAIN_SEQ / med:.0f} tokens/s; steps "
+    n_params = sum(t.numel() for t in T.leaves(out["final_params"]))
+    res = {"layers": cfg.n_layers, "params": n_params,
+           "state_bytes": 16 * n_params, "tokens_per_step": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "losses": losses,
+           "step_seconds": out["step_seconds"], "median_step_s_1_5": med,
+           "tokens_per_s": TRAIN_SEQ / med, "wall_s": wall,
+           "peak_bytes": peak, "launches": launches,
+           "launches_per_step": {**want["ssm"], **want["attention"]},
+           "k6_routes": routes[0], "k7_routes": routes[1]}
+    print(f"train: {cfg.name} ({cfg.n_layers} layers, {n_params} params, "
+          f"{16 * n_params} B of state at 16 B a param) 1 x {TRAIN_SEQ} "
+          f"tokens a step, {TRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}; median step of steps 1-5 "
+          f"{med:.3f} s, {TRAIN_SEQ / med:.0f} tokens/s; steps "
           f"{[round(x, 3) for x in out['step_seconds']]} s; peak {peak} "
-          f"bytes; launches per step {per_step[0]}, in all {launches}; "
-          f"K6-with-LSE routes {routes}; K7 routes {bwd_routes}")
+          f"bytes; launches per step {res['launches_per_step']}, in all "
+          f"{ {k: v for k, v in launches.items() if v} }; K6-with-LSE "
+          f"routes {routes[0]}; K7 routes {routes[1]}")
     return out["final_params"], s, res
 
 
@@ -3464,9 +3572,17 @@ def phase_train_profile(cfg, s, params, batch, dev) -> dict:
 
 
 # Per leaf, ‖g_kernels − g_plain‖ ≤ GRAD_REL_TOL · ‖g_plain‖ for one step's
-# gradient of gemma2-2b FULL in bfloat16.  Set between the sound readings
-# and a planted fault's (PERF.md §6).
+# gradient of gemma2-2b FULL in bfloat16 (and falcon-mamba's), and the
+# median over the leaves ≤ GRAD_MEDIAN_TOL.  Set between the sound readings
+# and a planted fault's (PERF.md §6).  Two families take a limit of their
+# own on the largest leaf, set the same way: zamba2's dt_bias gradients are
+# sums that cancel to a few percent of their terms, so the bf16 rounding of
+# 38 layers moves them 7-8% (a planted K7 fault: 62%); granite-moe's
+# router gradients follow the top-k, which flips for tokens near a tie when
+# bf16 hidden states differ in the last bit (15-22%; the fault: 1868%).
 GRAD_REL_TOL = 5e-2
+GRAD_MEDIAN_TOL = 0.1
+FAMILY_GRAD_TOL = {"zamba2-1.2b": 0.2, "granite-moe-3b-a800m": 1.0}
 
 
 def leaf_errors(grads, want, params) -> dict:
@@ -3498,59 +3614,79 @@ class BwdFault:
         return False
 
 
-def phase_grad_parity(cfg, params, batch, dev) -> dict:
-    """One step's gradient at full width through the kernels and through
-    the plain versions (``kernels="ref"``, the same autograd Function),
-    from the same params and batch: the loss and each leaf's ‖Δ‖/‖g‖.
-    Planted faults in the kernels' backward, with the forward unchanged,
-    are read the same way."""
-    n = cfg.n_layers
-    FA.reset_launches()
+def phase_grad_parity(cfg, params, batch, what, faults=None,
+                      must_break=()) -> dict:
+    """One step's gradient through the kernels and through the plain
+    versions (``kernels="ref"``, the same autograd Functions) from the
+    same params and batch: the loss and each leaf's ‖Δ‖/‖g‖, the largest
+    within GRAD_REL_TOL (or the family's FAMILY_GRAD_TOL) and the median
+    within GRAD_MEDIAN_TOL, with the kernels' launches exact and on the
+    wgmma route.
+    ``faults`` ({name: a context manager that plants the fault in the
+    kernels' backward, the forward unchanged}) are read the same way;
+    those in ``must_break`` must break the limit."""
+    reset_all_launches()
     loss_r, want = loss_and_grads(params, batch, cfg.replace(kernels="ref"))
-    expect(not any(FA.LAUNCHES.values()), dict(FA.LAUNCHES))
+    expect(not any(MS.LAUNCHES.values()) and not any(FA.LAUNCHES.values()),
+           (dict(MS.LAUNCHES), dict(FA.LAUNCHES)))
     loss_k, got = loss_and_grads(params, batch, cfg)
-    expect(dict(FA.LAUNCHES) == {"flash_attention": 0,
-                                 "flash_attention_lse": 2 * n,
-                                 "flash_attention_bwd": n}, dict(FA.LAUNCHES))
-    expect(dict(FA.BWD_ROUTE_LAUNCHES) == {"wgmma": n, "classic": 0},
-           dict(FA.BWD_ROUTE_LAUNCHES))
+    steps = train_expected(cfg)
+    expect({k: v for k, v in {**dict(MS.LAUNCHES), **dict(
+        FA.LAUNCHES)}.items() if v} == {**steps["ssm"], **steps["attention"]},
+           (dict(MS.LAUNCHES), dict(FA.LAUNCHES)))
+    a = steps["attention"]
+    routes = (dict(FA.ROUTE_LAUNCHES), dict(FA.BWD_ROUTE_LAUNCHES))
+    expect(routes == ({"wgmma": a.get("flash_attention_lse", 0),
+                       "classic": 0},
+                      {"wgmma": a.get("flash_attention_bwd", 0),
+                       "classic": 0}), routes)
+    tol = FAMILY_GRAD_TOL.get(cfg.name, GRAD_REL_TOL)
     sound = leaf_errors(got, want, params)
     loss_k, loss_r = float(loss_k), float(loss_r)
     sound["loss_rel"] = abs(loss_k - loss_r) / abs(loss_r)
+    sound["limit"] = tol
     del got
+    read = {}
+    for name, plant in (faults or {}).items():
+        with plant():
+            loss_f, bad = loss_and_grads(params, batch, cfg)
+        read[name] = leaf_errors(bad, want, params)
+        read[name]["loss_rel"] = abs(float(loss_f) - loss_r) / abs(loss_r)
+        del bad
+    print(f"grad parity: {what}, kernels vs plain versions: loss "
+          f"{loss_k:.6f} vs {loss_r:.6f} (rel {sound['loss_rel']:.3e}); "
+          f"per-leaf rel: max {sound['max_rel']:.4e} ({sound['worst_leaf']}),"
+          f" median {sound['median_rel']:.4e} (limits {tol}, median "
+          f"{GRAD_MEDIAN_TOL})")
+    for name, e in read.items():
+        print(f"planted fault, {name}: per-leaf rel max {e['max_rel']:.4e} "
+              f"({e['worst_leaf']}), median {e['median_rel']:.4e}")
+    expect(sound["max_rel"] <= tol and sound["median_rel"] <= GRAD_MEDIAN_TOL,
+           f"gradients differ: {sound}")
+    for name in must_break:
+        expect(read[name]["max_rel"] > tol,
+               f"the gradient check misses {name}: {read[name]}")
+    return {"what": what, "loss_kernels": loss_k, "loss_plain": loss_r,
+            **sound, "planted_faults": read}
+
+
+def bwd_window_faults() -> dict:
+    """K7's planted faults, each wrapping its wrapper as the autograd
+    Function calls it: every local layer's backward window one K6_TILE
+    short, or halved; every layer's backward without D = rowsum(dO ∘ O)
+    (o given as 0)."""
     def window(fn):
         return lambda a, kw: (a, kw if kw["window"] is None else
                               {**kw, "window": fn(kw["window"])})
 
-    def drop_d(a, kw):          # o = 0: D = rowsum(dO ∘ O) dropped
+    def drop_d(a, kw):
         return a[:3] + (torch.zeros_like(a[3]),) + a[4:], kw
-    faults = {}
-    for name, edit in ((f"every local layer's backward window one {K6_TILE}"
-                        f"-key tile short", window(lambda w: w - K6_TILE)),
-                       ("every local layer's backward window halved",
-                        window(lambda w: w // 2)),
-                       ("every layer's backward without D = rowsum(dO o O)",
-                        drop_d)):
-        with BwdFault(edit):
-            loss_f, bad = loss_and_grads(params, batch, cfg)
-        faults[name] = leaf_errors(bad, want, params)
-        faults[name]["loss_rel"] = abs(float(loss_f) - loss_r) / abs(loss_r)
-        del bad
-    print(f"grad parity: {cfg.name} 1 x {TRAIN_SEQ}, kernels vs plain "
-          f"versions: loss {loss_k:.6f} vs {loss_r:.6f} (rel "
-          f"{sound['loss_rel']:.3e}); per-leaf rel: max {sound['max_rel']:.4e}"
-          f" ({sound['worst_leaf']}), median {sound['median_rel']:.4e} "
-          f"(limit {GRAD_REL_TOL})")
-    for name, e in faults.items():
-        print(f"planted fault, {name}: per-leaf rel max {e['max_rel']:.4e} "
-              f"({e['worst_leaf']}), median {e['median_rel']:.4e}")
-    expect(sound["max_rel"] <= GRAD_REL_TOL, f"gradients differ: {sound}")
-    for name in ("every local layer's backward window halved",
-                 "every layer's backward without D = rowsum(dO o O)"):
-        expect(faults[name]["max_rel"] > GRAD_REL_TOL,
-               f"the gradient check misses {name}: {faults[name]}")
-    return {"loss_kernels": loss_k, "loss_plain": loss_r, **sound,
-            "planted_faults": faults}
+    return {f"every local layer's backward window one {K6_TILE}-key tile "
+            f"short": lambda: BwdFault(window(lambda w: w - K6_TILE)),
+            "every local layer's backward window halved":
+                lambda: BwdFault(window(lambda w: w // 2)),
+            "every layer's backward without D = rowsum(dO o O)":
+                lambda: BwdFault(drop_d)}
 
 
 def phase_train_smoke(dev) -> dict:
@@ -3602,7 +3738,11 @@ def phase_training(dev) -> dict:
     batch = batch_to_torch(make_batch(cfg, s.seed, 0, s.batch, s.seq), dev)
     profile = phase_train_profile(cfg, s, params, batch, dev)
     torch.cuda.empty_cache()
-    parity = phase_grad_parity(cfg, params, batch, dev)
+    parity = phase_grad_parity(
+        cfg, params, batch, f"{cfg.name} 1 x {TRAIN_SEQ}",
+        faults=bwd_window_faults(),
+        must_break=("every local layer's backward window halved",
+                    "every layer's backward without D = rowsum(dO o O)"))
     del params, batch
     torch.cuda.empty_cache()
     smoke = phase_train_smoke(dev)
@@ -3637,7 +3777,8 @@ K9_CASES = [  # b, l, di, n
 K9_FAULT_CASE = (1, 2048, 8192, 16)
 SFU_PER_CLOCK_SM = 16         # exponentials a clock per SM (CUDA guide, cc 9.0)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
-FM_PLAIN_LEN = 2048           # the plain scan's Python loop over 64 layers
+FM_PLAIN_LEN = 1024           # the plain scan's Python loop over 64 layers
+                              # (2048 until PR 25: 23.8 s of the run)
 FM_PLAIN_LEN_F32 = 256
 FM_FORWARD_LEN = 4096
 # Per row of bfloat16 logits of falcon-mamba-7b: ‖a − b‖ ≤ FM_LOGIT_REL_TOL
@@ -3864,7 +4005,8 @@ def fm_prefill(cfg, params, dev, seq=PREFILL_LEN):
     sync(dev)
     wall = time.perf_counter() - t0
     launches, peak = dict(MS.LAUNCHES), torch.cuda.max_memory_allocated(dev)
-    expect(launches == {"mamba_scan": cfg.n_layers}, launches)
+    expect(launches == {"mamba_scan": cfg.n_layers, "mamba_scan_bwd": 0},
+           launches)
     expect(not any(FA.LAUNCHES.values()) and not any(K.LAUNCHES.values()),
            (dict(FA.LAUNCHES), dict(K.LAUNCHES)))
     expect(logits.shape == (1, 1, cfg.vocab_padded), logits.shape)
@@ -3951,7 +4093,8 @@ def fm_forward(cfg, params, dev, seq=FM_FORWARD_LEN) -> dict:
     sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(MS.LAUNCHES)
-    expect(launches == {"mamba_scan": cfg.n_layers}, launches)
+    expect(launches == {"mamba_scan": cfg.n_layers, "mamba_scan_bwd": 0},
+           launches)
     expect(logits.shape == (1, seq, cfg.vocab_padded), logits.shape)
     expect(bool(torch.isfinite(logits).all()), "forward logits not finite")
     print(f"forward: {cfg.name} forward_hidden + logits_fn over 1 x {seq} "
@@ -4877,7 +5020,8 @@ def zamba_k9_forward(cfg, params, dev, k9_ptx, seq=ZAMBA_FORWARD_LEN):
     sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(MS.LAUNCHES)
-    expect(launches == {"mamba_scan": cfg.n_layers}, launches)
+    expect(launches == {"mamba_scan": cfg.n_layers, "mamba_scan_bwd": 0},
+           launches)
     expect(FA.LAUNCHES["flash_attention"] == attention_layers(cfg),
            dict(FA.LAUNCHES))
     expect(logits.shape == (1, seq, cfg.vocab_padded), logits.shape)
@@ -4969,6 +5113,407 @@ def phase_moe_hybrid(dev, k9_ptx) -> dict:
     return {"granite_moe": granite, "zamba2": zamba, "phi35_moe": phi}
 
 
+# ------------ training the ssm, MoE and hybrid families (K9, K9-bwd, K6, K7)
+
+K9B_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu"
+FM_TRAIN_LAYERS = 32          # of 64: 112 GB of training state whole, 58.2 GB at 32
+FM_GRAD_LAYERS = 2            # the plain scan walks time in Python, twice
+FM_GRAD_SEQ = 512             # ... a layer in the backward: its comparison's cut
+GRANITE_TRAIN_LAYERS = None   # FULL (62.5 GB of state) when the run fits
+ZAMBA_K9_SEQ = 1024            # the plain block walks time in Python
+# K9-bwd against its plain version from the same chunk states
+# (ref.mamba_scan_bwd_plain: the same float32 walk, the sums over states
+# and channels in another order), per output ‖got − want‖ ≤ K9B_REL_TOL ·
+# ‖want‖, and for dx and ddt of bfloat16 inputs K9B_BF16_TOL (both sides
+# round the same float32 value to bfloat16, and a sum a few ulps off a
+# rounding tie lands one bfloat16 ulp, 3.9e-3 of the element, away: a
+# quarter of that in norm); against autograd of ref.mamba_scan_segmented
+# (the gradient of K9's own order of sums, from its own forward)
+# K9B_SEG_TOL[dtype] (with bfloat16 inputs autograd rounds dx and ddt at
+# other places).  Set between the sound readings and the planted faults'
+# (PERF.md §6).
+K9B_REL_TOL = 1e-5
+K9B_BF16_TOL = 1e-3
+K9B_SEG_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+K9B_CASES = [  # b, l, di, n, inputs
+    # one step; a chunk less one, one chunk, a chunk and one; 4101 steps
+    # (a ragged tail) with the decay near 1 and at N = 64; N of 1, 4, 16
+    # and 64; channels no multiple of the block's (256 / N padded); batch
+    # 3; b and c (and x, dt) as column slices; a large dt; the model's Di
+    (2, 1, 37, 16, "plain"), (1, 31, 100, 4, "plain"), (3, 32, 8, 1, "plain"),
+    (3, 33, 300, 16, "strided"), (1, 4101, 20, 16, "slow"),
+    (1, 4101, 37, 64, "strided"), (2, 300, 100, 64, "strided"),
+    (2, 70, 5, 4, "fast"), (1, 129, 8192, 16, "strided"),
+]
+K9B_FAULT_CASE = (2, 300, 100, 16)
+K9B_FAULTS = {  # a copy of csrc/mamba_scan_bwd.cu with one line changed
+    "the adjoint carried across a chunk boundary dropped": (
+        "    // 2. The reverse walk over the chunk; the sums flushed every "
+        "kSub steps.", "    gn = 0.f;"),
+    "exp(dt_t a) where exp(dt_{t+1} a) belongs": (
+        "const float g = fmaf(e_next, gn, dyv * cv);",
+        "const float g = fmaf(e, gn, dyv * cv);"),
+    "db's sum over the tiles without the last tile": (
+        "src = p.db_part + e; n = p.tiles; step = bln; dst = p.db + e;",
+        "src = p.db_part + e; n = p.tiles - 1; step = bln; dst = p.db + e;"),
+}
+K9B_OUTPUTS = ("dx", "ddt", "da", "db", "dc", "dd")
+
+
+def k9b_inputs(case, dtype, dev, seed):
+    """A K9-bwd case: K9's inputs drawn as ``k9_inputs`` (``slow``: dt a
+    hundredth, each step's decay near 1; ``fast``: dt 30 times, near 3;
+    ``strided``: column slices), and dy ~ N(0, 1) in the inputs' dtype."""
+    b, l, di, n, kind = case
+    args = list(k9_inputs((b, l, di, n), dtype, dev, seed,
+                          strided=kind == "strided"))
+    if kind in ("slow", "fast"):
+        args[1] = (args[1].float() * (0.01 if kind == "slow" else 30.0)
+                   ).to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn((b, l, di), generator=gen, device=dev).to(dtype)
+    return tuple(args), dy
+
+
+def k9b_rels(got, want) -> dict:
+    return {k: float((g.float() - w.float()).norm()
+                     / max(float(w.float().norm()), 1e-30))
+            for k, g, w in zip(K9B_OUTPUTS, got, want)}
+
+
+def k9b_limits(dtype) -> dict:
+    """Each output's limit against the plain version."""
+    return {k: K9B_BF16_TOL if dtype == torch.bfloat16 and k in ("dx", "ddt")
+            else K9B_REL_TOL for k in K9B_OUTPUTS}
+
+
+def k9b_over(rels, dtype) -> float:
+    """The largest ratio of an output's error to its limit (> 1 fails)."""
+    lim = k9b_limits(dtype)
+    return max(rels[k] / lim[k] for k in K9B_OUTPUTS)
+
+
+def check_k9b(args, dy, what) -> dict:
+    """K9 with its chunk states (y the same bits as without), then K9-bwd
+    against its plain version from those states and against autograd of
+    the mirror of K9's order of sums; two launches give the same bits."""
+    y, hc = MS.mamba_scan(*args, return_chunks=True)
+    expect(torch.equal(y, MS.mamba_scan(*args)),
+           f"K9's chunk states change y: {what}")
+    _, want_hc = R.mamba_scan_chunks_plain(*args)
+    got = MS.mamba_scan_bwd(*args, dy, hc)
+    again = MS.mamba_scan_bwd(*args, dy, hc)
+    want = R.mamba_scan_bwd_plain(*args, dy, hc)
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    sy, _ = R.mamba_scan_segmented(*leaves, seg_len=MS.SEG_LEN)
+    seg = torch.autograd.grad(sy, leaves, dy)
+    sync(dy.device)
+    x = args[0]
+    expect([(g.shape, g.dtype) for g in got] ==
+           [(x.shape, x.dtype), (x.shape, x.dtype)]
+           + [(t.shape, torch.float32) for t in (args[2], args[3], args[4],
+                                                 args[5])], what)
+    e = {"vs_plain": k9b_rels(got, want), "vs_segmented": k9b_rels(got, seg),
+         "same_bits_twice": all(torch.equal(a, b) for a, b in zip(got, again)),
+         "h_chunks_rel": float((hc - want_hc).norm() / want_hc.norm()),
+         "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    e["max_abs_err"] = max(float((g.float() - w.float()).abs().max())
+                           for g, w in zip(got, want))
+    e["rel"] = max(e["vs_plain"].values())
+    e["over_limit"] = k9b_over(e["vs_plain"], x.dtype)
+    e["rel_seg"] = max(e["vs_segmented"].values())
+    MAX_ERR["mamba_scan_bwd"] = max(MAX_ERR["mamba_scan_bwd"],
+                                    e["max_abs_err"])
+    MAX_REL["mamba_scan_bwd"] = max(MAX_REL["mamba_scan_bwd"], e["rel"])
+    MAX_REL["mamba_scan_bwd_seg"] = max(MAX_REL.get("mamba_scan_bwd_seg",
+                                                    0.0), e["rel_seg"])
+    expect(e["finite"] and e["same_bits_twice"] and e["over_limit"] <= 1
+           and e["rel_seg"] <= K9B_SEG_TOL[x.dtype],
+           f"K9-bwd disagrees with its plain versions ({what}): {e}")
+    return e
+
+
+def bwd_variant(stem, text) -> ctypes.CDLL:
+    """``text`` (a variant of csrc/mamba_scan_bwd.cu) built with nvcc into
+    build/variants/``stem``.so and loaded with the wrapper's signatures."""
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / f"{stem}.cu"
+    src.write_text(text)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                        str(src.with_suffix(".so")), str(src)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"variant {stem} failed to build:\n{r.stderr}")
+    lib = ctypes.CDLL(str(src.with_suffix(".so")))
+    base = MS._bwd_lib()
+    for name in ("roomy_mamba_scan_bwd", "roomy_mamba_scan_bwd_work",
+                 "roomy_msb_error_string"):
+        getattr(lib, name).argtypes = getattr(base, name).argtypes
+        getattr(lib, name).restype = getattr(base, name).restype
+    return lib
+
+
+def k9b_fault_libs() -> dict:
+    """Every planted fault of K9-bwd built, one nvcc each, all at once."""
+    text = (_build.CSRC / "mamba_scan_bwd.cu").read_text()
+    jobs = {}
+    for i, (name, (old, new)) in enumerate(K9B_FAULTS.items()):
+        if text.count(old) != 1:
+            raise SystemExit(f"fault {name!r}: csrc/mamba_scan_bwd.cu no "
+                             f"longer holds {old!r} once")
+        jobs[name] = (f"mamba_scan_bwd_fault{i}", text.replace(old, new))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(bwd_variant, *job)
+                for name, job in jobs.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+@contextlib.contextmanager
+def k9b_lib(lib):
+    """K9-bwd's wrapper launches ``lib``'s kernels inside the block."""
+    good = MS._bwd_lib()
+    MS._BWD_LIB = lib
+    try:
+        yield
+    finally:
+        MS._BWD_LIB = good
+
+
+def phase_k9b_parity_edges(dev, libs) -> dict:
+    """K9-bwd against its plain versions on the card, every case in
+    float32 and bfloat16; then the planted faults at K9B_FAULT_CASE, each
+    of which must break the limit against the plain version."""
+    out = {}
+    for i, case in enumerate(K9B_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, dy = k9b_inputs(case, dtype, dev, 60 + i)
+            e = check_k9b(args, dy, f"{case} {dtype}")
+            out[f"{case} {dtype}"] = e
+            print(f"parity K9-bwd {case} {dtype}: per output rel err vs "
+                  f"plain {e['rel']:.3e} ({e['over_limit']:.3f} of the limit: "
+                  f"{K9B_REL_TOL}, bf16 dx and ddt {K9B_BF16_TOL}), vs autograd "
+                  f"of the segmented mirror {e['rel_seg']:.3e} (limit "
+                  f"{K9B_SEG_TOL[dtype]}), max abs err {e['max_abs_err']:.3e}"
+                  f"; chunk states vs the plain forward's {e['h_chunks_rel']:.2e};"
+                  f" the same bits twice: {e['same_bits_twice']}")
+    faults = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args, dy = k9b_inputs((*K9B_FAULT_CASE, "strided"), dtype, dev, 59)
+        _, hc = MS.mamba_scan(*args, return_chunks=True)
+        want = R.mamba_scan_bwd_plain(*args, dy, hc)
+        for name, lib in libs.items():
+            with k9b_lib(lib):
+                got = MS.mamba_scan_bwd(*args, dy, hc)
+            rels = k9b_rels(got, want)
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            over = k9b_over(rels, dtype)
+            faults[f"{name}, {dtype}"] = {**rels, "finite": finite,
+                                          "over_limit": over}
+            print(f"planted K9-bwd fault, {name} ({K9B_FAULT_CASE} {dtype}):"
+                  f" {over:.3g} times the limit; per output rel err {rels}")
+            expect(finite and over > 1,
+                   f"the K9-bwd check misses {name}: {rels}")
+    return {"cases": out, "planted_faults": faults}
+
+
+def k9b_bound(x, a, hc) -> dict:
+    """The least time for K9-bwd on these inputs, the largest of: the bytes
+    (x, dt, dy, b, c, a, d and the chunk states read once; dx, ddt, da, db,
+    dc, dd written once) at 3.35 TB/s; 10 float32 FMAs per (t, i, j) (the
+    state's recomputation, the adjoint and the five gradient terms) at
+    67 TFLOP/s; one exponential per (t, i, j) at SFU_PER_CLOCK_SM a clock
+    on each SM at the card's maximum SM clock."""
+    bsz, seq, di = x.shape
+    n = a.shape[1]
+    es = x.element_size()
+    nbytes = (5 * bsz * seq * di + 2 * bsz * seq * n) * es \
+        + 4 * hc.numel() + 8 * (di * n + di) + 4 * 2 * bsz * seq * n
+    steps = bsz * seq * di * n
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    clock = sm_clock_hz()
+    ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+          "fma": 20 * steps / F32_FLOPS * 1e3,
+          "exp": steps / (SFU_PER_CLOCK_SM * sms * clock) * 1e3}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": "bytes" if by == "bytes"
+            else "operations", "binds": by, "bytes": nbytes, "exps": steps,
+            "fmas": 10 * steps, **{f"bound_{k}_ms": v for k, v in ms.items()}}
+
+
+def phase_k9b_times(shape, dev, what) -> dict:
+    """K9-bwd at a layer's shape (bfloat16, x, dt, b, c as the model's
+    column slices): CUDA events, median of 20, beside its bound and its
+    plain version (one call after one to warm up: ~2 s each).  No library
+    call computes it."""
+    args, dy = k9b_inputs((*shape, "strided"), torch.bfloat16, dev, 70)
+    _, hc = MS.mamba_scan(*args, return_chunks=True)
+    ms = median_ms(lambda: MS.mamba_scan_bwd(*args, dy, hc))
+    fwd = median_ms(lambda: MS.mamba_scan(*args, return_chunks=True))
+    plain = median_ms(lambda: R.mamba_scan_bwd_plain(*args, dy, hc), reps=1)
+    b = k9b_bound(args[0], args[2], hc)
+    geo = MS.bwd_geometry(*shape)
+    res = {"ms": ms, "plain_ms": plain, **b, "library_ms": None,
+           "k9_with_chunks_ms": fwd, "scratch_bytes": geo["part_bytes"],
+           "shape": f"{what}: x {tuple(args[0].shape)} bf16, N {shape[3]}"}
+    print(f"time: K9-bwd {res['shape']}: {ms:.3f} ms, bound "
+          f"{b['bound_ms']:.3f} ms ({b['binds']} binds: {b['exps']:.3e} "
+          f"exponentials = {b['bound_exp_ms']:.3f} ms; {b['fmas']:.3e} f32 "
+          f"FMAs at 67 TFLOP/s = {b['bound_fma_ms']:.3f} ms; {b['bytes']} "
+          f"bytes at 3.35 TB/s = {b['bound_bytes_ms']:.3f} ms), "
+          f"{b['bound_ms'] / ms:.1%} of the bound; plain {plain:.3f} ms; "
+          f"K9 with its chunk states {fwd:.3f} ms;"
+          f" scratch {geo['part_bytes']} B; library: none (no PyTorch call "
+          f"computes a selective scan's backward)")
+    return res
+
+
+def train_drops(cfg, params, batch) -> dict:
+    """The (token, choice) pairs each MoE layer drops at the config's
+    capacity on the train batch: one forward without a gradient, its
+    router and slots run again on each layer's input."""
+    dropped = []
+    orig = BL.moe
+
+    def wrapped(p, x, cfg_, group=None):
+        _, keep, _ = MOE.dispatch_slots(MOE._route(p, x, cfg_)[1], cfg_)
+        dropped.append(int((~keep).sum()))
+        return orig(p, x, cfg_, group)
+    BL.moe = wrapped
+    try:
+        with torch.no_grad():
+            lm.forward_hidden(params, batch["inputs"], cfg)
+    finally:
+        BL.moe = orig
+    pairs = TRAIN_SEQ * cfg.top_k
+    res = {"capacity": MOE.capacity(TRAIN_SEQ, cfg),
+           "dropped_pairs": sum(dropped), "pairs": pairs * cfg.n_layers,
+           "dropped_by_layer": dropped}
+    print(f"train batch drops: {cfg.name} dropped {sum(dropped)} of "
+          f"{pairs * cfg.n_layers} (token, choice) pairs at capacity "
+          f"{res['capacity']} a row ({min(dropped)}-{max(dropped)} a layer "
+          f"of {pairs})")
+    return res
+
+
+def family_phase(cfg, dev, faults, must_break, grad_cfg=None,
+                 grad_seq=TRAIN_SEQ):
+    """A family's training: the main path, its profile, the drops (MoE),
+    and the gradient parity with ``faults`` planted, at ``grad_cfg``'s
+    depth and ``grad_seq`` tokens (default the main path's)."""
+    params, s, main_path = phase_train(cfg, dev)
+    batch = batch_to_torch(make_batch(cfg, s.seed, 0, s.batch, s.seq), dev)
+    profile = phase_train_profile(cfg, s, params, batch, dev)
+    torch.cuda.empty_cache()
+    res = {"arch": cfg.name, "main_path": main_path, "profile": profile}
+    if cfg.family == "moe":
+        res["drops"] = train_drops(cfg, params, batch)
+    if grad_cfg is not None:
+        del params, batch
+        torch.cuda.empty_cache()
+        params = T.tree_map(lambda p: p.requires_grad_(True), lm.init_params(
+            grad_cfg, SEED, device=dev, dtype=torch.float32))
+        batch = batch_to_torch(make_batch(grad_cfg, 1, 0, 1, grad_seq), dev)
+    gcfg = grad_cfg or cfg
+    res["grad_parity"] = phase_grad_parity(
+        gcfg, params, batch, f"{gcfg.name} {gcfg.n_layers} layers, 1 x "
+        f"{grad_seq}", faults=faults, must_break=must_break)
+    del params, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def zamba_k9_layer(cfg, dev) -> dict:
+    """One full-width zamba2 mamba2 block in the K9 form
+    (``mamba2_use_ssd=False``, N = 64) forward and backward under autograd
+    on 1 × ZAMBA_K9_SEQ tokens: exactly one K9 and one K9-bwd launch; the
+    gradients of the input and the block's params against the same block
+    through the plain versions (GRAD_REL_TOL per leaf)."""
+    cfg_k9 = cfg.replace(mamba2_use_ssd=False, n_layers=1)
+    p = T.tree_map(lambda t: t.requires_grad_(True), lm.init_params(
+        cfg_k9, SEED, device=dev, dtype=torch.float32)["blocks"][0])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x0 = torch.randn((1, ZAMBA_K9_SEQ, cfg.d_model), generator=gen,
+                     device=dev).to(getattr(torch, cfg.dtype))
+    w = torch.randn((1, ZAMBA_K9_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    grads = {}
+    for name, c in (("kernels", cfg_k9), ("plain", cfg_k9.replace(
+            kernels="ref"))):
+        x = x0.clone().requires_grad_(True)
+        reset_all_launches()
+        out = BL.mamba_block(p, x, c, version=2)
+        leaves = [x] + T.leaves(p)
+        grads[name] = torch.autograd.grad((out.float() * w).sum(), leaves)
+        sync(dev)
+        launches = dict(MS.LAUNCHES)
+        expect(launches == ({"mamba_scan": 1, "mamba_scan_bwd": 1}
+                            if name == "kernels" else
+                            {"mamba_scan": 0, "mamba_scan_bwd": 0}), launches)
+    rels = {path: float((g - wnt).float().norm() / wnt.float().norm())
+            for path, g, wnt in zip(["x"] + ["__".join(q) for q, _ in
+                                             T.flatten_with_path(p)],
+                                    grads["kernels"], grads["plain"])}
+    worst = max(rels, key=rels.get)
+    print(f"grad parity: {cfg.name} one mamba2 block in the K9 form (N = "
+          f"{cfg.ssm_state}), 1 x {ZAMBA_K9_SEQ}, kernels vs plain: per-leaf "
+          f"rel max {rels[worst]:.4e} ({worst}) (limit {GRAD_REL_TOL}); K9 1, "
+          f"K9-bwd 1 launch")
+    expect(rels[worst] <= GRAD_REL_TOL, rels)
+    return {"per_leaf_rel": rels, "max_rel": rels[worst], "worst_leaf": worst}
+
+
+def phase_training_families(dev, k9b_ptx) -> dict:
+    """K9-bwd on its edge cases and its planted faults, its times at
+    falcon-mamba's and zamba2's layers; then falcon-mamba-7b at
+    FM_TRAIN_LAYERS layers, zamba2-1.2b FULL (the SSD form, and one block
+    in the K9 form) and granite-moe-3b FULL (or GRANITE_TRAIN_LAYERS)
+    trained."""
+    t0 = time.perf_counter()
+    libs = k9b_fault_libs()
+    parity = phase_k9b_parity_edges(dev, libs)
+    print(f"[K9-bwd parity done at {time.perf_counter() - t0:.1f} s of the "
+          f"phase]")
+    fm_cfg = get_config(FM_ARCH)
+    times = phase_k9b_times((1, TRAIN_SEQ, fm_cfg.d_inner, fm_cfg.ssm_state),
+                            dev, "falcon-mamba-7b train layer")
+    zcfg = get_config(ZAMBA_ARCH)
+    ztimes = phase_k9b_times((1, TRAIN_SEQ, zcfg.d_inner, zcfg.ssm_state),
+                             dev, "zamba2-1.2b K9-form layer")
+    torch.cuda.empty_cache()
+    fm_train = fm_cfg.replace(n_layers=FM_TRAIN_LAYERS)
+    print(f"falcon-mamba-7b training: {FM_TRAIN_LAYERS} of {fm_cfg.n_layers} "
+          f"layers at full width ({16 * fm_cfg.param_count()} B of state "
+          f"whole; the gradient parity at {FM_GRAD_LAYERS} layers, 1 x "
+          f"{FM_GRAD_SEQ})")
+    k9b_faults = {f"K9-bwd in every layer: {name}":
+                  (lambda lib=lib: k9b_lib(lib)) for name, lib in libs.items()}
+    fm = family_phase(
+        fm_train, dev, k9b_faults, ("K9-bwd in every layer: the adjoint "
+                                    "carried across a chunk boundary "
+                                    "dropped",),
+        grad_cfg=fm_cfg.replace(n_layers=FM_GRAD_LAYERS),
+        grad_seq=FM_GRAD_SEQ)
+    print(f"[falcon-mamba training done at {time.perf_counter() - t0:.1f} s "
+          f"of the phase]")
+    drop_d = "every layer's backward without D = rowsum(dO o O)"
+    k7_fault = {drop_d: bwd_window_faults()[drop_d]}
+    zamba = family_phase(zcfg, dev, k7_fault, (drop_d,))
+    zamba["k9_form_layer"] = zamba_k9_layer(zcfg, dev)
+    print(f"[zamba2 training done at {time.perf_counter() - t0:.1f} s of the "
+          f"phase]")
+    torch.cuda.empty_cache()
+    gcfg = get_config(GRANITE_MOE_ARCH)
+    if GRANITE_TRAIN_LAYERS:
+        gcfg = gcfg.replace(n_layers=GRANITE_TRAIN_LAYERS)
+    granite = family_phase(gcfg, dev, k7_fault, (drop_d,))
+    res = {"k9_bwd_parity": parity, "k9_bwd_times": times,
+           "k9_bwd_times_zamba2": ztimes, "k9_bwd_ptxas": k9b_ptx,
+           "falcon_mamba": fm, "zamba2": zamba, "granite_moe": granite}
+    print(json.dumps({"train_families": res}, default=str))
+    return res
+
+
 def to_port_bounds() -> list:
     """The bounds of the TPU kernels still to port: none.  K5, the last,
     is ported (``phase_roomy``; its bound is in the ``kernels`` line), so
@@ -4981,40 +5526,57 @@ def main() -> None:
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx, k4_ptx = phase_build()
+    ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx, k4_ptx, k9b_ptx = phase_build()
+    print(f"[phase_build done at {time.perf_counter() - t0:.1f} s]")
     phase_parity_edges(dev)
     bin_faults = phase_bin_faults(dev)
+    print(f"[phase_bin_faults done at {time.perf_counter() - t0:.1f} s]")
     data, tgt = phase_parity_full(dev)
     times = phase_times(data, tgt)
     del data, tgt
     torch.cuda.empty_cache()
     k12 = phase_k12_levels(dev)
+    print(f"[phase_k12_levels done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     launches, sizes, k12_routes = phase_main_path(dev)
     phase_equivalence(dev)
+    print(f"[phase_equivalence done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     phase_sorted_bfs(dev)
+    print(f"[phase_sorted_bfs done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     oracle = phase_oracle(dev, sizes)
+    print(f"[phase_oracle done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     roomy = phase_roomy(dev)
+    print(f"[phase_roomy done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
     phase_k6_parity_edges(dev)
     k6_launches, k6 = phase_lm(dev)
+    print(f"[phase_lm done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     k7_parity = phase_k7_parity(dev)
     k7 = phase_k7_times(dev)
+    print(f"[phase_k7_times done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     trained = phase_training(dev)
+    print(f"[phase_training done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     fm = phase_falcon_mamba(dev)
+    print(f"[phase_falcon_mamba done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     dense = phase_dense(dev)
+    print(f"[phase_dense done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     mh = phase_moe_hybrid(dev, k9_ptx)
+    print(f"[phase_moe_hybrid done at {time.perf_counter() - t0:.1f} s]")
     gm, zb, ph = mh["granite_moe"], mh["zamba2"], mh["phi35_moe"]
+    torch.cuda.empty_cache()
+    tf = phase_training_families(dev, k9b_ptx)
+    print(f"[phase_training_families done at {time.perf_counter() - t0:.1f} s]")
+    tfm, tz, tg = tf["falcon_mamba"], tf["zamba2"], tf["granite_moe"]
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -5130,6 +5692,11 @@ def main() -> None:
         "shape": "gemma2-2b train step, 1x8x4096x256, GQA 2, softcap 50, "
                  "causal", "launches_per_step":
             trained["launches_per_step"]["flash_attention_lse"],
+        "launches_train_moe_hybrid": {
+            rec["arch"]: rec["main_path"]["launches"]["flash_attention_lse"]
+            for rec in (tz, tg)},
+        "launches_by_route_train_moe_hybrid": {
+            rec["arch"]: rec["main_path"]["k6_routes"] for rec in (tz, tg)},
         "ms_softcap_off": tr["fwd_lse"]["ms_softcap_off"],
         "library_ms_softcap_off": tr["fwd_lse"]["library_ms_softcap_off"],
         "window_ms": win["fwd_lse"]["ms"],
@@ -5159,6 +5726,11 @@ def main() -> None:
         "tflops_10d": tr["bwd"]["tflops_10d"],
         "tflops_14d": tr["bwd"]["tflops_14d"],
         "dense_layouts": k7["dense"],
+        "launches_train_moe_hybrid": {
+            rec["arch"]: rec["main_path"]["launches"]["flash_attention_bwd"]
+            for rec in (tz, tg)},
+        "launches_by_route_train_moe_hybrid": {
+            rec["arch"]: rec["main_path"]["k7_routes"] for rec in (tz, tg)},
         "planted_faults_rel": {k: v["rel"] for k, v in
                                k7_parity["planted_faults"].items()}})
     t9 = fm["times"]
@@ -5189,7 +5761,42 @@ def main() -> None:
         "zamba2_bound_ms": zb["forward_k9"]["k9_times"]["bound_ms"],
         "zamba2_bound_binds": zb["forward_k9"]["k9_times"]["binds"],
         "zamba2_shape": zb["forward_k9"]["k9_times"]["shape"],
-        "zamba2_ptxas": zb["forward_k9"]["k9_ptxas"]})
+        "zamba2_ptxas": zb["forward_k9"]["k9_ptxas"],
+        "train_launches": tfm["main_path"]["launches"]["mamba_scan"],
+        "train_launches_per_step": tfm["main_path"]["launches_per_step"][
+            "mamba_scan"],
+        "train_k9_with_chunks_ms": tf["k9_bwd_times"]["k9_with_chunks_ms"]})
+    t9b, z9b = tf["k9_bwd_times"], tf["k9_bwd_times_zamba2"]
+    kernels.append({
+        "name": "mamba_scan_bwd", "route": "cuda", "source": K9B_SOURCE,
+        "replaces": K9_REPLACES,
+        "replaces_note": "the backward of that kernel, which the reference "
+                         "lacks (it trains SSMs through its plain scan)",
+        "launches": tfm["main_path"]["launches"]["mamba_scan_bwd"],
+        "launches_per_step": tfm["main_path"]["launches_per_step"][
+            "mamba_scan_bwd"],
+        "kernel": "scan_bwd_kernel<T, NP> (one thread a (channel, state), "
+                  "chunks walked in reverse from K9's chunk states) and "
+                  "scan_bwd_reduce_kernel (the tiles' parts of db, dc in "
+                  "order)", "ptxas": tf["k9_bwd_ptxas"],
+        "max_abs_err": MAX_ERR["mamba_scan_bwd"],
+        "max_rel_err": MAX_REL["mamba_scan_bwd"],
+        "max_rel_err_vs_segmented": MAX_REL["mamba_scan_bwd_seg"],
+        "ms": t9b["ms"], "plain_ms": t9b["plain_ms"],
+        "bound_ms": t9b["bound_ms"], "bound_by": t9b["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes a selective scan's "
+                   "backward", "shape": t9b["shape"],
+        "bound_binds": t9b["binds"], "bound_exp_ms": t9b["bound_exp_ms"],
+        "bound_fma_ms": t9b["bound_fma_ms"],
+        "bound_bytes_ms": t9b["bound_bytes_ms"],
+        "scratch_bytes": t9b["scratch_bytes"],
+        "zamba2_ms": z9b["ms"], "zamba2_plain_ms": z9b["plain_ms"],
+        "zamba2_bound_ms": z9b["bound_ms"], "zamba2_shape": z9b["shape"],
+        "planted_faults_over_limit": {
+            k: v["over_limit"] for k, v in
+            tf["k9_bwd_parity"]["planted_faults"].items()}
+        })
     nem = dense["nemotron"]
     t8, b8 = nem["k8_times"], nem["batched_decode"]["k8"]
     g8 = k6["k8_times"]

@@ -11,7 +11,11 @@
 // x, dt, b, c are read in their dtype (float32 or bfloat16, one dtype for
 // all four), a and d in float32; h and every sum are float32; y is written
 // in x's dtype, contiguous (B, L, Di); with an h_last pointer the final h
-// is written as float32 (B, Di, N) (the prefill's decode state).
+// is written as float32 (B, Di, N) (the prefill's decode state), and with
+// an h_chunks pointer the state after each chunk of CHUNK = 32 steps as
+// float32 (B, ceil(L/32), Di, N) (the residual the backward kernel,
+// mamba_scan_bwd.cu, recomputes each chunk's states from; y is the same
+// bits with or without it).
 //
 // What bounds it on an H100: per (t, i, j) one exponential and about four
 // float32 FMAs; per (t, i) two reads and one write of a 2-byte value.  At
@@ -94,6 +98,7 @@ struct Params {
   const float *a, *d;
   void* y;
   float* h_last;
+  float* h_chunks;
   long long x_sb, x_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st;
   int L, Di, N;
 };
@@ -118,8 +123,10 @@ __device__ __forceinline__ void to_array(const float4& v, float (&o)[kSPT]) {
   o[3] = v.w;
 }
 
-// TPC threads a channel, CH = kLanes / TPC channels a block.
-template <typename T, int TPC>
+// TPC threads a channel, CH = kLanes / TPC channels a block.  kChunks:
+// the instantiation that writes h_chunks (training's forward); serving's
+// (false) is the kernel without it, register for register.
+template <typename T, int TPC, bool kChunks>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     scan_seg_kernel(Params p) {
   constexpr int CH = kLanes / TPC;
@@ -292,6 +299,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 #pragma unroll
         for (int s = 0; s < kSPT; ++s) H[s] = fmaf(Aq[s], H[s], Bq[s]);
       }
+      // The carry is the state after this chunk's last step.
+      if (kChunks && live) {
+        float* hc = p.h_chunks +
+                    (((long long)bi * ((L + kChunk - 1) / kChunk) +
+                      t0 / kChunk) * Di + i) * N;
+#pragma unroll
+        for (int s = 0; s < kSPT; ++s) {
+          const int j = sub * kSPT + s;
+          if (j < N) hc[j] = H[s];
+        }
+      }
     }
     __syncthreads();
 
@@ -344,7 +362,10 @@ template <typename T, int TPC>
 void launch(const Params& p, int B, cudaStream_t stream) {
   constexpr int CH = kLanes / TPC;
   dim3 grid((p.Di + CH - 1) / CH, B);
-  scan_seg_kernel<T, TPC><<<grid, kThreads, 0, stream>>>(p);
+  if (p.h_chunks != nullptr)
+    scan_seg_kernel<T, TPC, true><<<grid, kThreads, 0, stream>>>(p);
+  else
+    scan_seg_kernel<T, TPC, false><<<grid, kThreads, 0, stream>>>(p);
 }
 
 template <typename T>
@@ -369,12 +390,14 @@ const char* roomy_ms_error_string(int code) {
 // dtype 0: float32, 1: bfloat16 (x, dt, b, c and y).  strides: 8 element
 // strides, (batch, time) of x, dt, b and c in that order; the last dim of
 // each is contiguous.  a: (Di, N) and d: (Di,) contiguous float32.  y:
-// contiguous (B, L, Di).  h_last: nullptr, or B·Di·N floats.  tpc: the
+// contiguous (B, L, Di).  h_last: nullptr, or B·Di·N floats.  h_chunks:
+// nullptr, or B·ceil(L/32)·Di·N floats (the state after each chunk).  tpc: the
 // threads a channel (mamba_scan.py `geometry`): a power of two <= 16 with
 // 4·tpc >= N.
 int roomy_mamba_scan(const void* x, const void* dt, const float* a,
                      const void* b, const void* c, const float* d, void* y,
-                     float* h_last, int dtype, int B, int L, int Di, int N,
+                     float* h_last, float* h_chunks, int dtype, int B, int L,
+                     int Di, int N,
                      const long long* strides, int tpc, void* stream) {
   if (B < 0 || L < 0 || Di < 0 || N < 1 || N > kSPT * tpc || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -382,6 +405,7 @@ int roomy_mamba_scan(const void* x, const void* dt, const float* a,
   Params p;
   p.x = x; p.dt = dt; p.b = b; p.c = c; p.a = a; p.d = d; p.y = y;
   p.h_last = h_last;
+  p.h_chunks = h_chunks;
   p.x_sb = strides[0]; p.x_st = strides[1];
   p.dt_sb = strides[2]; p.dt_st = strides[3];
   p.b_sb = strides[4]; p.b_st = strides[5];

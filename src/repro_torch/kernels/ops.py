@@ -1,6 +1,7 @@
 """Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
 flash attention with its gradient (``:39-85``), the selective scan
-(``:88-113``), the segment scatter-add (``:116-124``), the bit-pack
+(``:88-113``) with a gradient the reference takes through its plain scan,
+the segment scatter-add (``:116-124``), the bit-pack
 kernels (``:129-185``) and paged decode
 attention (the kernel of ``repro/kernels/paged_decode.py``, which the
 reference's ops module leaves out).
@@ -163,13 +164,57 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                                       lengths, softcap=softcap, scale=scale)
 
 
+class _MambaScan(torch.autograd.Function):
+    """K9 forward with its chunk states, K9-bwd backward: the gradient
+    the reference takes with ``jax.grad`` through its plain scan
+    (``repro/kernels/ref.py:126-169``).  The forward saves the inputs and
+    the state after each chunk of ``mamba_scan.CHUNK`` steps; the backward
+    recomputes each chunk's states from them and returns every input's
+    gradient.  ``plain`` runs the plain versions of both through the same
+    Function; otherwise the kernel wrappers go by the tensor's device."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, plain):
+        if plain:
+            y, chunks = _ref.mamba_scan_chunks_plain(x, dt, a, b, c, d,
+                                                     _ms.CHUNK)
+        else:
+            y, chunks = _ms.mamba_scan(x, dt, a, b, c, d, return_chunks=True)
+        ctx.save_for_backward(x, dt, a, b, c, d, chunks)
+        ctx.plain = plain
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, a, b, c, d, chunks = ctx.saved_tensors
+        if ctx.plain:
+            grads = _ref.mamba_scan_bwd_plain(x, dt, a, b, c, d, dy, chunks,
+                                              _ms.CHUNK)
+        else:
+            grads = _ms.mamba_scan_bwd(x, dt, a, b, c, d, dy, chunks)
+        return tuple(g.to(t.dtype) for g, t in zip(
+            grads, (x, dt, a, b, c, d))) + (None,)
+
+
 def mamba_scan(x, dt, a, b, c, d, *, impl="auto", return_state=False):
     """The selective scan (K9): x, dt (B, L, Di), a (Di, N), b, c
     (B, L, N), d (Di,) → y (B, L, Di) in x.dtype, and with
     ``return_state`` also the final state h_last (B, Di, N) in float32.
     The plain version (``impl="ref"``, or a CPU tensor) is
     ``ref.mamba_scan_plain``: the sequential form with the state, else the
-    associative form up to 512 steps, as the reference dispatches."""
-    if _use_ref(impl, x):
+    associative form up to 512 steps, as the reference dispatches.  When a
+    gradient is wanted (grad mode on and an input requiring it) y's
+    gradient flows through K9-bwd (``_MambaScan``, the sequential form with
+    its chunk states on the plain side); the final state then carries no
+    gradient, so ``return_state`` raises."""
+    plain = _use_ref(impl, x)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, b, c, d)):
+        if return_state:
+            raise NotImplementedError(
+                "mamba_scan: the final state carries no gradient; run the "
+                "prefill under torch.no_grad()")
+        return _MambaScan.apply(x, dt, a, b, c, d, plain)
+    if plain:
         return _ref.mamba_scan_plain(x, dt, a, b, c, d, return_state)
     return _ms.mamba_scan(x, dt, a, b, c, d, return_state=return_state)

@@ -5,8 +5,11 @@ the segment scatter-add of ``:240-246`` (K5), the attention functions of
 ``:23-123`` and the selective scans of ``:126-169`` (K9), plus the
 forward with its log-sum-exp and the backward of
 ``repro/kernels/flash_attention.py:100-111`` and
-``flash_attention_bwd.py`` (K6's LSE output and K7), and the paged decode
-attention of ``repro/kernels/paged_decode.py`` (K8).  Beside them sit two
+``flash_attention_bwd.py`` (K6's LSE output and K7), the paged decode
+attention of ``repro/kernels/paged_decode.py`` (K8), and the selective
+scan's forward with its chunk states and its backward (K9-bwd), which the
+reference lacks (it takes ``jax.grad`` through its plain scans).  Beside
+them sit two
 pieces of model math that no kernel replaces: mamba2's chunked SSD form
 (``mamba2_ssd``, ``ref.py:174-236``), which the zamba2 path runs as torch
 matmuls, as mamba1's prefill runs ``mamba_scan_seq_stateful`` in the
@@ -400,12 +403,11 @@ def mamba_scan_ref(x, dt, a, b, c, d):
     return y.to(x.dtype)
 
 
-def mamba_scan_seq_stateful(x, dt, a, b, c, d, h0=None):
-    """The sequential form with its final state, the prefill's
-    (``ref.py:145-164``): a loop over time, vectorised over batch, channel
-    and state, in float32.  Returns (y (B, L, Di) in x.dtype, h_last
-    (B, Di, N) float32); ``h0`` (B, Di, N) is the state before step 0
-    (zeros when None)."""
+def _seq_scan(x, dt, a, b, c, d, h0=None, every=None):
+    """The sequential loop over time, vectorised over batch, channel and
+    state, in float32: (y (B, L, Di) float32, h_last, and with ``every``
+    the list of the states after each ``every`` steps and after the
+    last)."""
     bsz, seq, di = x.shape
     xf, dtf = x.float(), dt.float()
     bf, cf = b.float(), c.float()
@@ -413,11 +415,24 @@ def mamba_scan_seq_stateful(x, dt, a, b, c, d, h0=None):
     h = (torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
                      device=x.device) if h0 is None else h0.float())
     y = torch.empty((bsz, seq, di), dtype=torch.float32, device=x.device)
+    kept = []
     for t in range(seq):
         dtt, xt = dtf[:, t], xf[:, t]
         h = h * torch.exp(dtt[..., None] * af) \
             + (dtt * xt)[..., None] * bf[:, t, None, :]
         y[:, t] = (h * cf[:, t, None, :]).sum(-1) + xt * df
+        if every and ((t + 1) % every == 0 or t == seq - 1):
+            kept.append(h)
+    return y, h, kept
+
+
+def mamba_scan_seq_stateful(x, dt, a, b, c, d, h0=None):
+    """The sequential form with its final state, the prefill's
+    (``ref.py:145-164``): a loop over time, vectorised over batch, channel
+    and state, in float32.  Returns (y (B, L, Di) in x.dtype, h_last
+    (B, Di, N) float32); ``h0`` (B, Di, N) is the state before step 0
+    (zeros when None)."""
+    y, h, _ = _seq_scan(x, dt, a, b, c, d, h0)
     return y.to(x.dtype), h
 
 
@@ -475,6 +490,69 @@ def mamba_scan_segmented(x, dt, a, b, c, d, seg_len=8):
     return y.to(x.dtype), h
 
 
+#: Steps between the states K9 saves for its backward (``csrc/mamba_scan.cu``
+#: writes the state after each of its chunks).
+SCAN_CHUNK = 32
+
+
+def mamba_scan_chunks_plain(x, dt, a, b, c, d, chunk: int = SCAN_CHUNK):
+    """The sequential form with the residual of the backward: (y (B, L, Di)
+    in x.dtype, h_chunks (B, ceil(L / chunk), Di, N) float32, the state
+    after each ``chunk`` steps, the last one after step L - 1)."""
+    y, _, kept = _seq_scan(x, dt, a, b, c, d, every=chunk)
+    return y.to(x.dtype), torch.stack(kept, 1)
+
+
+def mamba_scan_bwd_plain(x, dt, a, b, c, d, dy, h_chunks,
+                         chunk: int = SCAN_CHUNK):
+    """The backward of the selective scan from the forward's chunk states:
+    K9-bwd's arithmetic (``csrc/mamba_scan_bwd.cu``) in plain PyTorch, in
+    float32.  With e_t = exp(dt_t·a), the chunks are walked in reverse;
+    each chunk's states are recomputed from the state before it
+    (``h_chunks[:, k - 1]``, zeros for the first), h_t = e_t·h_{t-1} +
+    dt_t·x_t·b_t, and the adjoint g_t = dL/dh_t runs backwards,
+    g_t = dy_t·c_t + e_{t+1}·g_{t+1}, carried across chunk boundaries:
+      dx_t = sum_j g_t·dt_t·b_t + dy_t·d,
+      ddt_t = sum_j g_t·(a·e_t·h_{t-1} + x_t·b_t),
+      da = sum_{b,t} g_t·dt_t·e_t·h_{t-1},   db_t = sum_i g_t·dt_t·x_t,
+      dc_t = sum_i dy_t·h_t,                 dd = sum_{b,t} dy_t·x_t.
+    Returns (dx, ddt in x.dtype; da (Di, N), db, dc (B, L, N), dd (Di,)
+    float32), in the order of the inputs."""
+    bsz, seq, di = x.shape
+    n = a.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    xf, dtf, bf, cf, dyf = (t.float() for t in (x, dt, b, c, dy))
+    af, df = a.float(), d.float()
+    dx = torch.empty((bsz, seq, di), **f32)
+    ddt = torch.empty_like(dx)
+    db = torch.empty((bsz, seq, n), **f32)
+    dc = torch.empty_like(db)
+    da = torch.zeros((di, n), **f32)
+    gn = torch.zeros((bsz, di, n), **f32)         # g_{t+1}
+    e_next = torch.ones_like(gn)                  # e_{t+1}
+    for k in reversed(range(h_chunks.shape[1])):
+        t0, t1 = k * chunk, min(seq, (k + 1) * chunk)
+        hs = [torch.zeros_like(gn) if k == 0 else h_chunks[:, k - 1].float()]
+        es = []
+        for t in range(t0, t1):
+            es.append(torch.exp(dtf[:, t, :, None] * af))
+            hs.append(hs[-1] * es[-1]
+                      + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            e, h_prev, h = es[t - t0], hs[t - t0], hs[t - t0 + 1]
+            dtt, xt = dtf[:, t, :, None], xf[:, t, :, None]
+            g = dyf[:, t, :, None] * cf[:, t, None, :] + e_next * gn
+            dx[:, t] = (g * dtt * bf[:, t, None, :]).sum(-1) + dyf[:, t] * df
+            ddt[:, t] = (g * (af * e * h_prev + xt * bf[:, t, None, :])
+                         ).sum(-1)
+            da += (g * dtt * e * h_prev).sum(0)
+            db[:, t] = (g * dtt * xt).sum(1)
+            dc[:, t] = (dyf[:, t, :, None] * h).sum(1)
+            gn, e_next = g, e
+    dd = (dyf * xf).sum((0, 1))
+    return dx.to(x.dtype), ddt.to(dt.dtype), da, db, dc, dd
+
+
 def mamba_scan_plain(x, dt, a, b, c, d, return_state=False):
     """The plain version the dispatchers run: with ``return_state`` the
     sequential form's (y, h_last); otherwise the associative form up to
@@ -497,7 +575,9 @@ def mamba2_ssd(x, dt, a, b, c, d, *, chunk: int = 128, h0=None):
     a (H,) negative; b, c (B, L, N) (one group); d (H,) → (y (B, L, H, P)
     float32, h_last (B, H, P, N) float32).  The (B, NC, Q, Q, H)
     temporaries (1.07 GB each at zamba2's 1 × 32768) are worked in place
-    and freed as soon as they are used."""
+    and freed as soon as they are used; with grad mode on (training) they
+    are computed out of place, to the same bits, since autograd keeps the
+    exponential's output for its backward."""
     bs, seq, h, p = x.shape
     n = b.shape[-1]
     q = min(chunk, seq)
@@ -516,9 +596,18 @@ def mamba2_ssd(x, dt, a, b, c, d, *, chunk: int = 128, h0=None):
     cum = torch.cumsum(dtf * a.float(), dim=2)                # (B, NC, Q, H)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     m = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,NC,Qt,Qs,H)
-    m.exp_().masked_fill_(~tri[None, None, :, :, None], 0.0)
-    m.mul_(torch.einsum("bktn,bksn->bkts", cf, bf)[..., None])
-    m.mul_(dtf[:, :, None, :, :])
+    cb = torch.einsum("bktn,bksn->bkts", cf, bf)[..., None]
+    if torch.is_grad_enabled():
+        # Out of place, since exp's backward reads its output, and masked
+        # before the exp: above the diagonal m > 0 can overflow, and inf
+        # times the mask's zero gradient is NaN.  The same bits either way.
+        m = torch.exp(m.masked_fill(~tri[None, None, :, :, None], -math.inf)
+                      ) * cb * dtf[:, :, None, :, :]
+    else:
+        m.exp_().masked_fill_(~tri[None, None, :, :, None], 0.0)
+        m.mul_(cb)
+        m.mul_(dtf[:, :, None, :, :])
+    del cb
     y = torch.einsum("bktsh,bkshp->bkthp", m, xf)            # intra-chunk
     del m
     # the state each chunk injects: sum_s exp(cum_last - cum_s)·dt_s·x_s ⊗ B_s

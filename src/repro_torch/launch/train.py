@@ -5,13 +5,19 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
         --batch 1 --seq 4096 --steps 6
 
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch falcon-mamba-7b --smoke --steps 3 --device cpu
+
 The flags and defaults of ``repro/launch/train.py``, plus ``--device``
-(default "cuda"; raises without a card).  The reference runs ``--smoke``
-with its plain attention (the Pallas kernels do not run on its CPU); the
-port keeps ``kernels="auto"``, which runs the plain versions for CPU
-tensors and K6/K7 on the card.  ``--tp > 1`` (a tensor-parallel mesh)
-waits for the distributed slice, and the ssm family (falcon-mamba) for a
-backward of K9.
+(default "cuda"; raises without a card).  Every family the port serves
+trains: dense (gemma2-2b, nemotron-4-15b, minicpm-2b, granite-34b), MoE
+(granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b), ssm (falcon-mamba-7b) and
+hybrid (zamba2-1.2b).  The reference runs ``--smoke`` with its plain
+attention and scan (the Pallas kernels do not run on its CPU); the port
+keeps ``kernels="auto"``, which runs the plain versions for CPU tensors
+and, on the card, K6-with-LSE and K7 for attention, K9 and K9-bwd for the
+selective scan.  ``--tp > 1`` (a tensor-parallel mesh) waits for the
+distributed slice, ROADMAP item 9.8.
 """
 from __future__ import annotations
 

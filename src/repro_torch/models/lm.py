@@ -32,9 +32,9 @@ shared block}.
 reference's stacked pytrees across.
 
 The frontend families raise ``NotImplementedError`` naming the ROADMAP
-item that ports them; so does ``loss_fn`` for the ssm family (K9 has no
-backward) and for the MoE and hybrid families (their training is not
-ported).
+item that ports them.  Every other family trains: ``loss_fn``'s gradient
+runs through K6-with-LSE and K7 (attention) and K9 and K9-bwd (the
+selective scan) on the card.
 """
 from __future__ import annotations
 
@@ -67,18 +67,10 @@ def _ported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family whose training is not ported: the ssm family
-    needs a backward for K9, which the reference lacks too (it trains SSMs
-    with ``kernels="ref"``); the MoE and hybrid families are served only."""
+    """Raise for a family whose training is not ported: the frontend
+    families (audio, vlm), which are not ported at all.  The dense, MoE,
+    ssm and hybrid families train."""
     _ported(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"training {cfg.name} is not ported to repro_torch yet: ROADMAP "
-            "item 9.10 (falcon-mamba training: a backward for K9)")
-    if cfg.family in ("moe", "hybrid"):
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not ported to "
-            "repro_torch yet: ROADMAP item 9.13 (MoE and hybrid training)")
 
 
 def _hybrid_segments(cfg: ModelConfig):
@@ -147,25 +139,28 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
     """With ``cfg.remat`` and grad mode on, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     and recomputed in the backward, as the reference's ``_maybe_remat``
-    does with ``jax.checkpoint`` (``repro/models/lm.py:120-121``).  The
-    ssm and hybrid families run their mamba blocks one after the other
-    (serving: no remat, since neither trains), the hybrid's shared block
-    after each segment that asks for it."""
+    does with ``jax.checkpoint`` (``repro/models/lm.py:120-121,148-159``):
+    every transformer block, and every mamba block of the ssm and hybrid
+    families.  The hybrid's shared block runs after each segment that asks
+    for it, never rematted, as in the reference."""
     _ported(cfg)
     x = _embed(params, inputs, cfg)
-    if cfg.family == "ssm":
-        for p_l in params["blocks"]:
-            x = mamba_block(p_l, x, cfg)
-        return rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if cfg.family == "hybrid":
+    remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.family in ("ssm", "hybrid"):
+        version = 1 if cfg.family == "ssm" else 2
+
+        def body(p_l, x):
+            if remat:
+                return checkpoint(mamba_block, p_l, x, cfg, version=version,
+                                  use_reentrant=False)
+            return mamba_block(p_l, x, cfg, version=version)
         for s0, s1, shared in _hybrid_segments(cfg):
             for p_l in params["blocks"][s0:s1]:
-                x = mamba_block(p_l, x, cfg, version=2)
+                x = body(p_l, x)
             if shared:
                 x = transformer_block(params["shared"], x,
                                       inputs["positions"], cfg)
         return rms_norm(x, params["final_norm"], cfg.rms_eps)
-    remat = cfg.remat and torch.is_grad_enabled()
     for p_l, w in zip(params["blocks"], layer_windows(cfg)):
         if remat:
             x = checkpoint(transformer_block, p_l, x, inputs["positions"],

@@ -17,6 +17,15 @@ both kinds of cache, decode.  The Server's greedy tokens are identical to
 JAX's, with freed slots reused; port prefill-then-decode ≡ port stepwise
 decode within 2e-3, as ``tests/test_models.py:171-200`` holds the
 reference.  Inputs come from numpy seeds.
+
+Training: ``mamba2_ssd`` gives the same bits with grad mode on (out of
+place, masked before the exponential) and off (in place), and a finite
+gradient where the reference's exponential of the masked entries
+overflows.  The loss and every gradient leaf, the SSD form and the K9
+form, against ``jax.value_and_grad`` of the reference's ``loss_fn``, remat
+on and off, within the dense families' tolerances (loss rtol 1e-5, each
+leaf ‖Δ‖ ≤ 1e-4 ‖g‖); the training entry points run and print a finite
+loss.
 """
 import jax
 import jax.numpy as jnp
@@ -25,13 +34,16 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.data.pipeline import make_batch as jmake_batch
 from repro.kernels import ref as jref
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
 from repro.runtime import Request as JRequest
 from repro.runtime import Server as JServer
 from repro_torch import convert
+from repro_torch import tree as T
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import batch_to_torch
 from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
@@ -396,13 +408,82 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert "req 1:" in out and "tok/s on cpu" in out
 
 
-def test_training_raises_naming_its_roadmap_item(model, batch):
-    _, cfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.13"):
-        lm.loss_fn(tp, {"inputs": batch[2], "labels": batch[2]["tokens"]},
-                   cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.13"):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
+def test_training_raises_naming_its_roadmap_item(model, batch, capsys):
+    """Training the hybrid family raised, naming ROADMAP item 9.13, until
+    it was ported: ``loss_fn`` now gives the reference's loss, and the CLI
+    trains SMOKE on the CPU to a finite final loss."""
+    jcfg, cfg, jp, tp = model
+    loss = lm.loss_fn(tp, {"inputs": batch[2], "labels": batch[2]["tokens"]},
+                      cfg)
+    jloss = jlm.loss_fn(jp, {"inputs": batch[1],
+                             "labels": batch[1]["tokens"]}, jcfg)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    out = tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--steps", "3"])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ training
+
+def _ssd_inputs(seed, dt_scale):
+    rng = np.random.default_rng(seed)
+    bs, seq, h, p, n = 2, 45, 3, 4, 5
+    return (rng.standard_normal((bs, seq, h, p), np.float32),
+            np.abs(rng.standard_normal((bs, seq, h), np.float32)) * dt_scale,
+            np.array([-1.0, -8.0, -16.0], np.float32),
+            rng.standard_normal((bs, seq, n), np.float32),
+            rng.standard_normal((bs, seq, n), np.float32),
+            rng.standard_normal(h, np.float32))
+
+
+@pytest.mark.parametrize("dt_scale", [0.5, 3.0])
+def test_mamba2_ssd_gives_the_same_bits_with_grad_on_and_off(dt_scale):
+    """Serving (grad mode off) works the (B, NC, Q, Q, H) temporaries in
+    place; training computes them out of place, masked before the
+    exponential.  y and the last state are the same bits either way, and
+    the gradient is finite even where m above the diagonal overflows the
+    exponential (dt 3, |a| 16, chunks of 16 steps), as the reference's,
+    which masks after the exponential, is not."""
+    arrs = _ssd_inputs(17, dt_scale)
+    with torch.no_grad():
+        y0, h0 = R.mamba2_ssd(*(torch.from_numpy(t) for t in arrs), chunk=16)
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in arrs]
+    y1, h1 = R.mamba2_ssd(*leaves, chunk=16)
+    assert torch.equal(y0, y1.detach()) and torch.equal(h0, h1.detach())
+    grads = torch.autograd.grad(y1.sum() + h1.sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    jgrads = jax.grad(lambda *t: sum(jnp.sum(o) for o in jref.mamba2_ssd(
+        *t, chunk=16)), argnums=tuple(range(6)))(*map(jnp.asarray, arrs))
+    if dt_scale > 1:          # the reference's gradient is not finite here
+        assert not all(np.isfinite(np.asarray(g)).all() for g in jgrads)
+        return
+    for g, w in zip(grads, jgrads):
+        scale = max(float(np.abs(np.asarray(w)).max()), 1.0)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_loss_and_grad_match_jax(model, ssd, remat):
+    jcfg, cfg = _cfgs(model, ssd)
+    cfg = cfg.replace(remat=remat)
+    jp = model[2]
+    batch = jmake_batch(jcfg, 3, 0, B, 24)
+    jloss, jgrads = jax.value_and_grad(jlm.loss_fn)(
+        jp, jax.tree.map(jnp.asarray, batch), jcfg)
+    params = T.tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        model[3])
+    loss = lm.loss_fn(params, batch_to_torch(batch, "cpu"), cfg)
+    grads = torch.autograd.grad(loss, T.leaves(params))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    want = convert.lm_params_from_jax(jax.tree.map(np.asarray, jgrads), cfg,
+                                      "cpu")
+    pairs = list(zip(T.flatten_with_path(want), grads))
+    assert len(pairs) == len(T.leaves(params))
+    for (path, w), g in pairs:
+        rel = float((g - w).norm() / max(float(w.norm()), 1e-30))
+        assert rel <= 1e-4, path
 
 
 def test_entry_points_default_to_the_card(model):

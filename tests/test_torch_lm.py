@@ -95,14 +95,16 @@ def test_other_archs_raise_naming_their_roadmap_item(arch):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
 def test_other_families_raise(family, model):
-    """The frontend families are not ported at all; the MoE and hybrid
-    families are served (tests/test_torch_{moe,hybrid}.py), and only their
-    training raises."""
+    """The frontend families are not ported at all.  The MoE and hybrid
+    families are served and trained (tests/test_torch_{moe,hybrid}.py):
+    their training raised until ROADMAP item 9.13 ported it, and
+    ``check_trainable`` now passes them."""
     cfg = model[1].replace(family=family)
+    if family in ("moe", "hybrid"):
+        assert lm.check_trainable(cfg) is None
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         lm.check_trainable(cfg)
-    if family in ("moe", "hybrid"):
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         lm.make_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):

@@ -10,7 +10,18 @@ the final state.  Tolerances are those of ``tests/test_kernels.py:85-127``:
 bfloat16 (the output is rounded to bfloat16).  Inputs come from numpy
 seeds.  The CUDA kernel is held against the same plain versions on the
 card by ``chip_smoke.py``.
+
+The backward (K9-bwd's plain version, ``ref.mamba_scan_bwd_plain``, run
+through the autograd Function ``ops._MambaScan`` from the chunk states of
+``ref.mamba_scan_chunks_plain``) is held to ``jax.vjp`` of the reference's
+associative and sequential scans at the edge shapes of the kernel: one
+step, a chunk of 32 steps less one, one and one more, 4101 steps (a ragged
+tail), N of 1, 4, 16 and 64, channels no multiple of the kernel's block,
+strided b and c, batch 3, and a decay near 1 and a large dt, in float32
+within 1e-4 (each gradient elementwise against its own largest value:
+sums over time and channels taken in another order).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,12 +151,12 @@ def test_dispatcher_goes_by_device_and_counts_only_launches():
         wy, wh = tref.mamba_scan_seq_stateful(*t)
         assert torch.equal(y, wy) and torch.equal(h, wh)
         assert torch.equal(tms.mamba_scan(*t), tref.mamba_scan_ref(*t))
-    assert tms.LAUNCHES == {"mamba_scan": 0}
+    assert tms.LAUNCHES == {"mamba_scan": 0, "mamba_scan_bwd": 0}
     with pytest.raises(ValueError, match="impl='cuda' needs a CUDA tensor"):
         tops.mamba_scan(*t, impl="cuda")
     with pytest.raises(ValueError, match="impl must be one of"):
         tops.mamba_scan(*t, impl="interpret")
-    assert tms.LAUNCHES == {"mamba_scan": 0}
+    assert tms.LAUNCHES == {"mamba_scan": 0, "mamba_scan_bwd": 0}
 
 
 def test_wrapper_checks_its_inputs():
@@ -200,3 +211,157 @@ def test_segmented_order_holds_with_decay_near_one(dt_scale):
     # the state carries many steps: h is far from the last step's input
     assert float(np.abs(_np(jh)).max()) > 10 * float(
         np.abs(dt[0, -1, :, None] * x[0, -1, :, None] * bb[0, -1]).max())
+
+
+# ------------------------------------------------------------ backward
+
+BWD_CASES = {  # b, l, di, n, and how the inputs are drawn
+    "one step": (2, 1, 5, 4, "plain"),
+    "a chunk less one": (1, 31, 7, 16, "plain"),
+    "one chunk": (2, 32, 3, 1, "plain"),
+    "a chunk and one": (3, 33, 37, 16, "strided"),
+    "N 64 over two chunks": (1, 70, 6, 64, "plain"),
+    "4101 steps": (1, 4101, 5, 4, "plain"),
+    "decay near 1": (1, 300, 9, 16, "slow"),
+    "large dt": (2, 100, 8, 8, "fast"),
+}
+
+
+def _bwd_inputs(b, l, di, n, kind, seed):
+    """x, dt, a, b, c, d, dy as numpy: ``slow`` makes each step's decay
+    exp(dt·a) near 1 (long memory), ``fast`` draws dt near 3 (a decay near
+    0 for the larger |a|); ``strided`` hands b and c to the port as column
+    slices of one array."""
+    x, dt, a, bb, cc, d = _inputs(b, l, di, n, seed)
+    if kind == "slow":
+        dt = dt * 1e-2
+    if kind == "fast":
+        dt = dt * 30.0
+    dy = np.random.default_rng(seed + 1).standard_normal((b, l, di),
+                                                         np.float32)
+    return (x, dt, a, bb, cc, d), dy
+
+
+def _port_grads(arrs, dy, strided):
+    t = [x.clone().requires_grad_(True) for x in _torch(arrs)]
+    args = list(t)
+    if strided:       # b and c as column slices of one (B, L, 2N) tensor
+        both = torch.cat([t[3], t[4]], -1)
+        args[3], args[4] = both.split(t[3].shape[-1], -1)
+    y = tops._MambaScan.apply(*args, True)
+    return y, torch.autograd.grad(y, t, torch.from_numpy(dy))
+
+
+def _close_grad(got, want, what):
+    """Elementwise within 1e-4 of the gradient's own largest value (plus
+    1e-4 relative)."""
+    want = _np(want)
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-4, atol=1e-4 * scale,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_backward_matches_jax_vjp(name):
+    b, l, di, n, kind = BWD_CASES[name]
+    arrs, dy = _bwd_inputs(b, l, di, n, kind, 11)
+    y, got = _port_grads(arrs, dy, kind == "strided")
+    forms = [jref.mamba_scan_seq_ref] + ([jref.mamba_scan_ref]
+                                         if l <= 512 else [])
+    for form in forms:
+        jy, vjp = jax.vjp(jax.jit(form), *_jax(arrs))
+        np.testing.assert_allclose(_np(y.detach()), _np(jy), **TOL)
+        for nm, g, w in zip("x dt a b c d".split(), got,
+                            vjp(jnp.asarray(dy))):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            _close_grad(g, w, f"{name}: d{nm} ({form.__name__})")
+
+
+def test_chunk_states_are_the_sequential_forms():
+    """The forward's residual: the state after every CHUNK steps and after
+    the last step, the sequential form's; y its y."""
+    arrs = _inputs(2, 70, 6, 4, 12)
+    t = _torch(arrs)
+    y, chunks = tms.mamba_scan(*t, return_chunks=True)
+    assert chunks.shape == (2, 3, 6, 4) and chunks.dtype == torch.float32
+    wy, wh = tref.mamba_scan_seq_stateful(*t)
+    assert torch.equal(y, wy) and torch.equal(chunks[:, -1], wh)
+    for k, steps in enumerate((32, 64)):
+        cut = [a[:, :steps] if a.ndim == 3 else a for a in t]
+        assert torch.equal(chunks[:, k],
+                           tref.mamba_scan_seq_stateful(*cut)[1])
+    with pytest.raises(ValueError, match="exclude each other"):
+        tms.mamba_scan(*t, return_state=True, return_chunks=True)
+
+
+def test_bfloat16_backward_matches_jax_vjp():
+    """bfloat16 inputs: the gradients of x and dt come back in bfloat16
+    (5e-2, the forward's bfloat16 tolerance), the others in float32 from
+    the same float32 sums, within 1e-4."""
+    arrs = _inputs(1, 64, 16, 8, 13, dtype="bfloat16")
+    dy = np.random.default_rng(14).standard_normal((1, 64, 16), np.float32)
+    t = [x.clone().requires_grad_(True)
+         for x in _torch(arrs, torch.bfloat16)]
+    y = tops._MambaScan.apply(*t, True)
+    got = torch.autograd.grad(y, t, torch.from_numpy(dy).bfloat16())
+    _, vjp = jax.vjp(jax.jit(jref.mamba_scan_seq_ref), *_jax(arrs))
+    dyb = np.asarray(jnp.asarray(dy, jnp.bfloat16), np.float32)
+    for nm, g, w, x in zip("x dt a b c d".split(), got,
+                           vjp(jnp.asarray(dyb)), t):
+        assert g.dtype == x.dtype
+        if x.dtype == torch.bfloat16 and nm in ("x", "dt"):
+            np.testing.assert_allclose(_np(g), _np(w), atol=5e-2, rtol=5e-2)
+        else:
+            scale = max(float(np.abs(_np(w)).max()), 1.0)
+            np.testing.assert_allclose(_np(g), _np(w), rtol=1e-2,
+                                       atol=1e-2 * scale, err_msg=nm)
+
+
+def test_ops_takes_the_function_under_grad_and_counts_no_launch():
+    """``ops.mamba_scan`` with an input requiring a gradient runs
+    ``_MambaScan`` (the sequential form with its chunk states on a CPU
+    tensor, impl "auto" and "ref" alike), and its gradient is the plain
+    backward's; without grad mode it is the forward the dispatcher always
+    ran.  The final state carries no gradient, so asking for it then
+    raises.  No kernel launches on the CPU."""
+    arrs, dy = _bwd_inputs(2, 40, 8, 4, "plain", 15)
+    tms.reset_launches()
+    want_y, want = _port_grads(arrs, dy, False)
+    for impl in ("auto", "ref"):
+        t = [x.clone().requires_grad_(True) for x in _torch(arrs)]
+        y = tops.mamba_scan(*t, impl=impl)
+        assert y.grad_fn is not None and torch.equal(y, want_y)
+        got = torch.autograd.grad(y, t, torch.from_numpy(dy))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        with torch.no_grad():
+            assert torch.equal(tops.mamba_scan(*t, impl=impl),
+                               tref.mamba_scan_ref(*_torch(arrs)))
+        with pytest.raises(NotImplementedError, match="no gradient"):
+            tops.mamba_scan(*t, impl=impl, return_state=True)
+    assert tms.LAUNCHES == {"mamba_scan": 0, "mamba_scan_bwd": 0}
+
+
+def test_backward_wrapper_checks_its_inputs_and_goes_by_device():
+    arrs, dy = _bwd_inputs(1, 40, 8, 4, "plain", 16)
+    t = _torch(arrs)
+    dyt = torch.from_numpy(dy)
+    _, chunks = tms.mamba_scan(*t, return_chunks=True)
+    got = tms.mamba_scan_bwd(*t, dyt, chunks)
+    want = tref.mamba_scan_bwd_plain(*t, dyt, chunks)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [tuple(g.shape) for g in got] == [(1, 40, 8), (1, 40, 8), (8, 4),
+                                             (1, 40, 4), (1, 40, 4), (8,)]
+    with pytest.raises(ValueError, match="h_chunks"):
+        tms.mamba_scan_bwd(*t, dyt, chunks[:, :1])
+    with pytest.raises(ValueError, match="must be x's"):
+        tms.mamba_scan_bwd(*t, dyt[:, :8], chunks)
+    with pytest.raises(ValueError, match="must share one of"):
+        tms.mamba_scan_bwd(t[0], t[1], t[2], t[3].bfloat16(), t[4], t[5],
+                           dyt, chunks)
+    assert tms.LAUNCHES["mamba_scan_bwd"] == 0
+    geo = tms.bwd_geometry(1, 4096, 8192, 16)
+    assert (geo["states"], geo["channels"], geo["grid"], geo["chunks"]) == \
+        (16, 16, (512, 1), 128)
+    assert geo["part_bytes"] == 268_435_456
+    assert tms.bwd_geometry(1, 4096, 4096, 64)["states"] == 64
+    assert tms.bwd_geometry(1, 1, 37, 3)["grid"] == (1, 1)

@@ -19,6 +19,15 @@ identical to JAX's.  Prefill-then-decode ≡ stepwise decode at 2e-3 (as
 that drops nothing: a decode step's capacity is its own (1 a row), so at
 the reference's capacity the two differ by design, as in the reference;
 the drops there are held to JAX's instead.  Inputs come from numpy seeds.
+
+Training: ``moe_einsum``'s gradients (the input, the router weights, the
+router and the experts) against autograd of the one-hot plain version,
+with dropped pairs present: within 1e-4, and exactly 0 where the one-hot
+form gives 0 (a dropped pair's weight, whose row lands on the spare row
+no one reads).  The loss and every gradient leaf against
+``jax.value_and_grad`` of the reference's ``loss_fn``, remat on and off,
+within the dense families' tolerances (loss rtol 1e-5, each leaf ‖Δ‖ ≤
+1e-4 ‖g‖); the training entry points run and print a finite loss.
 """
 import math
 
@@ -29,12 +38,15 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.data.pipeline import make_batch as jmake_batch
 from repro.models import lm as jlm
 from repro.models import moe as jmoe
 from repro.runtime import Request as JRequest
 from repro.runtime import Server as JServer
 from repro_torch import convert
+from repro_torch import tree as T
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import batch_to_torch
 from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
@@ -453,13 +465,100 @@ def test_launch_serve_smoke_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_raises_naming_its_roadmap_item(arch):
-    _, cfg, _, tp = _model(arch)
-    _, _, tin = _batch(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.13"):
-        lm.loss_fn(tp, {"inputs": tin, "labels": tin["tokens"]}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.13"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu"])
+def test_training_raises_naming_its_roadmap_item(arch, capsys):
+    """Training the MoE family raised, naming ROADMAP item 9.13, until it
+    was ported: ``loss_fn`` now gives the reference's loss, and the CLI
+    trains SMOKE on the CPU to a finite final loss."""
+    jcfg, cfg, jp, tp = _model(arch)
+    _, jin, tin = _batch(cfg)
+    loss = lm.loss_fn(tp, {"inputs": tin, "labels": tin["tokens"]}, cfg)
+    jloss = jlm.loss_fn(jp, {"inputs": jin, "labels": jin["tokens"]}, jcfg)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    out = tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "3"])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ training
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.detach() - want).norm() / max(float(want.norm()),
+                                                    1e-30))
+
+
+def _leaf_copy(tree):
+    return T.tree_map(lambda p: p.detach().clone().requires_grad_(True), tree)
+
+
+def test_moe_einsum_gradient_matches_the_onehot_form(model, monkeypatch):
+    """With dropped pairs: the index form's gradients equal the one-hot
+    form's under autograd, for the input, the router and the experts; and
+    for the router weights given as a leaf, exactly 0 at every dropped
+    pair (the one-hot's 0), the rest within 1e-4."""
+    jcfg, cfg, jp, tp = model
+    _, tm = _layer(jp, tp, 1)
+    xn = _x(cfg, b=3, s=17, seed=8, scale=2.0)
+    dy = torch.from_numpy(_x(cfg, b=3, s=17, seed=9))
+    grads = {}
+    for form in ("index", "onehot"):
+        p = _leaf_copy(tm)
+        x = torch.from_numpy(xn).requires_grad_(True)
+        w, ids = moe._route(p, x, cfg)
+        _, keep, cap = moe.dispatch_slots(ids, cfg)
+        if form == "index":
+            out = moe.moe_einsum(p, x, cfg)
+        else:
+            out = R.moe_einsum_onehot(x, w, ids, cfg.experts_padded, cap,
+                                      lambda xin: moe._expert_ffn(p, xin,
+                                                                  cfg))
+        grads[form] = dict(zip(["x"] + sorted(p), torch.autograd.grad(
+            out, [x] + [p[k] for k in sorted(p)], dy)))
+    assert not bool(keep.all())                  # dropped pairs present
+    for k, want in grads["onehot"].items():
+        got = grads["index"][k]
+        assert _rel(got, want) <= 1e-4, k
+        assert bool((got[want == 0] == 0).all()), k
+    # the router weights as a leaf: a dropped pair's weight gets exactly 0
+    w, ids = moe._route(tm, torch.from_numpy(xn), cfg)
+    dws = {}
+    for form in ("index", "onehot"):
+        wl = w.detach().clone().requires_grad_(True)
+        if form == "index":
+            monkeypatch.setattr(moe, "_route", lambda *a: (wl, ids))
+            out = moe.moe_einsum(tm, torch.from_numpy(xn), cfg)
+            monkeypatch.undo()
+        else:
+            out = R.moe_einsum_onehot(torch.from_numpy(xn), wl, ids,
+                                      cfg.experts_padded, cap,
+                                      lambda xin: moe._expert_ffn(tm, xin,
+                                                                  cfg))
+        (dws[form],) = torch.autograd.grad(out, [wl], dy)
+    dropped = ~keep.reshape(ids.shape)
+    for dw in dws.values():
+        assert bool((dw[dropped] == 0).all())
+        assert bool((dw[~dropped] != 0).all())
+    _close(dws["index"], dws["onehot"].numpy())
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_loss_and_grad_match_jax(model, remat):
+    jcfg, cfg, jp, _ = model
+    cfg = cfg.replace(remat=remat)
+    batch = jmake_batch(jcfg, 3, 0, B, 24)
+    jloss, jgrads = jax.value_and_grad(jlm.loss_fn)(
+        jp, jax.tree.map(jnp.asarray, batch), jcfg)
+    params = _leaf_copy(convert.lm_params_from_jax(
+        jax.tree.map(np.asarray, jp), cfg, "cpu"))
+    loss = lm.loss_fn(params, batch_to_torch(batch, "cpu"), cfg)
+    grads = torch.autograd.grad(loss, T.leaves(params))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    want = convert.lm_params_from_jax(jax.tree.map(np.asarray, jgrads), cfg,
+                                      "cpu")
+    pairs = list(zip(T.flatten_with_path(want), grads))
+    assert len(pairs) == len(T.leaves(params))
+    for (path, w), g in pairs:
+        assert _rel(g, w) <= 1e-4, path
 
 
 @pytest.mark.parametrize("arch", ARCHS)

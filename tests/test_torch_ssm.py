@@ -16,6 +16,15 @@ runs its Pallas scan in interpret mode and its plain scan (``kernels=
 tokens; port prefill-then-decode ≡ port stepwise decode ≡ port forward
 within 2e-3, as ``tests/test_models.py:61-96,171-200`` holds the
 reference.  Inputs come from numpy seeds.
+
+Training: the loss and every gradient leaf against ``jax.value_and_grad``
+of the reference's ``loss_fn`` (its plain scan, ``kernels="ref"``), remat
+on and off, within the dense families' tolerances (loss rtol 1e-5, each
+leaf ‖Δ‖ ≤ 1e-4 ‖g‖): the port's gradient runs the plain version of
+K9-bwd through ``ops._MambaScan``.  Three optimizer steps against the
+reference's jitted train step as ``tests/test_torch_train.py`` holds
+gemma2-2b's (losses rtol 1e-4; params, m and v within 1e-3 of each leaf's
+change or size).  The training entry points run and print a finite loss.
 """
 import jax
 import jax.numpy as jnp
@@ -23,19 +32,26 @@ import numpy as np
 import pytest
 import torch
 
+from repro import optim as joptim
 from repro.configs import get_config as jget_config
+from repro.data.pipeline import make_batch as jmake_batch
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
 from repro.runtime import Request as JRequest
 from repro.runtime import Server as JServer
+from repro.runtime import train_loop as jtrain
 from repro_torch import convert
+from repro_torch import optim as toptim
+from repro_torch import tree as T
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import batch_to_torch
 from repro_torch.kernels import mamba_scan as tms
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import lm, ssm
 from repro_torch.models.blocks import mamba_block
-from repro_torch.runtime import Request, Server
+from repro_torch.runtime import Request, Server, TrainSettings, \
+    make_train_step
 
 ARCH = "falcon-mamba-7b"
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -191,7 +207,8 @@ def test_prefill_matches_jax(model, batch):
     jl, jc = jlm.prefill(jp, batch[1], jcfg, max_len=64)
     tms.reset_launches()
     tl, tc = lm.prefill(tp, batch[2], cfg, max_len=64)
-    assert tms.LAUNCHES == {"mamba_scan": 0}          # CPU: plain versions
+    assert tms.LAUNCHES == {"mamba_scan": 0,           # CPU: plain versions
+                            "mamba_scan_bwd": 0}
     assert tl.shape == (B, 1, 256)
     _close(tl, jl)
     want = convert.lm_caches_from_jax(jc, cfg, "cpu")
@@ -298,8 +315,10 @@ def test_launch_serve_smoke_on_cpu(capsys):
 
 def test_untied_head_raises_naming_its_roadmap_item(model, batch):
     """The untied LM head is ported (nemotron-4-15b's): an untied
-    falcon-mamba SMOKE gets its own head leaf and the reference's logits;
-    only its training still raises, naming its ROADMAP item."""
+    falcon-mamba SMOKE gets its own head leaf and the reference's logits.
+    Its training, which raised naming ROADMAP item 9.10 until K9 had a
+    backward, now gives the reference's loss and a gradient for the head
+    leaf."""
     jcfg, cfg, jp, _ = model
     jcfg, cfg = (c.replace(tie_embeddings=False) for c in (jcfg, cfg))
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(1))
@@ -309,18 +328,102 @@ def test_untied_head_raises_naming_its_roadmap_item(model, batch):
         (cfg.d_model, cfg.vocab_padded)
     _close(lm.logits_fn(tp, lm.forward_hidden(tp, batch[2], cfg), cfg),
            jlm.logits_fn(jp, jlm.forward_hidden(jp, batch[1], jcfg), jcfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.10"):
-        lm.loss_fn(tp, {"inputs": batch[2], "labels": batch[2]["tokens"]},
-                   cfg)
+    head = tp["embed"]["head"].requires_grad_(True)
+    loss = lm.loss_fn(tp, {"inputs": batch[2], "labels": batch[2]["tokens"]},
+                      cfg)
+    jloss = jlm.loss_fn(jp, {"inputs": batch[1], "labels": batch[1]["tokens"]},
+                        jcfg)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    (g,) = torch.autograd.grad(loss, [head])
+    assert g.shape == head.shape and bool(torch.isfinite(g).all())
+    assert float(g.norm()) > 0
 
 
-def test_training_raises_naming_its_roadmap_item(model, batch):
-    _, cfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.10"):
-        lm.loss_fn(tp, {"inputs": batch[2], "labels": batch[2]["tokens"]},
-                   cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.10"):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
+def test_training_raises_naming_its_roadmap_item(model, batch, capsys):
+    """Training falcon-mamba raised, naming ROADMAP item 9.10, until K9 had
+    a backward: ``loss_fn`` now gives the reference's loss, and the CLI
+    trains SMOKE on the CPU to a finite final loss."""
+    jcfg, cfg, jp, tp = model
+    labels = {"inputs": batch[2], "labels": batch[2]["tokens"]}
+    loss = lm.loss_fn(tp, labels, cfg)
+    jloss = jlm.loss_fn(jp, {"inputs": batch[1],
+                             "labels": batch[1]["tokens"]}, jcfg)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    out = tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--steps", "3"])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ training
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.detach() - want).norm() / max(float(want.norm()),
+                                                    1e-30))
+
+
+def _port_params(jp, cfg):
+    params = convert.lm_params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                        "cpu")
+    return T.tree_map(lambda p: p.requires_grad_(True), params)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_loss_and_grad_match_jax(model, remat):
+    jcfg, cfg, jp, _ = model
+    cfg = cfg.replace(remat=remat)
+    batch = jmake_batch(jcfg, 3, 0, B, 24)
+    jloss, jgrads = jax.value_and_grad(jlm.loss_fn)(
+        jp, jax.tree.map(jnp.asarray, batch), jcfg)
+    params = _port_params(jp, cfg)
+    tms.reset_launches()
+    loss = lm.loss_fn(params, batch_to_torch(batch, "cpu"), cfg)
+    grads = torch.autograd.grad(loss, T.leaves(params))
+    assert tms.LAUNCHES == {"mamba_scan": 0, "mamba_scan_bwd": 0}
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    want = convert.lm_params_from_jax(jax.tree.map(np.asarray, jgrads), cfg,
+                                      "cpu")
+    pairs = list(zip(T.flatten_with_path(want), grads))
+    assert len(pairs) == 2 + 10 * cfg.n_layers    # embed, final norm, blocks
+    for (path, w), g in pairs:
+        assert _rel(g, w) <= 1e-4, path
+
+
+def test_three_train_steps_match_jax(model):
+    """Three AdamW steps of falcon-mamba SMOKE from the same params and
+    batches against the reference's jitted step."""
+    jcfg, cfg, jp0, _ = model
+    s = TrainSettings(batch=4, seq=16, steps=3, lr=1e-3, warmup_steps=1)
+    jstep = jax.jit(jtrain.make_train_step(jcfg, jtrain.TrainSettings(
+        batch=4, seq=16, steps=3, lr=1e-3, warmup_steps=1)))
+    jp, jopt, jres = jp0, joptim.init(jp0), jnp.zeros(())
+    params = _port_params(jp0, cfg)
+    opt = toptim.init(params)
+    step_fn = make_train_step(cfg, s)
+    for step in range(3):
+        batch = jmake_batch(jcfg, s.seed, step, s.batch, s.seq)
+        jp, jopt, jres, jm = jstep(jp, jopt, jres,
+                                   jax.tree.map(jnp.asarray, batch),
+                                   jnp.asarray(step, jnp.int32))
+        params, opt, _, m = step_fn(params, opt, None,
+                                    batch_to_torch(batch, "cpu"), step)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-4)
+    start = convert.lm_params_from_jax(jax.tree.map(np.asarray, jp0), cfg,
+                                       "cpu")
+    end = convert.lm_params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    for (path, p), (_, p0), (_, pj) in zip(T.flatten_with_path(params),
+                                           T.flatten_with_path(start),
+                                           T.flatten_with_path(end)):
+        assert float((p.detach() - pj).norm()) <= 1e-3 * float(
+            (pj - p0).norm()), path
+    jopt_t = convert.opt_state_from_jax(jax.tree.map(np.asarray, jopt), cfg,
+                                        "cpu")
+    assert opt.step == jopt_t.step == 3
+    for mine, theirs in ((opt.m, jopt_t.m), (opt.v, jopt_t.v)):
+        for (path, a), (_, b) in zip(T.flatten_with_path(mine),
+                                     T.flatten_with_path(theirs)):
+            assert float((a - b).norm()) <= 1e-3 * float(b.norm()), path
 
 
 def test_entry_points_default_to_the_card(model):
