@@ -20,8 +20,9 @@ caught:
    K2`` lines (the binned route's kernels: registers, spills, stack,
    shared memory; none may spill); the ``ptxas K4`` line (both
    instantiations of the chunk-table gather; no spill, no stack); the
-   ``ptxas K9-bwd`` line (every dtype and states a channel, and the
-   reduce kernel; falcon-mamba's, bf16 at 16 states, must not spill).
+   ``ptxas K9-bwd`` line (every dtype and threads a channel, and the
+   reduce kernel; falcon-mamba's, bf16 at 4 threads a channel (N = 16),
+   must not spill).
 3. parity: K1–K3 against their plain PyTorch versions on the card,
    bit-exact (tolerance 0: the results are packed words and integer
    counts), K1 and K2 through their wrappers and on each route
@@ -361,15 +362,19 @@ caught:
    a. K9-bwd (the selective scan's backward) against its plain version
       from the same chunk states (per output ‖Δ‖/‖want‖ ≤ 1e-5) and
       against autograd of the mirror of K9's order of sums (1e-4 float32,
-      1e-2 bfloat16), K9's y the same bits with and without its chunk
-      states, two launches the same bits: one step, 31, 32, 33 and 4101
-      steps, N of 1, 4, 16 and 64, channels no multiple of the block's,
-      batch 3, strided inputs, the decay near 1 and a large dt, the
-      model's Di, each in float32 and bfloat16; three planted faults
-      (copies of its source with one line changed, built here) must break
-      the limit: the adjoint carried across a chunk boundary dropped,
-      exp(dt_t·a) where exp(dt_{t+1}·a) belongs, db's sum over the tiles
-      without the last tile;
+      1e-2 bfloat16) and against the mirror of its own order of sums
+      (``ref.mamba_scan_bwd_segmented``, the plain version's limits),
+      K9's y the same bits with and without its chunk states, two
+      launches the same bits: one step, 31, 32, 33, 37 and 4101 steps, N
+      of 1, 4, 16 and 64, channels no multiple of the block's, channel
+      tiles no multiple of the cluster, batch 3, strided inputs, the
+      decay near 1 and a large dt, the model's Di, each in float32 and
+      bfloat16; six planted faults (copies of its source with one text
+      changed, built here) must break the limit: the adjoint carried
+      across a chunk boundary dropped, exp(dt_t·a) where exp(dt_{t+1}·a)
+      belongs, db's sum over the clusters without the last cluster, the
+      second segment's w_in dropped, a chunk walked on the other stage,
+      rank 0's part left out of the cluster's sum;
    b. K9-bwd's time at falcon-mamba's train layer (1 × 4096 × 8192, N 16)
       and zamba2's K9-form layer (1 × 4096 × 4096, N 64), beside the
       bound (the largest of the exponentials, 10 f32 FMAs a (t, i, j) and
@@ -680,9 +685,9 @@ def k9_ptxas() -> dict:
 
 
 def k9_bwd_ptxas() -> dict:
-    """The ptxas report of K9-bwd's kernel for each dtype and states a
+    """The ptxas report of K9-bwd's kernel for each dtype and threads a
     channel (registers, spills, stack), and of its reduce kernel; the
-    falcon-mamba instantiation (bf16, 16 states a channel) must not
+    falcon-mamba instantiation (bf16, 4 threads a channel: N = 16) must not
     spill."""
     lines = _build.BUILD_LOGS.get("mamba_scan_bwd", "").splitlines()
     out = {}
@@ -692,7 +697,7 @@ def k9_bwd_ptxas() -> dict:
         if "scan_bwd_kernelI" in line:
             tail = line.split("scan_bwd_kernelI")[1]
             dtype = "bf16" if tail.startswith("13__nv_bfloat16") else "f32"
-            key = f"{dtype} np {int(tail.split('Li')[1].split('E')[0])}"
+            key = f"{dtype} tpc {int(tail.split('Li')[1].split('E')[0])}"
         else:
             key = "scan_bwd_reduce_kernel"
         rec = {}
@@ -705,13 +710,19 @@ def k9_bwd_ptxas() -> dict:
             if "Used" in nxt and "registers" in nxt:
                 rec["registers"] = int(nxt.split("Used")[1].split()[0])
         out[key] = rec
-    print(f"ptxas K9-bwd (scan_bwd_kernel<T, NP>, scan_bwd_reduce_kernel; "
-          f"dynamic shared memory {MS.bwd_geometry(1, 1, 1, 16)['smem_bytes']}"
-          f" B at NP 16): {out}")
-    expect(len(out) == 15, f"ptxas K9-bwd: {out}")
-    r = out["bf16 np 16"]
+    geo = {n: MS.bwd_geometry(1, 1, 1, n)["smem_bytes"] for n in (16, 64)}
+    smem = {n: MS._bwd_lib().roomy_mamba_scan_bwd_smem(n)
+            for n in (1, 2, 4, 8, 16, 32, 64)}
+    expect(all(s == MS.bwd_geometry(1, 1, 1, n)["smem_bytes"]
+               for n, s in smem.items()),
+           f"K9-bwd's shared memory: the kernel's {smem}, bwd_geometry's")
+    print(f"ptxas K9-bwd (scan_bwd_kernel<T, TPC>, scan_bwd_reduce_kernel; "
+          f"dynamic shared memory {geo[16]} B at TPC 4, {geo[64]} B at TPC "
+          f"16): {out}")
+    expect(len(out) == 11, f"ptxas K9-bwd: {out}")
+    r = out["bf16 tpc 4"]
     expect(r.get("spill_store_bytes") == 0 and r.get("spill_load_bytes") == 0,
-           f"ptxas K9-bwd bf16 np 16: {r}")
+           f"ptxas K9-bwd bf16 tpc 4: {r}")
     return out
 
 
@@ -5130,32 +5141,47 @@ ZAMBA_K9_SEQ = 1024            # the plain block walks time in Python
 # quarter of that in norm); against autograd of ref.mamba_scan_segmented
 # (the gradient of K9's own order of sums, from its own forward)
 # K9B_SEG_TOL[dtype] (with bfloat16 inputs autograd rounds dx and ddt at
-# other places).  Set between the sound readings and the planted faults'
-# (PERF.md §6).
+# other places); against ref.mamba_scan_bwd_segmented (the mirror of
+# K9-bwd's own order of sums: its segment folds of h and of the adjoint)
+# the limits of the plain version.  Set between the sound readings and the
+# planted faults' (PERF.md §6).
 K9B_REL_TOL = 1e-5
 K9B_BF16_TOL = 1e-3
 K9B_SEG_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 K9B_CASES = [  # b, l, di, n, inputs
     # one step; a chunk less one, one chunk, a chunk and one; 4101 steps
     # (a ragged tail) with the decay near 1 and at N = 64; N of 1, 4, 16
-    # and 64; channels no multiple of the block's (256 / N padded); batch
-    # 3; b and c (and x, dt) as column slices; a large dt; the model's Di
+    # and 64; channels no multiple of the block's (64 / (N padded / 4));
+    # 19 channel tiles (no multiple of the cluster of 8) over 37 steps (L
+    # ends mid-segment); batch 3; b and c (and x, dt) as column slices; a
+    # large dt; the model's Di
     (2, 1, 37, 16, "plain"), (1, 31, 100, 4, "plain"), (3, 32, 8, 1, "plain"),
     (3, 33, 300, 16, "strided"), (1, 4101, 20, 16, "slow"),
     (1, 4101, 37, 64, "strided"), (2, 300, 100, 64, "strided"),
-    (2, 70, 5, 4, "fast"), (1, 129, 8192, 16, "strided"),
+    (2, 37, 300, 16, "strided"), (2, 70, 5, 4, "fast"),
+    (1, 129, 8192, 16, "strided"),
 ]
 K9B_FAULT_CASE = (2, 300, 100, 16)
-K9B_FAULTS = {  # a copy of csrc/mamba_scan_bwd.cu with one line changed
+K9B_FAULTS = {  # a copy of csrc/mamba_scan_bwd.cu with one text changed
     "the adjoint carried across a chunk boundary dropped": (
-        "    // 2. The reverse walk over the chunk; the sums flushed every "
-        "kSub steps.", "    gn = 0.f;"),
+        "to_array(sm.W[lane], w);",
+        "to_array(make_float4(0.f, 0.f, 0.f, 0.f), w);"),
     "exp(dt_t a) where exp(dt_{t+1} a) belongs": (
-        "const float g = fmaf(e_next, gn, dyv * cv);",
-        "const float g = fmaf(e, gn, dyv * cv);"),
-    "db's sum over the tiles without the last tile": (
-        "src = p.db_part + e; n = p.tiles; step = bln; dst = p.db + e;",
-        "src = p.db_part + e; n = p.tiles - 1; step = bln; dst = p.db + e;"),
+        "else g[s] = fmaf(e[r + 1][s], g[s], dyc);",
+        "else g[s] = fmaf(e[r][s], g[s], dyc);"),
+    "db's sum over the clusters without the last cluster": (
+        "src = p.db_part + e; n = p.clusters; step = bln; dst = p.db + e;",
+        "src = p.db_part + e; n = p.clusters - 1; step = bln; "
+        "dst = p.db + e;"),
+    "the second segment's w_in dropped": (
+        "sm.G[q][lane] = make_float4(w[0], w[1], w[2], w[3]);",
+        "sm.G[q][lane] = q == 1 ? make_float4(0.f, 0.f, 0.f, 0.f) : "
+        "make_float4(w[0], w[1], w[2], w[3]);"),
+    "a chunk walked on the other stage": (
+        "const typename S::Stage& cur = sm.stage[k & 1];",
+        "const typename S::Stage& cur = sm.stage[(k + 1) & 1];"),
+    "rank 0's part left out of the cluster's sum": (
+        "float acc = v[0];", "float acc = 0.f;"),
 }
 K9B_OUTPUTS = ("dx", "ddt", "da", "db", "dc", "dd")
 
@@ -5204,6 +5230,7 @@ def check_k9b(args, dy, what) -> dict:
     got = MS.mamba_scan_bwd(*args, dy, hc)
     again = MS.mamba_scan_bwd(*args, dy, hc)
     want = R.mamba_scan_bwd_plain(*args, dy, hc)
+    mirror = R.mamba_scan_bwd_segmented(*args, dy, hc, MS.CHUNK, MS.SEG_LEN)
     leaves = [t.detach().clone().requires_grad_(True) for t in args]
     sy, _ = R.mamba_scan_segmented(*leaves, seg_len=MS.SEG_LEN)
     seg = torch.autograd.grad(sy, leaves, dy)
@@ -5214,6 +5241,7 @@ def check_k9b(args, dy, what) -> dict:
            + [(t.shape, torch.float32) for t in (args[2], args[3], args[4],
                                                  args[5])], what)
     e = {"vs_plain": k9b_rels(got, want), "vs_segmented": k9b_rels(got, seg),
+         "vs_mirror": k9b_rels(got, mirror),
          "same_bits_twice": all(torch.equal(a, b) for a, b in zip(got, again)),
          "h_chunks_rel": float((hc - want_hc).norm() / want_hc.norm()),
          "finite": all(bool(torch.isfinite(g).all()) for g in got)}
@@ -5222,13 +5250,18 @@ def check_k9b(args, dy, what) -> dict:
     e["rel"] = max(e["vs_plain"].values())
     e["over_limit"] = k9b_over(e["vs_plain"], x.dtype)
     e["rel_seg"] = max(e["vs_segmented"].values())
+    e["rel_mirror"] = max(e["vs_mirror"].values())
+    e["over_limit_mirror"] = k9b_over(e["vs_mirror"], x.dtype)
     MAX_ERR["mamba_scan_bwd"] = max(MAX_ERR["mamba_scan_bwd"],
                                     e["max_abs_err"])
     MAX_REL["mamba_scan_bwd"] = max(MAX_REL["mamba_scan_bwd"], e["rel"])
     MAX_REL["mamba_scan_bwd_seg"] = max(MAX_REL.get("mamba_scan_bwd_seg",
                                                     0.0), e["rel_seg"])
+    MAX_REL["mamba_scan_bwd_mirror"] = max(
+        MAX_REL.get("mamba_scan_bwd_mirror", 0.0), e["rel_mirror"])
     expect(e["finite"] and e["same_bits_twice"] and e["over_limit"] <= 1
-           and e["rel_seg"] <= K9B_SEG_TOL[x.dtype],
+           and e["rel_seg"] <= K9B_SEG_TOL[x.dtype]
+           and e["over_limit_mirror"] <= 1,
            f"K9-bwd disagrees with its plain versions ({what}): {e}")
     return e
 
@@ -5294,7 +5327,9 @@ def phase_k9b_parity_edges(dev, libs) -> dict:
                   f"plain {e['rel']:.3e} ({e['over_limit']:.3f} of the limit: "
                   f"{K9B_REL_TOL}, bf16 dx and ddt {K9B_BF16_TOL}), vs autograd "
                   f"of the segmented mirror {e['rel_seg']:.3e} (limit "
-                  f"{K9B_SEG_TOL[dtype]}), max abs err {e['max_abs_err']:.3e}"
+                  f"{K9B_SEG_TOL[dtype]}), vs the mirror of its order "
+                  f"{e['rel_mirror']:.3e} ({e['over_limit_mirror']:.3f} of "
+                  f"the limit), max abs err {e['max_abs_err']:.3e}"
                   f"; chunk states vs the plain forward's {e['h_chunks_rel']:.2e};"
                   f" the same bits twice: {e['same_bits_twice']}")
     faults = {}
@@ -5355,6 +5390,7 @@ def phase_k9b_times(shape, dev, what) -> dict:
     geo = MS.bwd_geometry(*shape)
     res = {"ms": ms, "plain_ms": plain, **b, "library_ms": None,
            "k9_with_chunks_ms": fwd, "scratch_bytes": geo["part_bytes"],
+           "cluster": geo["cluster"], "grid": geo["grid"],
            "shape": f"{what}: x {tuple(args[0].shape)} bf16, N {shape[3]}"}
     print(f"time: K9-bwd {res['shape']}: {ms:.3f} ms, bound "
           f"{b['bound_ms']:.3f} ms ({b['binds']} binds: {b['exps']:.3e} "
@@ -5363,7 +5399,9 @@ def phase_k9b_times(shape, dev, what) -> dict:
           f"bytes at 3.35 TB/s = {b['bound_bytes_ms']:.3f} ms), "
           f"{b['bound_ms'] / ms:.1%} of the bound; plain {plain:.3f} ms; "
           f"K9 with its chunk states {fwd:.3f} ms;"
-          f" scratch {geo['part_bytes']} B; library: none (no PyTorch call "
+          f" scratch {geo['part_bytes']} B (clusters of {geo['cluster']} "
+          f"blocks, {geo['clusters']} a batch row, grid {geo['grid']}); "
+          f"library: none (no PyTorch call "
           f"computes a selective scan's backward)")
     return res
 
@@ -5775,9 +5813,10 @@ def main() -> None:
         "launches": tfm["main_path"]["launches"]["mamba_scan_bwd"],
         "launches_per_step": tfm["main_path"]["launches_per_step"][
             "mamba_scan_bwd"],
-        "kernel": "scan_bwd_kernel<T, NP> (one thread a (channel, state), "
-                  "chunks walked in reverse from K9's chunk states) and "
-                  "scan_bwd_reduce_kernel (the tiles' parts of db, dc in "
+        "kernel": "scan_bwd_kernel<T, TPC> (time split as K9's: staged "
+                  "chunks walked in reverse, segment folds of h and of the "
+                  "adjoint, db and dc summed over a cluster of blocks) and "
+                  "scan_bwd_reduce_kernel (the clusters' parts of db, dc in "
                   "order)", "ptxas": tf["k9_bwd_ptxas"],
         "max_abs_err": MAX_ERR["mamba_scan_bwd"],
         "max_rel_err": MAX_REL["mamba_scan_bwd"],
@@ -5790,7 +5829,9 @@ def main() -> None:
         "bound_binds": t9b["binds"], "bound_exp_ms": t9b["bound_exp_ms"],
         "bound_fma_ms": t9b["bound_fma_ms"],
         "bound_bytes_ms": t9b["bound_bytes_ms"],
-        "scratch_bytes": t9b["scratch_bytes"],
+        "scratch_bytes": t9b["scratch_bytes"], "cluster": t9b["cluster"],
+        "zamba2_scratch_bytes": z9b["scratch_bytes"],
+        "max_rel_err_vs_mirror": MAX_REL["mamba_scan_bwd_mirror"],
         "zamba2_ms": z9b["ms"], "zamba2_plain_ms": z9b["plain_ms"],
         "zamba2_bound_ms": z9b["bound_ms"], "zamba2_shape": z9b["shape"],
         "planted_faults_over_limit": {

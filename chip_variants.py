@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1/K2, K4, K8 and K9 beside the designs their sources left behind, on
-one NVIDIA GPU.
+"""K1/K2, K4, K8, K9 and K9-bwd beside the designs their sources left
+behind, on one NVIDIA GPU.
 
-    python3 chip_variants.py [bitpack] [k4] [k8] [k9]
+    python3 chip_variants.py [bitpack] [k4] [k8] [k9] [k9b]
 
 (no argument: every section, in that order)
 
@@ -37,6 +37,16 @@ paths' shapes:
   four a thread, and cp.async gathers into a shared-memory ring; each held
   bit for bit to the kept kernel; and the kept kernel over one batch again
   (warm in L2) and over that batch sorted.
+
+* K9-bwd (the selective scan's backward) at falcon-mamba-7b's train layer
+  (1 x 4096 x 8192, N 16) and zamba2-1.2b's K9-form layer (1 x 4096 x
+  4096, N 64), bf16, strided: the kernel as built beside an earlier
+  design's source, read from ``K9B_PARENT`` (absent from the repository;
+  make it with ``git show <commit>:src/repro_torch/kernels/csrc/
+  mamba_scan_bwd.cu > build/k9b_parent.cu``), built here with nvcc and
+  launched through the same wrapper; timed in turns (earlier, kept, kept,
+  earlier) with ``chip_smoke.median_ms``, each held to the plain version
+  at ``chip_smoke``'s K9-bwd limits, with each one's scratch bytes.
 
 A variant is its source with text substitutions; if the committed source no
 longer holds a substitution's text, the script says which and exits
@@ -784,6 +794,52 @@ def k4(dev) -> dict:
         del batches, ordered
     return res
 
+K9B_PARENT = ROOT / "build" / "k9b_parent.cu"
+K9B_SHAPES = {"falcon-mamba-7b train layer": (1, 4096, 8192, 16),
+              "zamba2-1.2b K9-form layer": (1, 4096, 4096, 64)}
+
+
+def k9b(dev) -> dict:
+    if not K9B_PARENT.exists():
+        raise SystemExit(f"k9b: {K9B_PARENT} is missing (git show "
+                         "<commit>:src/repro_torch/kernels/csrc/"
+                         "mamba_scan_bwd.cu > build/k9b_parent.cu)")
+    kept = MS._bwd_lib()
+    libs = {"earlier": CS.bwd_variant("mamba_scan_bwd_earlier",
+                                      K9B_PARENT.read_text()),
+            "kept": kept}
+    res = {}
+    for what, shape in K9B_SHAPES.items():
+        args, dy = CS.k9b_inputs((*shape, "strided"), torch.bfloat16, dev, 70)
+        _, hc = MS.mamba_scan(*args, return_chunks=True)
+        want = R.mamba_scan_bwd_plain(*args, dy, hc)
+        bsz, seq, di, n = shape
+        rec = {"shape": shape}
+        for name, lib in libs.items():
+            with CS.k9b_lib(lib):
+                got = MS.mamba_scan_bwd(*args, dy, hc)
+                work = lib.roomy_mamba_scan_bwd_work(
+                    bsz, seq, di, n, MS.bwd_geometry(*shape)["np"])
+            rels = CS.k9b_rels(got, want)
+            rec[name] = {"over_limit": CS.k9b_over(rels, torch.bfloat16),
+                         "scratch_bytes": 4 * (work - bsz * di * (n + 1)),
+                         "ms": []}
+            del got
+        for name in ("earlier", "kept", "kept", "earlier"):
+            with CS.k9b_lib(libs[name]):
+                rec[name]["ms"].append(CS.median_ms(
+                    lambda: MS.mamba_scan_bwd(*args, dy, hc)))
+        for name in libs:
+            rec[name]["ms_mean_of_two"] = statistics.mean(rec[name]["ms"])
+        rec["speedup"] = (rec["earlier"]["ms_mean_of_two"]
+                          / rec["kept"]["ms_mean_of_two"])
+        print(f"K9-bwd {what} {shape}: {rec}", flush=True)
+        res[what] = rec
+        del args, dy, hc, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: torch.cuda.is_available() is False")
@@ -794,7 +850,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.build(["bitpack", "paged_decode", "mamba_scan"])
-    sections = {"bitpack": bitpack, "k4": k4, "k8": k8, "k9": k9}
+    sections = {"bitpack": bitpack, "k4": k4, "k8": k8, "k9": k9,
+                "k9b": k9b}
     wanted = sys.argv[1:] or list(sections)
     unknown = sorted(set(wanted) - set(sections))
     if unknown:

@@ -13,8 +13,10 @@ prefix; ``geometry`` gives its launch) on the current CUDA stream and
 books one launch in ``LAUNCHES["mamba_scan"]``.  ``mamba_scan_bwd`` (K9-bwd,
 which the reference lacks: it trains SSMs through its plain scan) takes
 the inputs, dy and those chunk states and gives every input's gradient;
-it launches ``scan_bwd_kernel`` and ``scan_bwd_reduce_kernel``
-(``bwd_geometry``) and books one launch in ``LAUNCHES["mamba_scan_bwd"]``.
+it launches ``scan_bwd_kernel`` (time split as the forward's, segment
+folds of the state and of the adjoint, db and dc summed over a cluster of
+blocks) and ``scan_bwd_reduce_kernel`` (``bwd_geometry``) and books one
+launch in ``LAUNCHES["mamba_scan_bwd"]``.
 The kernels take every case the wrappers accept (float32 and bfloat16,
 N <= 64, any L and Di, strided inputs), so there is one route.  For CPU
 tensors the wrappers return the plain versions (``ref.mamba_scan_plain``,
@@ -49,11 +51,11 @@ BLOCKS_PER_SM = 2
 #: Kernel launches only, never plain-version calls.
 LAUNCHES = obs.counters("ssm", {"mamba_scan": 0, "mamba_scan_bwd": 0})
 
-#: The backward kernel's block, as ``csrc/mamba_scan_bwd.cu``: its threads
-#: (one a (channel, state) pair) and the steps between two flushes of its
-#: sums.
-BWD_THREADS = 256
-BWD_SUB = 8
+#: The backward kernel's cluster, as ``csrc/mamba_scan_bwd.cu``: at most
+#: this many blocks (neighbouring channel tiles) sum their parts of db and
+#: dc through distributed shared memory.  Its block is the forward's:
+#: LANES (channel, state group) pairs x SEGMENTS segments of SEG_LEN steps.
+BWD_CLUSTER = 8
 
 
 def reset_launches() -> None:
@@ -92,6 +94,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.roomy_mamba_scan_bwd.restype = _I
         lib.roomy_mamba_scan_bwd_work.argtypes = [_I] * 5
         lib.roomy_mamba_scan_bwd_work.restype = ctypes.c_longlong
+        lib.roomy_mamba_scan_bwd_smem.argtypes = [_I]
+        lib.roomy_mamba_scan_bwd_smem.restype = _I
         lib.roomy_msb_error_string.argtypes = [_I]
         lib.roomy_msb_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib
@@ -135,20 +139,33 @@ def geometry(batch: int, seq: int, d_inner: int, n_state: int) -> dict:
 
 
 def bwd_geometry(batch: int, seq: int, d_inner: int, n_state: int) -> dict:
-    """The launch of ``scan_bwd_kernel``: ``states`` threads a channel (N
-    padded to a power of two, one state a thread), ``channels`` a block,
-    the grid (channel tiles, batch rows), its dynamic shared memory, and
-    the scratch its sums go through: each tile's part of db and dc,
-    ``part_bytes`` in all."""
-    states = 1 << (max(1, n_state) - 1).bit_length()
-    ch = BWD_THREADS // states
+    """The launch of ``scan_bwd_kernel``: ``tpc`` threads a channel (each
+    SPT states of one of SEGMENTS segments, as ``geometry``), ``states`` a
+    channel with the padding (``np``, the C interface's last int, is N
+    padded to a power of two), ``channels`` a block, the grid (the channel
+    tiles padded to a multiple of the ``cluster``, batch rows), its dynamic
+    shared memory (``Smem<TPC>``: the segment maps and the adjoint's
+    carry, two stages of a chunk's inputs, the terms of db and dc a (t, i,
+    j), the block's sums of them by chunk parity, dx and ddt; as
+    ``roomy_mamba_scan_bwd_smem`` reports it), and the scratch its sums go
+    through: each cluster's part of db and dc, ``part_bytes`` in all."""
+    geo = geometry(batch, seq, d_inner, n_state)
+    tpc, ch, states = geo["tpc"], geo["channels"], geo["states"]
     tiles = -(-d_inner // ch)
-    warps = max(1, states // 32)
-    smem = 4 * ((CHUNK + 2 * BWD_SUB) * BWD_THREADS + 2 * BWD_SUB * ch * warps)
-    return {"states": states, "channels": ch, "grid": (tiles, batch),
-            "threads": BWD_THREADS, "chunks": -(-seq // CHUNK),
-            "smem_bytes": smem,
-            "part_bytes": 8 * tiles * batch * seq * n_state}
+    cluster = 1
+    while cluster < min(BWD_CLUSTER, tiles):
+        cluster *= 2
+    clusters = -(-tiles // cluster)
+    smem = 4 * ((3 * SEGMENTS + 1) * LANES * 4
+                + 2 * (2 * CHUNK * states + ch * states + 3 * CHUNK * ch)
+                + 2 * ch * (CHUNK * states + 4) + 4 * CHUNK * states
+                + 2 * CHUNK * ch)
+    return {"tpc": tpc, "states": states, "channels": ch,
+            "np": 1 << (max(1, n_state) - 1).bit_length(),
+            "tiles": tiles, "cluster": cluster, "clusters": clusters,
+            "grid": (clusters * cluster, batch), "threads": LANES * SEGMENTS,
+            "chunks": -(-seq // CHUNK), "smem_bytes": smem,
+            "part_bytes": 8 * clusters * batch * seq * n_state}
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -250,10 +267,10 @@ def mamba_scan_bwd(x, dt, a, b, c, d, dy, h_chunks):
     db = torch.empty((bsz, seq, n), **f32)
     dc = torch.empty_like(db)
     dd = torch.empty((di,), **f32)
-    states = bwd_geometry(bsz, seq, di, n)["states"]
+    np_ = bwd_geometry(bsz, seq, di, n)["np"]
     lib = _bwd_lib()
-    work = torch.empty((lib.roomy_mamba_scan_bwd_work(bsz, seq, di, n,
-                                                      states),), **f32)
+    work = torch.empty((lib.roomy_mamba_scan_bwd_work(bsz, seq, di, n, np_),),
+                       **f32)
     strides = _strides(x, dt, b, c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -261,7 +278,7 @@ def mamba_scan_bwd(x, dt, a, b, c, d, dy, h_chunks):
             *(t.data_ptr() for t in (x, dt, a, b, c, d, dy, h_chunks, dx, ddt,
                                      da, db, dc, dd, work)),
             DTYPES[x.dtype], bsz, seq, di, n,
-            ctypes.cast(strides, ctypes.c_void_p), states, stream)
+            ctypes.cast(strides, ctypes.c_void_p), np_, stream)
     if code:
         raise RuntimeError(f"roomy_mamba_scan_bwd: CUDA error {code}: "
                            f"{lib.roomy_msb_error_string(code).decode()}")

@@ -553,6 +553,93 @@ def mamba_scan_bwd_plain(x, dt, a, b, c, d, dy, h_chunks,
     return dx.to(x.dtype), ddt.to(dt.dtype), da, db, dc, dd
 
 
+def mamba_scan_bwd_segmented(x, dt, a, b, c, d, dy, h_chunks,
+                             chunk: int = SCAN_CHUNK, seg_len: int = 8):
+    """K9-bwd's order of sums (``csrc/mamba_scan_bwd.cu``), in plain
+    PyTorch: the function of ``mamba_scan_bwd_plain``, with each chunk of
+    ``chunk`` steps cut into segments of ``seg_len`` (steps past L padded
+    with zeros: e = 1, no input, no adjoint).  Each segment is walked from
+    h = 0 with e_t = exp(dt_t·a): P <- P·e_t (the product of its decays),
+    B <- B·e_t + dt_t·x_t·b_t (its state's map, h_out = P·h_in + B) and
+    G <- G + P·dy_t·c_t (its adjoint's map, w_out = P·w_in + G, where w is
+    e_{t+1}·g_{t+1}, what flows in from the step after the segment).  The
+    state's maps fold in time order from each chunk's start state
+    (``h_chunks[:, k - 1]``, zeros for the first), the fold before a
+    segment being its h_in; the adjoint's fold in reverse over all of time,
+    the chunks in reverse, from 0, the fold after a segment being its w_in.
+    Then each segment walks forward from h_in (the states before each step,
+    and dc_t = sum_i dy_t·h_t) and back from w_in: g_t = dy_t·c_t + w_in at
+    its last step and dy_t·c_t + e_{t+1}·g_{t+1} before, with the terms of
+    ``mamba_scan_bwd_plain``.  Float32 throughout; returns (dx, ddt in
+    x.dtype; da (Di, N), db, dc (B, L, N), dd (Di,) float32).  Used by the
+    tests and ``chip_smoke.py`` only: the plain version the port runs is
+    ``mamba_scan_bwd_plain``."""
+    bsz, seq, di = x.shape
+    n = a.shape[1]
+    nch = h_chunks.shape[1]
+    segs = chunk // seg_len
+    pad = nch * chunk - seq
+
+    def cut(t):       # (B, L, C) -> (B, chunks, segments, seg_len, C)
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+        return t.reshape(bsz, nch, segs, seg_len, t.shape[-1])
+    xs, dts, bs, cs, dys = cut(x), cut(dt), cut(b), cut(c), cut(dy)
+    af, df = a.float(), d.float()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    e = [torch.exp(dts[:, :, :, r, :, None] * af) for r in range(seg_len)]
+    u = [(dts[:, :, :, r] * xs[:, :, :, r])[..., None]
+         * bs[:, :, :, r, None, :] for r in range(seg_len)]
+    dyc = [dys[:, :, :, r, :, None] * cs[:, :, :, r, None, :]
+           for r in range(seg_len)]
+    big_p = torch.ones((bsz, nch, segs, di, n), **f32)
+    big_b = torch.zeros_like(big_p)
+    big_g = torch.zeros_like(big_p)
+    for r in range(seg_len):
+        big_p = big_p * e[r]
+        big_b = big_b * e[r] + u[r]
+        big_g = big_g + big_p * dyc[r]
+    # the state's fold within each chunk, from its start state
+    h = torch.cat([torch.zeros((bsz, 1, di, n), **f32),
+                   h_chunks[:, :-1].float()], 1)
+    h_in = torch.empty_like(big_p)
+    for q in range(segs):
+        h_in[:, :, q] = h
+        h = big_p[:, :, q] * h + big_b[:, :, q]
+    # the adjoint's fold over all of time, in reverse
+    w = torch.zeros((bsz, di, n), **f32)
+    w_in = torch.empty_like(big_p)
+    for k in reversed(range(nch)):
+        for q in reversed(range(segs)):
+            w_in[:, k, q] = w
+            w = big_p[:, k, q] * w + big_g[:, k, q]
+    hp, dc = [], []
+    h = h_in
+    for r in range(seg_len):
+        hp.append(h)
+        h = e[r] * h + u[r]
+        dc.append((dys[:, :, :, r, :, None] * h).sum(-2))
+    dx, ddt, db = [None] * seg_len, [None] * seg_len, [None] * seg_len
+    da = torch.zeros((di, n), **f32)
+    g = w_in
+    for r in reversed(range(seg_len)):
+        g = dyc[r] + (g if r == seg_len - 1 else e[r + 1] * g)
+        dtt = dts[:, :, :, r, :, None]
+        xt = xs[:, :, :, r, :, None]
+        bt = bs[:, :, :, r, None, :]
+        gdt = g * dtt
+        dx[r] = (gdt * bt).sum(-1) + dys[:, :, :, r] * df
+        ddt[r] = (g * (af * e[r] * hp[r] + xt * bt)).sum(-1)
+        da += (gdt * e[r] * hp[r]).sum((0, 1, 2))
+        db[r] = (gdt * xt).sum(-2)
+
+    def join(parts):  # seg_len x (B, chunks, segments, C) -> (B, L, C)
+        t = torch.stack(parts, 3)
+        return t.reshape(bsz, nch * chunk, t.shape[-1])[:, :seq]
+    dd = (dy.float() * x.float()).sum((0, 1))
+    return (join(dx).to(x.dtype), join(ddt).to(dt.dtype), da, join(db),
+            join(dc), dd)
+
+
 def mamba_scan_plain(x, dt, a, b, c, d, return_state=False):
     """The plain version the dispatchers run: with ``return_state`` the
     sequential form's (y, h_last); otherwise the associative form up to

@@ -19,7 +19,10 @@ step, a chunk of 32 steps less one, one and one more, 4101 steps (a ragged
 tail), N of 1, 4, 16 and 64, channels no multiple of the kernel's block,
 strided b and c, batch 3, and a decay near 1 and a large dt, in float32
 within 1e-4 (each gradient elementwise against its own largest value:
-sums over time and channels taken in another order).
+sums over time and channels taken in another order).  So is the mirror of
+the kernel's order of sums (``ref.mamba_scan_bwd_segmented``: segment folds
+of the state and of the adjoint), which also holds to the plain walk within
+1e-5 per output norm at decay near 1 and over a ragged 4101 steps.
 """
 import jax
 import jax.numpy as jnp
@@ -360,8 +363,61 @@ def test_backward_wrapper_checks_its_inputs_and_goes_by_device():
                            dyt, chunks)
     assert tms.LAUNCHES["mamba_scan_bwd"] == 0
     geo = tms.bwd_geometry(1, 4096, 8192, 16)
-    assert (geo["states"], geo["channels"], geo["grid"], geo["chunks"]) == \
-        (16, 16, (512, 1), 128)
-    assert geo["part_bytes"] == 268_435_456
-    assert tms.bwd_geometry(1, 4096, 4096, 64)["states"] == 64
+    assert (geo["tpc"], geo["states"], geo["channels"], geo["grid"],
+            geo["cluster"], geo["chunks"]) == (4, 16, 16, (512, 1), 8, 128)
+    assert geo["part_bytes"] == 33_554_432          # 64 clusters' parts
+    assert 2 * geo["smem_bytes"] <= 232_448 - 2048  # two blocks an SM
+    zamba = tms.bwd_geometry(1, 4096, 4096, 64)
+    assert (zamba["states"], zamba["np"], zamba["grid"], zamba["cluster"]) \
+        == (64, 64, (1024, 1), 8)
+    assert zamba["part_bytes"] == 268_435_456
+    assert zamba["smem_bytes"] <= 232_448
+    # 19 channel tiles padded to 3 clusters of 8; 3 tiles to one of 4
+    assert tms.bwd_geometry(2, 37, 300, 16)["grid"] == (24, 2)
     assert tms.bwd_geometry(1, 1, 37, 3)["grid"] == (1, 1)
+    assert tms.bwd_geometry(1, 1, 37, 3)["np"] == 4
+    assert tms.bwd_geometry(1, 1, 150, 3)["grid"] == (4, 1)
+
+
+# K9-bwd's order of sums (each chunk's segments walked on their own and
+# folded: the state in time order from the chunk's start state, the
+# adjoint in reverse from the later chunk's carry; then each segment
+# walked forward from its h_in and back from its w_in), mirrored by
+# ``ref.mamba_scan_bwd_segmented``.  The card's kernel is held to the same
+# mirror by chip_smoke.py.
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_segmented_backward_matches_jax_vjp(name):
+    b, l, di, n, kind = BWD_CASES[name]
+    arrs, dy = _bwd_inputs(b, l, di, n, kind, 11)
+    t = _torch(arrs)
+    if kind == "strided":
+        both = torch.cat([t[3], t[4]], -1)
+        t[3], t[4] = both.split(n, -1)
+    _, chunks = tref.mamba_scan_chunks_plain(*t, tms.CHUNK)
+    got = tref.mamba_scan_bwd_segmented(*t, torch.from_numpy(dy), chunks,
+                                        tms.CHUNK, tms.SEG_LEN)
+    _, vjp = jax.vjp(jax.jit(jref.mamba_scan_seq_ref), *_jax(arrs))
+    for nm, g, w in zip("x dt a b c d".split(), got, vjp(jnp.asarray(dy))):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close_grad(g, w, f"{name}: d{nm}")
+
+
+@pytest.mark.parametrize("name,kind", [("decay near 1", "slow"),
+                                       ("4101 steps", "plain"),
+                                       ("4101 steps", "slow")])
+def test_segmented_backward_matches_the_plain_walk(name, kind):
+    """Against the sequential walk of ``mamba_scan_bwd_plain`` from the same
+    chunk states, per output ‖Δ‖ ≤ 1e-5·‖want‖ (chip_smoke's K9B_REL_TOL):
+    decay near 1 (the folds' longest carries) and a ragged tail, and the
+    two together over 4101 steps."""
+    b, l, di, n, _ = BWD_CASES[name]
+    arrs, dy = _bwd_inputs(b, l, di, n, kind, 17)
+    t = _torch(arrs) + [torch.from_numpy(dy)]
+    _, chunks = tref.mamba_scan_chunks_plain(*t[:6], tms.CHUNK)
+    want = tref.mamba_scan_bwd_plain(*t, chunks, tms.CHUNK)
+    got = tref.mamba_scan_bwd_segmented(*t, chunks, tms.CHUNK, tms.SEG_LEN)
+    for nm, g, w in zip("x dt a b c d".split(), got, want):
+        err = float((g - w).norm())
+        assert err <= 1e-5 * float(w.norm()), (nm, err, float(w.norm()))
+    assert not all(torch.equal(g, w) for g, w in zip(got, want))
