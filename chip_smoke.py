@@ -391,20 +391,58 @@ caught:
       granite's (token, choice) pairs dropped on the train batch;
    d. one step's gradient through the kernels against the plain versions
       (``kernels="ref"``), the loss and per leaf ‖Δ‖/‖g‖, the largest within
-      5e-2 (zamba2 0.2, granite-moe 1.0: ``FAMILY_GRAD_TOL``) and the median
+      5e-2 (zamba2 0.2, granite-moe 1.0, musicgen-medium 0.5:
+      ``FAMILY_GRAD_TOL``) and the median
       within 0.1: falcon-mamba at full width, 2 layers and 1 × 512 (the
       plain scan walks time in Python), with K9-bwd's planted faults in
       every layer read the same way (the dropped carry must break the
       limit); zamba2 and granite at the main path's depth and batch, with
       K7 without D = rowsum(dO ∘ O) in every layer, which must break it;
+      zamba2's and granite's witnesses (``grad_witnesses``: the kernels'
+      gradient no farther from the float32 plain gradient than 1.5 times
+      the plain bf16 one is, worst leaf and median, granite's read only;
+      K7 alone in the chain, the forward plain, within 5e-2, which the
+      drop-D fault must break);
       one zamba2 block in the K9 form (N = 64, one K9 and one K9-bwd
       launch) against the same block through the plain versions.
-18. the ``to_port`` line (an empty list: every kernel is ported), the
+18. the frontend-stub families (``phase_frontend``): musicgen-medium
+   (audio: MHA 24 x 64, non-gated GELU) and qwen2-vl-2b (vision: 12 query
+   heads over 2 kv heads at head dim 128, M-RoPE) FULL, every input the
+   codebook rows (``data.pipeline.codebook``) of seeded token ids:
+   a. served in bfloat16: the 1 × 32768 prefill with exactly 48 / 28 K6
+      launches, all wgmma; K6 on captured layer 0 against its plain
+      version and timed beside its bound and SDPA(enable_gqa); a 2048-token
+      prefill with K6 and with the plain attention (per row 3.5e-2; every
+      window cut to 16 keys must break it); for qwen, a prefill over 512
+      text tokens and a 64 × 64 patch grid (t fixed, h and w running: the
+      streams differ) held to the plain prefill on the same positions,
+      the same inputs at text positions and a wrong band split (24, 24,
+      16) must break the rule; K8 on a captured decode layer and its
+      times; 16 greedy decode steps, each fed the codebook row of the last
+      token, with exactly 48 / 28 K8 launches a step, all tma; 4 steps
+      held to the plain paged decode per row; the profile (prefill and 4
+      decode steps: the idle share);
+   b. trained through ``runtime.train_loop.train`` (float32 master params,
+      bfloat16 compute, remat, 1 × 4096, 6 steps): K6-with-LSE 96 / 56 and
+      K7 48 / 28 a ``train.step`` span, all wgmma; a profiled step; the
+      gradient through the kernels against the plain versions (5e-2 a
+      leaf; musicgen's wq and wk 0.5, ``FAMILY_GRAD_TOL``), with K7
+      without D in every layer, which must break it, and the witnesses as
+      zamba2's (17d); the host's CPU seconds beside the wall of a train
+      step and of the decode steps, and the kernel launch calls the
+      profiled ones made;
+      K6-with-LSE and K7 at the train layout held to their plain versions
+      and timed beside their bounds, plain versions and SDPA;
+   c. ``DiskTokenStream`` on the host: six chunks of 256 × 4097 uint32
+      tokens written into a ``ChunkStore`` in a temporary directory and
+      read back bit for bit against ``synth_tokens``, MB/s each way.
+19. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K6's and
    K6-with-LSE's entries name the kernel that ran, their launches by
-   route and the ptxas report; K6's, K8's and K9's launches on the MoE and
-   hybrid paths; K6-with-LSE's, K7's and K9's on the training paths), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+   route and the ptxas report; K6's, K8's and K9's launches on the MoE,
+   hybrid and frontend paths; K6-with-LSE's, K7's and K9's on the training
+   paths; the frontend layouts' times), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import ctypes
@@ -412,6 +450,7 @@ import itertools
 import json
 import math
 import os
+import resource
 import statistics
 import shutil
 import subprocess
@@ -451,7 +490,9 @@ from repro_torch.kernels import paged_decode as PD  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
-from repro_torch.data.pipeline import batch_to_torch, make_batch  # noqa: E402
+from repro_torch.data.pipeline import (DiskTokenStream,  # noqa: E402
+                                       batch_to_torch, codebook, make_batch,
+                                       synth_tokens)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import paged  # noqa: E402
 from repro_torch.core.disk import oracle as O  # noqa: E402
@@ -2597,11 +2638,52 @@ def logits_agree(got, want, what, rel_tol=BF16_LOGIT_REL_TOL) -> dict:
     return res
 
 
+_SERVED_BOOK = {}
+
+
+@contextlib.contextmanager
+def served_codebook(cfg, dev):
+    """The stub frontend's codebook (``data.pipeline.codebook``: the
+    reference's bits) on the card while ``cfg`` is served, so a decode
+    step gathers its input row there; freed on exit, so training's peak
+    does not count it (qwen2-vl's is 933 MB)."""
+    _SERVED_BOOK[cfg.name] = torch.from_numpy(
+        codebook(cfg.vocab_size, cfg.d_model).copy()).to(dev)
+    try:
+        yield
+    finally:
+        _SERVED_BOOK.pop(cfg.name)
+
+
+def text_positions(cfg, b, s, dev):
+    """Positions 0..s-1, (b, s); under M-RoPE (b, s, 3) with every stream
+    equal, as ``data.pipeline`` makes them for text."""
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    return pos[..., None].expand(b, s, 3) if cfg.mrope else pos
+
+
 def lm_inputs(cfg, b, s, dev, seed):
+    """Random token ids from a numpy seed as the model's inputs: the ids,
+    or for a frontend stub their codebook rows (float32, as
+    ``make_batch`` gives them), with text positions."""
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
-    pos = torch.arange(s, device=dev)[None].expand(b, s)
-    return {"tokens": toks, "positions": pos}
+    return {**token_inputs(cfg, toks), "positions": text_positions(
+        cfg, b, s, dev)}
+
+
+def token_inputs(cfg, toks) -> dict:
+    """{"tokens": toks}, or for a frontend stub {"embeds": the codebook
+    rows of toks}: a decode step's input is the last token's row."""
+    if cfg.frontend_stub:
+        return {"embeds": _SERVED_BOOK[cfg.name][toks]}
+    return {"tokens": toks}
+
+
+def step_inputs(cfg, tok) -> dict:
+    """A decode step's inputs for the (b, 1) token ids ``tok`` (the step
+    rotates with the caches' lengths, not with these positions)."""
+    return {**token_inputs(cfg, tok), "positions": torch.zeros_like(tok)}
 
 
 class Capture:
@@ -2878,22 +2960,23 @@ def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
     launch count set to 0 just before and read after each step: K8 once
     for every layer without a window (gemma2's 13 global layers, every
     dense layer of the other archs), no other kernel (the ssm family's
-    decode step is plain PyTorch, as the reference's)."""
+    decode step is plain PyTorch, as the reference's).  A frontend stub's
+    step takes the codebook row of the last token."""
     tok = logits[:, -1].argmax(-1, keepdim=True)
-    zeros = torch.zeros_like(tok)
     seq = int(caches["kv"][0].lengths[0]) if "kv" in caches else None
     per_step = unwindowed_layers(cfg)
     reset_all_launches()
     sync(dev)
-    t0 = time.perf_counter()
+    h0 = host_counters()
     k8_steps = []
     for _ in range(steps):
-        lg, caches = lm.decode_step(params, {"tokens": tok,
-                                             "positions": zeros}, caches, cfg)
+        lg, caches = lm.decode_step(params, step_inputs(cfg, tok), caches,
+                                    cfg)
         tok = lg[:, -1].argmax(-1, keepdim=True)
         k8_steps.append(PD.LAUNCHES["paged_decode_attention"])
     sync(dev)
-    wall = time.perf_counter() - t0
+    host = host_delta(h0, host_counters())
+    wall = host["wall_s"]
     k9, k8 = MS.LAUNCHES["mamba_scan"], PD.LAUNCHES["paged_decode_attention"]
     expect(k9 == 0, dict(MS.LAUNCHES))
     expect(k8_steps == [per_step * (i + 1) for i in range(steps)],
@@ -2911,10 +2994,11 @@ def phase_decode(cfg, params, logits, caches, dev, steps=DECODE_STEPS):
     print(f"decode: {cfg.name} {steps} steps after the prefill, {wall:.3f} "
           f"s, {steps / wall:.2f} tokens/s (batch 1), K8 launches {k8} "
           f"({per_step} a step; by route {dict(PD.ROUTE_LAUNCHES)}), K9 "
-          f"launches {k9}")
+          f"launches {k9}; {host_line(host)}")
     return {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall,
             "k8_launches": k8, "k8_launches_per_step": per_step,
-            "k8_routes": dict(PD.ROUTE_LAUNCHES), "k9_launches": k9}
+            "k8_routes": dict(PD.ROUTE_LAUNCHES), "k9_launches": k9,
+            "host": host}
 
 
 def prefill_vs_stepwise(cfg, params, dev, s=EQUIV_PREFIX, b=2,
@@ -2989,6 +3073,39 @@ def kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+
+
+def host_counters() -> dict:
+    """The host's clocks now: the wall, and the CPU seconds of this thread
+    and of the whole process (autograd's backward runs on a thread of its
+    own)."""
+    th = resource.getrusage(resource.RUSAGE_THREAD)
+    pr = resource.getrusage(resource.RUSAGE_SELF)
+    return {"t": time.perf_counter(), "thread_cpu": th.ru_utime + th.ru_stime,
+            "process_cpu": pr.ru_utime + pr.ru_stime}
+
+
+def host_delta(a, b) -> dict:
+    """What the host did between two ``host_counters`` readings: the wall,
+    the CPU seconds of the calling thread and of the process, each with
+    its share of the wall (a share near 1: the host worked the whole
+    time, so the wall is the host's)."""
+    wall = b["t"] - a["t"]
+    th = b["thread_cpu"] - a["thread_cpu"]
+    pr = b["process_cpu"] - a["process_cpu"]
+    return {"wall_s": wall, "thread_cpu_s": th, "thread_busy_share": th / wall,
+            "process_cpu_s": pr, "process_busy_share": pr / wall}
+
+
+def host_line(h) -> str:
+    return (f"host CPU: this thread {h['thread_cpu_s']:.3f} s "
+            f"({100 * h['thread_busy_share']:.1f}% of the "
+            f"{h['wall_s']:.3f} s wall), the process {h['process_cpu_s']:.3f}"
+            f" s ({100 * h['process_busy_share']:.1f}%)")
+
+
 def device_profile(fn, dev, what, tail=None) -> dict:
     """One run of ``fn`` under ``torch.profiler``: device time by kernel
     group, and the share of the wall with no kernel running (kernels run
@@ -2999,10 +3116,15 @@ def device_profile(fn, dev, what, tail=None) -> dict:
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        h0 = host_counters()
         fn()
         sync(dev)
-        wall = time.perf_counter() - t0
+        host = host_delta(h0, host_counters())
+    wall = host["wall_s"]
+    calls = [ev for ev in prof.events() if ev.name in LAUNCH_CALLS]
+    host["launch_calls"] = len(calls)
+    host["launch_call_ms"] = sum(ev.time_range.elapsed_us()
+                                 for ev in calls) / 1e3
     groups, kernels, after = {}, {}, False
     for ev in sorted((ev for ev in prof.events() if ev.device_type ==
                       torch.autograd.DeviceType.CUDA),
@@ -3017,7 +3139,7 @@ def device_profile(fn, dev, what, tail=None) -> dict:
     busy_ms = sum(groups.values())
     res = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
-           "groups_ms": groups, "tail_marker_seen": after,
+           "groups_ms": groups, "tail_marker_seen": after, "host": host,
            "top_kernels_ms": dict(sorted(kernels.items(),
                                          key=lambda kv: -kv[1])[:6])}
     if not busy_ms:
@@ -3027,7 +3149,9 @@ def device_profile(fn, dev, what, tail=None) -> dict:
     print(f"profile {what}: wall {wall * 1e3:.1f} ms (profiled), kernels "
           f"{busy_ms:.1f} ms, device idle {100 * res['idle_share']:.1f}%; "
           + ", ".join(f"{g} {ms:.1f} ms" for g, ms in
-                      sorted(groups.items(), key=lambda kv: -kv[1])))
+                      sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f"; {host['launch_calls']} kernel launch calls on the host, "
+          f"{host['launch_call_ms']:.1f} ms in them; {host_line(host)}")
     return res
 
 
@@ -3041,13 +3165,12 @@ def phase_profile(cfg, params, inputs, caches, dev, steps=4,
     def decode():
         c = caches
         for _ in range(steps):
-            _, c = lm.decode_step(params, {"tokens": tok, "positions": tok},
-                                  c, cfg)
+            _, c = lm.decode_step(params, step_inputs(cfg, tok), c, cfg)
     out = {}
     if prefill:
         out["prefill"] = device_profile(
             lambda: lm.prefill(params, inputs, cfg), dev,
-            f"prefill 1 x {inputs['tokens'].shape[1]}")
+            f"prefill 1 x {inputs['positions'].shape[1]}")
     out[f"decode_{steps}_steps"] = device_profile(
         decode, dev, f"{cfg.name} {steps} decode steps")
     return out
@@ -3555,10 +3678,12 @@ OPT_MARK = "spin_kernel"      # torch.cuda._sleep's kernel
 def phase_train_profile(cfg, s, params, batch, dev) -> dict:
     """One call of the main path's step function (``make_train_step``:
     the gradient, then the AdamW update) under ``torch.profiler``, after
-    one call to warm up: device time by kernel group and the share of the
-    wall with no kernel running.  The update's kernels run after the
-    gradient's on the one stream; a marker kernel (``torch.cuda._sleep``)
-    launched as ``optim.update`` is entered tells them apart."""
+    one call to warm up and one timed without the profiler: device time by
+    kernel group, the share of the wall with no kernel running, and what
+    the host did (``host_delta``) in both calls.  The update's kernels run
+    after the gradient's on the one stream; a marker kernel
+    (``torch.cuda._sleep``) launched as ``optim.update`` is entered tells
+    them apart."""
     step_fn = make_train_step(cfg, s)
     held = {"opt": optim.init(params)}
     update = optim.update
@@ -3570,12 +3695,19 @@ def phase_train_profile(cfg, s, params, batch, dev) -> dict:
     def step():
         _, held["opt"], _, _ = step_fn(params, held["opt"], None, batch, 0)
     step()                                           # warm-up
+    sync(dev)
+    h0 = host_counters()
+    step()
+    sync(dev)
+    plain_host = host_delta(h0, host_counters())
+    print(f"unprofiled train step 1 x {TRAIN_SEQ}: {host_line(plain_host)}")
     optim.update = marked
     try:
         res = device_profile(step, dev, f"train step 1 x {TRAIN_SEQ}",
                              tail=(OPT_MARK, "optimizer (AdamW update)"))
     finally:
         optim.update = update
+    res["unprofiled_host"] = plain_host
     expect(res["tail_marker_seen"] or not res["device_busy_ms"],
            f"the profile shows no {OPT_MARK} before the update")
     del held
@@ -3585,23 +3717,37 @@ def phase_train_profile(cfg, s, params, batch, dev) -> dict:
 # Per leaf, ‖g_kernels − g_plain‖ ≤ GRAD_REL_TOL · ‖g_plain‖ for one step's
 # gradient of gemma2-2b FULL in bfloat16 (and falcon-mamba's), and the
 # median over the leaves ≤ GRAD_MEDIAN_TOL.  Set between the sound readings
-# and a planted fault's (PERF.md §6).  Two families take a limit of their
+# and a planted fault's (PERF.md §6).  Three families take a limit of their
 # own on the largest leaf, set the same way: zamba2's dt_bias gradients are
 # sums that cancel to a few percent of their terms, so the bf16 rounding of
 # 38 layers moves them 7-8% (a planted K7 fault: 62%); granite-moe's
 # router gradients follow the top-k, which flips for tokens near a tie when
-# bf16 hidden states differ in the last bit (15-22%; the fault: 1868%).
+# bf16 hidden states differ in the last bit (15-22%; the fault: 1868%);
+# musicgen-medium's worst leaves are wq and wk of its deep layers (15.7%;
+# the median leaf 0.63%; the fault: 16570%), moved by K6-with-LSE's bf16
+# rounding of the forward (K7 alone in the chain reads 0.95%), where bf16
+# moves them most: the plain path in bf16 is 34% from its own float32
+# gradient there.  ``grad_witnesses`` holds what a wide limit leaves open
+# (musicgen, qwen2-vl, zamba2, granite-moe).
 GRAD_REL_TOL = 5e-2
 GRAD_MEDIAN_TOL = 0.1
-FAMILY_GRAD_TOL = {"zamba2-1.2b": 0.2, "granite-moe-3b-a800m": 1.0}
+FAMILY_GRAD_TOL = {"zamba2-1.2b": 0.2, "granite-moe-3b-a800m": 1.0,
+                   "musicgen-medium": 0.5}
+# The kernels' bf16 gradient is no farther from the float32 plain gradient
+# than F32_WITNESS_RATIO times the plain bf16 gradient is, on the worst
+# leaf and on the median (musicgen 1.08 and 1.00, qwen2-vl 1.04 and 1.01,
+# zamba2 0.98 and 1.00; granite-moe's 1.61 and 0.99 on its router, which
+# is read, not held).
+F32_WITNESS_RATIO = 1.5
 
 
 def leaf_errors(grads, want, params) -> dict:
     rels = {"__".join(p): float((g - w).norm() / w.norm())
             for (p, _), g, w in zip(T.flatten_with_path(params), grads, want)}
-    worst = max(rels, key=rels.get)
-    return {"max_rel": rels[worst], "worst_leaf": worst,
-            "median_rel": statistics.median(rels.values())}
+    worst = sorted(rels, key=rels.get, reverse=True)
+    return {"max_rel": rels[worst[0]], "worst_leaf": worst[0],
+            "median_rel": statistics.median(rels.values()),
+            "worst_5": {k: rels[k] for k in worst[:5]}}
 
 
 class BwdFault:
@@ -3625,8 +3771,80 @@ class BwdFault:
         return False
 
 
+class FwdPlain:
+    """K6's wrapper, which the autograd Function calls for its forward
+    (with the LSE), replaced by the plain versions, so every activation
+    is the plain path's bits and K7 runs alone in the backward."""
+
+    def __enter__(self):
+        self.orig = FA.flash_attention
+
+        def plain(q, k, v, return_lse=False, **kw):
+            if return_lse:
+                return R.attention_lse_ref(q, k, v, **kw)
+            return R.attention_ref(q, k, v, **kw)
+        OPS._fa.flash_attention = plain
+        return self
+
+    def __exit__(self, *exc):
+        OPS._fa.flash_attention = self.orig
+        return False
+
+
+def grad_witnesses(cfg, params, batch, want, got, faults, must_break) -> dict:
+    """What a family's own wide limit (FAMILY_GRAD_TOL) leaves open, read
+    and gated: (1) the gradient in float32 through the plain versions
+    (TF32 off), from which the kernels' bf16 gradient is no farther than
+    F32_WITNESS_RATIO times the plain bf16 gradient is, on the worst leaf
+    and on the median (a MoE's ratio is read, not held: its router
+    follows the top-k, which the two bf16 forwards flip for different
+    tokens); (2) K7 alone in the chain (``FwdPlain``) against the plain
+    versions at GRAD_REL_TOL and GRAD_MEDIAN_TOL, which the planted faults
+    in ``must_break`` must break."""
+    _, exact = loss_and_grads(params, batch, cfg.replace(kernels="ref",
+                                                         dtype="float32"))
+    res = {"plain_vs_f32": leaf_errors(want, exact, params),
+           "kernels_vs_f32": leaf_errors(got, exact, params)}
+    del exact
+    with FwdPlain():
+        _, g = loss_and_grads(params, batch, cfg)
+    res["k7_alone"] = leaf_errors(g, want, params)
+    del g
+    res["k7_alone_faults"] = {}
+    for name in must_break:
+        with FwdPlain(), faults[name]():
+            _, bad = loss_and_grads(params, batch, cfg)
+        res["k7_alone_faults"][name] = leaf_errors(bad, want, params)
+        del bad
+    p, k = res["plain_vs_f32"], res["kernels_vs_f32"]
+    ratio = {m: k[m] / p[m] for m in ("max_rel", "median_rel")}
+    res["ratio_to_plain"] = ratio
+    a = res["k7_alone"]
+    broken = {n: round(e["max_rel"], 4)
+              for n, e in res["k7_alone_faults"].items()}
+    print(f"grad witness: {cfg.name}, distance from the float32 plain "
+          f"gradient: plain bf16 max {p['max_rel']:.4e} ({p['worst_leaf']}),"
+          f" median {p['median_rel']:.4e}; kernels max {k['max_rel']:.4e} "
+          f"({k['worst_leaf']}), median {k['median_rel']:.4e}; ratios "
+          f"{ratio['max_rel']:.3f} / {ratio['median_rel']:.3f} (limit "
+          f"{F32_WITNESS_RATIO}). K7 alone in the chain (the plain forward) "
+          f"vs plain: max {a['max_rel']:.4e} ({a['worst_leaf']}), median "
+          f"{a['median_rel']:.4e} (limits {GRAD_REL_TOL}, median "
+          f"{GRAD_MEDIAN_TOL}); with planted faults {broken}")
+    expect(max(ratio.values()) <= F32_WITNESS_RATIO or cfg.family == "moe",
+           f"the kernels' gradient is farther from float32 than the plain "
+           f"path's: {ratio}")
+    expect(a["max_rel"] <= GRAD_REL_TOL
+           and a["median_rel"] <= GRAD_MEDIAN_TOL,
+           f"K7 alone in the chain differs: {a}")
+    for name, e in res["k7_alone_faults"].items():
+        expect(e["max_rel"] > GRAD_REL_TOL,
+               f"K7 alone in the chain misses {name}: {e}")
+    return res
+
+
 def phase_grad_parity(cfg, params, batch, what, faults=None,
-                      must_break=()) -> dict:
+                      must_break=(), witness=False) -> dict:
     """One step's gradient through the kernels and through the plain
     versions (``kernels="ref"``, the same autograd Functions) from the
     same params and batch: the loss and each leaf's ‖Δ‖/‖g‖, the largest
@@ -3635,7 +3853,8 @@ def phase_grad_parity(cfg, params, batch, what, faults=None,
     wgmma route.
     ``faults`` ({name: a context manager that plants the fault in the
     kernels' backward, the forward unchanged}) are read the same way;
-    those in ``must_break`` must break the limit."""
+    those in ``must_break`` must break the limit.  With ``witness``,
+    ``grad_witnesses`` too."""
     reset_all_launches()
     loss_r, want = loss_and_grads(params, batch, cfg.replace(kernels="ref"))
     expect(not any(MS.LAUNCHES.values()) and not any(FA.LAUNCHES.values()),
@@ -3656,6 +3875,9 @@ def phase_grad_parity(cfg, params, batch, what, faults=None,
     loss_k, loss_r = float(loss_k), float(loss_r)
     sound["loss_rel"] = abs(loss_k - loss_r) / abs(loss_r)
     sound["limit"] = tol
+    if witness:
+        sound["witnesses"] = grad_witnesses(cfg, params, batch, want, got,
+                                            faults, must_break)
     del got
     read = {}
     for name, plant in (faults or {}).items():
@@ -3668,7 +3890,8 @@ def phase_grad_parity(cfg, params, batch, what, faults=None,
           f"{loss_k:.6f} vs {loss_r:.6f} (rel {sound['loss_rel']:.3e}); "
           f"per-leaf rel: max {sound['max_rel']:.4e} ({sound['worst_leaf']}),"
           f" median {sound['median_rel']:.4e} (limits {tol}, median "
-          f"{GRAD_MEDIAN_TOL})")
+          f"{GRAD_MEDIAN_TOL}); the worst five "
+          f"{ {k: round(v, 4) for k, v in sound['worst_5'].items()} }")
     for name, e in read.items():
         print(f"planted fault, {name}: per-leaf rel max {e['max_rel']:.4e} "
               f"({e['worst_leaf']}), median {e['median_rel']:.4e}")
@@ -4529,8 +4752,8 @@ def k8_capture(cfg, params, caches, dev, keep, donate=False):
     b = caches["kv"][0].lengths.shape[0]
     tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
     with Capture("paged_decode_attention", keep=keep) as cap:
-        _, caches = lm.decode_step(params, {"tokens": tok, "positions": tok},
-                                   caches, cfg, donate=donate)
+        _, caches = lm.decode_step(params, step_inputs(cfg, tok), caches,
+                                   cfg, donate=donate)
         sync(dev)
     expect(len(cap.events) == unwindowed_layers(cfg), len(cap.events))
     return cap.calls, caches
@@ -5435,10 +5658,11 @@ def train_drops(cfg, params, batch) -> dict:
 
 
 def family_phase(cfg, dev, faults, must_break, grad_cfg=None,
-                 grad_seq=TRAIN_SEQ):
+                 grad_seq=TRAIN_SEQ, witness=False):
     """A family's training: the main path, its profile, the drops (MoE),
-    and the gradient parity with ``faults`` planted, at ``grad_cfg``'s
-    depth and ``grad_seq`` tokens (default the main path's)."""
+    and the gradient parity with ``faults`` planted (and ``witness``), at
+    ``grad_cfg``'s depth and ``grad_seq`` tokens (default the main
+    path's)."""
     params, s, main_path = phase_train(cfg, dev)
     batch = batch_to_torch(make_batch(cfg, s.seed, 0, s.batch, s.seq), dev)
     profile = phase_train_profile(cfg, s, params, batch, dev)
@@ -5455,7 +5679,7 @@ def family_phase(cfg, dev, faults, must_break, grad_cfg=None,
     gcfg = grad_cfg or cfg
     res["grad_parity"] = phase_grad_parity(
         gcfg, params, batch, f"{gcfg.name} {gcfg.n_layers} layers, 1 x "
-        f"{grad_seq}", faults=faults, must_break=must_break)
+        f"{grad_seq}", faults=faults, must_break=must_break, witness=witness)
     del params, batch
     torch.cuda.empty_cache()
     return res
@@ -5536,7 +5760,7 @@ def phase_training_families(dev, k9b_ptx) -> dict:
           f"of the phase]")
     drop_d = "every layer's backward without D = rowsum(dO o O)"
     k7_fault = {drop_d: bwd_window_faults()[drop_d]}
-    zamba = family_phase(zcfg, dev, k7_fault, (drop_d,))
+    zamba = family_phase(zcfg, dev, k7_fault, (drop_d,), witness=True)
     zamba["k9_form_layer"] = zamba_k9_layer(zcfg, dev)
     print(f"[zamba2 training done at {time.perf_counter() - t0:.1f} s of the "
           f"phase]")
@@ -5544,12 +5768,261 @@ def phase_training_families(dev, k9b_ptx) -> dict:
     gcfg = get_config(GRANITE_MOE_ARCH)
     if GRANITE_TRAIN_LAYERS:
         gcfg = gcfg.replace(n_layers=GRANITE_TRAIN_LAYERS)
-    granite = family_phase(gcfg, dev, k7_fault, (drop_d,))
+    granite = family_phase(gcfg, dev, k7_fault, (drop_d,), witness=True)
     res = {"k9_bwd_parity": parity, "k9_bwd_times": times,
            "k9_bwd_times_zamba2": ztimes, "k9_bwd_ptxas": k9b_ptx,
            "falcon_mamba": fm, "zamba2": zamba, "granite_moe": granite}
     print(json.dumps({"train_families": res}, default=str))
     return res
+
+
+# ------------ the frontend-stub families (musicgen-medium, qwen2-vl-2b)
+
+FRONTEND_ARCHS = ("musicgen-medium", "qwen2-vl-2b")
+FRONTEND_PLAIN_LEN = 2048     # the plain attention's prefill (as DENSE_PLAIN_LEN)
+MROPE_PREFIX = 512            # text tokens before qwen's patch grid
+MROPE_GRID = 64               # ... of 64 x 64 patches
+MROPE_WRONG_SECTIONS = (24, 24, 16)   # a planted band-to-stream split
+FRONTEND_PLAIN_DECODE = 4     # decode steps held to the plain path
+CORPUS_BATCH = 256            # train_4k's global batch: 256 x 4097 tokens a chunk
+CORPUS_STEPS = 6
+
+
+def grid_positions(b, prefix, grid, dev) -> torch.Tensor:
+    """(b, prefix + grid², 3) M-RoPE positions of a text prefix (one
+    position in every stream) then a grid × grid patch grid, as qwen2-vl
+    lays out an image after text: temporal position ``prefix`` for every
+    patch, height prefix + i // grid, width prefix + i % grid."""
+    text = torch.arange(prefix, device=dev)[:, None].expand(prefix, 3)
+    i = torch.arange(grid * grid, device=dev)
+    patch = torch.stack([torch.full_like(i, prefix), prefix + i // grid,
+                         prefix + i % grid], dim=1)
+    return torch.cat([text, patch])[None].expand(b, -1, -1)
+
+
+def mrope_prefill(cfg, params, dev) -> dict:
+    """qwen2-vl's prefill over a text prefix and a 64 × 64 patch grid,
+    whose three position streams differ (text positions repeat one value
+    in all three, and there M-RoPE equals RoPE): K6 launched once a layer,
+    all wgmma; the last logits held to the plain attention's prefill on
+    the same positions by the per-row rule.  Two readings must break the
+    rule: the same inputs at text positions (the streams matter) and the
+    kernels' prefill with the bands split across the streams the other way
+    round (``MROPE_WRONG_SECTIONS``)."""
+    seq = MROPE_PREFIX + MROPE_GRID ** 2
+    rng = np.random.default_rng(SEED + 9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq))).to(dev)
+    pos = grid_positions(1, MROPE_PREFIX, MROPE_GRID, dev)
+    expect(bool((pos[..., 1] != pos[..., 2]).any()), "streams equal")
+    inputs = {**token_inputs(cfg, toks), "positions": pos}
+    reset_all_launches()
+    logits, _ = lm.prefill(params, inputs, cfg)
+    sync(dev)
+    expect(dict(FA.ROUTE_LAUNCHES) == {"wgmma": cfg.n_layers, "classic": 0},
+           dict(FA.ROUTE_LAUNCHES))
+    ref_logits, _ = lm.prefill(params, inputs, cfg.replace(kernels="ref"))
+    v = cfg.vocab_size
+    ref_logits = ref_logits[..., :v]
+    errs = logits_agree(logits[..., :v], ref_logits,
+                        f"{cfg.name} prefill over {MROPE_PREFIX} text tokens "
+                        f"and a {MROPE_GRID} x {MROPE_GRID} patch grid "
+                        f"(M-RoPE streams differ), K6 vs plain attention")
+    text, _ = lm.prefill(params, {**inputs, "positions": text_positions(
+        cfg, 1, seq, dev)}, cfg)
+    wrong, _ = lm.prefill(params, inputs, cfg.replace(
+        mrope_sections=MROPE_WRONG_SECTIONS))
+    controls = {
+        "the same inputs at text positions": logit_errors(
+            text[..., :v], ref_logits, "control, text positions, vs the "
+            "grid's plain prefill"),
+        f"the bands split {MROPE_WRONG_SECTIONS}": logit_errors(
+            wrong[..., :v], ref_logits, f"planted fault, M-RoPE sections "
+            f"{MROPE_WRONG_SECTIONS}, vs plain")}
+    for name, e in controls.items():
+        expect(not e["ok"], f"the logits check misses {name}: {e}")
+    return {"tokens": seq, "logits_vs_plain": errs, "controls": controls}
+
+
+def decode_vs_plain(cfg, params, logits, caches, dev,
+                    steps=FRONTEND_PLAIN_DECODE) -> dict:
+    """``steps`` greedy decode steps from the prefill's caches through K8
+    and, fed the same tokens, through the plain paged decode: each step's
+    logits held by the per-row rule."""
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    ck, cr, worst = caches, caches, None
+    v = cfg.vocab_size
+    for i in range(steps):
+        lk, ck = lm.decode_step(params, step_inputs(cfg, tok), ck, cfg)
+        lr, cr = lm.decode_step(params, step_inputs(cfg, tok), cr,
+                                cfg.replace(kernels="ref"))
+        e = logits_agree(lk[..., :v], lr[..., :v], f"{cfg.name} decode step "
+                         f"{i} K8 vs the plain paged decode")
+        worst = e if worst is None or e["rel_err"] > worst["rel_err"] else \
+            worst
+        tok = lk[:, -1].argmax(-1, keepdim=True)
+    return worst
+
+
+def frontend_train_layout(cfg, dev) -> dict:
+    """K6-with-LSE and K7 at the family's train layout (1 × Hq × 4096 × D,
+    Hkv kv heads, causal, as the model hands them over: strided views):
+    both held to their plain versions (``check_k6``, ``run_k7``), on the
+    wgmma route, and timed beside their bounds, their plain versions
+    (median of 3) and the library call that computes the same function,
+    scaled_dot_product_attention(is_causal=True, enable_gqa=True): its
+    forward (which returns no LSE) and its backward alone."""
+    case = (1, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+            cfg.head_dim, True, None, None)
+    q, k, v, do = k7_inputs(case, torch.bfloat16, dev, 11, True)
+    e6 = check_k6(q, k, v, True, None, None, f"{cfg.name} train layout")
+    e7 = run_k7(q, k, v, do, dict(causal=True, window=None, softcap=None))
+    MAX_ERR["flash_attention_bwd"] = max(MAX_ERR["flash_attention_bwd"],
+                                         e7["max_abs"])
+    MAX_REL["flash_attention_bwd"] = max(MAX_REL["flash_attention_bwd"],
+                                         e7["rel"])
+    expect(e7["ok"], f"K7 at {cfg.name}'s layout: {e7}")
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    expect(FAB.route(q, k, v, o, do) == "wgmma", "K7's route")
+    ms = median_ms(lambda: FAB.flash_attention_bwd(q, k, v, o, lse, do))
+    plain = median_ms(lambda: R.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                      reps=PLAIN_REPS)
+    bound, by, flops, nbytes = bwd_bound(q, k, True, None)
+    lib = sdpa_bwd_ms(q, k, v, do)
+    fms = median_ms(lambda: FA.flash_attention(q, k, v, return_lse=True))
+    fplain = median_ms(lambda: R.attention_lse_ref(q, k, v),
+                       reps=PLAIN_REPS)
+    _, _, fflops, fbytes = k6_bound(q, k, True, None)
+    fbytes += 4 * q.shape[0] * q.shape[1] * q.shape[2]     # lse written
+    ft_ops, ft_bytes = fflops / BF16_FLOPS, fbytes / HBM_BYTES_PER_S
+    with torch.no_grad():
+        flib = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    shape = f"{tuple(q.shape)} kv {tuple(k.shape)}, causal"
+    res = {"shape": shape,
+           "bwd": {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": by, "flops": flops, "bytes": nbytes,
+                   "library_ms": lib, "rel_err": e7["rel"],
+                   "max_abs_err": e7["max_abs"]},
+           "fwd_lse": {"ms": fms, "plain_ms": fplain,
+                       "bound_ms": max(ft_ops, ft_bytes) * 1e3,
+                       "bound_by": "operations" if ft_ops >= ft_bytes
+                       else "bytes", "flops": fflops, "bytes": fbytes,
+                       "library_ms": flib, "rel_err": e6["rel"],
+                       "lse_abs_err": e6["lse_abs"]}}
+    print(f"time: K7 at {cfg.name}'s train layout {shape} (wgmma route): "
+          f"{ms:.3f} ms, bound {bound:.3f} ms ({by}), {k7_rates(ms, flops)}, "
+          f"plain {plain:.3f} ms, library scaled_dot_product_attention "
+          f"backward {lib:.3f} ms; per-(b, h) rel err {e7['rel']:.3e}; K6 "
+          f"with LSE {fms:.3f} ms, bound {res['fwd_lse']['bound_ms']:.3f} "
+          f"ms, plain {fplain:.3f} ms, library forward (no LSE) "
+          f"{flib:.3f} ms; LSE max abs err {e6['lse_abs']:.3e}")
+    del q, k, v, do, o, lse
+    return res
+
+
+def frontend_serving(cfg, dev) -> dict:
+    """One frontend-stub family served in bfloat16 at full width and depth,
+    params from ``lm.init_params`` on a seeded generator, every input the
+    codebook rows of seeded token ids: the 1 × 32768 prefill (the main
+    path of K6), K6 on captured layer 0 and its times, the plain-attention
+    prefill at FRONTEND_PLAIN_LEN with planted faults, qwen's M-RoPE grid
+    prefill, K8 on a captured decode layer and its times, 16 decode steps
+    (the main path of K8), decode held to the plain path, the profile."""
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    sync(dev)
+    print(f"init: {cfg.name}, {cfg.param_count()} params in bfloat16, "
+          f"{time.perf_counter() - t0:.3f} s; inputs are codebook rows "
+          f"({cfg.vocab_size} x {cfg.d_model})"
+          + (f", M-RoPE sections {cfg.mrope_sections}" if cfg.mrope else ""))
+    with served_codebook(cfg, dev):
+        res = frontend_served(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def frontend_served(cfg, params, dev) -> dict:
+    """``frontend_serving``'s phases, with the codebook on the card."""
+    inputs, logits, caches, prefill = phase_prefill(cfg, params, dev)
+    k6_calls, k6_share = phase_capture(cfg, params, inputs,
+                                       prefill["wall_s"], dev, keep=(0,))
+    prefill.update(k6_share)
+    k6_times = phase_k6_dense_times(cfg, k6_calls[0])
+    del k6_calls
+    plain = dense_prefill_plain(cfg, params, dev, FRONTEND_PLAIN_LEN)
+    mrope = mrope_prefill(cfg, params, dev) if cfg.mrope else None
+    calls, _ = k8_capture(cfg, params, caches, dev, keep=(0,))
+    captured = k8_on_captured(cfg, calls, f"{cfg.name} decode")
+    times = phase_k8_times(*calls[0], f"{cfg.name} decode layer 0, batch 1")
+    del calls
+    decode = phase_decode(cfg, params, logits, caches, dev)
+    decode["vs_plain_worst"] = decode_vs_plain(cfg, params, logits, caches,
+                                               dev)
+    profile = phase_profile(cfg, params, inputs, caches, dev)
+    del caches, inputs, logits
+    return {"arch": cfg.name, "prefill": prefill, "k6_times": k6_times,
+            "prefill_plain": plain, "mrope_grid": mrope,
+            "k8_captured": captured, "k8_times": times, "decode": decode,
+            "profile": profile}
+
+
+def phase_disk_corpus(cfg) -> dict:
+    """``DiskTokenStream`` on the host: ``write_corpus`` of CORPUS_STEPS
+    chunks of train_4k's real batch (256 × 4097 uint32 tokens each) into a
+    temporary directory, read back through the stream, every batch bit for
+    bit against ``synth_tokens`` (one more read wraps to chunk 0)."""
+    nb = CORPUS_BATCH * (TRAIN_SEQ + 1) * 4 * CORPUS_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        DiskTokenStream.write_corpus(d, cfg, CORPUS_BATCH, TRAIN_SEQ,
+                                     CORPUS_STEPS, seed=SEED)
+        wt = time.perf_counter() - t0
+        stream = DiskTokenStream(d, cfg, CORPUS_BATCH, TRAIN_SEQ)
+        t0 = time.perf_counter()
+        batches = [next(stream) for _ in range(CORPUS_STEPS + 1)]
+        rt = time.perf_counter() - t0
+        stored = sum(os.path.getsize(os.path.join(d, fn))
+                     for fn in os.listdir(d))
+    for step, b in enumerate(batches):
+        toks = synth_tokens(SEED, step % CORPUS_STEPS, CORPUS_BATCH,
+                            TRAIN_SEQ + 1, cfg.vocab_size)
+        expect(np.array_equal(b["inputs"]["tokens"], toks[:, :TRAIN_SEQ])
+               and np.array_equal(b["labels"], toks[:, 1:]),
+               f"DiskTokenStream batch {step} differs from synth_tokens")
+    res = {"chunks": CORPUS_STEPS, "token_bytes": nb, "stored_bytes": stored,
+           "write_s": wt, "write_mb_per_s": nb / wt / 1e6,
+           "read_s": rt, "read_batches": CORPUS_STEPS + 1,
+           "read_mb_per_s": nb * (CORPUS_STEPS + 1) / CORPUS_STEPS / rt / 1e6}
+    print(f"disk corpus: DiskTokenStream over a ChunkStore of "
+          f"{CORPUS_STEPS} chunks of {CORPUS_BATCH} x {TRAIN_SEQ + 1} uint32 "
+          f"tokens ({nb} bytes, {stored} on disk with the manifest and .npy "
+          f"headers): write_corpus {wt:.3f} s ({res['write_mb_per_s']:.1f} "
+          f"MB/s, token synthesis included), {CORPUS_STEPS + 1} batches read "
+          f"in {rt:.3f} s ({res['read_mb_per_s']:.1f} MB/s), every batch "
+          f"== synth_tokens bit for bit")
+    return res
+
+
+def phase_frontend(dev) -> dict:
+    """musicgen-medium and qwen2-vl-2b FULL: served (``frontend_serving``)
+    and trained (the main path through ``runtime.train_loop.train``, the
+    profile, the gradient parity with K7's drop-D fault, and K6-with-LSE
+    and K7 at the train layout); then the disk corpus."""
+    drop_d = "every layer's backward without D = rowsum(dO o O)"
+    k7_fault = {drop_d: bwd_window_faults()[drop_d]}
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        cfg = get_config(arch)
+        served = frontend_serving(cfg, dev)
+        torch.cuda.empty_cache()
+        trained = family_phase(cfg, dev, k7_fault, (drop_d,), witness=True)
+        trained["train_layout"] = frontend_train_layout(cfg, dev)
+        torch.cuda.empty_cache()
+        out[arch] = {"serve": served, "train": trained}
+    out["disk_corpus"] = phase_disk_corpus(get_config(FRONTEND_ARCHS[1]))
+    print(json.dumps({"frontend": out}, default=str))
+    return out
 
 
 def to_port_bounds() -> list:
@@ -5615,6 +6088,15 @@ def main() -> None:
     tf = phase_training_families(dev, k9b_ptx)
     print(f"[phase_training_families done at {time.perf_counter() - t0:.1f} s]")
     tfm, tz, tg = tf["falcon_mamba"], tf["zamba2"], tf["granite_moe"]
+    torch.cuda.empty_cache()
+    fe = phase_frontend(dev)
+    print(f"[phase_frontend done at {time.perf_counter() - t0:.1f} s]")
+    fe_short = {"musicgen-medium": "musicgen", "qwen2-vl-2b": "qwen"}
+
+    def fe_keys(rec_of, fields=("ms", "plain_ms", "bound_ms", "library_ms")):
+        """{musicgen_ms: …, qwen_ms: …}: one record of each frontend arch."""
+        return {f"{fe_short[a]}_{f}": rec_of(fe[a])[f]
+                for a in FRONTEND_ARCHS for f in fields}
     kernels = [{"name": f"bitpack_{name}", "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": times[name]["ms"],
@@ -5713,7 +6195,11 @@ def main() -> None:
         "launches_by_route_moe_hybrid": {
             "granite-moe-3b-a800m": gm["prefill"]["k6_routes"],
             "zamba2-1.2b": zb["prefill"]["k6_routes"],
-            "phi3.5-moe-42b-a6.6b (8 layers)": ph["prefill"]["k6_routes"]}})
+            "phi3.5-moe-42b-a6.6b (8 layers)": ph["prefill"]["k6_routes"]},
+        **fe_keys(lambda r: r["serve"]["k6_times"]),
+        "launches_by_route_frontend": {
+            a: fe[a]["serve"]["prefill"]["k6_routes"]
+            for a in FRONTEND_ARCHS}})
     tr, win = k7["train"], k7["window"]
     kernels.append({
         "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
@@ -5739,7 +6225,16 @@ def main() -> None:
         "library_ms_softcap_off": tr["fwd_lse"]["library_ms_softcap_off"],
         "window_ms": win["fwd_lse"]["ms"],
         "window_bound_ms": win["fwd_lse"]["bound_ms"],
-        "window_library_ms": win["fwd_lse"]["library_ms"]})
+        "window_library_ms": win["fwd_lse"]["library_ms"],
+        **fe_keys(lambda r: r["train"]["train_layout"]["fwd_lse"]),
+        "frontend_library": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) forward (no LSE)",
+        "launches_train_frontend": {
+            a: fe[a]["train"]["main_path"]["launches"]["flash_attention_lse"]
+            for a in FRONTEND_ARCHS},
+        "launches_by_route_train_frontend": {
+            a: fe[a]["train"]["main_path"]["k6_routes"]
+            for a in FRONTEND_ARCHS}})
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": K7_SOURCE,
         "replaces": K7_REPLACES,
@@ -5769,6 +6264,15 @@ def main() -> None:
             for rec in (tz, tg)},
         "launches_by_route_train_moe_hybrid": {
             rec["arch"]: rec["main_path"]["k7_routes"] for rec in (tz, tg)},
+        **fe_keys(lambda r: r["train"]["train_layout"]["bwd"]),
+        "frontend_library": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) backward alone",
+        "launches_train_frontend": {
+            a: fe[a]["train"]["main_path"]["launches"]["flash_attention_bwd"]
+            for a in FRONTEND_ARCHS},
+        "launches_by_route_train_frontend": {
+            a: fe[a]["train"]["main_path"]["k7_routes"]
+            for a in FRONTEND_ARCHS},
         "planted_faults_rel": {k: v["rel"] for k, v in
                                k7_parity["planted_faults"].items()}})
     t9 = fm["times"]
@@ -5879,7 +6383,13 @@ def main() -> None:
             "granite-moe-3b-a800m": gm["decode"]["k8_launches_per_step"],
             "zamba2-1.2b": zb["decode"]["k8_launches_per_step"],
             "phi3.5-moe-42b-a6.6b (8 layers)": ph["decode"][
-                "k8_launches_per_step"]}})
+                "k8_launches_per_step"]},
+        **fe_keys(lambda r: r["serve"]["k8_times"]),
+        "launches_by_route_frontend": {
+            a: fe[a]["serve"]["decode"]["k8_routes"] for a in FRONTEND_ARCHS},
+        "launches_per_step_frontend": {
+            a: fe[a]["serve"]["decode"]["k8_launches_per_step"]
+            for a in FRONTEND_ARCHS}})
     print(json.dumps({"to_port": to_port_bounds()}))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))

@@ -89,7 +89,9 @@ def lm_params_from_jax(params, cfg, device=None) -> dict:
     """The reference's ``lm.init_params`` pytree (dicts of array-likes)
     → the port's params: the same dicts, ``blocks`` as a list of L (each
     with its ``moe`` subtree for the MoE family, its mamba2 leaves for the
-    hybrid), and the hybrid's one ``shared`` block as it is."""
+    hybrid), and the hybrid's one ``shared`` block as it is.  Every family
+    of the reference crosses: the frontend stubs' blocks are dense ones
+    (musicgen's MLP non-gated GELU), their table the tied LM head."""
     conv = lambda a: array_to_torch(a, device)  # noqa: E731
     out = {"embed": T.tree_map(conv, params["embed"]),
            "final_norm": conv(params["final_norm"]),

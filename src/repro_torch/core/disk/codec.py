@@ -1,35 +1,86 @@
-"""The ``rle2`` chunk codec of the distance oracle's compressed artifacts
-(the port's copy of the parts of ``repro/core/disk/codec.py`` it needs:
-``:80-163``, ``:234-246`` and ``:341-384``).
+"""Compressed chunk codecs — varint-delta sorted keys, RLE 2-bit bytes:
+the port's own copy of ``repro/core/disk/codec.py``, byte for byte the
+same formats, refusals and ``codec`` counters.  Host I/O, so numpy.
 
-A packed 2-bit chunk (uint8 bytes, 4 fields each) is dominated by long
-runs of one byte, so it is stored as a container: ``MAGIC``, the codec id,
-a header of (n_bytes, n_runs), the run values as raw bytes, the run
-lengths as one LEB128 varint stream, and a crc32 of everything before it.
-Corrupt data raises :class:`CodecError`: truncation, bit flips, overlong
-or overflowing varints, non-canonical runs and wrong codec ids are all
-refused, never decoded into wrong bytes.
+Roomy's binding resource is disk bandwidth (paper §2): both engines are
+I/O-bound at the sizes that matter, so bytes saved on scratch are passes
+saved on the wall clock.  This module is the one home for the on-disk
+compressed formats and their integrity rules:
 
-This is host I/O, so it stays numpy.  Raw and stored byte counts book
-into the ``codec`` counter namespace per caller tag
-(``{tag}_raw_bytes`` / ``{tag}_stored_bytes`` on encode, ``*_read`` on
-decode), as in the reference.
+* ``keys`` codec (id 1) — sorted-run rows.  Ranks within a sorted run
+  are non-decreasing integers; the encoder packs each row into a uint64
+  key (width ≤ 2 uint32 words — big-endian lexicographic row order ==
+  numeric key order), delta-encodes within fixed-size blocks, and
+  LEB128-varints the deltas.  A **skip index** of
+  ``(first_key, last_key, byte_offset, n_rows)`` per block lets
+  ``MembershipProbe`` range-pruning and ``PassPlan`` chunk traversal
+  decode only the blocks a query window touches
+  (:class:`CompressedKeyReader`).  Width > 2 has no lossless uint64
+  packing — stores silently fall back to raw ``.npy`` (the
+  when-not-to-compress rule, docs/compression.md).
+
+* ``rle2`` codec (id 2) — the 2-bit array's packed bytes.  A BFS
+  array is dominated by long ``UNSEEN`` (0x00) then ``DONE`` (0xFF)
+  stretches; runs are stored columnar (values, then varint lengths) so
+  both encode and decode are single vectorized numpy passes.
+
+* ``wire`` framing — optional zlib compression of transport bucket
+  payloads (docs/transports.md).  Bucket bytes carry *ordered* op logs
+  (per-key op order is a correctness contract), so the wire codec is a
+  byte-transparent wrapper, never a re-sort.
+
+Integrity is loud by construction: every container ends in a crc32 of
+everything before it, varint streams reject truncation / overlong /
+overflowing encodings, and block payloads must reproduce their skip
+index exactly.  Corrupt data raises :class:`CodecError` — wrong bytes
+are never returned.
+
+Accounting: raw vs stored byte counts book into the ``codec`` obs
+namespace per caller tag (``{tag}_raw_bytes`` / ``{tag}_stored_bytes``
+on encode, ``*_read`` on decode) plus skip-index effectiveness
+(``blocks_decoded`` / ``blocks_skipped``).  Codec I/O is segregated
+from the sort/merge/pass ledgers the CI gate pins — same discipline as
+the ``ckpt_*`` counters — so compressed ≡ uncompressed holds for every
+pass budget, by the byte.
 """
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .. import obs
 
+__all__ = [
+    "CodecError", "STATS", "MAGIC", "CODEC_KEYS", "CODEC_RLE2",
+    "encode_keys", "decode_keys", "CompressedKeyReader",
+    "encode_rle2", "decode_rle2", "sniff",
+    "wire_encode", "wire_decode",
+    "rows_to_u64", "u64_to_rows", "max_packable_width",
+]
+
 MAGIC = b"RMZ1"
+WIRE_MAGIC = b"RMZW"
+CODEC_KEYS = 1
 CODEC_RLE2 = 2
+
+#: Rows wider than this have no lossless uint64 key packing → raw fallback.
+_MAX_KEY_WIDTH = 2
+
+#: Rows per skip-index block (last block may be short).  Small enough
+#: that a narrow probe window decodes a fraction of a chunk, large
+#: enough that the 28-byte index entry amortizes to < 0.1 bit/row.
+BLOCK_ROWS = 4096
 
 _VARINT_MAX_LEN = 10          # ceil(64 / 7)
 
-STATS = obs.counters("codec", {"codec_errors": 0})
+# Raw-vs-stored byte ledgers, keyed by caller tag at runtime
+# (``extsort_raw_bytes``, ``bits_stored_bytes``, ...).  Lives in its own
+# namespace so the sort/merge/pass budgets stay codec-blind.
+STATS = obs.counters("codec", {
+    "blocks_decoded": 0, "blocks_skipped": 0, "codec_errors": 0})
 
 
 class CodecError(Exception):
@@ -38,7 +89,7 @@ class CodecError(Exception):
     never return wrong data."""
 
 
-def _err(msg: str) -> CodecError:
+def _err(msg: str) -> "CodecError":
     STATS["codec_errors"] += 1
     return CodecError(msg)
 
@@ -74,8 +125,7 @@ def _varint_encode(vals: np.ndarray) -> bytes:
     out = np.zeros(int(offs[-1] + nb[-1]), np.uint8)
     for k in range(int(nb.max())):
         sel = nb > k
-        byte = ((vals[sel] >> np.uint64(7 * k)) & np.uint64(0x7F)
-                ).astype(np.uint8)
+        byte = ((vals[sel] >> np.uint64(7 * k)) & np.uint64(0x7F)).astype(np.uint8)
         byte[nb[sel] > k + 1] |= 0x80          # continuation bit
         out[offs[sel] + k] = byte
     return out.tobytes()
@@ -108,12 +158,80 @@ def _varint_decode(buf: np.ndarray) -> np.ndarray:
     vals = np.zeros(ends.shape[0], np.uint64)
     for k in range(maxlen):
         sel = lens > k
-        vals[sel] |= ((buf[starts[sel] + k] & np.uint64(0x7F))
-                      .astype(np.uint64) << np.uint64(7 * k))
+        vals[sel] |= ((buf[starts[sel] + k] & np.uint64(0x7F)).astype(np.uint64)
+                      << np.uint64(7 * k))
     return vals
 
 
-# ------------------------------------------------------------- container
+# --------------------------------------------------------- key <-> row pack
+
+def max_packable_width() -> int:
+    return _MAX_KEY_WIDTH
+
+
+def rows_to_u64(rows: np.ndarray) -> np.ndarray:
+    """(n, w≤2) uint32 rows → (n,) uint64 keys; numeric key order ==
+    lexicographic row order (== the store's big-endian byte-key order)."""
+    rows = np.ascontiguousarray(rows, np.uint32)
+    w = rows.shape[1]
+    if w == 1:
+        return rows[:, 0].astype(np.uint64)
+    if w == 2:
+        return ((rows[:, 0].astype(np.uint64) << np.uint64(32))
+                | rows[:, 1].astype(np.uint64))
+    raise _err(f"keys codec packs width <= {_MAX_KEY_WIDTH}, got {w}")
+
+
+def u64_to_rows(keys: np.ndarray, width: int) -> np.ndarray:
+    if width == 1:
+        return keys.astype(np.uint32).reshape(-1, 1)
+    if width == 2:
+        return np.stack(
+            [(keys >> np.uint64(32)).astype(np.uint32),
+             (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)], axis=1)
+    raise _err(f"keys codec packs width <= {_MAX_KEY_WIDTH}, got {width}")
+
+
+# ------------------------------------------------------------- keys codec
+
+_KEYS_HDR = struct.Struct("<BIII")       # width, n_rows, n_blocks, block_rows
+_SKIP_ENT = struct.Struct("<QQQI")       # first_key, last_key, offset, n_rows
+
+
+def encode_keys(rows: np.ndarray, tag: str = "codec",
+                block_rows: int = BLOCK_ROWS) -> bytes:
+    """Compress one sorted chunk of (n, w≤2) uint32 rows.
+
+    Layout: MAGIC, codec id, header, skip index, per-block varint
+    payload (absolute first key + deltas), crc32 trailer.  Raises
+    CodecError if the rows are not non-decreasing — compression never
+    silently reorders.
+    """
+    rows = np.ascontiguousarray(rows, np.uint32).reshape(-1, rows.shape[-1])
+    keys = rows_to_u64(rows)
+    n = keys.shape[0]
+    if n > 1 and (keys[1:] < keys[:-1]).any():
+        raise _err("encode_keys: rows are not sorted (delta would wrap)")
+    nblocks = -(-n // block_rows) if n else 0
+    index: List[bytes] = []
+    payload: List[bytes] = []
+    off = 0
+    for b in range(nblocks):
+        blk = keys[b * block_rows:(b + 1) * block_rows]
+        deltas = blk.copy()
+        deltas[1:] = blk[1:] - blk[:-1]
+        enc = _varint_encode(deltas)
+        index.append(_SKIP_ENT.pack(int(blk[0]), int(blk[-1]), off,
+                                    blk.shape[0]))
+        payload.append(enc)
+        off += len(enc)
+    body = (MAGIC + bytes([CODEC_KEYS])
+            + _KEYS_HDR.pack(rows.shape[1], n, nblocks, block_rows)
+            + b"".join(index) + b"".join(payload))
+    out = body + struct.pack("<I", zlib.crc32(body))
+    book(tag, rows.nbytes, len(out))
+    return out
+
 
 def _check_container(buf: bytes, want_codec: int) -> memoryview:
     """Common magic/codec/crc validation; returns the view after the id
@@ -128,6 +246,93 @@ def _check_container(buf: bytes, want_codec: int) -> memoryview:
     if zlib.crc32(memoryview(buf)[:-4]) != crc:
         raise _err("crc32 mismatch: compressed chunk corrupt")
     return memoryview(buf)[5:-4]
+
+
+class CompressedKeyReader:
+    """Skip-indexed view over one ``keys``-codec chunk.
+
+    Decodes blocks lazily and caches them, so a probe whose query window
+    touches a fraction of the chunk pays a fraction of the decode —
+    the compressed analogue of manifest-range chunk pruning, one level
+    finer.  ``keys_between`` returns the (sorted, contiguous) keys of
+    every block intersecting ``[lo, hi]``; membership searchsorted over
+    that span is exact for any query inside the window.
+    """
+
+    def __init__(self, buf: bytes, tag: str = "codec"):
+        body = _check_container(buf, CODEC_KEYS)
+        self._tag = tag
+        self.width, self.n_rows, self.n_blocks, self.block_rows = \
+            _KEYS_HDR.unpack_from(body, 0)
+        isz = self.n_blocks * _SKIP_ENT.size
+        if len(body) < _KEYS_HDR.size + isz:
+            raise _err("skip index truncated")
+        self.first = np.empty(self.n_blocks, np.uint64)
+        self.last = np.empty(self.n_blocks, np.uint64)
+        self._offs = np.empty(self.n_blocks + 1, np.int64)
+        self._rows = np.empty(self.n_blocks, np.int64)
+        for b in range(self.n_blocks):
+            fk, lk, off, nr = _SKIP_ENT.unpack_from(
+                body, _KEYS_HDR.size + b * _SKIP_ENT.size)
+            self.first[b], self.last[b], self._offs[b], self._rows[b] = \
+                fk, lk, off, nr
+        self._payload = np.frombuffer(
+            body, np.uint8, offset=_KEYS_HDR.size + isz)
+        self._offs[-1] = self._payload.shape[0]
+        if int(self._rows.sum()) != self.n_rows or (self._rows <= 0).any():
+            raise _err("skip index row counts disagree with header")
+        if self.n_blocks and ((self.first[1:] < self.last[:-1]).any()
+                              or (self.last < self.first).any()):
+            raise _err("skip index not sorted")
+        self._cache: Dict[int, np.ndarray] = {}
+
+    def _decode_block(self, b: int) -> np.ndarray:
+        blk = self._cache.get(b)
+        if blk is not None:
+            return blk
+        lo, hi = int(self._offs[b]), int(self._offs[b + 1])
+        if hi > self._payload.shape[0] or lo > hi:
+            raise _err("block payload truncated")
+        deltas = _varint_decode(self._payload[lo:hi])
+        if deltas.shape[0] != self._rows[b]:
+            raise _err(f"block {b}: {deltas.shape[0]} values, "
+                       f"skip index says {self._rows[b]}")
+        keys = np.cumsum(deltas, dtype=np.uint64)
+        if keys[0] != self.first[b] or keys[-1] != self.last[b]:
+            raise _err(f"block {b}: decoded ends disagree with skip index")
+        self._cache[b] = keys
+        STATS["blocks_decoded"] += 1
+        book(self._tag, keys.nbytes // 2 * self.width, hi - lo, read=True)
+        return keys
+
+    def block_span(self, lo: int, hi: int) -> Tuple[int, int]:
+        """[b0, b1) of blocks whose key range intersects [lo, hi] —
+        binary search over the skip index, no payload touched."""
+        b0 = int(np.searchsorted(self.last, np.uint64(lo), side="left"))
+        b1 = int(np.searchsorted(self.first, np.uint64(hi), side="right"))
+        return b0, max(b0, b1)
+
+    def keys_between(self, lo: int, hi: int) -> np.ndarray:
+        b0, b1 = self.block_span(lo, hi)
+        STATS["blocks_skipped"] += self.n_blocks - (b1 - b0)
+        parts = [self._decode_block(b) for b in range(b0, b1)]
+        if not parts:
+            return np.zeros(0, np.uint64)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def all_keys(self) -> np.ndarray:
+        parts = [self._decode_block(b) for b in range(self.n_blocks)]
+        if not parts:
+            return np.zeros(0, np.uint64)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def all_rows(self) -> np.ndarray:
+        return u64_to_rows(self.all_keys(), self.width)
+
+
+def decode_keys(buf: bytes, tag: str = "codec") -> np.ndarray:
+    """Full decode: compressed chunk → (n, w) uint32 rows."""
+    return CompressedKeyReader(buf, tag=tag).all_rows()
 
 
 # -------------------------------------------------------------- rle2 codec
@@ -177,3 +382,37 @@ def decode_rle2(buf: bytes, tag: str = "codec") -> np.ndarray:
     out = np.repeat(vals, lens.astype(np.int64))
     book(tag, n_bytes, len(buf), read=True)
     return out
+
+
+# ----------------------------------------------------------------- sniffing
+
+def sniff(buf: bytes) -> Optional[int]:
+    """Codec id of a compressed chunk, or None for anything else (e.g. a
+    raw ``.npy``).  Only looks at the magic — validation happens on
+    decode."""
+    if len(buf) >= 5 and bytes(buf[:4]) == MAGIC:
+        return buf[4]
+    return None
+
+
+# ------------------------------------------------------------- wire framing
+
+def wire_encode(payload: bytes, tag: str = "transport") -> bytes:
+    """zlib-frame one transport bucket payload (order-preserving: bucket
+    bytes are ordered op logs, so the wire codec never re-sorts)."""
+    out = WIRE_MAGIC + zlib.compress(payload, 6)
+    book(tag, len(payload), len(out))
+    return out
+
+
+def wire_decode(buf: bytes, tag: str = "transport") -> bytes:
+    """Inverse of :func:`wire_encode`; plain payloads pass through, so a
+    compressing sender interoperates with an agnostic receiver."""
+    if buf[:4] != WIRE_MAGIC:
+        return buf
+    try:
+        payload = zlib.decompress(bytes(buf[4:]))
+    except zlib.error as e:
+        raise _err(f"wire payload corrupt: {e}") from None
+    book(tag, len(payload), len(buf), read=True)
+    return payload

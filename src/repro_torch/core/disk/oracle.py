@@ -32,9 +32,10 @@ Artifact layout, byte for byte the reference's::
 Chunk c is bytes ``[c·chunk_elems/4, c·chunk_elems/4 + ceil(rows/4))`` of
 the label words' little-endian byte view: 16 fields a word at bits 2j is 4
 fields a byte at bits 2j.  Staging (``v*.tmp`` → ``os.rename`` seal →
-manifest ``.tmp`` + ``os.replace``) makes every step atomic.  The
-reference's ``faults.retry_io`` wrapping of the seal and the manifest
-write has no counterpart here (ROADMAP §3).
+manifest ``.tmp`` + ``os.replace``) makes every step atomic, and both
+the seal and the manifest write run under ``faults.retry_io`` at the
+``oracle_publish`` site, as in the reference: a transient fault retries
+to the same artifact, a fatal one raises.
 
 Exact distances from mod-3 codes: **greedy descent**.  A walker at code c
 moves to the first neighbour, in generator order, with code
@@ -69,6 +70,7 @@ from .. import bitarray as BA
 from .. import constructs as C
 from .. import obs
 from . import codec as _codec
+from . import faults
 from .buckets import block_owner
 
 __all__ = ["OracleError", "DistanceOracle", "ShardedOracle", "Chunk",
@@ -262,12 +264,18 @@ def publish_oracle(dst: str, n_states: int, start, neighbor_fn: Callable, *,
     # META lands last inside the stage: a sealed dir always carries it.
     with open(os.path.join(stage, META), "wb") as f:
         f.write(meta_blob)
-    os.rename(stage, vdir)                                  # atomic seal
-    tmp = os.path.join(dst, MANIFEST + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump({"format": fmt, "version": version,
-                   "meta_sha256": _sha256_bytes(meta_blob)}, f)
-    os.replace(tmp, os.path.join(dst, MANIFEST))
+    faults.retry_io(
+        "oracle_publish",
+        lambda: os.path.isdir(stage) and os.rename(stage, vdir),
+        version=version)                                    # atomic seal
+
+    def _point_manifest() -> None:
+        tmp = os.path.join(dst, MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump({"format": fmt, "version": version,
+                       "meta_sha256": _sha256_bytes(meta_blob)}, f)
+        os.replace(tmp, os.path.join(dst, MANIFEST))
+    faults.retry_io("oracle_publish", _point_manifest, version=version)
     # Versions are immutable — only stray staging dirs are collected.
     for fn in os.listdir(dst):
         if fn.endswith(".tmp") and fn != MANIFEST + ".tmp":

@@ -12,6 +12,9 @@ server (``runtime/serve_loop.py``) over Roomy paged KV caches.
 
 ``--arch``: gemma2-2b, falcon-mamba-7b, nemotron-4-15b, minicpm-2b,
 granite-34b, granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b or zamba2-1.2b.
+The frontend-stub archs (musicgen-medium, qwen2-vl-2b) take embeddings,
+not prompt tokens: the Server refuses them with ``ValueError``, where the
+reference's asserts.
 granite-34b's 93.9 GB and phi3.5-moe's 83.7 GB of bfloat16 params no
 single 80 GB card holds: ``--smoke`` only for those two, until the mesh.
 The flags and defaults of ``repro/launch/serve.py``, plus ``--device``

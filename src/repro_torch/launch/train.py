@@ -7,13 +7,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch falcon-mamba-7b --smoke --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b \
+        --batch 1 --seq 4096 --steps 6
 
 The flags and defaults of ``repro/launch/train.py``, plus ``--device``
-(default "cuda"; raises without a card).  Every family the port serves
-trains: dense (gemma2-2b, nemotron-4-15b, minicpm-2b, granite-34b), MoE
-(granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b), ssm (falcon-mamba-7b) and
-hybrid (zamba2-1.2b).  The reference runs ``--smoke`` with its plain
-attention and scan (the Pallas kernels do not run on its CPU); the port
+(default "cuda"; raises without a card).  All ten archs of the reference
+train: dense (gemma2-2b, nemotron-4-15b, minicpm-2b, granite-34b), MoE
+(granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b), ssm (falcon-mamba-7b),
+hybrid (zamba2-1.2b) and the frontend stubs (musicgen-medium: audio;
+qwen2-vl-2b: vision, M-RoPE), whose batches carry codebook embeddings.
+The reference runs ``--smoke`` with its plain attention and scan (the
+Pallas kernels do not run on its CPU); the port
 keeps ``kernels="auto"``, which runs the plain versions for CPU tensors
 and, on the card, K6-with-LSE and K7 for attention, K9 and K9-bwd for the
 selective scan.  ``--tp > 1`` (a tensor-parallel mesh) waits for the
@@ -24,7 +28,6 @@ from __future__ import annotations
 import argparse
 
 from ..configs import get_config
-from ..models import lm
 from ..runtime import TrainSettings, train
 
 
@@ -57,7 +60,6 @@ def main(argv=None):
             "repro_torch yet: ROADMAP item 9.8")
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    lm.check_trainable(cfg)
     settings = TrainSettings(
         batch=args.batch, seq=args.seq, steps=args.steps, lr=args.lr,
         schedule=args.schedule, num_microbatches=args.microbatches,

@@ -23,7 +23,7 @@ from ..kernels import ops as kops
 from ..kernels import ref as kref
 from .config import ModelConfig
 from .layers import cdtype, dense_init
-from .rope import rope
+from .rope import mrope, rope
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *, device,
@@ -48,6 +48,10 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _apply_rope(q, k, positions, cfg: ModelConfig):
+    """RoPE over (..., S) positions, or M-RoPE over (..., S, 3) ones."""
+    if cfg.mrope:
+        return (mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                     cfg.rope_theta)
 
@@ -78,7 +82,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: paged.PagedKV,
                      ) -> Tuple[torch.Tensor, paged.PagedKV]:
     """One-token decode step against the paged cache.
 
-    x: (B, 1, d).  Rope positions are the cache's lengths.  After the
+    x: (B, 1, d).  Rope positions are the cache's lengths (repeated into
+    the three streams under M-RoPE, as the reference does).  After the
     append, a layer without a window reads the pages through the table
     with K8 (``ops.paged_decode_attention``); a windowed layer gathers the
     cache and runs the plain ``decode_attention_ref`` under the window
@@ -87,7 +92,10 @@ def decode_attention(p: dict, x: torch.Tensor, cache: paged.PagedKV,
     cache)."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg)                       # (B, 1, H/KVH, D)
-    q, k = _apply_rope(q, k, cache.lengths[:, None], cfg)
+    positions = cache.lengths[:, None]              # (B, 1)
+    if cfg.mrope:
+        positions = positions[..., None].expand(-1, -1, 3)
+    q, k = _apply_rope(q, k, positions, cfg)
     cache = paged.append(cache, k[:, 0], v[:, 0], inplace=donate)
     softcap = cfg.attn_softcap or None
     if window is None:

@@ -2,22 +2,23 @@
 
 It keeps the fields and derived properties that the dense (gemma2,
 nemotron, minicpm, granite), mamba1 (falcon-mamba), MoE (granite-moe,
-phi3.5-moe) and hybrid (zamba2: mamba2 with a shared attention block)
-paths read.  The frontend fields and M-RoPE come with the slice that
-ports them (ROADMAP item 9.6), the mesh fields with item 9.8.  Frozen, so
-a config can be shared and compared.
+phi3.5-moe), hybrid (zamba2: mamba2 with a shared attention block) and
+frontend-stub (musicgen: audio; qwen2-vl: vision, M-RoPE) paths read.
+The mesh fields come with ROADMAP item 9.8.  Frozen, so a config can be
+shared and compared.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid (ported) | audio | vlm
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int                 # query heads; 0 for attention-free archs
@@ -48,6 +49,8 @@ class ModelConfig:
     attn_softcap: float = 0.0        # attention-logit tanh cap (gemma2: 50)
     post_norm: bool = False          # gemma2 post-block RMSNorms
     rope_theta: float = 10_000.0
+    mrope: bool = False              # qwen2-vl M-RoPE (3 position streams)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
 
     # --- MLP ---
     mlp_act: str = "silu"            # silu | gelu | relu2
@@ -58,6 +61,7 @@ class ModelConfig:
 
     # --- embeddings / head ---
     tie_embeddings: bool = True      # False: an own (d, vocab) LM head
+    frontend_stub: bool = False      # audio/vlm: inputs are embeddings
     scale_embeddings: bool = False   # gemma2: multiply embeds by sqrt(d)
 
     # --- numerics ---
@@ -101,12 +105,14 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, as the reference counts it
-        (``repro/models/config.py:111-160``): the embedding once if tied,
-        two norm gains per layer (a mamba block has one, but the reference
+        (``repro/models/config.py:111-160``): the embedding once if tied
+        or a frontend stub's (its table is the LM head alone), two norm
+        gains per layer (a mamba block has one, but the reference
         counts two), the hybrid's one shared block, the final norm.  MoE
         counts ``n_experts``, not the padded experts the params hold."""
         d, v = self.d_model, self.vocab_size
-        n = v * d if self.tie_embeddings else 2 * v * d
+        tied = self.tie_embeddings or self.frontend_stub
+        n = v * d if tied else 2 * v * d
         if self.family == "ssm":
             per_layer = self._mamba_params(1)
         elif self.family == "hybrid":

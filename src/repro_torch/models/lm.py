@@ -2,8 +2,10 @@
 gemma2's alternating local/global layers, and the untied LM head of
 nemotron), the MoE family (granite-moe, phi3.5-moe: the dense block with
 ``models/moe.py`` for its MLP), the ssm family (falcon-mamba, mamba1
-blocks over K9) and the hybrid family (zamba2: mamba2 blocks with one
-shared attention block between segments of them).
+blocks over K9), the hybrid family (zamba2: mamba2 blocks with one
+shared attention block between segments of them) and the frontend-stub
+families (musicgen: audio; qwen2-vl: vision with M-RoPE), whose dense
+blocks take embeddings in place of token ids.
 
 Port of ``repro/models/lm.py``.  Entry points:
 
@@ -16,7 +18,9 @@ Port of ``repro/models/lm.py``.  Entry points:
               donate=False)                   → (logits (B, 1, V), caches)
   make_cache(cfg, batch, max_len, device=)    → empty caches
 
-``inputs``: {"tokens": (B, S) integer, "positions": (B, S) integer}.
+``inputs``: {"tokens": (B, S) integer} or, for a frontend-stub config,
+{"embeds": (B, S, d)}, plus "positions": (B, S) integer, or (B, S, 3)
+under M-RoPE.
 Layout: the reference stacks its blocks and caches over layers ((L, …),
 or (L/2, 2, …) local/global pairs for gemma2) to scan over them; the port
 runs eagerly and keeps one entry per layer, in order: ``params["blocks"]``
@@ -31,10 +35,8 @@ shared block}.
 ``convert.lm_params_from_jax`` / ``lm_caches_from_jax`` carry the
 reference's stacked pytrees across.
 
-The frontend families raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.  Every other family trains: ``loss_fn``'s gradient
-runs through K6-with-LSE and K7 (attention) and K9 and K9-bwd (the
-selective scan) on the card.
+Every family trains: ``loss_fn``'s gradient runs through K6-with-LSE and
+K7 (attention) and K9 and K9-bwd (the selective scan) on the card.
 """
 from __future__ import annotations
 
@@ -55,22 +57,6 @@ from .layers import cdtype, embed_tokens, init_embedding, lm_head, rms_norm
 from .ssm import init_ssm_state
 
 PAGE_SIZE = 128
-
-_NOT_PORTED = {"audio": "9.6 (frontend stubs)", "vlm": "9.6 (frontend stubs)"}
-
-
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet: ROADMAP item {_NOT_PORTED[cfg.family]}")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family whose training is not ported: the frontend
-    families (audio, vlm), which are not ported at all.  The dense, MoE,
-    ssm and hybrid families train."""
-    _ported(cfg)
 
 
 def _hybrid_segments(cfg: ModelConfig):
@@ -104,7 +90,6 @@ def init_params(cfg: ModelConfig, gen, *, device=None,
                 dtype: torch.dtype = torch.float32) -> dict:
     """Random params on ``device`` (default "cuda"), stored in ``dtype``.
     ``gen`` is a ``torch.Generator`` on that device, or an int seed."""
-    _ported(cfg)
     if cfg.local_global_pattern and cfg.n_layers % 2:
         raise ValueError("the local/global pattern needs an even n_layers")
     dev = _device.resolve(device)
@@ -128,7 +113,13 @@ def init_params(cfg: ModelConfig, gen, *, device=None,
 # ------------------------------------------------------------- forward
 
 def _embed(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
-    x = embed_tokens(params["embed"], inputs["tokens"], cfg)
+    """The stub frontend's embeddings in the compute dtype when the config
+    has one and the inputs carry them, else the token ids' table rows
+    (``repro/models/lm.py:110-116``)."""
+    if cfg.frontend_stub and "embeds" in inputs:
+        x = inputs["embeds"].to(cdtype(cfg))
+    else:
+        x = embed_tokens(params["embed"], inputs["tokens"], cfg)
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -143,7 +134,6 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
     every transformer block, and every mamba block of the ssm and hybrid
     families.  The hybrid's shared block runs after each segment that asks
     for it, never rematted, as in the reference."""
-    _ported(cfg)
     x = _embed(params, inputs, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     if cfg.family in ("ssm", "hybrid"):
@@ -177,8 +167,8 @@ def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def loss_fn(params, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is >= 0, on
     float32 logits (``repro/models/lm.py:192-216`` on one device).
-    ``batch``: {"inputs": {"tokens", "positions"}, "labels": (B, S)}."""
-    check_trainable(cfg)
+    ``batch``: {"inputs": {"tokens" or "embeds", "positions"}, "labels":
+    (B, S)}."""
     hidden = forward_hidden(params, batch["inputs"], cfg)
     logits = logits_fn(params, hidden, cfg).float()
     labels = batch["labels"].long()
@@ -212,7 +202,6 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     one zero ``SSMState`` per layer (``max_len`` unused); for the hybrid
     family one mamba2 ``SSMState`` per layer and one ``PagedKV`` per
     application of the shared block."""
-    _ported(cfg)
     dev = _device.resolve(device)
     max_len = _round_len(max_len)
 
@@ -238,7 +227,6 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
     conv's last inputs); ``max_len`` is unused.  The hybrid family's are
     each mamba2 layer's ``SSMState`` and each shared-block application's
     ``PagedKV``."""
-    _ported(cfg)
     x = _embed(params, inputs, cfg)
     if cfg.family == "ssm":
         states = []
@@ -280,8 +268,9 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
 
 def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
                 donate: bool = False):
-    """One-token step.  inputs: {"tokens": (B, 1)}; rope positions come
-    from the caches' lengths.  Returns (logits (B, 1, V), new caches);
+    """One-token step.  inputs: {"tokens": (B, 1)} or, for a frontend
+    stub, {"embeds": (B, 1, d)}; rope positions come from the caches'
+    lengths.  Returns (logits (B, 1, V), new caches);
     the caches passed in are left as they were, unless ``donate``: then
     each layer's new K/V row is written into the pages passed in (the
     returned caches share them), as the reference's decode step donates
@@ -289,7 +278,6 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
     holds one copy of the cache and moves none of it.  Every unwindowed
     attention layer reads its cache with K8 (the hybrid's shared block
     once per application, each over its own cache)."""
-    _ported(cfg)
     x = _embed(params, inputs, cfg)
     if cfg.family == "ssm":
         states = []

@@ -12,6 +12,8 @@ state, are not reset, as in the reference.
 Greedy sampling (argmax, first index on ties).
 
 The Server never calls ``lm.prefill``: the reference's does not either.
+It serves the token-input archs only and refuses a frontend-stub config
+(musicgen, qwen2-vl), as the reference does.
 """
 from __future__ import annotations
 
@@ -66,6 +68,10 @@ def _merge_ssm(new: SSMState, old: SSMState, slot: int) -> SSMState:
 class Server:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
                  max_len: int = 256, greedy: bool = True, device=None):
+        if cfg.frontend_stub:
+            # repro/runtime/serve_loop.py:39 asserts the same
+            raise ValueError(f"{cfg.name}: the serving demo uses token-input "
+                             "archs; a frontend stub takes embeddings")
         self.cfg, self.params = cfg, params
         self.max_batch, self.max_len = max_batch, max_len
         self.greedy = greedy

@@ -16,7 +16,9 @@ launches (``attention.flash_attention_lse``, ``attention
 .flash_attention_bwd``).
 
 Params are float32 master copies on ``device`` (default "cuda"); the model
-computes in ``cfg.dtype``.  The gradient comes from ``torch.autograd``
+computes in ``cfg.dtype``.  A frontend-stub config's batches carry float32
+codebook embeddings (``data.pipeline.make_batch``, the codebook drawn once
+per shape).  The gradient comes from ``torch.autograd``
 through ``lm.loss_fn``, whose attention is K6 with its LSE output forward
 and K7 backward (``kernels/ops.py``).
 

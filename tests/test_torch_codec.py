@@ -144,3 +144,137 @@ def test_garbage_never_decodes_silently():
                          (tcodec.decode_rle2, tcodec.CodecError)):
             with pytest.raises(err):
                 dec(blob)
+
+
+# ------------------------------------------------ the keys codec and wire
+
+KEY_ROWS = [  # (rows, block_rows)
+    (np.zeros((0, 1), np.uint32), 4096),
+    (np.zeros((1, 2), np.uint32), 4096),
+    (np.sort(np.random.default_rng(3).integers(
+        0, 1 << 32, (10_000, 1), dtype=np.uint64).astype(np.uint32), 0), 4096),
+    (np.full((5000, 1), 7, np.uint32), 1000),           # equal keys: delta 0
+    (np.random.default_rng(4).integers(0, 50, (3000, 2)).astype(np.uint32),
+     333),
+    (np.array([[0, 0], [0, 0xFFFFFFFF], [1, 0], [0xFFFFFFFF, 0xFFFFFFFF]],
+              np.uint32), 2),
+]
+
+
+def _keys_case(i):
+    rows, block = KEY_ROWS[i]
+    if rows.shape[1] == 2:
+        rows = rows[np.lexsort(rows.T[::-1])]
+    return rows, block
+
+
+@pytest.mark.parametrize("i", range(len(KEY_ROWS)))
+def test_encode_keys_gives_the_reference_bytes(i):
+    rows, block = _keys_case(i)
+    got = tcodec.encode_keys(rows, block_rows=block)
+    assert got == jcodec.encode_keys(rows, block_rows=block)
+    assert tcodec.sniff(got) == jcodec.sniff(got) == tcodec.CODEC_KEYS
+    np.testing.assert_array_equal(tcodec.decode_keys(
+        jcodec.encode_keys(rows, block_rows=block)), rows)
+    np.testing.assert_array_equal(jcodec.decode_keys(got), rows)
+
+
+@pytest.mark.parametrize("i", [2, 4, 5])
+def test_key_readers_skip_the_same_blocks(i):
+    rows, block = _keys_case(i)
+    buf = tcodec.encode_keys(rows, block_rows=block)
+    mine, theirs = tcodec.CompressedKeyReader(buf), jcodec.CompressedKeyReader(
+        buf)
+    assert (mine.width, mine.n_rows, mine.n_blocks, mine.block_rows) == (
+        theirs.width, theirs.n_rows, theirs.n_blocks, theirs.block_rows)
+    np.testing.assert_array_equal(mine.first, theirs.first)
+    np.testing.assert_array_equal(mine.last, theirs.last)
+    keys = tcodec.rows_to_u64(rows)
+    rng = np.random.default_rng(i)
+    for lo, hi in [(0, 0), (int(keys[len(keys) // 3]),
+                            int(keys[len(keys) // 2])),
+                   (int(keys[-1]), (1 << 64) - 1)] + [
+            tuple(sorted(rng.choice(keys, 2).tolist())) for _ in range(5)]:
+        assert mine.block_span(lo, hi) == theirs.block_span(lo, hi)
+        np.testing.assert_array_equal(mine.keys_between(lo, hi),
+                                      theirs.keys_between(lo, hi))
+    np.testing.assert_array_equal(mine.all_rows(), rows)
+
+
+def test_row_packing_matches_the_reference():
+    rng = np.random.default_rng(6)
+    assert tcodec.max_packable_width() == jcodec.max_packable_width() == 2
+    for w in (1, 2):
+        rows = rng.integers(0, 1 << 32, (100, w), dtype=np.uint64).astype(
+            np.uint32)
+        keys = tcodec.rows_to_u64(rows)
+        np.testing.assert_array_equal(keys, jcodec.rows_to_u64(rows))
+        np.testing.assert_array_equal(tcodec.u64_to_rows(keys, w), rows)
+    for mod in (tcodec, jcodec):
+        with pytest.raises(mod.CodecError, match="width"):
+            mod.rows_to_u64(np.zeros((2, 3), np.uint32))
+        with pytest.raises(mod.CodecError, match="width"):
+            mod.u64_to_rows(np.zeros(2, np.uint64), 3)
+
+
+def _corrupt_keys():
+    rows, _ = _keys_case(4)
+    good = jcodec.encode_keys(rows, block_rows=333)
+    flip = bytearray(good)
+    flip[40] ^= 1
+    body = jcodec.MAGIC + bytes([jcodec.CODEC_KEYS]) + struct.pack(
+        "<BIII", 2, 5, 1, 4096) + struct.pack("<QQQI", 3, 1, 0, 5)
+    return {
+        "truncated": good[:-9],
+        "bit flip": bytes(flip),
+        "bad magic": b"XXXX" + good[4:],
+        "rle2 id": good[:4] + bytes([jcodec.CODEC_RLE2]) + good[5:],
+        "skip index unsorted": body + struct.pack("<I", zlib.crc32(body)),
+        "too short": good[:6],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_corrupt_keys()))
+def test_keys_decoders_refuse_the_same_corruptions(case):
+    buf = _corrupt_keys()[case]
+    with pytest.raises(jcodec.CodecError):
+        jcodec.decode_keys(buf)
+    with pytest.raises(tcodec.CodecError):
+        tcodec.decode_keys(buf)
+
+
+def test_encode_keys_refuses_unsorted_rows():
+    rows = np.array([[3], [1]], np.uint32)
+    for mod in (tcodec, jcodec):
+        with pytest.raises(mod.CodecError, match="not sorted"):
+            mod.encode_keys(rows)
+
+
+@pytest.mark.parametrize("payload", [b"", b"x", bytes(range(256)) * 40,
+                                     np.random.default_rng(8).bytes(5000)])
+def test_wire_framing_matches_the_reference(payload):
+    enc = tcodec.wire_encode(payload)
+    assert enc == jcodec.wire_encode(payload)
+    assert tcodec.wire_decode(jcodec.wire_encode(payload)) == payload
+    assert jcodec.wire_decode(enc) == payload
+    assert tcodec.wire_decode(payload[:0] + b"plain") == b"plain"
+    assert tcodec.sniff(enc) is None and tcodec.sniff(b"RMZ") is None
+    bad = enc[:4] + b"\x00" + enc[5:]
+    if len(enc) > 5:
+        for mod in (tcodec, jcodec):
+            with pytest.raises(mod.CodecError, match="wire"):
+                mod.wire_decode(bad)
+
+
+def test_codec_counters_book_like_the_reference():
+    rows, block = _keys_case(2)
+    for mod in (tcodec, jcodec):
+        mod.reset_stats()
+        buf = mod.encode_keys(rows, tag="t", block_rows=block)
+        r = mod.CompressedKeyReader(buf, tag="t")
+        r.keys_between(0, int(tcodec.rows_to_u64(rows)[100]))
+        mod.wire_decode(mod.wire_encode(b"abc" * 100))
+    got = {k: v for k, v in tcodec.STATS.items() if v}
+    want = {k: v for k, v in jcodec.STATS.items() if v}
+    assert got == want
+    assert got["blocks_decoded"] == 1 and got["blocks_skipped"] == 2

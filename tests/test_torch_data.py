@@ -3,6 +3,8 @@
 Batches are a pure function of (seed, step) in both packages, drawn from
 numpy's generator keyed the same way, so they must be bit-identical.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -73,9 +75,48 @@ def test_stream_order_and_prefetch():
         replay.close()
 
 
-def test_disk_stream_waits_for_the_disk_tier():
+@pytest.mark.parametrize("writer", ["ref", "port"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-2b"])
+def test_disk_stream_gives_the_reference_batches(tmp_path, writer, arch):
+    """A corpus written by either package streams the reference's batches
+    through both, in order, wrapping past the last chunk; the corpus files
+    are the same bytes whichever package wrote them; a stream started at a
+    later step (after a restore) continues the same sequence."""
+    cfg, jcfg = get_config(arch, smoke=True), jget_config(arch, smoke=True)
+    b, s, n = 3, 16, 4
+    for k, mod, c in (("port", tdata, cfg), ("ref", jdata, jcfg)):
+        mod.DiskTokenStream.write_corpus(str(tmp_path / k), c, b, s, n,
+                                         seed=5)
+    files = {k: {fn: (tmp_path / k / fn).read_bytes()
+                 for fn in sorted(os.listdir(tmp_path / k))}
+             for k in ("port", "ref")}
+    assert files["port"] == files["ref"] and len(files["port"]) == n + 1
+    d = str(tmp_path / writer)
+    mine = tdata.DiskTokenStream(d, cfg, b, s)
+    theirs = jdata.DiskTokenStream(d, jcfg, b, s)
+    assert iter(mine) is mine
+    for step in range(n + 2):
+        got, want = next(mine), next(theirs)
+        assert sorted(got["inputs"]) == sorted(want["inputs"])
+        for key in got["inputs"]:
+            assert got["inputs"][key].dtype == want["inputs"][key].dtype
+            np.testing.assert_array_equal(got["inputs"][key],
+                                          want["inputs"][key])
+        np.testing.assert_array_equal(got["labels"], want["labels"])
+        toks = tdata.synth_tokens(5, step % n, b, s + 1, cfg.vocab_size)
+        np.testing.assert_array_equal(got["inputs"]["tokens"], toks[:, :s])
+        np.testing.assert_array_equal(got["labels"], toks[:, 1:])
+    assert mine.step == n + 2
+    later = tdata.DiskTokenStream(d, cfg, b, s, start_step=n + 1)
+    np.testing.assert_array_equal(next(later)["labels"],
+                                  next(jdata.DiskTokenStream(
+                                      d, jcfg, b, s, start_step=n + 1))[
+                                      "labels"])
+    t = tdata.batch_to_torch(next(later), "cpu")
+    assert t["inputs"]["tokens"].shape == (b, s)
+
+
+def test_disk_stream_refuses_an_empty_corpus(tmp_path):
     cfg = get_config("gemma2-2b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdata.DiskTokenStream("unused", cfg, 2, 8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdata.DiskTokenStream.write_corpus("unused", cfg, 2, 8, 1)
+    with pytest.raises(AssertionError, match="write_corpus"):
+        tdata.DiskTokenStream(str(tmp_path / "none"), cfg, 2, 8)
