@@ -67,6 +67,35 @@ caught:
    for every level), the ``bfs.level`` / ``bfs.expand`` span totals, the
    widest level's ms and the allocator's device allocations and retries;
    one ``{"sorted_bfs": …}`` line.
+6c. Tier D (``phase_disk_tier``), in temporary directories on the
+   machine's disk: first pancake n = 8 in chunks of 1,000 fields (250
+   bytes: every chunk ends inside a word), fused and unfused, on the card
+   and on the CPU, the two workdirs the same bytes; then the in-memory
+   engine at n = 11 (its wall and peak) and a plain distance table built
+   on the card, which gives the level sizes and the marks each level
+   sends to each chunk; then the main path, ``apps.pancake_bits.run_disk``
+   at n = 11 (39 chunks of 2^20 fields, the reference's ``log_buf_rows``
+   and ``expand_batch``), every count set to 0 just before each run and
+   read just after: fused (K1 39 x 14 = 546, each on the route
+   ``K.route`` names for its chunk's log; no K2, K3), unfused (K3 546, K2
+   one per (chunk, pass) with a log, by route), and with rle2 chunks
+   stopped after level 6 with checkpoints every 3 levels, then resumed
+   (K1 546 over the two); each with the level sizes of the in-memory
+   engine (diameter 13), and fused with one read-write array traversal a
+   level to the byte, 16 B of op log a mark, its peak device memory
+   within the printed bound (one chunk, its largest log, one expansion
+   batch measured on the card) and below the in-memory engine's; the
+   level-6 checkpoint's chunks == the in-memory words after 6 levels;
+   K1 and K2 on that checkpoint's chunks and logs (the largest log, an
+   empty one, the last chunk) on both routes against their plain
+   versions, K1's count over the chunk's own fields; level 7's pass from
+   that checkpoint through the kernels == through their plain versions
+   on the card (chunks and logs byte for byte); wall, states/s, the bytes
+   of the array and the log read and written, the time in ``pass.rw``,
+   K1 (CUDA events), K2, K3 and the log writes and reads of each run;
+   then the sorted disk BFS at n = 10 on the host against the Tier J
+   sorted engine's level sizes, ``quickstart.tier_d_tour`` and
+   ``apps.outofcore_setops``; one ``{"disk_tier": …}`` line.
 7. K4 (the 2-bit gather over a chunk table) and the distance oracle
    (``phase_oracle``):
    a. K4's flat form bit-exact against its plain version at the JAX tests'
@@ -437,7 +466,8 @@ caught:
       tokens written into a ``ChunkStore`` in a temporary directory and
       read back bit for bit against ``synth_tokens``, MB/s each way.
 19. the ``to_port`` line (an empty list: every kernel is ported), the
-   ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K6's and
+   ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K1's, K2's and
+   K3's launches, routes and summed times on the disk route; K6's and
    K6-with-LSE's entries name the kernel that ran, their launches by
    route and the ptxas report; K6's, K8's and K9's launches on the MoE,
    hybrid and frontend paths; K6-with-LSE's, K7's and K9's on the training
@@ -496,6 +526,14 @@ from repro_torch.data.pipeline import (DiskTokenStream,  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import paged  # noqa: E402
 from repro_torch.core.disk import oracle as O  # noqa: E402
+from repro_torch.core.disk import bfs as TDD  # noqa: E402
+from repro_torch.core.disk import bitarray as TDB  # noqa: E402
+from repro_torch.core.disk import checkpoint as TDCK  # noqa: E402
+from repro_torch.core.disk import codec as TDC  # noqa: E402
+from repro_torch.core.disk import config as TDCF  # noqa: E402
+from repro_torch.core.disk import extsort as TDX  # noqa: E402
+from repro_torch.apps import outofcore_setops as SO  # noqa: E402
+from repro_torch.apps import quickstart as Q  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -6025,6 +6063,437 @@ def phase_frontend(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- Tier D
+
+DISK_N = 11                   # 39,916,800 states, 9,979,200 packed bytes
+DISK_CHUNK = 1 << 20          # 39 chunks of 65,536 words (the last 4,432)
+DISK_STOP = 6                 # the stopped run's last level
+DISK_CKPT_EVERY = 3           # its checkpoints: levels 0, 3, 6
+DISK_SMALL = (8, 1000)        # n, chunk_elems: every chunk ends inside a word
+DISK_SORTED_N = 10            # the sorted disk BFS on the host
+DISK_LOG_REC = 16             # bytes of an (idx, val) int64 op-log record
+
+
+def disk_expected(n, ce, dev, batch=1 << 20):
+    """Level sizes and, for each level d, the marks its expansion sends to
+    each chunk (``marks[d][c]``), from a plain distance table on the card
+    (int8 levels), independent of the disk engine: pass d + 1 reads chunk
+    c's log of ``marks[d][c]`` records."""
+    total = math.factorial(n)
+    gen = P.neighbors(n)
+    n_chunks = -(-total // ce)
+    dist = torch.full((total,), -1, dtype=torch.int8, device=dev)
+    dist[P.start_rank(n)] = 0
+    sizes, marks = [], []
+    for d in itertools.count():
+        states = torch.nonzero(dist == d).flatten()
+        if not states.numel():
+            break
+        sizes.append(states.numel())
+        per = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+        for lo in range(0, states.numel(), batch):
+            nb = gen(states[lo:lo + batch]).reshape(-1)
+            per += torch.bincount(nb // ce, minlength=n_chunks)
+            dist[nb[dist[nb] < 0]] = d + 1
+        marks.append(per.tolist())
+    del dist
+    return sizes, marks
+
+
+def disk_chunk_words(total, ce) -> list:
+    return [-(-min(ce, total - c * ce) // 16) for c in range(-(-total // ce))]
+
+
+def disk_routes(total, ce, marks, fused) -> dict:
+    """K1's (fused: every chunk of every level pass) or K2's (unfused: the
+    chunks with a log) launches by the route ``K.route`` names."""
+    out = {p: 0 for p in K.ROUTE_LAUNCHES}
+    words = disk_chunk_words(total, ce)
+    for per in marks:
+        for w, m in zip(words, per):
+            if fused or m:
+                out[K.route(w, m)] += 1
+    return out
+
+
+@contextlib.contextmanager
+def disk_timers():
+    """CUDA-event times of every K1 / K2 / K3 launch, host seconds of the
+    op-log spills and reads, and the ``pass.rw`` / ``pass.read`` spans, of
+    the block; every wrapper is put back after it."""
+    got = {"k1": [], "k2": [], "k3": [], "log_write_s": 0.0,
+           "log_read_s": 0.0, "spans": []}
+    wrapped = {"bitpack_mark_rotate_count": "k1",
+               "bitpack_scatter_mark": "k2", "bitpack_lut_count": "k3"}
+    orig = {name: getattr(K, name) for name in wrapped}
+
+    def timed(name):
+        fn = orig[name]
+
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            got[wrapped[name]].append(ev)
+            return out
+        return run
+
+    flush, read = TDB.DiskBitArray._flush_logs, TDB.DiskBitArray._read_log
+
+    def flush_t(self):
+        t0 = time.perf_counter()
+        flush(self)
+        got["log_write_s"] += time.perf_counter() - t0
+
+    def read_t(path):
+        t0 = time.perf_counter()
+        out = read(path)
+        got["log_read_s"] += time.perf_counter() - t0
+        return out
+
+    for name in wrapped:
+        setattr(K, name, timed(name))
+    TDB.DiskBitArray._flush_logs = flush_t
+    TDB.DiskBitArray._read_log = staticmethod(read_t)
+    obs.enable(sink=got["spans"].append)
+    try:
+        yield got
+    finally:
+        obs.disable()
+        for name, fn in orig.items():
+            setattr(K, name, fn)
+        TDB.DiskBitArray._flush_logs = flush
+        TDB.DiskBitArray._read_log = staticmethod(read)
+        torch.cuda.synchronize()
+        for key in ("k1", "k2", "k3"):
+            got[f"{key}_ms"] = sum(s.elapsed_time(e) for s, e in got[key])
+            got[key] = len(got[key])
+        got["pass_s"] = sum(s["dur_us"] for s in got.pop("spans")
+                            if s["sid"] in ("pass.rw", "pass.read")) / 1e6
+
+
+def disk_drive(dev, **kw) -> dict:
+    """One run of ``apps.pancake_bits.run_disk`` (the user's entry point)
+    at n = 11, every launch and Tier D count set to 0 just before it and
+    read just after, with its timers and peak device memory."""
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    K.reset_launches()
+    TDB.reset_stats()
+    TDX.reset_stats()
+    TDC.reset_stats()
+    with disk_timers() as tm:
+        sizes, secs = P.run_disk(DISK_N, DISK_CHUNK, device=dev, **kw)
+    sync(dev)
+    bits = dict(TDB.STATS)
+    return {"sizes": sizes, "wall_s": secs,
+            "states_per_s": math.factorial(DISK_N) / secs,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "base_bytes": base, "launches": dict(K.LAUNCHES),
+            "routes": dict(K.ROUTE_LAUNCHES), "bits": bits,
+            "array_read": bits["bytes_read"] - bits["log_bytes_read"],
+            "array_written": bits["bytes_written"]
+            - bits["log_bytes_written"],
+            "ledger": {k: TDX.STATS[k] for k in
+                       ("rw_passes", "read_passes", "piggybacked_stages",
+                        "ckpt_snapshots", "ckpt_restores", "io_retries")},
+            "times": tm}
+
+
+def disk_line(what, r) -> None:
+    t, b = r["times"], r["bits"]
+    print(f"disk tier: {what}: {r['wall_s']:.3f} s wall, "
+          f"{r['states_per_s']:.0f} states/s, peak {r['peak_bytes']} B; "
+          f"array {r['array_read']} B read, {r['array_written']} B written; "
+          f"op log {b['log_bytes_written']} B written, "
+          f"{b['log_bytes_read']} B read; pass.rw/read {t['pass_s']:.3f} s, "
+          f"K1 {t['k1']} launches {t['k1_ms']:.3f} ms, K2 {t['k2']} "
+          f"{t['k2_ms']:.3f} ms, K3 {t['k3']} {t['k3_ms']:.3f} ms, log "
+          f"writes {t['log_write_s']:.3f} s, log reads "
+          f"{t['log_read_s']:.3f} s; launches by route {r['routes']}")
+
+
+def tree(path) -> dict:
+    out = {}
+    for root, _, names in os.walk(path):
+        for fn in names:
+            p = os.path.join(root, fn)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, path)] = f.read()
+    return out
+
+
+def disk_small_on_card(dev) -> None:
+    """Pancake n = 8 in chunks of 1,000 fields (250 bytes: every chunk
+    ends inside a word), fused and unfused, on the card and on the CPU
+    (the kernels' plain versions): the workdirs the same bytes after the
+    search, the counters equal."""
+    n, ce = DISK_SMALL
+    total = math.factorial(n)
+    for fused in (True, False):
+        out = {}
+        with tempfile.TemporaryDirectory() as wd:
+            for where in (dev, "cpu"):
+                TDB.reset_stats()
+                K.reset_launches()
+                sizes, bits = TDD.implicit_bfs(
+                    os.path.join(wd, str(where)), total, [P.start_rank(n)],
+                    P.neighbors(n), chunk_elems=ce, log_buf_rows=1 << 12,
+                    fused=fused, device=where)
+                out[str(where)] = (sizes, tree(bits.path), dict(TDB.STATS),
+                                   dict(K.LAUNCHES))
+        (s_d, t_d, st_d, l_d), (s_c, t_c, st_c, l_c) = out.values()
+        expect(s_d == s_c and sum(s_d) == total, (s_d, s_c))
+        expect(t_d == t_c, f"n={n} chunks of {ce}: the card's workdir "
+                           f"differs from the CPU's (fused={fused})")
+        expect(st_d == st_c, (st_d, st_c))
+        passes = len(s_d) * (-(-total // ce))
+        want = ({"mark_rotate_count": passes} if fused else
+                {"lut_count": passes})
+        expect(all(l_d[k] == v for k, v in want.items())
+               and not any(l_c.values()), (l_d, l_c))
+    print(f"disk tier: n={n} in chunks of {ce} fields (each ending inside "
+          "a word), fused and unfused: the card's workdir == the CPU's, "
+          "byte for byte, counters equal")
+
+
+def snapshot_chunk(snap, c) -> np.ndarray:
+    """Chunk ``c``'s bytes in an implicit-engine snapshot, either format."""
+    bits = os.path.join(snap, "bits")
+    rmz = os.path.join(bits, f"b{c:06d}.rmz")
+    if os.path.exists(rmz):
+        with open(rmz, "rb") as f:
+            return TDC.decode_rle2(f.read(), tag="bits")
+    return np.load(os.path.join(bits, f"b{c:06d}.npy"))
+
+
+def disk_chunk_routes(snap, total, ce, dev) -> int:
+    """K1 and K2 on real chunks of the stopped run's level-6 snapshot (the
+    chunk with the largest log, a chunk with none if any, the last chunk)
+    on both routes, out of place and in place, against their plain
+    versions; K1's count taken over the chunk's own fields.  Returns the
+    largest log's records."""
+    bits = os.path.join(snap, "bits")
+    n_chunks = -(-total // ce)
+    logs = {c: os.path.join(bits, f"log{c:06d}.bin") for c in range(n_chunks)}
+    size = {c: os.path.getsize(p) // DISK_LOG_REC if os.path.exists(p) else 0
+            for c, p in logs.items()}
+    big = max(size, key=size.get)
+    picks = [big, n_chunks - 1] + [c for c in size if not size[c]][:1]
+    for c in dict.fromkeys(picks):
+        rows = min(ce, total - c * ce)
+        words = TDB.bytes_to_words(snapshot_chunk(snap, c), dev)
+        rec = (np.fromfile(logs[c], np.int64).reshape(-1, 2) if size[c]
+               else np.zeros((0, 2), np.int64))
+        idx = torch.from_numpy(rec[:, 0] - c * ce).to(dev).to(torch.int32)
+        want, wc = R.bitpack_mark_rotate_count_ref(words, idx, ROTATE,
+                                                   BA.CUR, BA.NEXT, BA.UNSEEN)
+        got, gc = BA.mark_rotate_count(words, idx, rows)
+        check("mark_rotate_count", got, want, gc, wc, f"disk chunk {c}")
+        for path in K12_ROUTES:
+            out = torch.empty_like(words)
+            gc = K._mark(words, idx, out, BA.NEXT, BA.UNSEEN, ROTATE, BA.CUR,
+                         path=path)
+            check("mark_rotate_count", out, want, gc, wc,
+                  f"disk chunk {c} {path}")
+            work = words.clone()
+            K._mark(work, idx, work, BA.NEXT, BA.UNSEEN, path=path)
+            check("scatter_mark", work,
+                  R.bitpack_scatter_mark_ref(words, idx, BA.NEXT, BA.UNSEEN),
+                  what=f"disk chunk {c} {path} inplace")
+        unpacked = BA.unpack_values(want)
+        expect(int(gc) == int((unpacked[:rows] == BA.CUR).sum())
+               and not bool(unpacked[rows:].any()),
+               f"disk chunk {c}: K1's count or padding")
+    return size[big]
+
+
+def disk_plain_pass(ck, n, ce, dev) -> None:
+    """Level 7's pass from the level-6 checkpoint, through the kernels and
+    through their plain versions on the card (``impl="ref"``): the same
+    chunk bytes, the same op logs of level 8's marks, the same count."""
+    out = {}
+    with tempfile.TemporaryDirectory() as wd:
+        for impl in ("auto", "ref"):
+            ck_i = os.path.join(wd, f"ck_{impl}")
+            shutil.copytree(ck, ck_i)
+            sizes, bits = TDD.implicit_bfs(
+                os.path.join(wd, impl), math.factorial(n),
+                [P.start_rank(n)], P.neighbors(n), chunk_elems=ce,
+                max_levels=DISK_STOP + 1, impl=impl, device=dev,
+                checkpoint=TDCF.CheckpointConfig(dir=ck_i, resume=True))
+            bits._flush_logs()
+            out[impl] = (sizes, tree(bits.path))
+    expect(out["auto"][0] == out["ref"][0]
+           and len(out["auto"][0]) == DISK_STOP + 2, out["auto"][0])
+    expect(out["auto"][1] == out["ref"][1],
+           "level 7's pass through the kernels != through the plain versions")
+    print(f"disk tier: level {DISK_STOP + 1}'s pass from the level-"
+          f"{DISK_STOP} checkpoint through the kernels == through their "
+          f"plain versions on the card ({len(out['ref'][1])} files, "
+          "chunks and logs, byte for byte)")
+
+
+def disk_batch_peak(n, ce, dev) -> int:
+    """Device bytes one expansion batch (``expand_batch`` states through
+    ``gen_neighbors`` and ``DiskBitArray.update``'s binning) adds."""
+    total = math.factorial(n)
+    with tempfile.TemporaryDirectory() as wd:
+        bits = TDB.DiskBitArray(wd, total, chunk_elems=ce, device=dev,
+                                log_buf_rows=1 << 40, init_chunks=False)
+        idx = torch.arange(1 << 16, device=dev) * (total // (1 << 16))
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        nb = P.neighbors(n)(idx).reshape(-1)
+        bits.update(nb, torch.full(nb.shape, BA.NEXT, dtype=torch.uint8,
+                                   device=dev))
+        del nb
+        sync(dev)
+        return torch.cuda.max_memory_allocated(dev) - base
+
+
+def phase_disk_tier(dev) -> dict:
+    """Tier D's implicit BFS at pancake n = 11, each chunk pass on the card
+    (K1 fused; K2 + K3 unfused), held to the in-memory engine; the sorted
+    disk BFS at n = 10 on the host; the tour and the set operations."""
+    n, ce = DISK_N, DISK_CHUNK
+    total = math.factorial(n)
+    n_chunks = -(-total // ce)
+    tmp = tempfile.gettempdir()
+    du = shutil.disk_usage(tmp)
+    print(f"disk tier: {tmp} holds {du.free} B free of {du.total}")
+    disk_small_on_card(dev)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sizes_mem, _ = C.implicit_bfs(total, [P.start_rank(n)], P.neighbors(n),
+                                  device=dev)
+    sync(dev)
+    mem_secs = time.perf_counter() - t0
+    mem_peak = torch.cuda.max_memory_allocated(dev)
+    sizes_d, marks = disk_expected(n, ce, dev)
+    expect(sizes_mem == sizes_d and len(sizes_mem) - 1 == 13
+           and sum(sizes_mem) == total, (sizes_mem, sizes_d))
+    levels = len(sizes_mem)
+    n_marks = sum(map(sum, marks))
+    expect(n_marks == (n - 1) * total, n_marks)
+    m_max = max(map(max, marks))
+    k2_want = sum(m > 0 for per in marks for m in per)
+    print(f"disk tier: in-memory engine n={n} {mem_secs:.3f} s, peak "
+          f"{mem_peak} B; {n_marks} marks over the search "
+          f"({n_marks * DISK_LOG_REC} B of op log), at most {m_max} in one "
+          f"chunk's log; {k2_want} (chunk, pass) pairs with a log")
+
+    fused = disk_drive(dev)
+    disk_line("fused", fused)
+    seed_chunk = P.start_rank(n) // ce
+    seed_bytes = -(-min(ce, total - seed_chunk * ce) // 4)
+    nbytes = -(-total // 4)
+    batch_b = disk_batch_peak(n, ce, dev)
+    chunk_b = 228 * (ce // 16)         # words, unpacked int32 and uint8
+    log_b = 48 * m_max                 # fields, CUR positions; records on
+    bound = fused["base_bytes"] + chunk_b + log_b + batch_b   # the card
+    print(f"disk tier: peak bound {bound} B = {fused['base_bytes']} before "
+          f"+ {chunk_b} (one chunk) + {log_b} (its largest log, {m_max} "
+          f"records) + {batch_b} (one expansion batch, measured)")
+    expect(fused["sizes"] == sizes_mem, (fused["sizes"], sizes_mem))
+    expect(fused["launches"] == {"mark_rotate_count": levels * n_chunks,
+                                 "scatter_mark": 0, "lut_count": 0,
+                                 "gather2": 0}, fused["launches"])
+    expect(fused["launches"]["mark_rotate_count"] == 546, "K1 != 39 x 14")
+    want_routes = disk_routes(total, ce, marks, True)
+    expect(fused["routes"] == want_routes, (fused["routes"], want_routes))
+    # one traversal a level pass, the seed pass's chunk, and the final
+    # histogram's read (``count_values``)
+    expect(fused["array_written"] == levels * nbytes + seed_bytes
+           and fused["array_read"] == fused["array_written"] + nbytes,
+           ("one array traversal a level", fused["array_read"],
+            fused["array_written"], levels * nbytes + seed_bytes))
+    expect(fused["bits"]["log_bytes_written"]
+           == fused["bits"]["log_bytes_read"]
+           == (n_marks + 1) * DISK_LOG_REC, fused["bits"])
+    expect(fused["bits"]["ops_applied"] == n_marks + 1, fused["bits"])
+    expect(fused["ledger"]["rw_passes"] == levels + 1, fused["ledger"])
+    expect(fused["peak_bytes"] <= bound, (fused["peak_bytes"], bound))
+    expect(fused["peak_bytes"] < mem_peak, (fused["peak_bytes"], mem_peak))
+
+    unfused = disk_drive(dev, fused=False)
+    disk_line("unfused", unfused)
+    expect(unfused["sizes"] == sizes_mem, unfused["sizes"])
+    expect(unfused["launches"] == {"mark_rotate_count": 0,
+                                   "scatter_mark": k2_want,
+                                   "lut_count": levels * n_chunks,
+                                   "gather2": 0}, unfused["launches"])
+    want_u = disk_routes(total, ce, marks, False)
+    expect(unfused["routes"] == want_u, (unfused["routes"], want_u))
+
+    # rle2 chunks, stopped after level 6 and resumed: one search in two runs
+    with tempfile.TemporaryDirectory() as ckroot:
+        ck = os.path.join(ckroot, "ck")
+        stop = disk_drive(dev, checkpoint_dir=ck, stop_after=DISK_STOP,
+                          checkpoint_every=DISK_CKPT_EVERY, compress=True)
+        disk_line(f"rle2 chunks, stopped after level {DISK_STOP}", stop)
+        expect(stop["sizes"] == sizes_mem[:DISK_STOP + 1], stop["sizes"])
+        snap = TDCK.SearchCheckpoint(ck)
+        meta = snap.latest()
+        expect(meta["level_sizes"] == sizes_mem[:DISK_STOP + 1], meta)
+        sdir = snap.snapshot_dir(meta)
+        got = b"".join(snapshot_chunk(sdir, c).tobytes()
+                       for c in range(n_chunks))
+        _, ba6 = C.implicit_bfs(total, [P.start_rank(n)], P.neighbors(n),
+                                max_levels=DISK_STOP, device=dev)
+        want = ba6.data.cpu().numpy().tobytes()[:nbytes]
+        del ba6
+        expect(got == want, f"level {DISK_STOP}: the chunk bytes differ "
+                            "from the in-memory words")
+        print(f"disk tier: at level {DISK_STOP} the {n_chunks} chunks == the "
+              f"in-memory engine's words ({nbytes} bytes)")
+        m6 = disk_chunk_routes(sdir, total, ce, dev)
+        disk_plain_pass(ck, n, ce, dev)
+        res = disk_drive(dev, checkpoint_dir=ck, resume=True,
+                         checkpoint_every=DISK_CKPT_EVERY, compress=True)
+        disk_line(f"rle2 chunks, resumed from level {DISK_STOP}", res)
+    expect(res["sizes"] == sizes_mem, res["sizes"])
+    print(f"disk tier: rle2 chunks, stopped and resumed: "
+          f"{stop['wall_s'] + res['wall_s']:.3f} s in all, chunk bytes "
+          f"{stop['array_written'] + res['array_written']} written (fused "
+          f"raw: {fused['array_written']})")
+    expect(stop["launches"]["mark_rotate_count"]
+           + res["launches"]["mark_rotate_count"] == levels * n_chunks,
+           (stop["launches"], res["launches"]))
+
+    sorted_d, sorted_secs = PB.run_disk(DISK_SORTED_N)
+    res_j, _, _ = PB.search(DISK_SORTED_N, PB.prefix_flips(DISK_SORTED_N),
+                            device=dev)
+    expect(sorted_d == res_j.level_sizes, (sorted_d, res_j.level_sizes))
+    print(f"disk tier: sorted disk BFS n={DISK_SORTED_N} on the host "
+          f"{sorted_secs:.3f} s == the Tier J sorted engine's level sizes")
+    del res_j
+    t0 = time.perf_counter()
+    Q.tier_d_tour()
+    tour_s = time.perf_counter() - t0
+    setops = SO.run()
+    rec = {"n": n, "chunk_elems": ce, "chunks": n_chunks,
+           "level_sizes": sizes_mem, "in_memory_s": mem_secs,
+           "in_memory_peak_bytes": mem_peak, "marks": n_marks,
+           "max_log_records": m_max, "level6_max_log_records": m6,
+           "peak_bound_bytes": bound, "expansion_batch_bytes": batch_b,
+           "sorted_n10_s": sorted_secs, "tour_s": tour_s,
+           "setops": setops, "disk_free_bytes": du.free}
+    for key, r in (("fused", fused), ("unfused", unfused),
+                   ("stopped", stop), ("resumed", res)):
+        rec[key] = {k: r[k] for k in ("wall_s", "states_per_s", "peak_bytes",
+                                      "launches", "routes", "bits",
+                                      "array_read", "array_written",
+                                      "ledger", "times")}
+    print(json.dumps({"disk_tier": rec}))
+    return rec
+
+
 def to_port_bounds() -> list:
     """The bounds of the TPU kernels still to port: none.  K5, the last,
     is ported (``phase_roomy``; its bound is in the ``kernels`` line), so
@@ -6055,6 +6524,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_sorted_bfs(dev)
     print(f"[phase_sorted_bfs done at {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.empty_cache()
+    disk = phase_disk_tier(dev)
+    print(f"[phase_disk_tier done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     oracle = phase_oracle(dev, sizes)
     print(f"[phase_oracle done at {time.perf_counter() - t0:.1f} s]")
@@ -6126,6 +6598,22 @@ def main() -> None:
             "publish_ms_atomic": sums["atomic"]["publish_k1_k2"],
             "planted_faults": {k: v["k1_err" if tile == "true" else "k2_err"]
                                for k, v in bin_faults.items()}})
+    for rec, (name, _) in zip(kernels, KERNELS):
+        rec.update({
+            "disk_launches": {r: disk[r]["launches"][name]
+                              for r in ("fused", "unfused")},
+            "disk_launches_rle2_stop_resume": disk["stopped"]["launches"][name]
+            + disk["resumed"]["launches"][name],
+            "disk_launches_by_route": {r: disk[r]["routes"]
+                                       for r in ("fused", "unfused")},
+            "disk_ms": disk["fused" if name == "mark_rotate_count" else
+                            "unfused"]["times"][
+                {"mark_rotate_count": "k1_ms", "scatter_mark": "k2_ms",
+                 "lut_count": "k3_ms"}[name]],
+            "disk_shape": f"pancake n = {DISK_N} on disk: "
+                          f"{disk['chunks']} chunks of {DISK_CHUNK} fields, "
+                          "one launch a chunk a level pass (K2: a chunk "
+                          "with a log); disk_ms sums the run's launches"})
     t4 = oracle["k4"]
     big, small = (t4[str(m)] for m in reversed(ORACLE_BATCHES))
     serve_ = oracle["serve"]

@@ -1,7 +1,8 @@
-"""Cayley-graph BFS on the GPU: S_n under adjacent transpositions (the
-bubble-sort graph), with the sorted-list engine (Tier J).
+"""Cayley-graph BFS: S_n under adjacent transpositions (the bubble-sort
+graph), with the sorted-list engine on the GPU (Tier J, the default
+``--tier j``) or on disk (``--tier disk``, the host).
 
-Port of the ``--tier j`` path of ``examples/cayley_bfs.py``.  Ground truth
+Port of ``examples/cayley_bfs.py``.  Ground truth
 is exact: the distance of a permutation from the identity is its
 inversion count, so
 
@@ -9,17 +10,19 @@ inversion count, so
   diameter     == n(n-1)/2
 
 States are rows of 4-bit codes, as in ``apps.pancake_bfs`` (ceil(n / 8)
-words a row; the reference's one uint32 word at n ≤ 8).
+words a row; the reference's one uint32 word at n ≤ 8); the disk engine
+expands them on the host with ``pancake_bfs.HostMoves``.
 
   PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 11
   PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 8 --tier disk
 """
 from __future__ import annotations
 
 import argparse
 import math
 
-from .pancake_bfs import Moves, report, search
+from .pancake_bfs import HostMoves, Moves, disk_search, report, search
 
 
 def mahonian(n: int) -> list:
@@ -44,18 +47,28 @@ def adjacent_swaps(n: int) -> Moves:
     return Moves(n, table)
 
 
-def run(n: int, device=None):
-    """Full BFS of the bubble-sort graph of S_n; holds the level sizes to
-    the Mahonian numbers and the diameter to n(n-1)/2, and prints
-    states/s.  Returns (level_sizes, BFSResult, wall seconds)."""
+def run(n: int, device=None, tier: str = "j"):
+    """Full BFS of the bubble-sort graph of S_n on ``tier`` ("j": the
+    device; "disk": chunk files of 8192 rows, on the host); holds the
+    level sizes to the Mahonian numbers and the diameter to n(n-1)/2, and
+    prints states/s.  Returns (level_sizes, BFSResult or None, wall
+    seconds)."""
     if not 3 <= n <= 12:
         raise ValueError(f"n={n}: the 4-bit encoding takes 3 <= n <= 12")
     total = math.factorial(n)
     print(f"S_{n} bubble-sort Cayley graph: {total} vertices, diameter "
           f"should be {n * (n - 1) // 2}")
-    res, secs, peak = search(n, adjacent_swaps(n), device=device)
-    sizes = res.level_sizes
-    report(res, total, secs, peak)
+    if tier == "disk":
+        moves = adjacent_swaps(n)
+        res = None
+        sizes, secs = disk_search(n, HostMoves(n, moves.table.tolist()),
+                                  chunk_rows=1 << 13)
+        print("level sizes:", sizes)
+        print(f"{total / secs:.0f} states/s ({secs:.3f}s) on disk")
+    else:
+        res, secs, peak = search(n, adjacent_swaps(n), device=device)
+        sizes = res.level_sizes
+        report(res, total, secs, peak)
     want = mahonian(n)
     if sizes != want:
         raise SystemExit(f"Mahonian mismatch!\n got {sizes}\nwant {want}")
@@ -69,10 +82,13 @@ def run(n: int, device=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=11)
+    ap.add_argument("--tier", choices=("j", "disk"), default="j",
+                    help="j: the device engine (default); disk: sorted "
+                         "runs of chunk files, on the host")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     args = ap.parse_args(argv)
-    run(args.n, device=args.device)
+    run(args.n, device=args.device, tier=args.tier)
 
 
 if __name__ == "__main__":

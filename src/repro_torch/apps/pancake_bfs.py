@@ -1,11 +1,13 @@
-"""Pancake sorting via the sorted-list BFS on the GPU (Tier J), the paper's
-first BFS engine.
+"""Pancake sorting via the sorted-list BFS, the paper's first BFS engine:
+on the GPU (Tier J, the default ``--tier j``) or on disk (``--tier disk``).
 
-Port of the ``--tier j`` path of ``examples/pancake_bfs.py``: a stack of n
-pancakes is a row of 4-bit codes, and ``core.constructs.
-breadth_first_search`` keeps the frontier and the visited set as lists of
-such rows.  A level expands the frontier through all n − 1 prefix flips,
-then takes one lexsort and one append scatter.
+Port of ``examples/pancake_bfs.py``: a stack of n pancakes is a row of
+4-bit codes.  On Tier J ``core.constructs.breadth_first_search`` keeps the
+frontier and the visited set as lists of such rows on the device; a level
+expands the frontier through all n − 1 prefix flips, then takes one
+lexsort and one append scatter.  On Tier D ``core.disk.
+breadth_first_search`` keeps them as sorted runs of chunk files and
+expands them on the host (``HostMoves``), as the reference does.
 
 Encoding: ``words(n) = ceil(n / 8)`` 32-bit words a row, 8 nibbles a
 word; position i is nibble i % 8 of word i // 8.  At n ≤ 8 that is the
@@ -16,6 +18,7 @@ overflows at n ≥ 9.
   PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 11 --unfused
   PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 8 --device cpu \
       --check
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 10 --tier disk
 
 n = 11 fits one 80 GB card (the widest level sorts 172M rows).  n = 12
 would sort 2.3e9 rows, past one card and the int32 run ids: the implicit
@@ -27,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -35,6 +40,7 @@ import torch
 from .. import device as _device
 from ..core import constructs as C
 from ..core import types as T
+from ..core.disk import bfs as DB
 from . import pancake_bits as P
 
 NIBBLES = 8        # 4-bit codes a 32-bit word holds
@@ -87,6 +93,31 @@ class Moves:
         return pack(moved, self.n), ok
 
 
+class HostMoves:
+    """The host generator of the disk engine over the same rows and
+    moves: maps (m, words) uint32 rows to (m·fanout, words) uint32 rows,
+    move-major (every row's first move, then every row's second, ...), as
+    the reference's generators emit them — at n ≤ 8 its rows bit for
+    bit."""
+
+    def __init__(self, n: int, table):
+        self.n = n
+        self.table = np.asarray(table, np.int64)
+        self.fanout = self.table.shape[0]
+
+    def __call__(self, chunk: np.ndarray) -> np.ndarray:
+        n, w = self.n, words(self.n)
+        rows = np.asarray(chunk, np.uint32).reshape(-1, w)
+        pos = np.arange(n)
+        shift = (4 * (pos % NIBBLES)).astype(np.uint32)
+        perms = (rows[:, pos // NIBBLES] >> shift) & np.uint32(0xF)
+        moved = perms[:, self.table].transpose(1, 0, 2)    # (fanout, m, n)
+        out = np.zeros(moved.shape[:2] + (w,), np.uint32)
+        for i in range(n):
+            out[..., i // NIBBLES] |= moved[..., i] << shift[i]
+        return out.reshape(-1, w)
+
+
 def prefix_flips(n: int) -> Moves:
     """The n − 1 prefix reversals of 2..n pancakes."""
     return Moves(n, P.prefix_flip_table(n))
@@ -112,6 +143,43 @@ def search(n: int, moves: Moves, fused: bool = True, device=None):
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev)
     return res, time.perf_counter() - t0, peak
+
+
+def disk_search(n: int, gen: HostMoves, chunk_rows: int = 1 << 14,
+                fused: bool = True, compress: bool = False):
+    """The disk engine's BFS from the sorted stack, in a temporary
+    directory, on the host.  Returns (level_sizes, wall seconds)."""
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        sizes, all_ = DB.breadth_first_search(
+            wd, start_code(n)[None], gen, width=words(n),
+            chunk_rows=chunk_rows, fused=fused, compress=compress)
+        secs = time.perf_counter() - t0
+        all_.destroy()
+    return sizes, secs
+
+
+def run_disk(n: int, chunk_rows: int = 1 << 14, fused: bool = True,
+             compress: bool = False):
+    """Full pancake BFS for n on disk (Tier D, the host); prints the level
+    sizes, the diameter and states/s.  Returns (level_sizes, wall
+    seconds)."""
+    if not 3 <= n <= 12:
+        raise ValueError(f"n={n}: the 4-bit encoding takes 3 <= n <= 12")
+    total = math.factorial(n)
+    print(f"pancake n={n}: {total} states, sorted-list BFS on disk "
+          f"({'fused' if fused else 'unfused'}), {words(n)} word(s) a row")
+    sizes, secs = disk_search(n, HostMoves(n, P.prefix_flip_table(n)),
+                              chunk_rows, fused, compress)
+    if sum(sizes) != total:
+        raise SystemExit("did not enumerate the full graph!")
+    print("level sizes:", sizes)
+    print(f"diameter (max flips to sort): {len(sizes) - 1}")
+    print(f"{total / secs:.0f} states/s ({secs:.3f}s)")
+    want = P.DIAMETERS.get(n)
+    if want is not None and len(sizes) - 1 != want:
+        raise SystemExit(f"diameter {len(sizes) - 1} != known {want}")
+    return sizes, secs
 
 
 def report(res, total: int, secs: float, peak) -> None:
@@ -144,6 +212,13 @@ def run(n: int, fused: bool = True, device=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=11)
+    ap.add_argument("--tier", choices=("j", "disk"), default="j",
+                    help="j: the device engine (default); disk: sorted "
+                         "runs of chunk files, on the host")
+    ap.add_argument("--chunk-rows", type=int, default=1 << 14,
+                    help="rows a chunk file holds (disk tier)")
+    ap.add_argument("--compress", action="store_true",
+                    help="store sorted runs varint-delta coded (disk tier)")
     ap.add_argument("--unfused", action="store_true",
                     help="add, removeDupes, removeAll, addAll (2 lexsorts "
                          "and 2 scatters a level) instead of the fused "
@@ -152,9 +227,16 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     ap.add_argument("--check", action="store_true",
                     help="hold the level sizes against the implicit 2-bit "
-                         "engine (apps.pancake_bits) at the same n")
+                         "engine (apps.pancake_bits, on --device) at the "
+                         "same n")
     args = ap.parse_args(argv)
-    sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
+    if args.compress and (args.tier != "disk" or args.unfused):
+        ap.error("--compress is the fused disk tier's")
+    if args.tier == "disk":
+        sizes, _ = run_disk(args.n, args.chunk_rows, not args.unfused,
+                            args.compress)
+    else:
+        sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
     if args.check:
         want, _, _ = P.run(args.n, device=args.device)
         if sizes != want:

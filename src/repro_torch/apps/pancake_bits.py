@@ -1,8 +1,14 @@
-"""Pancake numbers via the implicit 2-bit BFS on the GPU (the paper's Table 1).
+"""Pancake numbers via the implicit 2-bit BFS (the paper's Table 1), in
+device memory (Tier J, the default ``--tier j``) or on disk (``--tier
+disk``).
 
-Port of the Tier J part of ``examples/pancake_bits.py``: each stack of n
-pancakes is a permutation, its Myrvold–Ruskey rank indexes a packed 2-bit
-array, and every level is one fused kernel pass over that array.
+Port of ``examples/pancake_bits.py``: each stack of n pancakes is a
+permutation, its Myrvold–Ruskey rank indexes a packed 2-bit array, and
+every level is one fused kernel pass over that array.  On Tier D the
+array is a ``DiskBitArray`` of chunk files and each level is one
+read-write pass over them, one K1 launch a chunk on the card; its op
+logs, checkpoints (``--checkpoint-dir``, ``--resume``, ``--stop-after``)
+and fault storm (``--chaos``) are the reference's.
 ``--publish DIR`` then seals the search as a distance-oracle artifact
 (``core/disk/oracle.py``), labelled on the device; ``--check`` (n ≤ 8)
 holds the level sizes against the sorted-list engine
@@ -14,8 +20,16 @@ published oracle's distances against that table.
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 7 --device cpu \
       --publish DIR --check
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 11 --unfused
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 11 --tier disk
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 11 --tier disk \
+      --checkpoint-dir CK --stop-after 6      # then again with --resume
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 8 --tier disk \
+      --device cpu --chaos 3 --check
 
-n ≤ 12: the packed kernels index elements with int32 (16·W < 2³¹).
+Tier J: n ≤ 12, the packed kernels index elements with int32 (16·W <
+2³¹).  Tier D indexes a chunk's fields locally, so n runs to 20 (int64
+ranks); the op log (16 bytes a mark, fanout marks a state) sets its pace
+and its disk.
 Known diameters (OEIS A058986):
 4→4 5→5 6→7 7→8 8→9 9→10 10→11 11→13 12→14.
 """
@@ -23,6 +37,8 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -31,7 +47,11 @@ import torch
 from .. import device as _device
 from ..core import constructs as C
 from ..core import ranking as R
+from ..core.disk import bitarray as DBA
+from ..core.disk import extsort, faults
 from ..core.disk import oracle as O
+from ..core.disk.bfs import implicit_bfs as disk_implicit_bfs
+from ..core.disk.config import CheckpointConfig
 
 DIAMETERS = {4: 4, 5: 5, 6: 7, 7: 8, 8: 9, 9: 10, 10: 11, 11: 13, 12: 14}
 
@@ -110,11 +130,12 @@ def publish(n: int, sizes, publish_dir: str, compress: bool = False,
     return meta
 
 
-def check(n: int, sizes, publish_dir=None, device=None) -> None:
-    """Hold the level sizes against the sorted-list engine and
-    ``ram_distances``, and the published oracle's distances against
-    ``ram_distances`` (meant for n ≤ 8): every rank up to n = 7, 4096
-    sampled ones above."""
+def check(n: int, sizes, publish_dir=None, device=None,
+          disk: bool = False) -> None:
+    """Hold the level sizes against the sorted-list engine (with ``disk``
+    also the disk one's, on the host) and ``ram_distances``, and the
+    published oracle's distances against ``ram_distances`` (meant for
+    n ≤ 8): every rank up to n = 7, 4096 sampled ones above."""
     from . import pancake_bfs   # it imports this module
     total = math.factorial(n)
     res, _, _ = pancake_bfs.search(n, pancake_bfs.prefix_flips(n),
@@ -123,6 +144,13 @@ def check(n: int, sizes, publish_dir=None, device=None) -> None:
         raise SystemExit(f"check: level sizes {list(sizes)} != the "
                          f"sorted-list engine's {res.level_sizes}")
     print("check: level sizes match the sorted-list BFS")
+    if disk:
+        want, _ = pancake_bfs.disk_search(
+            n, pancake_bfs.HostMoves(n, prefix_flip_table(n)))
+        if want != list(sizes):
+            raise SystemExit(f"check: level sizes {list(sizes)} != the "
+                             f"disk sorted-list engine's {want}")
+        print("check: level sizes match the disk sorted-list BFS")
     ref = ram_distances(n, device)
     hist = torch.bincount(ref[ref >= 0]).tolist()
     if hist != list(sizes):
@@ -182,9 +210,106 @@ def run(n: int, fused: bool = True, device=None):
     return sizes, bits, dt
 
 
+def run_disk(n: int, chunk_elems: int = 1 << 20, fused: bool = True,
+             compress: bool = False, checkpoint_dir=None,
+             checkpoint_every: int = 1, resume: bool = False,
+             stop_after=None, chaos=None, device=None):
+    """Pancake BFS for n on disk (Tier D): ``core.disk.implicit_bfs`` in a
+    temporary directory, each chunk pass on ``device``.  Prints the level
+    table (or the levels so far, with ``stop_after``), states/s and the
+    bytes the array and its logs moved.  ``chaos=SEED`` runs under the
+    reference's seeded I/O-fault storm (``faults.default_chaos_spec``, or
+    ``$ROOMY_FAULTS`` when set), with checkpoints in the temporary
+    directory unless ``checkpoint_dir`` names some.  Returns (level_sizes,
+    wall seconds)."""
+    if not 3 <= n <= R.MAX_N:
+        raise ValueError(f"n={n}: the rank encoding takes 3 <= n <= "
+                         f"{R.MAX_N}")
+    dev = _device.resolve(device)
+    total = math.factorial(n)
+    print(f"pancake n={n}: {total} states on disk, chunk passes on {dev} "
+          f"({'fused' if fused else 'unfused'}), bit array = "
+          f"{-(-total // 4)} bytes packed")
+    before = dict(DBA.STATS)
+    io_before = {k: extsort.STATS[k] for k in ("io_retries", "io_giveups")}
+    with tempfile.TemporaryDirectory() as wd:
+        if chaos is not None:
+            if not os.environ.get(faults.ENV_VAR):
+                os.environ[faults.ENV_VAR] = faults.default_chaos_spec(chaos)
+            faults.install_from_env(state_dir=os.path.join(wd, "_faults"))
+            if checkpoint_dir is None:
+                checkpoint_dir = os.path.join(wd, "chaos_ck")
+        try:
+            t0 = time.perf_counter()
+            sizes, bits = disk_implicit_bfs(
+                wd, total, [start_rank(n)], neighbors(n),
+                chunk_elems=chunk_elems,
+                max_levels=10_000 if stop_after is None else stop_after,
+                fused=fused, compress=compress, device=dev,
+                checkpoint=CheckpointConfig(dir=checkpoint_dir,
+                                            every=checkpoint_every,
+                                            resume=resume))
+            if stop_after is None and int(bits.count_values()[0]):
+                raise SystemExit("unreached states — graph not connected?")
+            secs = time.perf_counter() - t0
+            bits.destroy()
+        finally:
+            if chaos is not None:
+                print(f"chaos: {faults.ENV_VAR}="
+                      f"{os.environ.pop(faults.ENV_VAR)!r}")
+                print("chaos: " + " ".join(
+                    f"{k}={extsort.STATS[k] - v}"
+                    for k, v in io_before.items()))
+                faults.uninstall()
+    moved = {k: DBA.STATS[k] - before[k] for k in DBA.STATS}
+    io = (f"array {moved['bytes_read'] - moved['log_bytes_read']} B read, "
+          f"{moved['bytes_written'] - moved['log_bytes_written']} written; "
+          f"op log {moved['log_bytes_written']} B written, "
+          f"{moved['log_bytes_read']} read")
+    if stop_after is not None and sum(sizes) < total:
+        print("level sizes so far:", sizes)
+        print(f"stopped after level {len(sizes) - 1} (checkpoint kept in "
+              f"{checkpoint_dir}) — rerun with --resume to finish")
+        return sizes, secs
+    if sum(sizes) != total:
+        raise SystemExit("did not enumerate the full graph!")
+    print(f"{'flips':>6} {'states':>12} {'cumulative':>12}")
+    cum = 0
+    for lev, c in enumerate(sizes):
+        cum += c
+        print(f"{lev:>6} {c:>12} {cum:>12}")
+    print(f"diameter (pancake number): {len(sizes) - 1}")
+    print(f"{total / secs:.0f} states/s ({secs:.3f}s); {io}")
+    return sizes, secs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=12)
+    ap.add_argument("--tier", choices=("j", "disk"), default="j",
+                    help="j: the array in device memory (default); disk: a "
+                         "DiskBitArray of chunk files, each pass on the "
+                         "device")
+    ap.add_argument("--chunk-elems", type=int, default=1 << 20,
+                    help="elements a chunk file holds (disk tier; a "
+                         "multiple of 4)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="persist mid-search checkpoints to DIR (disk "
+                         "tier)")
+    ap.add_argument("--checkpoint-every", type=int, default=1, metavar="N",
+                    help="checkpoint every N completed levels")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in "
+                         "--checkpoint-dir instead of starting over")
+    ap.add_argument("--stop-after", type=int, default=None, metavar="LEVEL",
+                    help="stop the search after LEVEL completed levels — "
+                         "pair with --checkpoint-dir, then rerun with "
+                         "--resume")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="run under a seeded I/O-fault storm (torn op-log "
+                         "appends, transient flakes; $ROOMY_FAULTS when "
+                         "set): the search must heal to the fault-free "
+                         "level counts (disk tier)")
     ap.add_argument("--unfused", action="store_true",
                     help="mark scatter then rotate+count (two kernels per "
                          "level) instead of the fused kernel")
@@ -196,26 +321,48 @@ def main(argv=None):
                          "versioned distance-oracle artifact under DIR "
                          "(labelled on the device)")
     ap.add_argument("--compress", action="store_true",
-                    help="seal --publish artifacts with rle2-coded chunks "
-                         "(format 2)")
+                    help="store the disk tier's chunks and seal --publish "
+                         "artifacts rle2-coded (format 2)")
     ap.add_argument("--check", action="store_true",
                     help="n <= 8: hold the level sizes against the "
-                         "sorted-list engine and an in-memory BFS distance "
+                         "sorted-list engines and an in-memory BFS distance "
                          "table, and with --publish the oracle's distances "
                          "against that table")
     args = ap.parse_args(argv)
-    if args.compress and args.publish is None:
-        ap.error("--compress seals --publish artifacts; give --publish DIR")
+    disk = args.tier == "disk"
+    if args.compress and args.publish is None and not disk:
+        ap.error("--compress seals --publish artifacts (or the disk "
+                 "tier's chunks); give --publish DIR or --tier disk")
     if args.check and args.n > 8:
         ap.error("--check needs n <= 8")
-    sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
+    if not disk and (args.checkpoint_dir or args.resume
+                     or args.stop_after is not None
+                     or args.chaos is not None):
+        ap.error("--checkpoint-dir, --resume, --stop-after and --chaos are "
+                 "the disk tier's")
+    if args.checkpoint_dir is None and (args.resume
+                                        or args.stop_after is not None):
+        ap.error("--resume and --stop-after need --checkpoint-dir")
+    if args.stop_after is not None and (args.check or args.publish):
+        ap.error("--check and --publish take a complete search; drop "
+                 "--stop-after")
+    if disk:
+        sizes, _ = run_disk(args.n, args.chunk_elems, not args.unfused,
+                            args.compress, args.checkpoint_dir,
+                            args.checkpoint_every, args.resume,
+                            args.stop_after, args.chaos, args.device)
+        if args.stop_after is not None and sum(sizes) < math.factorial(
+                args.n):
+            return
+    else:
+        sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
     want = DIAMETERS.get(args.n)
     if want is not None and len(sizes) - 1 != want:
         raise SystemExit(f"diameter {len(sizes) - 1} != known {want}")
     if args.publish is not None:
         publish(args.n, sizes, args.publish, args.compress, args.device)
     if args.check:
-        check(args.n, sizes, args.publish, args.device)
+        check(args.n, sizes, args.publish, args.device, disk=disk)
 
 
 if __name__ == "__main__":

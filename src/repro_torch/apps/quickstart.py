@@ -1,11 +1,11 @@
-"""Quickstart: the Roomy programming model on the port (Tier J, device
-tensors).
+"""Quickstart: the Roomy programming model on the port, on both tiers.
 
-Port of ``tier_j_tour`` in ``examples/quickstart.py``: a RoomyList with
-removeDupes and reduce, a RoomyArray's delayed updates and sync, chain
-reduction and the hash table, printing the same lines.  The reference's
-second tour (Tier D, a ``DiskList`` on real disk) waits for the port's
-disk tier (ROADMAP item 8).
+Port of ``examples/quickstart.py``: ``tier_j_tour`` (device tensors) — a
+RoomyList with removeDupes and reduce, a RoomyArray's delayed updates and
+sync, chain reduction and the hash table; ``tier_d_tour`` (real disk,
+streaming, on the host) — a ``DiskList`` of 20,000 rows in chunks of
+1024 with an external-sort removeDupes and a streaming reduce.  Both
+print the reference's lines.
 
   PYTHONPATH=src python -m repro_torch.apps.quickstart
   PYTHONPATH=src python -m repro_torch.apps.quickstart --device cpu
@@ -13,6 +13,7 @@ disk tier (ROADMAP item 8).
 from __future__ import annotations
 
 import argparse
+import tempfile
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ from ..core import array as RA
 from ..core import constructs as C
 from ..core import hashtable as HT
 from ..core import rlist as RL
+from ..core.disk import DiskList
 
 
 def tier_j_tour(device=None) -> None:
@@ -69,11 +71,27 @@ def tier_j_tour(device=None) -> None:
     print("hashtable lookups:", vals.tolist(), found.tolist())
 
 
+def tier_d_tour() -> None:
+    print("\n== Tier D (real disk, streaming) ==")
+    with tempfile.TemporaryDirectory() as wd:
+        dl = DiskList(wd, width=1, chunk_rows=1024)   # tiny chunks
+        rng = np.random.default_rng(0)
+        dl.add(rng.integers(0, 5000, (20_000, 1)).astype(np.uint32))
+        print("disk list size:", dl.size())
+        dl.remove_dupes(run_rows=2048)                # external merge sort
+        print("unique elements:", dl.size())
+        total = dl.reduce(lambda c: int(c[:, 0].astype(np.int64).sum()),
+                          lambda a, b: a + b, 0)
+        print("streaming reduce (sum):", total)
+        dl.destroy()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     tier_j_tour(ap.parse_args(argv).device)
+    tier_d_tour()
 
 
 if __name__ == "__main__":

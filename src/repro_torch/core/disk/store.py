@@ -240,9 +240,9 @@ class ChunkStore:
         disagrees with its chunk files.  A store whose chunks auto-flushed
         without a manifest write (append of an exact chunk multiple) gets
         its manifest synced here first, so the export can never undercount
-        chunks.  The reference's checkpoint layer (disk/checkpoint.py, the
-        port's next Tier D step) books the returned byte count under its
-        ``ckpt_*`` counters.  Returns bytes copied.
+        chunks.  Used by the checkpoint layer (``checkpoint.py``), which
+        books the returned byte count under the ``ckpt_*`` counters.
+        Returns bytes copied.
         """
         assert self._buf_rows == 0, "flush() before export_to()"
         if self._meta_dirty:

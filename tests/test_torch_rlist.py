@@ -209,9 +209,10 @@ def test_segment_any_refuses_int32_overflow():
 
 
 def test_quickstart_prints_the_reference_lines(capsys):
-    """``apps.quickstart`` prints the lines of ``examples/quickstart.py``
+    """``apps.quickstart`` prints the lines of ``examples/quickstart.py``:
     ``tier_j_tour`` (RoomyList, reduce, RoomyArray sync, chain reduction,
-    the hash table), run here too."""
+    the hash table) and ``tier_d_tour`` (a DiskList on disk), run here
+    too."""
     import sys
     from pathlib import Path
 
@@ -221,6 +222,7 @@ def test_quickstart_prints_the_reference_lines(capsys):
     import quickstart as ref_quickstart
 
     ref_quickstart.tier_j_tour()
+    ref_quickstart.tier_d_tour()
     want = capsys.readouterr().out
     quickstart.main(["--device", "cpu"])
     got = capsys.readouterr().out
