@@ -96,6 +96,29 @@ caught:
    then the sorted disk BFS at n = 10 on the host against the Tier J
    sorted engine's level sizes, ``quickstart.tier_d_tour`` and
    ``apps.outofcore_setops``; one ``{"disk_tier": …}`` line.
+6d. Tier D, sharded (``phase_disk_sharded``): ``core.disk.implicit_bfs``
+   over a ``ShardRuntime`` built by the script, each shard's block of the
+   2-bit array on the card, every count set to 0 just before each run and read
+   just after (the spawn workers' counts come home through the runtime's
+   counter deltas): (a) pancake n = 11 over 4 spawned shards, fs wire,
+   barrier exchange, chunks of 2^20 — the in-memory level sizes, every
+   state DONE, K1 4 x 10 x 14 = 560 times and nothing else, per shard one
+   pass a level and no sort, the op log 16 B a mark (6,386,688,016 B, the
+   single-process run's), each mark at its owner once (local + remote =
+   the marks), the wire's bytes out == in, no drop; the wall, states/s,
+   each worker's peak device memory, K1's CUDA-event ms in the workers,
+   their log and bucket I/O seconds; (b) the same over 2 shards (2 x 20 x
+   14 = 560); (c) at n = 10: 4 shards with the pipelined exchange, the
+   TCP wire (spawn) under a trace whose JSONL reads back through
+   ``trace.report_json`` with one row a level, each with spans of every
+   shard, the loopback wire (inline), and ``worker_level:kill:shard=1:
+   level=4`` with checkpoints every level and one recovery, healed to the
+   exact level sizes; (d) at n = 9 over 2 shards (chunks of 2^16), K1
+   against its plain version on the card: every shard's chunks, op logs
+   and pending bucket files the same bytes at level 5 and at the end, and
+   the final words the single-process search's; (e) the sorted engine on
+   (a)'s 4 spawned workers at n = 10, on the host, against the Tier J
+   sorted engine; one ``{"disk_sharded": …}`` line.
 7. K4 (the 2-bit gather over a chunk table) and the distance oracle
    (``phase_oracle``):
    a. K4's flat form bit-exact against its plain version at the JAX tests'
@@ -532,6 +555,11 @@ from repro_torch.core.disk import checkpoint as TDCK  # noqa: E402
 from repro_torch.core.disk import codec as TDC  # noqa: E402
 from repro_torch.core.disk import config as TDCF  # noqa: E402
 from repro_torch.core.disk import extsort as TDX  # noqa: E402
+from repro_torch.core.disk import buckets as TDBK  # noqa: E402
+from repro_torch.core.disk import cluster as TDCL  # noqa: E402
+from repro_torch.core.disk import faults as TDF  # noqa: E402
+from repro_torch.core.disk import trace as TDTR  # noqa: E402
+from repro_torch.core.disk import transport as TDTP  # noqa: E402
 from repro_torch.apps import outofcore_setops as SO  # noqa: E402
 from repro_torch.apps import quickstart as Q  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
@@ -6494,6 +6522,414 @@ def phase_disk_tier(dev) -> dict:
     return rec
 
 
+# ----------------------------------------------------- Tier D, sharded
+
+SHARD_N = DISK_N              # the gated runs: n = 11, chunks of 2^20
+SHARD_SMALL_N = 10            # the wire, recovery and trace runs
+SHARD_PARITY_N = 9            # K1 against its plain version, shard by shard
+SHARD_PARITY_CHUNK = 1 << 16  # 3 chunks a shard at n = 9, 2 shards
+SHARD_KILL = "worker_level:kill:shard=1:level=4"
+SHARD_TIMEOUT = 600.0         # seconds a collective may take
+
+_SHARD_T: dict = {}           # a spawn worker's timers (``_w_shard_timers``)
+
+
+def _w_shard_timers(ctx, on: bool):
+    """In a spawn shard worker.  With ``on``: wrap K1's wrapper (CUDA
+    events around each launch), the op log's spills and reads, and the
+    fs wire's bucket spills, seals and (barrier) reads (host seconds), and
+    reset the worker's peak device memory.  Without: put every wrapper
+    back and return the readings."""
+    cls, bw = TDB.DiskBitArray, TDBK.BucketWriter
+    if on:
+        got = {"k1": [], "log_write_s": 0.0, "log_read_s": 0.0,
+               "bucket_write_s": 0.0, "bucket_read_s": 0.0}
+        orig = {"k1": K.bitpack_mark_rotate_count,
+                "flush": cls._flush_logs, "read": cls._read_log,
+                "append": bw._append, "publish": bw._publish,
+                "iter": TDTP.iter_incoming}
+
+        def k1(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = orig["k1"](*a, **kw)
+            ev[1].record()
+            got["k1"].append(ev)
+            return out
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    got[key] += time.perf_counter() - t0
+            return run
+
+        def timed_iter(*a, **kw):
+            it = orig["iter"](*a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    got["bucket_read_s"] += time.perf_counter() - t0
+                yield item
+
+        K.bitpack_mark_rotate_count = k1
+        cls._flush_logs = timed("log_write_s", orig["flush"])
+        cls._read_log = staticmethod(timed("log_read_s", orig["read"]))
+        bw._append = timed("bucket_write_s", orig["append"])
+        bw._publish = timed("bucket_write_s", orig["publish"])
+        TDTP.iter_incoming = timed_iter
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _SHARD_T.update(got=got, orig=orig)
+        return None
+    got, orig = _SHARD_T.pop("got"), _SHARD_T.pop("orig")
+    K.bitpack_mark_rotate_count = orig["k1"]
+    cls._flush_logs = orig["flush"]
+    cls._read_log = staticmethod(orig["read"])
+    bw._append, bw._publish = orig["append"], orig["publish"]
+    TDTP.iter_incoming = orig["iter"]
+    torch.cuda.synchronize()
+    out = {k: v for k, v in got.items() if k != "k1"}
+    out.update(k1=len(got["k1"]),
+               k1_ms=sum(a.elapsed_time(b) for a, b in got["k1"]),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def shard_counts_zero() -> None:
+    """Every launch count and Tier D counter of this process set to 0."""
+    K.reset_launches()
+    TDB.reset_stats()
+    TDX.reset_stats()
+    TDC.reset_stats()
+    for k in TDBK.TRANSPORT_STATS:
+        TDBK.TRANSPORT_STATS[k] = 0
+
+
+def shard_drive(dev, n, nshards, *, transport="fs", exchange=None,
+                mode="spawn", chunk_elems=DISK_CHUNK, impl="auto",
+                ckpt=None, max_recoveries=0, max_levels=10_000,
+                timers=None, keep=False, after=None) -> dict:
+    """One sharded implicit search of pancake ``n`` through
+    ``core.disk.implicit_bfs`` on a ``ShardRuntime`` of ``nshards``
+    built here (so the spawn workers' timers go in before the search),
+    every count set to 0 just before and read just after: the spawn
+    workers' launches and Tier D counters come home through the
+    runtime's counter deltas at each level barrier.  ``keep`` also
+    returns the whole cluster directory (every shard's chunks and op
+    logs, the pending buckets) and the final values; ``after(rt)`` runs
+    on the same runtime once the readings are taken (``rec["after"]``)."""
+    total = math.factorial(n)
+    timers = mode == "spawn" if timers is None else timers
+    wd = tempfile.mkdtemp(prefix="shards_")
+    try:
+        t_rt = time.perf_counter()
+        rt = TDCL.ShardRuntime(os.path.join(wd, "cluster"), nshards,
+                               mode=mode, transport=transport,
+                               exchange=exchange, timeout=SHARD_TIMEOUT)
+        rt.barrier()                   # every worker up
+        start_s = time.perf_counter() - t_rt
+        try:
+            if timers:
+                rt.bcast(_w_shard_timers, True)
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            shard_counts_zero()
+            t0 = time.perf_counter()
+            sizes, bits = TDD.implicit_bfs(
+                wd, total, [P.start_rank(n)], P.neighbors(n),
+                chunk_elems=chunk_elems, max_levels=max_levels, impl=impl,
+                device=dev, cluster=TDCF.ClusterConfig(runtime=rt),
+                checkpoint=TDCF.CheckpointConfig(dir=ckpt),
+                recovery=TDCF.RecoveryConfig(max_recoveries=max_recoveries))
+            hist = bits.count_values().tolist()
+            sync(dev)
+            secs = time.perf_counter() - t0
+            b = dict(TDB.STATS)
+            rec = {"n": n, "nshards": nshards, "mode": mode,
+                   "transport": transport, "exchange": exchange or "barrier",
+                   "sizes": sizes, "hist": hist, "wall_s": secs,
+                   "start_s": start_s,
+                   "states_per_s": total / secs, "dropped": bits.dropped,
+                   "launches": dict(K.LAUNCHES),
+                   "routes": dict(K.ROUTE_LAUNCHES), "bits": b,
+                   "wire": {k: v for k, v in TDBK.TRANSPORT_STATS.items()
+                            if v},
+                   "ledger": {k: TDX.STATS[k] for k in
+                              ("rw_passes", "read_passes", "sort_passes",
+                               "recoveries", "replayed_levels",
+                               "io_retries")},
+                   "coordinator_peak_bytes":
+                       torch.cuda.max_memory_allocated(dev),
+                   "workers": rt.bcast(TDCL._w_get_stats),
+                   "per_shard_chunks": [
+                       -(-max(0, min(bits.per, total - s * bits.per))
+                         // chunk_elems) for s in range(nshards)]}
+            if timers:
+                rec["timers"] = rt.bcast(_w_shard_timers, False)
+            if keep:
+                rec["tree"] = tree(rt.root)
+                rec["values"] = bits.read_all()
+            bits.destroy()
+            if after is not None:
+                rec["after"] = after(rt)
+        finally:
+            rt.destroy()
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return rec
+
+
+def shard_check(r, want_sizes, what, gated=True) -> None:
+    """The sharded search's gates: the in-memory level sizes, every state
+    DONE, no drop; K1 once a chunk a level pass on every shard (each on
+    the route ``K.route`` names) and nothing else; per shard one pass a
+    level and no sort; with ``gated`` also 16 B of op log a mark, each
+    mark at its owner once, and the wire's bytes out == in."""
+    n, total = r["n"], math.factorial(r["n"])
+    levels = len(want_sizes)
+    expect(r["sizes"] == want_sizes, (what, r["sizes"], want_sizes))
+    expect(r["hist"] == [0, 0, 0, total] and r["dropped"] == 0,
+           (what, r["hist"], r["dropped"]))
+    k1 = levels * sum(r["per_shard_chunks"])
+    expect(r["launches"] == {"mark_rotate_count": k1, "scatter_mark": 0,
+                             "lut_count": 0, "gather2": 0},
+           (what, r["launches"], k1))
+    expect(sum(r["routes"].values()) == k1, (what, r["routes"]))
+    # a spawn worker's ledger is its own; inline shards share this
+    # process's, which then holds every shard's passes
+    per = levels + 1 if r["mode"] == "spawn" else r["nshards"] * (levels + 1)
+    for s, w in enumerate(r["workers"]):
+        led = w["extsort"]
+        expect(led["rw_passes"] + led["read_passes"] == per
+               and led["sort_passes"] == 0 and w["bits"]["scan_passes"] == 0,
+               (what, s, led))
+    if not gated:
+        return
+    n_marks = (n - 1) * total
+    b, wire = r["bits"], r["wire"]
+    expect(b["log_bytes_written"] == b["log_bytes_read"]
+           == (n_marks + 1) * DISK_LOG_REC, (what, b))
+    expect(b["ops_applied"] == n_marks + 1, (what, b))
+    kind = r["transport"]
+    out_b, in_b = wire.get(f"{kind}_bytes_out", 0), wire.get(
+        f"{kind}_bytes_in", 0)
+    expect(out_b == in_b and out_b % DISK_LOG_REC == 0, (what, wire))
+    remote = out_b // DISK_LOG_REC - 1          # the seed rides the wire
+    local = b["log_bytes_written"] // DISK_LOG_REC - out_b // DISK_LOG_REC
+    expect(local + remote == n_marks and remote > 0, (what, local, remote))
+    r["marks_local"], r["marks_remote"] = local, remote
+
+
+def shard_line(what, r) -> None:
+    t = r.get("timers")
+    k1 = r["launches"]["mark_rotate_count"]
+    line = (f"disk sharded: {what}: {r['wall_s']:.3f} s wall "
+            f"({r['start_s']:.3f} s to start the workers before it), "
+            f"{r['states_per_s']:.0f} states/s, K1 {k1} launches "
+            f"{r['routes']}; op log {r['bits']['log_bytes_written']} B, "
+            f"wire {r['wire']}")
+    if "marks_local" in r:
+        line += (f"; marks local {r['marks_local']}, remote "
+                 f"{r['marks_remote']}")
+    if t:
+        line += (f"; K1 {sum(x['k1_ms'] for x in t):.3f} ms over "
+                 f"{sum(x['k1'] for x in t)} launches in the workers "
+                 f"({[round(x['k1_ms'], 3) for x in t]}); worker peaks "
+                 f"{[x['peak_bytes'] for x in t]} B; log writes "
+                 f"{[round(x['log_write_s'], 3) for x in t]} s, reads "
+                 f"{[round(x['log_read_s'], 3) for x in t]} s; bucket "
+                 f"writes {[round(x['bucket_write_s'], 3) for x in t]} s, "
+                 f"reads {[round(x['bucket_read_s'], 3) for x in t]} s")
+    print(line)
+
+
+def shard_summary(r) -> dict:
+    keep = ("n", "nshards", "mode", "transport", "exchange", "wall_s",
+            "start_s",
+            "states_per_s", "launches", "routes", "wire", "ledger",
+            "coordinator_peak_bytes", "per_shard_chunks", "marks_local",
+            "marks_remote", "timers")
+    out = {k: r[k] for k in keep if k in r}
+    out["log_bytes"] = r["bits"]["log_bytes_written"]
+    return out
+
+
+def phase_disk_sharded(dev, disk) -> dict:
+    """Tier D's sharded implicit BFS (``cluster.sharded_implicit_bfs``):
+    each shard a spawned worker process with its block of the 2-bit array
+    on the card, one K1 launch a chunk a level pass on every shard, the
+    marks for other shards on the bucket wire.  (a) pancake n = 11 over
+    4 shards, fs wire, barrier exchange, chunks of 2^20: the in-memory
+    level sizes, K1 560 times, one pass a level a shard, the op log of
+    the single-process run to the byte, the wire's bytes out == in; (b)
+    the same over 2 shards; (c) at n = 10: 4 shards with the pipelined
+    exchange, the TCP wire (spawn) under a trace read back through
+    ``trace.report_json``, the loopback wire (inline), and a worker killed
+    at level 4 and healed from the level checkpoints; (d) at n = 9 over 2
+    shards, K1 against its plain version on the card (``impl="ref"``):
+    every shard's chunks, op logs and pending buckets the same bytes
+    mid-search, and the final array the single-process search's; (e) the
+    sorted engine on (a)'s 4 spawned workers at n = 10 on the host
+    against the Tier J sorted engine."""
+    sizes11 = disk["level_sizes"]
+    out = {}
+
+    n10 = SHARD_SMALL_N
+    total10 = math.factorial(n10)
+    sizes10, _ = C.implicit_bfs(total10, [P.start_rank(n10)],
+                                P.neighbors(n10), device=dev)
+    res_j, _, _ = PB.search(n10, PB.prefix_flips(n10), device=dev)
+    sorted_want = res_j.level_sizes
+    del res_j
+
+    def sorted_on(rt):
+        """(e) on (a)'s 4 spawned workers: the sorted engine at n = 10."""
+        with tempfile.TemporaryDirectory() as wd:
+            t0 = time.perf_counter()
+            got, vis = TDD.breadth_first_search(
+                wd, PB.start_code(n10)[None],
+                PB.HostMoves(n10, P.prefix_flip_table(n10)),
+                width=PB.words(n10), chunk_rows=1 << 14,
+                cluster=TDCF.ClusterConfig(runtime=rt))
+            secs = time.perf_counter() - t0
+            rows = vis.size()
+            vis.destroy()
+        return {"sizes": got, "wall_s": secs, "rows": rows}
+
+    a = shard_drive(dev, SHARD_N, 4, after=sorted_on)
+    shard_check(a, sizes11, f"n={SHARD_N} 4 shards")
+    shard_line(f"n={SHARD_N}, 4 shards, spawn, fs, barrier", a)
+    if SHARD_N == 11:       # the single-process run's figures
+        expect(a["launches"]["mark_rotate_count"] == 560,
+               "K1 != 4 x 10 x 14")
+        expect(a["bits"]["log_bytes_written"] == 6_386_688_016, a["bits"])
+    out["n11_4"] = shard_summary(a)
+    srt = a["after"]
+    expect(srt["sizes"] == sorted_want and srt["rows"] == total10,
+           (srt, sorted_want))
+    print(f"disk sharded: sorted engine n={n10} on the same 4 spawned "
+          f"shards, on the host: {srt['wall_s']:.3f} s, "
+          f"{total10 / srt['wall_s']:.0f} states/s == the Tier J sorted "
+          "engine's level sizes")
+    out["sorted_n10_4_s"] = srt["wall_s"]
+
+    b2 = shard_drive(dev, SHARD_N, 2)
+    shard_check(b2, sizes11, f"n={SHARD_N} 2 shards")
+    shard_line(f"n={SHARD_N}, 2 shards, spawn, fs, barrier", b2)
+    if SHARD_N == 11:
+        expect(b2["launches"]["mark_rotate_count"] == 560,
+               "K1 != 2 x 20 x 14")
+    out["n11_2"] = shard_summary(b2)
+
+    pipe = shard_drive(dev, n10, 4, exchange="pipelined")
+    shard_check(pipe, sizes10, f"n={n10} 4 shards pipelined")
+    shard_line(f"n={n10}, 4 shards, spawn, fs, pipelined", pipe)
+    out["n10_4_pipelined"] = shard_summary(pipe)
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "run.jsonl")
+        TDTR.start(path, meta={"example": "chip_smoke", "n": n10,
+                               "nshards": 4, "transport": "tcp"})
+        try:
+            tcp = shard_drive(dev, n10, 4, transport="tcp")
+        finally:
+            TDTR.stop()
+        rep = TDTR.report_json(path)
+    shard_check(tcp, sizes10, f"n={n10} tcp traced")
+    shard_line(f"n={n10}, 4 shards, spawn, tcp, barrier, traced", tcp)
+    rows = rep["levels"]
+    expect([r["level"] for r in rows] == list(range(len(sizes10) + 1))
+           and all(sorted(r["shard_us"]) == [0, 1, 2, 3] for r in rows)
+           and all(r["passes"] > 0 for r in rows), rows)
+    print(f"disk sharded: the tcp run's trace: {len(rows)} level rows, "
+          f"each with spans of shards 0-3, {rep['totals']['passes']} "
+          f"passes, {rep['totals']['bytes']} B")
+    out["n10_tcp"] = shard_summary(tcp)
+    out["n10_tcp"]["trace"] = {"rows": len(rows), "totals": rep["totals"]}
+    loop = shard_drive(dev, n10, 4, transport="loopback", mode="inline")
+    shard_check(loop, sizes10, f"n={n10} loopback inline")
+    shard_line(f"n={n10}, 4 shards, inline, loopback, barrier", loop)
+    out["n10_loopback_inline"] = shard_summary(loop)
+
+    with tempfile.TemporaryDirectory() as ck:
+        os.environ[TDF.ENV_VAR] = SHARD_KILL
+        try:
+            kill = shard_drive(dev, n10, 4, ckpt=ck, max_recoveries=1,
+                               timers=False)
+        finally:
+            os.environ.pop(TDF.ENV_VAR, None)
+            TDF.uninstall()
+    expect(kill["sizes"] == sizes10 and kill["hist"][3] == total10,
+           (kill["sizes"], sizes10))
+    expect(kill["ledger"]["recoveries"] == 1
+           and kill["ledger"]["replayed_levels"] >= 1, kill["ledger"])
+    # recover() tears the pool down without its telemetry: the launches,
+    # passes and wire bytes the workers booked since the last level
+    # barrier go with them, so this run's counts are not reported
+    print(f"disk sharded: n={n10}, 4 shards, {SHARD_KILL}, checkpoints "
+          f"every level: healed to the exact level sizes in "
+          f"{kill['wall_s']:.3f} s (recoveries "
+          f"{kill['ledger']['recoveries']}, replayed levels "
+          f"{kill['ledger']['replayed_levels']})")
+    out["n10_kill"] = {"wall_s": kill["wall_s"], "start_s": kill["start_s"],
+                       "recoveries": kill["ledger"]["recoveries"],
+                       "replayed_levels": kill["ledger"]["replayed_levels"]}
+
+    total9 = math.factorial(SHARD_PARITY_N)
+    sizes9, _ = C.implicit_bfs(total9, [P.start_rank(SHARD_PARITY_N)],
+                               P.neighbors(SHARD_PARITY_N), device=dev)
+    got = {}
+    for impl in ("auto", "ref"):
+        mid = shard_drive(dev, SHARD_PARITY_N, 2, mode="inline", impl=impl,
+                          chunk_elems=SHARD_PARITY_CHUNK, max_levels=5,
+                          keep=True)
+        full = shard_drive(dev, SHARD_PARITY_N, 2, mode="inline", impl=impl,
+                           chunk_elems=SHARD_PARITY_CHUNK, keep=True)
+        got[impl] = (mid, full)
+    (mid_k, full_k), (mid_r, full_r) = got["auto"], got["ref"]
+    expect(mid_k["launches"]["mark_rotate_count"] > 0
+           and not any(mid_r["launches"].values()),
+           (mid_k["launches"], mid_r["launches"]))
+    pending = [f for f in mid_k["tree"] if f.startswith("exchange/")]
+    expect(mid_k["tree"] == mid_r["tree"] and pending,
+           f"n={SHARD_PARITY_N}, 2 shards, level 5: K1's shard workdirs != "
+           "the plain versions'")
+    expect(full_k["sizes"] == full_r["sizes"] == sizes9
+           and full_k["tree"] == full_r["tree"], full_k["sizes"])
+    with tempfile.TemporaryDirectory() as wd:
+        _, single = TDD.implicit_bfs(
+            wd, total9, [P.start_rank(SHARD_PARITY_N)],
+            P.neighbors(SHARD_PARITY_N), device=dev,
+            chunk_elems=SHARD_PARITY_CHUNK)
+        words = BA.pack_values(single.read_all())
+        single.destroy()
+    expect(torch.equal(BA.pack_values(full_k["values"]), words)
+           and torch.equal(full_k["values"], full_r["values"]),
+           "the sharded array's words != the single-process array's")
+    print(f"disk sharded: n={SHARD_PARITY_N}, 2 shards in chunks of "
+          f"{SHARD_PARITY_CHUNK}: "
+          f"through K1 ({mid_k['launches']['mark_rotate_count']} + "
+          f"{full_k['launches']['mark_rotate_count']} launches) == through "
+          f"its plain version on the card, every shard's chunks, op logs and "
+          f"{len(pending)} pending bucket files byte for byte at level 5 "
+          f"({len(mid_k['tree'])} files) and at the end; the final words == "
+          "the single-process array's")
+    out["n9_parity"] = {"files_mid": len(mid_k["tree"]),
+                        "pending_buckets": len(pending),
+                        "k1": full_k["launches"]["mark_rotate_count"]}
+
+    print(json.dumps({"disk_sharded": out}, default=str))
+    return out
+
+
 def to_port_bounds() -> list:
     """The bounds of the TPU kernels still to port: none.  K5, the last,
     is ported (``phase_roomy``; its bound is in the ``kernels`` line), so
@@ -6527,6 +6963,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     disk = phase_disk_tier(dev)
     print(f"[phase_disk_tier done at {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.empty_cache()
+    sharded = phase_disk_sharded(dev, disk)
+    print(f"[phase_disk_sharded done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     oracle = phase_oracle(dev, sizes)
     print(f"[phase_oracle done at {time.perf_counter() - t0:.1f} s]")
@@ -6610,6 +7049,19 @@ def main() -> None:
                             "unfused"]["times"][
                 {"mark_rotate_count": "k1_ms", "scatter_mark": "k2_ms",
                  "lut_count": "k3_ms"}[name]],
+            "disk_sharded_launches": {
+                key: sharded[key]["launches"][name]
+                for key in ("n11_4", "n11_2", "n10_4_pipelined", "n10_tcp",
+                            "n10_loopback_inline")},
+            "disk_sharded_ms": (sum(x["k1_ms"] for x in
+                                    sharded["n11_4"]["timers"])
+                                if name == "mark_rotate_count" else None),
+            "disk_sharded_shape": f"pancake n = {SHARD_N} over 4 (2) "
+                                  "shards: 10 (20) chunks of "
+                                  f"{DISK_CHUNK} fields a shard, one "
+                                  "launch a chunk a level pass on every "
+                                  "shard; disk_sharded_ms sums the 4 "
+                                  "workers' launches",
             "disk_shape": f"pancake n = {DISK_N} on disk: "
                           f"{disk['chunks']} chunks of {DISK_CHUNK} fields, "
                           "one launch a chunk a level pass (K2: a chunk "

@@ -16,12 +16,19 @@ expands them on the host with ``pancake_bfs.HostMoves``.
   PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 11
   PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 6 --device cpu
   PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 8 --tier disk
+  PYTHONPATH=src python -m repro_torch.apps.cayley_bfs --n 8 --tier disk \
+      --shards 4 --trace run.jsonl
+
+``--shards N`` runs the disk engine over N spawned shard workers;
+``--trace PATH`` writes the run's JSONL trace and prints its per-level
+report.
 """
 from __future__ import annotations
 
 import argparse
 import math
 
+from ..core.disk.config import ClusterConfig
 from .pancake_bfs import HostMoves, Moves, disk_search, report, search
 
 
@@ -47,12 +54,14 @@ def adjacent_swaps(n: int) -> Moves:
     return Moves(n, table)
 
 
-def run(n: int, device=None, tier: str = "j"):
+def run(n: int, device=None, tier: str = "j", shards: int = 1,
+        shard_mode: str = "spawn", trace_path=None):
     """Full BFS of the bubble-sort graph of S_n on ``tier`` ("j": the
-    device; "disk": chunk files of 8192 rows, on the host); holds the
-    level sizes to the Mahonian numbers and the diameter to n(n-1)/2, and
-    prints states/s.  Returns (level_sizes, BFSResult or None, wall
-    seconds)."""
+    device; "disk": chunk files of 8192 rows, on the host, over
+    ``shards`` shard workers in ``shard_mode``, with a JSONL trace at
+    ``trace_path`` when given); holds the level sizes to the Mahonian
+    numbers and the diameter to n(n-1)/2, and prints states/s.  Returns
+    (level_sizes, BFSResult or None, wall seconds)."""
     if not 3 <= n <= 12:
         raise ValueError(f"n={n}: the 4-bit encoding takes 3 <= n <= 12")
     total = math.factorial(n)
@@ -61,8 +70,10 @@ def run(n: int, device=None, tier: str = "j"):
     if tier == "disk":
         moves = adjacent_swaps(n)
         res = None
-        sizes, secs = disk_search(n, HostMoves(n, moves.table.tolist()),
-                                  chunk_rows=1 << 13)
+        sizes, secs = disk_search(
+            n, HostMoves(n, moves.table.tolist()), chunk_rows=1 << 13,
+            cluster=ClusterConfig(nshards=shards, mode=shard_mode),
+            trace_path=trace_path, example="cayley_bfs")
         print("level sizes:", sizes)
         print(f"{total / secs:.0f} states/s ({secs:.3f}s) on disk")
     else:
@@ -85,10 +96,18 @@ def main(argv=None):
     ap.add_argument("--tier", choices=("j", "disk"), default="j",
                     help="j: the device engine (default); disk: sorted "
                          "runs of chunk files, on the host")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="run the disk tier over N shard workers")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a JSONL trace of the disk tier's run to "
+                         "PATH and print its per-level report")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     args = ap.parse_args(argv)
-    run(args.n, device=args.device, tier=args.tier)
+    if args.tier != "disk" and (args.shards != 1 or args.trace):
+        ap.error("--shards and --trace are the disk tier's")
+    run(args.n, device=args.device, tier=args.tier, shards=args.shards,
+        trace_path=args.trace)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,14 @@ overflows at n ≥ 9.
   PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 8 --device cpu \
       --check
   PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 10 --tier disk
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bfs --n 10 --tier disk \
+      --shards 4 [--transport tcp] [--exchange pipelined] [--trace run.jsonl]
+
+``--shards N`` runs the disk engine over N shard workers (``--shard-mode
+spawn|inline``), each sorting only the states that hash to it, with the
+rows for other shards on the bucket wire (``--transport fs|tcp|loopback``,
+``--exchange barrier|pipelined``); ``--trace PATH`` writes the run's JSONL
+trace and prints its per-level report.
 
 n = 11 fits one 80 GB card (the widest level sorts 172M rows).  n = 12
 would sort 2.3e9 rows, past one card and the int32 run ids: the implicit
@@ -41,6 +49,8 @@ from .. import device as _device
 from ..core import constructs as C
 from ..core import types as T
 from ..core.disk import bfs as DB
+from ..core.disk import trace
+from ..core.disk.config import ClusterConfig
 from . import pancake_bits as P
 
 NIBBLES = 8        # 4-bit codes a 32-bit word holds
@@ -146,31 +156,50 @@ def search(n: int, moves: Moves, fused: bool = True, device=None):
 
 
 def disk_search(n: int, gen: HostMoves, chunk_rows: int = 1 << 14,
-                fused: bool = True, compress: bool = False):
+                fused: bool = True, compress: bool = False, cluster=None,
+                trace_path=None, example: str = "pancake_bfs"):
     """The disk engine's BFS from the sorted stack, in a temporary
-    directory, on the host.  Returns (level_sizes, wall seconds)."""
-    with tempfile.TemporaryDirectory() as wd:
-        t0 = time.perf_counter()
-        sizes, all_ = DB.breadth_first_search(
-            wd, start_code(n)[None], gen, width=words(n),
-            chunk_rows=chunk_rows, fused=fused, compress=compress)
-        secs = time.perf_counter() - t0
-        all_.destroy()
+    directory, on the host, sharded by ``cluster`` (a ``ClusterConfig``)
+    when given; ``trace_path`` writes the run's JSONL trace there and
+    prints its report.  Returns (level_sizes, wall seconds)."""
+    if trace_path:
+        # Before the runtime spawns: workers read $ROOMY_TRACE at startup.
+        trace.start(trace_path, meta={
+            "example": example, "n": n, "tier": "disk",
+            "nshards": cluster.nshards if cluster is not None else 1})
+    try:
+        with tempfile.TemporaryDirectory() as wd:
+            t0 = time.perf_counter()
+            sizes, all_ = DB.breadth_first_search(
+                wd, start_code(n)[None], gen, width=words(n),
+                chunk_rows=chunk_rows, fused=fused, compress=compress,
+                cluster=cluster)
+            secs = time.perf_counter() - t0
+            all_.destroy()
+    finally:
+        if trace_path:
+            trace.report(trace.stop())
     return sizes, secs
 
 
 def run_disk(n: int, chunk_rows: int = 1 << 14, fused: bool = True,
-             compress: bool = False):
-    """Full pancake BFS for n on disk (Tier D, the host); prints the level
-    sizes, the diameter and states/s.  Returns (level_sizes, wall
-    seconds)."""
+             compress: bool = False, shards: int = 1,
+             shard_mode: str = "spawn", transport: str = "fs",
+             exchange=None, trace_path=None):
+    """Full pancake BFS for n on disk (Tier D, the host), over ``shards``
+    shard workers when it is above 1; prints the level sizes, the
+    diameter and states/s.  Returns (level_sizes, wall seconds)."""
     if not 3 <= n <= 12:
         raise ValueError(f"n={n}: the 4-bit encoding takes 3 <= n <= 12")
     total = math.factorial(n)
     print(f"pancake n={n}: {total} states, sorted-list BFS on disk "
-          f"({'fused' if fused else 'unfused'}), {words(n)} word(s) a row")
-    sizes, secs = disk_search(n, HostMoves(n, P.prefix_flip_table(n)),
-                              chunk_rows, fused, compress)
+          f"({'fused' if fused else 'unfused'}), {words(n)} word(s) a row"
+          + (f", shards={shards}" if shards > 1 else ""))
+    sizes, secs = disk_search(
+        n, HostMoves(n, P.prefix_flip_table(n)), chunk_rows, fused,
+        compress, ClusterConfig(nshards=shards, mode=shard_mode,
+                                transport=transport, exchange=exchange),
+        trace_path)
     if sum(sizes) != total:
         raise SystemExit("did not enumerate the full graph!")
     print("level sizes:", sizes)
@@ -223,6 +252,24 @@ def main(argv=None):
                     help="add, removeDupes, removeAll, addAll (2 lexsorts "
                          "and 2 scatters a level) instead of the fused "
                          "level (1 and 1)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="run the disk tier over N shard workers")
+    ap.add_argument("--shard-mode", choices=("spawn", "inline"),
+                    default="spawn",
+                    help="shard workers as processes (default) or in this "
+                         "process")
+    ap.add_argument("--transport", choices=("fs", "tcp", "loopback"),
+                    default="fs",
+                    help="bucket wire between shards: shared files "
+                         "(default), TCP sockets, or the in-process "
+                         "loopback store (inline mode only)")
+    ap.add_argument("--exchange", choices=("barrier", "pipelined"),
+                    default=None,
+                    help="exchange discipline: two-phase barrier (default) "
+                         "or overlapped produce/apply")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a JSONL trace of the disk tier's run to "
+                         "PATH and print its per-level report")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     ap.add_argument("--check", action="store_true",
@@ -232,9 +279,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.compress and (args.tier != "disk" or args.unfused):
         ap.error("--compress is the fused disk tier's")
+    if args.tier != "disk" and (args.shards != 1 or args.transport != "fs"
+                                or args.exchange or args.trace):
+        ap.error("--shards, --transport, --exchange and --trace are the "
+                 "disk tier's")
+    if args.unfused and (args.shards != 1 or args.transport != "fs"
+                         or args.exchange):
+        ap.error("--unfused is the one-process pass; it cannot shard")
     if args.tier == "disk":
         sizes, _ = run_disk(args.n, args.chunk_rows, not args.unfused,
-                            args.compress)
+                            args.compress, args.shards, args.shard_mode,
+                            args.transport, args.exchange, args.trace)
     else:
         sizes, _, _ = run(args.n, fused=not args.unfused, device=args.device)
     if args.check:

@@ -8,7 +8,12 @@ every level is one fused kernel pass over that array.  On Tier D the
 array is a ``DiskBitArray`` of chunk files and each level is one
 read-write pass over them, one K1 launch a chunk on the card; its op
 logs, checkpoints (``--checkpoint-dir``, ``--resume``, ``--stop-after``)
-and fault storm (``--chaos``) are the reference's.
+and fault storm (``--chaos``) are the reference's.  ``--shards N`` spreads
+the array over N shard workers (``--shard-mode spawn|inline``), each
+running its level pass over its own block, one K1 launch a chunk, with
+the marks for other shards on the bucket wire (``--transport
+fs|tcp|loopback``, ``--exchange barrier|pipelined``); ``--trace PATH``
+writes the run's JSONL trace and prints its per-level report.
 ``--publish DIR`` then seals the search as a distance-oracle artifact
 (``core/disk/oracle.py``), labelled on the device; ``--check`` (n ≤ 8)
 holds the level sizes against the sorted-list engine
@@ -25,6 +30,8 @@ published oracle's distances against that table.
       --checkpoint-dir CK --stop-after 6      # then again with --resume
   PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 8 --tier disk \
       --device cpu --chaos 3 --check
+  PYTHONPATH=src python -m repro_torch.apps.pancake_bits --n 11 --tier disk \
+      --shards 4 [--transport tcp] [--exchange pipelined] [--trace run.jsonl]
 
 Tier J: n ≤ 12, the packed kernels index elements with int32 (16·W <
 2³¹).  Tier D indexes a chunk's fields locally, so n runs to 20 (int64
@@ -48,10 +55,11 @@ from .. import device as _device
 from ..core import constructs as C
 from ..core import ranking as R
 from ..core.disk import bitarray as DBA
-from ..core.disk import extsort, faults
+from ..core.disk import extsort, faults, trace
 from ..core.disk import oracle as O
 from ..core.disk.bfs import implicit_bfs as disk_implicit_bfs
-from ..core.disk.config import CheckpointConfig
+from ..core.disk.config import (CheckpointConfig, ClusterConfig,
+                                RecoveryConfig)
 
 DIAMETERS = {4: 4, 5: 5, 6: 7, 7: 8, 8: 9, 9: 10, 10: 11, 11: 13, 12: 14}
 
@@ -213,15 +221,22 @@ def run(n: int, fused: bool = True, device=None):
 def run_disk(n: int, chunk_elems: int = 1 << 20, fused: bool = True,
              compress: bool = False, checkpoint_dir=None,
              checkpoint_every: int = 1, resume: bool = False,
-             stop_after=None, chaos=None, device=None):
+             stop_after=None, chaos=None, device=None, shards: int = 1,
+             shard_mode: str = "spawn", transport: str = "fs",
+             exchange=None, trace_path=None):
     """Pancake BFS for n on disk (Tier D): ``core.disk.implicit_bfs`` in a
-    temporary directory, each chunk pass on ``device``.  Prints the level
-    table (or the levels so far, with ``stop_after``), states/s and the
-    bytes the array and its logs moved.  ``chaos=SEED`` runs under the
-    reference's seeded I/O-fault storm (``faults.default_chaos_spec``, or
-    ``$ROOMY_FAULTS`` when set), with checkpoints in the temporary
-    directory unless ``checkpoint_dir`` names some.  Returns (level_sizes,
-    wall seconds)."""
+    temporary directory, each chunk pass on ``device``, over ``shards``
+    shard workers when it is above 1 (``shard_mode``, ``transport``,
+    ``exchange``: the ``ClusterConfig``'s).  Prints the level table (or
+    the levels so far, with ``stop_after``), states/s and the bytes the
+    array and its logs moved (the workers' included).  ``chaos=SEED``
+    runs under the reference's seeded I/O-fault storm
+    (``faults.default_chaos_spec``, or ``$ROOMY_FAULTS`` when set; with
+    shards, one worker is also killed mid-search and the run heals from
+    its checkpoints, up to 8 times), with checkpoints in the temporary
+    directory unless ``checkpoint_dir`` names some.  ``trace_path``
+    writes the run's JSONL trace there and prints its report.  Returns
+    (level_sizes, wall seconds)."""
     if not 3 <= n <= R.MAX_N:
         raise ValueError(f"n={n}: the rank encoding takes 3 <= n <= "
                          f"{R.MAX_N}")
@@ -229,38 +244,56 @@ def run_disk(n: int, chunk_elems: int = 1 << 20, fused: bool = True,
     total = math.factorial(n)
     print(f"pancake n={n}: {total} states on disk, chunk passes on {dev} "
           f"({'fused' if fused else 'unfused'}), bit array = "
-          f"{-(-total // 4)} bytes packed")
+          f"{-(-total // 4)} bytes packed"
+          + (f", shards={shards}" if shards > 1 else ""))
     before = dict(DBA.STATS)
-    io_before = {k: extsort.STATS[k] for k in ("io_retries", "io_giveups")}
-    with tempfile.TemporaryDirectory() as wd:
-        if chaos is not None:
-            if not os.environ.get(faults.ENV_VAR):
-                os.environ[faults.ENV_VAR] = faults.default_chaos_spec(chaos)
-            faults.install_from_env(state_dir=os.path.join(wd, "_faults"))
-            if checkpoint_dir is None:
-                checkpoint_dir = os.path.join(wd, "chaos_ck")
-        try:
+    io_before = {k: extsort.STATS[k] for k in ("io_retries", "io_giveups",
+                                                "recoveries",
+                                                "replayed_levels")}
+    if chaos is not None and not os.environ.get(faults.ENV_VAR):
+        # The environment is how spawn workers inherit the plan.
+        os.environ[faults.ENV_VAR] = faults.default_chaos_spec(chaos, shards)
+    if trace_path:
+        # Before the runtime spawns: workers read $ROOMY_TRACE at startup.
+        trace.start(trace_path, meta={"example": "pancake_bits", "n": n,
+                                      "tier": "disk", "nshards": shards})
+    try:
+        with tempfile.TemporaryDirectory() as wd:
+            if chaos is not None:
+                if shards == 1:
+                    # A sharded run's runtime installs the plan itself.
+                    faults.install_from_env(
+                        state_dir=os.path.join(wd, "_faults"))
+                if checkpoint_dir is None:
+                    checkpoint_dir = os.path.join(wd, "chaos_ck")
             t0 = time.perf_counter()
             sizes, bits = disk_implicit_bfs(
                 wd, total, [start_rank(n)], neighbors(n),
                 chunk_elems=chunk_elems,
                 max_levels=10_000 if stop_after is None else stop_after,
                 fused=fused, compress=compress, device=dev,
+                cluster=ClusterConfig(nshards=shards, mode=shard_mode,
+                                      transport=transport,
+                                      exchange=exchange),
                 checkpoint=CheckpointConfig(dir=checkpoint_dir,
                                             every=checkpoint_every,
-                                            resume=resume))
+                                            resume=resume),
+                recovery=RecoveryConfig(
+                    max_recoveries=8 if chaos is not None else 0))
             if stop_after is None and int(bits.count_values()[0]):
                 raise SystemExit("unreached states — graph not connected?")
             secs = time.perf_counter() - t0
             bits.destroy()
-        finally:
-            if chaos is not None:
-                print(f"chaos: {faults.ENV_VAR}="
-                      f"{os.environ.pop(faults.ENV_VAR)!r}")
-                print("chaos: " + " ".join(
-                    f"{k}={extsort.STATS[k] - v}"
-                    for k, v in io_before.items()))
-                faults.uninstall()
+    finally:
+        if chaos is not None:
+            print(f"chaos: {faults.ENV_VAR}="
+                  f"{os.environ.pop(faults.ENV_VAR)!r}")
+            print("chaos: " + " ".join(
+                f"{k}={extsort.STATS[k] - v}"
+                for k, v in io_before.items()))
+            faults.uninstall()
+        if trace_path:
+            trace.report(trace.stop())
     moved = {k: DBA.STATS[k] - before[k] for k in DBA.STATS}
     io = (f"array {moved['bytes_read'] - moved['log_bytes_read']} B read, "
           f"{moved['bytes_written'] - moved['log_bytes_written']} written; "
@@ -310,6 +343,27 @@ def main(argv=None):
                          "appends, transient flakes; $ROOMY_FAULTS when "
                          "set): the search must heal to the fault-free "
                          "level counts (disk tier)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="spread the disk tier's array over N shard "
+                         "workers, each pass on --device")
+    ap.add_argument("--shard-mode", choices=("spawn", "inline"),
+                    default="spawn",
+                    help="shard workers as processes (default) or in this "
+                         "process")
+    ap.add_argument("--transport", choices=("fs", "tcp", "loopback"),
+                    default="fs",
+                    help="bucket wire between shards: shared files "
+                         "(default), TCP sockets, or the in-process "
+                         "loopback store (inline mode only)")
+    ap.add_argument("--exchange", choices=("barrier", "pipelined"),
+                    default=None,
+                    help="exchange discipline: two-phase barrier (default) "
+                         "or overlapped produce/apply")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a JSONL trace of the disk tier's run to "
+                         "PATH and print its per-level report (read it "
+                         "again with python -m repro_torch.core.disk.trace "
+                         "report PATH)")
     ap.add_argument("--unfused", action="store_true",
                     help="mark scatter then rotate+count (two kernels per "
                          "level) instead of the fused kernel")
@@ -337,20 +391,28 @@ def main(argv=None):
         ap.error("--check needs n <= 8")
     if not disk and (args.checkpoint_dir or args.resume
                      or args.stop_after is not None
-                     or args.chaos is not None):
-        ap.error("--checkpoint-dir, --resume, --stop-after and --chaos are "
-                 "the disk tier's")
+                     or args.chaos is not None or args.shards != 1
+                     or args.transport != "fs" or args.exchange
+                     or args.trace):
+        ap.error("--checkpoint-dir, --resume, --stop-after, --chaos, "
+                 "--shards, --transport, --exchange and --trace are the "
+                 "disk tier's")
     if args.checkpoint_dir is None and (args.resume
                                         or args.stop_after is not None):
         ap.error("--resume and --stop-after need --checkpoint-dir")
     if args.stop_after is not None and (args.check or args.publish):
         ap.error("--check and --publish take a complete search; drop "
                  "--stop-after")
+    if args.unfused and disk and (args.shards != 1 or args.transport != "fs"
+                                  or args.exchange):
+        ap.error("--unfused is the one-process pass; it cannot shard")
     if disk:
         sizes, _ = run_disk(args.n, args.chunk_elems, not args.unfused,
                             args.compress, args.checkpoint_dir,
                             args.checkpoint_every, args.resume,
-                            args.stop_after, args.chaos, args.device)
+                            args.stop_after, args.chaos, args.device,
+                            args.shards, args.shard_mode, args.transport,
+                            args.exchange, args.trace)
         if args.stop_after is not None and sum(sizes) < math.factorial(
                 args.n):
             return

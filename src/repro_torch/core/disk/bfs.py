@@ -20,8 +20,11 @@ chunk).  The seed pass and every expansion run on the generic route.
 The workdir, the op logs, the counters and the checkpoints are the
 reference's, byte for byte.
 
-Only one process: a sharded ``cluster=`` raises ``NotImplementedError``
-(``config.resolve_configs``); ``recovery=`` is accepted and unused.
+A sharded ``cluster=`` (``config.ClusterConfig``) runs either engine on
+the shard runtime of ``cluster.py``: :func:`~.cluster.sharded_bfs` and
+:func:`~.cluster.sharded_implicit_bfs`, whose level sizes are the
+single-process engine's for any number of shards; ``recovery=`` arms
+their self-healing and is unused in one process.
 """
 from __future__ import annotations
 
@@ -162,11 +165,25 @@ def breadth_first_search(
     ``checkpoint=CheckpointConfig(dir, every, resume)`` snapshots the
     visited runs and the frontier every ``every`` levels and resumes
     from the last one, across the compressed/uncompressed boundary both
-    ways (fused only)."""
+    ways (fused only).  A sharded ``cluster=`` runs
+    :func:`~.cluster.sharded_bfs` (``gen_next`` then pickles in spawn
+    mode) and returns a ``ShardedVisited`` in place of ``all``."""
     cl, cp, rec = resolve_configs(
         "breadth_first_search", cluster=cluster, checkpoint=checkpoint,
         recovery=recovery, fused=fused)
     checkpoint_dir, checkpoint_every, resume = cp.dir, cp.every, cp.resume
+    if cl.sharded:
+        from .cluster import sharded_bfs
+        rt, own = cl.build_runtime(workdir)
+        sizes, handle = sharded_bfs(
+            rt, start_rows, gen_next, width, chunk_rows=chunk_rows,
+            max_levels=max_levels, run_rows=run_rows, max_runs=max_runs,
+            compaction=compaction, size_ratio=size_ratio, compress=compress,
+            bucket_capacity=cl.bucket_capacity, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+            max_recoveries=rec.max_recoveries)
+        handle._own_runtime = own
+        return sizes, handle
     if not fused:
         assert not compress, "compress=True requires the fused engine"
         return _breadth_first_search_unfused(
@@ -284,12 +301,28 @@ def implicit_bfs(
 
     Memory is O(chunk + expand_batch·fanout) on the device, whatever the
     frontier; disk is n_states/4 bytes + queued marks.  Returns
-    (level_sizes, bits) — ``bits`` holds the final DONE marks.
+    (level_sizes, bits) — ``bits`` holds the final DONE marks.  A sharded
+    ``cluster=`` runs :func:`~.cluster.sharded_implicit_bfs`: each shard's
+    block on ``device``, one K1 launch a chunk a level on every shard, and
+    ``bits`` a ``ShardedDiskBitArray``.
     """
     cl, cp, rec = resolve_configs(
         "implicit_bfs", cluster=cluster, checkpoint=checkpoint,
         recovery=recovery, fused=fused)
     checkpoint_dir, checkpoint_every, resume = cp.dir, cp.every, cp.resume
+    if cl.sharded:
+        from .cluster import sharded_implicit_bfs
+        rt, own = cl.build_runtime(workdir)
+        sizes, handle = sharded_implicit_bfs(
+            rt, n_states, start_idx, gen_neighbors, chunk_elems=chunk_elems,
+            max_levels=max_levels, expand_batch=expand_batch,
+            log_buf_rows=log_buf_rows, compress=compress,
+            bucket_capacity=cl.bucket_capacity,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume=resume, max_recoveries=rec.max_recoveries,
+            device=device, impl=impl)
+        handle._own_runtime = own
+        return sizes, handle
     ck = SearchCheckpoint(checkpoint_dir) if checkpoint_dir else None
     state = ck.latest() if (ck is not None and resume) else None
     if state is not None:

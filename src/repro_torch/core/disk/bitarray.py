@@ -189,11 +189,11 @@ class DiskBitArray:
             with open(pz, "rb") as f:
                 buf = f.read()
             if book:
-                STATS["bytes_read"] += len(buf)
+                obs.add(STATS, "bytes_read", len(buf))
             return _codec.decode_rle2(buf, tag="bits")
         packed = np.load(self._chunk_path(c))
         if book:
-            STATS["bytes_read"] += packed.nbytes
+            obs.add(STATS, "bytes_read", packed.nbytes)
         return packed
 
     def _store_packed(self, c: int, packed: np.ndarray, book: bool = True,
@@ -219,7 +219,7 @@ class DiskBitArray:
         if os.path.exists(stale):
             os.remove(stale)
         if book:
-            STATS["bytes_written"] += stored
+            obs.add(STATS, "bytes_written", stored)
 
     def _load_words(self, c: int, book: bool = True) -> torch.Tensor:
         return bytes_to_words(self._load_packed(c, book=book), self.device)
@@ -235,8 +235,8 @@ class DiskBitArray:
     def _read_log(path: str) -> np.ndarray:
         """A chunk's op log as (m, 2) int64 (idx, val) records, booked."""
         log = np.fromfile(path, dtype=np.int64).reshape(-1, 2)
-        STATS["bytes_read"] += log.nbytes
-        STATS["log_bytes_read"] += log.nbytes
+        obs.add(STATS, "bytes_read", log.nbytes)
+        obs.add(STATS, "log_bytes_read", log.nbytes)
         return log
 
     # ------------------------------------------------------ delayed ops
@@ -281,8 +281,8 @@ class DiskBitArray:
                 "oplog_append", self._log_path(c),
                 np.ascontiguousarray(rec, np.int64).view(np.uint8).reshape(-1),
                 chunk=c)
-            STATS["bytes_written"] += rec.nbytes
-            STATS["log_bytes_written"] += rec.nbytes
+            obs.add(STATS, "bytes_written", rec.nbytes)
+            obs.add(STATS, "log_bytes_written", rec.nbytes)
             self._log_bufs[c] = []
         self._log_buffered = 0
 
@@ -355,7 +355,7 @@ class DiskBitArray:
                       chunks=self.n_chunks):
             self._flush_logs()
             self._promote_logs()
-            STATS["sync_passes"] += 1
+            obs.add(STATS, "sync_passes", 1)
             record_pass(plan.n_stages + (1 if any_log else 0), writes=writes)
             for c in range(self.n_chunks):
                 sp = self._log_path(c) + ".pass"
@@ -365,7 +365,7 @@ class DiskBitArray:
                 words = self._load_words(c)
                 log = self._read_log(sp) if has_log else None
                 if log is not None and log.shape[0]:
-                    STATS["ops_applied"] += int(log.shape[0])
+                    obs.add(STATS, "ops_applied", int(log.shape[0]))
                 if mark is None:
                     words = self._generic_chunk(c, words, log, plan,
                                                 combine, apply)
@@ -476,7 +476,7 @@ class DiskBitArray:
     def map_chunks(self, fn: Callable[[int, torch.Tensor], None]) -> None:
         """Read-only streaming scan: fn(start_index, values on the
         device)."""
-        STATS["scan_passes"] += 1
+        obs.add(STATS, "scan_passes", 1)
         for c in range(self.n_chunks):
             fn(c * self.chunk_elems,
                self._unpack(self._load_words(c), self._chunk_rows(c)))
@@ -484,7 +484,7 @@ class DiskBitArray:
     def map_update(self, fn: Callable[[int, torch.Tensor], torch.Tensor]
                    ) -> None:
         """In-place streaming transform: vals = fn(start, vals)."""
-        STATS["scan_passes"] += 1
+        obs.add(STATS, "scan_passes", 1)
         for c in range(self.n_chunks):
             rows = self._chunk_rows(c)
             vals = fn(c * self.chunk_elems,

@@ -149,7 +149,7 @@ def validate_resume(meta: dict, engine: str, nshards: int, width: int,
 def _copy_file_booked(src: str, dst: str, counter: str) -> int:
     shutil.copyfile(src, dst)
     n = os.path.getsize(dst)
-    extsort.STATS[counter] += n
+    obs.add(extsort.STATS, counter, n)
     return n
 
 
@@ -320,7 +320,7 @@ class SearchCheckpoint:
                 json.dump({"version": version}, f)
             os.replace(tmp, self._manifest_path())     # atomic publish
         faults.retry_io("ckpt_publish", _point_manifest, version=version)
-        extsort.STATS["ckpt_snapshots"] += 1
+        obs.add(extsort.STATS, "ckpt_snapshots", 1)
         for fn in os.listdir(self.root):               # best-effort GC
             m = _VDIR_RE.match(fn)
             if (m and int(m.group(1)) < version) or fn.endswith(".tmp"):
@@ -368,10 +368,12 @@ def snapshot_sorted_state(stage_dir: str, all_runs: SortedRunSet,
             dst = os.path.join(stage_dir, dname)
             if dname in reuse and os.path.isdir(os.path.join(prev_dir,
                                                              dname)):
-                extsort.STATS["ckpt_bytes_written"] += _link_or_copy_dir(
-                    os.path.join(prev_dir, dname), dst)
+                obs.add(extsort.STATS, "ckpt_bytes_written",
+                        _link_or_copy_dir(os.path.join(prev_dir, dname),
+                                          dst))
             else:
-                extsort.STATS["ckpt_bytes_written"] += run.export_to(dst)
+                obs.add(extsort.STATS, "ckpt_bytes_written",
+                        run.export_to(dst))
             names.append(dname)
             if cur is not None and run is cur:
                 cur_name = dname
@@ -386,7 +388,7 @@ def restore_sorted_state(snap_dir: str, state: dict, all_runs: SortedRunSet,
     ``{runset}.ckpt.`` prefix so they can never collide with (or be wiped
     by) the level/compaction stores the resumed loop will create."""
     with obs.span("ckpt.restore", engine="sorted", runs=len(state["runs"])):
-        extsort.STATS["ckpt_restores"] += 1
+        obs.add(extsort.STATS, "ckpt_restores", 1)
         runs: List[ChunkStore] = []
         cur = None
         for dname in state["runs"]:
@@ -416,5 +418,5 @@ def snapshot_implicit_state(stage_dir: str, bits) -> dict:
 
 def restore_implicit_state(snap_dir: str, bits) -> None:
     with obs.span("ckpt.restore", engine="implicit"):
-        extsort.STATS["ckpt_restores"] += 1
+        obs.add(extsort.STATS, "ckpt_restores", 1)
         bits.adopt_snapshot(os.path.join(snap_dir, "bits"))

@@ -90,7 +90,7 @@ class CodecError(Exception):
 
 
 def _err(msg: str) -> "CodecError":
-    STATS["codec_errors"] += 1
+    obs.add(STATS, "codec_errors", 1)
     return CodecError(msg)
 
 
@@ -99,7 +99,7 @@ def book(tag: str, raw: int, stored: int, read: bool = False) -> None:
     sfx = "_read" if read else ""
     for key, n in ((f"{tag}_raw_bytes{sfx}", raw),
                    (f"{tag}_stored_bytes{sfx}", stored)):
-        STATS[key] = STATS.get(key, 0) + int(n)
+        obs.add(STATS, key, int(n))
 
 
 def reset_stats() -> None:
@@ -301,7 +301,7 @@ class CompressedKeyReader:
         if keys[0] != self.first[b] or keys[-1] != self.last[b]:
             raise _err(f"block {b}: decoded ends disagree with skip index")
         self._cache[b] = keys
-        STATS["blocks_decoded"] += 1
+        obs.add(STATS, "blocks_decoded", 1)
         book(self._tag, keys.nbytes // 2 * self.width, hi - lo, read=True)
         return keys
 
@@ -314,7 +314,7 @@ class CompressedKeyReader:
 
     def keys_between(self, lo: int, hi: int) -> np.ndarray:
         b0, b1 = self.block_span(lo, hi)
-        STATS["blocks_skipped"] += self.n_blocks - (b1 - b0)
+        obs.add(STATS, "blocks_skipped", self.n_blocks - (b1 - b0))
         parts = [self._decode_block(b) for b in range(b0, b1)]
         if not parts:
             return np.zeros(0, np.uint64)

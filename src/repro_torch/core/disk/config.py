@@ -5,15 +5,16 @@ Three small frozen dataclasses and ``resolve_configs``, the one shared
 checker behind every engine entry point::
 
     disk.implicit_bfs(wd, n, start, gen,
-                      checkpoint=CheckpointConfig(dir=ck, every=2))
+                      cluster=ClusterConfig(nshards=4, transport="tcp"),
+                      checkpoint=CheckpointConfig(dir=ck, every=2),
+                      recovery=RecoveryConfig(max_recoveries=1))
 
-The port runs the single-process half of Tier D.  A sharded config
-(``ClusterConfig(nshards > 1)``, a ``runtime=``, or a non-default wire or
-exchange, which the reference treats as a one-shard cluster) raises
-``NotImplementedError``: the sharded runtime (``cluster.py`` with
-``transport.py``) is the last step of ROADMAP item 8.
-``RecoveryConfig.max_recoveries`` is accepted and unused in one process,
-as in the reference.  The reference's legacy keywords (``nshards=``,
+A sharded config (``ClusterConfig(nshards > 1)``, a ``runtime=``, or a
+non-default wire or exchange, which makes a one-shard cluster) builds or
+adopts a :class:`~.cluster.ShardRuntime`; the validation and its errors
+are the reference's.  ``RecoveryConfig.max_recoveries`` arms the sharded
+engines' self-healing and is unused in one process, as in the
+reference.  The reference's legacy keywords (``nshards=``,
 ``checkpoint_dir=``, …) and their deprecation shim are not ported.
 """
 from __future__ import annotations
@@ -29,15 +30,17 @@ _KINDS = ("fs", "tcp", "loopback")
 _EXCHANGES = ("barrier", "pipelined")
 _MODES = ("spawn", "inline")
 
-SHARDED_MISSING = ("the sharded Tier D runtime (cluster.py with "
-                   "transport.py, the last step of ROADMAP item 8) is not "
-                   "ported yet; run with one shard")
-
-
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
     """How the search is sharded and how buckets travel between shards
-    (the reference's fields and validation)."""
+    (the reference's fields and validation).
+
+    exchange=None resolves to "barrier", the two-phase discipline;
+    exchange="pipelined" overlaps produce and apply (and runs inline
+    workers in a thread each).  wire_compress=True zlib-frames each
+    sealed bucket payload on the mailbox wires (tcp, loopback); the fs
+    wire refuses it, since its on-disk bucket layout is a
+    byte-compatibility contract."""
 
     nshards: int = 1
     mode: str = "spawn"
@@ -76,6 +79,20 @@ class ClusterConfig:
                 "ClusterConfig: transport='loopback' is the in-process wire "
                 "for mode='inline'; spawn workers live in other processes "
                 "and cannot share its store — use transport='tcp' or 'fs'")
+        if self.runtime is not None:
+            rt_n = getattr(self.runtime, "nshards", None)
+            if self.nshards not in (1, rt_n):
+                raise ValueError(
+                    f"ClusterConfig: runtime= has nshards={rt_n} but "
+                    f"nshards={self.nshards} was also passed — drop one "
+                    "(an adopted runtime brings its own shard count)")
+            rt_kind = getattr(getattr(self.runtime, "transport", None),
+                              "kind", "fs")
+            if self.transport != "fs" and self.transport != rt_kind:
+                raise ValueError(
+                    f"ClusterConfig: runtime= runs transport={rt_kind!r} "
+                    f"but transport={self.transport!r} was also passed — "
+                    "an adopted runtime brings its own wire")
         return self
 
     @property
@@ -87,9 +104,21 @@ class ClusterConfig:
                 or self.transport != "fs" or self.exchange is not None)
 
     def build_runtime(self, workdir: str):
-        """The reference builds or adopts a ShardRuntime here; the port
-        has none yet."""
-        raise NotImplementedError(SHARDED_MISSING)
+        """Adopt ``runtime=`` or build a fresh ShardRuntime under
+        ``workdir/cluster``.  Returns ``(runtime, owns)`` — the engine
+        destroys the runtime only when it owns it."""
+        if self.runtime is not None:
+            return self.runtime, False
+        import os
+
+        from .cluster import ShardRuntime
+        rt = ShardRuntime(os.path.join(workdir, "cluster"), self.nshards,
+                          mode=self.mode, timeout=self.timeout,
+                          transport=self.transport,
+                          exchange=self.resolved_exchange(),
+                          host=self.host,
+                          wire_compress=self.wire_compress)
+        return rt, True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +145,7 @@ class CheckpointConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RecoveryConfig:
-    """In-run self-healing budget (sharded runs only; unused in one
+    """In-run self-healing budget of the sharded engines (unused in one
     process)."""
 
     max_recoveries: int = 0
@@ -136,9 +165,11 @@ def resolve_configs(entry: str, *,
     """Validate each config and reject the cross-cutting conflicts, in the
     reference's order: ``fused=False`` with any sharding or with a
     checkpoint (the unfused reference paths are single-process and have no
-    level snapshot points) is a ``ValueError``; then a sharded config
-    raises ``NotImplementedError``.  Returns the validated
-    ``(ClusterConfig, CheckpointConfig, RecoveryConfig)`` triple."""
+    level snapshot points) is a ``ValueError``.  ``max_recoveries > 0``
+    without a checkpoint dir is deliberately not an error: rolling back
+    with nothing to adopt is the sharded engines' loud ``ShardFailure``.
+    Returns the validated ``(ClusterConfig, CheckpointConfig,
+    RecoveryConfig)`` triple."""
     cluster = (cluster or ClusterConfig()).validate()
     checkpoint = (checkpoint or CheckpointConfig()).validate()
     recovery = (recovery or RecoveryConfig()).validate()
@@ -152,6 +183,4 @@ def resolve_configs(entry: str, *,
             raise ValueError(
                 f"{entry}: checkpointing requires the fused pass "
                 "(fused=False has no level snapshot points)")
-    if cluster.sharded:
-        raise NotImplementedError(f"{entry}: {SHARDED_MISSING}")
     return cluster, checkpoint, recovery

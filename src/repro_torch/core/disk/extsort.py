@@ -199,8 +199,8 @@ class RunBuilder:
         if self._nbuf:
             self._emit(self._nbuf)
         if self._total:                 # an empty pass sorted nothing
-            STATS["sort_passes"] += 1
-            STATS["rows_sorted"] += self._total
+            obs.add(STATS, "sort_passes", 1)
+            obs.add(STATS, "rows_sorted", self._total)
         return self.runs
 
 
@@ -237,7 +237,7 @@ def iter_merged(runs: List[ChunkStore],
     # the generator closes it via GeneratorExit, which still unwinds the
     # ``with`` (obs tolerates the resulting out-of-LIFO span ends).
     with obs.span("merge", runs=len(runs), dedupe=dedupe):
-        STATS["merge_passes"] += 1
+        obs.add(STATS, "merge_passes", 1)
         cursors = [_RunCursor(r) for r in runs]
         heap = [(c.head, i) for i, c in enumerate(cursors) if c.alive]
         heapq.heapify(heap)
@@ -301,7 +301,7 @@ def external_sort(src: ChunkStore, out: ChunkStore, tmp_dir: str,
     comparison sort at all; the skip is counted in STATS["sorts_skipped"].
     """
     if src.sorted:
-        STATS["sorts_skipped"] += 1
+        obs.add(STATS, "sorts_skipped", 1)
         if dedupe:
             stream_dedupe(src, out)
         else:
@@ -356,14 +356,14 @@ class MembershipProbe:
         if self._cached_i != i:
             self._cached_keys = row_keys(np.asarray(self.store.load_chunk(i)))
             self._cached_i = i
-            STATS["chunks_probed"] += 1
+            obs.add(STATS, "chunks_probed", 1)
         return self._cached_keys
 
     def _reader(self, i: int):
         if self._cached_i != i:
             self._cached_reader = self.store.key_reader(i)
             self._cached_i = i
-            STATS["chunks_probed"] += 1
+            obs.add(STATS, "chunks_probed", 1)
         return self._cached_reader
 
     def _range(self, i: int):
@@ -389,7 +389,7 @@ class MembershipProbe:
             rmin, rmax = self._range(self._i)
             if rmax < lo:                   # chunk wholly below the window:
                 if self._cached_i != self._i:
-                    STATS["chunks_pruned"] += 1
+                    obs.add(STATS, "chunks_pruned", 1)
                 self._i += 1                # queries only ascend — done with it
                 continue
             if rmin > hi:                   # chunk wholly above: later windows
@@ -425,7 +425,7 @@ def merge_difference(a_sorted: ChunkStore, b_sorted: ChunkStore,
     a's sorted order.
     """
     with obs.span("merge", kind="difference"):
-        STATS["merge_passes"] += 1
+        obs.add(STATS, "merge_passes", 1)
         probe = MembershipProbe(b_sorted)
         for a_block in a_sorted.iter_chunks():
             a_block = np.asarray(a_block)

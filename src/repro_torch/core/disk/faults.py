@@ -356,9 +356,9 @@ def retry_io(site: str, fn, attempts: int = 6, base_delay: float = 0.002,
         except OSError as exc:
             attempt += 1
             if exc.errno not in TRANSIENT_ERRNOS or attempt >= attempts:
-                STATS["io_giveups"] += 1
+                obs.add(STATS, "io_giveups", 1)
                 raise
-            STATS["io_retries"] += 1
+            obs.add(STATS, "io_retries", 1)
             time.sleep(min(base_delay * (2 ** (attempt - 1)), max_delay))
 
 

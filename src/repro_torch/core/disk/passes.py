@@ -36,6 +36,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import obs
 from . import extsort
 
 __all__ = ["PassPlan", "Stage", "record_pass"]
@@ -58,8 +59,8 @@ class Stage(NamedTuple):
 
 def record_pass(n_stages: int, writes: bool) -> None:
     """Book one fused traversal into the shared pass ledger."""
-    extsort.STATS["rw_passes" if writes else "read_passes"] += 1
-    extsort.STATS["piggybacked_stages"] += max(0, n_stages - 1)
+    obs.add(extsort.STATS, "rw_passes" if writes else "read_passes", 1)
+    obs.add(extsort.STATS, "piggybacked_stages", max(0, n_stages - 1))
 
 
 def lut_table(lut: int, device) -> torch.Tensor:

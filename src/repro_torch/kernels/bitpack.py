@@ -167,7 +167,7 @@ def bitpack_lut_count(packed: torch.Tensor, lut: int, count_val: int):
     cnt = torch.empty((), dtype=torch.int32, device=packed.device)
     _launch("roomy_lut_count", packed, packed.data_ptr(), out.data_ptr(),
             packed.shape[0], lut, count_val, cnt.data_ptr())
-    LAUNCHES["lut_count"] += 1
+    obs.add(LAUNCHES, "lut_count", 1)
     return out, cnt
 
 
@@ -279,8 +279,8 @@ def bitpack_scatter_mark(packed: torch.Tensor, idx: torch.Tensor, *,
     out = torch.empty_like(packed)
     path = route(packed.shape[0], idx.shape[0])
     _mark(packed, idx, out, mark, only_if, path=path)
-    LAUNCHES["scatter_mark"] += 1
-    ROUTE_LAUNCHES[path] += 1
+    obs.add(LAUNCHES, "scatter_mark", 1)
+    obs.add(ROUTE_LAUNCHES, path, 1)
     return out
 
 
@@ -299,8 +299,8 @@ def bitpack_mark_rotate_count(packed: torch.Tensor, idx: torch.Tensor,
     out = packed if inplace else torch.empty_like(packed)
     path = route(packed.shape[0], idx.shape[0])
     cnt = _mark(packed, idx, out, mark, only_if, lut, count_val, path=path)
-    LAUNCHES["mark_rotate_count"] += 1
-    ROUTE_LAUNCHES[path] += 1
+    obs.add(LAUNCHES, "mark_rotate_count", 1)
+    obs.add(ROUTE_LAUNCHES, path, 1)
     return out, cnt
 
 
@@ -316,7 +316,7 @@ def bitpack_gather2(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     _launch("roomy_gather2", packed, packed.data_ptr(), packed.shape[0],
             idx.data_ptr(), idx.shape[0], out.data_ptr())
-    LAUNCHES["gather2"] += 1
+    obs.add(LAUNCHES, "gather2", 1)
     return out
 
 
@@ -372,7 +372,7 @@ def bitpack_gather2_chunked(table, chunk_elems: int, ranks: torch.Tensor,
         return out
     launch_gather2_chunked(chunk_table(table, ranks.device), chunk_elems,
                            ranks, out)
-    LAUNCHES["gather2"] += 1
+    obs.add(LAUNCHES, "gather2", 1)
     return out
 
 

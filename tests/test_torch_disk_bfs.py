@@ -200,23 +200,57 @@ def test_checkpoints_are_the_same_bytes(tmp_path):
 
 
 def test_engine_config_errors(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        run_port(tmp_path / "a", cluster=ClusterConfig(nshards=2))
-    with pytest.raises(NotImplementedError, match="cluster.py"):
-        TD.breadth_first_search(str(tmp_path / "b"), start_code(5)[None],
-                                PB.HostMoves(5, P.prefix_flip_table(5)),
-                                1, cluster=ClusterConfig(transport="tcp"))
-    for fn in (lambda: run_port(tmp_path / "c", fused=False,
-                                checkpoint=CheckpointConfig(dir="ck")),
-               lambda: TD.breadth_first_search(
-                   str(tmp_path / "d"), start_code(5)[None],
-                   PB.HostMoves(5, P.prefix_flip_table(5)), 1, fused=False,
-                   checkpoint=CheckpointConfig(dir="ck"))):
-        with pytest.raises(ValueError, match="fused"):
-            fn()
+    """The engines refuse what the reference's validation refuses
+    (``tests/test_transport.py::TestConfigValidation``), with the same
+    messages; a sharded config itself runs (``test_torch_cluster.py``)."""
+    from repro_torch.core.disk.cluster import ShardRuntime
+
+    def both(fn):
+        msgs = []
+        for key in ("ref", "port"):
+            with pytest.raises(ValueError) as ei:
+                fn(key)
+            msgs.append(str(ei.value))
+        assert msgs[0] == msgs[1]
+        return msgs[1]
+
+    def sorted_kw(key, **kw):
+        mod, gen = ((JD, GenNextNp(5)) if key == "ref" else
+                    (TD, PB.HostMoves(5, P.prefix_flip_table(5))))
+        return mod.breadth_first_search(
+            str(tmp_path / f"s_{key}"), start_code(5)[None], gen, 1, **kw)
+
+    def implicit_kw(key, **kw):
+        return (run_ref if key == "ref" else run_port)(
+            tmp_path / f"i_{key}", **kw)
+
+    def cl(key, **kw):
+        return (jconfig if key == "ref" else tconfig).ClusterConfig(**kw)
+
+    for run in (sorted_kw, implicit_kw):
+        assert "fused=False" in both(lambda k: run(
+            k, fused=False, cluster=cl(k, nshards=2)))
+        assert "fused" in both(lambda k: run(
+            k, fused=False, checkpoint=ckpt(k, dir="ck")))
+        assert "transport" in both(lambda k: run(
+            k, cluster=cl(k, transport="smoke-signal")))
+        assert "exchange" in both(lambda k: run(
+            k, cluster=cl(k, exchange="vibes")))
+        assert "loopback" in both(lambda k: run(
+            k, cluster=cl(k, transport="loopback", mode="spawn")))
+        assert "nshards" in both(lambda k: run(k, cluster=cl(k, nshards=0)))
+        assert "mailbox" in both(lambda k: run(
+            k, cluster=cl(k, wire_compress=True)))
+    with ShardRuntime(str(tmp_path / "rt"), 2, mode="inline") as rt:
+        with pytest.raises(ValueError, match="nshards=4 was also passed"):
+            run_port(tmp_path / "f", cluster=ClusterConfig(runtime=rt,
+                                                           nshards=4))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TD.implicit_bfs(str(tmp_path / "e"), 24, [0], P.neighbors(4))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TD.implicit_bfs(str(tmp_path / "g"), 24, [0], P.neighbors(4),
+                            cluster=ClusterConfig(nshards=2, mode="inline"))
 
 
 # ----------------------------------------------------- the sorted engine

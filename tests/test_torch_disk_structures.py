@@ -413,28 +413,65 @@ def test_pass_plan_packed_head():
 
 # ---------------------------------------------------------------- config
 
-def test_config_errors():
+def test_config_errors(tmp_path):
+    """``resolve_configs`` validates as the reference's does
+    (``tests/test_transport.py::TestConfigValidation``): the same
+    accepted configs and the same errors, word for word; a sharded
+    config is accepted and builds a runtime."""
+    from repro.core.disk import config as jconfig
+    from repro_torch.core.disk.cluster import ShardRuntime
     CC, KC, RC = (tconfig.ClusterConfig, tconfig.CheckpointConfig,
                   tconfig.RecoveryConfig)
     ok = tconfig.resolve_configs("e", recovery=RC(max_recoveries=8))
     assert ok[2].max_recoveries == 8 and not ok[0].sharded
-    for cl in (CC(nshards=2), CC(transport="tcp"), CC(exchange="barrier"),
-               CC(runtime=object())):
-        with pytest.raises(NotImplementedError, match="cluster.py"):
-            tconfig.resolve_configs("e", cluster=cl)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        CC().build_runtime("/nonexistent")
-    with pytest.raises(ValueError, match="fused"):
-        tconfig.resolve_configs("e", checkpoint=KC(dir="x"), fused=False)
-    with pytest.raises(ValueError, match="fused=False"):
-        tconfig.resolve_configs("e", cluster=CC(nshards=2), fused=False)
-    for kw in ({"cluster": CC(transport="udp")}, {"cluster": CC(nshards=0)},
-               {"cluster": CC(mode="x")}, {"cluster": CC(wire_compress=True)},
-               {"cluster": CC(transport="loopback")},
-               {"checkpoint": KC(every=0)}, {"checkpoint": KC(resume=True)},
-               {"recovery": RC(max_recoveries=-1)}):
-        with pytest.raises(ValueError):
-            tconfig.resolve_configs("e", **kw)
+    for kw in ({"nshards": 2}, {"transport": "tcp"},
+               {"exchange": "barrier"}, {"transport": "loopback",
+                                          "mode": "inline"}):
+        cl = tconfig.resolve_configs("e", cluster=CC(**kw))[0]
+        assert cl.sharded and cl.sharded == jconfig.ClusterConfig(
+            **kw).sharded
+    assert CC().resolved_exchange() == "barrier"
+    assert CC(exchange="pipelined").resolved_exchange() == "pipelined"
+    rt, own = CC(nshards=2, mode="inline").build_runtime(str(tmp_path))
+    assert own and rt.nshards == 2 and rt.root == str(tmp_path / "cluster")
+    assert CC(runtime=rt).build_runtime("/nonexistent") == (rt, False)
+    rt.shutdown()
+    cases = [({"cluster": ("transport", "udp")},),
+             ({"cluster": ("nshards", 0)},), ({"cluster": ("mode", "x")},),
+             ({"cluster": ("exchange", "vibes")},),
+             ({"cluster": ("wire_compress", True)},),
+             ({"cluster": ("transport", "loopback")},),
+             ({"checkpoint": ("every", 0)},),
+             ({"checkpoint": ("resume", True)},),
+             ({"recovery": ("max_recoveries", -1)},)]
+    for (spec,) in cases:
+        msgs = []
+        for mod in (tconfig, jconfig):
+            (what, (field, value)), = spec.items()
+            cls = {"cluster": mod.ClusterConfig,
+                   "checkpoint": mod.CheckpointConfig,
+                   "recovery": mod.RecoveryConfig}[what]
+            with pytest.raises(ValueError) as ei:
+                mod.resolve_configs("e", **{what: cls(**{field: value})})
+            msgs.append(str(ei.value))
+        assert msgs[0] == msgs[1], spec
+    for mod in (tconfig, jconfig):
+        with pytest.raises(ValueError, match="fused"):
+            mod.resolve_configs("e", checkpoint=mod.CheckpointConfig(
+                dir="x"), fused=False)
+        with pytest.raises(ValueError, match="fused=False"):
+            mod.resolve_configs("e", cluster=mod.ClusterConfig(nshards=2),
+                                fused=False)
+    with ShardRuntime(str(tmp_path / "a"), 2, mode="inline") as rt:
+        with pytest.raises(ValueError, match="nshards=4 was also passed"):
+            tconfig.resolve_configs("e", cluster=CC(runtime=rt, nshards=4))
+        tconfig.resolve_configs("e", cluster=CC(runtime=rt, nshards=2))
+    with ShardRuntime(str(tmp_path / "b"), 2, mode="inline",
+                      transport="loopback") as rt:
+        with pytest.raises(ValueError, match="brings its own wire"):
+            tconfig.resolve_configs("e", cluster=CC(runtime=rt,
+                                                    transport="tcp"))
+    assert not hasattr(tconfig, "SHARDED_MISSING")
 
 
 def test_extsort_counters_are_the_fault_layers():

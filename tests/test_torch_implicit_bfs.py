@@ -172,6 +172,10 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/core/disk/oracle.py",
             "src/repro_torch/core/disk/codec.py",
             "src/repro_torch/core/disk/buckets.py",
+            "src/repro_torch/core/disk/cluster.py",
+            "src/repro_torch/core/disk/transport.py",
+            "src/repro_torch/core/disk/trace.py",
+            "src/repro_torch/core/obs.py",
             "src/repro_torch/kernels/bucket_scatter.py",
             "src/repro_torch/core/types.py",
             "src/repro_torch/core/array.py",
