@@ -93,7 +93,7 @@ caught:
    on the card (chunks and logs byte for byte); wall, states/s, the bytes
    of the array and the log read and written, the time in ``pass.rw``,
    K1 (CUDA events), K2, K3 and the log writes and reads of each run;
-   then the sorted disk BFS at n = 10 on the host against the Tier J
+   then the sorted disk BFS at n = 9 on the host against the Tier J
    sorted engine's level sizes, ``quickstart.tier_d_tour`` and
    ``apps.outofcore_setops``; one ``{"disk_tier": …}`` line.
 6d. Tier D, sharded (``phase_disk_sharded``): ``core.disk.implicit_bfs``
@@ -107,8 +107,9 @@ caught:
    single-process run's), each mark at its owner once (local + remote =
    the marks), the wire's bytes out == in, no drop; the wall, states/s,
    each worker's peak device memory, K1's CUDA-event ms in the workers,
-   their log and bucket I/O seconds; (b) the same over 2 shards (2 x 20 x
-   14 = 560); (c) at n = 10: 4 shards with the pipelined exchange, the
+   their log and bucket I/O seconds; (b) the same at n = 10 over 2 shards
+   (n = 11 until PR 30: cut for ``phase_mesh``'s time); (c) at n = 10: 4
+   shards with the pipelined exchange, the
    TCP wire (spawn) under a trace whose JSONL reads back through
    ``trace.report_json`` with one row a level, each with spans of every
    shard, the loopback wire (inline), and ``worker_level:kill:shard=1:
@@ -117,8 +118,8 @@ caught:
    against its plain version on the card: every shard's chunks, op logs
    and pending bucket files the same bytes at level 5 and at the end, and
    the final words the single-process search's; (e) the sorted engine on
-   (a)'s 4 spawned workers at n = 10, on the host, against the Tier J
-   sorted engine; one ``{"disk_sharded": …}`` line.
+   (a)'s 4 spawned workers at n = 9 (10 until PR 30), on the host, against
+   the Tier J sorted engine; one ``{"disk_sharded": …}`` line.
 7. K4 (the 2-bit gather over a chunk table) and the distance oracle
    (``phase_oracle``):
    a. K4's flat form bit-exact against its plain version at the JAX tests'
@@ -488,13 +489,32 @@ caught:
    c. ``DiskTokenStream`` on the host: six chunks of 256 × 4097 uint32
       tokens written into a ``ChunkStore`` in a temporary directory and
       read back bit for bit against ``synth_tokens``, MB/s each way.
+18b. serving on a device mesh (``phase_mesh``): a one-rank NCCL world as
+   the (1, 1) ("data", "model") mesh of ``launch.mesh.make_host_mesh``,
+   granite-moe-3b FULL in bfloat16 with the roomy embedding and the
+   roomy MoE: the 1 × 4096 prefill at capacity factor 8 on the mesh and
+   with none (0 pairs dropped either side, counted; K6 32 a side, all
+   wgmma; the last logits within the limit); the roomy embedding of a
+   1 × 32768 prompt == the take, bit for bit; 16 decode steps at batch 8
+   (``_paged_decode_batched``: K8 32 a step, all tma) and at batch 1
+   (``_paged_decode_cp``: no K8) after 8 tokens, each greedy step of the
+   run with no mesh again on the mesh from the same cache: the logits of
+   every step within the limit, the same tokens (a tie within the two
+   runs' difference excused, counted), and the mesh's own decode,
+   teacher-forced, its drift read; three planted faults that must break the
+   limit (the MoE combine without its weights, the batched append one
+   position late, the context-parallel mask one position short); the
+   1 × 32768 prefill at the config's capacity factor on and off the mesh
+   (tokens/s, drops, the MoE share), the decodes' tokens/s.  On one rank
+   the exchanges are identities: their faults show only in the CPU
+   worlds of ``tests/test_torch_mesh.py``.
 19. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K1's, K2's and
    K3's launches, routes and summed times on the disk route; K6's and
    K6-with-LSE's entries name the kernel that ran, their launches by
    route and the ptxas report; K6's, K8's and K9's launches on the MoE,
-   hybrid and frontend paths; K6-with-LSE's, K7's and K9's on the training
-   paths; the frontend layouts' times), the card line, and last
+   hybrid, frontend and mesh paths; K6-with-LSE's, K7's and K9's on the
+   training paths; the frontend layouts' times), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -565,6 +585,10 @@ from repro_torch.apps import quickstart as Q  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import attention as ATT  # noqa: E402
+from repro_torch.models import layers as LAY  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
+from repro_torch.core import sharding as SHD  # noqa: E402
 from repro_torch.runtime import (FaultInjector, TrainSettings,  # noqa: E402
                                  make_train_step, train)
 from repro_torch.runtime.train_loop import loss_and_grads  # noqa: E402
@@ -5229,11 +5253,11 @@ def phase_moe_share(cfg, params, inputs, wall, dev) -> dict:
     events, dropped = [], []
     orig = BL.moe
 
-    def wrapped(p, x, cfg_, group=None):
+    def wrapped(p, x, cfg_, mesh=None):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = orig(p, x, cfg_, group)
+        out = orig(p, x, cfg_, mesh)
         b.record()
         events.append((a, b))
         _, keep, _ = MOE.dispatch_slots(MOE._route(p, x, cfg_)[1], cfg_)
@@ -6098,7 +6122,8 @@ DISK_CHUNK = 1 << 20          # 39 chunks of 65,536 words (the last 4,432)
 DISK_STOP = 6                 # the stopped run's last level
 DISK_CKPT_EVERY = 3           # its checkpoints: levels 0, 3, 6
 DISK_SMALL = (8, 1000)        # n, chunk_elems: every chunk ends inside a word
-DISK_SORTED_N = 10            # the sorted disk BFS on the host
+DISK_SORTED_N = 9             # the sorted disk BFS on the host (10, 22 s,
+#                               until PR 30: cut for phase_mesh's time)
 DISK_LOG_REC = 16             # bytes of an (idx, val) int64 op-log record
 
 
@@ -6510,7 +6535,7 @@ def phase_disk_tier(dev) -> dict:
            "in_memory_peak_bytes": mem_peak, "marks": n_marks,
            "max_log_records": m_max, "level6_max_log_records": m6,
            "peak_bound_bytes": bound, "expansion_batch_bytes": batch_b,
-           "sorted_n10_s": sorted_secs, "tour_s": tour_s,
+           f"sorted_n{DISK_SORTED_N}_s": sorted_secs, "tour_s": tour_s,
            "setops": setops, "disk_free_bytes": du.free}
     for key, r in (("fused", fused), ("unfused", unfused),
                    ("stopped", stop), ("resumed", res)):
@@ -6526,6 +6551,8 @@ def phase_disk_tier(dev) -> dict:
 
 SHARD_N = DISK_N              # the gated runs: n = 11, chunks of 2^20
 SHARD_SMALL_N = 10            # the wire, recovery and trace runs
+SHARD_SORTED_N = 9            # the sorted engine on the 4 shards (10 until
+#                               PR 30: cut for phase_mesh's time)
 SHARD_PARITY_N = 9            # K1 against its plain version, shard by shard
 SHARD_PARITY_CHUNK = 1 << 16  # 3 chunks a shard at n = 9, 2 shards
 SHARD_KILL = "worker_level:kill:shard=1:level=4"
@@ -6770,14 +6797,14 @@ def phase_disk_sharded(dev, disk) -> dict:
     4 shards, fs wire, barrier exchange, chunks of 2^20: the in-memory
     level sizes, K1 560 times, one pass a level a shard, the op log of
     the single-process run to the byte, the wire's bytes out == in; (b)
-    the same over 2 shards; (c) at n = 10: 4 shards with the pipelined
-    exchange, the TCP wire (spawn) under a trace read back through
+    the same at n = 10 over 2 shards; (c) at n = 10: 4 shards with the
+    pipelined exchange, the TCP wire (spawn) under a trace read back through
     ``trace.report_json``, the loopback wire (inline), and a worker killed
     at level 4 and healed from the level checkpoints; (d) at n = 9 over 2
     shards, K1 against its plain version on the card (``impl="ref"``):
     every shard's chunks, op logs and pending buckets the same bytes
     mid-search, and the final array the single-process search's; (e) the
-    sorted engine on (a)'s 4 spawned workers at n = 10 on the host
+    sorted engine on (a)'s 4 spawned workers at n = 9 on the host
     against the Tier J sorted engine."""
     sizes11 = disk["level_sizes"]
     out = {}
@@ -6786,18 +6813,19 @@ def phase_disk_sharded(dev, disk) -> dict:
     total10 = math.factorial(n10)
     sizes10, _ = C.implicit_bfs(total10, [P.start_rank(n10)],
                                 P.neighbors(n10), device=dev)
-    res_j, _, _ = PB.search(n10, PB.prefix_flips(n10), device=dev)
+    ns = SHARD_SORTED_N
+    res_j, _, _ = PB.search(ns, PB.prefix_flips(ns), device=dev)
     sorted_want = res_j.level_sizes
     del res_j
 
     def sorted_on(rt):
-        """(e) on (a)'s 4 spawned workers: the sorted engine at n = 10."""
+        """(e) on (a)'s 4 spawned workers: the sorted engine at n = 9."""
         with tempfile.TemporaryDirectory() as wd:
             t0 = time.perf_counter()
             got, vis = TDD.breadth_first_search(
-                wd, PB.start_code(n10)[None],
-                PB.HostMoves(n10, P.prefix_flip_table(n10)),
-                width=PB.words(n10), chunk_rows=1 << 14,
+                wd, PB.start_code(ns)[None],
+                PB.HostMoves(ns, P.prefix_flip_table(ns)),
+                width=PB.words(ns), chunk_rows=1 << 14,
                 cluster=TDCF.ClusterConfig(runtime=rt))
             secs = time.perf_counter() - t0
             rows = vis.size()
@@ -6813,21 +6841,18 @@ def phase_disk_sharded(dev, disk) -> dict:
         expect(a["bits"]["log_bytes_written"] == 6_386_688_016, a["bits"])
     out["n11_4"] = shard_summary(a)
     srt = a["after"]
-    expect(srt["sizes"] == sorted_want and srt["rows"] == total10,
-           (srt, sorted_want))
-    print(f"disk sharded: sorted engine n={n10} on the same 4 spawned "
+    expect(srt["sizes"] == sorted_want
+           and srt["rows"] == math.factorial(ns), (srt, sorted_want))
+    print(f"disk sharded: sorted engine n={ns} on the same 4 spawned "
           f"shards, on the host: {srt['wall_s']:.3f} s, "
-          f"{total10 / srt['wall_s']:.0f} states/s == the Tier J sorted "
-          "engine's level sizes")
-    out["sorted_n10_4_s"] = srt["wall_s"]
+          f"{math.factorial(ns) / srt['wall_s']:.0f} states/s == the Tier "
+          "J sorted engine's level sizes")
+    out[f"sorted_n{ns}_4_s"] = srt["wall_s"]
 
-    b2 = shard_drive(dev, SHARD_N, 2)
-    shard_check(b2, sizes11, f"n={SHARD_N} 2 shards")
-    shard_line(f"n={SHARD_N}, 2 shards, spawn, fs, barrier", b2)
-    if SHARD_N == 11:
-        expect(b2["launches"]["mark_rotate_count"] == 560,
-               "K1 != 2 x 20 x 14")
-    out["n11_2"] = shard_summary(b2)
+    b2 = shard_drive(dev, n10, 2)
+    shard_check(b2, sizes10, f"n={n10} 2 shards")
+    shard_line(f"n={n10}, 2 shards, spawn, fs, barrier", b2)
+    out["n10_2"] = shard_summary(b2)
 
     pipe = shard_drive(dev, n10, 4, exchange="pipelined")
     shard_check(pipe, sizes10, f"n={n10} 4 shards pipelined")
@@ -6930,6 +6955,375 @@ def phase_disk_sharded(dev, disk) -> dict:
     return out
 
 
+# ------------------------- serving on a device mesh (launch/mesh.py, PR 30)
+
+MESH_ARCH = GRANITE_MOE_ARCH
+MESH_GATE_LEN = 4096          # the gated prefill, at MESH_GATE_CF
+MESH_GATE_CF = 8.0            # no (token, choice) pair drops on either side
+MESH_PROMPT = 8               # the decode prompts: short, so that the
+#                               planted decode faults move the logits
+MESH_STEPS = DECODE_STEPS
+MESH_FAULT_STEPS = 4          # the planted decode faults' steps
+MESH_RUN_STEPS = 4            # the mesh's own decode, prefill and all
+MESH_BATCH = BATCH_DECODE
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` = value for the block (a planted fault or a
+    counting wrapper)."""
+    orig = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def moe_counters():
+    """Every MoE layer's time by CUDA events and the (token, choice) pairs
+    it drops: ``moe_roomy``'s own count on a mesh (both bucket levels),
+    else ``dispatch_slots`` over the layer's routing, run again outside
+    the timed span."""
+    rec = {"events": [], "dropped": []}
+    orig, orig_roomy = BL.moe, MOE.moe_roomy
+
+    def wrapped(p, x, cfg_, mesh=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        roomy = []
+
+        def counted(*args):
+            roomy.append(orig_roomy(*args))
+            return roomy[-1]
+        a.record()
+        with patched(MOE, "moe_roomy", counted):
+            out = orig(p, x, cfg_, mesh)
+        b.record()
+        rec["events"].append((a, b))
+        if roomy:
+            rec["dropped"].append(roomy[0][1].sum())
+        else:
+            _, keep, _ = MOE.dispatch_slots(MOE._route(p, x, cfg_)[1], cfg_)
+            rec["dropped"].append((~keep).sum())
+        return out
+    BL.moe = wrapped
+    try:
+        yield rec
+    finally:
+        BL.moe = orig
+    rec["moe_ms"] = sum(a.elapsed_time(b) for a, b in rec["events"])
+    rec["dropped_pairs"] = int(sum(int(d) for d in rec["dropped"]))
+
+
+def mesh_prefill(cfg, params, inputs, dev, mesh, what, timed=True):
+    """``lm.prefill`` of ``inputs`` on ``mesh`` (None: one device) with
+    every count set to 0 just before: K6 launches by route (one a layer,
+    all wgmma), the last logits, and under ``moe_counters`` the MoE's
+    time and the pairs it drops.  ``timed``: that run is a second one,
+    after a first with nothing wrapped, whose wall it reads (tokens/s,
+    the MoE share of the wall)."""
+    seq = inputs["tokens"].numel()
+    res = {"tokens": seq, "pairs": seq * cfg.top_k * cfg.n_layers}
+    if timed:
+        sync(dev)
+        t0 = time.perf_counter()
+        lm.prefill(params, inputs, cfg, mesh)
+        sync(dev)
+        res["wall_s"] = time.perf_counter() - t0
+        res["tokens_per_s"] = seq / res["wall_s"]
+    sync(dev)
+    reset_all_launches()
+    with moe_counters() as rec:
+        logits, _ = lm.prefill(params, inputs, cfg, mesh)
+        sync(dev)
+    routes, launches = dict(FA.ROUTE_LAUNCHES), FA.LAUNCHES["flash_attention"]
+    expect(launches == cfg.n_layers and routes == {
+        "wgmma": cfg.n_layers, "classic": 0}, (what, launches, routes))
+    expect(not any(PD.LAUNCHES.values()), dict(PD.LAUNCHES))
+    expect(bool(torch.isfinite(logits).all()), f"{what}: logits not finite")
+    res.update({"k6_launches": launches, "k6_routes": routes,
+                "moe_ms": rec["moe_ms"],
+                "dropped_pairs": rec["dropped_pairs"]})
+    line = (f"mesh prefill: {what}, {cfg.name} bf16 1 x {seq} at capacity "
+            f"factor {cfg.capacity_factor}, K6 {launches} ({routes}); MoE "
+            f"{rec['moe_ms']:.1f} ms by CUDA events")
+    if timed:
+        res["moe_share"] = rec["moe_ms"] / 1e3 / res["wall_s"]
+        line += (f" ({100 * res['moe_share']:.1f}% of the wall of "
+                 f"{res['wall_s']:.3f} s, {res['tokens_per_s']:.0f} "
+                 f"tokens/s)")
+    print(f"{line}; dropped {res['dropped_pairs']} of {res['pairs']} "
+          f"(token, choice) pairs")
+    return logits, res
+
+
+def mesh_decode(cfg, params, prompt, dev, mesh, steps, feed=None):
+    """``steps`` decode steps after a prefill of ``prompt`` on ``mesh``:
+    greedy, or teacher-forced on ``feed`` (the tokens another run chose).
+    Counts set to 0 just before the steps; K8 launches after each step.
+    Returns (the tokens fed after the prefill, the logits of each step
+    (steps, B, V), K8 launches a step, tokens/s of the steps, the caches
+    before each step)."""
+    b = prompt["tokens"].shape[0]
+    logits, caches = lm.prefill(params, prompt, cfg, mesh,
+                                max_len=prompt["tokens"].shape[1] + steps)
+    tok = logits[:, -1].argmax(-1, keepdim=True) if feed is None else feed[0]
+    toks, outs, k8, before = [tok], [], [], []
+    sync(dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        before.append(caches)
+        lg, caches = lm.decode_step(params, step_inputs(cfg, tok), caches,
+                                    cfg, mesh)
+        outs.append(lg[:, -1])
+        k8.append(PD.LAUNCHES["paged_decode_attention"])
+        if t + 1 < steps:
+            tok = (lg[:, -1].argmax(-1, keepdim=True) if feed is None
+                   else feed[t + 1])
+            toks.append(tok)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    expect(dict(PD.ROUTE_LAUNCHES) == {"tma": k8[-1], "classic": 0},
+           dict(PD.ROUTE_LAUNCHES))
+    expect(not any(FA.LAUNCHES.values()), dict(FA.LAUNCHES))
+    return (toks, torch.stack(outs), [k8[0]] + [
+        y - x for x, y in zip(k8, k8[1:])], b * steps / wall, before)
+
+
+def mesh_steps(cfg, params, dev, mesh, before, toks):
+    """Each step on ``mesh`` from the cache the run with no mesh had
+    before it (this rank's shard of it) and with its token: the logits of
+    each step (steps, B, V), K8 launches a step and tokens/s over the
+    steps (each timed from a synchronised start to a synchronised end).
+    ``mesh`` None: the steps with no mesh (``cfg.kernels="ref"``: the
+    plain versions)."""
+    dp = SHD.data_axes(mesh)
+    i, n = (SHD.axis_index(mesh, dp), SHD.axis_size(mesh, dp)) if dp else (
+        0, 1)
+    outs, k8, wall = [], [], 0.0
+    for caches, tok in zip(before, toks):
+        mine = {"kv": [paged.shard(c, i, n) for c in caches["kv"]]}
+        sync(dev)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        lg, _ = lm.decode_step(params, step_inputs(cfg, tok), mine, cfg,
+                               mesh)
+        sync(dev)
+        wall += time.perf_counter() - t0
+        outs.append(lg[:, -1])
+        k8.append(PD.LAUNCHES["paged_decode_attention"])
+        expect(dict(PD.ROUTE_LAUNCHES) == {"tma": k8[-1], "classic": 0},
+               dict(PD.ROUTE_LAUNCHES))
+    return torch.stack(outs), k8, tok.shape[0] * len(outs) / wall
+
+
+def same_greedy(got, want, what) -> dict:
+    """Teacher-forced on ``want``'s greedy tokens: each step's argmax of
+    ``got`` is ``want``'s, or ``want``'s logit there lies within twice
+    the row's largest difference between the two runs of ``want``'s
+    largest (a tie the rounding of either may break); counted."""
+    v = want.shape[-1]
+    a, w = got.float(), want.float()
+    diff = (a - w).abs().amax(-1)
+    chosen = a.argmax(-1)
+    equal = chosen == w.argmax(-1)
+    tie = (w.amax(-1) - w.gather(-1, chosen[..., None])[..., 0]
+           <= 2 * diff)
+    expect(bool((equal | tie).all()), f"{what}: greedy tokens differ "
+           f"beyond ties at {(~(equal | tie)).nonzero().tolist()}")
+    res = {"tokens": int(equal.numel()), "same": int(equal.sum()),
+           "ties": int((~equal & tie).sum()), "vocab": v}
+    print(f"{what}: the same greedy token at {res['same']} of "
+          f"{res['tokens']} (step, row) positions, {res['ties']} ties "
+          f"excused")
+    return res
+
+
+def mesh_decode_pair(cfg, params, dev, mesh, batch, path) -> dict:
+    """The run with no mesh, greedy; then each of its steps again on the
+    mesh, from the cache it had before the step (the mesh's tokens/s are
+    these steps'); K8 launches a step (the
+    batched path: one a layer on the tma route; the context-parallel path
+    reads its pages in float32: none).  The gate: every step's logits
+    within the limit of the same step with no mesh, the same greedy
+    tokens.  The batched path is held to the run with no mesh itself
+    (K8); the context-parallel path, whose attention is the reference's
+    float32 merge, to the same steps with no mesh through the plain
+    versions (K8's plain version is float32 too), and its distance from
+    the K8 steps is read.  A reading: the mesh's own run, prefill and
+    all, teacher-forced on the same tokens for MESH_RUN_STEPS steps, its
+    drift from the run with no mesh."""
+    prompt = lm_inputs(cfg, batch, MESH_PROMPT, dev, SEED + 7 + batch)
+    toks, want, k8_one, rate_one, before = mesh_decode(
+        cfg, params, prompt, dev, None, MESH_STEPS)
+    expect(k8_one == [cfg.n_layers] * MESH_STEPS, k8_one)
+    got, k8_mesh, rate_mesh = mesh_steps(cfg, params, dev, mesh, before,
+                                         toks)
+    per_step = cfg.n_layers if path == "batched" else 0
+    expect(k8_mesh == [per_step] * MESH_STEPS, (path, k8_mesh))
+    v = cfg.vocab_size
+    held, vs_k8 = want, None
+    if path == "cp":
+        held, _, _ = mesh_steps(cfg.replace(kernels="ref"), params, dev,
+                                None, before, toks)
+        vs_k8 = logit_errors(got[..., :v], want[..., :v],
+                             f"mesh decode batch 1 (cp) vs no mesh with K8, "
+                             f"each step from the same cache (a reading)")
+    errs = logits_agree(got[..., :v], held[..., :v],
+                        f"mesh decode batch {batch} ({path}) vs no mesh"
+                        f"{' (plain versions)' if path == 'cp' else ''}, "
+                        f"each of {MESH_STEPS} steps from the same cache")
+    greedy = same_greedy(got[..., :v], held[..., :v],
+                         f"mesh decode batch {batch} ({path})")
+    _, run, _, _, _ = mesh_decode(cfg, params, prompt, dev, mesh,
+                                  MESH_RUN_STEPS, feed=toks)
+    drift = [logit_errors(run[t:t + 1, :, :v], want[t:t + 1, :, :v],
+                          f"mesh decode batch {batch} ({path}), its own "
+                          f"run teacher-forced, step {t}")["rel_err"]
+             for t in range(MESH_RUN_STEPS)]
+    profile = device_profile(
+        lambda: mesh_steps(cfg, params, dev, mesh, before[:2], toks[:2]),
+        dev, f"mesh decode batch {batch} ({path}), 2 steps")
+    print(f"mesh decode: batch {batch} through _paged_decode_{path}, "
+          f"{MESH_STEPS} steps after {MESH_PROMPT} tokens: "
+          f"{rate_mesh:.2f} tokens/s on the mesh, {rate_one:.2f} with no "
+          f"mesh; K8 a step {k8_mesh[0]} on the mesh, {k8_one[0]} with "
+          f"none; its own run's per-row rel drift from the K8 run at steps "
+          f"1-{MESH_RUN_STEPS}: {drift}")
+    return {"batch": batch, "path": path, "tokens_per_s_mesh": rate_mesh,
+            "tokens_per_s_no_mesh": rate_one, "k8_per_step_mesh": per_step,
+            "k8_per_step_no_mesh": cfg.n_layers, "logits": errs,
+            "logits_vs_k8": vs_k8, "greedy": greedy, "own_run_drift": drift,
+            "profile": profile,
+            "before": before[:MESH_FAULT_STEPS], "feed": toks,
+            "held": held[:MESH_FAULT_STEPS]}
+
+
+def mesh_faults(cfg, params, dev, mesh, gate_inputs, gate_want, dec) -> dict:
+    """Planted faults, one a new path, each of whose logits must break the
+    limit against what the clean path is held to: the MoE combine with
+    its router weights left out (the gated prefill); the batched append
+    written one position late; the context-parallel mask one position
+    short (the decodes: the worst of the first MESH_FAULT_STEPS steps,
+    each from the cache the run with no mesh had before it).  On one rank
+    the exchanges are identities: their faults show only in the CPU
+    worlds of ``tests/test_torch_mesh.py``."""
+    v = cfg.vocab_size
+    out = {}
+    orig_combine = MOE._combine
+    with patched(MOE, "_combine", lambda y, w, dt: orig_combine(
+            y, torch.ones_like(w), dt)):
+        bad, _ = lm.prefill(params, gate_inputs, cfg, mesh)
+    out["moe combine without the router weights"] = logit_errors(
+        bad[:, -1, :v], gate_want[:, -1, :v], "planted fault, the MoE "
+        "combine without its weights, vs no mesh")
+    orig_append = paged.append
+
+    def late(cache, k, v_, inplace=False):
+        moved = orig_append(cache._replace(lengths=cache.lengths + 1), k, v_,
+                            inplace=inplace)
+        return moved._replace(lengths=cache.lengths + 1)
+    orig_logits = ATT._cp_logits
+    plants = {
+        "batched append one position late": (
+            dec["batched"], patched(paged, "append", late)),
+        "context-parallel mask one position short": (
+            dec["cp"], patched(ATT, "_cp_logits", lambda q, kp, p0, n, *a:
+                               orig_logits(q, kp, p0, n - 1, *a)))}
+    for name, (rec, plant) in plants.items():
+        with plant:
+            got, _, _ = mesh_steps(cfg, params, dev, mesh, rec["before"],
+                                   rec["feed"])
+        out[name] = logit_errors(got[..., :v], rec["held"][..., :v],
+                                 f"planted fault, {name}, vs no mesh")
+    for name, e in out.items():
+        expect(not e["ok"], f"the mesh checks miss {name}: {e}")
+    return out
+
+
+def phase_mesh(dev) -> dict:
+    """Serving on a device mesh: a one-rank NCCL world (FileStore in a
+    temp dir) as the (1, 1) ("data", "model") mesh of
+    ``launch.mesh.make_host_mesh``, granite-moe-3b FULL in bfloat16
+    (params from seed 0) with the roomy embedding and the roomy MoE.
+    Gates: the prefill at MESH_GATE_LEN and capacity factor 8 (no pair
+    dropped either side) on the mesh within the limit of no mesh, K6 once
+    a layer on each side; the roomy embedding of a 1 × 32768 prompt ==
+    the plain take; decode at batch 8 (``_paged_decode_batched``, K8 once
+    a layer a step) and batch 1 (``_paged_decode_cp``): each greedy step
+    of the run with no mesh again on the mesh from the same cache, logits
+    within the limit, the same tokens; the planted faults.  Readings: the
+    1 × 32768 prefill at the config's capacity factor on and off the
+    mesh, with the drops and the MoE share; the decodes' tokens/s and how
+    far the mesh's own decode drifts."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    root = tempfile.mkdtemp(prefix="roomy_mesh_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        os.path.join(root, "store"), 1), rank=0, world_size=1)
+    t0 = time.perf_counter()
+    try:
+        mesh = MESH.make_host_mesh(tp=1)
+        expect(SHD.mesh_axes(mesh) == {"data": 1, "model": 1},
+               SHD.mesh_axes(mesh))
+        base = get_config(MESH_ARCH).replace(embedding_dispatch="roomy")
+        expect(base.moe_dispatch == "roomy", base.moe_dispatch)
+        params = lm.init_params(base, SEED, device=dev, dtype=torch.bfloat16)
+        cfg8 = base.replace(capacity_factor=MESH_GATE_CF)
+        gate_inputs = lm_inputs(base, 1, MESH_GATE_LEN, dev, SEED + 5)
+        lm.prefill(params, lm_inputs(base, 1, 256, dev, SEED + 1), cfg8,
+                   mesh)                                       # warm-up
+        want, one = mesh_prefill(cfg8, params, gate_inputs, dev, None,
+                                 "no mesh", timed=False)
+        got, on = mesh_prefill(cfg8, params, gate_inputs, dev, mesh,
+                               "mesh (1, 1)", timed=False)
+        expect(one["dropped_pairs"] == 0 and on["dropped_pairs"] == 0,
+               (one["dropped_pairs"], on["dropped_pairs"]))
+        v = base.vocab_size
+        gate = logits_agree(got[:, -1, :v], want[:, -1, :v],
+                            f"mesh prefill 1 x {MESH_GATE_LEN} vs no mesh, "
+                            f"last-position logits")
+        ids = lm_inputs(base, 1, PREFILL_LEN, dev, SEED)["tokens"]
+        emb = LAY.embed_tokens(params["embed"], ids, base, mesh)
+        expect(torch.equal(emb, params["embed"]["table"][ids]),
+               "the roomy embedding differs from the take")
+        print(f"mesh embedding: the roomy embedding of 1 x {PREFILL_LEN} "
+              f"tokens == the plain take, bit for bit")
+        dec = {"batched": mesh_decode_pair(cfg8, params, dev, mesh,
+                                           MESH_BATCH, "batched"),
+               "cp": mesh_decode_pair(cfg8, params, dev, mesh, 1, "cp")}
+        faults = mesh_faults(cfg8, params, dev, mesh, gate_inputs, want, dec)
+        del got, want, emb
+        torch.cuda.empty_cache()
+        read_inputs = lm_inputs(base, 1, PREFILL_LEN, dev, SEED)
+        _, read_one = mesh_prefill(base, params, read_inputs, dev, None,
+                                   "no mesh (reading)")
+        _, read_on = mesh_prefill(base, params, read_inputs, dev, mesh,
+                                  "mesh (1, 1) (reading)")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    for rec in dec.values():
+        for key in ("before", "feed", "held"):
+            rec.pop(key)
+    wall = time.perf_counter() - t0
+    print(f"mesh: granite-moe-3b FULL on a (1, 1) mesh of one NCCL rank, "
+          f"{wall:.1f} s; on one rank every exchange and merge is an "
+          f"identity, so their planted faults show only in the CPU worlds "
+          f"of tests/test_torch_mesh.py, and what they cost needs two cards")
+    out = {"arch": MESH_ARCH, "gate": {"no_mesh": one, "mesh": on,
+                                       "logits": gate},
+           "decode": dec, "planted_faults": faults,
+           "reading_32k": {"no_mesh": read_one, "mesh": read_on},
+           "k6_launches_prefill": on["k6_launches"],
+           "k8_launches_per_step": {"batch 8 (batched)": dec["batched"][
+               "k8_per_step_mesh"], "batch 1 (cp)": 0}, "wall_s": wall}
+    print(json.dumps({"mesh": out}, default=str))
+    return out
+
+
 def to_port_bounds() -> list:
     """The bounds of the TPU kernels still to port: none.  K5, the last,
     is ported (``phase_roomy``; its bound is in the ``kernels`` line), so
@@ -7002,6 +7396,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     fe = phase_frontend(dev)
     print(f"[phase_frontend done at {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(dev)
+    print(f"[phase_mesh done at {time.perf_counter() - t0:.1f} s]")
     fe_short = {"musicgen-medium": "musicgen", "qwen2-vl-2b": "qwen"}
 
     def fe_keys(rec_of, fields=("ms", "plain_ms", "bound_ms", "library_ms")):
@@ -7051,14 +7448,14 @@ def main() -> None:
                  "lut_count": "k3_ms"}[name]],
             "disk_sharded_launches": {
                 key: sharded[key]["launches"][name]
-                for key in ("n11_4", "n11_2", "n10_4_pipelined", "n10_tcp",
+                for key in ("n11_4", "n10_2", "n10_4_pipelined", "n10_tcp",
                             "n10_loopback_inline")},
             "disk_sharded_ms": (sum(x["k1_ms"] for x in
                                     sharded["n11_4"]["timers"])
                                 if name == "mark_rotate_count" else None),
-            "disk_sharded_shape": f"pancake n = {SHARD_N} over 4 (2) "
-                                  "shards: 10 (20) chunks of "
-                                  f"{DISK_CHUNK} fields a shard, one "
+            "disk_sharded_shape": f"pancake n = {SHARD_N} over 4 "
+                                  "shards (n = 10 over 2): 10 (2) chunks "
+                                  f"of {DISK_CHUNK} fields a shard, one "
                                   "launch a chunk a level pass on every "
                                   "shard; disk_sharded_ms sums the 4 "
                                   "workers' launches",
@@ -7139,7 +7536,12 @@ def main() -> None:
         **fe_keys(lambda r: r["serve"]["k6_times"]),
         "launches_by_route_frontend": {
             a: fe[a]["serve"]["prefill"]["k6_routes"]
-            for a in FRONTEND_ARCHS}})
+            for a in FRONTEND_ARCHS},
+        "launches_by_route_mesh": {
+            f"{MESH_ARCH} on a (1, 1) mesh, prefill 1 x {MESH_GATE_LEN}":
+                mesh["gate"]["mesh"]["k6_routes"],
+            f"the same, 1 x {PREFILL_LEN}":
+                mesh["reading_32k"]["mesh"]["k6_routes"]}})
     tr, win = k7["train"], k7["window"]
     kernels.append({
         "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
@@ -7329,7 +7731,10 @@ def main() -> None:
             a: fe[a]["serve"]["decode"]["k8_routes"] for a in FRONTEND_ARCHS},
         "launches_per_step_frontend": {
             a: fe[a]["serve"]["decode"]["k8_launches_per_step"]
-            for a in FRONTEND_ARCHS}})
+            for a in FRONTEND_ARCHS},
+        "launches_per_step_mesh": {
+            f"{MESH_ARCH} on a (1, 1) mesh, {k}": n
+            for k, n in mesh["k8_launches_per_step"].items()}})
     print(json.dumps({"to_port": to_port_bounds()}))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))

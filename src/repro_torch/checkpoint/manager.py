@@ -12,7 +12,7 @@ numpy has no bfloat16, and cast back on restore) and Python numbers (the
 optimizer's step), saved as 0-d arrays.  ``restore`` rebuilds the
 template's structure, each tensor on its template leaf's device and in
 its dtype.  The reference's elastic restore across device counts waits
-for the distributed slice (ROADMAP item 9.8).
+for the training half of the distributed slice (ROADMAP item 9.8b).
 """
 from __future__ import annotations
 

@@ -132,3 +132,29 @@ def lm_caches_from_jax(caches, cfg, device=None) -> dict:
             _layer(getattr(kv, f), i, cfg), device)
             for f in paged.PagedKV._fields)) for i in range(n)]
     return out
+
+
+def lm_caches_shard_from_jax(caches, cfg, coord: int, n: int,
+                             device=None) -> dict:
+    """The reference's global decode caches → data rank ``coord``'s shard
+    of them over ``n`` data ranks, as ``ShardingRules.cache_specs`` lays
+    the pages out and the port's decode on a mesh reads them: each
+    ``PagedKV`` cut by ``paged.shard`` (rows and their pages, or pages
+    alone at batch 1), the SSM states whole."""
+    whole = lm_caches_from_jax(caches, cfg, device)
+    out = dict(whole)
+    if "kv" in whole:
+        out["kv"] = [paged.PagedKV(*(t.clone() for t in paged.shard(
+            c, coord, n))) for c in whole["kv"]]
+    return out
+
+
+def lm_caches_unshard(shards, batch: int) -> dict:
+    """Every data rank's caches (in coordinate order) → the whole caches
+    of ``batch`` sequences: the pages (and rows) joined, the SSM states
+    rank 0's."""
+    out = dict(shards[0])
+    if "kv" in out:
+        out["kv"] = [paged.unshard([s["kv"][i] for s in shards], batch)
+                     for i in range(len(out["kv"]))]
+    return out

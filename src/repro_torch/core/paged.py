@@ -14,15 +14,24 @@ The functions are out of place, as in the reference: ``append`` and
 which the serving loop's per-slot merge relies on
 (``runtime/serve_loop.py``).  ``append(..., inplace=True)`` writes into
 the pages it is given instead, for a caller that donates the cache.
+
+On a mesh each rank holds its shard of a cache (``shard_layout``: rows and
+their pages over the data ranks when the batch splits over them, the
+pages alone at batch 1).  A shard's ``page_table`` keeps global page ids;
+the rank's first page is global page ``coordinate · P_loc``, so the local
+table is ``page_table − coordinate · P_loc``.  ``make(..., shard=(i, n))``
+allocates rank i's shard only; ``shard`` cuts a whole cache and
+``unshard`` joins the ranks' shards back.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import device as _device
+from . import sharding as SH
 
 
 class PagedKV(NamedTuple):
@@ -48,18 +57,90 @@ def identity_table(batch: int, pages_per_seq: int, device) -> torch.Tensor:
 
 
 def make(batch: int, max_len: int, kv_heads: int, head_dim: int,
-         page_size: int = 128, dtype=torch.bfloat16, device=None) -> PagedKV:
+         page_size: int = 128, dtype=torch.bfloat16, device=None,
+         shard: Tuple[int, int] = (0, 1)) -> PagedKV:
     """An empty cache on ``device`` (default "cuda") under the identity
-    page table."""
+    page table; ``shard=(i, n)``: only rank i's shard of it over n data
+    ranks (``shard_layout``)."""
     device = _device.resolve(device)
     pages_per_seq = -(-max_len // page_size)
-    shape = (batch * pages_per_seq, page_size, kv_heads, head_dim)
+    i, n = shard
+    layout = shard_layout(batch, pages_per_seq, n)
+    table = identity_table(batch, pages_per_seq, device)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    pages, rows = _shard_slices(layout, batch, pages_per_seq, i, n)
+    if layout == "rows":
+        table, lengths = table[rows], lengths[rows]
+    shape = (pages.stop - pages.start, page_size, kv_heads, head_dim)
     return PagedKV(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),
         v_pages=torch.zeros(shape, dtype=dtype, device=device),
-        page_table=identity_table(batch, pages_per_seq, device),
-        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
-    )
+        page_table=table, lengths=lengths)
+
+
+# ------------------------------------------------------ shards on a mesh
+
+def shard_layout(batch: int, pages_per_seq: int, n: int) -> Optional[str]:
+    """How a cache of ``batch`` sequences splits over ``n`` data ranks,
+    as the reference's ``cache_specs`` place it and its decode reads it:
+    "rows" (batch > 1, n divides it: rank i holds rows [i·B/n, (i+1)·B/n),
+    their pages under the batch-major identity table, and those rows of
+    the table and lengths); "pages" (batch 1, n divides the pages: rank i
+    holds pages [i·P/n, (i+1)·P/n), the table and length whole); None
+    (the whole cache on every rank)."""
+    if batch > 1 and batch % n == 0:
+        return "rows"
+    if batch == 1 and pages_per_seq % n == 0:
+        return "pages"
+    return None
+
+
+def _shard_slices(layout, batch, pages_per_seq, i, n):
+    """(pages, rows) slices of rank i's shard under ``layout``."""
+    total = batch * pages_per_seq
+    if layout is None:
+        return slice(0, total), slice(0, batch)
+    per = total // n
+    rows = batch // n if layout == "rows" else batch
+    return (slice(i * per, (i + 1) * per),
+            slice(i * rows, (i + 1) * rows) if layout == "rows"
+            else slice(0, batch))
+
+
+def shard(cache: PagedKV, i: int, n: int) -> PagedKV:
+    """Rank i's shard of a whole cache over n data ranks (views)."""
+    b, pps = cache.page_table.shape
+    layout = shard_layout(b, pps, n)
+    pages, rows = _shard_slices(layout, b, pps, i, n)
+    return PagedKV(cache.k_pages[pages], cache.v_pages[pages],
+                   cache.page_table[rows], cache.lengths[rows])
+
+
+def unshard(shards: List[PagedKV], batch: int) -> PagedKV:
+    """The whole cache of ``batch`` sequences from every rank's shard, in
+    coordinate order."""
+    first = shards[0]
+    layout = shard_layout(batch, first.pages_per_seq, len(shards))
+    if layout is None:
+        return first
+    cat = lambda f: torch.cat([getattr(s, f) for s in shards])  # noqa: E731
+    rows = layout == "rows"
+    return PagedKV(cat("k_pages"), cat("v_pages"),
+                   cat("page_table") if rows else first.page_table,
+                   cat("lengths") if rows else first.lengths)
+
+
+def gather_pages(cache: PagedKV, mesh, axes) -> PagedKV:
+    """The whole cache on every rank from its page shards over ``axes``
+    (the batch-1 layout: an all-gather of the pages)."""
+    return cache._replace(k_pages=SH.gather_leading(cache.k_pages, mesh, axes),
+                          v_pages=SH.gather_leading(cache.v_pages, mesh, axes))
+
+
+def own_shard(cache: PagedKV, mesh, axes) -> PagedKV:
+    """This rank's shard of a whole cache, copied out of it."""
+    mine = shard(cache, SH.axis_index(mesh, axes), SH.axis_size(mesh, axes))
+    return PagedKV(*(t.clone() for t in mine))
 
 
 def append(cache: PagedKV, k_new: torch.Tensor, v_new: torch.Tensor, *,

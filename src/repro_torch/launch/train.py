@@ -21,7 +21,7 @@ Pallas kernels do not run on its CPU); the port
 keeps ``kernels="auto"``, which runs the plain versions for CPU tensors
 and, on the card, K6-with-LSE and K7 for attention, K9 and K9-bwd for the
 selective scan.  ``--tp > 1`` (a tensor-parallel mesh) waits for the
-distributed slice, ROADMAP item 9.8.
+training half of the distributed slice, ROADMAP item 9.8b.
 """
 from __future__ import annotations
 
@@ -56,8 +56,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.tp > 1:
         raise NotImplementedError(
-            "--tp > 1 needs a device mesh, which is not ported to "
-            "repro_torch yet: ROADMAP item 9.8")
+            "--tp > 1 trains on a device mesh, which repro_torch serves "
+            "on but does not train on yet: ROADMAP item 9.8b")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     settings = TrainSettings(

@@ -5,7 +5,8 @@ attention and an MLP, or the MoE layer when ``cfg.is_moe``, each followed
 by gemma2's post-norm when ``cfg.post_norm``) and the mamba block
 (pre-norm mamba1 or mamba2 by ``version``, residual).  zamba2's shared
 block is a transformer block with one weight set and a KV cache for each
-place it runs (``lm.py``).
+place it runs (``lm.py``).  ``mesh``: the MoE layer's roomy dispatch and
+the decode attention's sharded branches (``moe.py``, ``attention.py``).
 """
 from __future__ import annotations
 
@@ -38,9 +39,10 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
-def _mlp_half(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_half(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              mesh=None) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
-    h = moe(p["moe"], h, cfg) if cfg.is_moe else mlp(p["mlp"], h, cfg)
+    h = moe(p["moe"], h, cfg, mesh) if cfg.is_moe else mlp(p["mlp"], h, cfg)
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln2"], cfg.rms_eps)
     return x + h
@@ -48,27 +50,27 @@ def _mlp_half(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def transformer_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, *, window: Optional[int] = None,
-                      return_kv: bool = False):
+                      return_kv: bool = False, mesh=None):
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     h, kv = attention(p["attn"], h, positions, cfg, window=window,
                       return_kv=True)
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
-    x = _mlp_half(p, x + h, cfg)
+    x = _mlp_half(p, x + h, cfg, mesh)
     return (x, kv) if return_kv else x
 
 
 def transformer_block_decode(p: dict, x: torch.Tensor, cache: paged.PagedKV,
                              cfg: ModelConfig, *,
                              window: Optional[int] = None,
-                             donate: bool = False
+                             donate: bool = False, mesh=None
                              ) -> Tuple[torch.Tensor, paged.PagedKV]:
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     h, cache = decode_attention(p["attn"], h, cache, cfg, window=window,
-                                donate=donate)
+                                donate=donate, mesh=mesh)
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
-    return _mlp_half(p, x + h, cfg), cache
+    return _mlp_half(p, x + h, cfg, mesh), cache
 
 
 # ------------------------------------------------------- mamba blocks

@@ -4,8 +4,11 @@ It keeps the fields and derived properties that the dense (gemma2,
 nemotron, minicpm, granite), mamba1 (falcon-mamba), MoE (granite-moe,
 phi3.5-moe), hybrid (zamba2: mamba2 with a shared attention block) and
 frontend-stub (musicgen: audio; qwen2-vl: vision, M-RoPE) paths read.
-The mesh fields come with ROADMAP item 9.8.  Frozen, so a config can be
-shared and compared.
+The distribution fields (``embedding_dispatch``,
+``attn_activation_shard``) are the reference's, with its defaults; the
+mesh paths that read them are ``models/layers.py`` (the roomy embedding)
+and ``models/attention.py`` (``_attn_act_spec``).  Frozen, so a config can
+be shared and compared.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ class ModelConfig:
     # --- MoE ---
     n_experts: int = 0
     top_k: int = 0
-    moe_dispatch: str = "roomy"      # roomy (needs a mesh: 9.8) | einsum
+    moe_dispatch: str = "roomy"      # roomy (on a mesh) | einsum
     capacity_factor: float = 1.25
 
     # --- SSM (mamba) ---
@@ -62,7 +65,14 @@ class ModelConfig:
     # --- embeddings / head ---
     tie_embeddings: bool = True      # False: an own (d, vocab) LM head
     frontend_stub: bool = False      # audio/vlm: inputs are embeddings
+    embedding_dispatch: str = "gspmd"  # gspmd | roomy (on a mesh)
     scale_embeddings: bool = False   # gemma2: multiply embeds by sqrt(d)
+
+    # --- distribution ---
+    attn_activation_shard: str = "auto"   # auto | none — when q-heads don't
+    # divide the model axis, the reference spreads the attention
+    # activations over 'model' (batch or sequence) in place of replicating
+    # the compute; the port runs that attention replicated
 
     # --- numerics ---
     rms_eps: float = 1e-6

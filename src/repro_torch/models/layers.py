@@ -1,6 +1,7 @@
-"""Shared layers: RMSNorm, the MLP, embeddings and the LM head.
+"""Shared layers: RMSNorm, the MLP, embeddings (the plain take and the
+Roomy bucket exchange on a mesh) and the LM head.
 
-Port of ``repro/models/layers.py`` for the dense path.  Initialization
+Port of ``repro/models/layers.py``.  Initialization
 follows the reference's distributions on an explicit ``torch.Generator``:
 fan-in truncated normal (±2σ) for projections and the untied LM head,
 N(0, 0.02²) for the embedding table, zeros for norm gains (applied as
@@ -10,9 +11,7 @@ the tests carry the reference's params across with
 
 Params may be stored in float32 or in the compute dtype; every layer casts
 to ``cdtype(cfg)`` at use, which is a no-op for params already stored in
-it (casting once gives the same values as casting at each use).  The
-mesh-only embedding path of the reference (``_roomy_embed``) waits for
-``distributed/``.
+it (casting once gives the same values as casting at each use).
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core import delayed as roomy_delayed
+from ..core import sharding as SH
 from .config import ModelConfig
 
 
@@ -92,9 +93,67 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
-def embed_tokens(p: dict, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """ids (B, S) → (B, S, d): a plain row take of the table."""
+def embed_tokens(p: dict, ids: torch.Tensor, cfg: ModelConfig,
+                 mesh=None) -> torch.Tensor:
+    """ids (B, S) → (B, S, d).  A plain row take of the table; or, under
+    ``embedding_dispatch="roomy"`` on a mesh with a ``model`` axis whose
+    tokens tile the device grid, the explicit bucket exchange
+    (``_roomy_embed``), as ``repro/models/layers.py:84-97``."""
+    if cfg.embedding_dispatch == "roomy" and mesh is not None \
+            and "model" in SH.mesh_axes(mesh):
+        n_dev = SH.axis_size(mesh, tuple(SH.mesh_axes(mesh)))
+        if ids.numel() % n_dev == 0:
+            return _roomy_embed(p["table"], ids, cfg, mesh).to(cdtype(cfg))
     return p["table"][ids].to(cdtype(cfg))
+
+
+def _roomy_embed(table: torch.Tensor, ids: torch.Tensor, cfg: ModelConfig,
+                 mesh) -> torch.Tensor:
+    """The explicit Roomy gather: each rank's tokens issue delayed
+    accesses to the vocab-sharded table; one all-to-all each way over the
+    ``model`` group resolves them.
+
+    Ownership is striped (owner = id mod S, S the model axis), so row r of
+    shard s holds id r·S + s and frequent low ids spread over the shards;
+    buckets carry 4× the uniform per-owner load, ``max(8, min(t_loc,
+    4·ceil(t_loc / S)))`` for t_loc tokens a rank; an overflowing token
+    embeds as zeros, as in the reference.  ids are global, (B, S) on every
+    rank: this rank takes its block of the B·S tokens split over every
+    axis (data axes, then ``model``), and the blocks are gathered back, so
+    every rank returns the whole (B, S, d)."""
+    shape = SH.mesh_axes(mesh)
+    s_model = shape["model"]
+    group, m_idx, _ = SH.axis_group(mesh, "model")
+    shard_axes = tuple(a for a in shape if a != "model") + ("model",)
+    rows_per = -(-cfg.vocab_padded // s_model)
+    b, s = ids.shape
+    n_dev = SH.axis_size(mesh, shard_axes)
+    t_loc = max(1, (b * s) // n_dev)
+    capacity = max(8, min(t_loc, 4 * (-(-t_loc // s_model))))
+    # the striped shard: row r of shard m_idx is vocab id r·S + m_idx
+    table_loc = _pad_rows(table, rows_per * s_model).view(
+        rows_per, s_model, -1)[:, m_idx]
+    flat = SH.shard_leading(ids.reshape(b * s), mesh, shard_axes)
+    dest = (flat % s_model).to(torch.int32)
+    valid = torch.ones_like(flat, dtype=torch.bool)
+
+    def owner_fn(recv, recv_valid):
+        # recv: (S, C, 1) global ids; the striped layout → local row id // S
+        local = (recv[..., 0] // s_model).clamp(max=table_loc.shape[0] - 1)
+        return table_loc[local.long()]
+
+    out, ok, _ = roomy_delayed.bucket_sync_access(
+        dest, flat[:, None].to(torch.int32), valid, group, s_model,
+        capacity, owner_fn)
+    out = torch.where(ok[:, None], out, torch.zeros((), dtype=out.dtype,
+                                                    device=out.device))
+    return SH.gather_leading(out, mesh, shard_axes).reshape(b, s, -1)
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.shape[0] == n:
+        return x
+    return F.pad(x, (0, 0) * (x.ndim - 1) + (0, n - x.shape[0]))
 
 
 def lm_head(p_embed: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

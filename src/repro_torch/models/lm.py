@@ -13,10 +13,12 @@ Port of ``repro/models/lm.py``.  Entry points:
   forward_hidden(params, inputs, cfg)         → (B, S, d)
   logits_fn(params, hidden, cfg)              → (B, S, vocab_padded)
   loss_fn(params, batch, cfg)                 → scalar mean cross-entropy
-  prefill(params, inputs, cfg, max_len=)      → (last logits (B, 1, V), caches)
+  prefill(params, inputs, cfg, mesh=,
+          max_len=)                           → (last logits, caches)
   decode_step(params, inputs, caches, cfg,
-              donate=False)                   → (logits (B, 1, V), caches)
-  make_cache(cfg, batch, max_len, device=)    → empty caches
+              mesh=, donate=False)            → (logits (B, 1, V), caches)
+  make_cache(cfg, batch, max_len, device=,
+             mesh=)                           → empty caches
 
 ``inputs``: {"tokens": (B, S) integer} or, for a frontend-stub config,
 {"embeds": (B, S, d)}, plus "positions": (B, S) integer, or (B, S, 3)
@@ -37,6 +39,21 @@ reference's stacked pytrees across.
 
 Every family trains: ``loss_fn``'s gradient runs through K6-with-LSE and
 K7 (attention) and K9 and K9-bwd (the selective scan) on the card.
+
+Serving on a mesh (``launch/mesh.py``; ``mesh=None`` is one device):
+every rank passes the same inputs and gets the same logits back, as an
+SPMD program does, with the params whole on every rank.  The roomy
+embedding and the roomy MoE exchange tokens over the mesh
+(``layers.py``, ``moe.py``); attention and the mamba blocks run
+replicated; the decode caches are each rank's shard
+(``paged.shard_layout``: rows over the data axes when the batch splits
+over them, pages at batch 1), which ``prefill`` and ``make_cache``
+produce and ``decode_step`` reads and writes in place of the whole.  The
+SSM state stays whole on every rank (the reference's ``cache_specs``
+only give GSPMD a layout for it).  The reference's ``_constrain`` /
+``_constrain_tokens`` are GSPMD layout hints with no effect on a number;
+activations here are global on every rank, so they have no counterpart.
+``forward_hidden`` and ``loss_fn`` on a mesh come with ROADMAP item 9.8b.
 """
 from __future__ import annotations
 
@@ -49,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..core import paged
+from ..core import sharding as SH
 from .blocks import (init_mamba_block, init_transformer_block, mamba_block,
                      mamba_block_decode, mamba_block_prefill,
                      transformer_block, transformer_block_decode)
@@ -112,14 +130,16 @@ def init_params(cfg: ModelConfig, gen, *, device=None,
 
 # ------------------------------------------------------------- forward
 
-def _embed(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params, inputs: Dict, cfg: ModelConfig, mesh=None
+           ) -> torch.Tensor:
     """The stub frontend's embeddings in the compute dtype when the config
     has one and the inputs carry them, else the token ids' table rows
-    (``repro/models/lm.py:110-116``)."""
+    (``repro/models/lm.py:110-116``; on a mesh, the roomy embedding where
+    the config asks for it)."""
     if cfg.frontend_stub and "embeds" in inputs:
         x = inputs["embeds"].to(cdtype(cfg))
     else:
-        x = embed_tokens(params["embed"], inputs["tokens"], cfg)
+        x = embed_tokens(params["embed"], inputs["tokens"], cfg, mesh)
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -197,17 +217,30 @@ def _kv_to_pages(k, v, max_len: int, cfg: ModelConfig):
             v.reshape(shape).to(cdtype(cfg)))
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def _dp_shard(mesh):
+    """(this rank's coordinate, size) over the mesh's data axes; (0, 1)
+    off a mesh."""
+    dp = SH.data_axes(mesh)
+    if not dp:
+        return 0, 1
+    return SH.axis_index(mesh, dp), SH.axis_size(mesh, dp)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               mesh=None):
     """Empty decode caches: one ``PagedKV`` per layer; for the ssm family
     one zero ``SSMState`` per layer (``max_len`` unused); for the hybrid
     family one mamba2 ``SSMState`` per layer and one ``PagedKV`` per
-    application of the shared block."""
+    application of the shared block.  On a mesh each ``PagedKV`` is this
+    rank's shard only."""
     dev = _device.resolve(device)
     max_len = _round_len(max_len)
+    shard = _dp_shard(mesh)
 
     def kv(n):
         return [paged.make(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                           page_size=PAGE_SIZE, dtype=cdtype(cfg), device=dev)
+                           page_size=PAGE_SIZE, dtype=cdtype(cfg), device=dev,
+                           shard=shard)
                 for _ in range(n)]
     if cfg.family in ("ssm", "hybrid"):
         version = 1 if cfg.family == "ssm" else 2
@@ -219,15 +252,16 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return {"kv": kv(cfg.n_layers)}
 
 
-def prefill(params, inputs: Dict, cfg: ModelConfig,
+def prefill(params, inputs: Dict, cfg: ModelConfig, mesh=None,
             max_len: Optional[int] = None):
     """Full forward that builds the decode caches; returns (logits of the
     last position (B, 1, V), caches).  For the ssm family the caches are
     each layer's ``SSMState`` after the prompt (K9's final state and the
     conv's last inputs); ``max_len`` is unused.  The hybrid family's are
     each mamba2 layer's ``SSMState`` and each shared-block application's
-    ``PagedKV``."""
-    x = _embed(params, inputs, cfg)
+    ``PagedKV``.  On a mesh each ``PagedKV`` keeps this rank's shard of
+    the pages (``repro/models/lm.py:221-242``: pages over dp)."""
+    x = _embed(params, inputs, cfg, mesh)
     if cfg.family == "ssm":
         states = []
         for p_l in params["blocks"]:
@@ -241,12 +275,18 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
         raise ValueError(f"max_len {max_len} < prompt length {s}")
     table = paged.identity_table(b, max_len // PAGE_SIZE, x.device)
     lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    i, n = _dp_shard(mesh)
 
     def attend(p_l, x, window=None):
         x, (k, v) = transformer_block(p_l, x, inputs["positions"], cfg,
-                                      window=window, return_kv=True)
+                                      window=window, return_kv=True,
+                                      mesh=mesh)
         kp, vp = _kv_to_pages(k, v, max_len, cfg)
-        return x, paged.PagedKV(kp, vp, table, lengths)
+        cache = paged.PagedKV(kp, vp, table, lengths)
+        if n > 1:                     # keep this rank's shard, not views
+            cache = paged.PagedKV(*(t.clone() for t in paged.shard(
+                cache, i, n)))
+        return x, cache
     caches = []
     if cfg.family == "hybrid":
         states = []
@@ -266,8 +306,8 @@ def prefill(params, inputs: Dict, cfg: ModelConfig,
     return logits_fn(params, hidden, cfg), {"kv": caches}
 
 
-def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
-                donate: bool = False):
+def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
+                *, donate: bool = False):
     """One-token step.  inputs: {"tokens": (B, 1)} or, for a frontend
     stub, {"embeds": (B, 1, d)}; rope positions come from the caches'
     lengths.  Returns (logits (B, 1, V), new caches);
@@ -277,8 +317,10 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
     its caches to ``jit`` (``repro/launch/dryrun.py:188-191``), so a step
     holds one copy of the cache and moves none of it.  Every unwindowed
     attention layer reads its cache with K8 (the hybrid's shared block
-    once per application, each over its own cache)."""
-    x = _embed(params, inputs, cfg)
+    once per application, each over its own cache).  On a mesh the caches
+    are this rank's shards (``prefill`` / ``make_cache`` with the same
+    mesh) and the attention takes the reference's sharded branches."""
+    x = _embed(params, inputs, cfg, mesh)
     if cfg.family == "ssm":
         states = []
         for p_l, st in zip(params["blocks"], caches["ssm"]):
@@ -296,14 +338,15 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, *,
                 states.append(st)
             if shared:
                 x, c = transformer_block_decode(params["shared"], x,
-                                                next(kv), cfg, donate=donate)
+                                                next(kv), cfg, donate=donate,
+                                                mesh=mesh)
                 new.append(c)
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
         return logits_fn(params, hidden, cfg), {"ssm": states, "kv": new}
     new = []
     for p_l, c, w in zip(params["blocks"], caches["kv"], layer_windows(cfg)):
         x, c = transformer_block_decode(p_l, x, c, cfg, window=w,
-                                        donate=donate)
+                                        donate=donate, mesh=mesh)
         new.append(c)
     hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return logits_fn(params, hidden, cfg), {"kv": new}

@@ -1,11 +1,11 @@
-"""Mixture-of-Experts on one device: the router and the capacity-bucketed
-dispatch of ``repro/models/moe.py`` (``init_moe``, ``_route``,
-``_expert_ffn``, ``moe_einsum``, ``moe``).
+"""Mixture-of-Experts: the router and the two dispatch engines of
+``repro/models/moe.py`` (``init_moe``, ``_route``, ``_expert_ffn``,
+``moe_einsum``, ``moe_roomy``, ``moe``).
 
-The reference's single-device rule holds: without a mesh, ``moe`` runs
-``moe_einsum`` (``repro/models/moe.py:161-171``); the paper's bucket
-exchange (``moe_roomy``) needs a mesh, ROADMAP item 9.8, and ``moe``
-raises when handed a process group with ``moe_dispatch == "roomy"``.
+``moe`` follows the reference's rule (``repro/models/moe.py:161-171``):
+``moe_roomy`` with ``moe_dispatch == "roomy"`` on a mesh with a ``model``
+axis whose device grid the B·S tokens tile, else ``moe_einsum`` (no mesh,
+or a decode batch too small to tile the grid).
 
 ``moe_einsum`` gives the reference's result by index, not by its one-hot
 matmuls: each batch row is a capacity group of ``cap = max(1, ceil(s·k /
@@ -30,10 +30,13 @@ the experts batched matmuls.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..core import delayed as roomy_delayed
+from ..core import sharding as SH
 from .config import ModelConfig
 from .layers import _act, dense_init
 
@@ -134,13 +137,93 @@ def moe_einsum(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out.to(x.dtype).reshape(b, s, d)
 
 
-def moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
-        group: Optional[object] = None) -> torch.Tensor:
-    """x (B, S, d) → (B, S, d).  With no process group this is
-    ``moe_einsum``, the reference's rule on one device; the roomy dispatch
-    over a group is not ported."""
-    if group is not None and cfg.moe_dispatch == "roomy":
-        raise NotImplementedError(
-            "the roomy MoE dispatch (a bucket exchange over a device mesh) "
-            "is not ported to repro_torch yet: ROADMAP item 9.8")
+def _combine(y: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """y (t, k, d), w (t, k) → Σ_j y[:, j] · w[:, j] in float32, the
+    weights rounded to ``dtype`` first, summed in choice order, then cast:
+    ``moe_einsum``'s combine."""
+    wk = w.to(dtype).float()
+    out = torch.zeros(y.shape[::2], dtype=torch.float32, device=y.device)
+    for j in range(y.shape[1]):
+        out += y[:, j].float() * wk[:, j:j + 1]
+    return out.to(dtype)
+
+
+def moe_roomy(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's dispatch on a mesh.  x (B, S, d), the same on every
+    rank; returns (out (B, S, d) on every rank, dropped: int32 (2,) pairs
+    dropped over the whole mesh at the exchange and at the experts).
+
+    The router runs on the whole batch (replicated, as the reference's);
+    this rank's t_loc tokens (the B·S split over every axis, mesh order)
+    send their k pairs as rows [x, local expert id] to the model rank
+    owning expert id // (E/S); the owner bins what it received by local
+    expert (``bin_by_dest``, cap2), runs ``_expert_ffn`` on its E/S
+    experts' slice of the params, and each row goes back to its pair.
+    The combine is ``moe_einsum``'s (float32, the weights rounded to the
+    compute dtype) where the reference sums in x's dtype; the ranks'
+    outputs are gathered over every axis."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    shape = SH.mesh_axes(mesh)
+    axes = tuple(shape)
+    group, m_idx, s_model = SH.axis_group(mesh, "model")
+    e_loc = cfg.experts_padded // s_model
+    # capacities in Python floats, as repro/models/moe.py:108-115
+    m = max(1, (b * s) // math.prod(shape.values())) * k
+    cap1 = max(8, int(math.ceil(m / s_model * cfg.capacity_factor)))
+    cap2 = max(8, int(math.ceil(s_model * cap1 / e_loc
+                                * cfg.capacity_factor)))
+
+    w_all, ids_all = _route(p, x, cfg)             # (b, s, k) on every rank
+    x_loc = SH.shard_leading(x.reshape(b * s, d), mesh, axes)
+    w_loc = SH.shard_leading(w_all.reshape(b * s, k), mesh, axes)
+    ids_loc = SH.shard_leading(ids_all.reshape(b * s, k), mesh, axes)
+    t = x_loc.shape[0]
+    ek = ids_loc.reshape(-1)
+    dest = (ek // e_loc).to(torch.int32)
+    e_local = (ek % e_loc).to(x.dtype)
+    payload = torch.cat([x_loc.repeat_interleave(k, 0), e_local[:, None]], 1)
+    valid = torch.ones_like(dest, dtype=torch.bool)
+    mine = slice(m_idx * e_loc, (m_idx + 1) * e_loc)
+    pp = {name: p[name][mine].to(x.dtype) for name in ("up", "down", "gate")
+          if name in p}
+    expert_drops = []
+
+    def owner_fn(recv, recv_valid):
+        # recv (S, C1, d+1): bin again by local expert id
+        flat = recv.reshape(-1, d + 1)
+        binned = roomy_delayed.bin_by_dest(
+            flat[:, d].to(torch.int32), flat[:, :d], recv_valid.reshape(-1),
+            e_loc, cap2)
+        expert_drops.append(binned.dropped)
+        y = _expert_ffn(pp, binned.payload, cfg)            # (E_loc, C2, d)
+        y = torch.where(binned.valid[..., None], y, 0.0)
+        back = roomy_delayed.unbin(y, binned.src_idx, flat.shape[0])
+        return back.reshape(recv.shape[0], recv.shape[1], d)
+
+    y, ok, dropped1 = roomy_delayed.bucket_sync_access(
+        dest, payload, valid, group, s_model, cap1, owner_fn)
+    y = torch.where(ok[:, None], y, 0.0)
+    out = _combine(y.reshape(t, k, d), w_loc, x.dtype)
+    # dropped1 is already summed over the model group: one rank of each
+    # group adds it in, and the expert drops of every rank, over the mesh
+    dropped = torch.stack([dropped1 if m_idx == 0
+                           else torch.zeros_like(dropped1),
+                           expert_drops[0]]).to(torch.int32)
+    dist.all_reduce(dropped, group=SH.axis_group(mesh, axes)[0])
+    return SH.gather_leading(out, mesh, axes).reshape(b, s, d), dropped
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None
+        ) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d): ``moe_roomy`` on a mesh where the
+    reference runs it, else ``moe_einsum``."""
+    if cfg.moe_dispatch == "roomy" and mesh is not None \
+            and "model" in SH.mesh_axes(mesh):
+        # Roomy dispatch needs tokens to tile the device grid; tiny decode
+        # batches fall back to the einsum path (capacity 1-2 there anyway).
+        if (x.shape[0] * x.shape[1]) % math.prod(
+                SH.mesh_axes(mesh).values()) == 0:
+            return moe_roomy(p, x, cfg, mesh)[0]
     return moe_einsum(p, x, cfg)

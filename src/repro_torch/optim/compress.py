@@ -8,8 +8,9 @@ next step:
 
 The train step round-trips the gradient through the codec, which models
 the wire format of a cross-pod reduction and keeps the residual exact.  The
-reduction itself (``psum`` over a ``pod`` axis) waits for the distributed
-slice (ROADMAP item 9.8); on one device there is nothing to sum.
+reduction itself (``psum`` over a ``pod`` axis) waits for the training
+half of the distributed slice (ROADMAP item 9.8b); on one device there is
+nothing to sum.
 
 The codecs work on the reference's leaves.  Where the port keeps a list of
 trees of one structure (gemma2's ``blocks``, one entry per layer), the

@@ -4,7 +4,7 @@ The step function composes, per ``TrainSettings``:
   * microbatched gradient accumulation in float32;
   * optional int8 / top-k gradient compression with error feedback (the
     codec round trip of the cross-pod reduction; the reduction itself
-    waits for ROADMAP item 9.8);
+    waits for ROADMAP item 9.8b);
   * AdamW with its schedule (WSD by default) and global-norm clipping,
     updating params and optimizer state in place.
 

@@ -310,19 +310,24 @@ def test_index_dispatch_matches_the_onehot_form_in_bfloat16(model):
 
 
 def test_moe_follows_the_single_device_rule(model):
-    """No group: einsum, as the reference without a mesh.  A group with
-    the roomy dispatch raises (the bucket exchange needs a mesh: 9.8);
-    with the einsum dispatch a group changes nothing."""
+    """No mesh: einsum, as the reference without a mesh.  On a mesh whose
+    device grid the tokens do not tile, or with the einsum dispatch, the
+    reference's rule also runs einsum (``repro/models/moe.py:161-171``),
+    touching no process group; the roomy dispatch on a mesh is held to
+    the reference in ``test_torch_mesh.py``."""
     jcfg, cfg, jp, tp = model
     assert cfg.moe_dispatch == "roomy"
     jm, tm = _layer(jp, tp)
     x = _x(cfg, seed=8)
     got = moe.moe(tm, torch.from_numpy(x), cfg)
     _close(got, jmoe.moe(jm, jnp.asarray(x), jcfg, None))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.8"):
-        moe.moe(tm, torch.from_numpy(x), cfg, group=object())
+
+    class Untiled:                        # a (1, B·S + 1) grid: no tiling
+        shape = {"data": 1, "model": x.shape[0] * x.shape[1] + 1}
+    assert torch.equal(moe.moe(tm, torch.from_numpy(x), cfg, Untiled()),
+                       got)
     again = moe.moe(tm, torch.from_numpy(x), cfg.replace(
-        moe_dispatch="einsum"), group=object())
+        moe_dispatch="einsum"), Untiled())
     assert torch.equal(got, again)
 
 
