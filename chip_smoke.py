@@ -77,11 +77,14 @@ caught:
    at n = 11 (39 chunks of 2^20 fields, the reference's ``log_buf_rows``
    and ``expand_batch``), every count set to 0 just before each run and
    read just after: fused (K1 39 x 14 = 546, each on the route
-   ``K.route`` names for its chunk's log; no K2, K3), unfused (K3 546, K2
-   one per (chunk, pass) with a log, by route), and with rle2 chunks
-   stopped after level 6 with checkpoints every 3 levels, then resumed
-   (K1 546 over the two); each with the level sizes of the in-memory
-   engine (diameter 13), and fused with one read-write array traversal a
+   ``K.route`` names for its chunk's log; no K2, K3); then at n = 10
+   (``DISK_SIDE_N``; n = 11 before ``phase_mesh_train`` came, cut for its
+   time), against its own distance table and in-memory engine, unfused
+   (K3 a chunk a level, K2 one per (chunk, pass) with a log, by route),
+   and with rle2 chunks stopped after level 6 with checkpoints every 3
+   levels, then resumed (K1 a chunk a level over the two); each with the
+   level sizes of the in-memory engine, and fused with one read-write
+   array traversal a
    level to the byte, 16 B of op log a mark, its peak device memory
    within the printed bound (one chunk, its largest log, one expansion
    batch measured on the card) and below the in-memory engine's; the
@@ -507,14 +510,36 @@ caught:
    1 × 32768 prefill at the config's capacity factor on and off the mesh
    (tokens/s, drops, the MoE share), the decodes' tokens/s.  On one rank
    the exchanges are identities: their faults show only in the CPU
-   worlds of ``tests/test_torch_mesh.py``.
+   worlds of ``tests/test_torch_mesh.py``.  A float32 witness of the CP
+   gate: the model in float32 at 2 layers, each step of the plain run
+   with no mesh again through ``_paged_decode_cp``, within CP_F32_TOL a
+   row, the planted CP-mask fault at least 10x it.
+18c. training on a device mesh (``phase_mesh_train``): (a) a one-rank NCCL
+   world as the (1, 1) mesh, granite-moe-3b at its published widths and
+   16 of 32 layers, roomy MoE and roomy embedding at capacity factor 8:
+   three train steps of 1 × 4096 (``runtime.train_loop.make_train_step``
+   with the mesh: params and AdamW state as ShardingRules shards) against
+   the same config with no mesh, step 0's loss bit for bit, the gradient
+   at the seed's params within MESH_TRAIN_GRAD_TOL a leaf, the launches a
+   ``train.step`` span (K6-LSE 32, K7 16 each side, K5 once on the mesh:
+   the roomy embedding's gradient fold, none off it), the reverse
+   all-to-all's backward zeroed as a planted fault; readings: the step
+   times and peaks, the MoE's share of a step by CUDA events, a profiled
+   step's idle share, and K5's fold against its plain version and
+   ``torch.index_add`` at the step's shape; (b) a two-rank gloo world of
+   spawned processes on the one card (the only exchange this machine can
+   make that is not an identity): 2 layers at full width on (1, 2) and
+   (2, 1), loss and per-leaf gradient against the one-device run, K6-LSE,
+   K7 and K5 on each rank, ``tp`` left out of the loss share and the
+   local mask count as planted faults.
 19. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K1's, K2's and
    K3's launches, routes and summed times on the disk route; K6's and
    K6-with-LSE's entries name the kernel that ran, their launches by
    route and the ptxas report; K6's, K8's and K9's launches on the MoE,
    hybrid, frontend and mesh paths; K6-with-LSE's, K7's and K9's on the
-   training paths; the frontend layouts' times), the card line, and last
+   training paths, and with K5's a mesh train step; K5's fold times; the
+   frontend layouts' times), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -591,7 +616,9 @@ from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.core import sharding as SHD  # noqa: E402
 from repro_torch.runtime import (FaultInjector, TrainSettings,  # noqa: E402
                                  make_train_step, train)
+from repro_torch.runtime import train_loop as TL  # noqa: E402
 from repro_torch.runtime.train_loop import loss_and_grads  # noqa: E402
+from repro_torch.distributed import sharding_rules as SR  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 REPS = 20
@@ -3832,8 +3859,13 @@ F32_WITNESS_RATIO = 1.5
 
 
 def leaf_errors(grads, want, params) -> dict:
-    rels = {"__".join(p): float((g - w).norm() / w.norm())
-            for (p, _), g, w in zip(T.flatten_with_path(params), grads, want)}
+    return rel_summary({"__".join(p): float((g - w).norm() / w.norm())
+                        for (p, _), g, w in zip(T.flatten_with_path(params),
+                                                grads, want)})
+
+
+def rel_summary(rels) -> dict:
+    """The worst, the median and the five worst of {leaf: rel err}."""
     worst = sorted(rels, key=rels.get, reverse=True)
     return {"max_rel": rels[worst[0]], "worst_leaf": worst[0],
             "median_rel": statistics.median(rels.values()),
@@ -4101,7 +4133,8 @@ K9_CASES = [  # b, l, di, n
 K9_FAULT_CASE = (1, 2048, 8192, 16)
 SFU_PER_CLOCK_SM = 16         # exponentials a clock per SM (CUDA guide, cc 9.0)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
-FM_PLAIN_LEN = 1024           # the plain scan's Python loop over 64 layers
+FM_PLAIN_LEN = 512            # the plain scan's Python loop over 64 layers
+#                               (1024 before phase_mesh_train: cut for it)
                               # (2048 until PR 25: 23.8 s of the run)
 FM_PLAIN_LEN_F32 = 256
 FM_FORWARD_LEN = 4096
@@ -5443,7 +5476,9 @@ K9B_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu"
 FM_TRAIN_LAYERS = 32          # of 64: 112 GB of training state whole, 58.2 GB at 32
 FM_GRAD_LAYERS = 2            # the plain scan walks time in Python, twice
 FM_GRAD_SEQ = 512             # ... a layer in the backward: its comparison's cut
-GRANITE_TRAIN_LAYERS = None   # FULL (62.5 GB of state) when the run fits
+GRANITE_TRAIN_LAYERS = 16     # of 32 (FULL before phase_mesh_train: cut
+#                               for its time; it trains granite-moe at 16
+#                               layers too)
 ZAMBA_K9_SEQ = 1024            # the plain block walks time in Python
 # K9-bwd against its plain version from the same chunk states
 # (ref.mamba_scan_bwd_plain: the same float32 walk, the sums over states
@@ -5815,14 +5850,13 @@ def zamba_k9_layer(cfg, dev) -> dict:
     return {"per_leaf_rel": rels, "max_rel": rels[worst], "worst_leaf": worst}
 
 
-def phase_training_families(dev, k9b_ptx) -> dict:
-    """K9-bwd on its edge cases and its planted faults, its times at
-    falcon-mamba's and zamba2's layers; then falcon-mamba-7b at
-    FM_TRAIN_LAYERS layers, zamba2-1.2b FULL (the SSD form, and one block
-    in the K9 form) and granite-moe-3b FULL (or GRANITE_TRAIN_LAYERS)
-    trained."""
+def phase_training_families(dev, k9b_ptx, libs) -> dict:
+    """K9-bwd on its edge cases and its planted faults (``libs``, from
+    ``k9b_fault_libs``), its times at falcon-mamba's and zamba2's layers;
+    then falcon-mamba-7b at FM_TRAIN_LAYERS layers, zamba2-1.2b FULL (the
+    SSD form, and one block in the K9 form) and granite-moe-3b at
+    GRANITE_TRAIN_LAYERS trained."""
     t0 = time.perf_counter()
-    libs = k9b_fault_libs()
     parity = phase_k9b_parity_edges(dev, libs)
     print(f"[K9-bwd parity done at {time.perf_counter() - t0:.1f} s of the "
           f"phase]")
@@ -6118,6 +6152,9 @@ def phase_frontend(dev) -> dict:
 # ------------------------------------------------------------- Tier D
 
 DISK_N = 11                   # 39,916,800 states, 9,979,200 packed bytes
+DISK_SIDE_N = 10              # the unfused and the stopped-and-resumed runs
+#                               (11 before phase_mesh_train: cut for its
+#                               time; n = 11's op log is 6.4 GB a run)
 DISK_CHUNK = 1 << 20          # 39 chunks of 65,536 words (the last 4,432)
 DISK_STOP = 6                 # the stopped run's last level
 DISK_CKPT_EVERY = 3           # its checkpoints: levels 0, 3, 6
@@ -6227,9 +6264,9 @@ def disk_timers():
                             if s["sid"] in ("pass.rw", "pass.read")) / 1e6
 
 
-def disk_drive(dev, **kw) -> dict:
+def disk_drive(dev, n=DISK_N, **kw) -> dict:
     """One run of ``apps.pancake_bits.run_disk`` (the user's entry point)
-    at n = 11, every launch and Tier D count set to 0 just before it and
+    at ``n``, every launch and Tier D count set to 0 just before it and
     read just after, with its timers and peak device memory."""
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6239,11 +6276,11 @@ def disk_drive(dev, **kw) -> dict:
     TDX.reset_stats()
     TDC.reset_stats()
     with disk_timers() as tm:
-        sizes, secs = P.run_disk(DISK_N, DISK_CHUNK, device=dev, **kw)
+        sizes, secs = P.run_disk(n, DISK_CHUNK, device=dev, **kw)
     sync(dev)
     bits = dict(TDB.STATS)
     return {"sizes": sizes, "wall_s": secs,
-            "states_per_s": math.factorial(DISK_N) / secs,
+            "states_per_s": math.factorial(n) / secs,
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "base_bytes": base, "launches": dict(K.LAUNCHES),
             "routes": dict(K.ROUTE_LAUNCHES), "bits": bits,
@@ -6410,9 +6447,10 @@ def disk_batch_peak(n, ce, dev) -> int:
 
 
 def phase_disk_tier(dev) -> dict:
-    """Tier D's implicit BFS at pancake n = 11, each chunk pass on the card
-    (K1 fused; K2 + K3 unfused), held to the in-memory engine; the sorted
-    disk BFS at n = 10 on the host; the tour and the set operations."""
+    """Tier D's implicit BFS at pancake n = 11 (fused, K1) and
+    DISK_SIDE_N (unfused, K2 + K3; rle2 chunks stopped and resumed), each
+    chunk pass on the card, held to the in-memory engine; the sorted disk
+    BFS at DISK_SORTED_N on the host; the tour and the set operations."""
     n, ce = DISK_N, DISK_CHUNK
     total = math.factorial(n)
     n_chunks = -(-total // ce)
@@ -6474,49 +6512,60 @@ def phase_disk_tier(dev) -> dict:
     expect(fused["peak_bytes"] <= bound, (fused["peak_bytes"], bound))
     expect(fused["peak_bytes"] < mem_peak, (fused["peak_bytes"], mem_peak))
 
-    unfused = disk_drive(dev, fused=False)
-    disk_line("unfused", unfused)
-    expect(unfused["sizes"] == sizes_mem, unfused["sizes"])
-    expect(unfused["launches"] == {"mark_rotate_count": 0,
-                                   "scatter_mark": k2_want,
-                                   "lut_count": levels * n_chunks,
-                                   "gather2": 0}, unfused["launches"])
-    want_u = disk_routes(total, ce, marks, False)
+    # the unfused and the stopped-and-resumed runs at DISK_SIDE_N
+    n2 = DISK_SIDE_N
+    total2 = math.factorial(n2)
+    n_chunks2 = -(-total2 // ce)
+    nbytes2 = -(-total2 // 4)
+    sizes2, marks2 = disk_expected(n2, ce, dev)
+    mem2, _ = C.implicit_bfs(total2, [P.start_rank(n2)], P.neighbors(n2),
+                             device=dev)
+    expect(sizes2 == mem2 and sum(sizes2) == total2, (sizes2, mem2))
+    levels2 = len(sizes2)
+    unfused = disk_drive(dev, n=n2, fused=False)
+    disk_line(f"unfused, n={n2}", unfused)
+    expect(unfused["sizes"] == sizes2, unfused["sizes"])
+    expect(unfused["launches"] == {
+        "mark_rotate_count": 0,
+        "scatter_mark": sum(m > 0 for per in marks2 for m in per),
+        "lut_count": levels2 * n_chunks2, "gather2": 0}, unfused["launches"])
+    want_u = disk_routes(total2, ce, marks2, False)
     expect(unfused["routes"] == want_u, (unfused["routes"], want_u))
 
     # rle2 chunks, stopped after level 6 and resumed: one search in two runs
     with tempfile.TemporaryDirectory() as ckroot:
         ck = os.path.join(ckroot, "ck")
-        stop = disk_drive(dev, checkpoint_dir=ck, stop_after=DISK_STOP,
+        stop = disk_drive(dev, n=n2, checkpoint_dir=ck, stop_after=DISK_STOP,
                           checkpoint_every=DISK_CKPT_EVERY, compress=True)
-        disk_line(f"rle2 chunks, stopped after level {DISK_STOP}", stop)
-        expect(stop["sizes"] == sizes_mem[:DISK_STOP + 1], stop["sizes"])
+        disk_line(f"rle2 chunks, n={n2}, stopped after level {DISK_STOP}",
+                  stop)
+        expect(stop["sizes"] == sizes2[:DISK_STOP + 1], stop["sizes"])
         snap = TDCK.SearchCheckpoint(ck)
         meta = snap.latest()
-        expect(meta["level_sizes"] == sizes_mem[:DISK_STOP + 1], meta)
+        expect(meta["level_sizes"] == sizes2[:DISK_STOP + 1], meta)
         sdir = snap.snapshot_dir(meta)
         got = b"".join(snapshot_chunk(sdir, c).tobytes()
-                       for c in range(n_chunks))
-        _, ba6 = C.implicit_bfs(total, [P.start_rank(n)], P.neighbors(n),
+                       for c in range(n_chunks2))
+        _, ba6 = C.implicit_bfs(total2, [P.start_rank(n2)], P.neighbors(n2),
                                 max_levels=DISK_STOP, device=dev)
-        want = ba6.data.cpu().numpy().tobytes()[:nbytes]
+        want = ba6.data.cpu().numpy().tobytes()[:nbytes2]
         del ba6
         expect(got == want, f"level {DISK_STOP}: the chunk bytes differ "
                             "from the in-memory words")
-        print(f"disk tier: at level {DISK_STOP} the {n_chunks} chunks == the "
-              f"in-memory engine's words ({nbytes} bytes)")
-        m6 = disk_chunk_routes(sdir, total, ce, dev)
-        disk_plain_pass(ck, n, ce, dev)
-        res = disk_drive(dev, checkpoint_dir=ck, resume=True,
+        print(f"disk tier: at level {DISK_STOP} the {n_chunks2} chunks == the "
+              f"in-memory engine's words ({nbytes2} bytes)")
+        m6 = disk_chunk_routes(sdir, total2, ce, dev)
+        disk_plain_pass(ck, n2, ce, dev)
+        res = disk_drive(dev, n=n2, checkpoint_dir=ck, resume=True,
                          checkpoint_every=DISK_CKPT_EVERY, compress=True)
-        disk_line(f"rle2 chunks, resumed from level {DISK_STOP}", res)
-    expect(res["sizes"] == sizes_mem, res["sizes"])
-    print(f"disk tier: rle2 chunks, stopped and resumed: "
+        disk_line(f"rle2 chunks, n={n2}, resumed from level {DISK_STOP}", res)
+    expect(res["sizes"] == sizes2, res["sizes"])
+    print(f"disk tier: rle2 chunks at n={n2}, stopped and resumed: "
           f"{stop['wall_s'] + res['wall_s']:.3f} s in all, chunk bytes "
-          f"{stop['array_written'] + res['array_written']} written (fused "
-          f"raw: {fused['array_written']})")
+          f"{stop['array_written'] + res['array_written']} written (raw: "
+          f"{levels2 * nbytes2} a pass a level)")
     expect(stop["launches"]["mark_rotate_count"]
-           + res["launches"]["mark_rotate_count"] == levels * n_chunks,
+           + res["launches"]["mark_rotate_count"] == levels2 * n_chunks2,
            (stop["launches"], res["launches"]))
 
     sorted_d, sorted_secs = PB.run_disk(DISK_SORTED_N)
@@ -6530,7 +6579,7 @@ def phase_disk_tier(dev) -> dict:
     Q.tier_d_tour()
     tour_s = time.perf_counter() - t0
     setops = SO.run()
-    rec = {"n": n, "chunk_elems": ce, "chunks": n_chunks,
+    rec = {"n": n, "side_n": n2, "chunk_elems": ce, "chunks": n_chunks,
            "level_sizes": sizes_mem, "in_memory_s": mem_secs,
            "in_memory_peak_bytes": mem_peak, "marks": n_marks,
            "max_log_records": m_max, "level6_max_log_records": m6,
@@ -6797,8 +6846,8 @@ def phase_disk_sharded(dev, disk) -> dict:
     4 shards, fs wire, barrier exchange, chunks of 2^20: the in-memory
     level sizes, K1 560 times, one pass a level a shard, the op log of
     the single-process run to the byte, the wire's bytes out == in; (b)
-    the same at n = 10 over 2 shards; (c) at n = 10: 4 shards with the
-    pipelined exchange, the TCP wire (spawn) under a trace read back through
+    the same at SHARD_SMALL_N over 2 shards; (c) at SHARD_SMALL_N: 4 shards
+    with the pipelined exchange, the TCP wire (spawn) under a trace read back through
     ``trace.report_json``, the loopback wire (inline), and a worker killed
     at level 4 and healed from the level checkpoints; (d) at n = 9 over 2
     shards, K1 against its plain version on the card (``impl="ref"``):
@@ -6809,10 +6858,10 @@ def phase_disk_sharded(dev, disk) -> dict:
     sizes11 = disk["level_sizes"]
     out = {}
 
-    n10 = SHARD_SMALL_N
-    total10 = math.factorial(n10)
-    sizes10, _ = C.implicit_bfs(total10, [P.start_rank(n10)],
-                                P.neighbors(n10), device=dev)
+    n_small = SHARD_SMALL_N
+    total_small = math.factorial(n_small)
+    sizes_small, _ = C.implicit_bfs(total_small, [P.start_rank(n_small)],
+                                    P.neighbors(n_small), device=dev)
     ns = SHARD_SORTED_N
     res_j, _, _ = PB.search(ns, PB.prefix_flips(ns), device=dev)
     sorted_want = res_j.level_sizes
@@ -6849,62 +6898,62 @@ def phase_disk_sharded(dev, disk) -> dict:
           "J sorted engine's level sizes")
     out[f"sorted_n{ns}_4_s"] = srt["wall_s"]
 
-    b2 = shard_drive(dev, n10, 2)
-    shard_check(b2, sizes10, f"n={n10} 2 shards")
-    shard_line(f"n={n10}, 2 shards, spawn, fs, barrier", b2)
-    out["n10_2"] = shard_summary(b2)
+    b2 = shard_drive(dev, n_small, 2)
+    shard_check(b2, sizes_small, f"n={n_small} 2 shards")
+    shard_line(f"n={n_small}, 2 shards, spawn, fs, barrier", b2)
+    out[f"n{n_small}_2"] = shard_summary(b2)
 
-    pipe = shard_drive(dev, n10, 4, exchange="pipelined")
-    shard_check(pipe, sizes10, f"n={n10} 4 shards pipelined")
-    shard_line(f"n={n10}, 4 shards, spawn, fs, pipelined", pipe)
-    out["n10_4_pipelined"] = shard_summary(pipe)
+    pipe = shard_drive(dev, n_small, 4, exchange="pipelined")
+    shard_check(pipe, sizes_small, f"n={n_small} 4 shards pipelined")
+    shard_line(f"n={n_small}, 4 shards, spawn, fs, pipelined", pipe)
+    out[f"n{n_small}_4_pipelined"] = shard_summary(pipe)
 
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "run.jsonl")
-        TDTR.start(path, meta={"example": "chip_smoke", "n": n10,
+        TDTR.start(path, meta={"example": "chip_smoke", "n": n_small,
                                "nshards": 4, "transport": "tcp"})
         try:
-            tcp = shard_drive(dev, n10, 4, transport="tcp")
+            tcp = shard_drive(dev, n_small, 4, transport="tcp")
         finally:
             TDTR.stop()
         rep = TDTR.report_json(path)
-    shard_check(tcp, sizes10, f"n={n10} tcp traced")
-    shard_line(f"n={n10}, 4 shards, spawn, tcp, barrier, traced", tcp)
+    shard_check(tcp, sizes_small, f"n={n_small} tcp traced")
+    shard_line(f"n={n_small}, 4 shards, spawn, tcp, barrier, traced", tcp)
     rows = rep["levels"]
-    expect([r["level"] for r in rows] == list(range(len(sizes10) + 1))
+    expect([r["level"] for r in rows] == list(range(len(sizes_small) + 1))
            and all(sorted(r["shard_us"]) == [0, 1, 2, 3] for r in rows)
            and all(r["passes"] > 0 for r in rows), rows)
     print(f"disk sharded: the tcp run's trace: {len(rows)} level rows, "
           f"each with spans of shards 0-3, {rep['totals']['passes']} "
           f"passes, {rep['totals']['bytes']} B")
-    out["n10_tcp"] = shard_summary(tcp)
-    out["n10_tcp"]["trace"] = {"rows": len(rows), "totals": rep["totals"]}
-    loop = shard_drive(dev, n10, 4, transport="loopback", mode="inline")
-    shard_check(loop, sizes10, f"n={n10} loopback inline")
-    shard_line(f"n={n10}, 4 shards, inline, loopback, barrier", loop)
-    out["n10_loopback_inline"] = shard_summary(loop)
+    out[f"n{n_small}_tcp"] = shard_summary(tcp)
+    out[f"n{n_small}_tcp"]["trace"] = {"rows": len(rows), "totals": rep["totals"]}
+    loop = shard_drive(dev, n_small, 4, transport="loopback", mode="inline")
+    shard_check(loop, sizes_small, f"n={n_small} loopback inline")
+    shard_line(f"n={n_small}, 4 shards, inline, loopback, barrier", loop)
+    out[f"n{n_small}_loopback_inline"] = shard_summary(loop)
 
     with tempfile.TemporaryDirectory() as ck:
         os.environ[TDF.ENV_VAR] = SHARD_KILL
         try:
-            kill = shard_drive(dev, n10, 4, ckpt=ck, max_recoveries=1,
+            kill = shard_drive(dev, n_small, 4, ckpt=ck, max_recoveries=1,
                                timers=False)
         finally:
             os.environ.pop(TDF.ENV_VAR, None)
             TDF.uninstall()
-    expect(kill["sizes"] == sizes10 and kill["hist"][3] == total10,
-           (kill["sizes"], sizes10))
+    expect(kill["sizes"] == sizes_small and kill["hist"][3] == total_small,
+           (kill["sizes"], sizes_small))
     expect(kill["ledger"]["recoveries"] == 1
            and kill["ledger"]["replayed_levels"] >= 1, kill["ledger"])
     # recover() tears the pool down without its telemetry: the launches,
     # passes and wire bytes the workers booked since the last level
     # barrier go with them, so this run's counts are not reported
-    print(f"disk sharded: n={n10}, 4 shards, {SHARD_KILL}, checkpoints "
+    print(f"disk sharded: n={n_small}, 4 shards, {SHARD_KILL}, checkpoints "
           f"every level: healed to the exact level sizes in "
           f"{kill['wall_s']:.3f} s (recoveries "
           f"{kill['ledger']['recoveries']}, replayed levels "
           f"{kill['ledger']['replayed_levels']})")
-    out["n10_kill"] = {"wall_s": kill["wall_s"], "start_s": kill["start_s"],
+    out[f"n{n_small}_kill"] = {"wall_s": kill["wall_s"], "start_s": kill["start_s"],
                        "recoveries": kill["ledger"]["recoveries"],
                        "replayed_levels": kill["ledger"]["replayed_levels"]}
 
@@ -7244,6 +7293,49 @@ def mesh_faults(cfg, params, dev, mesh, gate_inputs, gate_want, dec) -> dict:
     return out
 
 
+CP_F32_LAYERS = 2             # the CP witness's depth: float32, 2 layers
+# The witness's limit (at most 1e-3), set from its first reading on an
+# H100 (3.95e-7 per row: the two float32 paths sum in other orders); the
+# planted CP-mask fault must read 10x it (it read 0.326).
+CP_F32_TOL = 1e-5
+
+
+def cp_f32_witness(cfg, dev, mesh) -> dict:
+    """The CP decode gate free of the bfloat16 model's chaos: the model in
+    float32 at CP_F32_LAYERS layers, batch 1, each greedy step of the run
+    with no mesh (the plain versions) again on the mesh through
+    ``_paged_decode_cp`` from the same cache, held per row within
+    CP_F32_TOL of the plain steps; the planted CP-mask fault (one position
+    short) must read at least 10x the limit."""
+    cfg32 = cfg.replace(n_layers=CP_F32_LAYERS, dtype="float32")
+    plain = cfg32.replace(kernels="ref")
+    params = lm.init_params(cfg32, SEED + 3, device=dev, dtype=torch.float32)
+    prompt = lm_inputs(cfg32, 1, MESH_PROMPT, dev, SEED + 8)
+    toks, want, _, _, before = mesh_decode(plain, params, prompt, dev, None,
+                                           MESH_STEPS)
+    v = cfg32.vocab_size
+    got, k8, _ = mesh_steps(cfg32, params, dev, mesh, before, toks)
+    expect(k8 == [0] * MESH_STEPS, k8)
+    errs = logit_errors(got[..., :v], want[..., :v],
+                        f"mesh decode batch 1 (cp) in float32, "
+                        f"{CP_F32_LAYERS} layers, vs no mesh (plain "
+                        f"versions), each of {MESH_STEPS} steps from the "
+                        f"same cache")
+    expect(errs["rel_err"] <= CP_F32_TOL, ("cp float32 witness", errs))
+    orig = ATT._cp_logits
+    with patched(ATT, "_cp_logits", lambda q, kp, p0, n, *a: orig(
+            q, kp, p0, n - 1, *a)):
+        bad, _, _ = mesh_steps(cfg32, params, dev, mesh, before[
+            :MESH_FAULT_STEPS], toks[:MESH_FAULT_STEPS])
+    fault = logit_errors(bad[..., :v], want[:MESH_FAULT_STEPS, :, :v],
+                         "planted fault, the float32 CP mask one position "
+                         "short, vs no mesh")
+    expect(fault["rel_err"] >= 10 * CP_F32_TOL, ("cp float32 fault", fault))
+    return {"layers": CP_F32_LAYERS, "limit": CP_F32_TOL, "logits": errs,
+            "planted_fault": fault,
+            "fault_over_limit": fault["rel_err"] / CP_F32_TOL}
+
+
 def phase_mesh(dev) -> dict:
     """Serving on a device mesh: a one-rank NCCL world (FileStore in a
     temp dir) as the (1, 1) ("data", "model") mesh of
@@ -7295,6 +7387,7 @@ def phase_mesh(dev) -> dict:
                                            MESH_BATCH, "batched"),
                "cp": mesh_decode_pair(cfg8, params, dev, mesh, 1, "cp")}
         faults = mesh_faults(cfg8, params, dev, mesh, gate_inputs, want, dec)
+        cp32 = cp_f32_witness(cfg8, dev, mesh)
         del got, want, emb
         torch.cuda.empty_cache()
         read_inputs = lm_inputs(base, 1, PREFILL_LEN, dev, SEED)
@@ -7315,12 +7408,447 @@ def phase_mesh(dev) -> dict:
           f"of tests/test_torch_mesh.py, and what they cost needs two cards")
     out = {"arch": MESH_ARCH, "gate": {"no_mesh": one, "mesh": on,
                                        "logits": gate},
-           "decode": dec, "planted_faults": faults,
+           "decode": dec, "planted_faults": faults, "cp_f32_witness": cp32,
            "reading_32k": {"no_mesh": read_one, "mesh": read_on},
            "k6_launches_prefill": on["k6_launches"],
            "k8_launches_per_step": {"batch 8 (batched)": dec["batched"][
                "k8_per_step_mesh"], "batch 1 (cp)": 0}, "wall_s": wall}
     print(json.dumps({"mesh": out}, default=str))
+    return out
+
+
+MESH_TRAIN_LAYERS = 16        # of 32: 62.5 GB of float32 state whole, 31.7 GB
+#                               at 16, beside the capacity-8 exchange's
+#                               backward (several GB a layer)
+MESH_TRAIN_STEPS = 3
+MESH_GLOO_LAYERS = 2          # the two-rank gloo world: full width, 2 layers
+MESH_GLOO_LEN = 1024
+MESH_GLOO_SHAPES = ((1, 2), (2, 1))
+MESH_GLOO_TIMEOUT = 300.0     # seconds the two-rank world may take
+# Limits of the mesh train step against no mesh, each set from a first
+# reading on an H100 (PERF.md §6): on one rank the roomy MoE's and
+# the K5 fold's sums run in other orders than the einsum MoE's and the
+# take's (worst leaf 1.08e-2); in the two-rank world the bfloat16 model
+# also splits the MoE's rows over two ranks (9.5e-3 on (1, 2), 8.9e-3 on
+# (2, 1); its loss read the one-device loss's bits).  Each planted fault
+# must read 3x its limit (they read 1.0, 1.0 and 1.33).
+MESH_TRAIN_GRAD_TOL = 0.05
+MESH_GLOO_GRAD_TOL = 0.05
+MESH_GLOO_LOSS_TOL = 1e-5
+
+
+def mesh_train_cfg(layers):
+    """granite-moe-3b at its published widths, roomy MoE and roomy
+    embedding, capacity factor 8 (no pair drops), ``layers`` deep."""
+    cfg = get_config(MESH_ARCH).replace(
+        embedding_dispatch="roomy", capacity_factor=MESH_GATE_CF,
+        n_layers=layers)
+    expect(cfg.moe_dispatch == "roomy", cfg.moe_dispatch)
+    return cfg
+
+
+def gloo_cfg():
+    """The two-rank world's config: MESH_GLOO_LAYERS, remat off (gloo
+    moves ~0.35 GB/s on this machine, and a rematted block gathers its
+    float32 params again in the backward; the one-rank mesh runs remat)."""
+    return mesh_train_cfg(MESH_GLOO_LAYERS).replace(remat=False)
+
+
+class _Stamp(torch.autograd.Function):
+    """The identity; its backward records a CUDA event as the gradient
+    passes (where an op's backward starts or ends)."""
+
+    @staticmethod
+    def forward(ctx, x, sink):
+        ctx.sink = sink
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ctx.sink.append(e)
+        return g, None
+
+
+@contextlib.contextmanager
+def moe_train_events():
+    """Every MoE layer's forward (the remat recompute too) and backward
+    time by CUDA events: the forward between events around the call, the
+    backward from its output's gradient to its input's."""
+    rec = {"fwd": [], "bwd_start": [], "bwd_end": []}
+    orig = BL.moe
+
+    def wrapped(p, x, cfg_, mesh=None):
+        x = _Stamp.apply(x, rec["bwd_end"]) if x.requires_grad else x
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = orig(p, x, cfg_, mesh)
+        b.record()
+        rec["fwd"].append((a, b))
+        return _Stamp.apply(y, rec["bwd_start"]) if y.requires_grad else y
+    BL.moe = wrapped
+    try:
+        yield rec
+    finally:
+        BL.moe = orig
+    torch.cuda.synchronize()
+    fwd = sum(a.elapsed_time(b) for a, b in rec["fwd"])
+    bwd = sum(a.elapsed_time(b) for a, b in zip(rec["bwd_start"],
+                                               rec["bwd_end"]))
+    rec.update({"fwd_ms": fwd, "bwd_ms": bwd, "ms": fwd + bwd})
+
+
+def mesh_train_run(cfg, dev, mesh, what, steps=MESH_TRAIN_STEPS):
+    """``steps`` train steps from the seed's params (the rank's shards on
+    a mesh), 1 x TRAIN_SEQ a step, every count set to 0 just before and
+    read just after, each step in a ``train.step`` span: the losses, the
+    step times, the launches a step by namespace, the peak (the state is
+    freed on return)."""
+    s = TrainSettings(batch=1, seq=TRAIN_SEQ, steps=steps, log_every=1)
+    params, opt, res = TL.init_state(cfg, s, dev, mesh)
+    step_fn = make_train_step(cfg, s, mesh)
+    batches = [batch_to_torch(TL.data_rows(make_batch(
+        cfg, s.seed, i, s.batch, s.seq), mesh), dev) for i in range(steps)]
+    spans, losses, secs = [], [], []
+    torch.cuda.empty_cache()
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    obs.enable(sink=spans.append)
+    for i, batch in enumerate(batches):
+        with obs.span("train.step", step=i):
+            t0 = time.perf_counter()
+            params, opt, res, m = step_fn(params, opt, res, batch, i)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+    obs.disable()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = [{**a, **k5} for a, k5 in zip(
+        step_launches(spans, "attention"), step_launches(spans, "scatter"))]
+    expect(all(math.isfinite(x) for x in losses), (what, losses))
+    rec = {"losses": losses, "step_seconds": secs, "peak_bytes": peak,
+           "launches_per_step": per_step,
+           "k6_routes": dict(FA.ROUTE_LAUNCHES),
+           "k7_routes": dict(FA.BWD_ROUTE_LAUNCHES)}
+    print(f"mesh train: {what}, {cfg.name} {cfg.n_layers} layers, 1 x "
+          f"{TRAIN_SEQ} a step: losses {losses}, steps "
+          f"{[round(x, 3) for x in secs]} s, peak {peak} B, launches a step "
+          f"{per_step}")
+    return rec
+
+
+def mesh_grads(cfg, dev, mesh, batch):
+    """(loss, grads as a list) at the seed's params (the rank's shards on
+    a mesh), counts set to 0 just before and read just after."""
+    s = TrainSettings(batch=1, seq=TRAIN_SEQ)
+    params, _, _ = TL.init_state(cfg, s, dev, mesh)
+    reset_all_launches()
+    loss, grads = loss_and_grads(params, batch, cfg, mesh)
+    sync(dev)
+    launches = {**dict(FA.LAUNCHES), **dict(BS.LAUNCHES)}
+    return params, loss, grads, launches
+
+
+def k5_fold_times(caught, dev) -> dict:
+    """The roomy embedding's gradient fold at the train step's shape: K5
+    against its plain version and ``torch.index_add`` on the inputs caught
+    from one backward (``fold_catcher``), over the rows the ids touch, and
+    its bound."""
+    expect(len(caught) == 1, len(caught))
+    table, idx, pay = caught[0]
+    rows, d = table.shape
+    keep = (idx >= 0) & (idx < rows)
+    trash = torch.zeros((rows + 1, d), dtype=table.dtype, device=dev)
+    got = BS.bucket_scatter_add(table, idx, pay)
+    want = R.bucket_scatter_add_ref(table, idx, pay)
+    lib = torch.index_add(trash, 0, torch.where(keep, idx, rows).long(),
+                          pay)[:rows]
+    hit = torch.unique(idx[keep]).long()           # untouched rows stay 0
+    expect(not got[~torch.isin(torch.arange(rows, device=dev), hit)].any(),
+           "K5 wrote a row no id names")
+    rels = {"plain": row_rel(got[hit], want[hit]),
+            "index_add": row_rel(lib[hit], got[hit])}
+    expect(max(rels.values()) <= K5_ROW_REL_TOL, rels)
+    m = idx.numel()
+    nbytes = 2 * 4 * rows * d + 4 * m + 4 * m * d
+    res = {"shape": f"a zero ({rows}, {d}) float32 table, {m} int32 ids "
+                    f"({int(keep.sum())} valid), ({m}, {d}) float32 rows",
+           "ms": median_ms(lambda: BS.bucket_scatter_add(table, idx, pay)),
+           "plain_ms": median_ms(lambda: R.bucket_scatter_add_ref(
+               table, idx, pay)),
+           "library_ms": median_ms(lambda: torch.index_add(
+               trash, 0, torch.where(keep, idx, rows).long(), pay)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, "row_rel": rels}
+    print(f"mesh train: the roomy embedding's gradient fold, {res['shape']}:"
+          f" K5 {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+          f"index_add {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f}"
+          f" ms ({nbytes} bytes at 3.35 TB/s); per-row rel {rels}")
+    return res
+
+
+def fold_catcher(caught):
+    """A stand-in for ``ops.bucket_scatter_add`` that keeps a copy of its
+    inputs in ``caught`` and calls it."""
+    orig = OPS.bucket_scatter_add
+
+    def catch(table, idx, pay, *, impl="auto"):
+        caught.append((table.clone(), idx.clone(), pay.clone()))
+        return orig(table, idx, pay, impl=impl)
+    return patched(OPS, "bucket_scatter_add", catch)
+
+
+def mesh_leaf_errors(grads, want, params, mesh) -> dict:
+    """``leaf_errors`` of this rank's gradient shards against the whole
+    gradient ``want``: each leaf's squared norms summed over the mesh, a
+    logical element counted once (on coordinate 0 of each axis its spec
+    replicates, the global norm's rule), by one all-reduce."""
+    specs = []
+    T.tree_map(lambda p, spec: specs.append(spec), params,
+               SR.config_specs(gloo_cfg(), mesh))
+    coord = dict(zip(SHD.mesh_axes(mesh), mesh.get_coordinate()))
+    sums = torch.stack([
+        torch.stack([(g.float() - w).square().sum(), w.square().sum()])
+        * optim.adamw._counted(spec, coord) for g, w, spec in zip(
+            grads, (SHD.shard_param(w, spec, mesh) for w, spec in zip(
+                want, specs)), specs)])
+    tdist.all_reduce(sums)
+    rels = (sums[:, 0] / sums[:, 1]).sqrt().tolist()
+    return rel_summary({"__".join(p): r for (p, _), r in zip(
+        T.flatten_with_path(params), rels)})
+
+
+def _w_mesh_train(rank, world, root):
+    """One rank of the two-rank gloo world on the card: on each mesh of
+    MESH_GLOO_SHAPES, the loss and gradient of ``gloo_cfg`` held per leaf
+    to the one-device run the parent saved, with the launches; then the
+    mesh's planted fault's loss (a forward: both faults scale the loss);
+    results to ``root/rank<rank>.json``."""
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    denominator = lm._loss_denominator
+    faults = {(1, 2): ("tp left out of the loss share",
+                       lambda m, me: denominator(m, me) // 2),
+              (2, 1): ("the local mask count", lambda m, me:
+                       m.sum() * SHD.mesh_axes(me)["model"])}
+    tdist.init_process_group("gloo", store=tdist.FileStore(
+        os.path.join(root, "store"), world), rank=rank, world_size=world)
+    out = {}
+    try:
+        cfg = gloo_cfg()
+        for shape in MESH_GLOO_SHAPES:
+            mesh = MESH.make_host_mesh(tp=shape[1], device="cuda")
+            ref = torch.load(os.path.join(root, f"ref_{shape[0]}.pt"),
+                             map_location=dev)
+            batch = TL.data_rows(ref["batch"], mesh)
+            params, loss, grads, launches = mesh_grads(cfg, dev, mesh, batch)
+            name, bad = faults[shape]
+            with patched(lm, "_loss_denominator", bad), torch.no_grad():
+                bad_loss = float(lm.loss_fn(params, batch, cfg, mesh))
+            out[f"({shape[0]}, {shape[1]})"] = {
+                "loss": float(loss), "loss_rel": abs(float(loss) / ref[
+                    "loss"] - 1), "launches": launches,
+                "grads": mesh_leaf_errors(grads, ref["grads"], params, mesh),
+                "fault": name, "fault_loss_rel": abs(bad_loss / ref["loss"]
+                                                     - 1)}
+            del params, grads, ref
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_gloo_world(dev) -> dict:
+    """The two-rank gloo world on the one card, the only exchange this
+    machine can make that is not an identity: granite-moe at full width,
+    MESH_GLOO_LAYERS layers (``gloo_cfg``), on (1, 2) at 1 x MESH_GLOO_LEN
+    and on (2, 1) at 2 x MESH_GLOO_LEN with uneven label masks, in one
+    spawn of two ranks.  Each held to the one-device run here (loss within
+    MESH_GLOO_LOSS_TOL, every gradient leaf within MESH_GLOO_GRAD_TOL);
+    the planted faults (``tp`` left out on (1, 2), the local mask count on
+    (2, 1)) must move the loss 3x past its limit; K6-LSE, K7 and K5 launch
+    on each rank."""
+    cfg = gloo_cfg()
+    root = tempfile.mkdtemp(prefix="roomy_mesh_train_")
+    res = {}
+    try:
+        for b in (1, 2):
+            batch = batch_to_torch(make_batch(cfg, SEED + 9, 0, b,
+                                              MESH_GLOO_LEN), dev)
+            if b == 2:                 # uneven masks over the data ranks
+                batch["labels"][0, :MESH_GLOO_LEN // 2] = -1
+            _, loss, grads, _ = mesh_grads(cfg, dev, None, batch)
+            torch.save({"batch": batch, "loss": float(loss),
+                        "grads": [g.detach() for g in grads]},
+                       os.path.join(root, f"ref_{b}.pt"))
+            del grads
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _w_mesh_train, args=(2, root), nprocs=2, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + MESH_GLOO_TIMEOUT
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"the gloo world did not finish in "
+                                   f"{MESH_GLOO_TIMEOUT} s")
+        res["world_seconds"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for shape in MESH_GLOO_SHAPES:
+        key = f"({shape[0]}, {shape[1]})"
+        rec = ranks[0][key]
+        for r in ranks:
+            expect(r[key] == rec, (key, r[key], rec))
+        lz = rec["launches"]
+        expect(lz["flash_attention_lse"] == MESH_GLOO_LAYERS
+               and lz["flash_attention_bwd"] == MESH_GLOO_LAYERS
+               and lz["bucket_scatter_add"] == 1, (key, lz))
+        expect(rec["loss_rel"] <= MESH_GLOO_LOSS_TOL, (key, rec))
+        expect(rec["grads"]["max_rel"] <= MESH_GLOO_GRAD_TOL,
+               (key, rec["grads"]))
+        expect(rec["fault_loss_rel"] >= 3 * MESH_GLOO_LOSS_TOL, (key, rec))
+        res[key] = {**rec, "fault_over_limit": rec["fault_loss_rel"]
+                    / MESH_GLOO_LOSS_TOL}
+        print(f"mesh train gloo world {key} on the card, {cfg.name} "
+              f"{MESH_GLOO_LAYERS} layers, {2 // shape[1]} x "
+              f"{MESH_GLOO_LEN}: loss rel {rec['loss_rel']:.3e} (limit "
+              f"{MESH_GLOO_LOSS_TOL}), worst leaf "
+              f"{rec['grads']['max_rel']:.4e} at {rec['grads']['worst_leaf']}"
+              f" (limit {MESH_GLOO_GRAD_TOL}), median "
+              f"{rec['grads']['median_rel']:.4e}; launches a rank "
+              f"{rec['launches']}; planted fault ({rec['fault']}): loss rel "
+              f"{rec['fault_loss_rel']:.4e} "
+              f"({res[key]['fault_over_limit']:.3g}x the limit)")
+    print(f"mesh train gloo world: one spawn of 2 ranks, "
+          f"{res['world_seconds']:.1f} s")
+    return res
+
+
+def phase_mesh_train(dev) -> dict:
+    """Training on a device mesh.  (1) A one-rank NCCL world as the (1, 1)
+    mesh: granite-moe-3b at its published widths, MESH_TRAIN_LAYERS of 32
+    layers, roomy MoE and roomy embedding at capacity factor 8,
+    MESH_TRAIN_STEPS train steps of 1 x TRAIN_SEQ against the same config
+    with no mesh in this process.  Gates: step 0's loss bit for bit; the
+    gradient at the seed's params within MESH_TRAIN_GRAD_TOL a leaf; K6-LSE
+    and K7 launches a step equal to no mesh's, K5 once a step on the mesh
+    (the roomy embedding's fold), none off it; the planted fault (the
+    reverse all-to-all's backward zeroed) 3x the limit.  Readings: step
+    time on and off the mesh, the peak, the idle share, the MoE's share of
+    the step, K5's fold against its plain version.  (2) The two-rank gloo
+    world (``mesh_gloo_world``)."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    cfg = mesh_train_cfg(MESH_TRAIN_LAYERS)
+    batch = batch_to_torch(make_batch(cfg, 0, 0, 1, TRAIN_SEQ), dev)
+    # no mesh: the gradient at the seed's params, then the steps
+    p0, loss0, want, one_grad = mesh_grads(cfg, dev, None, batch)
+    del p0
+    one = mesh_train_run(cfg, dev, None, "no mesh")
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="roomy_mesh_train_")
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        os.path.join(root, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = MESH.make_host_mesh(tp=1)
+        expect(SHD.mesh_axes(mesh) == {"data": 1, "model": 1},
+               SHD.mesh_axes(mesh))
+        params, loss, grads, mesh_grad = mesh_grads(cfg, dev, mesh, batch)
+        expect(float(loss) == float(loss0), (float(loss), float(loss0)))
+        grad = leaf_errors(grads, want, params)
+        del grads
+        with patched(DL._Exchange, "backward", staticmethod(
+                lambda ctx, g: (torch.zeros_like(g), None))):
+            _, bad = loss_and_grads(params, batch, cfg, mesh)
+        fault = leaf_errors(bad, want, params)
+        del bad, want, params
+        torch.cuda.empty_cache()
+        print(f"mesh train: the gradient at the seed's params on the (1, 1) "
+              f"mesh vs no mesh, loss {float(loss)} == {float(loss0)}, "
+              f"worst leaf {grad['max_rel']:.4e} at {grad['worst_leaf']} "
+              f"(limit {MESH_TRAIN_GRAD_TOL}), median "
+              f"{grad['median_rel']:.4e}; planted fault (the reverse "
+              f"all-to-all's backward zeroed) {fault['max_rel']:.4e} at "
+              f"{fault['worst_leaf']}; launches {mesh_grad} (no mesh "
+              f"{one_grad})")
+        expect(grad["max_rel"] <= MESH_TRAIN_GRAD_TOL, grad)
+        expect(fault["max_rel"] >= 3 * MESH_TRAIN_GRAD_TOL, fault)
+        print(f"[gradients done at {time.perf_counter() - t0:.1f} s of the "
+              f"phase]")
+        on = mesh_train_run(cfg, dev, mesh, "mesh (1, 1)")
+        expect(on["losses"][0] == one["losses"][0],
+               (on["losses"], one["losses"]))
+        n = cfg.n_layers
+        expect(one["launches_per_step"] == [{
+            "flash_attention_lse": 2 * n, "flash_attention_bwd": n}]
+            * MESH_TRAIN_STEPS, one["launches_per_step"])
+        expect(on["launches_per_step"] == [{
+            "flash_attention_lse": 2 * n, "flash_attention_bwd": n,
+            "bucket_scatter_add": 1}] * MESH_TRAIN_STEPS,
+            on["launches_per_step"])
+        expect(on["k6_routes"]["classic"] == 0
+               and on["k7_routes"]["classic"] == 0,
+               (on["k6_routes"], on["k7_routes"]))
+        # readings: the MoE's share of one more step (the fold's inputs
+        # caught from it), the idle share of another
+        s = TrainSettings(batch=1, seq=TRAIN_SEQ)
+        params, opt, res = TL.init_state(cfg, s, dev, mesh)
+        step_fn = make_train_step(cfg, s, mesh)
+        caught = []
+        sync(dev)
+        t1 = time.perf_counter()
+        with moe_train_events() as moe_rec, fold_catcher(caught):
+            step_fn(params, opt, res, batch, 0)
+            sync(dev)
+        wall = time.perf_counter() - t1
+        profile = device_profile(lambda: step_fn(params, opt, res, batch, 1),
+                                 dev, f"mesh train step, {cfg.name} "
+                                 f"{n} layers on (1, 1)")
+        del params, opt, res
+        torch.cuda.empty_cache()
+        fold = k5_fold_times(caught, dev)
+        del caught
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    moe = {"fwd_ms": moe_rec["fwd_ms"], "bwd_ms": moe_rec["bwd_ms"],
+           "step_wall_s": wall, "share": moe_rec["ms"] / 1e3 / wall}
+    print(f"mesh train: the MoE in one mesh step: forward (its remat "
+          f"recompute too) {moe['fwd_ms']:.1f} ms, backward "
+          f"{moe['bwd_ms']:.1f} ms by CUDA events, {100 * moe['share']:.1f}% "
+          f"of the step's {wall:.3f} s")
+    torch.cuda.empty_cache()
+    print(f"[the (1, 1) mesh done at {time.perf_counter() - t0:.1f} s of the "
+          f"phase]")
+    gloo = mesh_gloo_world(dev)
+    wall_phase = time.perf_counter() - t0
+    med = {k: statistics.median(r["step_seconds"][1:]) for k, r in
+           (("mesh", on), ("no_mesh", one))}
+    out = {"arch": MESH_ARCH, "layers": MESH_TRAIN_LAYERS,
+           "tokens_per_step": TRAIN_SEQ, "steps": MESH_TRAIN_STEPS,
+           "no_mesh": one, "mesh": on, "median_step_s": med,
+           "grad": grad, "grad_limit": MESH_TRAIN_GRAD_TOL,
+           "planted_fault": fault,
+           "fault_over_limit": fault["max_rel"] / MESH_TRAIN_GRAD_TOL,
+           "moe": moe, "profile": profile, "k5_fold": fold,
+           "launches_per_step_mesh": on["launches_per_step"][0],
+           "gloo": gloo, "wall_s": wall_phase}
+    print(f"mesh train: {cfg.name} {n} of 32 layers on a (1, 1) mesh of one "
+          f"NCCL rank against no mesh, median step (steps 1-"
+          f"{MESH_TRAIN_STEPS - 1}) {med['mesh']:.3f} s against "
+          f"{med['no_mesh']:.3f} s, peak {on['peak_bytes']} B against "
+          f"{one['peak_bytes']} B; phase {wall_phase:.1f} s")
+    print(json.dumps({"mesh_train": out}, default=str))
     return out
 
 
@@ -7338,6 +7866,10 @@ def main() -> None:
     torch.cuda.set_device(dev)
     ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx, k4_ptx, k9b_ptx = phase_build()
     print(f"[phase_build done at {time.perf_counter() - t0:.1f} s]")
+    # K9-bwd's planted-fault variants build (nvcc) while the phases before
+    # phase_training_families run
+    variants = ThreadPoolExecutor(1)
+    k9b_libs = variants.submit(k9b_fault_libs)
     phase_parity_edges(dev)
     bin_faults = phase_bin_faults(dev)
     print(f"[phase_bin_faults done at {time.perf_counter() - t0:.1f} s]")
@@ -7390,7 +7922,8 @@ def main() -> None:
     print(f"[phase_moe_hybrid done at {time.perf_counter() - t0:.1f} s]")
     gm, zb, ph = mh["granite_moe"], mh["zamba2"], mh["phi35_moe"]
     torch.cuda.empty_cache()
-    tf = phase_training_families(dev, k9b_ptx)
+    tf = phase_training_families(dev, k9b_ptx, k9b_libs.result())
+    variants.shutdown()
     print(f"[phase_training_families done at {time.perf_counter() - t0:.1f} s]")
     tfm, tz, tg = tf["falcon_mamba"], tf["zamba2"], tf["granite_moe"]
     torch.cuda.empty_cache()
@@ -7399,6 +7932,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh = phase_mesh(dev)
     print(f"[phase_mesh done at {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.empty_cache()
+    mtrain = phase_mesh_train(dev)
+    print(f"[phase_mesh_train done at {time.perf_counter() - t0:.1f} s]")
+    mt_steps = {"launches_per_mesh_train_step": mtrain[
+        "launches_per_step_mesh"], "mesh_train_shape": f"{MESH_ARCH} "
+        f"{MESH_TRAIN_LAYERS} layers on a (1, 1) mesh, 1 x {TRAIN_SEQ}",
+        "launches_per_mesh_train_step_gloo_rank": {
+            k: v["launches"] for k, v in mtrain["gloo"].items()
+            if k.startswith("(")}}
     fe_short = {"musicgen-medium": "musicgen", "qwen2-vl-2b": "qwen"}
 
     def fe_keys(rec_of, fields=("ms", "plain_ms", "bound_ms", "library_ms")):
@@ -7448,18 +7990,20 @@ def main() -> None:
                  "lut_count": "k3_ms"}[name]],
             "disk_sharded_launches": {
                 key: sharded[key]["launches"][name]
-                for key in ("n11_4", "n10_2", "n10_4_pipelined", "n10_tcp",
-                            "n10_loopback_inline")},
+                for key in ("n11_4", *(f"n{SHARD_SMALL_N}_{k}" for k in (
+                    "2", "4_pipelined", "tcp", "loopback_inline")))},
             "disk_sharded_ms": (sum(x["k1_ms"] for x in
                                     sharded["n11_4"]["timers"])
                                 if name == "mark_rotate_count" else None),
             "disk_sharded_shape": f"pancake n = {SHARD_N} over 4 "
-                                  "shards (n = 10 over 2): 10 (2) chunks "
+                                  f"shards (n = {SHARD_SMALL_N} over 2): 10 "
+                                  "(2) chunks "
                                   f"of {DISK_CHUNK} fields a shard, one "
                                   "launch a chunk a level pass on every "
                                   "shard; disk_sharded_ms sums the 4 "
                                   "workers' launches",
-            "disk_shape": f"pancake n = {DISK_N} on disk: "
+            "disk_shape": f"pancake n = {DISK_N} on disk, fused (the "
+                          f"unfused and rle2 runs at n = {DISK_SIDE_N}): "
                           f"{disk['chunks']} chunks of {DISK_CHUNK} fields, "
                           "one launch a chunk a level pass (K2: a chunk "
                           "with a log); disk_ms sums the run's launches"})
@@ -7499,7 +8043,9 @@ def main() -> None:
         "bound_by": emb["times"]["bound_by"],
         "library_ms": emb["times"]["library_ms"],
         "library": "torch.index_add (out of place)", "shape": emb["shape"],
-        "launches_per_prefix": roomy["prefix"]["launches"]})
+        "launches_per_prefix": roomy["prefix"]["launches"], **mt_steps,
+        **{f"mesh_train_fold_{k}": mtrain["k5_fold"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "shape")}})
     g, loc = k6["global"], k6["local"]
     nem6 = dense["nemotron"]["k6_times"]
     kernels.append({
@@ -7576,7 +8122,7 @@ def main() -> None:
             for a in FRONTEND_ARCHS},
         "launches_by_route_train_frontend": {
             a: fe[a]["train"]["main_path"]["k6_routes"]
-            for a in FRONTEND_ARCHS}})
+            for a in FRONTEND_ARCHS}, **mt_steps})
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": K7_SOURCE,
         "replaces": K7_REPLACES,
@@ -7616,7 +8162,8 @@ def main() -> None:
             a: fe[a]["train"]["main_path"]["k7_routes"]
             for a in FRONTEND_ARCHS},
         "planted_faults_rel": {k: v["rel"] for k, v in
-                               k7_parity["planted_faults"].items()}})
+                               k7_parity["planted_faults"].items()},
+        **mt_steps})
     t9 = fm["times"]
     kernels.append({
         "name": "mamba_scan", "route": "cuda", "source": K9_SOURCE,

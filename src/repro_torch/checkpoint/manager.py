@@ -11,8 +11,16 @@ Leaves are tensors (saved as numpy arrays; bfloat16 as float32, since
 numpy has no bfloat16, and cast back on restore) and Python numbers (the
 optimizer's step), saved as 0-d arrays.  ``restore`` rebuilds the
 template's structure, each tensor on its template leaf's device and in
-its dtype.  The reference's elastic restore across device counts waits
-for the training half of the distributed slice (ROADMAP item 9.8b).
+its dtype.
+
+On a mesh (``shardings=``: a tree of ``distributed.sharding_rules
+.Placement`` mirroring the tree, None where a leaf is whole) leaves are
+this rank's shards.  ``save`` gathers each to its logical array and world
+rank 0 writes the files, so the format is unchanged and a mesh save is
+byte for byte the save of the same whole tree; every rank returns once
+the files are there.  ``restore`` reads each logical array and keeps this
+rank's block: the reference's elastic restore (``repro/checkpoint/
+manager.py:9-14,76-91``), so a run comes back on another mesh, or on none.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree as T
 
@@ -61,14 +70,51 @@ def _write(ckpt_dir: str, step: int, host: dict) -> str:
     return final
 
 
-def _fetch(tree: Any) -> dict:
-    return {_SEP.join(path): _to_host(leaf)
-            for path, leaf in T.flatten_with_path(tree)}
+def _placed(tree, shardings) -> list:
+    """(path, leaf, its placement or None) in leaf order."""
+    places = (T.leaves(shardings) if shardings is not None
+              else [None] * len(T.leaves(tree)))
+    return [(path, leaf, place) for (path, leaf), place in
+            zip(T.flatten_with_path(tree), places)]
 
 
-def save(ckpt_dir: str, step: int, tree: Any) -> str:
+def _fetch(tree: Any, shardings=None) -> dict:
+    """Every leaf on the host, whole (a placed leaf gathered first)."""
+    return {_SEP.join(path): _to_host(leaf if place is None
+                                      else place.gather(leaf))
+            for path, leaf, place in _placed(tree, shardings)}
+
+
+def _mesh_of(shardings):
+    """The mesh of a tree of placements, or None."""
+    if shardings is None:
+        return None
+    for place in T.leaves(shardings):
+        if place is not None:
+            return place.mesh
+    return None
+
+
+def _writes(shardings) -> bool:
+    """Off a mesh the caller writes; on one, world rank 0 alone."""
+    return _mesh_of(shardings) is None or dist.get_rank() == 0
+
+
+def barrier(shardings) -> None:
+    """Every rank of the placements' mesh waits for the others (none off
+    a mesh)."""
+    if _mesh_of(shardings) is not None:
+        dist.barrier()
+
+
+def save(ckpt_dir: str, step: int, tree: Any, shardings=None) -> str:
     """Blocking save; returns the checkpoint's directory."""
-    return _write(ckpt_dir, step, _fetch(tree))
+    host = _fetch(tree, shardings)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writes(shardings):
+        final = _write(ckpt_dir, step, host)
+    barrier(shardings)
+    return final
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -86,16 +132,22 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template: Any) -> Any:
+def restore(ckpt_dir: str, step: int, template: Any,
+            shardings=None) -> Any:
     """The checkpoint of ``step`` in ``template``'s structure: tensors on
-    their template leaf's device, in its dtype; numbers as numbers."""
+    their template leaf's device, in its dtype; numbers as numbers.  With
+    ``shardings`` each placed leaf is this rank's block of the logical
+    array (elastic: the files hold logical arrays, so any mesh works)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     out = []
-    for kp, leaf in T.flatten_with_path(template):
+    for kp, leaf, place in _placed(template, shardings):
         arr = np.load(os.path.join(path, _SEP.join(kp) + ".npy"))
         if isinstance(leaf, torch.Tensor):
-            out.append(torch.from_numpy(arr).to(device=leaf.device,
-                                                dtype=leaf.dtype))
+            t = torch.from_numpy(arr)
+            if place is not None:
+                t = place(t)
+            out.append(t.to(device=leaf.device, dtype=leaf.dtype,
+                            copy=True))
         else:
             out.append(type(leaf)(arr.item()))
     return T.unflatten(template, out)
@@ -125,10 +177,14 @@ class AsyncCheckpointer:
             finally:
                 self._q.task_done()
 
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, shardings=None) -> None:
+        """Fetch now (a mesh's leaves gathered, collective), write later:
+        world rank 0 alone on a mesh."""
         if self._err is not None:
             raise self._err
-        self._q.put((step, _fetch(tree)))       # blocks if one is in flight
+        host = _fetch(tree, shardings)
+        if _writes(shardings):
+            self._q.put((step, host))           # blocks if one is in flight
 
     def wait(self) -> None:
         self._q.join()

@@ -2,8 +2,10 @@
 
 [arXiv:2405.04324; hf] 88L d6144 48H (kv=1 → MQA, head_dim 128)
 d_ff 24576, vocab 49152.  46,947,932,160 params, 93.9 GB in bfloat16: more
-than one 80 GB card holds, so its full width waits for its params to
-shard over a mesh (ROADMAP item 9.8b).  The same values as
+than one 80 GB card holds.  Training holds its params and AdamW state as
+each rank's shards over a mesh (``runtime/train_loop.py``), so FULL
+trains on two or more cards; serving it whole needs its params sharded
+in serving too (ROADMAP, queued).  The same values as
 ``repro/configs/granite_34b.py``.
 """
 from ..models.config import ModelConfig

@@ -2,10 +2,12 @@
 
 [hf:microsoft/Phi-3.5-MoE-instruct; hf] 32L d4096 32H (kv=8, head_dim
 128, group 4) d_ff 6400, vocab 32064, untied head.  41,872,527,360 params,
-83.7 GB in bfloat16: more than one 80 GB card holds, so its FULL config
-runs whole only with its params sharded over a mesh (ROADMAP item 9.8b;
-the serving mesh of 9.8a keeps them whole on every rank).  The same
-values as ``repro/configs/phi35_moe_42b.py``.
+83.7 GB in bfloat16: more than one 80 GB card holds.  Training holds its
+params and AdamW state as each rank's shards over a mesh
+(``runtime/train_loop.py``), so FULL trains on two or more cards; the
+serving mesh keeps params whole on every rank, so serving FULL waits for
+sharded params in serving (ROADMAP, queued).  The same values as
+``repro/configs/phi35_moe_42b.py``.
 """
 from ..models.config import ModelConfig
 

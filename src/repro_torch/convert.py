@@ -112,6 +112,25 @@ def opt_state_from_jax(state, cfg, device=None):
                       v=lm_params_from_jax(state.v, cfg, device))
 
 
+def lm_params_shard_from_jax(params, cfg, mesh, specs=None,
+                             device=None) -> dict:
+    """This rank's shards of the reference's params under ``specs``
+    (default: ``ShardingRules(cfg, mesh).param_specs``): what a train step
+    on ``mesh`` holds (``lm_params_from_jax`` then ``shard_params``)."""
+    from .distributed.sharding_rules import config_specs, shard_params
+    specs = config_specs(cfg, mesh) if specs is None else specs
+    return shard_params(lm_params_from_jax(params, cfg, device), specs, mesh)
+
+
+def opt_state_shard_from_jax(state, cfg, mesh, specs=None, device=None):
+    """This rank's shards of the reference's ``AdamWState``: its m and v
+    as ``lm_params_shard_from_jax`` cuts params."""
+    return AdamWState(
+        step=int(np.asarray(state.step)),
+        m=lm_params_shard_from_jax(state.m, cfg, mesh, specs, device),
+        v=lm_params_shard_from_jax(state.v, cfg, mesh, specs, device))
+
+
 def lm_caches_from_jax(caches, cfg, device=None) -> dict:
     """The reference's decode caches ({"kv": PagedKV with stacked
     leaves}, {"ssm": SSMState with (L, …) leaves}, or the hybrid's both,

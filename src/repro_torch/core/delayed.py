@@ -19,7 +19,15 @@ The three phases:
 ``bucket_sync_update`` / ``bucket_sync_access`` compose them into the two
 delayed-op flavours of the paper (update: fire-and-forget scatter; access:
 full round trip).  The reference's ``psum`` of ``dropped`` is an
-``all_reduce``.
+``all_reduce``, and carries no gradient.
+
+Training runs through these phases (the roomy embedding and the roomy
+MoE on a mesh), so each carries the gradient of its payload: ``exchange``
+is an ``autograd.Function`` whose backward is the reverse all-to-all, the
+same call on the gradient's (S, C, …) buckets (an all-to-all is its own
+adjoint); ``bin_by_dest`` and ``unbin`` move rows by index, so autograd
+routes their gradients back by the same indices.  The ids and validity
+masks carry none.
 """
 from __future__ import annotations
 
@@ -71,16 +79,36 @@ def bin_by_dest(dest: torch.Tensor, payload: torch.Tensor,
                   dropped=nvalid - ok.sum(dtype=torch.int32))
 
 
-def exchange(x: torch.Tensor, group=None) -> torch.Tensor:
-    """All-to-all the leading (destination) axis of x: (S, C, *d).  After
-    the call, row j holds what rank j sent to this rank.  Booleans travel
-    as uint8."""
-    if x.dtype == torch.bool:
-        return exchange(x.to(torch.uint8), group).to(torch.bool)
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
     return out
+
+
+class _Exchange(torch.autograd.Function):
+    """The all-to-all; its backward is the reverse all-to-all of the
+    gradient (the same call: row j of the gradient goes back to rank j)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def exchange(x: torch.Tensor, group=None) -> torch.Tensor:
+    """All-to-all the leading (destination) axis of x: (S, C, *d).  After
+    the call, row j holds what rank j sent to this rank.  Booleans travel
+    as uint8.  Differentiable in a float x (``_Exchange``)."""
+    if x.dtype == torch.bool:
+        return exchange(x.to(torch.uint8), group).to(torch.bool)
+    if x.requires_grad:
+        return _Exchange.apply(x, group)
+    return _all_to_all(x, group)
 
 
 def unbin(results: torch.Tensor, src_idx: torch.Tensor,
@@ -93,7 +121,7 @@ def unbin(results: torch.Tensor, src_idx: torch.Tensor,
 
 
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
-    total = x.reshape(1).clone()
+    total = x.detach().reshape(1).clone()
     dist.all_reduce(total, group=group)
     return total[0]
 
@@ -119,7 +147,8 @@ def bucket_sync_access(dest: torch.Tensor, payload: torch.Tensor,
     """Delayed *access* sync: route to owners, compute, route replies back.
 
     owner_fn(payload (S, C, *d), valid (S, C)) -> results (S, C, *e).
-    Returns (results in issue order (m, *e), valid_out (m,), dropped)."""
+    Returns (results in issue order (m, *e), valid_out (m,), dropped).
+    Differentiable in ``payload`` and in what ``owner_fn`` returns."""
     m = dest.shape[0]
     binned = bin_by_dest(dest, payload, valid, nshards, capacity)
     recv = exchange(binned.payload, group)

@@ -23,15 +23,23 @@ a tuple of names taken as one flattened axis, or None), trailing dims
 replicated.  ``named`` turns specs into ``torch.distributed.tensor``
 placements, one per mesh dim.  The serving path keeps its params
 replicated on every rank and its caches as local shards under
-``cache_specs``; parameter placement under a train step comes with ROADMAP
-item 9.8b.
+``cache_specs``.  A train step holds its params and AdamW moments as each
+rank's shards under ``param_specs`` (TP over ``model``, ZeRO-3 over the
+data axes, the fallbacks replicated): ``shard_params`` cuts a whole tree
+into this rank's shards and ``gather_params`` rebuilds it, both by the
+same placements as ``named``; ``config_specs`` gives a config's spec tree
+without allocating its params.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from .. import tree as T
+from ..core import sharding as SH
 from ..core.sharding import mesh_axes
 from ..models.config import ModelConfig
 
@@ -274,4 +282,77 @@ def named(mesh, spec_tree):
         if T._is_namedtuple(t):
             return type(t)(*(walk(v) for v in t))
         return type(t)(walk(v) for v in t)
+    return walk(spec_tree)
+
+
+# ------------------------------------------------- params as shards
+
+class _Shape:
+    """A mesh's shape alone, as ``mesh_axes`` reads a stand-in."""
+
+    def __init__(self, shape: Tuple[Tuple[str, int], ...]):
+        self.shape = dict(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _specs(cfg: ModelConfig, shape: Tuple[Tuple[str, int], ...]) -> dict:
+    from ..models import lm
+    return ShardingRules(cfg, _Shape(shape)).param_specs(
+        lm.init_params(cfg, 0, device="meta"))
+
+
+def config_specs(cfg: ModelConfig, mesh) -> dict:
+    """``ShardingRules(cfg, mesh).param_specs`` of ``cfg``'s params, their
+    shapes taken on the meta device (nothing allocated); computed once a
+    config and mesh shape (callers share the tree: read it only)."""
+    return _specs(cfg, tuple(mesh_axes(mesh).items()))
+
+
+def shard_params(params, specs, mesh):
+    """This rank's shard of every leaf of a whole tree under its spec (a
+    copy, so the whole tree can be freed): the placements of
+    ``named(mesh, specs)``.  ``specs`` mirrors ``params``' structure above
+    its leaves."""
+    return T.tree_map(lambda x, spec: SH.shard_param(x, spec, mesh).clone(),
+                      params, specs)
+
+
+@torch.no_grad()
+def gather_params(shards, specs, mesh):
+    """The whole tree from this rank's shards: the inverse of
+    ``shard_params`` (collective: every rank of the mesh calls it)."""
+    return T.tree_map(lambda x, spec: SH.gather_param(x, spec, mesh), shards,
+                      specs)
+
+
+class Placement:
+    """Where one logical leaf lives on a mesh: its ``spec`` on ``mesh``.
+    Called on the whole leaf it gives this rank's block (what the
+    reference's ``jax.device_put(arr, sharding)`` places here);
+    ``gather`` rebuilds the whole leaf from the blocks (collective)."""
+
+    def __init__(self, mesh, spec: P):
+        self.mesh, self.spec = mesh, spec
+
+    def __call__(self, whole):
+        return SH.shard_param(whole, self.spec, self.mesh)
+
+    @torch.no_grad()
+    def gather(self, shard):
+        return SH.gather_param(shard, self.spec, self.mesh)
+
+
+def shardings(mesh, spec_tree):
+    """A tree of specs → the same tree of ``Placement``s on ``mesh`` (the
+    port's counterpart of ``named`` for a checkpoint's restore)."""
+    def walk(t):
+        if isinstance(t, PartitionSpec):
+            return Placement(mesh, t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if T._is_namedtuple(t):
+            return type(t)(*(walk(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return t
     return walk(spec_tree)

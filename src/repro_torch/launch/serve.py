@@ -16,8 +16,10 @@ The frontend-stub archs (musicgen-medium, qwen2-vl-2b) take embeddings,
 not prompt tokens: the Server refuses them with ``ValueError``, where the
 reference's asserts.
 granite-34b's 93.9 GB and phi3.5-moe's 83.7 GB of bfloat16 params no
-single 80 GB card holds: ``--smoke`` only for those two, until their
-params shard over a mesh (ROADMAP item 9.8b).
+single 80 GB card holds: ``--smoke`` only for those two.  Training shards
+params over a mesh (``launch/train.py --tp``); serving keeps them whole on
+every rank, so serving those two FULL needs two or more cards and params
+sharded in serving (ROADMAP, queued).
 The flags and defaults of ``repro/launch/serve.py``, plus ``--device``
 (default "cuda"; raises without a card).  A full config keeps its params
 in bfloat16 (falcon-mamba-7b: 14.0 GB, nemotron-4-15b: 31.3 GB,

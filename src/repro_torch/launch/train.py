@@ -20,15 +20,45 @@ The reference runs ``--smoke`` with its plain attention and scan (the
 Pallas kernels do not run on its CPU); the port
 keeps ``kernels="auto"``, which runs the plain versions for CPU tensors
 and, on the card, K6-with-LSE and K7 for attention, K9 and K9-bwd for the
-selective scan.  ``--tp > 1`` (a tensor-parallel mesh) waits for the
-training half of the distributed slice, ROADMAP item 9.8b.
+selective scan.
+
+``--tp > 1`` trains on a ("data", "model") mesh of the world's ranks,
+``tp`` a model group (``launch/mesh.make_host_mesh``): params and AdamW
+state are each rank's shards, the batch splits over the data ranks.  It
+needs a process group initialised from the environment, as ``torchrun``
+sets it (NCCL on the card, gloo with ``--device cpu``); it raises if there
+is none, or if ``tp`` does not divide the world:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch gemma2-2b --smoke --tp 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 
+import torch
+import torch.distributed as dist
+
+from .. import device as _device
 from ..configs import get_config
 from ..runtime import TrainSettings, train
+from .mesh import make_host_mesh
+
+
+def _init_group(device) -> None:
+    """The process group ``torchrun``'s environment describes: NCCL for
+    the card (this rank's ``LOCAL_RANK`` device), gloo for the CPU."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "--tp > 1 trains on a mesh: initialise a process group first "
+            "(run under torchrun, which sets RANK, WORLD_SIZE, MASTER_ADDR "
+            "and MASTER_PORT)")
+    if _device.resolve(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
 
 
 def main(argv=None):
@@ -50,14 +80,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=TrainSettings.ckpt_dir)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (not ported)")
+                    help="tensor-parallel size: ranks a model group")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1 trains on a device mesh, which repro_torch serves "
-            "on but does not train on yet: ROADMAP item 9.8b")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     settings = TrainSettings(
@@ -65,8 +91,18 @@ def main(argv=None):
         schedule=args.schedule, num_microbatches=args.microbatches,
         grad_compression=args.grad_compression,
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, seed=args.seed)
-    out = train(cfg, settings, device=args.device)
-    print(f"final loss {out['losses'][-1]:.4f} "
+    mesh, owned = None, False
+    if args.tp > 1:
+        if not dist.is_initialized():
+            _init_group(args.device)
+            owned = True
+        mesh = make_host_mesh(args.tp, args.device)
+    try:
+        out = train(cfg, settings, device=args.device, mesh=mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    print(f"final loss {out['losses'][-1]:.6f} "
           f"({len(out['losses'])} steps, {out['restarts']} restarts)")
     return out
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..core import delayed as roomy_delayed
 from ..core import sharding as SH
+from ..kernels import ops as kops
 from .config import ModelConfig
 
 
@@ -98,13 +99,41 @@ def embed_tokens(p: dict, ids: torch.Tensor, cfg: ModelConfig,
     """ids (B, S) → (B, S, d).  A plain row take of the table; or, under
     ``embedding_dispatch="roomy"`` on a mesh with a ``model`` axis whose
     tokens tile the device grid, the explicit bucket exchange
-    (``_roomy_embed``), as ``repro/models/layers.py:84-97``."""
+    (``_roomy_embed``), as ``repro/models/layers.py:84-97``.  The grid is
+    every axis for global ids (serving), ``model`` alone for a data
+    rank's rows (training; ``core/sharding.py``'s two conventions)."""
     if cfg.embedding_dispatch == "roomy" and mesh is not None \
             and "model" in SH.mesh_axes(mesh):
-        n_dev = SH.axis_size(mesh, tuple(SH.mesh_axes(mesh)))
+        n_dev = SH.axis_size(mesh, SH.token_axes(mesh))
         if ids.numel() % n_dev == 0:
             return _roomy_embed(p["table"], ids, cfg, mesh).to(cdtype(cfg))
     return p["table"][ids].to(cdtype(cfg))
+
+
+class _OwnerRows(torch.autograd.Function):
+    """The owner's row gather of the roomy embedding: ``table_loc[local]``
+    forward.  Backward, the paper's delayed update: the received gradient
+    rows fold into a zero float32 gradient of the owner's striped shard
+    through ``ops.bucket_scatter_add`` (K5 on the card, its plain version
+    on the CPU), rows not valid sent to an index K5 drops (past the
+    shard).  K5 may sum a row's duplicates in another order than the plain
+    version, so on the card the table gradient matches the plain fold
+    within K5's tolerance, not bit for bit."""
+
+    @staticmethod
+    def forward(ctx, table_loc, local, valid, impl):
+        ctx.save_for_backward(local, valid)
+        ctx.rows, ctx.impl = table_loc.shape[0], impl
+        return table_loc[local]
+
+    @staticmethod
+    def backward(ctx, g):
+        local, valid = ctx.saved_tensors
+        idx = torch.where(valid, local, ctx.rows).reshape(-1).to(torch.int32)
+        zero = g.new_zeros((ctx.rows, g.shape[-1]), dtype=torch.float32)
+        fold = kops.bucket_scatter_add(
+            zero, idx, g.reshape(-1, g.shape[-1]).float(), impl=ctx.impl)
+        return fold, None, None, None
 
 
 def _roomy_embed(table: torch.Tensor, ids: torch.Tensor, cfg: ModelConfig,
@@ -117,14 +146,16 @@ def _roomy_embed(table: torch.Tensor, ids: torch.Tensor, cfg: ModelConfig,
     shard s holds id r·S + s and frequent low ids spread over the shards;
     buckets carry 4× the uniform per-owner load, ``max(8, min(t_loc,
     4·ceil(t_loc / S)))`` for t_loc tokens a rank; an overflowing token
-    embeds as zeros, as in the reference.  ids are global, (B, S) on every
-    rank: this rank takes its block of the B·S tokens split over every
-    axis (data axes, then ``model``), and the blocks are gathered back, so
-    every rank returns the whole (B, S, d)."""
-    shape = SH.mesh_axes(mesh)
-    s_model = shape["model"]
+    embeds as zeros, as in the reference.  Under the global convention ids
+    are (B, S) on every rank: this rank takes its block of the B·S tokens
+    split over every axis (data axes, then ``model``), and the blocks are
+    gathered back, so every rank returns the whole (B, S, d).  Under the
+    local one ids are this data rank's rows, split and gathered over
+    ``model`` alone.  Differentiable in ``table``: the owner's gather is
+    ``_OwnerRows``, whose backward folds the gradient rows through K5."""
+    s_model = SH.mesh_axes(mesh)["model"]
     group, m_idx, _ = SH.axis_group(mesh, "model")
-    shard_axes = tuple(a for a in shape if a != "model") + ("model",)
+    shard_axes = SH.token_axes(mesh)
     rows_per = -(-cfg.vocab_padded // s_model)
     b, s = ids.shape
     n_dev = SH.axis_size(mesh, shard_axes)
@@ -140,7 +171,8 @@ def _roomy_embed(table: torch.Tensor, ids: torch.Tensor, cfg: ModelConfig,
     def owner_fn(recv, recv_valid):
         # recv: (S, C, 1) global ids; the striped layout → local row id // S
         local = (recv[..., 0] // s_model).clamp(max=table_loc.shape[0] - 1)
-        return table_loc[local.long()]
+        return _OwnerRows.apply(table_loc, local.long(), recv_valid,
+                                cfg.kernels)
 
     out, ok, _ = roomy_delayed.bucket_sync_access(
         dest, flat[:, None].to(torch.int32), valid, group, s_model,

@@ -10,9 +10,9 @@ blocks take embeddings in place of token ids.
 Port of ``repro/models/lm.py``.  Entry points:
 
   init_params(cfg, gen, device=, dtype=)      → params
-  forward_hidden(params, inputs, cfg)         → (B, S, d)
+  forward_hidden(params, inputs, cfg, mesh=)  → (B, S, d)
   logits_fn(params, hidden, cfg)              → (B, S, vocab_padded)
-  loss_fn(params, batch, cfg)                 → scalar mean cross-entropy
+  loss_fn(params, batch, cfg, mesh=)          → scalar mean cross-entropy
   prefill(params, inputs, cfg, mesh=,
           max_len=)                           → (last logits, caches)
   decode_step(params, inputs, caches, cfg,
@@ -53,7 +53,29 @@ SSM state stays whole on every rank (the reference's ``cache_specs``
 only give GSPMD a layout for it).  The reference's ``_constrain`` /
 ``_constrain_tokens`` are GSPMD layout hints with no effect on a number;
 activations here are global on every rank, so they have no counterpart.
-``forward_hidden`` and ``loss_fn`` on a mesh come with ROADMAP item 9.8b.
+
+Training on a mesh (``forward_hidden`` / ``loss_fn`` with ``mesh=``) keeps
+the rules of ``core/sharding.py``: ``params`` are this rank's shards under
+``ShardingRules.param_specs`` (``distributed.sharding_rules.shard_params``
+cuts them), and ``batch`` is this data rank's rows, the same on every rank
+of its model group (the local convention: the roomy exchanges split the
+rows over ``model`` alone).  A block's params are gathered whole
+(``core.sharding.gather_param``) inside its remat region, so no rank keeps
+a gathered block for the backward: the non-reentrant ``checkpoint``
+gathers again there, and the gather's backward reduce-scatters the
+gradient to the shard.  The embedding, the final norm and the hybrid's
+shared block are gathered once a call.  They are gathered in float32 and
+each layer casts at use as it does off a mesh (the router and the norms
+read the float32 values), so a one-rank mesh computes the bits of no
+mesh.  The loss is a sum of shares: rank r takes ``L_r = Σ_{its rows}
+−ll·mask / (global mask count · tp)``, the count from one ``all_reduce``
+over the data axes, ``tp`` because the model group repeats the rows;
+``loss_fn`` returns ``Σ_r L_r`` over the mesh (the reference's
+``repro/models/lm.py:211-216``) with the gradient of this rank's share,
+so that every parameter's gradient is the sum of the ranks' parts of it.
+Compute stays replicated within a model group apart from the roomy
+exchanges: TP is a storage layout, as in serving.  The reference's
+``_constrain`` on the logits is a layout hint with no counterpart.
 """
 from __future__ import annotations
 
@@ -61,12 +83,15 @@ import math
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
+from .. import tree as T
 from ..core import paged
 from ..core import sharding as SH
+from ..distributed import sharding_rules as SR
 from .blocks import (init_mamba_block, init_transformer_block, mamba_block,
                      mamba_block_decode, mamba_block_prefill,
                      transformer_block, transformer_block_decode)
@@ -111,7 +136,9 @@ def init_params(cfg: ModelConfig, gen, *, device=None,
     if cfg.local_global_pattern and cfg.n_layers % 2:
         raise ValueError("the local/global pattern needs an even n_layers")
     dev = _device.resolve(device)
-    if not isinstance(gen, torch.Generator):
+    if dev.type == "meta":                    # shapes only: no numbers drawn
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
     kw = dict(device=dev, dtype=dtype)
     params = {"embed": init_embedding(gen, cfg, **kw),
@@ -146,56 +173,127 @@ def _embed(params, inputs: Dict, cfg: ModelConfig, mesh=None
     return x
 
 
-def forward_hidden(params, inputs: Dict, cfg: ModelConfig) -> torch.Tensor:
+def _gather_tree(tree, specs, mesh):
+    """Each shard of ``tree`` gathered whole under its spec."""
+    return T.tree_map(lambda x, spec: SH.gather_param(x, spec, mesh), tree,
+                      specs)
+
+
+def _on_mesh(params, cfg: ModelConfig, mesh):
+    """(params with the embedding, the final norm and the hybrid's shared
+    block gathered whole, the blocks' specs, the mesh under the local
+    convention)."""
+    specs = SR.config_specs(cfg, mesh)
+    local = SH.LocalRows(mesh)
+    out = dict(params)
+    for key in ("embed", "final_norm", "shared"):
+        if key in params:
+            out[key] = _gather_tree(params[key], specs[key], local)
+    return out, specs["blocks"], local
+
+
+def _hidden(params, inputs: Dict, cfg: ModelConfig, mesh=None,
+            block_specs=None) -> torch.Tensor:
+    """``forward_hidden`` from params whose blocks are whole
+    (``block_specs`` None) or shards under ``block_specs``."""
+    x = _embed(params, inputs, cfg, mesh)
+    remat = cfg.remat and torch.is_grad_enabled()
+    specs = block_specs or [None] * cfg.n_layers
+
+    def run(fn, p_l, spec_l, x, *args, **kw):
+        def body(p_l, x, *args):
+            if spec_l is not None:        # gathered inside the remat region
+                p_l = _gather_tree(p_l, spec_l, mesh)
+            return fn(p_l, x, *args, **kw)
+        if remat:
+            return checkpoint(body, p_l, x, *args, use_reentrant=False)
+        return body(p_l, x, *args)
+    if cfg.family in ("ssm", "hybrid"):
+        version = 1 if cfg.family == "ssm" else 2
+        for s0, s1, shared in _hybrid_segments(cfg):
+            for p_l, spec_l in zip(params["blocks"][s0:s1], specs[s0:s1]):
+                x = run(mamba_block, p_l, spec_l, x, cfg, version=version)
+            if shared:
+                x = transformer_block(params["shared"], x,
+                                      inputs["positions"], cfg, mesh=mesh)
+        return rms_norm(x, params["final_norm"], cfg.rms_eps)
+    for p_l, spec_l, w in zip(params["blocks"], specs, layer_windows(cfg)):
+        x = run(transformer_block, p_l, spec_l, x, inputs["positions"], cfg,
+                window=w, mesh=mesh)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def forward_hidden(params, inputs: Dict, cfg: ModelConfig, mesh=None
+                   ) -> torch.Tensor:
     """With ``cfg.remat`` and grad mode on, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     and recomputed in the backward, as the reference's ``_maybe_remat``
     does with ``jax.checkpoint`` (``repro/models/lm.py:120-121,148-159``):
     every transformer block, and every mamba block of the ssm and hybrid
     families.  The hybrid's shared block runs after each segment that asks
-    for it, never rematted, as in the reference."""
-    x = _embed(params, inputs, cfg)
-    remat = cfg.remat and torch.is_grad_enabled()
-    if cfg.family in ("ssm", "hybrid"):
-        version = 1 if cfg.family == "ssm" else 2
-
-        def body(p_l, x):
-            if remat:
-                return checkpoint(mamba_block, p_l, x, cfg, version=version,
-                                  use_reentrant=False)
-            return mamba_block(p_l, x, cfg, version=version)
-        for s0, s1, shared in _hybrid_segments(cfg):
-            for p_l in params["blocks"][s0:s1]:
-                x = body(p_l, x)
-            if shared:
-                x = transformer_block(params["shared"], x,
-                                      inputs["positions"], cfg)
-        return rms_norm(x, params["final_norm"], cfg.rms_eps)
-    for p_l, w in zip(params["blocks"], layer_windows(cfg)):
-        if remat:
-            x = checkpoint(transformer_block, p_l, x, inputs["positions"],
-                           cfg, window=w, use_reentrant=False)
-        else:
-            x = transformer_block(p_l, x, inputs["positions"], cfg, window=w)
-    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+    for it, never rematted, as in the reference.  On a mesh ``params`` are
+    this rank's shards and ``inputs`` this data rank's rows (the module
+    docstring); the result is those rows' hidden states."""
+    if mesh is None:
+        return _hidden(params, inputs, cfg)
+    params, block_specs, local = _on_mesh(params, cfg, mesh)
+    return _hidden(params, inputs, cfg, local, block_specs)
 
 
 def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return lm_head(params["embed"], hidden, cfg)
 
 
-def loss_fn(params, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
+def _loss_denominator(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """The global mask count (one ``all_reduce`` over the data axes) times
+    ``tp``, the model group's size, which repeats the rows."""
+    count = mask.sum().reshape(1)
+    dp = SH.data_axes(mesh)
+    if dp:
+        dist.all_reduce(count, group=SH.axis_group(mesh, dp)[0])
+    tp = SH.mesh_axes(mesh).get("model", 1)
+    return count[0] * tp
+
+
+class _MeshLoss(torch.autograd.Function):
+    """The value Σ_r L_r over the mesh (one ``all_reduce``); the gradient
+    this rank's share's."""
+
+    @staticmethod
+    def forward(ctx, share, group):
+        total = share.detach().clone().reshape(1)
+        dist.all_reduce(total, group=group)
+        return total[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig, mesh=None
+            ) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is >= 0, on
-    float32 logits (``repro/models/lm.py:192-216`` on one device).
-    ``batch``: {"inputs": {"tokens" or "embeds", "positions"}, "labels":
-    (B, S)}."""
-    hidden = forward_hidden(params, batch["inputs"], cfg)
-    logits = logits_fn(params, hidden, cfg).float()
+    float32 logits (``repro/models/lm.py:192-216``).  ``batch``:
+    {"inputs": {"tokens" or "embeds", "positions"}, "labels": (B, S)}.  On
+    a mesh: ``params`` this rank's shards, ``batch`` this data rank's rows;
+    the value is the mesh's loss, the gradient this rank's share's (the
+    module docstring)."""
+    if mesh is None:
+        hidden = _hidden(params, batch["inputs"], cfg)
+        top = params
+    else:
+        top, block_specs, local = _on_mesh(params, cfg, mesh)
+        hidden = _hidden(top, batch["inputs"], cfg, local, block_specs)
+    logits = logits_fn(top, hidden, cfg).float()
     labels = batch["labels"].long()
     mask = labels >= 0
     logp = torch.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    return -(ll * mask).sum() / mask.sum().clamp(min=1)
+    if mesh is None:
+        return -(ll * mask).sum() / mask.sum().clamp(min=1)
+    share = -(ll * mask).sum() / _loss_denominator(mask, mesh).clamp(min=1)
+    return _MeshLoss.apply(share, SH.axis_group(
+        mesh, tuple(SH.mesh_axes(mesh)))[0])
 
 
 # ------------------------------------------------------ caches / decode

@@ -150,27 +150,35 @@ def _combine(y: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
 
 def moe_roomy(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The paper's dispatch on a mesh.  x (B, S, d), the same on every
-    rank; returns (out (B, S, d) on every rank, dropped: int32 (2,) pairs
-    dropped over the whole mesh at the exchange and at the experts).
+    """The paper's dispatch on a mesh.  x (B, S, d): the same on every
+    rank (serving's global convention), or this data rank's rows, the same
+    on every rank of its model group (training's local one; see
+    ``core/sharding.py``); returns (out (B, S, d) as x is held, dropped:
+    int32 (2,) pairs dropped over the whole mesh at the exchange and at
+    the experts).
 
-    The router runs on the whole batch (replicated, as the reference's);
-    this rank's t_loc tokens (the B·S split over every axis, mesh order)
-    send their k pairs as rows [x, local expert id] to the model rank
-    owning expert id // (E/S); the owner bins what it received by local
-    expert (``bin_by_dest``, cap2), runs ``_expert_ffn`` on its E/S
-    experts' slice of the params, and each row goes back to its pair.
-    The combine is ``moe_einsum``'s (float32, the weights rounded to the
-    compute dtype) where the reference sums in x's dtype; the ranks'
-    outputs are gathered over every axis."""
+    The router runs on the whole of x (replicated, as the reference's);
+    this rank's t_loc tokens (x's B·S split over every axis in mesh order,
+    or over ``model`` alone for a data rank's rows) send their k pairs as
+    rows [x, local expert id] to the model rank owning expert id // (E/S);
+    the owner bins what it received by local expert (``bin_by_dest``,
+    cap2), runs ``_expert_ffn`` on its E/S experts' slice of the params,
+    and each row goes back to its pair.  The combine is ``moe_einsum``'s
+    (float32, the weights rounded to the compute dtype) where the
+    reference sums in x's dtype; the ranks' outputs are gathered over the
+    axes the tokens were split over.  Under autograd every step carries
+    the gradient (the exchanges' backward is the reverse all-to-all, the
+    slices' zeros elsewhere, the gather's a reduce-scatter); the drop
+    count is a forward reading."""
     b, s, d = x.shape
     k = cfg.top_k
     shape = SH.mesh_axes(mesh)
-    axes = tuple(shape)
+    axes = SH.token_axes(mesh)
     group, m_idx, s_model = SH.axis_group(mesh, "model")
     e_loc = cfg.experts_padded // s_model
-    # capacities in Python floats, as repro/models/moe.py:108-115
-    m = max(1, (b * s) // math.prod(shape.values())) * k
+    # capacities in Python floats, as repro/models/moe.py:108-115 (t_loc
+    # tokens a device: the same under either convention)
+    m = max(1, (b * s) // SH.axis_size(mesh, axes)) * k
     cap1 = max(8, int(math.ceil(m / s_model * cfg.capacity_factor)))
     cap2 = max(8, int(math.ceil(s_model * cap1 / e_loc
                                 * cfg.capacity_factor)))
@@ -211,7 +219,7 @@ def moe_roomy(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     dropped = torch.stack([dropped1 if m_idx == 0
                            else torch.zeros_like(dropped1),
                            expert_drops[0]]).to(torch.int32)
-    dist.all_reduce(dropped, group=SH.axis_group(mesh, axes)[0])
+    dist.all_reduce(dropped, group=SH.axis_group(mesh, tuple(shape))[0])
     return SH.gather_leading(out, mesh, axes).reshape(b, s, d), dropped
 
 
@@ -221,9 +229,10 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None
     reference runs it, else ``moe_einsum``."""
     if cfg.moe_dispatch == "roomy" and mesh is not None \
             and "model" in SH.mesh_axes(mesh):
-        # Roomy dispatch needs tokens to tile the device grid; tiny decode
-        # batches fall back to the einsum path (capacity 1-2 there anyway).
-        if (x.shape[0] * x.shape[1]) % math.prod(
-                SH.mesh_axes(mesh).values()) == 0:
+        # Roomy dispatch needs tokens to tile the device grid (the model
+        # axis for a data rank's rows); tiny decode batches fall back to
+        # the einsum path (capacity 1-2 there anyway).
+        if (x.shape[0] * x.shape[1]) % SH.axis_size(
+                mesh, SH.token_axes(mesh)) == 0:
             return moe_roomy(p, x, cfg, mesh)[0]
     return moe_einsum(p, x, cfg)

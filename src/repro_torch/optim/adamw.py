@@ -8,6 +8,12 @@ buffers (``jax.jit(..., donate_argnums=(0, 1, 2))``): at gemma2-2b's full
 width each extra copy of the params costs 10.46 GB.  The arithmetic keeps
 the reference's order of operations in float32, so the two agree to a few
 ulp.
+
+On a mesh (``mesh=`` with the params' ``specs``) the params, grads, m and v
+are each rank's shards under ``ShardingRules.param_specs``.  The update is
+elementwise, so it runs on shards unchanged; only the global norm needs the
+mesh, and counts each logical element once (``global_norm``).  With
+``mesh=None`` nothing changes.
 """
 from __future__ import annotations
 
@@ -15,8 +21,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree as T
+from ..core import sharding as SH
 
 
 class AdamWState(NamedTuple):
@@ -33,11 +41,33 @@ def init(params) -> AdamWState:
                       v=T.tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ over leaves of Σ x²) in float32, a 0-d tensor."""
-    sq = [torch.linalg.vector_norm(x.detach(), dtype=torch.float32).square()
-          for x in T.leaves(tree)]
-    return torch.sqrt(sum(sq))
+def _square(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x.detach(), dtype=torch.float32).square()
+
+
+def _counted(spec, coord) -> bool:
+    """Whether this rank's shard counts toward the norm: on coordinate 0
+    of every axis the spec replicates."""
+    return all(coord[a] == 0 for a in coord if a not in SH.spec_axes(spec))
+
+
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt(Σ over leaves of Σ x²) in float32, a 0-d tensor.  On a mesh
+    ``tree`` holds this rank's shards under ``specs``: a dim the spec
+    replicates over an axis lies on every coordinate of that axis, so a
+    shard's squares count only on coordinate 0 of each axis its spec
+    replicates; the leaves' sums are all-reduced over the mesh as one
+    vector and then added in leaf order, as off the mesh."""
+    if mesh is None:
+        return torch.sqrt(sum(_square(x) for x in T.leaves(tree)))
+    coord = dict(zip(SH.mesh_axes(mesh), mesh.get_coordinate()))
+    pairs = []
+    T.tree_map(lambda x, spec: pairs.append((x, spec)), tree, specs)
+    sq = torch.stack([_square(x) if _counted(spec, coord)
+                      else x.new_zeros((), dtype=torch.float32)
+                      for x, spec in pairs])
+    dist.all_reduce(sq, group=SH.axis_group(mesh, tuple(coord))[0])
+    return torch.sqrt(sum(sq.unbind()))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -58,10 +88,12 @@ def _f32(x) -> float:
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr: float,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-           weight_decay: float = 0.1, clip_norm: Optional[float] = 1.0):
+           weight_decay: float = 0.1, clip_norm: Optional[float] = 1.0,
+           mesh=None, specs=None):
     """One AdamW step in place.  Returns (params, new state, grad norm);
-    the params and the state's m and v are the tensors passed in."""
-    gnorm = global_norm(grads)
+    the params and the state's m and v are the tensors passed in (shards
+    on a mesh, whose global norm ``specs`` says how to count)."""
+    gnorm = global_norm(grads, mesh, specs)
     scale = _clip_scale(gnorm, clip_norm) if clip_norm is not None else None
     step = state.step + 1
     bc1 = _f32(np.float32(1.0) - np.float32(b1) ** np.float32(step))

@@ -6,11 +6,20 @@ next step:
   int8   per-block symmetric quantization (blocks of 256 elements)
   topk   the largest-|g| fraction of each leaf (indices + values)
 
-The train step round-trips the gradient through the codec, which models
-the wire format of a cross-pod reduction and keeps the residual exact.  The
-reduction itself (``psum`` over a ``pod`` axis) waits for the training
-half of the distributed slice (ROADMAP item 9.8b); on one device there is
-nothing to sum.
+The train step round-trips the gradient through the codec after the
+full float32 reduction, as the reference's does: the round trip models
+the wire format of a cross-pod reduction and keeps the residual exact.
+The wire-level reduction itself, int8 on the pod-to-pod link, is
+``distributed.collectives.crosspod_int8_mean`` (and its float32 baseline
+``crosspod_f32_mean``); like the reference's, the train step does not
+call it.
+
+On a mesh the codecs see the logical leaf: ``int8_compress`` blocks the
+flattened logical leaf in 256s and top-k picks over the whole leaf, so a
+shard encoded on its own would give other blocks and another top-k.
+``mesh_round_trip`` gathers each leaf of the gradient and of the residual
+whole, encodes and decodes as off the mesh, and keeps this rank's shard of
+the decoded gradient and of the new residual.
 
 The codecs work on the reference's leaves.  Where the port keeps a list of
 trees of one structure (gemma2's ``blocks``, one entry per layer), the
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import tree as T
+from ..distributed.sharding_rules import gather_params, shard_params
 
 _BLOCK = 256
 
@@ -159,3 +169,19 @@ def topk_decompress(msg: TopkMsg, template) -> dict:
 def wire_bytes(msg) -> int:
     """Bytes this message would put on the cross-pod link."""
     return sum(x.numel() * x.element_size() for x in T.leaves(msg))
+
+
+def mesh_round_trip(codec: str, grads, residual, specs, mesh):
+    """The codec round trip of a train step on a mesh.  ``grads`` and
+    ``residual`` (None reads as zeros) are this rank's shards under
+    ``specs``; returns this rank's shards of (the decoded gradient, the
+    new residual).  Every leaf is gathered whole first (collective), so
+    the blocks and the top-k are the logical leaf's."""
+    codecs = {"int8": (int8_compress, int8_decompress),
+              "topk": (topk_compress, topk_decompress)}
+    encode, decode = codecs[codec]
+    whole = gather_params(grads, specs, mesh)
+    res = None if residual is None else gather_params(residual, specs, mesh)
+    msg, res = encode(whole, res)
+    whole = decode(msg, whole)
+    return shard_params(whole, specs, mesh), shard_params(res, specs, mesh)

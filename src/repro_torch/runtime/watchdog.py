@@ -2,8 +2,9 @@
 
 A step whose wall time exceeds ``threshold × EWMA`` of the earlier steps
 is a strike; ``strikes_to_evict`` strikes without enough good steps
-between them call for the elastic path (checkpoint → shrink → resume),
-which waits for the distributed slice.  Pure host-side logic.
+between them call for the elastic path (checkpoint → shrink → resume):
+``checkpoint.restore(..., shardings=)`` brings a run back on a smaller
+mesh (``tests/test_torch_checkpoint_mesh.py``).  Pure host-side logic.
 """
 from __future__ import annotations
 

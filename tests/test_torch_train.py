@@ -382,12 +382,16 @@ def test_cli_smoke_on_the_cpu(capsys):
     assert "final loss" in capsys.readouterr().out
 
 
-def test_cli_refuses_what_is_not_ported(capsys):
-    """A tensor-parallel mesh (9.8) raises, naming its ROADMAP item.
-    falcon-mamba-7b, which raised naming 9.10 until K9 had a backward,
-    trains; so do the frontend archs, which raised naming 9.6 until it was
-    ported (tests/test_torch_frontend.py runs their CLI)."""
-    with pytest.raises(NotImplementedError, match="9.8"):
+def test_cli_refuses_what_is_not_ported(capsys, monkeypatch):
+    """A tensor-parallel mesh (9.8b) trains under torchrun
+    (tests/test_torch_collectives.py runs it); with no process group to
+    build it on, ``--tp 2`` raises, naming what it needs.  falcon-mamba-7b,
+    which raised naming 9.10 until K9 had a backward, trains; so do the
+    frontend archs, which raised naming 9.6 until it was ported
+    (tests/test_torch_frontend.py runs their CLI)."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="process group"):
         tlaunch.main(["--arch", "gemma2-2b", "--smoke", "--tp", "2",
                       "--device", "cpu"])
     out = tlaunch.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
