@@ -165,13 +165,21 @@ caught:
       BFS distance table made on the card.
 8. K5 (the segment scatter-add) and the Roomy delayed-update structures
    (``phase_roomy``):
-   a. K5 against its plain version on the card, atol = rtol = 1e-4
+   a. K5 == its mirror (``ref.bucket_scatter_add_ordered``, its own order
+      of sums) and a second launch bit for bit at every case below, and
+      against its plain version on the card, atol = rtol = 1e-4
       (``tests/test_kernels.py:150-151``): the JAX tests' (N, M, D),
       sorted and unsorted, idx in [-N-3, N+3); one run of 100,000 ops and
       of 257 (sixteenths of small integers: bit-exact in any order); one
       op an index, negatives included (bit-exact); M = 0 (no launch); every
       index dropped; D = 1 and 2304; a table and a payload as strided
-      views; a planted fault (a payload row left out) the limit rejects;
+      views; long rows, sorted and unsorted: D = 1 (four rows a float4)
+      with a run of 8,000 ops whose tile takes its row bounds by binary
+      search, D = 3 with a run of 1,000 (the plain version held bit for
+      bit on sixteenths); 2^22 + 4 and 2^27 rows, D = 1, 131,072 ops in
+      [-N, N) with a run of 8,000 (the binned route in 2 and 3 passes),
+      with their times; a planted fault (a payload row left out) the
+      limit rejects;
    b. main path: gemma2-2b's embedding gradient as a RoomyArray (256,000 x
       2304 float32 from the seed), a queue of 131,072 token rows (a 32 x
       4096 batch) with Zipf ids (s = 1.1) and N(0, 1) payloads, through
@@ -180,13 +188,19 @@ caught:
       of the same sync with ``impl="ref"`` (two float32 sums of a
       17,000-op run differ by ~1e-3 elementwise; rows of runs <= 256 ops
       are held to 1e-4 elementwise), pcount equal; wall, ops/s, peak; K5
-      on that sorted queue against its plain version, ``index_add`` and a
-      float64 sum per row, with a planted fault (a row left out); its time
-      (CUDA events, median of 20) beside the byte bound, the plain version
-      and ``torch.index_add``;
+      on that sorted queue == its mirror and a second launch bit for bit,
+      against its plain version, ``index_add`` and a float64 sum per row,
+      with a planted fault (a row left out); its time beside the byte
+      bound, the plain version and ``torch.index_add``, each read twice
+      (``k5_times``: CUDA events behind a spin kernel, the device's time,
+      and without it, with the host's launch time), median of 20;
    c. ``parallel_prefix(add)`` over 2^27 float32: 27 K5 launches,
       bit-identical to ``impl="ref"``, within 2e-6 relative of a float64
-      cumsum; ``chain_reduce(add)``: 1 launch, exact;
+      cumsum, its wall and peak; ``chain_reduce(add)``: 1 launch, exact; one round's K5 inputs
+      (stride 2^20: N = M = 2^27, D = 1) caught: K5 == its mirror, a second
+      launch and its plain version bit for bit, its times (both ways)
+      beside its bound, the plain version and ``torch.index_add``, and its
+      share of the round's wall;
    d. ``hashtable`` with 4,194,304 width-2 keys (insert, sync with the
       benchmark's add combine, remove, insert, sync, lookup): keys, values,
       count and lookups identical to the same calls on the CPU;
@@ -525,8 +539,9 @@ caught:
    the roomy embedding's gradient fold, none off it), the reverse
    all-to-all's backward zeroed as a planted fault; readings: the step
    times and peaks, the MoE's share of a step by CUDA events, a profiled
-   step's idle share, and K5's fold against its plain version and
-   ``torch.index_add`` at the step's shape; (b) a two-rank gloo world of
+   step's idle share, and K5's fold (== its mirror and a second launch
+   bit for bit) against its plain version and ``torch.index_add`` at the
+   step's shape, timed both ways; (b) a two-rank gloo world of
    spawned processes on the one card (the only exchange this machine can
    make that is not an identity): 2 layers at full width on (1, 2) and
    (2, 1), loss and per-leaf gradient against the one-device run, K6-LSE,
@@ -2252,7 +2267,7 @@ K5_TOL = 1e-4                 # atol = rtol, tests/test_kernels.py:150-151
 # ||got - want|| <= K5_ROW_REL_TOL * ||want|| (a payload row left out is
 # ~1e-2 of a hot row and more of any other).
 K5_ROW_REL_TOL = 1e-4
-K5_SPLIT = 256                # the longest run K5 never cuts (its .cu)
+K5_SPLIT = R.K5_CHUNK         # ops a chunk of K5's row sums (its .cu)
 EMB_BATCH = 32 * 4096         # the queue: a 32 x 4096-token batch of gradients
 ZIPF_S = 1.1                  # token frequencies, rank^-s over the vocabulary
 PREFIX_LOG2 = 27              # parallel_prefix over 2^27 float32 (512 MB)
@@ -2266,14 +2281,44 @@ SHARD_SHAPE = (65536, 512, 1 << 18)   # the sharded path's rows, width, ops
 SHARD_WORDS = 1 << 20                 # its bit array (16.8M elements)
 
 
-def k5_check(table, idx, pay, what, exact=False, got=None):
-    """K5 (or ``got``, a result K5 gave) against its plain version on the
-    same inputs: atol = rtol = K5_TOL, or bit for bit when ``exact``.
-    Returns the max abs error."""
-    if got is None:
-        got = BS.bucket_scatter_add(table, idx, pay)
+def k5_same_bits(got, table, idx, pay, what) -> None:
+    """``got``, a result K5 gave, equals K5's mirror of its order of sums
+    (``ref.bucket_scatter_add_ordered``) and a second launch on the same
+    inputs, bit for bit."""
+    again = BS.bucket_scatter_add(table, idx, pay)
+    torch.cuda.synchronize()
+    expect(torch.equal(got, again), f"K5 gave other bits on a second launch "
+           f"({what})")
+    del again
+    expect(torch.equal(got, R.bucket_scatter_add_ordered(table, idx, pay)),
+           f"K5 != its mirror ({what})")
+
+
+def k5_times(table, idx, pay, lib_table, lib_idx) -> dict:
+    """K5, its plain version and ``torch.index_add(lib_table, 0, lib_idx,
+    pay)`` timed two ways, median of REPS each: ``ms``, ``plain_ms``,
+    ``library_ms`` by ``device_ms`` (CUDA events behind a spin kernel: the
+    device's time) and ``*_ms_host`` by ``median_ms`` (the same events with
+    no spin: the host's time to launch the call shows where it is longer,
+    as the wrapper's ~7 launches and its allocations can be)."""
+    calls = {"ms": lambda: BS.bucket_scatter_add(table, idx, pay),
+             "plain_ms": lambda: R.bucket_scatter_add_ref(table, idx, pay),
+             "library_ms": lambda: torch.index_add(lib_table, 0, lib_idx,
+                                                   pay)}
+    res = {k: device_ms(fn) for k, fn in calls.items()}
+    res.update({f"{k}_host": median_ms(fn) for k, fn in calls.items()})
+    return res
+
+
+def k5_check(table, idx, pay, what, exact=False):
+    """K5 against its mirror and a second launch bit for bit
+    (``k5_same_bits``), and against its plain version on the same inputs:
+    atol = rtol = K5_TOL, or bit for bit when ``exact``.  Returns the max
+    abs error."""
+    got = BS.bucket_scatter_add(table, idx, pay)
     want = R.bucket_scatter_add_ref(table, idx, pay)
     torch.cuda.synchronize()
+    k5_same_bits(got, table, idx, pay, what)
     expect(got.shape == want.shape and got.dtype == torch.float32, what)
     err = float((got - want).abs().max()) if got.numel() else 0.0
     MAX_ERR["bucket_scatter_add"] = max(MAX_ERR["bucket_scatter_add"], err)
@@ -2302,8 +2347,9 @@ def phase_k5_parity_edges(dev) -> dict:
         for sort in (False, True):
             k5_check(*k5_inputs(rng, n, m, d, -n - 3, n + 3, dev, sort),
                      f"N={n} M={m} D={d} sorted={sort}")
-    # one run of all M ops, cut into segments of K5_SPLIT..2*K5_SPLIT-1:
-    # sixteenths of small integers, so every order of the sums is exact
+    # one run of all M ops, summed in chunks of G = K5_SPLIT ops, each left
+    # to right, then the chunks in order: sixteenths of small integers, so
+    # every order of the sums is exact
     for m, d in ((100_000, 8), (K5_SPLIT + 1, 64)):
         table = torch.zeros(4, d, device=dev)
         pay = torch.from_numpy(rng.integers(-8, 9, (m, d)).astype(np.float32)
@@ -2341,6 +2387,54 @@ def phase_k5_parity_edges(dev) -> dict:
     wide, idx, wpay = k5_inputs(rng, 300, 2000, 40, -303, 303, dev)
     k5_check(wide[:, 5:29], idx, wpay[:, 3:27], "strided table and payload")
     k5_check(wide[::2, :17], idx % 150, wpay[:, :17], "every other row")
+    # long rows where each route and mapping meets them: D = 1 (four rows
+    # a float4) with a row of 8,000 ops, so its tile holds more than
+    # kScanMax positions and takes its bounds by binary search; D = 3
+    # (single floats) with a row of 1,000; each sorted and unsorted
+    for n, m, d, hot, run in ((16384, 12000, 1, 5000, 8000),
+                              (1000, 3000, 3, 7, 1000)):
+        for sort in (True, False):
+            table, idx, pay = k5_inputs(rng, n, m, d, -n, n, dev)
+            idx[:run] = hot
+            if sort:
+                idx = torch.sort(torch.where(idx < 0, idx + n, idx)).values
+            else:
+                idx = idx[torch.from_numpy(rng.permutation(m)).to(dev)]
+            what = f"N={n} D={d}, a run of {run}, sorted={sort}"
+            k5_same_bits(BS.bucket_scatter_add(table, idx, pay), table, idx,
+                         pay, what)
+            six = torch.from_numpy(rng.integers(-8, 9, (m, d)).astype(
+                np.float32) / 16).to(dev)
+            k5_check(torch.round(table * 16) / 16, idx, six,
+                     what + ", sixteenths", exact=True)
+    # past 2^22 rows the binned route sorts in passes of bits of the row:
+    # a queue of EMB_BATCH ops with wrapped negatives and a run of 8,000
+    big = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in ((1 << 22) + 4, 1 << PREFIX_LOG2):
+        table = torch.randn(n, 1, generator=gen, device=dev)
+        pay = torch.randn(EMB_BATCH, 1, generator=gen, device=dev)
+        idx = torch.from_numpy(rng.integers(-n, n, EMB_BATCH).astype(
+            np.int32)).to(dev)
+        idx[rng.permutation(EMB_BATCH)[:8000]] = -3
+        what = f"N={n} D=1, {EMB_BATCH} ops in [-N, N)"
+        k5_same_bits(BS.bucket_scatter_add(table, idx, pay), table, idx, pay,
+                     what)
+        six = torch.from_numpy(rng.integers(-8, 9, (EMB_BATCH, 1)).astype(
+            np.float32) / 16).to(dev)
+        k5_check(torch.round(table * 16) / 16, idx, six,
+                 what + ", sixteenths", exact=True)
+        geo = BS.geometry(n, 1, EMB_BATCH, 1)
+        keep = torch.where(idx < 0, idx + n, idx).long()
+        big[n] = {"passes": geo["passes"], "bits": geo["bits"],
+                  "warps": geo["warps"],
+                  **k5_times(table, idx, pay, table, keep)}
+        print(f"time: K5 at N={n}, D=1, {EMB_BATCH} unsorted ops with "
+              f"wrapped negatives (the binned route, {geo['passes']} "
+              f"passes of {geo['bits']} bits, {geo['warps']} warps): "
+              f"{big[n]['ms']:.4f} ms ({big[n]['ms_host']:.4f} host), "
+              f"index_add {big[n]['library_ms']:.4f} ms", flush=True)
+        del table, idx, pay, six, keep
     # the planted fault: one payload row left out must break the limit
     table, idx, pay = k5_inputs(rng, 64, 256, 16, 0, 64, dev)
     idx[1] = idx[0]
@@ -2350,14 +2444,18 @@ def phase_k5_parity_edges(dev) -> dict:
     fault_err = float((faulty - want).abs().max())
     expect(not torch.allclose(faulty, want, atol=K5_TOL, rtol=K5_TOL),
            f"a payload row left out passed the limit ({fault_err})")
-    print(f"parity: K5 within {K5_TOL} of its plain version at the JAX "
+    print(f"parity: K5 == its mirror and a second launch bit for bit, and "
+          f"within {K5_TOL} of its plain version, at the JAX "
           f"test shapes (sorted, unsorted, idx in [-N-3, N+3)), one run of "
           f"100000 ops (bit-exact), one op an index (bit-exact), M = 0 (no "
-          f"launch), every index dropped, D = 1 and 2304, strided views; "
+          f"launch), every index dropped, D = 1 and 2304, strided views, "
+          f"long rows at D = 1 and 3 sorted and not, 2^22 + 4 and 2^27 "
+          f"rows with wrapped negatives; "
           f"max abs err {MAX_ERR['bucket_scatter_add']:.3e}; a payload row "
           f"left out reads {fault_err:.3e} and is rejected")
     return {"max_abs_err": MAX_ERR["bucket_scatter_add"],
-            "planted_fault_err": fault_err}
+            "planted_fault_err": fault_err,
+            "wide_binned": {str(k): v for k, v in big.items()}}
 
 
 def row_rel(got, want) -> float:
@@ -2441,6 +2539,7 @@ def phase_embedding_sync(dev) -> dict:
     del queued, ra
     torch.cuda.empty_cache()
     got = BS.bucket_scatter_add(data, idx_s, pay_s)
+    k5_same_bits(got, data, idx_s, pay_s, "the sync's sorted queue")
     lib = torch.index_add(data, 0, idx_s, pay_s)
     want = R.bucket_scatter_add_ref(data, idx_s, pay_s)
     exact = data.double().index_add_(0, idx_s, pay_s.double())
@@ -2452,23 +2551,19 @@ def phase_embedding_sync(dev) -> dict:
     faulty = BS.bucket_scatter_add(data, idx_s[1:], pay_s[1:])
     rels["fault_row_left_out"] = row_rel(faulty, want)
     expect(rels["fault_row_left_out"] > K5_ROW_REL_TOL, rels)
-    print(f"parity: K5 at the main-path shape, per-row relative error: "
-          f"{json.dumps(rels)}")
+    print(f"parity: K5 at the main-path shape == its mirror and a second "
+          f"launch bit for bit; per-row relative error: {json.dumps(rels)}")
     del got, lib, want, exact, faulty
     nbytes = 2 * 4 * vocab * dim + 4 * m + 4 * m * dim
-    times = {
-        "ms": median_ms(lambda: BS.bucket_scatter_add(data, idx_s, pay_s)),
-        "plain_ms": median_ms(lambda: R.bucket_scatter_add_ref(data, idx_s,
-                                                               pay_s)),
-        "library_ms": median_ms(lambda: torch.index_add(data, 0, idx_s,
-                                                        pay_s)),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "bytes": nbytes}
-    print(f"time: K5 at {vocab}x{dim}, M={m} sorted: {times['ms']:.4f} ms, "
-          f"bound {times['bound_ms']:.4f} ms ({nbytes} bytes at 3.35 TB/s: "
-          f"the table read and written, the indices and the payload read), "
-          f"plain {times['plain_ms']:.4f} ms, index_add "
-          f"{times['library_ms']:.4f} ms")
+    times = {**k5_times(data, idx_s, pay_s, data, idx_s),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "bytes": nbytes}
+    print(f"time: K5 at {vocab}x{dim}, M={m} sorted: {times['ms']:.4f} ms "
+          f"({times['ms_host']:.4f} host), bound {times['bound_ms']:.4f} ms "
+          f"({nbytes} bytes at 3.35 TB/s: the table read and written, the "
+          f"indices and the payload read), plain {times['plain_ms']:.4f} ms "
+          f"({times['plain_ms_host']:.4f}), index_add "
+          f"{times['library_ms']:.4f} ms ({times['library_ms_host']:.4f})")
     return {"wall_s": wall, "ops_per_s": m / wall, "wall_again_s": wall_again,
             "peak_bytes": peak,
             "launches": launches["bucket_scatter_add"], "max_abs_err": err,
@@ -2477,6 +2572,55 @@ def phase_embedding_sync(dev) -> dict:
             "times": times,
             "shape": f"gemma2-2b embedding gradient, table {vocab}x{dim} "
                      f"float32, M = {m} sorted Zipf ids (s = {ZIPF_S})"}
+
+
+PREFIX_ROUND = 1 << 20        # the stride of the round K5 is timed on
+ROUND_REPS = 5                # a round takes ~60 ms
+
+
+def k5_prefix_round(ra, dev) -> dict:
+    """One round of ``parallel_prefix`` over 2^27 (stride PREFIX_ROUND):
+    K5's inputs caught from the round's sync (N = M = 2^27, D = 1, sorted,
+    the last PREFIX_ROUND parked at N); K5 == its mirror, a second launch
+    and its plain version bit for bit (one op a row); its time beside its
+    bound, the plain version and ``torch.index_add`` (into a table with a
+    trash row for the parked ops); the round's wall by CUDA events and K5's
+    share of it."""
+    caught = []
+    with fold_catcher(caught):
+        C._chain_round(ra, RA.add, PREFIX_ROUND, "auto")
+    sync(dev)
+    expect(len(caught) == 1, len(caught))
+    table, idx, pay = caught.pop()
+    got = BS.bucket_scatter_add(table, idx, pay)
+    k5_same_bits(got, table, idx, pay, "a prefix round")
+    expect(torch.equal(got, R.bucket_scatter_add_ref(table, idx, pay)),
+           "prefix round != the plain version")
+    del got
+    n, m = table.shape[0], idx.numel()
+    trash = torch.cat([table, table[:1]])
+    nbytes = 2 * 4 * n + 4 * m + 4 * m
+    res = {"shape": f"a ({n}, 1) float32 table, {m} sorted int32 ids "
+                    f"(stride {PREFIX_ROUND}, {PREFIX_ROUND} parked at N), "
+                    f"({m}, 1) float32 rows",
+           **k5_times(table, idx, pay, trash, idx),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes}
+    del table, idx, pay, trash
+    torch.cuda.empty_cache()
+    res["round_ms"] = median_ms(
+        lambda: C._chain_round(ra, RA.add, PREFIX_ROUND, "auto"),
+        reps=ROUND_REPS)
+    res["k5_share"] = res["ms"] / res["round_ms"]
+    print(f"time: K5 at a prefix round, {res['shape']}: == its mirror, a "
+          f"second launch and its plain version bit for bit; "
+          f"{res['ms']:.4f} ms ({res['ms_host']:.4f} host), bound "
+          f"{res['bound_ms']:.4f} ms ({nbytes} bytes at 3.35 TB/s), plain "
+          f"{res['plain_ms']:.4f} ms ({res['plain_ms_host']:.4f}), index_add "
+          f"{res['library_ms']:.4f} ms ({res['library_ms_host']:.4f}); the "
+          f"round {res['round_ms']:.3f} ms, K5 {100 * res['k5_share']:.2f}% "
+          f"of it")
+    return res
 
 
 def phase_prefix(dev) -> dict:
@@ -2489,11 +2633,13 @@ def phase_prefix(dev) -> dict:
     x = torch.rand(n, generator=gen, device=dev)
     ra = RA.make(x, n, payload_dtype=torch.float32)
     sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_all_launches()
     t0 = time.perf_counter()
     out = C.parallel_prefix(ra, RA.add)
     sync(dev)
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = BS.LAUNCHES["bucket_scatter_add"]
     expect(launches == PREFIX_LOG2, f"{launches} K5 launches, not 27")
     ref = C.parallel_prefix(ra, RA.add, impl="ref")
@@ -2515,12 +2661,16 @@ def phase_prefix(dev) -> dict:
                                                   impl="ref").data),
            "chain != impl='ref'")
     print(f"main path: parallel_prefix(add) over 2^{PREFIX_LOG2} float32: "
-          f"{wall:.3f} s, {launches} K5 launches, == impl='ref' bit for bit, "
+          f"{wall:.3f} s, peak {peak} bytes, {launches} K5 launches, == "
+          f"impl='ref' bit for bit, "
           f"max rel err vs float64 cumsum {rel:.3e} (limit "
           f"{PREFIX_REL_TOL}); chain_reduce {chain_wall:.3f} s, 1 launch, "
           f"exact")
-    return {"wall_s": wall, "launches": launches, "max_rel_err": rel,
-            "chain_wall_s": chain_wall}
+    del chain
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "peak_bytes": peak, "launches": launches,
+            "max_rel_err": rel,
+            "chain_wall_s": chain_wall, "k5_round": k5_prefix_round(ra, dev)}
 
 
 def ht_round(dev, keys, vals, rm, keys2, vals2, queries):
@@ -7562,6 +7712,7 @@ def k5_fold_times(caught, dev) -> dict:
     keep = (idx >= 0) & (idx < rows)
     trash = torch.zeros((rows + 1, d), dtype=table.dtype, device=dev)
     got = BS.bucket_scatter_add(table, idx, pay)
+    k5_same_bits(got, table, idx, pay, "the fold's inputs")
     want = R.bucket_scatter_add_ref(table, idx, pay)
     lib = torch.index_add(trash, 0, torch.where(keep, idx, rows).long(),
                           pay)[:rows]
@@ -7575,17 +7726,17 @@ def k5_fold_times(caught, dev) -> dict:
     nbytes = 2 * 4 * rows * d + 4 * m + 4 * m * d
     res = {"shape": f"a zero ({rows}, {d}) float32 table, {m} int32 ids "
                     f"({int(keep.sum())} valid), ({m}, {d}) float32 rows",
-           "ms": median_ms(lambda: BS.bucket_scatter_add(table, idx, pay)),
-           "plain_ms": median_ms(lambda: R.bucket_scatter_add_ref(
-               table, idx, pay)),
-           "library_ms": median_ms(lambda: torch.index_add(
-               trash, 0, torch.where(keep, idx, rows).long(), pay)),
+           **k5_times(table, idx, pay, trash,
+                      torch.where(keep, idx, rows).long()),
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            "bytes": nbytes, "row_rel": rels}
     print(f"mesh train: the roomy embedding's gradient fold, {res['shape']}:"
-          f" K5 {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-          f"index_add {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f}"
-          f" ms ({nbytes} bytes at 3.35 TB/s); per-row rel {rels}")
+          f" == its mirror and a second launch bit for bit;"
+          f" K5 {res['ms']:.4f} ms ({res['ms_host']:.4f} host), plain "
+          f"{res['plain_ms']:.4f} ms ({res['plain_ms_host']:.4f}), index_add "
+          f"{res['library_ms']:.4f} ms ({res['library_ms_host']:.4f}), bound "
+          f"{res['bound_ms']:.4f} ms ({nbytes} bytes at 3.35 TB/s); per-row "
+          f"rel {rels}")
     return res
 
 
@@ -8042,10 +8193,18 @@ def main() -> None:
         "bound_ms": emb["times"]["bound_ms"],
         "bound_by": emb["times"]["bound_by"],
         "library_ms": emb["times"]["library_ms"],
+        **{k: emb["times"][k] for k in (
+            "ms_host", "plain_ms_host", "library_ms_host")},
         "library": "torch.index_add (out of place)", "shape": emb["shape"],
         "launches_per_prefix": roomy["prefix"]["launches"], **mt_steps,
         **{f"mesh_train_fold_{k}": mtrain["k5_fold"][k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "shape")}})
+            "ms", "plain_ms", "library_ms", "ms_host", "plain_ms_host",
+            "library_ms_host", "bound_ms", "shape")},
+        **{f"prefix_round_{k}": roomy["prefix"]["k5_round"][k] for k in (
+            "ms", "plain_ms", "library_ms", "ms_host", "plain_ms_host",
+            "library_ms_host", "bound_ms", "round_ms", "k5_share", "shape")},
+        "wide_binned": roomy["k5_parity"]["wide_binned"],
+        "equals_mirror": True})        # gated by k5_same_bits
     g, loc = k6["global"], k6["local"]
     nem6 = dense["nemotron"]["k6_times"]
     kernels.append({

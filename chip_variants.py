@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1/K2, K4, K8, K9 and K9-bwd beside the designs their sources left
+"""K1/K2, K4, K5, K8, K9 and K9-bwd beside the designs their sources left
 behind, on one NVIDIA GPU.
 
-    python3 chip_variants.py [bitpack] [k4] [k8] [k9] [k9b]
+    python3 chip_variants.py [bitpack] [k4] [k5] [k8] [k9] [k9b]
 
 (no argument: every section, in that order)
 
@@ -38,6 +38,23 @@ paths' shapes:
   bit for bit to the kept kernel; and the kept kernel over one batch again
   (warm in L2) and over that batch sorted.
 
+* K5 (the segment scatter-add) beside its first design, kept as it was in
+  ``variants/k5_first_design.cu`` (the table copied with cudaMemcpy, then a block
+  a 32 ops adding each segment's sum with float atomics), built here with
+  nvcc and called through a wrapper of the same contract: at gemma2-2b's
+  sync (256,000 x 2304 float32, 131,072 sorted Zipf ids), a roomy
+  embedding fold (a zero 49,408 x 1536 table, 4,096 unsorted Zipf ids, a
+  tenth of them past the shard) and a prefix round (N = M = 2^27, D = 1,
+  stride 2^20); each held to the plain version (the kept kernel also bit
+  for bit to its mirror), timed in turns (first, kept, kept, first) with
+  ``chip_smoke.device_ms`` (device time) and ``chip_smoke.median_ms``
+  (with the host's launch time) beside the bound and ``torch.index_add``;
+  then the walls of the sync (update + sync again), ``parallel_prefix`` and
+  ``chain_reduce`` over 2^27, each design in turns (a warm-up, then the
+  median of four), and each path's peak allocation over what it held
+  before; and the kept kernel's device time a call by CUDA kernel
+  (``torch.profiler``) at each shape.
+
 * K9-bwd (the selective scan's backward) at falcon-mamba-7b's train layer
   (1 x 4096 x 8192, N 16) and zamba2-1.2b's K9-form layer (1 x 4096 x
   4096, N 64), bf16, strided: the kernel as built beside an earlier
@@ -59,8 +76,10 @@ import math
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -68,7 +87,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core import array as RA  # noqa: E402
+from repro_torch.core import constructs as C  # noqa: E402
 from repro_torch.kernels import bitpack as K  # noqa: E402
+from repro_torch.kernels import bucket_scatter as BS  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import paged_decode as PD  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
@@ -794,6 +816,185 @@ def k4(dev) -> dict:
         del batches, ordered
     return res
 
+K5_FIRST = ROOT / "variants" / "k5_first_design.cu"
+K5_VOCAB, K5_DIM, K5_M = 256_000, 2304, 32 * 4096     # the sync
+K5_FOLD = (49_408, 1536, 4096)                         # the fold
+K5_PREFIX, K5_STRIDE = 1 << 27, 1 << 20               # a prefix round
+K5_WALL_TURNS = 4                 # turns of each design a path's wall
+
+
+def k5_first_design():
+    """K5's first design built with nvcc, and a call with the kernel
+    wrapper's contract that launches it (one launch booked a call)."""
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "k5_first.so"
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                        str(K5_FIRST)], capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"k5: {K5_FIRST.name} failed to build:\n{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_longlong
+    lib.roomy_bucket_scatter_add.argtypes = [P, I, P, I, I, P, I, P, I, P]
+    lib.roomy_bucket_scatter_add.restype = ctypes.c_int
+
+    def call(table, idx, payload):
+        table, payload = BS._rows(table), BS._rows(payload)
+        idx = idx.contiguous()
+        n, d = table.shape
+        out_ = torch.empty((n, d), dtype=torch.float32, device=table.device)
+        code = lib.roomy_bucket_scatter_add(
+            table.data_ptr(), table.stride(0), out_.data_ptr(), n, d,
+            idx.data_ptr(), idx.numel(), payload.data_ptr(),
+            payload.stride(0), torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise SystemExit(f"k5: the first design's launch failed: {code}")
+        BS.LAUNCHES["bucket_scatter_add"] += 1
+        return out_
+    return call
+
+
+def k5_shapes(dev) -> dict:
+    """(table, idx, payload) of the sync, the fold and a prefix round."""
+    rng = np.random.default_rng(CS.SEED)
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    data = torch.randn(K5_VOCAB, K5_DIM, generator=gen, device=dev)
+    pay = torch.randn(K5_M, K5_DIM, generator=gen, device=dev)
+    ids = torch.from_numpy(CS.zipf_tokens(rng, K5_VOCAB, K5_M)).to(dev)
+    idx_s, order = torch.sort(ids, stable=True)
+    rows, d, m = K5_FOLD
+    fold = CS.zipf_tokens(rng, rows, m)
+    fold[rng.random(m) < 0.1] = rows              # past the shard: dropped
+    pidx = torch.arange(K5_PREFIX, dtype=torch.int32, device=dev) + K5_STRIDE
+    pidx[pidx >= K5_PREFIX] = K5_PREFIX
+    return {"sync": (data, idx_s, pay[order]),
+            "fold": (torch.zeros(rows, d, device=dev),
+                     torch.from_numpy(fold).to(dev),
+                     torch.randn(m, d, generator=gen, device=dev)),
+            "prefix round": (torch.rand(K5_PREFIX, 1, generator=gen,
+                                        device=dev), pidx,
+                             torch.rand(K5_PREFIX, 1, generator=gen,
+                                        device=dev))}
+
+
+def k5_walls(dev, first) -> dict:
+    """The walls of the sync (update + sync(add, add, pred) of the 131,072
+    rows, as ``chip_smoke.phase_embedding_sync`` reads it again),
+    parallel_prefix and chain_reduce over 2^27, each design in turns."""
+    rng = np.random.default_rng(CS.SEED)
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    data = torch.randn(K5_VOCAB, K5_DIM, generator=gen, device=dev)
+    pay = torch.randn(K5_M, K5_DIM, generator=gen, device=dev)
+    ids = torch.from_numpy(CS.zipf_tokens(rng, K5_VOCAB, K5_M)).to(dev)
+    pred = lambda rows: rows[..., 0] > 0          # noqa: E731
+    ra = RA.make(data, K5_M, payload_shape=(K5_DIM,),
+                 payload_dtype=torch.float32, pred=pred)
+    x = torch.rand(K5_PREFIX, generator=gen, device=dev)
+    pa = RA.make(x, K5_PREFIX, payload_dtype=torch.float32)
+
+    peaks = {"first": {}, "kept": {}}
+
+    def timed(fn, what, name):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peaks[name][what] = torch.cuda.max_memory_allocated() - base
+        return wall
+    paths = {
+        "sync_ms": lambda name: 1e3 * timed(lambda: RA.sync(
+            RA.update(ra, ids, pay)[0], RA.add, RA.add, pred=pred),
+            "sync", name),
+        "prefix_s": lambda name: timed(
+            lambda: C.parallel_prefix(pa, RA.add), "prefix", name),
+        "chain_s": lambda name: timed(
+            lambda: C.chain_reduce(pa, RA.add), "chain", name)}
+    res = {}
+    for what, fn in paths.items():
+        rec = {"first": [], "kept": []}
+        for name in ("first", "kept") * (1 + K5_WALL_TURNS):
+            if name == "first":
+                with CS.patched(BS, "bucket_scatter_add", first):
+                    rec[name].append(fn(name))
+            else:
+                rec[name].append(fn(name))
+        for name in rec:                  # the first turn of each warms up
+            rec[name] = {"runs": rec[name][1:],
+                         "median": statistics.median(rec[name][1:])}
+        res[what] = rec
+        print(f"K5 wall {what}: {rec}", flush=True)
+    # bytes allocated at the peak of the last run beyond those held before
+    res["peak_bytes_over_base"] = peaks
+    print(f"K5 peak bytes over the allocations before the call: {peaks}",
+          flush=True)
+    return res
+
+
+def k5_profile(fn, calls=10) -> dict:
+    """Device microseconds a call of each CUDA kernel ``fn`` runs
+    (torch.profiler over ``calls`` calls)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / calls
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def k5(dev) -> dict:
+    first = k5_first_design()
+    res = {}
+    for what, (table, idx, pay) in k5_shapes(dev).items():
+        want = R.bucket_scatter_add_ref(table, idx, pay)
+        kept = BS.bucket_scatter_add(table, idx, pay)
+        old = first(table, idx, pay)
+        torch.cuda.synchronize()
+        if not torch.equal(kept, R.bucket_scatter_add_ordered(table, idx,
+                                                               pay)):
+            raise SystemExit(f"K5 {what}: the kernel != its mirror")
+        hit = torch.linalg.vector_norm(want, dim=1) > 0   # 0/0 elsewhere
+        rels = {name: CS.row_rel(got[hit], want[hit]) for name, got in
+                (("kept", kept), ("first", old))}
+        if not all(math.isfinite(r) for r in rels.values()):
+            raise SystemExit(f"K5 {what}: {rels}")
+        if max(rels.values()) > CS.K5_ROW_REL_TOL:
+            raise SystemExit(f"K5 {what}: {rels} past {CS.K5_ROW_REL_TOL}")
+        del want, kept, old
+        n, d = table.shape
+        m = idx.numel()
+        rec = {"shape": (n, d, m), "row_rel": rels,
+               "bound_ms": (8 * n * d + 4 * m + 4 * m * d)
+               / CS.HBM_BYTES_PER_S * 1e3, "ms": {"first": [], "kept": []},
+               "ms_host": {"first": [], "kept": []}}
+        calls = {"first": lambda: first(table, idx, pay),
+                 "kept": lambda: BS.bucket_scatter_add(table, idx, pay)}
+        for name in ("first", "kept", "kept", "first"):
+            rec["ms"][name].append(CS.device_ms(calls[name]))
+            rec["ms_host"][name].append(CS.median_ms(calls[name]))
+        keep = (idx >= 0) & (idx < n)
+        trash = torch.cat([table, table[:1]])
+        lib_idx = torch.where(keep, idx, n).long()
+        rec["index_add_ms"] = CS.device_ms(
+            lambda: torch.index_add(trash, 0, lib_idx, pay))
+        rec["index_add_ms_host"] = CS.median_ms(
+            lambda: torch.index_add(trash, 0, lib_idx, pay))
+        rec["kept_us_by_kernel"] = k5_profile(calls["kept"])
+        for name in ("first", "kept"):
+            rec[f"{name}_ms_mean_of_two"] = statistics.mean(rec["ms"][name])
+            rec[f"{name}_ms_host_mean_of_two"] = statistics.mean(
+                rec["ms_host"][name])
+        print(f"K5 {what}: {rec}", flush=True)
+        res[what] = rec
+        del table, idx, pay, trash, lib_idx
+        torch.cuda.empty_cache()
+    res["walls"] = k5_walls(dev, first)
+    return res
+
+
 K9B_PARENT = ROOT / "build" / "k9b_parent.cu"
 K9B_SHAPES = {"falcon-mamba-7b train layer": (1, 4096, 8192, 16),
               "zamba2-1.2b K9-form layer": (1, 4096, 4096, 64)}
@@ -849,8 +1050,8 @@ def main() -> None:
     print(f"card: {card}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    _build.build(["bitpack", "paged_decode", "mamba_scan"])
-    sections = {"bitpack": bitpack, "k4": k4, "k8": k8, "k9": k9,
+    _build.build(["bitpack", "bucket_scatter", "paged_decode", "mamba_scan"])
+    sections = {"bitpack": bitpack, "k4": k4, "k5": k5, "k8": k8, "k9": k9,
                 "k9b": k9b}
     wanted = sys.argv[1:] or list(sections)
     unknown = sorted(set(wanted) - set(sections))

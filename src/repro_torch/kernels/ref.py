@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (``kernels/csrc/*.cu``).
 
 Twins of ``repro/kernels/ref.py``: the bit-pack functions of ``:251-294``,
-the segment scatter-add of ``:240-246`` (K5), the attention functions of
+the segment scatter-add of ``:240-246`` (K5, and the mirror of K5's own
+order of sums, ``bucket_scatter_add_ordered``), the attention functions of
 ``:23-123`` and the selective scans of ``:126-169`` (K9), plus the
 forward with its log-sum-exp and the backward of
 ``repro/kernels/flash_attention.py:100-111`` and
@@ -188,6 +189,54 @@ def bucket_scatter_add_ref(table: torch.Tensor, idx: torch.Tensor,
     acc = table.to(torch.float32, copy=True)
     acc.index_add_(0, idx[keep], payload[keep].to(torch.float32))
     return acc.to(table.dtype)
+
+
+#: K5's chunk: a row's ops, in op order, are summed in chunks of this many.
+K5_CHUNK = 256
+
+
+def bucket_scatter_add_ordered(table: torch.Tensor, idx: torch.Tensor,
+                               payload: torch.Tensor) -> torch.Tensor:
+    """The plain mirror of K5's order of sums: a row's kept ops, in op
+    order, fall into chunks of ``K5_CHUNK`` consecutive ops; each chunk's sum
+    ``s_k = ((p_kG + p_kG+1) + …)`` is taken left to right from its first
+    payload, and ``out[r] = table[r] + (((s_0 + s_1) + s_2) + …)``; a row
+    with no op is the table's.  Indices as ``bucket_scatter_add_ref``.  It
+    loops over the position within a chunk and over a row's chunk rank,
+    with elementwise float32 adds only, so its bits do not depend on the
+    device or the run.  Returns ``table.dtype``."""
+    n = table.shape[0]
+    dev = table.device
+    rows = idx.to(torch.int64).reshape(-1)
+    rows = torch.where(rows < 0, rows + n, rows)
+    ops = torch.nonzero((rows >= 0) & (rows < n)).reshape(-1)
+    out = table.to(torch.float32, copy=True)
+    if ops.numel() == 0:
+        return out.to(table.dtype)
+    rows = rows[ops]
+    order = torch.sort(rows, stable=True).indices   # by row, op order within
+    ops, rows = ops[order], rows[order]
+    pay = payload[ops].to(torch.float32)
+    pos = torch.arange(ops.numel(), device=dev)
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    k, j = rank // K5_CHUNK, rank % K5_CHUNK
+    cid = torch.cumsum(j == 0, 0) - 1                 # the op's chunk
+    sums = pay[j == 0].clone()                        # s_k from its first
+    for jj in range(1, int(j.max()) + 1):
+        at = j == jj
+        sums[cid[at]] = sums[cid[at]] + pay[at]
+    head = j == 0
+    ck = k[head]                                      # each chunk's rank
+    rid = torch.cumsum(ck == 0, 0) - 1                # its row's number
+    total = sums[ck == 0].clone()
+    for kk in range(1, int(ck.max()) + 1):
+        at = ck == kk
+        total[rid[at]] = total[rid[at]] + sums[at]
+    touched = rows[head][ck == 0]
+    out[touched] = out[touched] + total
+    return out.to(table.dtype)
 
 
 # ------------------------------------------------------------- attention
