@@ -29,11 +29,8 @@ caught:
    (``binned``, ``atomic``), out of place and in place — edge cases at
    small widths and at W = T − 1, T, T + 1, 2T + 1 (T = 4096 words, the
    binned route's tile) with targets on the first and last field of every
-   tile, misaligned words and targets; three planted faults of the binned
-   route (copies of its source with one line changed, built here), each
-   of which must break bit-exactness: one bin's last target dropped, one
-   offset sent to the neighbouring tile, the tail tile's count skipped;
-   then W = 29,937,600 words (12! states) with the real level-6 targets
+   tile, misaligned words and targets; then W = 29,937,600 words (12!
+   states) with the real level-6 targets
    of pancake n = 12, K1 in place vs out of place.
 4. times: CUDA events, median of 20 launches, at those n = 12 shapes, beside
    the byte bound at 3.35 TB/s and the plain version's time; then K1 and
@@ -66,20 +63,26 @@ caught:
    lexsorts and scatters a level (1 and 1 fused, 2 and 2 unfused, checked
    for every level), the ``bfs.level`` / ``bfs.expand`` span totals, the
    widest level's ms and the allocator's device allocations and retries;
-   one ``{"sorted_bfs": …}`` line.
+   one ``{"sorted_bfs": …}`` line.  Then three planted faults of K1/K2's
+   binned route (copies of its source with one line changed, built with
+   nvcc in the background since phase 2), each of which must break
+   bit-exactness: one bin's last target dropped, one offset sent to the
+   neighbouring tile, the tail tile's count skipped.
 6c. Tier D (``phase_disk_tier``), in temporary directories on the
-   machine's disk: first pancake n = 8 in chunks of 1,000 fields (250
+   machine's disk: first pancake n = 7 (8 until PR 33: cut for the time
+   limit) in chunks of 1,000 fields (250
    bytes: every chunk ends inside a word), fused and unfused, on the card
    and on the CPU, the two workdirs the same bytes; then the in-memory
-   engine at n = 11 (its wall and peak) and a plain distance table built
+   engine at n = 10 (its wall and peak) and a plain distance table built
    on the card, which gives the level sizes and the marks each level
    sends to each chunk; then the main path, ``apps.pancake_bits.run_disk``
-   at n = 11 (39 chunks of 2^20 fields, the reference's ``log_buf_rows``
-   and ``expand_batch``), every count set to 0 just before each run and
-   read just after: fused (K1 39 x 14 = 546, each on the route
+   at n = 10 (4 chunks of 2^20 fields, the reference's ``log_buf_rows``
+   and ``expand_batch``; n = 11, 39 chunks, until PR 33: cut for the time
+   limit), every count set to 0 just before each run and
+   read just after: fused (K1 4 x 12 = 48, each on the route
    ``K.route`` names for its chunk's log; no K2, K3); then at n = 10
-   (``DISK_SIDE_N``; n = 11 before ``phase_mesh_train`` came, cut for its
-   time), against its own distance table and in-memory engine, unfused
+   (``DISK_SIDE_N``), against its own distance table and in-memory
+   engine, unfused
    (K3 a chunk a level, K2 one per (chunk, pass) with a log, by route),
    and with rle2 chunks stopped after level 6 with checkpoints every 3
    levels, then resumed (K1 a chunk a level over the two); each with the
@@ -103,21 +106,25 @@ caught:
    over a ``ShardRuntime`` built by the script, each shard's block of the
    2-bit array on the card, every count set to 0 just before each run and read
    just after (the spawn workers' counts come home through the runtime's
-   counter deltas): (a) pancake n = 11 over 4 spawned shards, fs wire,
-   barrier exchange, chunks of 2^20 — the in-memory level sizes, every
-   state DONE, K1 4 x 10 x 14 = 560 times and nothing else, per shard one
-   pass a level and no sort, the op log 16 B a mark (6,386,688,016 B, the
+   counter deltas): (a) pancake n = 10 over 4 spawned shards, fs wire,
+   pipelined exchange, 4 chunks of 2^18 a shard (n = 11 in chunks of 2^20
+   and the barrier exchange until PR 33: cut for the time limit) — the
+   in-memory level sizes, every
+   state DONE, K1 4 x 4 x 12 = 192 times and nothing else, per shard one
+   pass a level and no sort, the op log 16 B a mark (522,547,216 B, the
    single-process run's), each mark at its owner once (local + remote =
    the marks), the wire's bytes out == in, no drop; the wall, states/s,
    each worker's peak device memory, K1's CUDA-event ms in the workers,
-   their log and bucket I/O seconds; (b) the same at n = 10 over 2 shards
-   (n = 11 until PR 30: cut for ``phase_mesh``'s time); (c) at n = 10: 4
-   shards with the pipelined exchange, the
-   TCP wire (spawn) under a trace whose JSONL reads back through
-   ``trace.report_json`` with one row a level, each with spans of every
-   shard, the loopback wire (inline), and ``worker_level:kill:shard=1:
-   level=4`` with checkpoints every level and one recovery, healed to the
-   exact level sizes; (d) at n = 9 over 2 shards (chunks of 2^16), K1
+   their log and bucket I/O seconds; (b) the same at n = 9 over 2 shards
+   on the TCP wire (spawn, barrier exchange) under a trace whose JSONL
+   reads back through ``trace.report_json`` with one row a level, each
+   with spans of both shards (n = 11 until PR 30, 10 until PR 33; until
+   PR 33 the fs wire, and the TCP wire and the pipelined exchange in
+   4-shard runs of their own: cut for the time limit); (c) at n = 9 over
+   4 shards: the loopback wire (inline), and ``worker_level:kill:shard=1:
+   level=4`` (fs wire, barrier exchange) with checkpoints every level and
+   one recovery, healed to the exact level sizes; (d) at n = 9 over 2
+   shards (chunks of 2^16), K1
    against its plain version on the card: every shard's chunks, op logs
    and pending bucket files the same bytes at level 5 and at the end, and
    the final words the single-process search's; (e) the sorted engine on
@@ -158,8 +165,9 @@ caught:
       4096); at 20% of the artifact the codes held again and K4 launched
       once per ascending group of chunks within the budget (6 for 16
       chunks), with the ``oracle`` counters and resident_peak <= budget;
-      the rle2 publish (identical chunk_sha256 and codes);
-   e. n = 10: the labels through the kernels == through their plain
+   e. n = 10: the rle2 publish (identical chunk_sha256, every rank's code
+      the raw artifact's; at n = 12 until PR 33: cut for the time limit);
+      the labels through the kernels == through their plain
       versions on the card (``impl="ref"``: levels and words) == the
       published chunks; ``distance`` of all 3,628,800 ranks == a plain
       BFS distance table made on the card.
@@ -201,7 +209,8 @@ caught:
       launch and its plain version bit for bit, its times (both ways)
       beside its bound, the plain version and ``torch.index_add``, and its
       share of the round's wall;
-   d. ``hashtable`` with 4,194,304 width-2 keys (insert, sync with the
+   d. ``hashtable`` with 1,048,576 width-2 keys (4,194,304 until PR 33:
+      cut for the time limit; insert, sync with the
       benchmark's add combine, remove, insert, sync, lookup): keys, values,
       count and lookups identical to the same calls on the CPU;
    e. the sharded path on a one-rank NCCL group from a FileStore:
@@ -254,7 +263,7 @@ caught:
       it); 16 ``decode_step``s from the prefill's caches (decode tokens/s;
       K8 launched 13 times a step, once a global layer, all on the TMA
       route, counted after every step; the 13 local layers gather
-      their cache for the plain windowed decode), then one prefill and 4
+      their cache for the plain windowed decode), then one prefill and 2
       decode steps under ``torch.profiler``: device time by kernel group
       and the device's idle share;
    f. prefill-then-decode ≡ stepwise decode on a 64-token prefix, in
@@ -306,7 +315,16 @@ caught:
    d. SMOKE (float32, head_dim 12: K6 on the classic route) on the card:
       the loss decreases over 15 steps, and a crash at step 7 with a
       checkpoint every 3 steps replays to the uninterrupted final loss
-      within rtol 1e-5.
+      within rtol 1e-5;
+   e. the dry run beside the card (``dryrun_vs_card``): the main path's
+      cell (gemma2-2b ``train_4k`` at batch 1) traced by
+      ``launch/dryrun.py`` as rank 0 of a one-rank ``fake`` world on a
+      (1, 1) host mesh, in a subprocess started after the build (its fake
+      process group never meets this process's NCCL ones; its trace runs
+      on the host beside the card's phases): its peak estimate, FLOPs,
+      bytes and roofline terms (H100 constants, ``launch/roofline.py``)
+      printed beside a.'s ``max_memory_allocated`` and median step, not
+      gated (the dry run traces the plain versions).
 14. K9 (selective scan) and falcon-mamba-7b (``phase_falcon_mamba``):
    a. K9 parity against its plain version (the sequential form, with the
       final state) on the card: the cases of ``tests/test_kernels.py:
@@ -332,10 +350,11 @@ caught:
       the state, by both checks, and the planted faults there;
    d. K9 at that shape (median of 20) beside its bound (the largest of
       the exponentials at 16 a clock per SM, the f32 FMAs at 67 TFLOP/s
-      and the bytes at 3.35 TB/s) and the plain version (median of 3); no
+      and the bytes at 3.35 TB/s) and the plain version (one timed call
+      after a warm-up); no
       library call computes a selective scan;
    e. 16 ``decode_step``s from b.'s states (K9 launched 0 times), then one
-      prefill and 4 decode steps under ``torch.profiler``;
+      prefill and 2 decode steps under ``torch.profiler``;
    f. ``forward_hidden`` + ``logits_fn`` over 1 × 4096 tokens (K9 launched
       64 times);
    g. the same prefill through K9 and through the plain scan at full
@@ -346,7 +365,10 @@ caught:
       prefix, and prefill-then-decode ≡ stepwise decode, in bfloat16 and
       in float32;
    i. ``python -m repro_torch.launch.serve --arch falcon-mamba-7b`` with
-      its defaults.
+      its defaults;
+   j. one decode step at ``long_500k``'s position 524,287 from seeded
+      states (``fm_long_decode``: the ssm cache does not grow with the
+      position): finite logits, no K9 launch, its wall.
 15. K8 (paged decode attention) and the dense configs (``phase_dense``):
    a. K8 parity against its plain version on the card: the cases of
       ``tests/test_kernels.py:402-406``, groups 1, 2, 6 and 48 at head
@@ -408,7 +430,7 @@ caught:
       (token, choice) pairs dropped at the reference's capacity; K8 on a
       captured decode layer against its plain version and timed; 16
       decode steps with exactly 32 K8 launches a step, all tma; the
-      profile of a prefill and of 4 decode steps; ``launch/serve.py
+      profile of a prefill and of 2 decode steps; ``launch/serve.py
       --arch granite-moe-3b-a800m``;
    b. zamba2-1.2b FULL (38 mamba2 layers, the shared block 6 times; K6
       and K8 at MHA 32 x 64): the 1 × 32768 prefill with exactly 6 K6
@@ -427,6 +449,20 @@ caught:
       layer and its times, the MoE share and drops, K8 on a captured
       decode layer and its time, 16 decode steps with exactly 8 K8
       launches a step, the profile.
+16b. ``long_500k`` (``phase_long_500k``): zamba2-1.2b FULL in bfloat16 at
+   the shape's own batch 1 and seq 524,288: ``lm.make_cache(cfg, 1,
+   524288)`` (6 shared-block K/V caches of 2^30 elements each) filled in
+   place from a seeded generator to 524,279 positions (a prefill over
+   524,288 tokens is quadratic; a decode step's work does not depend on
+   what the pages hold); the main path: 8 greedy ``decode_step``s with
+   ``donate=True``, every count set to 0 just before and read after each
+   step: exactly 6 K8 launches a step, all tma, no other kernel; tokens/s
+   and peak; then one more donated step appending position 524,287, its
+   first K8 call captured: K8 over all 524,288 positions against
+   ``paged_decode_attention_ref`` (K8_TOL and the per-(b, h) limit, two
+   launches the same bits), its device time (median of 20) beside its
+   byte bound (4,294,967,296 B at 3.35 TB/s), the plain version and SDPA,
+   and the blocks it launches.
 17. training the ssm, MoE and hybrid families
    (``phase_training_families``):
    a. K9-bwd (the selective scan's backward) against its plain version
@@ -490,7 +526,7 @@ caught:
       16) must break the rule; K8 on a captured decode layer and its
       times; 16 greedy decode steps, each fed the codebook row of the last
       token, with exactly 48 / 28 K8 launches a step, all tma; 4 steps
-      held to the plain paged decode per row; the profile (prefill and 4
+      held to the plain paged decode per row; the profile (prefill and 2
       decode steps: the idle share);
    b. trained through ``runtime.train_loop.train`` (float32 master params,
       bfloat16 compute, remat, 1 × 4096, 6 steps): K6-with-LSE 96 / 56 and
@@ -512,7 +548,8 @@ caught:
    roomy MoE: the 1 × 4096 prefill at capacity factor 8 on the mesh and
    with none (0 pairs dropped either side, counted; K6 32 a side, all
    wgmma; the last logits within the limit); the roomy embedding of a
-   1 × 32768 prompt == the take, bit for bit; 16 decode steps at batch 8
+   1 × 32768 prompt == the take, bit for bit; 8 decode steps (16 until
+   PR 33, cut for the time limit) at batch 8
    (``_paged_decode_batched``: K8 32 a step, all tma) and at batch 1
    (``_paged_decode_cp``: no K8) after 8 tokens, each greedy step of the
    run with no mesh again on the mesh from the same cache: the logits of
@@ -527,15 +564,18 @@ caught:
    worlds of ``tests/test_torch_mesh.py``.  A float32 witness of the CP
    gate: the model in float32 at 2 layers, each step of the plain run
    with no mesh again through ``_paged_decode_cp``, within CP_F32_TOL a
-   row, the planted CP-mask fault at least 10x it.
+   row, the planted CP-mask fault at least 10x it.  The calls take the
+   params as ShardingRules shards; on the (1, 1) mesh every shard is its
+   whole leaf.
 18c. training on a device mesh (``phase_mesh_train``): (a) a one-rank NCCL
    world as the (1, 1) mesh, granite-moe-3b at its published widths and
-   16 of 32 layers, roomy MoE and roomy embedding at capacity factor 8:
+   8 of 32 layers (16 until PR 33), roomy MoE and roomy embedding at
+   capacity factor 8:
    three train steps of 1 × 4096 (``runtime.train_loop.make_train_step``
    with the mesh: params and AdamW state as ShardingRules shards) against
    the same config with no mesh, step 0's loss bit for bit, the gradient
    at the seed's params within MESH_TRAIN_GRAD_TOL a leaf, the launches a
-   ``train.step`` span (K6-LSE 32, K7 16 each side, K5 once on the mesh:
+   ``train.step`` span (K6-LSE 16, K7 8 each side, K5 once on the mesh:
    the roomy embedding's gradient fold, none off it), the reverse
    all-to-all's backward zeroed as a planted fault; readings: the step
    times and peaks, the MoE's share of a step by CUDA events, a profiled
@@ -547,6 +587,13 @@ caught:
    (2, 1), loss and per-leaf gradient against the one-device run, K6-LSE,
    K7 and K5 on each rank, ``tp`` left out of the loss share and the
    local mask count as planted faults.
+18d. serving from param shards (``serve_from_shards``, in 18c's two-rank
+   gloo world, after its training): granite-moe-3b at full width and 2 layers
+   in bfloat16, ``lm.prefill`` of a 2 x 64 prompt and 4 greedy
+   ``decode_step``s on (1, 2) and (2, 1) meshes from each rank's
+   ``sharding_rules.shard_params`` shards, against the same calls from the
+   whole params on that mesh (the gather an identity): logits the same
+   bits, tokens identical, both ranks alike, K6 2 and K8 8 on each rank.
 19. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K1's, K2's and
    K3's launches, routes and summed times on the disk route; K6's and
@@ -554,10 +601,12 @@ caught:
    route and the ptxas report; K6's, K8's and K9's launches on the MoE,
    hybrid, frontend and mesh paths; K6-with-LSE's, K7's and K9's on the
    training paths, and with K5's a mesh train step; K5's fold times; the
-   frontend layouts' times), the card line, and last
+   frontend layouts' times; K8's ``long_500k`` time, bound, blocks and
+   launches), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import functools
 import ctypes
 import itertools
 import json
@@ -592,6 +641,7 @@ from repro_torch.core import hashtable as HT  # noqa: E402
 from repro_torch.core import obs  # noqa: E402
 from repro_torch.core import types as TY  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitpack as K  # noqa: E402
 from repro_torch.kernels import bucket_scatter as BS  # noqa: E402
@@ -1139,12 +1189,12 @@ def fault_libs() -> dict:
         return {name: f.result() for name, f in futs.items()}
 
 
-def phase_bin_faults(dev) -> dict:
-    """Each planted fault breaks bit-exactness: K1 (rotate, count CUR) and
-    K2 on the binned route against the plain versions, on zeroed words
-    with distinct targets (so every target marks a field of its own) that
-    include the first and last field of each tile."""
-    libs = fault_libs()
+def phase_bin_faults(dev, libs) -> dict:
+    """Each planted fault (``libs``, from ``fault_libs``) breaks
+    bit-exactness: K1 (rotate, count CUR) and K2 on the binned route
+    against the plain versions, on zeroed words with distinct targets (so
+    every target marks a field of its own) that include the first and last
+    field of each tile."""
     rng = np.random.default_rng(3)
     cap = 16 * FAULT_W
     idx = np.unique(np.concatenate([rng.integers(0, cap, 20000),
@@ -1197,15 +1247,22 @@ def phase_parity_full(dev):
     return data, tgt
 
 
+@functools.lru_cache(maxsize=2)
+def normal_draws(shapes, seed) -> tuple:
+    """float32 standard normals of each of ``shapes`` in turn from one
+    numpy seed; a case's dtypes and layouts share one draw."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(sh, np.float32) for sh in shapes)
+
+
 def k6_inputs(case, dtype, dev, seed, strided=False):
     """q, k, v of one K6 case from a numpy seed; ``strided`` gives them as
     the model does, (B, S, H, D) activations viewed as (B, H, S, D)."""
     b, hq, hkv, sq, skv, d = case[:6]
-    rng = np.random.default_rng(seed)
     out = []
-    for h, s in ((hq, sq), (hkv, skv), (hkv, skv)):
-        x = torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
-        x = x.to(dev, dtype)
+    for a in normal_draws(((b, sq, hq, d), (b, skv, hkv, d),
+                           (b, skv, hkv, d)), seed):
+        x = torch.from_numpy(a).to(dev, dtype)
         out.append(x.transpose(1, 2) if strided else
                    x.transpose(1, 2).contiguous())
     return out
@@ -2182,24 +2239,36 @@ def phase_oracle_serve(root, n, sizes, dev):
           f"{small_dist['queries_per_s']:.1f} queries/s, "
           f"{small_dist['k4_launches_per_batch']:.1f} K4 launches a batch "
           f"(batches of {m}); counters {stats}; resident_peak <= budget")
+    res.update(small_budget=budget, small_groups=groups,
+               small_codes=small_codes,
+               small_distance=small_dist, small_stats=stats)
+    return res, k4
+
+
+def compressed_publish(n, art, meta, dev) -> dict:
+    """The same publish with rle2 chunks (at n = 12 until PR 33: cut for
+    the time limit): the same chunk_sha256, and every rank's code the
+    same as from the raw artifact."""
     t0 = time.perf_counter()
-    packed = P.publish(n, sizes, art + "_rle2", compress=True, device=dev)
+    packed = P.publish(n, None, art + "_rle2", compress=True, device=dev)
     compress_s = time.perf_counter() - t0
     expect(packed["chunk_sha256"] == meta["chunk_sha256"]
            and packed["format"] == 2, "the compressed publish differs")
-    stored = sum(os.path.getsize(os.path.join(art + "_rle2", "v000001",
-                                              f"b{c:06d}.rmz"))
-                 for c in range(packed["n_chunks"]))
+    stored, raw = (sum(os.path.getsize(os.path.join(a, "v000001",
+                                                    f"b{c:06d}.{ext}"))
+                       for c in range(packed["n_chunks"]))
+                   for a, ext in ((art + "_rle2", "rmz"), (art, "npy")))
+    ranks = torch.arange(math.factorial(n), device=dev)
     with O.DistanceOracle(art + "_rle2", cache_bytes=1 << 30,
-                          device=dev) as rle:
-        expect(torch.equal(rle.codes(probe), codes), "rle2 codes differ")
-    print(f"oracle: compressed publish in {compress_s:.3f} s, {stored} "
-          f"bytes stored for {art_bytes}; identical chunk_sha256 and codes")
-    res.update(small_budget=budget, small_groups=groups,
-               small_codes=small_codes,
-               small_distance=small_dist, small_stats=stats,
-               compressed_publish_s=compress_s, compressed_bytes=stored)
-    return res, k4
+                          device=dev) as rle, O.DistanceOracle(
+            art, cache_bytes=1 << 30, device=dev) as whole:
+        expect(torch.equal(rle.codes(ranks), whole.codes(ranks)),
+               "rle2 codes differ")
+    print(f"oracle: compressed publish of n={n} in {compress_s:.3f} s, "
+          f"{stored} bytes stored for {raw}; identical chunk_sha256 and "
+          "every rank's code")
+    return {"compressed_publish_s": compress_s, "compressed_bytes": stored,
+            "raw_bytes": raw}
 
 
 def phase_oracle_exact(root, dev, n=ORACLE_EXACT_N) -> dict:
@@ -2210,7 +2279,8 @@ def phase_oracle_exact(root, dev, n=ORACLE_EXACT_N) -> dict:
     and bit-identical label words, which are the published chunks'."""
     total, start = math.factorial(n), [P.start_rank(n)]
     art = os.path.join(root, f"pancake{n}")
-    P.publish(n, None, art, device=dev)
+    meta = P.publish(n, None, art, device=dev)
+    packed = compressed_publish(n, art, meta, dev)
     ref = P.ram_distances(n, dev)
     sk, wk = O.label_distances_mod3(total, start, P.neighbors(n), device=dev)
     sr, wr = O.label_distances_mod3(total, start, P.neighbors(n),
@@ -2234,7 +2304,7 @@ def phase_oracle_exact(root, dev, n=ORACLE_EXACT_N) -> dict:
           f" all {total} distances == the plain BFS table on the card "
           f"({secs:.3f} s, {total / secs:.0f} queries/s in one batch)")
     return {"n": n, "states": total, "wall_s": secs,
-            "queries_per_s": total / secs}
+            "queries_per_s": total / secs, **packed}
 
 
 def phase_oracle(dev, sizes) -> dict:
@@ -2275,7 +2345,10 @@ PREFIX_LOG2 = 27              # parallel_prefix over 2^27 float32 (512 MB)
 # at most 27 * 2^-24 = 1.61e-6 of itself (to first order); the limit adds
 # a margin over that.
 PREFIX_REL_TOL = 2e-6
-HT_KEYS = 1 << 22             # the hash table's queue: 4,194,304 keys
+HT_KEYS = 1 << 20             # the hash table's queue: 1,048,576 keys
+#                               (4,194,304 until PR 33: cut for the time
+#                               limit; the CPU's run of the same calls is
+#                               most of the phase)
 HT_WIDTH = 2
 SHARD_SHAPE = (65536, 512, 1 << 18)   # the sharded path's rows, width, ops
 SHARD_WORDS = 1 << 20                 # its bit array (16.8M elements)
@@ -2696,7 +2769,7 @@ def ht_round(dev, keys, vals, rm, keys2, vals2, queries):
 
 
 def phase_hashtable(dev) -> dict:
-    """RoomyHashTable with 4,194,304 width-2 keys on the card: the keys,
+    """RoomyHashTable with HT_KEYS width-2 keys on the card: the keys,
     values, count and lookups identical to the same calls on the CPU."""
     rng = np.random.default_rng(SEED + 2)
     n = HT_KEYS
@@ -2823,10 +2896,17 @@ def phase_roomy(dev) -> dict:
 # ------------------------------------------------- LM serving (gemma2-2b)
 
 ARCH = "gemma2-2b"
-PREFILL_LEN = 32768      # prefill_32k (repro/configs/shapes.py:24); batch 32 cut to 1
+# The LM phases run the assigned shapes (repro_torch/configs/shapes.py) at
+# their own sequence lengths; each global batch is cut, once, here:
+PREFILL_LEN = SHAPES["prefill_32k"].seq_len
+PREFILL_BATCH = 1        # prefill_32k's 32 cut to 1: the shape's batch is
+#                          the mesh's, 2 rows a data rank of 16; one card
+#                          runs one row, which the K6 timing and the
+#                          planted-fault reads are sized for
 DECODE_STEPS = 16
-EQUIV_PREFIX = 64
-PLAIN_REPS = 3           # the plain attention at 32k takes about a second a call
+EQUIV_PREFIX = 32        # 64 until PR 33: cut for the time limit
+PLAIN_REPS = 1           # the plain versions take up to seconds a call (3
+#                          until PR 33: cut for the time limit)
 SEED = 0
 K6_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 K6_REPLACES = "src/repro/kernels/flash_attention.py:114"
@@ -2996,7 +3076,7 @@ def phase_prefill(cfg, params, dev, seq=PREFILL_LEN):
     with every launch count set to 0 just before it, and nothing wrapped
     around it, so wall and peak memory are the prefill's own."""
     lm.prefill(params, lm_inputs(cfg, 1, 256, dev, SEED + 1), cfg)  # warm-up
-    inputs = lm_inputs(cfg, 1, seq, dev, SEED)
+    inputs = lm_inputs(cfg, PREFILL_BATCH, seq, dev, SEED)
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_all_launches()
@@ -3315,6 +3395,7 @@ def phase_serve(argv=("--arch", ARCH)):
             "stats": server.stats, "k8_launches": k8}
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_group(name: str) -> str:
     low = name.lower()
     if any(w in low for w in ("fa_hopper_kernel", "fa_bf16_kernel",
@@ -3378,31 +3459,37 @@ def device_profile(fn, dev, what, tail=None) -> dict:
     group, and the share of the wall with no kernel running (kernels run
     one at a time on the one stream, so their durations add up).  With
     ``tail`` = (marker kernel, group), every kernel that starts after the
-    marker goes to that group, and the marker to none."""
+    marker goes to that group, and the marker to none.  The CUDA activity
+    alone (the device's kernels and the runtime's calls, no CPU ops: a
+    train step's ops would cost the profiler seconds), read from the raw
+    events (``prof.events()`` would first build a tree of them, seconds
+    more)."""
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         h0 = host_counters()
         fn()
         sync(dev)
         host = host_delta(h0, host_counters())
     wall = host["wall_s"]
-    calls = [ev for ev in prof.events() if ev.name in LAUNCH_CALLS]
+    cuda = torch.autograd.DeviceType.CUDA
+    calls, device = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            device.append((ev.start_ns(), ev.name(), ev.duration_ns()))
+        elif ev.name() in LAUNCH_CALLS:
+            calls.append(ev.duration_ns())
     host["launch_calls"] = len(calls)
-    host["launch_call_ms"] = sum(ev.time_range.elapsed_us()
-                                 for ev in calls) / 1e3
+    host["launch_call_ms"] = sum(calls) / 1e6
     groups, kernels, after = {}, {}, False
-    for ev in sorted((ev for ev in prof.events() if ev.device_type ==
-                      torch.autograd.DeviceType.CUDA),
-                     key=lambda ev: ev.time_range.start):
-        if tail and tail[0] in ev.name:
+    for _, name, ns in sorted(device):
+        if tail and tail[0] in name:
             after = True
             continue
-        us = ev.time_range.elapsed_us()
-        g = tail[1] if after else kernel_group(ev.name)
-        groups[g] = groups.get(g, 0.0) + us / 1e3
-        kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
+        ms = ns / 1e6
+        g = tail[1] if after else kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+        kernels[name] = kernels.get(name, 0.0) + ms
     busy_ms = sum(groups.values())
     res = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
@@ -3422,7 +3509,7 @@ def device_profile(fn, dev, what, tail=None) -> dict:
     return res
 
 
-def phase_profile(cfg, params, inputs, caches, dev, steps=4,
+def phase_profile(cfg, params, inputs, caches, dev, steps=2,
                   prefill=True) -> dict:
     """Where the time goes: one prefill of the main path's inputs (unless
     ``prefill`` is False) and ``steps`` decode steps from its caches,
@@ -3536,7 +3623,10 @@ K7_MODEL_CASE = K7_CASES[5]
 # largest probabilities, where at σ = 4 it overflows.
 K7_CAP_SIGMA = 4.0
 K7_FAULT_SIGMA = 2.0
-TRAIN_SEQ = 4096        # train_4k (repro/configs/shapes.py:22); batch 256 cut to 1
+TRAIN_SEQ = SHAPES["train_4k"].seq_len
+TRAIN_BATCH = 1         # train_4k's 256 cut to 1: a gemma2-2b step holds
+#                         42 GB of f32 params, grads and AdamW moments, and
+#                         its 256,000-wide logits take ~6 GB a row of 4096
 TRAIN_STEPS = 6
 # K7 at the dense configs' layouts, 1 × 4096, causal, timed beside SDPA's
 # backward: b, hq, hkv, sq, skv, d
@@ -3551,9 +3641,8 @@ def k7_inputs(case, dtype, dev, seed, strided=False, qk_sigma=1.0):
     if qk_sigma != 1.0:
         q, k = q * qk_sigma, k * qk_sigma
     b, hq, _, sq, _, d = case[:6]
-    rng = np.random.default_rng(seed + 1000)
-    do = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32))
-    do = do.to(dev, dtype).transpose(1, 2)
+    do, = normal_draws(((b, sq, hq, d),), seed + 1000)
+    do = torch.from_numpy(do).to(dev, dtype).transpose(1, 2)
     return q, k, v, do if strided else do.contiguous()
 
 
@@ -3884,7 +3973,8 @@ def phase_train(cfg, dev) -> tuple:
     just before and read just after; each step's launches from its
     ``train.step`` span, exact (``train_expected``), every K6-with-LSE and
     K7 launch on the wgmma route."""
-    s = TrainSettings(batch=1, seq=TRAIN_SEQ, steps=TRAIN_STEPS, log_every=1)
+    s = TrainSettings(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                      log_every=1)
     spans = []
     torch.cuda.empty_cache()
     sync(dev)
@@ -4503,7 +4593,7 @@ def fm_prefill(cfg, params, dev, seq=PREFILL_LEN):
     """The main path: 1 × ``seq`` tokens through ``lm.prefill`` with every
     launch count set to 0 just before it and nothing wrapped around it."""
     lm.prefill(params, lm_inputs(cfg, 1, 256, dev, SEED + 1), cfg)  # warm-up
-    inputs = lm_inputs(cfg, 1, seq, dev, SEED)
+    inputs = lm_inputs(cfg, PREFILL_BATCH, seq, dev, SEED)
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_all_launches()
@@ -4569,7 +4659,8 @@ def fm_capture(cfg, params, inputs, wall, dev):
 def phase_k9_times(args) -> dict:
     """K9 at the prefill's shape (layer 0's captured inputs, with its final
     state, as the prefill calls it): CUDA events, median of 20, beside the
-    bound and the plain version (median of 3).  No library call: PyTorch
+    bound and the plain version (one timed call after a warm-up).  No
+    library call: PyTorch
     has none that computes a selective scan."""
     ms = median_ms(lambda: MS.mamba_scan(*args, return_state=True))
     plain = median_ms(lambda: R.mamba_scan_seq_stateful(*args),
@@ -4708,6 +4799,7 @@ def phase_falcon_mamba(dev) -> dict:
     profile = phase_profile(cfg, params, inputs, caches, dev)
     del caches, inputs
     torch.cuda.empty_cache()
+    long_decode = fm_long_decode(cfg, params, dev)
     forward = fm_forward(cfg, params, dev)
     plain = fm_prefill_plain(cfg, params, dev)
     tol = dict(rel_tol=FM_LOGIT_REL_TOL)
@@ -4726,7 +4818,8 @@ def phase_falcon_mamba(dev) -> dict:
     print(json.dumps({"falcon_mamba": {
         "arch": FM_ARCH, "k9_parity": parity, "prefill": prefill,
         "captured_layers": captured["layers"], "k9_times": times,
-        "decode": decode, "profile": profile, "forward": forward,
+        "decode": decode, "long_500k_decode": long_decode,
+        "profile": profile, "forward": forward,
         "prefill_plain": plain, "prefill_plain_f32": plain32,
         "equivalence": equiv, "serve": served}},
         default=str))
@@ -4789,7 +4882,10 @@ K8_CAP_SIGMA = 30.0           # q at this σ: logits of std ~30, capped at 20
 # tokens; planted K6 faults in the same prefill must break the limit.
 DENSE_PLAIN_LEN = 2048
 DENSE_FAULT_WINDOW = 16
-BATCH_DECODE = 8              # decode_32k's global batch 128, cut to one card
+BATCH_DECODE = SHAPES["decode_32k"].global_batch // 16   # 128 cut to 8: one
+#                             data rank's rows on the 16 x 16 mesh, and what
+#                             the card holds beside nemotron's 31.3 GB of
+#                             params at 32k tokens a row (70.1 GB peak)
 
 
 def k8_lengths(b, ps, pps):
@@ -5096,7 +5192,8 @@ def phase_k8_times(args, kw, what, library=True) -> dict:
     """K8 on captured inputs (device time by CUDA events behind a spin
     kernel, median of 20; ``ms_host`` without the spin, as the earlier
     kernels are timed, which adds the wrapper's launch time) beside its
-    bound and its plain version (median of 3).  With ``library`` (no
+    bound and its plain version (one timed call after a warm-up).  With
+    ``library`` (no
     softcap), scaled_dot_product_attention(enable_gqa=True) over the live
     cache, which computes the same function there: once with the gather
     through the table inside the timing, once over a gathered cache; each
@@ -5309,7 +5406,8 @@ def phase_k6_dense_times(cfg, call) -> dict:
     """K6 on the dense prefill's captured layer 0 (nemotron-4-15b: 1 × 48 ×
     32768 × 128, 8 kv heads, causal, no softcap, no window): held to its
     plain version by both checks, then timed (CUDA events, median of 20)
-    beside its bound, the plain version (median of 3) and the library call
+    beside its bound, the plain version (one timed call after a warm-up)
+    and the library call
     that computes exactly this function, scaled_dot_product_attention(
     is_causal=True, enable_gqa=True), held to K6's per-(b, h) limit
     against K6."""
@@ -6058,7 +6156,8 @@ MROPE_PREFIX = 512            # text tokens before qwen's patch grid
 MROPE_GRID = 64               # ... of 64 x 64 patches
 MROPE_WRONG_SECTIONS = (24, 24, 16)   # a planted band-to-stream split
 FRONTEND_PLAIN_DECODE = 4     # decode steps held to the plain path
-CORPUS_BATCH = 256            # train_4k's global batch: 256 x 4097 tokens a chunk
+CORPUS_BATCH = SHAPES["train_4k"].global_batch   # the shape's own, uncut:
+#                             256 x 4097 tokens a chunk on the host's disk
 CORPUS_STEPS = 6
 
 
@@ -6142,7 +6241,8 @@ def frontend_train_layout(cfg, dev) -> dict:
     Hkv kv heads, causal, as the model hands them over: strided views):
     both held to their plain versions (``check_k6``, ``run_k7``), on the
     wgmma route, and timed beside their bounds, their plain versions
-    (median of 3) and the library call that computes the same function,
+    (one timed call after a warm-up) and the library call that computes
+    the same function,
     scaled_dot_product_attention(is_causal=True, enable_gqa=True): its
     forward (which returns no LSE) and its backward alone."""
     case = (1, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
@@ -6301,14 +6401,15 @@ def phase_frontend(dev) -> dict:
 
 # ------------------------------------------------------------- Tier D
 
-DISK_N = 11                   # 39,916,800 states, 9,979,200 packed bytes
+DISK_N = 10                   # 3,628,800 states, 907,200 packed bytes (11
+#                               until PR 33: cut for the time limit; n = 11's
+#                               op log is 6.4 GB a run)
 DISK_SIDE_N = 10              # the unfused and the stopped-and-resumed runs
-#                               (11 before phase_mesh_train: cut for its
-#                               time; n = 11's op log is 6.4 GB a run)
-DISK_CHUNK = 1 << 20          # 39 chunks of 65,536 words (the last 4,432)
+DISK_CHUNK = 1 << 20          # 4 chunks of 65,536 words (the last 30,192)
 DISK_STOP = 6                 # the stopped run's last level
 DISK_CKPT_EVERY = 3           # its checkpoints: levels 0, 3, 6
-DISK_SMALL = (8, 1000)        # n, chunk_elems: every chunk ends inside a word
+DISK_SMALL = (7, 1000)        # n, chunk_elems: every chunk ends inside a word
+#                               (n = 8 until PR 33: cut for the time limit)
 DISK_SORTED_N = 9             # the sorted disk BFS on the host (10, 22 s,
 #                               until PR 30: cut for phase_mesh's time)
 DISK_LOG_REC = 16             # bytes of an (idx, val) int64 op-log record
@@ -6467,7 +6568,7 @@ def tree(path) -> dict:
 
 
 def disk_small_on_card(dev) -> None:
-    """Pancake n = 8 in chunks of 1,000 fields (250 bytes: every chunk
+    """Pancake n = 7 in chunks of 1,000 fields (250 bytes: every chunk
     ends inside a word), fused and unfused, on the card and on the CPU
     (the kernels' plain versions): the workdirs the same bytes after the
     search, the counters equal."""
@@ -6597,7 +6698,7 @@ def disk_batch_peak(n, ce, dev) -> int:
 
 
 def phase_disk_tier(dev) -> dict:
-    """Tier D's implicit BFS at pancake n = 11 (fused, K1) and
+    """Tier D's implicit BFS at pancake DISK_N (fused, K1) and
     DISK_SIDE_N (unfused, K2 + K3; rle2 chunks stopped and resumed), each
     chunk pass on the card, held to the in-memory engine; the sorted disk
     BFS at DISK_SORTED_N on the host; the tour and the set operations."""
@@ -6617,7 +6718,7 @@ def phase_disk_tier(dev) -> dict:
     mem_secs = time.perf_counter() - t0
     mem_peak = torch.cuda.max_memory_allocated(dev)
     sizes_d, marks = disk_expected(n, ce, dev)
-    expect(sizes_mem == sizes_d and len(sizes_mem) - 1 == 13
+    expect(sizes_mem == sizes_d and len(sizes_mem) - 1 == P.DIAMETERS[n]
            and sum(sizes_mem) == total, (sizes_mem, sizes_d))
     levels = len(sizes_mem)
     n_marks = sum(map(sum, marks))
@@ -6645,7 +6746,6 @@ def phase_disk_tier(dev) -> dict:
     expect(fused["launches"] == {"mark_rotate_count": levels * n_chunks,
                                  "scatter_mark": 0, "lut_count": 0,
                                  "gather2": 0}, fused["launches"])
-    expect(fused["launches"]["mark_rotate_count"] == 546, "K1 != 39 x 14")
     want_routes = disk_routes(total, ce, marks, True)
     expect(fused["routes"] == want_routes, (fused["routes"], want_routes))
     # one traversal a level pass, the seed pass's chunk, and the final
@@ -6748,8 +6848,11 @@ def phase_disk_tier(dev) -> dict:
 
 # ----------------------------------------------------- Tier D, sharded
 
-SHARD_N = DISK_N              # the gated runs: n = 11, chunks of 2^20
-SHARD_SMALL_N = 10            # the wire, recovery and trace runs
+SHARD_N = 10                  # the gated run: 4 chunks a shard (n = 11
+SHARD_CHUNK = 1 << 18         # and chunks of 2^20, 10 a shard, until PR
+#                               33: cut for the time limit)
+SHARD_SMALL_N = 9             # the wire, recovery and trace runs (10 until
+#                               PR 33: cut for the time limit)
 SHARD_SORTED_N = 9            # the sorted engine on the 4 shards (10 until
 #                               PR 30: cut for phase_mesh's time)
 SHARD_PARITY_N = 9            # K1 against its plain version, shard by shard
@@ -6988,24 +7091,29 @@ def shard_summary(r) -> dict:
     return out
 
 
-def phase_disk_sharded(dev, disk) -> dict:
+def phase_disk_sharded(dev) -> dict:
     """Tier D's sharded implicit BFS (``cluster.sharded_implicit_bfs``):
     each shard a spawned worker process with its block of the 2-bit array
     on the card, one K1 launch a chunk a level pass on every shard, the
-    marks for other shards on the bucket wire.  (a) pancake n = 11 over
-    4 shards, fs wire, barrier exchange, chunks of 2^20: the in-memory
-    level sizes, K1 560 times, one pass a level a shard, the op log of
-    the single-process run to the byte, the wire's bytes out == in; (b)
-    the same at SHARD_SMALL_N over 2 shards; (c) at SHARD_SMALL_N: 4 shards
-    with the pipelined exchange, the TCP wire (spawn) under a trace read back through
-    ``trace.report_json``, the loopback wire (inline), and a worker killed
-    at level 4 and healed from the level checkpoints; (d) at n = 9 over 2
+    marks for other shards on the bucket wire.  (a) pancake SHARD_N over
+    4 shards, fs wire, pipelined exchange, 4 chunks of SHARD_CHUNK a
+    shard: the in-memory level sizes, K1 once a chunk a level, one pass a
+    level a shard, 16 B of op log a mark, the wire's bytes out == in; (b)
+    the same gates at SHARD_SMALL_N over 2 shards on the TCP wire (spawn,
+    barrier exchange) under a trace read back through
+    ``trace.report_json``; (c) at SHARD_SMALL_N over 4 shards: the
+    loopback wire (inline), and a worker killed (fs wire, barrier
+    exchange) at level 4 and healed from the level checkpoints (the
+    separate 4-shard pipelined and TCP runs went in PR 33, for the time
+    limit: their spawns were 30 s); (d) at n = 9 over 2
     shards, K1 against its plain version on the card (``impl="ref"``):
     every shard's chunks, op logs and pending buckets the same bytes
     mid-search, and the final array the single-process search's; (e) the
     sorted engine on (a)'s 4 spawned workers at n = 9 on the host
     against the Tier J sorted engine."""
-    sizes11 = disk["level_sizes"]
+    total_n = math.factorial(SHARD_N)
+    sizes_n, _ = C.implicit_bfs(total_n, [P.start_rank(SHARD_N)],
+                                P.neighbors(SHARD_N), device=dev)
     out = {}
 
     n_small = SHARD_SMALL_N
@@ -7031,14 +7139,12 @@ def phase_disk_sharded(dev, disk) -> dict:
             vis.destroy()
         return {"sizes": got, "wall_s": secs, "rows": rows}
 
-    a = shard_drive(dev, SHARD_N, 4, after=sorted_on)
-    shard_check(a, sizes11, f"n={SHARD_N} 4 shards")
-    shard_line(f"n={SHARD_N}, 4 shards, spawn, fs, barrier", a)
-    if SHARD_N == 11:       # the single-process run's figures
-        expect(a["launches"]["mark_rotate_count"] == 560,
-               "K1 != 4 x 10 x 14")
-        expect(a["bits"]["log_bytes_written"] == 6_386_688_016, a["bits"])
-    out["n11_4"] = shard_summary(a)
+    a = shard_drive(dev, SHARD_N, 4, exchange="pipelined",
+                    chunk_elems=SHARD_CHUNK, after=sorted_on)
+    shard_check(a, sizes_n, f"n={SHARD_N} 4 shards pipelined")
+    shard_line(f"n={SHARD_N}, 4 shards, spawn, fs, pipelined", a)
+    expect(a["per_shard_chunks"] == [4] * 4, a["per_shard_chunks"])
+    out[f"n{SHARD_N}_4"] = shard_summary(a)
     srt = a["after"]
     expect(srt["sizes"] == sorted_want
            and srt["rows"] == math.factorial(ns), (srt, sorted_want))
@@ -7048,36 +7154,27 @@ def phase_disk_sharded(dev, disk) -> dict:
           "J sorted engine's level sizes")
     out[f"sorted_n{ns}_4_s"] = srt["wall_s"]
 
-    b2 = shard_drive(dev, n_small, 2)
-    shard_check(b2, sizes_small, f"n={n_small} 2 shards")
-    shard_line(f"n={n_small}, 2 shards, spawn, fs, barrier", b2)
-    out[f"n{n_small}_2"] = shard_summary(b2)
-
-    pipe = shard_drive(dev, n_small, 4, exchange="pipelined")
-    shard_check(pipe, sizes_small, f"n={n_small} 4 shards pipelined")
-    shard_line(f"n={n_small}, 4 shards, spawn, fs, pipelined", pipe)
-    out[f"n{n_small}_4_pipelined"] = shard_summary(pipe)
-
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "run.jsonl")
         TDTR.start(path, meta={"example": "chip_smoke", "n": n_small,
-                               "nshards": 4, "transport": "tcp"})
+                               "nshards": 2, "transport": "tcp"})
         try:
-            tcp = shard_drive(dev, n_small, 4, transport="tcp")
+            tcp = shard_drive(dev, n_small, 2, transport="tcp")
         finally:
             TDTR.stop()
         rep = TDTR.report_json(path)
-    shard_check(tcp, sizes_small, f"n={n_small} tcp traced")
-    shard_line(f"n={n_small}, 4 shards, spawn, tcp, barrier, traced", tcp)
+    shard_check(tcp, sizes_small, f"n={n_small} 2 shards tcp traced")
+    shard_line(f"n={n_small}, 2 shards, spawn, tcp, barrier, traced", tcp)
     rows = rep["levels"]
     expect([r["level"] for r in rows] == list(range(len(sizes_small) + 1))
-           and all(sorted(r["shard_us"]) == [0, 1, 2, 3] for r in rows)
+           and all(sorted(r["shard_us"]) == [0, 1] for r in rows)
            and all(r["passes"] > 0 for r in rows), rows)
     print(f"disk sharded: the tcp run's trace: {len(rows)} level rows, "
-          f"each with spans of shards 0-3, {rep['totals']['passes']} "
+          f"each with spans of shards 0-1, {rep['totals']['passes']} "
           f"passes, {rep['totals']['bytes']} B")
-    out[f"n{n_small}_tcp"] = shard_summary(tcp)
-    out[f"n{n_small}_tcp"]["trace"] = {"rows": len(rows), "totals": rep["totals"]}
+    out[f"n{n_small}_2_tcp"] = shard_summary(tcp)
+    out[f"n{n_small}_2_tcp"]["trace"] = {"rows": len(rows),
+                                         "totals": rep["totals"]}
     loop = shard_drive(dev, n_small, 4, transport="loopback", mode="inline")
     shard_check(loop, sizes_small, f"n={n_small} loopback inline")
     shard_line(f"n={n_small}, 4 shards, inline, loopback, barrier", loop)
@@ -7161,7 +7258,8 @@ MESH_GATE_LEN = 4096          # the gated prefill, at MESH_GATE_CF
 MESH_GATE_CF = 8.0            # no (token, choice) pair drops on either side
 MESH_PROMPT = 8               # the decode prompts: short, so that the
 #                               planted decode faults move the logits
-MESH_STEPS = DECODE_STEPS
+MESH_STEPS = 8                # the mesh decodes' steps (DECODE_STEPS = 16
+#                               until PR 33: cut for the time limit)
 MESH_FAULT_STEPS = 4          # the planted decode faults' steps
 MESH_RUN_STEPS = 4            # the mesh's own decode, prefill and all
 MESH_BATCH = BATCH_DECODE
@@ -7567,9 +7665,10 @@ def phase_mesh(dev) -> dict:
     return out
 
 
-MESH_TRAIN_LAYERS = 16        # of 32: 62.5 GB of float32 state whole, 31.7 GB
-#                               at 16, beside the capacity-8 exchange's
-#                               backward (several GB a layer)
+MESH_TRAIN_LAYERS = 8         # of 32: 62.5 GB of float32 state whole, 31.7 GB
+#                               at 16 (PR 31) beside the capacity-8
+#                               exchange's backward (several GB a layer);
+#                               8 since PR 33, for the script's time limit
 MESH_TRAIN_STEPS = 3
 MESH_GLOO_LAYERS = 2          # the two-rank gloo world: full width, 2 layers
 MESH_GLOO_LEN = 1024
@@ -7776,7 +7875,8 @@ def _w_mesh_train(rank, world, root):
     MESH_GLOO_SHAPES, the loss and gradient of ``gloo_cfg`` held per leaf
     to the one-device run the parent saved, with the launches; then the
     mesh's planted fault's loss (a forward: both faults scale the loss);
-    results to ``root/rank<rank>.json``."""
+    then serving from param shards (``serve_from_shards``); results to
+    ``root/rank<rank>.json``."""
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     denominator = lm._loss_denominator
@@ -7806,6 +7906,7 @@ def _w_mesh_train(rank, world, root):
                                                      - 1)}
             del params, grads, ref
             torch.cuda.empty_cache()
+        out["serve"] = serve_from_shards(dev)
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
@@ -7880,8 +7981,9 @@ def mesh_gloo_world(dev) -> dict:
               f"{rec['launches']}; planted fault ({rec['fault']}): loss rel "
               f"{rec['fault_loss_rel']:.4e} "
               f"({res[key]['fault_over_limit']:.3g}x the limit)")
+    res["serve"] = check_served([r["serve"] for r in ranks])
     print(f"mesh train gloo world: one spawn of 2 ranks, "
-          f"{res['world_seconds']:.1f} s")
+          f"{res['world_seconds']:.1f} s (serving from shards in it)")
     return res
 
 
@@ -8003,6 +8105,347 @@ def phase_mesh_train(dev) -> dict:
     return out
 
 
+# ------------------------ long_500k on the card (zamba2-1.2b, falcon-mamba)
+
+LONG = SHAPES["long_500k"]
+LONG_STEPS = 8                # donated decode steps of the main path
+# The caches are filled to LONG.seq_len - LONG_STEPS - 1 positions, so that
+# the main path's steps and the captured one after them all write inside
+# the cache: the captured step appends position 524,287 and its K8 reads
+# all 524,288.  A prefill over 524,288 tokens is quadratic (why the shape
+# admits only the sub-quadratic families); a decode step's work does not
+# depend on what the pages hold, so they are seeded random values.
+LONG_FILL = LONG.seq_len - LONG_STEPS - 1       # 524,279
+
+
+def long_caches(cfg, dev, seed) -> dict:
+    """``lm.make_cache(cfg, 1, 524288)`` on the card, its pages and SSM
+    states filled from a seeded generator in place (no second copy), every
+    cache's length LONG_FILL."""
+    caches = lm.make_cache(cfg, LONG.global_batch, LONG.seq_len, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for c in caches.get("kv", []):
+            c.k_pages.normal_(generator=gen)
+            c.v_pages.normal_(generator=gen)
+            c.lengths.fill_(LONG_FILL)
+        for st in caches.get("ssm", []):
+            st.conv.normal_(generator=gen)
+            st.h.normal_(generator=gen).mul_(0.1)
+    return caches
+
+
+def k8_blocks(q, kp) -> dict:
+    """The blocks K8's TMA route launches for q over pages kp: (splits,
+    m-tiles, kv heads, batch) and their product."""
+    b, hq, hd = q.shape
+    ps, kvh = kp.shape[1], kp.shape[2]
+    pps = kp.shape[0] // b
+    g = hq // kvh
+    splits = PD.tma_splits(b, kvh, g, pps, ps, PD._tma_slots(q.device, hd))
+    mt = -(-g // PD.TMA_ROWS)
+    return {"splits": splits, "m_tiles": mt, "kv_heads": kvh, "batch": b,
+            "blocks": splits * mt * kvh * b,
+            "sms": torch.cuda.get_device_properties(q.device)
+            .multi_processor_count}
+
+
+def phase_long_500k(dev) -> dict:
+    """zamba2-1.2b FULL at ``long_500k``'s own batch 1 and seq 524,288:
+    params from the seed, ``make_cache(cfg, 1, 524288)`` filled in place
+    (``long_caches``: 6 shared-block K/V caches of 2^30 elements each,
+    the 38 mamba2 states), then the main path: LONG_STEPS greedy
+    ``decode_step``s with ``donate=True`` (an undonated step would copy
+    the caches), every count set to 0 just before and read after each
+    step: exactly 6 K8 launches a step, all on the tma route, no other
+    kernel; tokens/s and peak.  Then one more donated step with the first
+    application's K8 call captured: K8 against
+    ``paged_decode_attention_ref`` at that depth (``check_k8``: K8_TOL
+    and the per-(b, h) limit, two launches the same bits), its device time
+    (median of 20) beside the byte bound, the plain version and SDPA, and
+    the blocks it launches."""
+    cfg = get_config(ZAMBA_ARCH)
+    expect(cfg.family == "hybrid" and LONG.kind == "decode", cfg.family)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    caches = long_caches(cfg, dev, SEED + 13)
+    sync(dev)
+    cache_bytes = sum(t.numel() * t.element_size() for t in T.leaves(caches))
+    param_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    kv = caches["kv"]
+    expect(len(kv) == lm.n_shared_applications(cfg), len(kv))
+    expect(all(c.k_pages.numel() == LONG.seq_len * cfg.n_kv_heads
+               * cfg.head_dim for c in kv),        # 2^30 elements at FULL
+           [c.k_pages.shape for c in kv])
+    print(f"long_500k: {cfg.name} params {param_bytes} B, caches "
+          f"{cache_bytes} B ({len(kv)} K/V caches of {tuple(kv[0].k_pages.shape)}"
+          f" bf16 each, filled to {LONG_FILL} positions), "
+          f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_step = unwindowed_layers(cfg)
+    tok = torch.zeros((LONG.global_batch, 1), dtype=torch.int64, device=dev)
+    reset_all_launches()
+    k8_steps, step_s = [], []
+    for _ in range(LONG_STEPS):
+        t1 = time.perf_counter()
+        lg, caches = lm.decode_step(params, step_inputs(cfg, tok), caches,
+                                    cfg, donate=True)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        sync(dev)
+        step_s.append(time.perf_counter() - t1)
+        k8_steps.append(PD.LAUNCHES["paged_decode_attention"])
+    wall = sum(step_s)
+    med = statistics.median(step_s[1:])
+    steps = LONG_STEPS
+    k8 = PD.LAUNCHES["paged_decode_attention"]
+    expect(k8_steps == [per_step * (i + 1) for i in range(steps)], k8_steps)
+    expect(dict(PD.ROUTE_LAUNCHES) == {"tma": k8, "classic": 0},
+           dict(PD.ROUTE_LAUNCHES))
+    expect(not any(MS.LAUNCHES.values()) and not any(FA.LAUNCHES.values())
+           and not any(K.LAUNCHES.values()),
+           (dict(MS.LAUNCHES), dict(FA.LAUNCHES)))
+    expect(bool(torch.isfinite(lg).all()), "long_500k logits not finite")
+    expect(all(int(c.lengths[0]) == LONG.seq_len - 1 for c in caches["kv"]),
+           [int(c.lengths[0]) for c in caches["kv"]])
+    peak = torch.cuda.max_memory_allocated(dev)
+    decode = {"steps": steps, "wall_s": wall, "tokens_per_s": steps / wall,
+              "step_s": step_s, "median_step_s_1_7": med,
+              "tokens_per_s_median": 1 / med,
+              "k8_launches": k8, "k8_launches_per_step": per_step,
+              "k8_routes": dict(PD.ROUTE_LAUNCHES), "peak_bytes": peak,
+              "cache_bytes": cache_bytes, "param_bytes": param_bytes}
+    print(f"long_500k decode: {cfg.name} batch {LONG.global_batch} at "
+          f"{LONG_FILL}-{LONG.seq_len - 2} cached positions, {steps} "
+          f"donated steps, {wall:.3f} s, {steps / wall:.2f} tokens/s "
+          f"(median of steps 1-{steps - 1} {med * 1e3:.2f} ms, "
+          f"{1 / med:.2f} tokens/s; steps "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms); K8 launches {k8} "
+          f"({per_step} a "
+          f"step, routes {dict(PD.ROUTE_LAUNCHES)}); peak {peak} B "
+          f"(caches {cache_bytes} B, params {param_bytes} B)")
+    # the main path's last step: position 524,287, K8 over all 524,288
+    calls, caches = k8_capture(cfg, params, caches, dev, keep=(0,),
+                               donate=True)
+    expect(all(int(c.lengths[0]) == LONG.seq_len for c in caches["kv"]),
+           [int(c.lengths[0]) for c in caches["kv"]])
+    captured = k8_on_captured(cfg, calls, f"{cfg.name} long_500k decode")
+    blocks = k8_blocks(calls[0][0][0], calls[0][0][1])
+    times = phase_k8_times(*calls[0], f"{cfg.name} long_500k decode "
+                           f"application 0, batch 1 after {LONG.seq_len} "
+                           f"tokens")
+    expect(times["live_positions"] == LONG.seq_len, times["live_positions"])
+    times["blocks"] = blocks
+    print(f"long_500k K8: {blocks['blocks']} blocks ({blocks['splits']} "
+          f"splits x {blocks['m_tiles']} m-tile x {blocks['kv_heads']} kv "
+          f"heads x batch {blocks['batch']}) on {blocks['sms']} SMs; the "
+          f"step's 6 applications' bound {6 * times['bound_ms']:.3f} ms")
+    del calls, params, caches, kv
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "shape": "long_500k", "decode": decode,
+           "k8_captured": captured, "k8_times": times}
+    print(json.dumps({"long_500k": out}, default=str))
+    return out
+
+
+def fm_long_decode(cfg, params, dev) -> dict:
+    """One falcon-mamba-7b decode step at ``long_500k``'s position 524,287:
+    the ssm family's cache is one state a layer, whatever the position
+    (seeded values), so the step's work is the same as at any position; no
+    K9 launch, finite logits; its wall after a synchronise."""
+    caches = long_caches(cfg, dev, SEED + 14)
+    tok = torch.zeros((LONG.global_batch, 1), dtype=torch.int64, device=dev)
+    reset_all_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    lg, caches = lm.decode_step(params, step_inputs(cfg, tok), caches, cfg,
+                                donate=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    expect(not any(MS.LAUNCHES.values()) and not any(PD.LAUNCHES.values()),
+           dict(MS.LAUNCHES))
+    expect(bool(torch.isfinite(lg).all()), "long_500k logits not finite")
+    state_bytes = sum(t.numel() * t.element_size() for t in T.leaves(caches))
+    print(f"long_500k decode: {cfg.name} one step at position "
+          f"{LONG.seq_len - 1}, {wall * 1e3:.3f} ms, its state "
+          f"{state_bytes} B whatever the position; K9 launches 0")
+    del caches
+    return {"wall_s": wall, "state_bytes": state_bytes}
+
+
+# ---------------- the dry run's prediction beside the card (gemma2 train)
+
+DRYRUN_TIMEOUT = 600.0        # seconds the dry run's subprocess may take
+CHILDREN = []                 # subprocesses to stop when the script ends
+DRYRUN_CODE = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun, mesh, roofline
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dryrun.fake_world(1)
+cfg = get_config(arch).replace(kernels="ref")
+shape = ShapeSpec("train_4k", seq, batch, "train")
+rec = dryrun.dry_run(cfg, shape, mesh.make_host_mesh(tp=1, device="cpu"),
+                     count_flops_twin=False)
+cell = {"arch": arch, "shape": shape.name, "mesh": "1x1", "kind": "train",
+        "seq_len": seq, "global_batch": batch,
+        "active_params": cfg.active_param_count(), **rec}
+print(json.dumps(roofline.analyze(cell)))
+"""
+
+
+def start_dryrun():
+    """The dry run of the gemma2 train phase's cell (``ARCH`` ``train_4k``
+    at TRAIN_BATCH, one rank of a fake world as a (1, 1) host mesh), in a
+    subprocess started now, so that its fake process group never meets
+    this process's NCCL ones and its trace (host CPU alone) runs beside
+    the card's phases."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CODE, ARCH, str(TRAIN_SEQ),
+         str(TRAIN_BATCH)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def dryrun_vs_card(proc, trained) -> dict:
+    """The dry run's prediction for the gemma2 train step beside what the
+    card measured: its peak estimate (the plain versions' scratch, where
+    the card runs K6-LSE and K7) against ``max_memory_allocated`` over the
+    train loop, its FLOPs and roofline terms (H100 constants,
+    ``launch/roofline.py``) against the median step.  Printed, not gated:
+    the two run different attention."""
+    out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    expect(proc.returncode == 0, f"the dry run failed: {err[-3000:]}")
+    cell = json.loads(out.strip().splitlines()[-1])
+    mem = cell["memory"]
+    bound = max(cell["t_compute_s"], cell["t_memory_s"],
+                cell["t_collective_s"])
+    res = {"predicted_peak_bytes": mem["peak_estimate_bytes"],
+           "predicted_argument_bytes": mem["argument_bytes"],
+           "measured_peak_bytes": trained["peak_bytes"],
+           "peak_ratio": mem["peak_estimate_bytes"] / trained["peak_bytes"],
+           "flops": cell["flops_per_device"],
+           "bytes": cell["bytes_per_device"],
+           "t_compute_s": cell["t_compute_s"],
+           "t_memory_s": cell["t_memory_s"],
+           "t_collective_s": cell["t_collective_s"],
+           "dominant": cell["dominant"], "bound_s": bound,
+           "measured_step_s": trained["median_step_s_1_5"],
+           "step_over_bound": trained["median_step_s_1_5"] / bound,
+           "trace_s": cell["trace_s"], "ops": cell["ops"]}
+    print(f"dry run vs card: {ARCH} train_4k at batch {TRAIN_BATCH} on a "
+          f"(1, 1) host mesh (fake world, plain versions): predicted peak "
+          f"{res['predicted_peak_bytes']} B (arguments "
+          f"{res['predicted_argument_bytes']} B), measured "
+          f"max_memory_allocated {res['measured_peak_bytes']} B (ratio "
+          f"{res['peak_ratio']:.3f}); predicted {res['flops']:.4e} FLOPs, "
+          f"{res['bytes']:.4e} B moved (unfused), terms compute "
+          f"{res['t_compute_s']:.4f} s, memory {res['t_memory_s']:.4f} s, "
+          f"collective {res['t_collective_s']:.4f} s ({res['dominant']}), "
+          f"measured median step {res['measured_step_s']:.4f} s "
+          f"({res['step_over_bound']:.2f}x the bound); trace "
+          f"{res['trace_s']} s, {res['ops']} ops")
+    return res
+
+
+# -------------------- serving from param shards on the card (9.14)
+
+SERVE_GLOO_LAYERS = 2         # granite-moe at full width, 2 of 32 layers
+SERVE_GLOO_SHAPES = ((1, 2), (2, 1))
+SERVE_GLOO_BATCH = 2
+SERVE_GLOO_PROMPT = 64
+SERVE_GLOO_STEPS = 4
+
+
+def serve_greedy(cfg, params, prompt, mesh):
+    """``lm.prefill`` then SERVE_GLOO_STEPS greedy ``decode_step``s on
+    ``mesh``: (every call's last logits, the tokens chosen)."""
+    b, s = prompt["tokens"].shape
+    logits, toks = [], []
+    with torch.no_grad():
+        lg, caches = lm.prefill(params, prompt, cfg, mesh,
+                                max_len=s + SERVE_GLOO_STEPS)
+        logits.append(lg[:, -1])
+        for _ in range(SERVE_GLOO_STEPS):
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+            lg, caches = lm.decode_step(params, step_inputs(cfg, tok),
+                                        caches, cfg, mesh)
+            logits.append(lg[:, -1])
+    return torch.stack(logits), torch.cat(toks, 1)
+
+
+def serve_from_shards(dev) -> dict:
+    """On this rank of a two-rank process group (``_w_mesh_train``'s gloo
+    world), on each mesh of SERVE_GLOO_SHAPES: granite-moe served from
+    this rank's param shards (``sharding_rules.shard_params``) and from the
+    whole params on the same mesh (the gather an identity); the logits'
+    bits and the tokens compared, the launches of the sharded run."""
+    out = {}
+    cfg = get_config(MESH_ARCH).replace(n_layers=SERVE_GLOO_LAYERS)
+    whole = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    prompt = lm_inputs(cfg, SERVE_GLOO_BATCH, SERVE_GLOO_PROMPT, dev,
+                       SEED + 11)
+    for shape in SERVE_GLOO_SHAPES:
+        mesh = MESH.make_host_mesh(tp=shape[1], device=dev.type)
+        shards = SR.shard_params(whole, SR.config_specs(cfg, mesh), mesh)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        got, got_toks = serve_greedy(cfg, shards, prompt, mesh)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": FA.LAUNCHES["flash_attention"],
+                    "paged_decode_attention": PD.LAUNCHES[
+                        "paged_decode_attention"]}
+        with patched(SHD, "gather_param", lambda x, spec, mesh: x):
+            want, want_toks = serve_greedy(cfg, whole, prompt, mesh)
+        out[f"({shape[0]}, {shape[1]})"] = {
+            "same_bits": bool(torch.equal(got, want)),
+            "max_abs": float((got.float() - want.float()).abs().max()),
+            "same_tokens": bool(torch.equal(got_toks, want_toks)),
+            "finite": bool(torch.isfinite(got).all()),
+            "tokens": got_toks.tolist(), "launches": launches,
+            "wall_s": wall,
+            "shard_elements": sum(t.numel() for t in T.leaves(shards)),
+            "whole_elements": sum(t.numel() for t in T.leaves(whole))}
+        del shards
+    return out
+
+
+def check_served(ranks) -> dict:
+    """``serve_from_shards``' records of both ranks: the logits the same
+    bits as from the whole params, the tokens identical and alike on both
+    ranks, finite, the shards smaller than the whole, and on each rank K6
+    once a layer in the prefill and K8 once a layer a step."""
+    n = SERVE_GLOO_LAYERS
+    res = {}
+    for shape in SERVE_GLOO_SHAPES:
+        key = f"({shape[0]}, {shape[1]})"
+        rec = ranks[0][key]
+        expect(ranks[1][key]["tokens"] == rec["tokens"], (key, ranks))
+        for r in ranks:
+            expect(r[key]["same_bits"] and r[key]["same_tokens"]
+                   and r[key]["finite"], (key, r[key]))
+            expect(r[key]["launches"] == {
+                "flash_attention": n,
+                "paged_decode_attention": n * SERVE_GLOO_STEPS},
+                (key, r[key]["launches"]))
+            expect(r[key]["shard_elements"] < r[key]["whole_elements"],
+                   (key, r[key]))
+        res[key] = rec
+        print(f"mesh serve gloo world {key} on the card, {MESH_ARCH} "
+              f"{n} layers, {SERVE_GLOO_BATCH} x {SERVE_GLOO_PROMPT} prompt, "
+              f"{SERVE_GLOO_STEPS} greedy steps from param shards "
+              f"({rec['shard_elements']} of {rec['whole_elements']} "
+              f"elements a rank): logits the same bits as from the whole "
+              f"params (max abs {rec['max_abs']}), tokens identical "
+              f"{rec['tokens']}; launches a rank {rec['launches']}; "
+              f"{rec['wall_s']:.2f} s")
+    return res
+
+
 def to_port_bounds() -> list:
     """The bounds of the TPU kernels still to port: none.  K5, the last,
     is ported (``phase_roomy``; its bound is in the ``kernels`` line), so
@@ -8017,13 +8460,14 @@ def main() -> None:
     torch.cuda.set_device(dev)
     ptxas, k7_ptx, k8_ptx, k9_ptx, k12_ptx, k4_ptx, k9b_ptx = phase_build()
     print(f"[phase_build done at {time.perf_counter() - t0:.1f} s]")
-    # K9-bwd's planted-fault variants build (nvcc) while the phases before
-    # phase_training_families run
+    dry = start_dryrun()
+    # the planted-fault variants build (nvcc) while the phases before their
+    # checks run: K1/K2's before phase_bin_faults, K9-bwd's before
+    # phase_training_families
     variants = ThreadPoolExecutor(1)
+    bin_libs = variants.submit(fault_libs)
     k9b_libs = variants.submit(k9b_fault_libs)
     phase_parity_edges(dev)
-    bin_faults = phase_bin_faults(dev)
-    print(f"[phase_bin_faults done at {time.perf_counter() - t0:.1f} s]")
     data, tgt = phase_parity_full(dev)
     times = phase_times(data, tgt)
     del data, tgt
@@ -8037,11 +8481,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_sorted_bfs(dev)
     print(f"[phase_sorted_bfs done at {time.perf_counter() - t0:.1f} s]")
+    bin_faults = phase_bin_faults(dev, bin_libs.result())
+    print(f"[phase_bin_faults done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     disk = phase_disk_tier(dev)
     print(f"[phase_disk_tier done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
-    sharded = phase_disk_sharded(dev, disk)
+    sharded = phase_disk_sharded(dev)
     print(f"[phase_disk_sharded done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     oracle = phase_oracle(dev, sizes)
@@ -8062,6 +8508,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     trained = phase_training(dev)
     print(f"[phase_training done at {time.perf_counter() - t0:.1f} s]")
+    dry_card = dryrun_vs_card(dry, trained)
+    print(json.dumps({"dryrun_vs_card": dry_card}))
     torch.cuda.empty_cache()
     fm = phase_falcon_mamba(dev)
     print(f"[phase_falcon_mamba done at {time.perf_counter() - t0:.1f} s]")
@@ -8072,6 +8520,9 @@ def main() -> None:
     mh = phase_moe_hybrid(dev, k9_ptx)
     print(f"[phase_moe_hybrid done at {time.perf_counter() - t0:.1f} s]")
     gm, zb, ph = mh["granite_moe"], mh["zamba2"], mh["phi35_moe"]
+    torch.cuda.empty_cache()
+    long = phase_long_500k(dev)
+    print(f"[phase_long_500k done at {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     tf = phase_training_families(dev, k9b_ptx, k9b_libs.result())
     variants.shutdown()
@@ -8086,6 +8537,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     mtrain = phase_mesh_train(dev)
     print(f"[phase_mesh_train done at {time.perf_counter() - t0:.1f} s]")
+    served = mtrain["gloo"]["serve"]
     mt_steps = {"launches_per_mesh_train_step": mtrain[
         "launches_per_step_mesh"], "mesh_train_shape": f"{MESH_ARCH} "
         f"{MESH_TRAIN_LAYERS} layers on a (1, 1) mesh, 1 x {TRAIN_SEQ}",
@@ -8141,15 +8593,16 @@ def main() -> None:
                  "lut_count": "k3_ms"}[name]],
             "disk_sharded_launches": {
                 key: sharded[key]["launches"][name]
-                for key in ("n11_4", *(f"n{SHARD_SMALL_N}_{k}" for k in (
-                    "2", "4_pipelined", "tcp", "loopback_inline")))},
+                for key in (f"n{SHARD_N}_4", *(
+                    f"n{SHARD_SMALL_N}_{k}" for k in (
+                        "2_tcp", "loopback_inline")))},
             "disk_sharded_ms": (sum(x["k1_ms"] for x in
-                                    sharded["n11_4"]["timers"])
+                                    sharded[f"n{SHARD_N}_4"]["timers"])
                                 if name == "mark_rotate_count" else None),
             "disk_sharded_shape": f"pancake n = {SHARD_N} over 4 "
-                                  f"shards (n = {SHARD_SMALL_N} over 2): 10 "
-                                  "(2) chunks "
-                                  f"of {DISK_CHUNK} fields a shard, one "
+                                  f"shards, 4 chunks of {SHARD_CHUNK} "
+                                  f"fields a shard (n = {SHARD_SMALL_N} "
+                                  f"over 2: 1 chunk of {DISK_CHUNK}), one "
                                   "launch a chunk a level pass on every "
                                   "shard; disk_sharded_ms sums the 4 "
                                   "workers' launches",
@@ -8246,7 +8699,9 @@ def main() -> None:
             f"{MESH_ARCH} on a (1, 1) mesh, prefill 1 x {MESH_GATE_LEN}":
                 mesh["gate"]["mesh"]["k6_routes"],
             f"the same, 1 x {PREFILL_LEN}":
-                mesh["reading_32k"]["mesh"]["k6_routes"]}})
+                mesh["reading_32k"]["mesh"]["k6_routes"]},
+        "launches_per_prefill_mesh_serve_shards": {
+            k: v["launches"]["flash_attention"] for k, v in served.items()}})
     tr, win = k7["train"], k7["window"]
     kernels.append({
         "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
@@ -8440,7 +8895,16 @@ def main() -> None:
             for a in FRONTEND_ARCHS},
         "launches_per_step_mesh": {
             f"{MESH_ARCH} on a (1, 1) mesh, {k}": n
-            for k, n in mesh["k8_launches_per_step"].items()}})
+            for k, n in mesh["k8_launches_per_step"].items()},
+        **{f"long_500k_{f}": long["k8_times"][f] for f in (
+            "ms", "ms_host", "plain_ms", "bound_ms", "library_ms",
+            "library_ms_no_gather", "shape", "blocks")},
+        "long_500k_launches_per_step": long["decode"]["k8_launches_per_step"],
+        "long_500k_launches": long["decode"]["k8_launches"],
+        "long_500k_launches_by_route": long["decode"]["k8_routes"],
+        "launches_per_step_mesh_serve_shards": {
+            k: v["launches"]["paged_decode_attention"] // SERVE_GLOO_STEPS
+            for k, v in served.items()}})
     print(json.dumps({"to_port": to_port_bounds()}))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
@@ -8451,4 +8915,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        for child in CHILDREN:
+            child.kill()

@@ -4,9 +4,10 @@
 128, group 4) d_ff 6400, vocab 32064, untied head.  41,872,527,360 params,
 83.7 GB in bfloat16: more than one 80 GB card holds.  Training holds its
 params and AdamW state as each rank's shards over a mesh
-(``runtime/train_loop.py``), so FULL trains on two or more cards; the
-serving mesh keeps params whole on every rank, so serving FULL waits for
-sharded params in serving (ROADMAP, queued).  The same values as
+(``runtime/train_loop.py``), and ``lm.prefill`` / ``decode_step`` on a
+mesh take the same shards, so FULL trains and serves on two or more
+cards (``launch/serve.py``'s one-card Server keeps them whole).  The same
+values as
 ``repro/configs/phi35_moe_42b.py``.
 """
 from ..models.config import ModelConfig

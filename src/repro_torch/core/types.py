@@ -55,11 +55,15 @@ def scatter_drop(buf: torch.Tensor, idx: torch.Tensor,
                  vals: torch.Tensor) -> torch.Tensor:
     """``buf.at[idx].set(vals, mode="drop")`` out of place: returns a copy
     of ``buf`` with the landing rows written (indices that land are unique
-    at every call site)."""
-    out = buf.clone()
-    idx, keep = index_drop(idx, buf.shape[0])
-    out[idx[keep]] = vals[keep].to(buf.dtype)
-    return out
+    at every call site).  A dropped value is written to one spare row past
+    the end, which the result leaves out: no boolean mask selects the
+    rows, so the call reads no data back to the host and its shapes do not
+    depend on the data (a fake tensor traces it)."""
+    n = buf.shape[0]
+    idx, keep = index_drop(idx, n)
+    out = torch.cat([buf, buf.new_zeros((1,) + tuple(buf.shape[1:]))])
+    out = out.index_put((torch.where(keep, idx, n),), vals.to(buf.dtype))
+    return out[:n]
 
 
 def sentinel_rows(n: int, width: int, device=None) -> torch.Tensor:

@@ -21,10 +21,10 @@ which puts dp on the pair axis; the port shards the pages.
 A spec is a ``PartitionSpec``: a tuple with one entry a dim (an axis name,
 a tuple of names taken as one flattened axis, or None), trailing dims
 replicated.  ``named`` turns specs into ``torch.distributed.tensor``
-placements, one per mesh dim.  The serving path keeps its params
-replicated on every rank and its caches as local shards under
-``cache_specs``.  A train step holds its params and AdamW moments as each
-rank's shards under ``param_specs`` (TP over ``model``, ZeRO-3 over the
+placements, one per mesh dim.  Serving on a mesh holds its caches as
+local shards under ``cache_specs``.  Serving and a train step hold their
+params (and the step its AdamW moments) as each rank's shards under
+``param_specs`` (TP over ``model``, ZeRO-3 over the
 data axes, the fallbacks replicated): ``shard_params`` cuts a whole tree
 into this rank's shards and ``gather_params`` rebuilds it, both by the
 same placements as ``named``; ``config_specs`` gives a config's spec tree

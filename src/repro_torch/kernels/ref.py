@@ -186,9 +186,12 @@ def bucket_scatter_add_ref(table: torch.Tensor, idx: torch.Tensor,
     idx = idx.to(torch.int64).reshape(-1)
     idx = torch.where(idx < 0, idx + n, idx)
     keep = (idx >= 0) & (idx < n)
-    acc = table.to(torch.float32, copy=True)
-    acc.index_add_(0, idx[keep], payload[keep].to(torch.float32))
-    return acc.to(table.dtype)
+    # a dropped op lands on a spare row past the end, which the result
+    # leaves out: no boolean mask, so no shape depends on the data
+    acc = torch.cat([table.to(torch.float32), table.new_zeros(
+        (1,) + tuple(table.shape[1:]), dtype=torch.float32)])
+    acc.index_add_(0, torch.where(keep, idx, n), payload.to(torch.float32))
+    return acc[:n].to(table.dtype)
 
 
 #: K5's chunk: a row's ops, in op order, are summed in chunks of this many.

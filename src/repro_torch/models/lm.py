@@ -42,7 +42,15 @@ K7 (attention) and K9 and K9-bwd (the selective scan) on the card.
 
 Serving on a mesh (``launch/mesh.py``; ``mesh=None`` is one device):
 every rank passes the same inputs and gets the same logits back, as an
-SPMD program does, with the params whole on every rank.  The roomy
+SPMD program does.  ``params`` are this rank's shards under
+``ShardingRules.param_specs``, as in training (``sharding_rules
+.shard_params`` cuts them; the reference's dry run lowers prefill and
+decode on params placed so, ``repro/launch/dryrun.py:124-195``): the
+embedding, the final norm and the hybrid's shared block are gathered
+whole once a call, and each block is gathered as its layer runs and
+dropped before the next is gathered, so a rank holds its shards and one
+whole block beside them.  The gathered values are the whole params' own
+bits, so a mesh serves as it did from whole params.  The roomy
 embedding and the roomy MoE exchange tokens over the mesh
 (``layers.py``, ``moe.py``); attention and the mamba blocks run
 replicated; the decode caches are each rank's shard
@@ -182,7 +190,9 @@ def _gather_tree(tree, specs, mesh):
 def _on_mesh(params, cfg: ModelConfig, mesh):
     """(params with the embedding, the final norm and the hybrid's shared
     block gathered whole, the blocks' specs, the mesh under the local
-    convention)."""
+    convention).  Off a mesh: (params, a None spec a block, None)."""
+    if mesh is None:
+        return params, [None] * cfg.n_layers, None
     specs = SR.config_specs(cfg, mesh)
     local = SH.LocalRows(mesh)
     out = dict(params)
@@ -192,19 +202,22 @@ def _on_mesh(params, cfg: ModelConfig, mesh):
     return out, specs["blocks"], local
 
 
-def _hidden(params, inputs: Dict, cfg: ModelConfig, mesh=None,
-            block_specs=None) -> torch.Tensor:
-    """``forward_hidden`` from params whose blocks are whole
-    (``block_specs`` None) or shards under ``block_specs``."""
+def _block(p_l, spec_l, mesh):
+    """One block's params whole: gathered from this rank's shards under
+    ``spec_l``, or ``p_l`` itself off a mesh (``spec_l`` None)."""
+    return p_l if spec_l is None else _gather_tree(p_l, spec_l, mesh)
+
+
+def _hidden(params, inputs: Dict, cfg: ModelConfig, mesh, specs
+            ) -> torch.Tensor:
+    """``forward_hidden`` from ``_on_mesh``'s params, block specs (a block
+    whose spec is None is whole) and mesh."""
     x = _embed(params, inputs, cfg, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
-    specs = block_specs or [None] * cfg.n_layers
 
     def run(fn, p_l, spec_l, x, *args, **kw):
-        def body(p_l, x, *args):
-            if spec_l is not None:        # gathered inside the remat region
-                p_l = _gather_tree(p_l, spec_l, mesh)
-            return fn(p_l, x, *args, **kw)
+        def body(p_l, x, *args):          # gathered inside the remat region
+            return fn(_block(p_l, spec_l, mesh), x, *args, **kw)
         if remat:
             return checkpoint(body, p_l, x, *args, use_reentrant=False)
         return body(p_l, x, *args)
@@ -234,10 +247,8 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig, mesh=None
     for it, never rematted, as in the reference.  On a mesh ``params`` are
     this rank's shards and ``inputs`` this data rank's rows (the module
     docstring); the result is those rows' hidden states."""
-    if mesh is None:
-        return _hidden(params, inputs, cfg)
-    params, block_specs, local = _on_mesh(params, cfg, mesh)
-    return _hidden(params, inputs, cfg, local, block_specs)
+    params, specs, local = _on_mesh(params, cfg, mesh)
+    return _hidden(params, inputs, cfg, local, specs)
 
 
 def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -278,12 +289,8 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig, mesh=None
     a mesh: ``params`` this rank's shards, ``batch`` this data rank's rows;
     the value is the mesh's loss, the gradient this rank's share's (the
     module docstring)."""
-    if mesh is None:
-        hidden = _hidden(params, batch["inputs"], cfg)
-        top = params
-    else:
-        top, block_specs, local = _on_mesh(params, cfg, mesh)
-        hidden = _hidden(top, batch["inputs"], cfg, local, block_specs)
+    top, specs, local = _on_mesh(params, cfg, mesh)
+    hidden = _hidden(top, batch["inputs"], cfg, local, specs)
     logits = logits_fn(top, hidden, cfg).float()
     labels = batch["labels"].long()
     mask = labels >= 0
@@ -357,13 +364,15 @@ def prefill(params, inputs: Dict, cfg: ModelConfig, mesh=None,
     each layer's ``SSMState`` after the prompt (K9's final state and the
     conv's last inputs); ``max_len`` is unused.  The hybrid family's are
     each mamba2 layer's ``SSMState`` and each shared-block application's
-    ``PagedKV``.  On a mesh each ``PagedKV`` keeps this rank's shard of
-    the pages (``repro/models/lm.py:221-242``: pages over dp)."""
+    ``PagedKV``.  On a mesh ``params`` are this rank's shards (the module
+    docstring) and each ``PagedKV`` keeps this rank's shard of the pages
+    (``repro/models/lm.py:221-242``: pages over dp)."""
+    params, specs, _ = _on_mesh(params, cfg, mesh)
     x = _embed(params, inputs, cfg, mesh)
     if cfg.family == "ssm":
         states = []
-        for p_l in params["blocks"]:
-            x, st = mamba_block_prefill(p_l, x, cfg)
+        for p_l, spec_l in zip(params["blocks"], specs):
+            x, st = mamba_block_prefill(_block(p_l, spec_l, mesh), x, cfg)
             states.append(st)
         hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
         return logits_fn(params, hidden, cfg), {"ssm": states}
@@ -389,16 +398,17 @@ def prefill(params, inputs: Dict, cfg: ModelConfig, mesh=None,
     if cfg.family == "hybrid":
         states = []
         for s0, s1, shared in _hybrid_segments(cfg):
-            for p_l in params["blocks"][s0:s1]:
-                x, st = mamba_block_prefill(p_l, x, cfg, version=2)
+            for p_l, spec_l in zip(params["blocks"][s0:s1], specs[s0:s1]):
+                x, st = mamba_block_prefill(_block(p_l, spec_l, mesh), x,
+                                            cfg, version=2)
                 states.append(st)
             if shared:
                 x, c = attend(params["shared"], x)
                 caches.append(c)
         hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
         return logits_fn(params, hidden, cfg), {"ssm": states, "kv": caches}
-    for p_l, w in zip(params["blocks"], layer_windows(cfg)):
-        x, c = attend(p_l, x, w)
+    for p_l, spec_l, w in zip(params["blocks"], specs, layer_windows(cfg)):
+        x, c = attend(_block(p_l, spec_l, mesh), x, w)
         caches.append(c)
     hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     return logits_fn(params, hidden, cfg), {"kv": caches}
@@ -415,14 +425,16 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
     its caches to ``jit`` (``repro/launch/dryrun.py:188-191``), so a step
     holds one copy of the cache and moves none of it.  Every unwindowed
     attention layer reads its cache with K8 (the hybrid's shared block
-    once per application, each over its own cache).  On a mesh the caches
-    are this rank's shards (``prefill`` / ``make_cache`` with the same
-    mesh) and the attention takes the reference's sharded branches."""
+    once per application, each over its own cache).  On a mesh ``params``
+    are this rank's shards, the caches this rank's shards (``prefill`` /
+    ``make_cache`` with the same mesh), and the attention takes the
+    reference's sharded branches."""
+    params, specs, _ = _on_mesh(params, cfg, mesh)
     x = _embed(params, inputs, cfg, mesh)
     if cfg.family == "ssm":
         states = []
-        for p_l, st in zip(params["blocks"], caches["ssm"]):
-            x, st = mamba_block_decode(p_l, x, st, cfg)
+        for p_l, spec_l, st in zip(params["blocks"], specs, caches["ssm"]):
+            x, st = mamba_block_decode(_block(p_l, spec_l, mesh), x, st, cfg)
             states.append(st)
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
         return logits_fn(params, hidden, cfg), {"ssm": states}
@@ -430,9 +442,10 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
         states, new = [], []
         kv = iter(caches["kv"])
         for s0, s1, shared in _hybrid_segments(cfg):
-            for p_l, st in zip(params["blocks"][s0:s1],
-                               caches["ssm"][s0:s1]):
-                x, st = mamba_block_decode(p_l, x, st, cfg, version=2)
+            for p_l, spec_l, st in zip(params["blocks"][s0:s1],
+                                       specs[s0:s1], caches["ssm"][s0:s1]):
+                x, st = mamba_block_decode(_block(p_l, spec_l, mesh), x, st,
+                                           cfg, version=2)
                 states.append(st)
             if shared:
                 x, c = transformer_block_decode(params["shared"], x,
@@ -442,9 +455,10 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
         return logits_fn(params, hidden, cfg), {"ssm": states, "kv": new}
     new = []
-    for p_l, c, w in zip(params["blocks"], caches["kv"], layer_windows(cfg)):
-        x, c = transformer_block_decode(p_l, x, c, cfg, window=w,
-                                        donate=donate, mesh=mesh)
+    for p_l, spec_l, c, w in zip(params["blocks"], specs, caches["kv"],
+                                 layer_windows(cfg)):
+        x, c = transformer_block_decode(_block(p_l, spec_l, mesh), x, c, cfg,
+                                        window=w, donate=donate, mesh=mesh)
         new.append(c)
     hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return logits_fn(params, hidden, cfg), {"kv": new}

@@ -37,6 +37,7 @@ import torch.multiprocessing as mp
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import paged
+from repro_torch.distributed import sharding_rules as SR
 from repro_torch.models import layers, lm, moe
 
 WORLD_TIMEOUT_S = 180
@@ -212,7 +213,10 @@ def _moe_params(store: dict) -> dict:
 def _run(params, cfg, prompt, steps, max_len, mesh=None):
     """prefill, then one decode step a column of ``steps``: (the last
     logits of every call (1 + T, B, V), the caches after the prefill,
-    the caches after the steps)."""
+    the caches after the steps).  On a mesh the calls take this rank's
+    shards of ``params`` (``sharding_rules.shard_params``)."""
+    if mesh is not None:
+        params = SR.shard_params(params, SR.config_specs(cfg, mesh), mesh)
     prompt = torch.from_numpy(prompt)
     b, s = prompt.shape
     pos = torch.arange(s)[None].expand(b, s)
