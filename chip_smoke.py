@@ -591,9 +591,24 @@ caught:
    gloo world, after its training): granite-moe-3b at full width and 2 layers
    in bfloat16, ``lm.prefill`` of a 2 x 64 prompt and 4 greedy
    ``decode_step``s on (1, 2) and (2, 1) meshes from each rank's
-   ``sharding_rules.shard_params`` shards, against the same calls from the
-   whole params on that mesh (the gather an identity): logits the same
-   bits, tokens identical, both ranks alike, K6 2 and K8 8 on each rank.
+   ``sharding_rules.shard_params`` shards (capacity factor 8), each rank
+   computing its share, against the same params served on one device: on
+   (2, 1) (a row a rank, tp 1) the logits bit for bit and the tokens
+   identical; on (1, 2), fed the one-device run's tokens, within
+   BF16_LOGIT_REL_TOL a row (the split sums add in another order than one
+   device's); both ranks alike, K6 2 and K8 8 on each rank.
+18e. serving split over the mesh (``serve_tp``, in the same world, after
+   18d): gemma2-2b at its published widths and full depth in bfloat16
+   from each rank's shards, a 2 x 1024 prefill and 8 donated decode steps
+   on (1, 2) (heads, ff and vocab over ``model``: K6 on 4 q heads over 2
+   kv heads, K8 on a 2-kv-head view of the cache, 26 and 13 a step a
+   rank) and on (2, 1) (a row a rank, 8 over 4 heads), fed the one-device
+   run's tokens and held per row to its logits (BF16_LOGIT_REL_TOL); a
+   float32 witness at 2 layers within SERVE_TP_F32_TOL a row with the
+   one-device tokens; ``wo``'s all-reduce skipped as a planted fault;
+   readings: each rank's prefill and decode walls, peak and collective
+   bytes; then K6 and K8 at those shapes on the card alone against their
+   plain versions, their bounds and the library calls.
 19. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K1's, K2's and
    K3's launches, routes and summed times on the disk route; K6's and
@@ -602,7 +617,8 @@ caught:
    hybrid, frontend and mesh paths; K6-with-LSE's, K7's and K9's on the
    training paths, and with K5's a mesh train step; K5's fold times; the
    frontend layouts' times; K8's ``long_500k`` time, bound, blocks and
-   launches), the card line, and last
+   launches; K6's and K8's launches and times on 18e's split path), the
+   card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -5060,7 +5076,56 @@ def phase_k8_parity_edges(dev) -> dict:
               f"bits twice and with garbage past the lengths")
     return {"planted_faults": {route: k8_faults(dev, route)
                                for route in K8_FAULT_CASES},
-            "two_streams": k8_two_streams(dev)}
+            "two_streams": k8_two_streams(dev),
+            "head_views": k8_view_edges(dev)}
+
+
+# K8 on a kv-head range of a pool, read in place, as a tensor-parallel
+# decode calls it (``attention._attend``): b, q heads, the pool's kv
+# heads, the range (h0, h1), ps, pps, hd, softcap.  The first and the last
+# range, GQA groups 2 (gemma2-2b on two model ranks) and 3 (nemotron-4-15b
+# on sixteen: 3 q heads over one of 8 kv heads); pages of 128 (the TMA
+# route in bf16) and 16 (the classic one).
+K8_VIEW_CASES = [
+    (2, 4, 4, (0, 2), 128, 9, 256, 50.0), (2, 4, 4, (2, 4), 128, 9, 256,
+                                           50.0),
+    (5, 3, 8, (0, 1), 128, 3, 128, None), (5, 3, 8, (7, 8), 128, 3, 128,
+                                           None),
+    (5, 6, 6, (4, 6), 16, 3, 64, 30.0), (5, 4, 4, (0, 2), 16, 4, 256, None),
+]
+
+
+def k8_view_edges(dev) -> dict:
+    """K8 on each case of K8_VIEW_CASES in float32 and bfloat16: held to
+    its plain version on the same view by both checks (``check_k8``: the
+    route the dtype, head dim and page size call for), and the same bits
+    as K8 on the view's contiguous copy."""
+    worst = 0.0
+    for i, (b, hq, kvh, (h0, h1), ps, pps, hd, cap) in enumerate(
+            K8_VIEW_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, table, lengths = k8_inputs(
+                (b, hq, kvh, ps, pps, hd, cap), dtype, dev, 90 + i)
+            kv, vv = kp[:, :, h0:h1], vp[:, :, h0:h1]
+            expect(not kv.is_contiguous() and PD.head_view(kv),
+                   f"not a kv-head view: {kv.stride()}")
+            e = check_k8(q, kv, vv, table, lengths, cap,
+                         f"a kv-head view {h0}:{h1} of {kvh}, {dtype}")
+            copy = PD.paged_decode_attention(q, kv.contiguous(),
+                                             vv.contiguous(), table, lengths,
+                                             softcap=cap)
+            view = PD.paged_decode_attention(q, kv, vv, table, lengths,
+                                             softcap=cap)
+            expect(torch.equal(view, copy), f"K8 on a view differs from K8 "
+                   f"on its copy: {K8_VIEW_CASES[i]} {dtype}")
+            worst = max(worst, e["rel"])
+            print(f"parity K8 on kv heads {h0}:{h1} of a {kvh}-head pool, "
+                  f"q {b}x{hq}x{hd} (group {hq // (h1 - h0)}), pages of {ps}, "
+                  f"{dtype} ({e['route']} route): max abs err "
+                  f"{e['max_abs']:.3e}, per-(b, h) rel err {e['rel']:.3e} "
+                  f"(tol {K8_TOL[dtype]} elementwise, rel {K8_REL_TOL}); the "
+                  "same bits as on the view's contiguous copy")
+    return {"cases": len(K8_VIEW_CASES), "max_rel": worst}
 
 
 # A whole 32k table at nemotron's layout: the TMA route, with many splits
@@ -7875,7 +7940,8 @@ def _w_mesh_train(rank, world, root):
     MESH_GLOO_SHAPES, the loss and gradient of ``gloo_cfg`` held per leaf
     to the one-device run the parent saved, with the launches; then the
     mesh's planted fault's loss (a forward: both faults scale the loss);
-    then serving from param shards (``serve_from_shards``); results to
+    then serving from param shards (``serve_from_shards``) and phase 18e
+    (``serve_tp``, on the one-device runs the parent saved); results to
     ``root/rank<rank>.json``."""
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
@@ -7907,6 +7973,10 @@ def _w_mesh_train(rank, world, root):
             del params, grads, ref
             torch.cuda.empty_cache()
         out["serve"] = serve_from_shards(dev)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["serve_tp"] = serve_tp(dev, root)
+        out["serve_tp"]["wall_s"] = time.perf_counter() - t0
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
@@ -7938,6 +8008,9 @@ def mesh_gloo_world(dev) -> dict:
                        os.path.join(root, f"ref_{b}.pt"))
             del grads
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tp_refs = serve_tp_refs(dev, root)
+        res["serve_tp_refs_seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         ctx = torch.multiprocessing.start_processes(
             _w_mesh_train, args=(2, root), nprocs=2, join=False,
@@ -7982,8 +8055,16 @@ def mesh_gloo_world(dev) -> dict:
               f"{rec['fault_loss_rel']:.4e} "
               f"({res[key]['fault_over_limit']:.3g}x the limit)")
     res["serve"] = check_served([r["serve"] for r in ranks])
+    res["serve_tp"] = check_serve_tp([r["serve_tp"] for r in ranks], tp_refs)
+    t0 = time.perf_counter()
+    res["serve_tp"]["kernels"] = serve_tp_kernel_times(dev)
+    res["serve_tp"]["phase_s"] = (res["serve_tp_refs_seconds"]
+                                  + max(r["serve_tp"]["wall_s"] for r in ranks)
+                                  + time.perf_counter() - t0)
     print(f"mesh train gloo world: one spawn of 2 ranks, "
-          f"{res['world_seconds']:.1f} s (serving from shards in it)")
+          f"{res['world_seconds']:.1f} s (serving from shards and phase 18e "
+          f"in it); phase 18e {res['serve_tp']['phase_s']:.1f} s (the "
+          f"one-device runs, the ranks' share, the kernels' times)")
     return res
 
 
@@ -8359,18 +8440,19 @@ SERVE_GLOO_PROMPT = 64
 SERVE_GLOO_STEPS = 4
 
 
-def serve_greedy(cfg, params, prompt, mesh):
-    """``lm.prefill`` then SERVE_GLOO_STEPS greedy ``decode_step``s on
-    ``mesh``: (every call's last logits, the tokens chosen)."""
+def serve_greedy(cfg, params, prompt, mesh, feed=None):
+    """``lm.prefill`` then SERVE_GLOO_STEPS ``decode_step``s on ``mesh``,
+    each fed its own argmax, or the column of ``feed`` (B, T): (every
+    call's last logits, the tokens the run chose itself)."""
     b, s = prompt["tokens"].shape
     logits, toks = [], []
     with torch.no_grad():
         lg, caches = lm.prefill(params, prompt, cfg, mesh,
                                 max_len=s + SERVE_GLOO_STEPS)
         logits.append(lg[:, -1])
-        for _ in range(SERVE_GLOO_STEPS):
-            tok = lg[:, -1].argmax(-1, keepdim=True)
-            toks.append(tok)
+        for i in range(SERVE_GLOO_STEPS):
+            toks.append(lg[:, -1].argmax(-1, keepdim=True))
+            tok = toks[-1] if feed is None else feed[:, i:i + 1]
             lg, caches = lm.decode_step(params, step_inputs(cfg, tok),
                                         caches, cfg, mesh)
             logits.append(lg[:, -1])
@@ -8379,31 +8461,38 @@ def serve_greedy(cfg, params, prompt, mesh):
 
 def serve_from_shards(dev) -> dict:
     """On this rank of a two-rank process group (``_w_mesh_train``'s gloo
-    world), on each mesh of SERVE_GLOO_SHAPES: granite-moe served from
-    this rank's param shards (``sharding_rules.shard_params``) and from the
-    whole params on the same mesh (the gather an identity); the logits'
-    bits and the tokens compared, the launches of the sharded run."""
+    world), on each mesh of SERVE_GLOO_SHAPES: granite-moe (capacity
+    factor 8: neither MoE dispatch drops a pair) served from this rank's
+    param shards (``sharding_rules.shard_params``), each rank computing
+    its share, against the same params served on one device here: where
+    ``model`` splits (tp > 1) each step is fed that run's tokens and the
+    logits are held per row; with tp 1 the run picks its own tokens; the
+    launches of the sharded run."""
     out = {}
-    cfg = get_config(MESH_ARCH).replace(n_layers=SERVE_GLOO_LAYERS)
+    cfg = get_config(MESH_ARCH).replace(n_layers=SERVE_GLOO_LAYERS,
+                                        capacity_factor=MESH_GATE_CF)
     whole = lm.init_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
     prompt = lm_inputs(cfg, SERVE_GLOO_BATCH, SERVE_GLOO_PROMPT, dev,
                        SEED + 11)
+    want, want_toks = serve_greedy(cfg, whole, prompt, None)
     for shape in SERVE_GLOO_SHAPES:
         mesh = MESH.make_host_mesh(tp=shape[1], device=dev.type)
         shards = SR.shard_params(whole, SR.config_specs(cfg, mesh), mesh)
         reset_all_launches()
         t0 = time.perf_counter()
-        got, got_toks = serve_greedy(cfg, shards, prompt, mesh)
+        got, got_toks = serve_greedy(cfg, shards, prompt, mesh,
+                                     feed=want_toks if shape[1] > 1 else None)
         sync(dev)
         wall = time.perf_counter() - t0
         launches = {"flash_attention": FA.LAUNCHES["flash_attention"],
                     "paged_decode_attention": PD.LAUNCHES[
                         "paged_decode_attention"]}
-        with patched(SHD, "gather_param", lambda x, spec, mesh: x):
-            want, want_toks = serve_greedy(cfg, whole, prompt, mesh)
+        v = cfg.vocab_size
         out[f"({shape[0]}, {shape[1]})"] = {
             "same_bits": bool(torch.equal(got, want)),
-            "max_abs": float((got.float() - want.float()).abs().max()),
+            "max_abs": float((got[..., :v].float() - want[..., :v].float())
+                             .abs().max()),
+            "rel_err": logit_row_rel(got, want, v),
             "same_tokens": bool(torch.equal(got_toks, want_toks)),
             "finite": bool(torch.isfinite(got).all()),
             "tokens": got_toks.tolist(), "launches": launches,
@@ -8415,10 +8504,14 @@ def serve_from_shards(dev) -> dict:
 
 
 def check_served(ranks) -> dict:
-    """``serve_from_shards``' records of both ranks: the logits the same
-    bits as from the whole params, the tokens identical and alike on both
-    ranks, finite, the shards smaller than the whole, and on each rank K6
-    once a layer in the prefill and K8 once a layer a step."""
+    """``serve_from_shards``' records of both ranks: with tp 1 (rows over
+    the ranks, whole heads) the logits bit for bit and the tokens those of
+    the one-device run; with tp > 1 the logits within BF16_LOGIT_REL_TOL a
+    row of the one-device run's (the tensor-parallel sums add in another
+    order; the float32 witness of ``serve_tp`` holds the split path itself
+    to 1e-4); finite, alike on both ranks, the shards smaller than the
+    whole, and on each rank K6 once a layer in the prefill and K8 once a
+    layer a step."""
     n = SERVE_GLOO_LAYERS
     res = {}
     for shape in SERVE_GLOO_SHAPES:
@@ -8426,8 +8519,11 @@ def check_served(ranks) -> dict:
         rec = ranks[0][key]
         expect(ranks[1][key]["tokens"] == rec["tokens"], (key, ranks))
         for r in ranks:
-            expect(r[key]["same_bits"] and r[key]["same_tokens"]
+            expect(r[key]["rel_err"] <= BF16_LOGIT_REL_TOL
                    and r[key]["finite"], (key, r[key]))
+            if shape[1] == 1:
+                expect(r[key]["same_bits"] and r[key]["same_tokens"],
+                       (key, r[key]))
             expect(r[key]["launches"] == {
                 "flash_attention": n,
                 "paged_decode_attention": n * SERVE_GLOO_STEPS},
@@ -8437,13 +8533,367 @@ def check_served(ranks) -> dict:
         res[key] = rec
         print(f"mesh serve gloo world {key} on the card, {MESH_ARCH} "
               f"{n} layers, {SERVE_GLOO_BATCH} x {SERVE_GLOO_PROMPT} prompt, "
-              f"{SERVE_GLOO_STEPS} greedy steps from param shards "
-              f"({rec['shard_elements']} of {rec['whole_elements']} "
-              f"elements a rank): logits the same bits as from the whole "
-              f"params (max abs {rec['max_abs']}), tokens identical "
-              f"{rec['tokens']}; launches a rank {rec['launches']}; "
-              f"{rec['wall_s']:.2f} s")
+              f"{SERVE_GLOO_STEPS} steps"
+              f"{' fed the one-device tokens' if shape[1] > 1 else ''}, from "
+              f"param shards ({rec['shard_elements']} of "
+              f"{rec['whole_elements']} elements a rank): per-row rel err "
+              f"{rec['rel_err']:.4e} against one device (limit "
+              f"{BF16_LOGIT_REL_TOL}), max abs {rec['max_abs']}, same bits "
+              f"{rec['same_bits']}, own tokens the same "
+              f"{rec['same_tokens']} {rec['tokens']}; launches a rank "
+              f"{rec['launches']}; {rec['wall_s']:.2f} s")
     return res
+
+
+# ------------------- serving split over the mesh: gemma2-2b, phase 18e
+
+SERVE_TP_ARCH = "gemma2-2b"
+SERVE_TP_SHAPES = ((1, 2), (2, 1))
+SERVE_TP_BATCH = 2
+SERVE_TP_PROMPT = 1024
+SERVE_TP_STEPS = 8
+SERVE_TP_F32_LAYERS = 2
+SERVE_TP_F32_TOL = 1e-4       # a row, the float32 witness against one device
+SERVE_TP_SEED = SEED + 34
+# The bf16 runs against one device are held per row to BF16_LOGIT_REL_TOL,
+# the limit the other 26-layer gemma2 comparisons keep: the split sums
+# (the row-parallel wo and down over two ranks, the vocab columns) round
+# at other places, as K6 against the plain attention does; the float32
+# witness holds the split path itself to SERVE_TP_F32_TOL, and the planted
+# fault (wo's all-reduce skipped) must read 3x the limit.
+
+
+def serve_tp_cfg(layers=None, dtype="bfloat16"):
+    cfg = get_config(SERVE_TP_ARCH)
+    return cfg.replace(n_layers=layers or cfg.n_layers, dtype=dtype)
+
+
+def serve_tp_inputs(cfg, dev):
+    params = lm.init_params(cfg, SERVE_TP_SEED, device=dev,
+                            dtype=getattr(torch, cfg.dtype))
+    return params, lm_inputs(cfg, SERVE_TP_BATCH, SERVE_TP_PROMPT, dev,
+                             SERVE_TP_SEED + 1)
+
+
+@contextlib.contextmanager
+def collective_bytes():
+    """The bytes of every all-reduce's tensor and every all-gather's
+    output in the block (what ``core/sharding.py`` sends over gloo), by
+    kind."""
+    rec = {"all-reduce": 0, "all-gather": 0}
+    reduce_, gather_ = tdist.all_reduce, SHD._ALL_GATHER
+
+    def all_reduce(t, *a, **kw):
+        rec["all-reduce"] += t.numel() * t.element_size()
+        return reduce_(t, *a, **kw)
+
+    def all_gather(out, *a, **kw):
+        rec["all-gather"] += out.numel() * out.element_size()
+        return gather_(out, *a, **kw)
+    with patched(tdist, "all_reduce", all_reduce), \
+            patched(SHD, "_ALL_GATHER", all_gather):
+        yield rec
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """Every K6 and K8 call's (kernel, batch rows, q heads, kv heads,
+    pages a view of a wider pool) through ``kernels/ops.py``; the launch
+    counts stay in the kernels' own wrappers."""
+    calls = []
+    orig = {n: getattr(OPS, n) for n in ("flash_attention",
+                                         "paged_decode_attention")}
+
+    def spy(name):
+        def call(q, k, *a, **kw):
+            kvh = k.shape[1] if q.dim() == 4 else k.shape[2]
+            calls.append((name, q.shape[0], q.shape[1], kvh,
+                          q.dim() == 3 and not k.is_contiguous()))
+            return orig[name](q, k, *a, **kw)
+        return call
+    try:
+        for n in orig:
+            setattr(OPS, n, spy(n))
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(OPS, n, fn)
+
+
+def serve_tp_run(cfg, params, prompt, mesh, dev, feed=None, steps=None):
+    """``lm.prefill`` then ``steps`` (SERVE_TP_STEPS) donated
+    ``decode_step``s, each fed its own argmax or ``feed``'s column: the
+    last logits of every call (float32, (1 + T, B, V)), the tokens the run
+    chose, the prefill's and the steps' walls, the peak, and the
+    collectives' bytes of the prefill and of a step."""
+    steps = SERVE_TP_STEPS if steps is None else steps
+    b, s = prompt["tokens"].shape
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad(), collective_bytes() as pre:
+        t0 = time.perf_counter()
+        lg, caches = lm.prefill(params, prompt, cfg, mesh,
+                                max_len=s + SERVE_TP_STEPS)
+        sync(dev)
+        t1 = time.perf_counter()
+    logits, toks = [lg[:, -1].float()], []
+    with torch.no_grad(), collective_bytes() as dec:
+        t2 = time.perf_counter()
+        for i in range(steps):
+            toks.append(lg[:, -1].argmax(-1, keepdim=True))
+            tok = toks[-1] if feed is None else feed[:, i:i + 1]
+            lg, caches = lm.decode_step(params, step_inputs(cfg, tok),
+                                        caches, cfg, mesh, donate=True)
+            logits.append(lg[:, -1].float())
+        sync(dev)
+        t3 = time.perf_counter()
+    return {"logits": torch.stack(logits),
+            "tokens": torch.cat(toks, 1) if toks else None,
+            "prefill_s": t1 - t0, "decode_s": t3 - t2,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "prefill_collective_bytes": dict(pre),
+            "step_collective_bytes": {k: v / max(1, steps)
+                                      for k, v in dec.items()}}
+
+
+def logit_row_rel(got, want, vocab) -> float:
+    """The worst ‖got − want‖ / ‖want‖ over the rows of two logit
+    tensors (…, V), over the real vocab (the pad columns hold -1e30)."""
+    g, w = got[..., :vocab].float(), want[..., :vocab].float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def serve_tp_refs(dev, root) -> dict:
+    """The one-device runs the gloo world's ranks are held to, saved to
+    ``root``: gemma2-2b at full depth in bf16 (greedy), and the float32
+    witness at SERVE_TP_F32_LAYERS layers."""
+    out = {}
+    for key, cfg in (("bf16", serve_tp_cfg()),
+                     ("f32", serve_tp_cfg(SERVE_TP_F32_LAYERS, "float32"))):
+        params, prompt = serve_tp_inputs(cfg, dev)
+        run = serve_tp_run(cfg, params, prompt, None, dev)
+        torch.save({"logits": run["logits"].cpu(),
+                    "tokens": run["tokens"].cpu()},
+                   os.path.join(root, f"serve_tp_{key}.pt"))
+        out[key] = {k: run[k] for k in ("prefill_s", "decode_s",
+                                        "peak_bytes")}
+        del params, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp(dev, root) -> dict:
+    """Phase 18e on this rank of ``_w_mesh_train``'s two-rank gloo world:
+    gemma2-2b at its published widths and full depth in bf16, served from
+    this rank's param shards on (1, 2) (heads, ff and vocab over
+    ``model``) and on (2, 1) (a row a rank): a 2 x SERVE_TP_PROMPT prefill
+    and SERVE_TP_STEPS donated decode steps fed the one-device tokens,
+    held per row to the one-device run's logits; every count set to 0
+    just before each run and read after it, with each K6 / K8 call's
+    shape; the float32 witness at SERVE_TP_F32_LAYERS layers, greedy (its
+    tokens must be the one-device run's); on (1, 2) the planted fault
+    (``wo``'s all-reduce skipped) on one prefill."""
+    out = {}
+    refs = {k: torch.load(os.path.join(root, f"serve_tp_{k}.pt"),
+                          map_location=dev) for k in ("bf16", "f32")}
+    cfg = serve_tp_cfg()
+    whole, prompt = serve_tp_inputs(cfg, dev)
+    for shape in SERVE_TP_SHAPES:
+        t0 = time.perf_counter()
+        key = f"({shape[0]}, {shape[1]})"
+        mesh = MESH.make_host_mesh(tp=shape[1], device=dev.type)
+        shards = SR.shard_params(whole, SR.config_specs(cfg, mesh), mesh)
+        reset_all_launches()
+        with attention_shapes() as calls:
+            run = serve_tp_run(cfg, shards, prompt, mesh, dev,
+                               feed=refs["bf16"]["tokens"])
+        launches = {"flash_attention": FA.LAUNCHES["flash_attention"],
+                    "paged_decode_attention": PD.LAUNCHES[
+                        "paged_decode_attention"],
+                    "k6_routes": dict(FA.ROUTE_LAUNCHES),
+                    "k8_routes": dict(PD.ROUTE_LAUNCHES)}
+        rec = {k: run[k] for k in ("prefill_s", "decode_s", "peak_bytes",
+                                   "prefill_collective_bytes",
+                                   "step_collective_bytes")}
+        want = refs["bf16"]["logits"]
+        rec.update(
+            rel_err=logit_row_rel(run["logits"], want, cfg.vocab_size),
+            max_abs=float((run["logits"] - want).abs().max()),
+            finite=bool(torch.isfinite(run["logits"]).all()),
+            own_tokens_agree=int((run["tokens"] == refs["bf16"]["tokens"])
+                                 .sum()),
+            tokens=run["tokens"].tolist(), launches=launches,
+            calls=sorted({tuple(c) for c in calls}),
+            shard_elements=sum(t.numel() for t in T.leaves(shards)))
+        if shape[1] > 1:
+            with patched(ATT, "_sum_over_model", lambda x, mesh: x):
+                bad = serve_tp_run(cfg, shards, prompt, mesh, dev, steps=0)
+            rec["fault_rel_err"] = logit_row_rel(bad["logits"], want[:1],
+                                                 cfg.vocab_size)
+        rec["wall_s"] = time.perf_counter() - t0
+        out[key] = rec
+        del shards, run
+        torch.cuda.empty_cache()
+    del whole
+    t0 = time.perf_counter()
+    cfg32 = serve_tp_cfg(SERVE_TP_F32_LAYERS, "float32")
+    whole, prompt = serve_tp_inputs(cfg32, dev)
+    for shape in SERVE_TP_SHAPES:
+        key = f"({shape[0]}, {shape[1]})"
+        mesh = MESH.make_host_mesh(tp=shape[1], device=dev.type)
+        shards = SR.shard_params(whole, SR.config_specs(cfg32, mesh), mesh)
+        run = serve_tp_run(cfg32, shards, prompt, mesh, dev)
+        out[key]["f32"] = {
+            "rel_err": logit_row_rel(run["logits"], refs["f32"]["logits"],
+                                     cfg32.vocab_size),
+            "same_tokens": bool(torch.equal(run["tokens"],
+                                            refs["f32"]["tokens"]))}
+        del shards, run
+    del whole
+    torch.cuda.empty_cache()
+    out["f32_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_serve_tp(ranks, refs) -> dict:
+    """Phase 18e's gates over both ranks' records: finite logits within
+    BF16_LOGIT_REL_TOL a row of one device's, alike on both ranks; the
+    float32 witness within SERVE_TP_F32_TOL a row with the one-device
+    tokens; the launches (K6 once a layer in the prefill, K8 once a global
+    layer a step) and each call's shape: on (1, 2) 4 q heads over 2 kv
+    heads at both rows, K8 on a 2-kv-head view of the cache; on (2, 1) 8
+    over 4 at one row a rank; the planted fault 3x the limit."""
+    cfg = serve_tp_cfg()
+    n, g = cfg.n_layers, unwindowed_layers(cfg)
+    res = {}
+    for shape in SERVE_TP_SHAPES:
+        key = f"({shape[0]}, {shape[1]})"
+        rows, tp = SERVE_TP_BATCH // shape[0], shape[1]
+        hq, kvh = cfg.n_heads // tp, cfg.n_kv_heads // tp
+        for r in ranks:
+            rec = r[key]
+            expect(rec["finite"] and rec["rel_err"] <= BF16_LOGIT_REL_TOL,
+                   (key, rec["rel_err"]))
+            expect(rec["f32"]["rel_err"] <= SERVE_TP_F32_TOL
+                   and rec["f32"]["same_tokens"], (key, rec["f32"]))
+            lz = rec["launches"]
+            expect(lz["flash_attention"] == n and lz["paged_decode_attention"]
+                   == g * SERVE_TP_STEPS and lz["k6_routes"]["classic"] == 0
+                   and lz["k8_routes"]["classic"] == 0, (key, lz))
+            want_calls = [["flash_attention", rows, hq, kvh, False],
+                          ["paged_decode_attention", rows, hq, kvh, tp > 1]]
+            expect(sorted(map(list, rec["calls"])) == want_calls,
+                   (key, rec["calls"], want_calls))
+            if tp > 1:
+                expect(rec["fault_rel_err"] >= 3 * BF16_LOGIT_REL_TOL,
+                       (key, rec["fault_rel_err"]))
+        expect(ranks[0][key]["tokens"] == ranks[1][key]["tokens"], key)
+        rec = ranks[0][key]
+        res[key] = {**rec, "ranks": [
+            {k: r[key][k] for k in ("prefill_s", "decode_s", "peak_bytes",
+                                    "rel_err")} for r in ranks],
+            "fault_over_limit": (rec.get("fault_rel_err", 0.0)
+                                 / BF16_LOGIT_REL_TOL)}
+        print(f"serve_tp {key} ({rec['wall_s']:.1f} s on rank 0; the "
+              f"float32 witness on both meshes {ranks[0]['f32_wall_s']:.1f} "
+              f"s): {SERVE_TP_ARCH} {n} layers bf16 from param "
+              f"shards, {SERVE_TP_BATCH} x {SERVE_TP_PROMPT} prefill + "
+              f"{SERVE_TP_STEPS} donated steps fed the one-device tokens: "
+              f"per-row rel err {rec['rel_err']:.4e} against one device "
+              f"(limit {BF16_LOGIT_REL_TOL}), max abs {rec['max_abs']:.4e}; "
+              f"own argmax the one-device token {rec['own_tokens_agree']} of "
+              f"{SERVE_TP_BATCH * SERVE_TP_STEPS}; float32 witness "
+              f"({SERVE_TP_F32_LAYERS} layers) {rec['f32']['rel_err']:.3e} "
+              f"(limit {SERVE_TP_F32_TOL}), tokens the same "
+              f"{rec['f32']['same_tokens']}; launches a rank "
+              f"{rec['launches']}; calls {rec['calls']}; planted fault (wo's "
+              f"all-reduce skipped) {rec.get('fault_rel_err')}")
+        for i, r in enumerate(ranks):
+            q = r[key]
+            print(f"serve_tp {key} rank {i}: prefill {q['prefill_s']:.3f} s, "
+                  f"{SERVE_TP_STEPS} steps {q['decode_s']:.3f} s "
+                  f"({SERVE_TP_BATCH * SERVE_TP_STEPS / q['decode_s']:.2f} "
+                  f"tokens/s), peak {q['peak_bytes']} B, collective bytes "
+                  f"prefill {q['prefill_collective_bytes']} a step "
+                  f"{q['step_collective_bytes']}")
+    res["one_device"] = refs
+    res["f32_wall_s"] = ranks[0]["f32_wall_s"]
+    print(f"serve_tp one device: {refs}")
+    return res
+
+
+def serve_tp_kernel_times(dev) -> dict:
+    """K6 and K8 at phase 18e's shapes on this card alone (random inputs
+    from a seed, as the layers call them): device time by CUDA events
+    behind a spin kernel (median of REPS), the plain version (median of
+    PLAIN_REPS after a warm-up), the bound, the library call (K6:
+    ``flex_attention`` with the softcap; K8: SDPA over the gathered
+    cache, without the softcap gemma2's global layers keep, so beside K8
+    without it too), each held to the plain version."""
+    cfg = serve_tp_cfg()
+    hd, cap = cfg.head_dim, cfg.attn_softcap
+    out = {}
+    for shape in SERVE_TP_SHAPES:
+        t0 = time.perf_counter()
+        key = f"({shape[0]}, {shape[1]})"
+        rows, tp = SERVE_TP_BATCH // shape[0], shape[1]
+        hq, kvh = cfg.n_heads // tp, cfg.n_kv_heads // tp
+        q, k, v = k6_inputs((rows, hq, kvh, SERVE_TP_PROMPT,
+                             SERVE_TP_PROMPT, hd), torch.bfloat16, dev,
+                            SERVE_TP_SEED + 2, strided=True)
+        e = check_k6(q, k, v, True, None, cap, f"serve_tp K6 {key}")
+        ms = device_ms(lambda: FA.flash_attention(q, k, v, softcap=cap))
+        plain = median_ms(lambda: R.attention_ref(q, k, v, softcap=cap),
+                          reps=PLAIN_REPS)
+        bound, by, _, _ = k6_bound(q, k, True, None)
+        lib = flex_attention(q, k, v, softcap=cap)
+        expect(bh_rel(lib(q, k, v), FA.flash_attention(
+            q, k, v, softcap=cap)) <= K6_REL_TOL, "flex_attention vs K6")
+        lib_ms = device_ms(lambda: lib(q, k, v))
+        k6 = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+              "library_ms": lib_ms, "max_abs_err": e["max_abs"],
+              "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} softcap "
+                       f"{cap}, causal"}
+        pps = -(-(SERVE_TP_PROMPT + SERVE_TP_STEPS) // lm.PAGE_SIZE)
+        q8, kp, vp, table, lengths = k8_inputs(
+            (rows, hq, cfg.n_kv_heads, lm.PAGE_SIZE, pps, hd, None),
+            torch.bfloat16, dev, SERVE_TP_SEED + 3)
+        lengths.fill_(SERVE_TP_PROMPT + SERVE_TP_STEPS)
+        kv, vv = kp[:, :, :kvh], vp[:, :, :kvh]
+        e8 = check_k8(q8, kv, vv, table, lengths, cap, f"serve_tp K8 {key}")
+        ms8 = device_ms(lambda: PD.paged_decode_attention(
+            q8, kv, vv, table, lengths, softcap=cap))
+        plain8 = median_ms(lambda: R.paged_decode_attention_ref(
+            q8, kv, vv, table, lengths, softcap=cap), reps=PLAIN_REPS)
+        b8 = k8_bound(q8, kv, table, lengths)
+        n8 = SERVE_TP_PROMPT + SERVE_TP_STEPS
+        kf, vf = (t[table.long()].flatten(1, 2)[:, :n8].transpose(1, 2)
+                  for t in (kv, vv))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q8[:, :, None], kf, vf, enable_gqa=True)
+        off = PD.paged_decode_attention(q8, kv, vv, table, lengths)
+        expect(bh_rel(sdpa()[:, :, 0], off) <= K8_REL_TOL, "SDPA vs K8")
+        lib8 = device_ms(sdpa)
+        ms8_off = device_ms(lambda: PD.paged_decode_attention(
+            q8, kv, vv, table, lengths))
+        k8 = {"ms": ms8, "plain_ms": plain8, "bound_ms": b8["bound_ms"],
+              "bound_by": b8["bound_by"], "library_ms": lib8,
+              "ms_softcap_off": ms8_off, "max_abs_err": e8["max_abs"],
+              "route": e8["route"],
+              "shape": f"q {tuple(q8.shape)} over kv heads 0:{kvh} of pages "
+                       f"{tuple(kp.shape)}, {SERVE_TP_PROMPT + SERVE_TP_STEPS}"
+                       f" tokens a row, softcap {cap}"}
+        out[key] = {"k6": k6, "k8": k8, "wall_s": time.perf_counter() - t0}
+        print(f"time: serve_tp {key} ({out[key]['wall_s']:.1f} s) K6 {k6['shape']}: {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), plain {plain:.3f} ms, flex_attention "
+              f"{lib_ms:.4f} ms; K8 {k8['shape']}: {ms8:.4f} ms ({e8['route']}"
+              f" route; {ms8_off:.4f} without the softcap), bound "
+              f"{b8['bound_ms']:.4f} ms ({b8['bound_by']}), plain "
+              f"{plain8:.3f} ms, SDPA over the gathered cache (no softcap) "
+              f"{lib8:.4f} ms")
+        del q, k, v, q8, kp, vp, kv, vv, kf, vf
+        torch.cuda.empty_cache()
+    return out
 
 
 def to_port_bounds() -> list:
@@ -8538,6 +8988,9 @@ def main() -> None:
     mtrain = phase_mesh_train(dev)
     print(f"[phase_mesh_train done at {time.perf_counter() - t0:.1f} s]")
     served = mtrain["gloo"]["serve"]
+    stp = mtrain["gloo"]["serve_tp"]
+    stp_keys = [f"({a}, {b})" for a, b in SERVE_TP_SHAPES]
+    stp_name = {k: "tp" if k.endswith("2)") else "rows" for k in stp_keys}
     mt_steps = {"launches_per_mesh_train_step": mtrain[
         "launches_per_step_mesh"], "mesh_train_shape": f"{MESH_ARCH} "
         f"{MESH_TRAIN_LAYERS} layers on a (1, 1) mesh, 1 x {TRAIN_SEQ}",
@@ -8701,7 +9154,12 @@ def main() -> None:
             f"the same, 1 x {PREFILL_LEN}":
                 mesh["reading_32k"]["mesh"]["k6_routes"]},
         "launches_per_prefill_mesh_serve_shards": {
-            k: v["launches"]["flash_attention"] for k, v in served.items()}})
+            k: v["launches"]["flash_attention"] for k, v in served.items()},
+        "launches_per_prefill_serve_tp_rank": {
+            k: stp[k]["launches"]["flash_attention"] for k in stp_keys},
+        **{f"serve_tp_{stp_name[k]}_{f}": stp["kernels"][k]["k6"][f]
+           for k in stp_keys for f in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms", "shape")}})
     tr, win = k7["train"], k7["window"]
     kernels.append({
         "name": "flash_attention_lse", "route": "cuda", "source": K6_SOURCE,
@@ -8904,7 +9362,13 @@ def main() -> None:
         "long_500k_launches_by_route": long["decode"]["k8_routes"],
         "launches_per_step_mesh_serve_shards": {
             k: v["launches"]["paged_decode_attention"] // SERVE_GLOO_STEPS
-            for k, v in served.items()}})
+            for k, v in served.items()},
+        "launches_per_step_serve_tp_rank": {
+            k: stp[k]["launches"]["paged_decode_attention"] // SERVE_TP_STEPS
+            for k in stp_keys},
+        **{f"serve_tp_{stp_name[k]}_{f}": stp["kernels"][k]["k8"][f]
+           for k in stp_keys for f in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms", "shape")}})
     print(json.dumps({"to_port": to_port_bounds()}))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}, allow_nan=False))

@@ -159,21 +159,32 @@ def lm_caches_shard_from_jax(caches, cfg, coord: int, n: int,
     of them over ``n`` data ranks, as ``ShardingRules.cache_specs`` lays
     the pages out and the port's decode on a mesh reads them: each
     ``PagedKV`` cut by ``paged.shard`` (rows and their pages, or pages
-    alone at batch 1), the SSM states whole."""
+    alone at batch 1), the SSM states the rank's rows where the batch
+    tiles the ranks, else whole (``lm.make_cache``)."""
     whole = lm_caches_from_jax(caches, cfg, device)
     out = dict(whole)
     if "kv" in whole:
         out["kv"] = [paged.PagedKV(*(t.clone() for t in paged.shard(
             c, coord, n))) for c in whole["kv"]]
+    if "ssm" in whole:
+        b = whole["ssm"][0].h.shape[0]
+        if b % n == 0:
+            per = b // n
+            out["ssm"] = [SSMState(*(t[coord * per:(coord + 1) * per].clone()
+                                     for t in st)) for st in whole["ssm"]]
     return out
 
 
 def lm_caches_unshard(shards, batch: int) -> dict:
     """Every data rank's caches (in coordinate order) → the whole caches
     of ``batch`` sequences: the pages (and rows) joined, the SSM states
-    rank 0's."""
+    joined where each rank held its rows, else rank 0's."""
     out = dict(shards[0])
     if "kv" in out:
         out["kv"] = [paged.unshard([s["kv"][i] for s in shards], batch)
                      for i in range(len(out["kv"]))]
+    if "ssm" in out and out["ssm"][0].h.shape[0] != batch:
+        out["ssm"] = [SSMState(*(torch.cat([s["ssm"][i][f] for s in shards])
+                                 for f in range(2)))
+                      for i in range(len(out["ssm"]))]
     return out

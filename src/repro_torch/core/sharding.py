@@ -26,17 +26,25 @@ stand-in with a ``shape`` mapping, as the reference's tests use.
 Two conventions for what a rank's activations hold, one switch between
 them (``rows_local``):
 
-* **global** (serving: ``lm.prefill``, ``lm.decode_step``): every rank
-  passes the same whole inputs and gets the whole outputs back.  An
-  exchange takes this rank's block of the B·S tokens split over every
-  axis (data axes, then ``model``) and gathers over every axis.
-* **local** (training: ``lm.forward_hidden`` / ``lm.loss_fn`` on a mesh,
-  which wrap the mesh in ``LocalRows``): the batch splits over the data
-  axes as ``ShardingRules.batch_spec()`` says, and every rank of one model
+* **global**: every rank holds the same whole rows.  An exchange takes
+  this rank's block of the B·S tokens split over every axis (data axes,
+  then ``model``) and gathers over every axis.  Serving keeps it for a
+  batch that does not tile the data axes (batch 1, say).
+* **local** (training, and serving a batch that tiles the data axes; a
+  ``MeshView`` with ``local=True``): the batch splits over the data axes
+  as ``ShardingRules.batch_spec()`` says, and every rank of one model
   group holds the same rows.  An exchange takes this data rank's rows,
   splits them over ``model`` alone and gathers over ``model`` alone.
   Row-major data-then-model order is the reference's token order, so each
   device holds the same tokens as under the reference's ``shard_map``.
+
+A ``MeshView`` also says how a block's params are held while it runs:
+gathered whole (training: the compute is replicated within a model
+group), or as this model rank's shards under ``param_specs``
+(``model_shards``, serving: tensor parallelism, each layer computing its
+heads, ff columns and vocab columns and joining them with
+``all_reduce`` / ``all_gather`` over ``model``; ``gather_fsdp`` gathers
+a leaf over its data axes alone).
 
 Training on a mesh computes the host's math with explicit collectives
 (under GSPMD the reference changes only the layout).  The rules:
@@ -71,10 +79,11 @@ from .disk.buckets import block_owner  # noqa: F401 — the one block map
 
 __all__ = ["block_owner", "hash_owner", "mesh_axes", "data_axes",
            "axis_size", "axis_index", "axis_group", "shard_leading",
-           "replicated", "gather_leading", "LocalRows", "rows_local",
-           "token_axes", "group_gather", "group_reduce_scatter",
-           "all_gather", "reduce_scatter", "sum_grad",
-           "spec_axes", "gather_param", "shard_param"]
+           "replicated", "gather_leading", "MeshView", "rows_local",
+           "model_shards", "token_axes", "group_gather",
+           "group_reduce_scatter", "all_gather", "reduce_scatter",
+           "all_reduce", "shard_dim", "sum_grad", "spec_axes",
+           "gather_param", "gather_fsdp", "shard_param"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -133,8 +142,8 @@ def axis_index(mesh, axes: Axes) -> int:
 
 
 def _base(mesh):
-    """The ``DeviceMesh`` behind a ``LocalRows`` view (or ``mesh``)."""
-    return mesh.base if isinstance(mesh, LocalRows) else mesh
+    """The ``DeviceMesh`` behind a ``MeshView`` (or ``mesh``)."""
+    return mesh.base if isinstance(mesh, MeshView) else mesh
 
 
 def axis_group(mesh, axes: Axes):
@@ -173,13 +182,7 @@ def axis_group(mesh, axes: Axes):
 
 def shard_leading(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """This rank's block of x's leading dim sharded over ``axes``."""
-    n = axis_size(mesh, axes)
-    if x.shape[0] % n:
-        raise ValueError(f"leading dim {x.shape[0]} does not split over "
-                         f"{axes} of size {n}")
-    per = x.shape[0] // n
-    i = axis_index(mesh, axes)
-    return x[i * per:(i + 1) * per]
+    return shard_dim(x, mesh, axes, 0)
 
 
 def replicated(x, mesh):
@@ -196,22 +199,30 @@ def gather_leading(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 
 # ----------------------------------------- the two conventions of rows
 
-class LocalRows:
-    """``mesh`` under the local convention of the module docstring: the
-    activations hold this data rank's rows.  Everything else is the
-    mesh's own (attributes are read through)."""
+class MeshView:
+    """``mesh`` under one convention of the module docstring: ``local``,
+    the activations hold this data rank's rows (else every rank holds the
+    whole rows); ``model_shards``, a block's params are this model rank's
+    shards (else whole).  Everything else is the mesh's own (attributes
+    are read through)."""
 
-    def __init__(self, mesh):
-        self.__dict__["base"] = _base(mesh)
+    def __init__(self, mesh, *, local: bool, model_shards: bool = False):
+        self.__dict__.update(base=_base(mesh), local=local,
+                             model_shards=model_shards)
 
     def __getattr__(self, name):
         return getattr(self.base, name)
 
 
 def rows_local(mesh) -> bool:
-    """True under the local (training) convention, False under the
-    global (serving) one."""
-    return isinstance(mesh, LocalRows)
+    """True under the local convention, False under the global one."""
+    return isinstance(mesh, MeshView) and mesh.local
+
+
+def model_shards(mesh) -> bool:
+    """True where the layers get each model rank's param shards and split
+    their compute over ``model`` (serving's tensor parallelism)."""
+    return isinstance(mesh, MeshView) and mesh.model_shards
 
 
 def token_axes(mesh) -> Tuple[str, ...]:
@@ -317,6 +328,33 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
     return _ReduceScatter.apply(x, group, n, dim)
 
 
+def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The sum of x over the coordinates of ``axes``, on each of them: a
+    row-parallel product's partials joined.  Written into x, which must be
+    a temporary of the caller's.  Forward only (serving): under autograd
+    it raises."""
+    group, _, n = axis_group(mesh, axes)
+    if n == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("all_reduce has no backward yet: tensor "
+                                  "parallelism runs in serving only")
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def shard_dim(x: torch.Tensor, mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """This coordinate's block of x's ``dim`` split over ``axes`` (a
+    view): the inverse of ``all_gather`` along ``dim``."""
+    n = axis_size(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axes} of size {n}")
+    per = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axes) * per, per)
+
+
 def sum_grad(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """x itself; its gradient summed over ``axes`` (the adjoint of
     handing one value to every coordinate of ``axes``)."""
@@ -353,6 +391,18 @@ def gather_param(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         if _entry_axes(entry):
             x = all_gather(x, mesh, _entry_axes(entry), dim)
+    return x
+
+
+def gather_fsdp(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The leaf gathered over the data axes of ``spec`` alone: a dim whose
+    entry names ``model`` stays this model rank's block (serving's
+    tensor-parallel layers compute on it)."""
+    x = shard
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes and "model" not in axes:
+            x = all_gather(x, mesh, axes, dim)
     return x
 
 

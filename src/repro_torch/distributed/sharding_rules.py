@@ -308,6 +308,39 @@ def config_specs(cfg: ModelConfig, mesh) -> dict:
     return _specs(cfg, tuple(mesh_axes(mesh).items()))
 
 
+def model_dim(cfg: ModelConfig, mesh, leaf: str) -> Optional[int]:
+    """The dim of a block's or the embedding's leaf (``"attn/wq"``,
+    ``"mlp/down"``, ``"moe/up"``, ``"embed/table"``, ``"embed/head"``)
+    that ``param_specs`` splits over ``model`` once ``_axis_for``'s
+    fallbacks are taken, with the stack dims dropped; None where the spec
+    replicates it over ``model`` or the config has no such leaf.  Serving's
+    tensor-parallel layers ask this, never the config, so their compute is
+    split exactly where the weight is."""
+    return _model_dims(cfg, tuple(mesh_axes(mesh).items())).get(leaf)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_dims(cfg: ModelConfig, shape: Tuple[Tuple[str, int], ...]
+                ) -> Dict[str, Optional[int]]:
+    specs = _specs(cfg, shape)
+    out: Dict[str, Optional[int]] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[prefix + k] = next(
+                    (d for d, e in enumerate(v)
+                     if "model" in SH._entry_axes(e)), None)
+    # a transformer block's leaves: the dense blocks', or the hybrid's
+    # shared block (its mamba blocks have none of these)
+    for tree in specs["blocks"][:1] + [specs.get("shared", {})]:
+        walk(tree, "")
+    walk(specs["embed"], "embed/")
+    return out
+
+
 def shard_params(params, specs, mesh):
     """This rank's shard of every leaf of a whole tree under its spec (a
     copy, so the whole tree can be freed): the placements of

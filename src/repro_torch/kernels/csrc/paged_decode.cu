@@ -95,7 +95,7 @@ constexpr int kMaxSmem = 232448;     // 227 KB a block on an H100
 
 struct Params {
   const void* q;           // (B, Hq, hd), strides q_sb, q_sh, last dim 1
-  const void* k;           // (P, ps, kvh, hd) contiguous
+  const void* k;           // (P, ps, kvh, hd): token rows `row` apart
   const void* v;
   const int* table;        // (B, pps) contiguous
   const int* lengths;      // (B,)
@@ -103,6 +103,8 @@ struct Params {
   float* part_ml;          // (B, kvh, S, g, 2): m, l
   void* out;               // (B, Hq, hd) contiguous
   long long q_sb, q_sh;
+  long long row;           // elements token to token: kvh·hd for a whole
+                           // pool, more for a kv-head view of a wider one
   int ps, kvh, hd, g, pps, splits, num_pages, vec;
   float scale, softcap;    // softcap 0: none
 };
@@ -194,7 +196,7 @@ partial_kernel(const Params p) {
   }
   __syncthreads();
 
-  const long long row = (long long)p.kvh * hd;     // elements token to token
+  const long long row = p.row;                      // elements token to token
   for (int pg = pg0; pg < pg1; ++pg) {
     const int phys = p.table[(long long)b * p.pps + pg];
     if (phys < 0 || phys >= p.num_pages) continue;
@@ -902,25 +904,29 @@ int roomy_pd_smem_bytes(int dtype, int hd, int g) {
 }
 
 // dtype 0: float32, 1: bfloat16 (q, pages and out).  q_sb, q_sh: q's batch
-// and head strides (its last dim contiguous); pages, table, lengths and out
-// contiguous.  part_acc: B·kvh·splits·g·hd floats, part_ml:
-// B·kvh·splits·g·2.  vec: 1 if hd·sizeof(T) is a multiple of 16 and the
-// pages are 16-byte aligned.  stage: 1 the partials, 2 the merge, 3 both.
+// and head strides (its last dim contiguous); table, lengths and out
+// contiguous.  The pages: hd contiguous, heads hd apart, tokens kv_row
+// elements apart and pages ps·kv_row (a pool, kv_row = kvh·hd, or a
+// kv-head range of a wider pool from its first head).  part_acc:
+// B·kvh·splits·g·hd floats, part_ml: B·kvh·splits·g·2.  vec: 1 if hd and
+// kv_row times sizeof(T) are multiples of 16 and the pages are 16-byte
+// aligned.  stage: 1 the partials, 2 the merge, 3 both.
 int roomy_paged_decode(const void* q, const void* k, const void* v,
                        const int* table, const int* lengths, float* part_acc,
                        float* part_ml, void* out, int dtype, int B, int Hq,
                        int kvh, int hd, int ps, int pps, int num_pages,
-                       int splits, long long q_sb, long long q_sh, int vec,
-                       float scale, float softcap, int stage, void* stream) {
+                       int splits, long long q_sb, long long q_sh,
+                       long long kv_row, int vec, float scale, float softcap,
+                       int stage, void* stream) {
   if (B < 0 || kvh < 1 || Hq % kvh || hd < 1 || hd > 256 || ps < 1 ||
       pps < 1 || splits < 1 || splits > 65535 || kvh > 65535 || B > 65535 ||
-      stage < 1 || stage > 3)
+      stage < 1 || stage > 3 || kv_row < (long long)kvh * hd)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hq == 0) return 0;
   Params p;
   p.q = q; p.k = k; p.v = v; p.table = table; p.lengths = lengths;
   p.part_acc = part_acc; p.part_ml = part_ml; p.out = out;
-  p.q_sb = q_sb; p.q_sh = q_sh;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.row = kv_row;
   p.ps = ps; p.kvh = kvh; p.hd = hd; p.g = Hq / kvh; p.pps = pps;
   p.splits = splits; p.num_pages = num_pages; p.vec = vec;
   p.scale = scale; p.softcap = softcap;
@@ -947,10 +953,10 @@ int roomy_pd_tma_blocks_per_sm(int hd) {
 }
 
 // The TMA route: bf16, hd in {64, 128, 256}, pages of a multiple of 64
-// tokens, k and v 16-byte aligned and contiguous (P, ps, kvh, hd) (the
-// wrapper's `route`).  maps: 2 x 11 values, the 4-D tensor-map geometry of
-// k and v (dims hd, kvh, ps, P; byte strides of kvh, ps, P; box 64 x 1 x
-// 64 x 1).  counters: B·kvh·mt ints, 0 on entry, left 0 by stage 3.
+// tokens, k and v 16-byte aligned (P, ps, kvh, hd) pools or kv-head views
+// of them (the wrapper's `route`).  maps: 2 x 11 values, the 4-D tensor-map
+// geometry of k and v from their bases (dims hd, kvh, ps, P; byte strides
+// of kvh, ps, P; box 64 x 1 x 64 x 1).  counters: B·kvh·mt ints, 0 on entry, left 0 by stage 3.
 // part_acc, part_ml as for roomy_paged_decode (m in log2 units).  stage: 1
 // the partials, 2 their merge, 3 both in one launch.
 int roomy_paged_decode_tma(const void* q, const void* k, const void* v,

@@ -150,6 +150,21 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                softcap=softcap, scale=scale)
 
 
+def flash_attention_lse(q, k, v, *, causal=True, window=None, softcap=None,
+                        scale=None, impl="auto"):
+    """``flash_attention`` with its (B, Hq, Sq) float32 row log-sum-exp
+    too (K6's LSE variant, or ``ref.attention_lse_ref``), with no
+    gradient: the two halves of a query block that a merge by the LSE
+    joins (serving's sequence split over ``model``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError("flash_attention_lse takes no gradient")
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if _use_ref(impl, q):
+        return _ref.attention_lse_ref(q, k, v, **kw)
+    return _fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            softcap=None, scale=None, impl="auto"):
     """One-token attention over a paged KV cache (K8): q (B, Hq, hd),

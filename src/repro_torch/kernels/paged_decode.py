@@ -27,6 +27,13 @@ size, strides and alignment alone:
 * ``"classic"``: everything else (float32, the smoke configs' head dims,
   pages of 8 or 16 tokens): ``partial_kernel`` then ``merge_kernel``.
 
+Both routes read a pool in place, whole or as a kv-head range of it,
+``pool[:, :, h0:h1]`` (``head_view``): a tensor-parallel decode runs K8 on
+its q heads over its kv heads of a cache that holds them all.  The view
+keeps the pool's strides, so the tensor map takes the view's base and
+strides, and the classic route its token stride.  A view K8 cannot map
+raises; nothing copies a cache.
+
 A route's kernel that fails to build or launch raises; neither route
 stands in for the other.
 """
@@ -84,11 +91,10 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("paged_decode")
         # q, k, v, table, lengths, part_acc, part_ml, out, dtype, B, Hq,
-        # kvh, hd, ps, pps, num_pages, splits, q_sb, q_sh, vec, scale,
-        # softcap, stage, stream
-        lib.roomy_paged_decode.argtypes = [_P] * 8 + [_I] * 9 + [_L, _L, _I,
-                                                                _F, _F, _I,
-                                                                _P]
+        # kvh, hd, ps, pps, num_pages, splits, q_sb, q_sh, kv_row, vec,
+        # scale, softcap, stage, stream
+        lib.roomy_paged_decode.argtypes = [_P] * 8 + [_I] * 9 + [
+            _L, _L, _L, _I, _F, _F, _I, _P]
         lib.roomy_paged_decode.restype = _I
         # q, k, v, table, lengths, part_acc, part_ml, counters, out, B, Hq,
         # kvh, hd, ps, pps, num_pages, splits, q_sb, q_sh, maps, scale,
@@ -165,30 +171,45 @@ def num_splits(batch: int, kv_heads: int, pages_per_seq: int,
     return max(1, min(pages_per_seq, want, MAX_SPLITS))
 
 
+def head_view(pages: torch.Tensor) -> bool:
+    """``pages`` (P, ps, kvh, hd) is a pool as it was made, or a kv-head
+    range ``pool[:, :, h0:h1]`` of one: hd contiguous, heads hd apart,
+    a token's heads within its row, and pages ps token rows apart."""
+    num_pages, ps, kvh, hd = pages.shape
+    s_p, s_t, s_h, s_d = pages.stride()
+    return ((hd == 1 or s_d == 1) and (kvh == 1 or s_h == hd)
+            and s_t >= kvh * hd and (num_pages == 1 or s_p == ps * s_t))
+
+
 def route(q, k_pages, v_pages) -> str:
     """The kernel that takes a call (inputs as ``check_inputs`` passes
     them): ``"tma"`` for bfloat16 at a head dim in ``TMA_HEAD_DIMS`` with
-    pages of a whole number of ``TMA_TILE`` tokens, both pools contiguous
-    and 16-byte aligned and not empty; ``"classic"`` otherwise."""
+    pages of a whole number of ``TMA_TILE`` tokens, both pools (or views
+    of them) 16-byte aligned with 16-byte token strides, and not empty;
+    ``"classic"`` otherwise."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in TMA_HEAD_DIMS:
         return "classic"
     if k_pages.shape[1] % TMA_TILE or k_pages.numel() == 0:
         return "classic"
-    ready = all(t.is_contiguous() and t.data_ptr() % 16 == 0
+    ready = all(t.data_ptr() % 16 == 0
+                and t.stride(1) * t.element_size() % 16 == 0
                 for t in (k_pages, v_pages))
     return "tma" if ready else "classic"
 
 
 def tma_geometry(pages: torch.Tensor) -> tuple:
-    """The 4-D TMA map of a contiguous (P, ps, kvh, hd) pool, as 11 ints:
-    dims innermost first (hd, kvh, ps, P), the byte strides of kvh, ps and
-    P, and the box (``TMA_BOX_COLS`` columns, 1 kv head, ``TMA_TILE``
-    tokens, 1 page).  A box never leaves its kv head or page: it is read
-    at (column, head, first token of the tile, physical page)."""
+    """The 4-D TMA map of a (P, ps, kvh, hd) pool or kv-head view of one
+    (``head_view``), as 11 ints: dims innermost first (hd, kvh, ps, P),
+    the byte strides of kvh, ps and P (the view's own: a view of h of a
+    pool's H heads steps H·hd·es from token to token), and the box
+    (``TMA_BOX_COLS`` columns, 1 kv head, ``TMA_TILE`` tokens, 1 page).  A
+    box never leaves its kv head or page: it is read at (column, head,
+    first token of the tile, physical page) from the view's base."""
     num_pages, ps, kvh, hd = pages.shape
     es = pages.element_size()
-    return (hd, kvh, ps, num_pages, hd * es, kvh * hd * es,
-            ps * kvh * hd * es, TMA_BOX_COLS, 1, TMA_TILE, 1)
+    s_p, s_t, _, _ = pages.stride()
+    return (hd, kvh, ps, num_pages, hd * es, s_t * es, s_p * es,
+            TMA_BOX_COLS, 1, TMA_TILE, 1)
 
 
 def tma_splits(batch: int, kv_heads: int, group: int, pages_per_seq: int,
@@ -291,7 +312,9 @@ def _launch(q, k_pages, v_pages, page_table, lengths, softcap, scale,
                 float(scale), sc, stage, stream)
         else:
             esz = q.element_size()
-            vec = int(hd * esz % 16 == 0 and k_pages.data_ptr() % 16 == 0
+            kv_row = k_pages.stride(1)
+            vec = int(hd * esz % 16 == 0 and kv_row * esz % 16 == 0
+                      and k_pages.data_ptr() % 16 == 0
                       and v_pages.data_ptr() % 16 == 0)
             name = "roomy_paged_decode"
             code = lib.roomy_paged_decode(
@@ -299,8 +322,8 @@ def _launch(q, k_pages, v_pages, page_table, lengths, softcap, scale,
                 page_table.data_ptr(), lengths.data_ptr(),
                 parts.acc.data_ptr(), parts.ml.data_ptr(), out.data_ptr(),
                 DTYPES[q.dtype], b, hq, kvh, hd, ps, pps, num_pages, splits,
-                q.stride(0), q.stride(1), vec, float(scale), sc, stage,
-                stream)
+                q.stride(0), q.stride(1), kv_row, vec, float(scale), sc,
+                stage, stream)
     if code:
         raise RuntimeError(f"{name}: CUDA error {code}: "
                            f"{lib.roomy_pd_error_string(code).decode()}")
@@ -312,7 +335,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            lengths: torch.Tensor, *,
                            softcap: float | None = None,
                            scale: float | None = None) -> torch.Tensor:
-    """K8: q (B, Hq, hd), k_pages, v_pages (P, ps, kvh, hd) contiguous,
+    """K8: q (B, Hq, hd), k_pages, v_pages (P, ps, kvh, hd), each a pool
+    or a kv-head view of one (``head_view``) with the same strides,
     page_table (B, pps) int32 physical page ids, lengths (B,) int32 →
     (B, Hq, hd) in q.dtype (float32 or bfloat16, hd <= 256).  Positions
     past min(length, pps·ps) are masked and their table entries never
@@ -327,9 +351,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                        for t in (q, k_pages, v_pages)):
         raise NotImplementedError("K8 (paged_decode_attention) has no "
                                   "backward: it serves decode only")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+    if not (head_view(k_pages) and k_pages.stride() == v_pages.stride()):
         # a copy of a whole cache would cost more than the kernel
-        raise ValueError("k_pages and v_pages must be contiguous")
+        raise ValueError(f"k_pages (strides {k_pages.stride()}) and v_pages "
+                         f"({v_pages.stride()}) must be one layout of pools "
+                         "or of kv-head views of pools")
     q = q if q.stride(-1) == 1 else q.contiguous()
     page_table, lengths = page_table.contiguous(), lengths.contiguous()
     path = route(q, k_pages, v_pages)

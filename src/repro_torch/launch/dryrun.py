@@ -4,13 +4,13 @@ fake world of 256 or 512 ranks, with no card (port of
 
 The reference lowers and compiles each cell on 512 placeholder XLA CPU
 devices and reads XLA's memory and cost analyses and the partitioned HLO.
-The port has no compiler to ask, so it runs the step itself, as rank 0 of
-a ``torch.distributed`` world of the ``fake`` backend (every collective
-returns at once), under ``FakeTensorMode`` (tensors carry shapes and
-dtypes and no data: nothing is allocated and nothing is computed).  The
-mesh and its process groups are real objects of that world, built before
-the fake mode is entered (``core/sharding.py`` reads the mesh's rank
-table to make its flattened groups).  Params and AdamW moments are this
+The port has no compiler to ask, so it runs the step itself, as rank 0
+(or ``--rank``) of a ``torch.distributed`` world of the ``fake`` backend
+(every collective returns at once), under ``FakeTensorMode`` (tensors
+carry shapes and dtypes and no data: nothing is allocated and nothing is
+computed).  The mesh and its process groups are real objects of that
+world, built before the fake mode is entered (``core/sharding.py`` reads
+the mesh's rank table to make its flattened groups).  Params and AdamW moments are this
 rank's ``ShardingRules`` shards; the config runs the plain versions of
 the kernels (``kernels="ref"``, as the reference's dry run).
 
@@ -56,10 +56,16 @@ adds the recurrence's, as the reference adds what XLA's scan body leaves
 out).  So a cell with the mamba1 scan, or zamba2 with ``--ssm-impl seq``,
 leaves out the plain scan's per-step temporaries from bytes and peak.
 
-The port's collective schedule is its own: tensor parallelism is a
-storage layout (a block's params are gathered whole, the compute within a
-model group is replicated) and serving runs on the global batch on every
-rank, so the port's counts are not the reference's HLO counts.
+The port's collective schedule is its own, so its counts are not the
+reference's HLO counts: in training tensor parallelism is a storage
+layout (a block's params are gathered whole, the compute within a model
+group is replicated); serving passes the global inputs to every rank,
+and each rank computes its share (its data rank's rows, its heads, ff
+and vocab columns over ``model``, ``models/lm.py``), so a cell's FLOPs
+and peak are one rank's share of the step.  Where the heads do not
+divide ``model`` and the batch does not tile the grid, prefill splits
+the sequence, and the last model rank's query block sees the most keys:
+``--rank 15`` reads that rank of a 16 × 16 or 2 × 16 × 16 world.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm-2b \\
@@ -320,16 +326,16 @@ def _scan_as_one_op():
 
 # ----------------------------------------------------------- the world
 
-def fake_world(world: int) -> None:
-    """This process as rank 0 of a ``fake`` world of ``world`` ranks (a
-    world already there is left as it is, if it has that size)."""
+def fake_world(world: int, rank: int = 0) -> None:
+    """This process as rank ``rank`` of a ``fake`` world of ``world`` ranks
+    (a world already there is left as it is, if it has that size)."""
     if dist.is_initialized():
         if dist.get_world_size() != world:
             raise RuntimeError(f"a process group of {dist.get_world_size()} "
                                f"ranks is up; the dry run needs {world}")
         return
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
 
 
@@ -518,7 +524,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              microbatches: int = 1,
              attn_shard: Optional[str] = None,
              ssm_impl: Optional[str] = None,
-             save_hlo: Optional[str] = None) -> Dict:
+             save_hlo: Optional[str] = None, rank: int = 0) -> Dict:
     shape = SHAPES[shape_name]
     cfg = get_config(arch).replace(kernels="ref")
     if moe_dispatch:
@@ -544,7 +550,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if not shape_applicable(shape, cfg.family):
         return {**meta, "skipped": SKIP_TEXT}
 
-    fake_world(512 if multi_pod else 256)
+    fake_world(512 if multi_pod else 256, rank)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
     return {**meta, **dry_run(cfg, shape, mesh, donate=donate,
                               microbatches=microbatches,
@@ -620,6 +626,11 @@ def main():
                     help="write a text dump of the traced ops (one line an "
                          "op: its name, input shapes, output shapes and "
                          "dtypes) to this file; the port has no HLO")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="trace the step as this rank of the fake world "
+                         "(beyond the reference, whose compiler sees every "
+                         "device: a rank's share can depend on its place, "
+                         "as the sequence branch of _attn_act_spec's does)")
     ap.add_argument("--out-dir", default="experiments/dryrun")
     ap.add_argument("--list", action="store_true")
     args = ap.parse_args()
@@ -639,7 +650,7 @@ def main():
                    microbatches=args.microbatches,
                    attn_shard=args.attn_shard,
                    ssm_impl=args.ssm_impl,
-                   save_hlo=args.save_hlo)
+                   save_hlo=args.save_hlo, rank=args.rank)
     tag = f"__{args.tag}" if args.tag else ""
     out = os.path.join(
         args.out_dir,

@@ -5,8 +5,10 @@ attention and an MLP, or the MoE layer when ``cfg.is_moe``, each followed
 by gemma2's post-norm when ``cfg.post_norm``) and the mamba block
 (pre-norm mamba1 or mamba2 by ``version``, residual).  zamba2's shared
 block is a transformer block with one weight set and a KV cache for each
-place it runs (``lm.py``).  ``mesh``: the MoE layer's roomy dispatch and
-the decode attention's sharded branches (``moe.py``, ``attention.py``).
+place it runs (``lm.py``).  ``mesh``: the MoE layer's roomy dispatch,
+the decode attention's sharded branches, and in serving the tensor
+parallelism of the attention and the MLP (``moe.py``, ``attention.py``,
+``layers.py``); the norms run replicated.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
 def _mlp_half(p: dict, x: torch.Tensor, cfg: ModelConfig,
               mesh=None) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
-    h = moe(p["moe"], h, cfg, mesh) if cfg.is_moe else mlp(p["mlp"], h, cfg)
+    h = (moe(p["moe"], h, cfg, mesh) if cfg.is_moe
+         else mlp(p["mlp"], h, cfg, mesh))
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln2"], cfg.rms_eps)
     return x + h
@@ -53,7 +56,7 @@ def transformer_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       return_kv: bool = False, mesh=None):
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     h, kv = attention(p["attn"], h, positions, cfg, window=window,
-                      return_kv=True)
+                      return_kv=True, mesh=mesh)
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
     x = _mlp_half(p, x + h, cfg, mesh)

@@ -12,6 +12,16 @@ the tests carry the reference's params across with
 Params may be stored in float32 or in the compute dtype; every layer casts
 to ``cdtype(cfg)`` at use, which is a no-op for params already stored in
 it (casting once gives the same values as casting at each use).
+
+Serving on a mesh hands the layers each model rank's param shards
+(``core/sharding.py``'s ``MeshView`` with ``model_shards``), and each
+layer splits its compute where ``sharding_rules.model_dim`` says its
+weight is split (``tp_dim``): the MLP column-parallel in ``up`` /
+``gate`` and row-parallel in ``down``, joined by one all-reduce over
+``model``; the embedding's take and the LM head vocab-parallel on the
+rank's vocab block of ``table`` (or ``head``), or, where the vocab does
+not split and the rules put ``d`` over ``model`` instead, a row-parallel
+product over the rank's block of ``d``.
 """
 from __future__ import annotations
 
@@ -22,12 +32,22 @@ import torch.nn.functional as F
 
 from ..core import delayed as roomy_delayed
 from ..core import sharding as SH
+from ..distributed import sharding_rules as SR
 from ..kernels import ops as kops
 from .config import ModelConfig
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def tp_dim(cfg: ModelConfig, mesh, leaf: str):
+    """The dim of ``leaf`` (``sharding_rules.model_dim``'s names) split
+    over ``model`` where the layers hold model shards (serving on a mesh),
+    else None: the layer runs on the whole weight."""
+    if not SH.model_shards(mesh):
+        return None
+    return SR.model_dim(cfg, mesh, leaf)
 
 
 def dense_init(gen: torch.Generator, shape, *, device, dtype,
@@ -69,7 +89,11 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
+        mesh=None) -> torch.Tensor:
+    """The (gated) MLP; where ``down`` is split over ``model`` (so are
+    ``up`` and ``gate``: one role) each rank runs its ff columns and the
+    partials join by one all-reduce."""
     dt = cdtype(cfg)
     act = _act(cfg.mlp_act)
     h = x @ p["up"].to(dt)
@@ -77,7 +101,10 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = act(x @ p["gate"].to(dt)) * h
     else:
         h = act(h)
-    return h @ p["down"].to(dt)
+    out = h @ p["down"].to(dt)
+    if tp_dim(cfg, mesh, "mlp/down") is not None:
+        out = SH.all_reduce(out, mesh, "model")
+    return out
 
 
 # ------------------------------------------------------------ embeddings
@@ -101,13 +128,31 @@ def embed_tokens(p: dict, ids: torch.Tensor, cfg: ModelConfig,
     tokens tile the device grid, the explicit bucket exchange
     (``_roomy_embed``), as ``repro/models/layers.py:84-97``.  The grid is
     every axis for global ids (serving), ``model`` alone for a data
-    rank's rows (training; ``core/sharding.py``'s two conventions)."""
+    rank's rows (training; ``core/sharding.py``'s two conventions).  With
+    model shards (serving) the plain take is split as the table is: each
+    rank takes the ids in its vocab block, zeros elsewhere, summed over
+    ``model`` (one term is not zero: the table's own bits); or its block
+    of ``d``, gathered over ``model``.  The roomy exchange stripes the
+    vocab over the model ranks, so it gathers the table whole first."""
+    table, dim = p["table"], tp_dim(cfg, mesh, "embed/table")
     if cfg.embedding_dispatch == "roomy" and mesh is not None \
             and "model" in SH.mesh_axes(mesh):
         n_dev = SH.axis_size(mesh, SH.token_axes(mesh))
         if ids.numel() % n_dev == 0:
-            return _roomy_embed(p["table"], ids, cfg, mesh).to(cdtype(cfg))
-    return p["table"][ids].to(cdtype(cfg))
+            if dim is not None:
+                table = SH.all_gather(table, mesh, "model", dim)
+            return _roomy_embed(table, ids, cfg, mesh).to(cdtype(cfg))
+    if dim is None:
+        return table[ids].to(cdtype(cfg))
+    if dim == 1:
+        return SH.all_gather(table[ids].to(cdtype(cfg)), mesh, "model", 2)
+    rows = table.shape[0]
+    local = ids - SH.axis_index(mesh, "model") * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].to(cdtype(cfg))
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return SH.all_reduce(x, mesh, "model")
 
 
 class _OwnerRows(torch.autograd.Function):
@@ -188,17 +233,35 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(x, (0, 0) * (x.ndim - 1) + (0, n - x.shape[0]))
 
 
-def lm_head(p_embed: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def lm_head(p_embed: dict, x: torch.Tensor, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
     """Logits against the tied embedding table, or the untied ``head``
     (d, vocab_padded), softcapped; the pad rows past ``vocab_size`` are
-    -1e30."""
-    w = (p_embed["table"].to(cdtype(cfg)).T if cfg.tie_embeddings
-         else p_embed["head"].to(cdtype(cfg)))
-    logits = x @ w
+    -1e30.  With model shards (serving): vocab-parallel on the rank's
+    columns (the softcap and the pad mask at their global indices), the
+    columns gathered over ``model``; or, where the rules split ``d``
+    instead, a row-parallel product joined by one all-reduce."""
+    tied = cfg.tie_embeddings
+    w = (p_embed["table"].to(cdtype(cfg)).T if tied
+         else p_embed["head"].to(cdtype(cfg)))               # (d, V)
+    dim = tp_dim(cfg, mesh, "embed/table" if tied else "embed/head")
+    split = None if dim is None else ("vocab" if dim == (0 if tied else 1)
+                                      else "d")
+    if split == "d":
+        d0 = SH.axis_index(mesh, "model") * w.shape[0]
+        logits = SH.all_reduce(x[..., d0:d0 + w.shape[0]] @ w, mesh,
+                               "model")
+    else:
+        logits = x @ w
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     if cfg.vocab_padded != cfg.vocab_size:      # mask pad-to-shard rows
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
+        v0 = (SH.axis_index(mesh, "model") * w.shape[1] if split == "vocab"
+              else 0)
+        pad = torch.arange(v0, v0 + w.shape[1], device=x.device) \
+            >= cfg.vocab_size
         logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
                                                device=x.device), logits)
+    if split == "vocab":
+        logits = SH.all_gather(logits, mesh, "model", logits.dim() - 1)
     return logits

@@ -11,7 +11,7 @@ Port of ``repro/models/lm.py``.  Entry points:
 
   init_params(cfg, gen, device=, dtype=)      → params
   forward_hidden(params, inputs, cfg, mesh=)  → (B, S, d)
-  logits_fn(params, hidden, cfg)              → (B, S, vocab_padded)
+  logits_fn(params, hidden, cfg, mesh=)       → (B, S, vocab_padded)
   loss_fn(params, batch, cfg, mesh=)          → scalar mean cross-entropy
   prefill(params, inputs, cfg, mesh=,
           max_len=)                           → (last logits, caches)
@@ -41,26 +41,44 @@ Every family trains: ``loss_fn``'s gradient runs through K6-with-LSE and
 K7 (attention) and K9 and K9-bwd (the selective scan) on the card.
 
 Serving on a mesh (``launch/mesh.py``; ``mesh=None`` is one device):
-every rank passes the same inputs and gets the same logits back, as an
-SPMD program does.  ``params`` are this rank's shards under
-``ShardingRules.param_specs``, as in training (``sharding_rules
-.shard_params`` cuts them; the reference's dry run lowers prefill and
-decode on params placed so, ``repro/launch/dryrun.py:124-195``): the
-embedding, the final norm and the hybrid's shared block are gathered
-whole once a call, and each block is gathered as its layer runs and
-dropped before the next is gathered, so a rank holds its shards and one
-whole block beside them.  The gathered values are the whole params' own
-bits, so a mesh serves as it did from whole params.  The roomy
-embedding and the roomy MoE exchange tokens over the mesh
-(``layers.py``, ``moe.py``); attention and the mamba blocks run
-replicated; the decode caches are each rank's shard
-(``paged.shard_layout``: rows over the data axes when the batch splits
-over them, pages at batch 1), which ``prefill`` and ``make_cache``
-produce and ``decode_step`` reads and writes in place of the whole.  The
-SSM state stays whole on every rank (the reference's ``cache_specs``
-only give GSPMD a layout for it).  The reference's ``_constrain`` /
-``_constrain_tokens`` are GSPMD layout hints with no effect on a number;
-activations here are global on every rank, so they have no counterpart.
+every rank passes the same global inputs and gets the same global logits
+back, as an SPMD program does, and computes its share of the step as the
+reference's ``jit`` partitions it over its input shardings
+(``repro/launch/dryrun.py:107-195``).  ``params`` are this rank's shards
+under ``ShardingRules.param_specs`` (``sharding_rules.shard_params`` cuts
+them).
+
+* **Rows over the data axes.**  Where the batch tiles the data axes (the
+  reference's ``_constrain_tokens`` condition) a rank keeps its data
+  rank's rows before ``_embed`` and the blocks run under the local
+  convention (``core/sharding.py``), as ``loss_fn`` does; only the last
+  position's logits are gathered over the data axes.  A batch that does
+  not tile them (batch 1: the context-parallel decode, ``long_500k``)
+  keeps its rows whole on every rank.
+* **Heads, ff and vocab over ``model``.**  A transformer block is
+  gathered over its data axes alone (``core.sharding.gather_fsdp``) as
+  its layer runs, so it keeps its ``model`` shards, and the layers split
+  their compute where ``sharding_rules.model_dim`` says the weight is
+  split: attention by heads (K6 / K8 on the rank's heads, ``wo``
+  row-parallel), or, where the heads do not divide ``model``, by the
+  reference's ``_attn_act_spec`` over the batch or the sequence; the MLP
+  by ff columns; the embedding's take and the LM head by vocab (or by
+  ``d`` where the vocab does not divide); the MoE's experts, as
+  ``moe_roomy``'s exchange places them.  Row-parallel outputs join by an
+  all-reduce over ``model``.  The norms run replicated.
+* **Replicated within a model group**: the mamba mixers (their blocks
+  are gathered whole as their layer runs; the ``tp_di`` split is not
+  ported yet), the router, the norms.
+
+The decode caches are each rank's shard (``paged.shard_layout``: its
+rows over the data axes, or at batch 1 its pages), with every kv head on
+each model rank (``cache_specs``), which ``prefill`` writes directly and
+``make_cache`` allocates; ``decode_step`` reads and writes them in place
+of the whole.  The SSM states are the rank's rows where the batch tiles
+the data axes, else whole (the reference's ``cache_specs`` put ``h`` over
+``model`` at batch 1, a layout with no effect on a number).
+The reference's ``_constrain`` hints on other activations have no
+counterpart.
 
 Training on a mesh (``forward_hidden`` / ``loss_fn`` with ``mesh=``) keeps
 the rules of ``core/sharding.py``: ``params`` are this rank's shards under
@@ -82,13 +100,14 @@ over the data axes, ``tp`` because the model group repeats the rows;
 ``repro/models/lm.py:211-216``) with the gradient of this rank's share,
 so that every parameter's gradient is the sum of the ranks' parts of it.
 Compute stays replicated within a model group apart from the roomy
-exchanges: TP is a storage layout, as in serving.  The reference's
-``_constrain`` on the logits is a layout hint with no counterpart.
+exchanges: training's tensor parallelism is not ported yet.  The
+reference's ``_constrain`` on the logits is a layout hint with no
+counterpart.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -194,7 +213,7 @@ def _on_mesh(params, cfg: ModelConfig, mesh):
     if mesh is None:
         return params, [None] * cfg.n_layers, None
     specs = SR.config_specs(cfg, mesh)
-    local = SH.LocalRows(mesh)
+    local = SH.MeshView(mesh, local=True)
     out = dict(params)
     for key in ("embed", "final_norm", "shared"):
         if key in params:
@@ -203,9 +222,64 @@ def _on_mesh(params, cfg: ModelConfig, mesh):
 
 
 def _block(p_l, spec_l, mesh):
-    """One block's params whole: gathered from this rank's shards under
-    ``spec_l``, or ``p_l`` itself off a mesh (``spec_l`` None)."""
+    """One block's params: off a mesh ``p_l`` itself (``spec_l`` None);
+    with model shards (serving's transformer blocks) gathered over the
+    data axes alone; else gathered whole from this rank's shards."""
+    if spec_l is None:
+        return p_l
+    if SH.model_shards(mesh):
+        return T.tree_map(lambda x, spec: SH.gather_fsdp(x, spec, mesh),
+                          p_l, spec_l)
+    return _gather_tree(p_l, spec_l, mesh)
+
+
+def _mixer(p_l, spec_l, mesh):
+    """A mamba block's params whole: its mixer runs replicated."""
     return p_l if spec_l is None else _gather_tree(p_l, spec_l, mesh)
+
+
+class _Serve(NamedTuple):
+    """A serving call on a mesh: the params with the embedding, the final
+    norm and the hybrid's shared block gathered over their data axes, the
+    blocks' specs, the mesh view the layers get, the inputs this rank
+    serves, and (this data rank, data ranks) whose rows those are ((0, 1)
+    where every rank serves the whole batch)."""
+    params: dict
+    specs: list
+    mesh: object
+    inputs: dict
+    rows: Tuple[int, int]
+
+
+def _serve_on_mesh(params, inputs: Dict, cfg: ModelConfig, mesh) -> _Serve:
+    """Off a mesh: everything as given.  On one: this data rank's rows
+    where the batch tiles the data axes (the local convention), else the
+    whole batch (the global one), and the layers' view holding model
+    shards (the module docstring)."""
+    if mesh is None:
+        return _Serve(params, [None] * cfg.n_layers, None, inputs, (0, 1))
+    specs = SR.config_specs(cfg, mesh)
+    i, n = _dp_shard(mesh)
+    local = next(iter(inputs.values())).shape[0] % n == 0
+    view = SH.MeshView(mesh, local=local, model_shards=True)
+    if local and n > 1:
+        dp = SH.data_axes(mesh)
+        inputs = {k: SH.shard_leading(v, mesh, dp) for k, v in inputs.items()}
+    out = dict(params)
+    for key in ("embed", "final_norm", "shared"):
+        if key in params:
+            out[key] = _block(params[key], specs[key], view)
+    return _Serve(out, specs["blocks"], view, inputs,
+                  (i, n) if local else (0, 1))
+
+
+def _last_logits(sv: _Serve, hidden, cfg: ModelConfig, mesh):
+    """The logits of the rows this rank served, gathered over the data
+    axes when those were its data rank's rows."""
+    logits = logits_fn(sv.params, hidden, cfg, sv.mesh)
+    if sv.rows[1] > 1:
+        logits = SH.gather_leading(logits, mesh, SH.data_axes(mesh))
+    return logits
 
 
 def _hidden(params, inputs: Dict, cfg: ModelConfig, mesh, specs
@@ -251,8 +325,11 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig, mesh=None
     return _hidden(params, inputs, cfg, local, specs)
 
 
-def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return lm_head(params["embed"], hidden, cfg)
+def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig,
+              mesh=None) -> torch.Tensor:
+    """``mesh``: the layers' view of a serving call (vocab-parallel on
+    model shards); None for whole params."""
+    return lm_head(params["embed"], hidden, cfg, mesh)
 
 
 def _loss_denominator(mask: torch.Tensor, mesh) -> torch.Tensor:
@@ -309,9 +386,15 @@ def _round_len(max_len: int) -> int:
     return -(-max_len // PAGE_SIZE) * PAGE_SIZE
 
 
-def _kv_to_pages(k, v, max_len: int, cfg: ModelConfig):
+def _kv_to_pages(k, v, max_len: int, cfg: ModelConfig,
+                 pages: Optional[slice] = None):
     """(B, S, kvh, hd) → (B·pps, ps, kvh, hd) pages under the identity
-    table: a pad to max_len and a reshape, no scatter."""
+    table: a pad to max_len and a reshape, no scatter.  ``pages``: only
+    those pages of a batch of one (a rank's shard at batch 1), cut from
+    the positions before the pad."""
+    if pages is not None:
+        t0, t1 = pages.start * PAGE_SIZE, pages.stop * PAGE_SIZE
+        k, v, max_len = k[:, t0:t1], v[:, t0:t1], t1 - t0
     b, s, kvh, hd = k.shape
     pad = max_len - s
     if pad:
@@ -337,7 +420,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     one zero ``SSMState`` per layer (``max_len`` unused); for the hybrid
     family one mamba2 ``SSMState`` per layer and one ``PagedKV`` per
     application of the shared block.  On a mesh each ``PagedKV`` is this
-    rank's shard only."""
+    rank's shard only, and each ``SSMState`` its data rank's rows where
+    the batch tiles the data axes."""
     dev = _device.resolve(device)
     max_len = _round_len(max_len)
     shard = _dp_shard(mesh)
@@ -349,7 +433,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                 for _ in range(n)]
     if cfg.family in ("ssm", "hybrid"):
         version = 1 if cfg.family == "ssm" else 2
-        caches = {"ssm": [init_ssm_state(cfg, batch, dev, version)
+        rows = batch // shard[1] if batch % shard[1] == 0 else batch
+        caches = {"ssm": [init_ssm_state(cfg, rows, dev, version)
                           for _ in range(cfg.n_layers)]}
         if cfg.family == "hybrid":
             caches["kv"] = kv(n_shared_applications(cfg))
@@ -364,54 +449,59 @@ def prefill(params, inputs: Dict, cfg: ModelConfig, mesh=None,
     each layer's ``SSMState`` after the prompt (K9's final state and the
     conv's last inputs); ``max_len`` is unused.  The hybrid family's are
     each mamba2 layer's ``SSMState`` and each shared-block application's
-    ``PagedKV``.  On a mesh ``params`` are this rank's shards (the module
-    docstring) and each ``PagedKV`` keeps this rank's shard of the pages
-    (``repro/models/lm.py:221-242``: pages over dp)."""
-    params, specs, _ = _on_mesh(params, cfg, mesh)
-    x = _embed(params, inputs, cfg, mesh)
+    ``PagedKV``.  On a mesh ``params`` are this rank's shards, each rank
+    computes its share (the module docstring), and each ``PagedKV`` is
+    written as this rank's shard of the pages (``repro/models/lm.py:221-
+    242``: pages over dp)."""
+    sv = _serve_on_mesh(params, inputs, cfg, mesh)
+    params, specs, view, inputs = sv.params, sv.specs, sv.mesh, sv.inputs
+    x = _embed(params, inputs, cfg, view)
     if cfg.family == "ssm":
         states = []
         for p_l, spec_l in zip(params["blocks"], specs):
-            x, st = mamba_block_prefill(_block(p_l, spec_l, mesh), x, cfg)
+            x, st = mamba_block_prefill(_mixer(p_l, spec_l, view), x, cfg)
             states.append(st)
         hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
-        return logits_fn(params, hidden, cfg), {"ssm": states}
+        return _last_logits(sv, hidden, cfg, mesh), {"ssm": states}
     b, s = x.shape[0], x.shape[1]
+    batch = b * sv.rows[1]
     max_len = _round_len(max_len or s)
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
-    table = paged.identity_table(b, max_len // PAGE_SIZE, x.device)
-    lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    pps = max_len // PAGE_SIZE
     i, n = _dp_shard(mesh)
+    layout = paged.shard_layout(batch, pps, n) if n > 1 else None
+    pages, rows = paged._shard_slices(layout, batch, pps, i, n)
+    table = paged.identity_table(batch, pps, x.device)[rows]
+    lengths = torch.full((table.shape[0],), s, dtype=torch.int32,
+                         device=x.device)
+    cut = pages if layout == "pages" else None
 
     def attend(p_l, x, window=None):
         x, (k, v) = transformer_block(p_l, x, inputs["positions"], cfg,
                                       window=window, return_kv=True,
-                                      mesh=mesh)
-        kp, vp = _kv_to_pages(k, v, max_len, cfg)
-        cache = paged.PagedKV(kp, vp, table, lengths)
-        if n > 1:                     # keep this rank's shard, not views
-            cache = paged.PagedKV(*(t.clone() for t in paged.shard(
-                cache, i, n)))
-        return x, cache
+                                      mesh=view)
+        kp, vp = _kv_to_pages(k, v, max_len, cfg, cut)
+        return x, paged.PagedKV(kp, vp, table, lengths)
     caches = []
     if cfg.family == "hybrid":
         states = []
         for s0, s1, shared in _hybrid_segments(cfg):
             for p_l, spec_l in zip(params["blocks"][s0:s1], specs[s0:s1]):
-                x, st = mamba_block_prefill(_block(p_l, spec_l, mesh), x,
+                x, st = mamba_block_prefill(_mixer(p_l, spec_l, view), x,
                                             cfg, version=2)
                 states.append(st)
             if shared:
                 x, c = attend(params["shared"], x)
                 caches.append(c)
         hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
-        return logits_fn(params, hidden, cfg), {"ssm": states, "kv": caches}
+        return (_last_logits(sv, hidden, cfg, mesh),
+                {"ssm": states, "kv": caches})
     for p_l, spec_l, w in zip(params["blocks"], specs, layer_windows(cfg)):
-        x, c = attend(_block(p_l, spec_l, mesh), x, w)
+        x, c = attend(_block(p_l, spec_l, view), x, w)
         caches.append(c)
     hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
-    return logits_fn(params, hidden, cfg), {"kv": caches}
+    return _last_logits(sv, hidden, cfg, mesh), {"kv": caches}
 
 
 def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
@@ -427,38 +517,41 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
     attention layer reads its cache with K8 (the hybrid's shared block
     once per application, each over its own cache).  On a mesh ``params``
     are this rank's shards, the caches this rank's shards (``prefill`` /
-    ``make_cache`` with the same mesh), and the attention takes the
-    reference's sharded branches."""
-    params, specs, _ = _on_mesh(params, cfg, mesh)
-    x = _embed(params, inputs, cfg, mesh)
+    ``make_cache`` with the same mesh), each rank computes its share (the
+    module docstring), and the attention takes the reference's sharded
+    branches, K8 on the rank's heads."""
+    sv = _serve_on_mesh(params, inputs, cfg, mesh)
+    params, specs, view = sv.params, sv.specs, sv.mesh
+    x = _embed(params, sv.inputs, cfg, view)
     if cfg.family == "ssm":
         states = []
         for p_l, spec_l, st in zip(params["blocks"], specs, caches["ssm"]):
-            x, st = mamba_block_decode(_block(p_l, spec_l, mesh), x, st, cfg)
+            x, st = mamba_block_decode(_mixer(p_l, spec_l, view), x, st, cfg)
             states.append(st)
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return logits_fn(params, hidden, cfg), {"ssm": states}
+        return _last_logits(sv, hidden, cfg, mesh), {"ssm": states}
     if cfg.family == "hybrid":
         states, new = [], []
         kv = iter(caches["kv"])
         for s0, s1, shared in _hybrid_segments(cfg):
             for p_l, spec_l, st in zip(params["blocks"][s0:s1],
                                        specs[s0:s1], caches["ssm"][s0:s1]):
-                x, st = mamba_block_decode(_block(p_l, spec_l, mesh), x, st,
+                x, st = mamba_block_decode(_mixer(p_l, spec_l, view), x, st,
                                            cfg, version=2)
                 states.append(st)
             if shared:
                 x, c = transformer_block_decode(params["shared"], x,
                                                 next(kv), cfg, donate=donate,
-                                                mesh=mesh)
+                                                mesh=view)
                 new.append(c)
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return logits_fn(params, hidden, cfg), {"ssm": states, "kv": new}
+        return (_last_logits(sv, hidden, cfg, mesh),
+                {"ssm": states, "kv": new})
     new = []
     for p_l, spec_l, c, w in zip(params["blocks"], specs, caches["kv"],
                                  layer_windows(cfg)):
-        x, c = transformer_block_decode(_block(p_l, spec_l, mesh), x, c, cfg,
-                                        window=w, donate=donate, mesh=mesh)
+        x, c = transformer_block_decode(_block(p_l, spec_l, view), x, c, cfg,
+                                        window=w, donate=donate, mesh=view)
         new.append(c)
     hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return logits_fn(params, hidden, cfg), {"kv": new}
+    return _last_logits(sv, hidden, cfg, mesh), {"kv": new}

@@ -193,7 +193,10 @@ def moe_roomy(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     e_local = (ek % e_loc).to(x.dtype)
     payload = torch.cat([x_loc.repeat_interleave(k, 0), e_local[:, None]], 1)
     valid = torch.ones_like(dest, dtype=torch.bool)
-    mine = slice(m_idx * e_loc, (m_idx + 1) * e_loc)
+    # the expert params are this rank's experts already where serving
+    # holds them as model shards
+    mine = (slice(None) if _experts_split(cfg, mesh)
+            else slice(m_idx * e_loc, (m_idx + 1) * e_loc))
     pp = {name: p[name][mine].to(x.dtype) for name in ("up", "down", "gate")
           if name in p}
     expert_drops = []
@@ -223,10 +226,18 @@ def moe_roomy(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     return SH.gather_leading(out, mesh, axes).reshape(b, s, d), dropped
 
 
+def _experts_split(cfg: ModelConfig, mesh) -> bool:
+    """The expert leaves are this model rank's experts (serving's model
+    shards, where the rules split the expert dim over ``model``)."""
+    from .layers import tp_dim
+    return tp_dim(cfg, mesh, "moe/up") == 0
+
+
 def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None
         ) -> torch.Tensor:
     """x (B, S, d) → (B, S, d): ``moe_roomy`` on a mesh where the
-    reference runs it, else ``moe_einsum``."""
+    reference runs it, else ``moe_einsum`` (on every expert: model shards
+    of them are gathered over ``model`` first)."""
     if cfg.moe_dispatch == "roomy" and mesh is not None \
             and "model" in SH.mesh_axes(mesh):
         # Roomy dispatch needs tokens to tile the device grid (the model
@@ -235,4 +246,7 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None
         if (x.shape[0] * x.shape[1]) % SH.axis_size(
                 mesh, SH.token_axes(mesh)) == 0:
             return moe_roomy(p, x, cfg, mesh)[0]
+    if _experts_split(cfg, mesh):
+        p = {k: SH.all_gather(v, mesh, "model", 0) if k != "router" else v
+             for k, v in p.items()}
     return moe_einsum(p, x, cfg)

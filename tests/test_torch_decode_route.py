@@ -104,7 +104,13 @@ def test_misaligned_or_strided_pools_take_the_classic_route(which):
     assert pools[which].data_ptr() % 16 != 0
     assert tpd.route(q, *pools) == "classic"
     pools = [_pool(5, PS, 2, 128), _pool(5, PS, 2, 128)]
-    pools[which] = _pool(5, PS, 4, 128)[:, :, :2]      # every other head
+    pools[which] = _pool(5, PS, 4, 128)[:, :, :2]      # a kv-head view
+    assert not pools[which].is_contiguous()
+    # a tensor-parallel decode reads its kv-head view of the cache in
+    # place: the TMA map takes the view's strides, so an aligned view takes
+    # the TMA route; a misaligned one still the classic route
+    assert tpd.route(q, *pools) == "tma"
+    pools[which] = _misaligned((5, PS, 4, 128))[:, :, 1:3]
     assert not pools[which].is_contiguous()
     assert tpd.route(q, *pools) == "classic"
 

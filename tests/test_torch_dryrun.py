@@ -202,3 +202,86 @@ def test_full_attention_long_500k_is_the_references_skip(results):
     want = JD.run_cell(arch, shape, mesh == "multi")
     assert results["nemotron"] == want
     assert "skipped" in want
+
+
+SPLIT = """
+import json, sys
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import get_config
+from repro_torch.configs.inputs import input_specs
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed.sharding_rules import ShardingRules
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as M
+from repro_torch.models import lm
+D.fake_world(16)
+mesh = M.make_host_mesh(tp=4, device="cpu")
+D.build_groups(mesh)
+cfg = get_config("minicpm-2b", smoke=True).replace(kernels="ref")
+shape = ShapeSpec("p", 64, 16, "prefill")
+counted = D._counted_flops(cfg, shape, mesh, ShardingRules(cfg, mesh))
+with D._fake_mode():
+    params = D._fake_like(lm.init_params(cfg, 0, device="meta"))
+    inputs = D._fake_like(input_specs(cfg, shape)["inputs"])
+    flops = FlopCounterMode(display=False)
+    with flops, torch.no_grad():
+        lm.prefill(params, inputs, cfg)
+json.dump({"mesh": counted["flops_per_device_counted"],
+           "one": float(flops.get_total_flops())}, open(sys.argv[1], "w"))
+"""
+
+
+def test_prefill_flops_a_rank_split_over_a_4x4_mesh(tmp_path):
+    """A fake world of 16 ranks as 4 x 4, minicpm SMOKE (4 heads, 4 kv
+    heads) prefilling 16 rows of 64: a rank's twin-counted FLOPs are at
+    most 1.3/16 of the same prefill's with no mesh (its rows over the
+    data axes, its heads, ff and vocab columns over ``model``)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("XLA_FLAGS", None)
+    out = tmp_path / "split.json"
+    proc = subprocess.run([sys.executable, "-c", SPLIT, str(out)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(out) as f:
+        got = json.load(f)
+    assert 0 < got["mesh"] <= 1.3 / 16 * got["one"], got
+
+
+SEQ_RANK = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed.sharding_rules import ShardingRules
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as M
+D.fake_world(16, int(sys.argv[2]))
+mesh = M.make_host_mesh(tp=4, device="cpu")
+D.build_groups(mesh)
+cfg = get_config("minicpm-2b", smoke=True).replace(
+    kernels="ref", n_heads=3, n_kv_heads=3)
+shape = ShapeSpec("p", 64, 4, "prefill")
+counted = D._counted_flops(cfg, shape, mesh, ShardingRules(cfg, mesh))
+json.dump(counted["flops_per_device_counted"], open(sys.argv[1], "w"))
+"""
+
+
+def test_the_sequence_split_loads_the_last_model_rank_most(tmp_path):
+    """``fake_world``'s rank: minicpm SMOKE with 3 heads on a fake 4 x 4
+    world, 4 rows of 64 (the batch does not tile the grid, so prefill
+    splits the sequence over ``model``): model rank 3's query block sees
+    every key and counts more FLOPs than rank 0's, which sees a quarter."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("XLA_FLAGS", None)
+    got = {}
+    for rank in (0, 3):
+        out = tmp_path / f"rank{rank}.json"
+        proc = subprocess.run([sys.executable, "-c", SEQ_RANK, str(out),
+                               str(rank)], env=env, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with open(out) as f:
+            got[rank] = json.load(f)
+    assert 0 < got[0] < got[3], got

@@ -11,10 +11,13 @@ param shards (``lm.prefill`` / ``lm.decode_step`` on a mesh).
   bytes, group size and the group's ranks.
 * The full-depth FLOP count equals the twin extrapolation
   (``dryrun._counted_flops``) within 1e-6 on a homogeneous stack.
-* Serving from param shards equals serving from whole params on the same
-  mesh (the gather made an identity), logits within 1e-5 and the greedy
-  tokens identical, for gemma2-2b, granite-moe and zamba2 SMOKE in gloo
-  worlds of 2 ((1, 2)) and 4 ((2, 2)); every rank gets the same back.
+* Serving from param shards, each rank computing its share (its rows,
+  heads, ff and vocab columns), equals serving the whole params on one
+  device, logits within 2e-4 in float32 (the all-reduces over ``model``
+  sum in another order) and the greedy tokens identical, for gemma2-2b,
+  granite-moe (at capacity factor 8: neither MoE dispatch drops a pair)
+  and zamba2 SMOKE in gloo worlds of 2 ((1, 2)) and 4 ((2, 2)); every
+  rank gets the same back.
 
 Each world is one spawn of ``torch.multiprocessing`` (a file store under
 tmp_path; the ranks import this module, which imports nothing of the
@@ -36,7 +39,6 @@ import torch.multiprocessing as mp
 from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.core import sharding as SH
 from repro_torch.distributed import sharding_rules as SR
 from repro_torch.distributed.sharding_rules import ShardingRules
 from repro_torch.launch import dryrun as D
@@ -101,6 +103,9 @@ def gloo_steps_rank(rank, world, root):
 # ------------------------------------------------------ sharded serving
 
 SERVE_ARCHS = ("gemma2-2b", "granite-moe-3b-a800m", "zamba2-1.2b")
+# capacity factor 8: no (token, choice) pair drops in the roomy MoE on the
+# mesh nor in the einsum MoE on one device, so the two dispatches agree
+SERVE_OVER = {"granite-moe-3b-a800m": {"capacity_factor": 8.0}}
 SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 2, 6, 3, 128
 
 
@@ -125,16 +130,16 @@ def greedy(cfg, params, prompt, mesh):
 
 def serve_rank(rank, world, tp, root):
     """One rank of a gloo world on a (world / tp, tp) mesh: each of
-    SERVE_ARCHS served from this rank's param shards and from the whole
-    params on the same mesh (the gather an identity), results to
-    ``root/serve_<rank>.npz``."""
+    SERVE_ARCHS served from this rank's param shards on the mesh and from
+    the whole params on one device, results to ``root/serve_<rank>.npz``."""
     _init(rank, world, root)
     out = {}
     try:
         mesh = M.make_host_mesh(tp=tp, device="cpu")
         rng = np.random.default_rng(33)
         for i, arch in enumerate(SERVE_ARCHS):
-            cfg = get_config(arch, smoke=True).replace(kernels="ref")
+            cfg = get_config(arch, smoke=True).replace(
+                kernels="ref", dtype="float32", **SERVE_OVER.get(arch, {}))
             whole = lm.init_params(cfg, 40 + i, device="cpu")
             specs = SR.config_specs(cfg, mesh)
             shards = SR.shard_params(whole, specs, mesh)
@@ -142,13 +147,8 @@ def serve_rank(rank, world, tp, root):
                 0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)))
             out[f"{arch}|sharded"], out[f"{arch}|sharded_toks"] = greedy(
                 cfg, shards, prompt, mesh)
-            gather = SH.gather_param
-            SH.gather_param = lambda x, spec, mesh: x
-            try:
-                out[f"{arch}|whole"], out[f"{arch}|whole_toks"] = greedy(
-                    cfg, whole, prompt, mesh)
-            finally:
-                SH.gather_param = gather
+            out[f"{arch}|whole"], out[f"{arch}|whole_toks"] = greedy(
+                cfg, whole, prompt, None)
             out[f"{arch}|smaller"] = np.array(sum(
                 a.numel() for a in T.leaves(shards)) < sum(
                 a.numel() for a in T.leaves(whole)))
@@ -266,7 +266,7 @@ def test_sharded_serving_equals_whole_params(served, world, arch):
     assert bool(r0[f"{arch}|smaller"])           # the shards are shards
     sharded, whole = r0[f"{arch}|sharded"], r0[f"{arch}|whole"]
     assert sharded.shape == (1 + SERVE_STEPS, SERVE_B, whole.shape[-1])
-    np.testing.assert_allclose(sharded, whole, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sharded, whole, rtol=2e-4, atol=2e-4)
     np.testing.assert_array_equal(r0[f"{arch}|sharded_toks"],
                                   r0[f"{arch}|whole_toks"])
     for r in ranks[1:]:                          # every rank the same

@@ -209,3 +209,55 @@ def test_the_wrapper_checks_its_inputs(bad):
         softcap = -1.0
     with pytest.raises(ValueError):
         tpd.paged_decode_attention(*t.values(), softcap=softcap)
+
+
+# ------------------------------------------- a kv-head view of a pool
+
+VIEWS = [  # pool kv heads, head range, group: first and last ranges, g 2, 3
+    (4, (0, 2), 2), (4, (2, 4), 2), (6, (0, 1), 3), (6, (5, 6), 3),
+    (4, (1, 3), 1)]
+
+
+@pytest.mark.parametrize("kvh,heads,g", VIEWS, ids=str)
+def test_plain_version_on_a_kv_head_view_equals_the_copy(kvh, heads, g):
+    """K8's plain version reads ``pages[:, :, h0:h1]`` in place: bit for
+    bit what it gives on the contiguous copy of that view."""
+    b, ps, pps, hd = 3, 8, 4, 16
+    q, kp, vp, table, lengths, _ = _inputs((b, kvh, kvh, ps, pps, hd, None),
+                                           seed=7)
+    h0, h1 = heads
+    kp, vp = torch.from_numpy(kp), torch.from_numpy(vp)
+    qh = torch.from_numpy(q)[:, : (h1 - h0) * g]
+    kv, vv = kp[:, :, h0:h1], vp[:, :, h0:h1]
+    assert not kv.is_contiguous() and tpd.head_view(kv)
+    args = (torch.from_numpy(table), torch.from_numpy(lengths))
+    got = tpd.paged_decode_attention(qh, kv, vv, *args, softcap=30.0)
+    want = tref.paged_decode_attention_ref(qh, kv.contiguous(),
+                                           vv.contiguous(), *args,
+                                           softcap=30.0)
+    assert torch.equal(got, want)
+
+
+def test_tma_geometry_of_a_view_keeps_the_pools_strides():
+    """The tensor map of ``pool[:, :, h0:h1]``: dims (hd, h1 − h0, ps, P),
+    byte strides of a head, a token row of the whole pool and a page of
+    it, from the view's own base (h0 heads in)."""
+    pool = torch.zeros((5, 128, 8, 256), dtype=torch.bfloat16)
+    view = pool[:, :, 2:4]
+    es = 2
+    assert tpd.tma_geometry(view) == (256, 2, 128, 5, 256 * es, 8 * 256 * es,
+                                      128 * 8 * 256 * es, tpd.TMA_BOX_COLS, 1,
+                                      tpd.TMA_TILE, 1)
+    assert view.data_ptr() - pool.data_ptr() == 2 * 256 * es
+    assert tpd.tma_geometry(pool) == (256, 8, 128, 5, 256 * es, 8 * 256 * es,
+                                      128 * 8 * 256 * es, tpd.TMA_BOX_COLS, 1,
+                                      tpd.TMA_TILE, 1)
+
+
+def test_head_view_accepts_pools_and_head_ranges_only():
+    pool = torch.zeros((3, 16, 4, 32))
+    assert tpd.head_view(pool) and tpd.head_view(pool[:, :, 1:3])
+    assert tpd.head_view(pool[:, :, 3:4]) and tpd.head_view(pool[1:2])
+    assert not tpd.head_view(pool[:, :, :, :16])          # part of a head
+    assert not tpd.head_view(pool[:, :8])                 # pages cut short
+    assert not tpd.head_view(pool.transpose(1, 2))        # heads outermost
