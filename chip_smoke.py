@@ -583,10 +583,12 @@ caught:
    bit for bit) against its plain version and ``torch.index_add`` at the
    step's shape, timed both ways; (b) a two-rank gloo world of
    spawned processes on the one card (the only exchange this machine can
-   make that is not an identity): 2 layers at full width on (1, 2) and
-   (2, 1), loss and per-leaf gradient against the one-device run, K6-LSE,
-   K7 and K5 on each rank, ``tp`` left out of the loss share and the
-   local mask count as planted faults.
+   make that is not an identity): 2 layers at full width on (1, 2) (in
+   float32: its tensor-parallel sums flip bf16's router top-k; one
+   device's bf16 distance from float32 printed beside it) and (2, 1),
+   loss and per-leaf gradient against the one-device run, K6-LSE, K7 and
+   K5 on each rank, ``tp`` left out of the loss share and the local mask
+   count as planted faults.
 18d. serving from param shards (``serve_from_shards``, in 18c's two-rank
    gloo world, after its training): granite-moe-3b at full width and 2 layers
    in bfloat16, ``lm.prefill`` of a 2 x 64 prompt and 4 greedy
@@ -609,6 +611,31 @@ caught:
    readings: each rank's prefill and decode walls, peak and collective
    bytes; then K6 and K8 at those shapes on the card alone against their
    plain versions, their bounds and the library calls.
+18f. training split over the mesh (``tp_train``, in the same world, after
+   18e): gemma2-2b at full width, 4 layers (two local, two global), bf16,
+   one ``loss_fn`` + backward at 1 x 1024 on (1, 2) from each rank's
+   shards with tensor-parallel compute (K6-LSE twice a layer with the
+   remat, K7 once, each on 1 row, 4 q and 2 kv heads), the loss within
+   TP_LOSS_TOL and each gradient leaf within TP_GRAD_TOL of one device's
+   (with this run's and one device's distance from one device's
+   float32-compute gradient printed beside it); a float32 witness at 2
+   layers (TP_F32_LOSS_TOL, TP_F32_GRAD_TOL a leaf); the row-parallel
+   all-reduce's backward made the identity as a planted fault, past 3x
+   the leaf limit.
+18g. the mamba mixers split by ``d_inner`` (``tp_train``, ``tp_serve``):
+   falcon-mamba-7b at full width (d 4096, d_inner 8192), 4 layers, bf16,
+   on (1, 2): one ``loss_fn`` + backward as 18f's (K9 and K9-bwd on 4,096
+   channels a rank); a 2 x 1024 prefill and 8 donated decode steps fed
+   the one-device tokens, within BF16_LOGIT_REL_TOL a row, each layer's
+   state the rank's channels; a float32 witness (2 layers, 2 greedy steps,
+   FM_TP_F32_TOL a row, tokens identical).
+   Then, in one process, the sequence join (``ops.flash_attention_join``)
+   under autograd at gemma2's layer shape (8 q / 4 kv heads, head dim
+   256, softcap 50, window 4096), a 2048-row query block at offsets 4096
+   and 6144: output and dQ, dK, dV against K6-LSE / K7 over the whole
+   sequence and against the join on the plain versions, at K6's and K7's
+   limits, two K6-LSE and two K7 launches a call, and each piece's K7 fed
+   its own O and LSE as a planted fault.
 19. the ``to_port`` line (an empty list: every kernel is ported), the
    ``kernels`` JSON line (K1–K9, K6-with-LSE, K9-bwd; K1's, K2's and
    K3's launches, routes and summed times on the disk route; K6's and
@@ -7738,7 +7765,7 @@ MESH_TRAIN_STEPS = 3
 MESH_GLOO_LAYERS = 2          # the two-rank gloo world: full width, 2 layers
 MESH_GLOO_LEN = 1024
 MESH_GLOO_SHAPES = ((1, 2), (2, 1))
-MESH_GLOO_TIMEOUT = 300.0     # seconds the two-rank world may take
+MESH_GLOO_TIMEOUT = 420.0     # seconds the two-rank world may take
 # Limits of the mesh train step against no mesh, each set from a first
 # reading on an H100 (PERF.md §6): on one rank the roomy MoE's and
 # the K5 fold's sums run in other orders than the einsum MoE's and the
@@ -7749,6 +7776,17 @@ MESH_GLOO_TIMEOUT = 300.0     # seconds the two-rank world may take
 MESH_TRAIN_GRAD_TOL = 0.05
 MESH_GLOO_GRAD_TOL = 0.05
 MESH_GLOO_LOSS_TOL = 1e-5
+# The compute dtype a gloo mesh runs at.  (1, 2) splits the compute over
+# ``model``, and in bf16 the split's partial sums round at other places
+# than one device's and flip granite's router top-k (the first reading on
+# an H100: loss 9.56e-5, worst leaf 0.107 at layer 1's router, median
+# 6.0e-2; one device's own bf16 gradient sits 0.129 from its float32
+# one); it runs in float32, held at MESH_GLOO_LOSS_TOL and a
+# leaf at MESH_GLOO_F32_GRAD_TOL, and prints the one-device bf16 run's
+# own distance from float32 beside it.  bf16 split training is held by
+# phases 18f and 18g.  (2, 1) splits rows alone and stays in bf16.
+MESH_GLOO_DTYPE = {(1, 2): "float32", (2, 1): "bfloat16"}
+MESH_GLOO_F32_GRAD_TOL = 1e-4
 
 
 def mesh_train_cfg(layers):
@@ -7761,11 +7799,13 @@ def mesh_train_cfg(layers):
     return cfg
 
 
-def gloo_cfg():
-    """The two-rank world's config: MESH_GLOO_LAYERS, remat off (gloo
-    moves ~0.35 GB/s on this machine, and a rematted block gathers its
-    float32 params again in the backward; the one-rank mesh runs remat)."""
-    return mesh_train_cfg(MESH_GLOO_LAYERS).replace(remat=False)
+def gloo_cfg(shape=(2, 1)):
+    """The two-rank world's config on mesh ``shape``: MESH_GLOO_LAYERS,
+    remat off (gloo moves ~0.35 GB/s on this machine, and a rematted
+    block gathers its float32 params again in the backward; the one-rank
+    mesh runs remat), in MESH_GLOO_DTYPE's compute dtype."""
+    return mesh_train_cfg(MESH_GLOO_LAYERS).replace(
+        remat=False, dtype=MESH_GLOO_DTYPE[shape])
 
 
 class _Stamp(torch.autograd.Function):
@@ -7915,14 +7955,15 @@ def fold_catcher(caught):
     return patched(OPS, "bucket_scatter_add", catch)
 
 
-def mesh_leaf_errors(grads, want, params, mesh) -> dict:
+def mesh_leaf_errors(grads, want, params, mesh, cfg=None) -> dict:
     """``leaf_errors`` of this rank's gradient shards against the whole
     gradient ``want``: each leaf's squared norms summed over the mesh, a
     logical element counted once (on coordinate 0 of each axis its spec
-    replicates, the global norm's rule), by one all-reduce."""
+    replicates, the global norm's rule), by one all-reduce.  ``cfg``: the
+    params' config (``gloo_cfg`` by default)."""
     specs = []
     T.tree_map(lambda p, spec: specs.append(spec), params,
-               SR.config_specs(gloo_cfg(), mesh))
+               SR.config_specs(cfg or gloo_cfg(), mesh))
     coord = dict(zip(SHD.mesh_axes(mesh), mesh.get_coordinate()))
     sums = torch.stack([
         torch.stack([(g.float() - w).square().sum(), w.square().sum()])
@@ -7940,8 +7981,9 @@ def _w_mesh_train(rank, world, root):
     MESH_GLOO_SHAPES, the loss and gradient of ``gloo_cfg`` held per leaf
     to the one-device run the parent saved, with the launches; then the
     mesh's planted fault's loss (a forward: both faults scale the loss);
-    then serving from param shards (``serve_from_shards``) and phase 18e
-    (``serve_tp``, on the one-device runs the parent saved); results to
+    then serving from param shards (``serve_from_shards``), phase 18e
+    (``serve_tp``) and phases 18f / 18g (``tp_train``, ``tp_serve``), on
+    the one-device runs the parent saved; results to
     ``root/rank<rank>.json``."""
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
@@ -7954,8 +7996,8 @@ def _w_mesh_train(rank, world, root):
         os.path.join(root, "store"), world), rank=rank, world_size=world)
     out = {}
     try:
-        cfg = gloo_cfg()
         for shape in MESH_GLOO_SHAPES:
+            cfg = gloo_cfg(shape)
             mesh = MESH.make_host_mesh(tp=shape[1], device="cuda")
             ref = torch.load(os.path.join(root, f"ref_{shape[0]}.pt"),
                              map_location=dev)
@@ -7977,6 +8019,11 @@ def _w_mesh_train(rank, world, root):
         t0 = time.perf_counter()
         out["serve_tp"] = serve_tp(dev, root)
         out["serve_tp"]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["tp_train"] = tp_train(dev, root)
+        out["tp_serve"] = tp_serve(dev, root)
+        out["tp_wall_s"] = time.perf_counter() - t0
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
@@ -7992,25 +8039,35 @@ def mesh_gloo_world(dev) -> dict:
     MESH_GLOO_LOSS_TOL, every gradient leaf within MESH_GLOO_GRAD_TOL);
     the planted faults (``tp`` left out on (1, 2), the local mask count on
     (2, 1)) must move the loss 3x past its limit; K6-LSE, K7 and K5 launch
-    on each rank."""
-    cfg = gloo_cfg()
+    on each rank.  (1, 2) computes in float32 (MESH_GLOO_DTYPE), each
+    leaf within MESH_GLOO_F32_GRAD_TOL; beside it, one device's bf16
+    gradient against its float32 one (the floor a bf16 split would meet)."""
     root = tempfile.mkdtemp(prefix="roomy_mesh_train_")
     res = {}
     try:
-        for b in (1, 2):
+        for shape in MESH_GLOO_SHAPES:
+            cfg, b = gloo_cfg(shape), 2 // shape[1]
             batch = batch_to_torch(make_batch(cfg, SEED + 9, 0, b,
                                               MESH_GLOO_LEN), dev)
             if b == 2:                 # uneven masks over the data ranks
                 batch["labels"][0, :MESH_GLOO_LEN // 2] = -1
-            _, loss, grads, _ = mesh_grads(cfg, dev, None, batch)
+            params, loss, grads, _ = mesh_grads(cfg, dev, None, batch)
             torch.save({"batch": batch, "loss": float(loss),
                         "grads": [g.detach() for g in grads]},
                        os.path.join(root, f"ref_{b}.pt"))
-            del grads
+            if cfg.dtype == "float32":     # the bf16 floor beside it
+                _, low = loss_and_grads(params, batch,
+                                        cfg.replace(dtype="bfloat16"))
+                res[f"bf16_floor_{b}"] = leaf_errors(low, grads, params)
+                del low
+            del grads, params
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tp_refs = serve_tp_refs(dev, root)
         res["serve_tp_refs_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        split_refs = tp_one_device(dev, root)
+        res["tp_refs_seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         ctx = torch.multiprocessing.start_processes(
             _w_mesh_train, args=(2, root), nprocs=2, join=False,
@@ -8038,18 +8095,24 @@ def mesh_gloo_world(dev) -> dict:
         expect(lz["flash_attention_lse"] == MESH_GLOO_LAYERS
                and lz["flash_attention_bwd"] == MESH_GLOO_LAYERS
                and lz["bucket_scatter_add"] == 1, (key, lz))
+        grad_tol = (MESH_GLOO_F32_GRAD_TOL if MESH_GLOO_DTYPE[shape]
+                    == "float32" else MESH_GLOO_GRAD_TOL)
         expect(rec["loss_rel"] <= MESH_GLOO_LOSS_TOL, (key, rec))
-        expect(rec["grads"]["max_rel"] <= MESH_GLOO_GRAD_TOL,
-               (key, rec["grads"]))
+        expect(rec["grads"]["max_rel"] <= grad_tol, (key, rec["grads"]))
         expect(rec["fault_loss_rel"] >= 3 * MESH_GLOO_LOSS_TOL, (key, rec))
         res[key] = {**rec, "fault_over_limit": rec["fault_loss_rel"]
                     / MESH_GLOO_LOSS_TOL}
-        print(f"mesh train gloo world {key} on the card, {cfg.name} "
-              f"{MESH_GLOO_LAYERS} layers, {2 // shape[1]} x "
+        print(f"mesh train gloo world {key} on the card, "
+              f"{gloo_cfg(shape).name} {MESH_GLOO_LAYERS} layers, "
+              f"{2 // shape[1]} x "
               f"{MESH_GLOO_LEN}: loss rel {rec['loss_rel']:.3e} (limit "
               f"{MESH_GLOO_LOSS_TOL}), worst leaf "
               f"{rec['grads']['max_rel']:.4e} at {rec['grads']['worst_leaf']}"
-              f" (limit {MESH_GLOO_GRAD_TOL}), median "
+              f" (limit {grad_tol}; {MESH_GLOO_DTYPE[shape]} compute"
+              + (f", one device's bf16 against its float32: worst "
+                 f"{res[f'bf16_floor_{2 // shape[1]}']['max_rel']:.4e}"
+                 if f"bf16_floor_{2 // shape[1]}" in res else "")
+              + f"), median "
               f"{rec['grads']['median_rel']:.4e}; launches a rank "
               f"{rec['launches']}; planted fault ({rec['fault']}): loss rel "
               f"{rec['fault_loss_rel']:.4e} "
@@ -8061,10 +8124,17 @@ def mesh_gloo_world(dev) -> dict:
     res["serve_tp"]["phase_s"] = (res["serve_tp_refs_seconds"]
                                   + max(r["serve_tp"]["wall_s"] for r in ranks)
                                   + time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    res["tp"] = check_tp(ranks, split_refs)
+    res["tp"]["join"] = phase_join(dev)
+    res["tp"]["phase_s"] = (res["tp_refs_seconds"] + max(
+        r["tp_wall_s"] for r in ranks) + time.perf_counter() - t0)
     print(f"mesh train gloo world: one spawn of 2 ranks, "
-          f"{res['world_seconds']:.1f} s (serving from shards and phase 18e "
-          f"in it); phase 18e {res['serve_tp']['phase_s']:.1f} s (the "
-          f"one-device runs, the ranks' share, the kernels' times)")
+          f"{res['world_seconds']:.1f} s (serving from shards and phases "
+          f"18e-18g in it); phase 18e {res['serve_tp']['phase_s']:.1f} s (the "
+          f"one-device runs, the ranks' share, the kernels' times); phases "
+          f"18f, 18g and the sequence join {res['tp']['phase_s']:.1f} s (the "
+          f"one-device runs {res['tp_refs_seconds']:.1f} s)")
     return res
 
 
@@ -8892,6 +8962,398 @@ def serve_tp_kernel_times(dev) -> dict:
               f"{plain8:.3f} ms, SDPA over the gathered cache (no softcap) "
               f"{lib8:.4f} ms")
         del q, k, v, q8, kp, vp, kv, vv, kf, vf
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------- training and the mamba mixers split over the mesh: 18f, 18g
+
+TP_TRAIN_ARCH = "gemma2-2b"
+TP_TRAIN_LAYERS = 4           # two local, two global
+TP_TRAIN_LEN = 1024           # one loss_fn + backward at 1 x 1024
+TP_TRAIN_F32_LAYERS = 2
+TP_SEED = SEED + 35
+# a leaf, bf16, against one device: the split sums (wo, down, out_proj and
+# x_proj's partials over two ranks, the vocab's) round at other places in
+# bf16 than one device's matmuls, as the reference's partitioned dots do.
+# The gloo world's bf16 limit (MESH_GLOO_GRAD_TOL): the first reading on
+# an H100 was 1.82e-2 (gemma2, median 9.4e-3) and 2.23e-2 (falcon-mamba),
+# where one device's own bf16 gradient sits 2.13e-2 / 2.92e-2 from its
+# float32 one, so a tighter bf16 limit cannot tell rounding from a fault;
+# the float32 witness holds the split itself to 1e-4 a leaf, and each bf16
+# run's distance to one device's float32-compute gradient is printed
+# beside one device's own (the bf16 floor).
+TP_GRAD_TOL = MESH_GLOO_GRAD_TOL
+TP_F32_GRAD_TOL = 1e-4        # a leaf, the float32 witness
+TP_F32_LOSS_TOL = 1e-5        # the float32 witness's loss, relative
+FM_TP_LAYERS = 4              # falcon-mamba-7b at d 4096, d_inner 8192
+FM_TP_BATCH = 2
+FM_TP_PROMPT = 1024
+FM_TP_F32_LAYERS = 2
+FM_TP_F32_STEPS = 2
+FM_TP_F32_TOL = 1e-4          # a row, the float32 witness's logits
+# The sequence join at gemma2's layer shape: (hq, hkv, head dim), softcap,
+# a local layer's window, S = 8192 split into query blocks of 2048 at
+# these offsets (a (1, 4) split's last two blocks).
+JOIN_SHAPE = (8, 4, 256)
+JOIN_CAP = 50.0
+JOIN_WINDOW = 4096
+JOIN_BLOCK = 2048
+JOIN_OFFSETS = (4096, 6144)
+# bf16 loss of a split step against one device's, relative: the split
+# sums (wo, down, out_proj, x_proj and the vocab's over two ranks) round
+# at other places than one device's
+TP_LOSS_TOL = 1e-3
+
+
+def tp_cfg(arch, layers, dtype="bfloat16"):
+    return get_config(arch).replace(n_layers=layers, dtype=dtype)
+
+
+def tp_train_cases():
+    """(key, config) of phase 18f's and 18g's loss + backward runs."""
+    return (("gemma2_bf16", tp_cfg(TP_TRAIN_ARCH, TP_TRAIN_LAYERS)),
+            ("gemma2_f32", tp_cfg(TP_TRAIN_ARCH, TP_TRAIN_F32_LAYERS,
+                                  "float32")),
+            ("fm_bf16", tp_cfg(FM_ARCH, FM_TP_LAYERS)))
+
+
+def tp_serve_cases():
+    """(key, config, steps) of phase 18g's serving runs."""
+    return (("fm_bf16", tp_cfg(FM_ARCH, FM_TP_LAYERS), SERVE_TP_STEPS),
+            ("fm_f32", tp_cfg(FM_ARCH, FM_TP_F32_LAYERS, "float32"),
+             FM_TP_F32_STEPS))
+
+
+def tp_params(cfg, dev, dtype=torch.float32):
+    return lm.init_params(cfg, TP_SEED, device=dev, dtype=dtype)
+
+
+def tp_one_device(dev, root) -> dict:
+    """The one-device runs phases 18f and 18g hold the ranks to, saved to
+    ``root``: each train case's loss and gradient (float32 master params,
+    the config's compute dtype) at 1 x TP_TRAIN_LEN, and each serving
+    case's greedy prefill + decode logits and tokens."""
+    out = {}
+    for key, cfg in tp_train_cases():
+        t0 = time.perf_counter()
+        batch = batch_to_torch(make_batch(cfg, TP_SEED, 0, 1,
+                                          TP_TRAIN_LEN), dev)
+        params = T.tree_map(lambda p: p.requires_grad_(True),
+                            tp_params(cfg, dev))
+        loss, grads = loss_and_grads(params, batch, cfg)
+        rec = {"batch": batch, "loss": float(loss),
+               "grads": [g.detach() for g in grads]}
+        out[key] = {"loss": float(loss)}
+        if cfg.dtype != "float32":     # the bf16 floor: float32 compute
+            _, g32 = loss_and_grads(params, batch,
+                                    cfg.replace(dtype="float32"))
+            rec["grads_f32"] = [g.detach() for g in g32]
+            out[key]["bf16_vs_f32"] = leaf_errors(grads, g32, params)
+            del g32
+        torch.save(rec, os.path.join(root, f"tp_train_{key}.pt"))
+        out[key]["wall_s"] = time.perf_counter() - t0
+        del params, grads, rec
+        torch.cuda.empty_cache()
+    for key, cfg, steps in tp_serve_cases():
+        t0 = time.perf_counter()
+        params = tp_params(cfg, dev, getattr(torch, cfg.dtype))
+        prompt = lm_inputs(cfg, FM_TP_BATCH, FM_TP_PROMPT, dev, TP_SEED + 1)
+        run = serve_tp_run(cfg, params, prompt, None, dev, steps=steps)
+        torch.save({"logits": run["logits"].cpu(),
+                    "tokens": run["tokens"].cpu()},
+                   os.path.join(root, f"tp_serve_{key}.pt"))
+        out[key + "_serve"] = {k: run[k] for k in ("prefill_s", "decode_s",
+                                                   "peak_bytes")}
+        del params, run
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def scan_shapes():
+    """Every K9 / K9-bwd call's (batch rows, channels, steps) through
+    ``ops.mamba_scan`` (the backward runs on the forward's shapes)."""
+    calls = []
+    orig = OPS.mamba_scan
+
+    def call(x, *a, **kw):
+        calls.append(tuple(x.shape[:1]) + (x.shape[-1], x.shape[1]))
+        return orig(x, *a, **kw)
+    with patched(OPS, "mamba_scan", call):
+        yield calls
+
+
+def identity_all_reduce_backward(ctx, g):
+    """The planted fault: the row-parallel all-reduce's backward made the
+    identity (Megatron's convention mixed into this one)."""
+    return g, None
+
+
+def tp_train(dev, root) -> dict:
+    """Phases 18f and 18g's loss + backward on this rank of the two-rank
+    gloo world, on (1, 2) with tensor-parallel compute: each case's loss
+    and gradient from this rank's param shards, held per leaf to the
+    one-device run; every count set to 0 just before and read after, with
+    each K6 / K9 call's shape; on gemma2's bf16 case the planted fault
+    (``core.sharding._AllReduce``'s backward the identity)."""
+    out = {}
+    mesh = MESH.make_host_mesh(tp=2, device=dev.type)
+    for key, cfg in tp_train_cases():
+        t0 = time.perf_counter()
+        ref = torch.load(os.path.join(root, f"tp_train_{key}.pt"),
+                         map_location=dev)
+        specs = SR.config_specs(cfg, mesh)
+        shards = T.tree_map(lambda p: p.requires_grad_(True),
+                            SR.shard_params(tp_params(cfg, dev), specs,
+                                            mesh))
+        batch = TL.data_rows(ref["batch"], mesh)
+        sync(dev)
+        reset_all_launches()
+        with attention_shapes() as att, scan_shapes() as scans:
+            loss, grads = loss_and_grads(shards, batch, cfg, mesh)
+            sync(dev)
+        rec = {"loss": float(loss),
+               "loss_rel": abs(float(loss) / ref["loss"] - 1),
+               "grads": mesh_leaf_errors(grads, ref["grads"], shards, mesh,
+                                         cfg),
+               **({"grads_vs_f32": mesh_leaf_errors(
+                   grads, ref["grads_f32"], shards, mesh, cfg)}
+                  if "grads_f32" in ref else {}),
+               "launches": {**{k: FA.LAUNCHES[k] for k in (
+                   "flash_attention_lse", "flash_attention_bwd")},
+                   **dict(MS.LAUNCHES)},
+               "attention_calls": [list(c) for c in sorted(
+                   {tuple(c[1:4]) for c in att})],
+               "scan_calls": [list(c) for c in sorted(set(scans))]}
+        del grads
+        if key == "gemma2_bf16":
+            with patched(SHD._AllReduce, "backward",
+                         staticmethod(identity_all_reduce_backward)):
+                _, bad = loss_and_grads(shards, batch, cfg, mesh)
+            rec["fault"] = mesh_leaf_errors(bad, ref["grads"], shards, mesh,
+                                            cfg)
+            del bad
+        rec["wall_s"] = time.perf_counter() - t0
+        out[key] = rec
+        del shards, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve(dev, root) -> dict:
+    """Phase 18g's serving on this rank of the gloo world: falcon-mamba-7b
+    from this rank's param shards on (1, 2), its mixers on d_inner / 2
+    channels: a FM_TP_BATCH x FM_TP_PROMPT prefill and donated decode
+    steps fed the one-device tokens, held per row to the one-device
+    logits; the float32 witness greedy; the counts and each K9 call's
+    shape."""
+    out = {}
+    mesh = MESH.make_host_mesh(tp=2, device=dev.type)
+    for key, cfg, steps in tp_serve_cases():
+        t0 = time.perf_counter()
+        ref = torch.load(os.path.join(root, f"tp_serve_{key}.pt"),
+                         map_location=dev)
+        whole = tp_params(cfg, dev, getattr(torch, cfg.dtype))
+        shards = SR.shard_params(whole, SR.config_specs(cfg, mesh), mesh)
+        del whole
+        prompt = lm_inputs(cfg, FM_TP_BATCH, FM_TP_PROMPT, dev, TP_SEED + 1)
+        reset_all_launches()
+        with scan_shapes() as scans:
+            run = serve_tp_run(cfg, shards, prompt, mesh, dev, steps=steps,
+                               feed=ref["tokens"] if key == "fm_bf16"
+                               else None)
+        rec = {k: run[k] for k in ("prefill_s", "decode_s", "peak_bytes",
+                                   "prefill_collective_bytes",
+                                   "step_collective_bytes")}
+        rec.update(
+            rel_err=logit_row_rel(run["logits"], ref["logits"],
+                                  cfg.vocab_size),
+            finite=bool(torch.isfinite(run["logits"]).all()),
+            same_tokens=bool(torch.equal(run["tokens"], ref["tokens"])),
+            k9_launches=MS.LAUNCHES["mamba_scan"],
+            scan_calls=[list(c) for c in sorted(set(scans))],
+            states=[list(t.shape) for t in lm.make_cache(
+                cfg, FM_TP_BATCH, FM_TP_PROMPT, device=dev,
+                mesh=mesh)["ssm"][0]],
+            wall_s=time.perf_counter() - t0)
+        out[key] = rec
+        del shards, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_tp(ranks, refs) -> dict:
+    """Phases 18f and 18g's gates over both ranks' records: the losses
+    and every gradient leaf against one device (bf16: TP_LOSS_TOL,
+    TP_GRAD_TOL a leaf; float32: TP_F32_LOSS_TOL, TP_F32_GRAD_TOL); K6-LSE
+    and K7 on 4 q / 2 kv heads, once a layer forward and again in the
+    remat recompute, K7 once a layer; K9 and K9-bwd on d_inner / 2
+    channels; the planted fault past 3x the leaf gate; the serving logits
+    within BF16_LOGIT_REL_TOL (float32: FM_TP_F32_TOL, its tokens the
+    one-device run's), alike on both ranks."""
+    res = {"one_device": refs}
+    g2, fm = tp_cfg(TP_TRAIN_ARCH, 1), get_config(FM_ARCH)
+    heads = [1, g2.n_heads // 2, g2.n_kv_heads // 2]
+    half = fm.d_inner // 2
+    for key, cfg in tp_train_cases():
+        f32 = key.endswith("f32")
+        loss_tol, grad_tol = ((TP_F32_LOSS_TOL, TP_F32_GRAD_TOL) if f32
+                              else (TP_LOSS_TOL, TP_GRAD_TOL))
+        n = cfg.n_layers
+        for r in ranks:
+            rec = r["tp_train"][key]
+            expect(rec["loss_rel"] <= loss_tol, (key, rec["loss_rel"]))
+            expect(rec["grads"]["max_rel"] <= grad_tol, (key, rec["grads"]))
+            lz = rec["launches"]
+            if cfg.family == "ssm":
+                expect(lz["mamba_scan"] == 2 * n and lz["mamba_scan_bwd"]
+                       == n and rec["scan_calls"] == [
+                           [1, half, TP_TRAIN_LEN]], (key, lz, rec))
+            else:
+                expect(lz["flash_attention_lse"] == 2 * n
+                       and lz["flash_attention_bwd"] == n
+                       and rec["attention_calls"] == [heads],
+                       (key, lz, rec["attention_calls"]))
+            if "fault" in rec:
+                expect(rec["fault"]["max_rel"] >= 3 * grad_tol,
+                       (key, rec["fault"]))
+        rec = ranks[0]["tp_train"][key]
+        res[key] = {**rec, "ranks": [r["tp_train"][key]["wall_s"]
+                                     for r in ranks]}
+        phase = "18g" if cfg.family == "ssm" else "18f"
+        print(f"phase {phase} {key} ({rec['wall_s']:.1f} s on rank 0): "
+              f"{cfg.name} {n} layers {cfg.dtype}, one loss_fn + backward "
+              f"at 1 x {TP_TRAIN_LEN} on (1, 2) with TP compute: loss rel "
+              f"{rec['loss_rel']:.3e} (limit {loss_tol}), worst leaf "
+              f"{rec['grads']['max_rel']:.4e} at {rec['grads']['worst_leaf']}"
+              f" (limit {grad_tol}), median {rec['grads']['median_rel']:.4e};"
+              + (f" against one device's float32 compute: this run worst "
+                 f"{rec['grads_vs_f32']['max_rel']:.4e} (median "
+                 f"{rec['grads_vs_f32']['median_rel']:.4e}), one device's "
+                 f"bf16 run {refs[key]['bf16_vs_f32']['max_rel']:.4e} "
+                 f"(median {refs[key]['bf16_vs_f32']['median_rel']:.4e});"
+                 if "grads_vs_f32" in rec else "")
+              + f" launches a rank {rec['launches']} ({n} layers: "
+              f"K6-LSE {rec['launches']['flash_attention_lse'] / n:g}, K7 "
+              f"{rec['launches']['flash_attention_bwd'] / n:g}, K9 "
+              f"{rec['launches']['mamba_scan'] / n:g}, K9-bwd "
+              f"{rec['launches']['mamba_scan_bwd'] / n:g} a layer); K6 calls "
+              f"(rows, q heads, kv heads) {rec['attention_calls']}; K9 calls "
+              f"(rows, channels, steps) {rec['scan_calls']}"
+              + (f"; planted fault (the all-reduce's backward the "
+                 f"identity): worst leaf {rec['fault']['max_rel']:.4e} at "
+                 f"{rec['fault']['worst_leaf']} "
+                 f"({rec['fault']['max_rel'] / grad_tol:.3g}x the limit)"
+                 if "fault" in rec else ""))
+    for key, cfg, steps in tp_serve_cases():
+        f32 = key.endswith("f32")
+        tol = FM_TP_F32_TOL if f32 else BF16_LOGIT_REL_TOL
+        for r in ranks:
+            rec = r["tp_serve"][key]
+            expect(rec["finite"] and rec["rel_err"] <= tol,
+                   (key, rec["rel_err"]))
+            expect(rec["same_tokens"] or not f32, (key, "tokens"))
+            expect(rec["k9_launches"] == cfg.n_layers and rec["scan_calls"]
+                   == [[FM_TP_BATCH, half, FM_TP_PROMPT]], (key, rec))
+            expect(rec["states"] == [[FM_TP_BATCH, cfg.ssm_conv - 1, half],
+                                     [FM_TP_BATCH, half, cfg.ssm_state]],
+                   (key, rec["states"]))
+        rec = ranks[0]["tp_serve"][key]
+        res[key + "_serve"] = rec
+        print(f"phase 18g {key} serve ({rec['wall_s']:.1f} s on rank 0): "
+              f"{cfg.name} {cfg.n_layers} layers {cfg.dtype} from param "
+              f"shards on (1, 2), {FM_TP_BATCH} x {FM_TP_PROMPT} prefill + "
+              f"{steps} donated steps: per-row rel err {rec['rel_err']:.4e} "
+              f"against one device (limit {tol}); tokens the same "
+              f"{rec['same_tokens']}; K9 {rec['k9_launches']} launches, "
+              f"calls {rec['scan_calls']}; a layer's state {rec['states']}; "
+              f"prefill {rec['prefill_s']:.3f} s, steps {rec['decode_s']:.3f}"
+              f" s, peak {rec['peak_bytes']} B, collective bytes prefill "
+              f"{rec['prefill_collective_bytes']} a step "
+              f"{rec['step_collective_bytes']}")
+    return res
+
+
+def phase_join(dev) -> dict:
+    """``ops.flash_attention_join`` under autograd at gemma2's layer
+    shape (JOIN_SHAPE, softcap JOIN_CAP, a local layer's window
+    JOIN_WINDOW), a query block of JOIN_BLOCK rows at each offset of
+    JOIN_OFFSETS in S = 8192: its output and dQ, dK, dV against K6-LSE / K7
+    over the whole sequence up to the block's end (dO zero outside the
+    block) and against the same join on the plain versions, at K6's and
+    K7's bf16 limits; two K6-LSE and two K7 launches a call; and the
+    planted fault, each piece's K7 fed its own O and LSE, past 2x the
+    limit."""
+    hq, hkv, d = JOIN_SHAPE
+    kw = dict(window=JOIN_WINDOW, softcap=JOIN_CAP)
+    out = {}
+    for s0 in JOIN_OFFSETS:
+        t0 = time.perf_counter()
+        s = s0 + JOIN_BLOCK
+        q, k, v, do = k7_inputs((1, hq, hkv, s, s, d), torch.bfloat16, dev,
+                                TP_SEED + s0, qk_sigma=K7_CAP_SIGMA)
+        dob = do[:, :, s0:].contiguous()
+
+        def grads(qq, kk, vv, fn, g):
+            xs = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
+            o = fn(*xs)
+            return (o.detach(),) + torch.autograd.grad(o, xs, g)
+        whole = grads(q, k, v, lambda a, b, c: OPS.flash_attention(
+            a, b, c, **kw), torch.cat([torch.zeros_like(do[:, :, :s0]),
+                                       dob], 2))
+        reset_all_launches()
+        got = grads(q[:, :, s0:], k, v, lambda a, b, c:
+                    OPS.flash_attention_join(a, b, c, s0, **kw), dob)
+        sync(dev)
+        launches = {n: FA.LAUNCHES[n] for n in ("flash_attention_lse",
+                                                "flash_attention_bwd")}
+        plain = grads(q[:, :, s0:], k, v, lambda a, b, c:
+                      OPS.flash_attention_join(a, b, c, s0, impl="ref",
+                                               **kw), dob)
+        want = (whole[0][:, :, s0:], whole[1][:, :, s0:]) + whole[2:]
+        e_whole = k7_errors(got[1:], want[1:])
+        e_plain = k7_errors(got[1:], plain[1:])
+        o_rel = {"whole": bh_rel(got[0], want[0]),
+                 "plain": bh_rel(got[0], plain[0])}
+        # the fault: each piece's K7 fed its own O and LSE
+        qb = q[:, :, s0:]
+        dq = torch.zeros_like(qb, dtype=torch.float32)
+        dk = torch.zeros_like(k, dtype=torch.float32)
+        dv = torch.zeros_like(v, dtype=torch.float32)
+        for a, b, causal, w in OPS.join_pieces(s0, JOIN_WINDOW):
+            o_p, lse_p = FA.flash_attention(qb, k[:, :, a:b], v[:, :, a:b],
+                                            causal=causal, window=w,
+                                            softcap=JOIN_CAP, return_lse=True)
+            g = FAB.flash_attention_bwd(qb, k[:, :, a:b], v[:, :, a:b], o_p,
+                                        lse_p, dob, causal=causal, window=w,
+                                        softcap=JOIN_CAP)
+            dq += g[0].float()
+            dk[:, :, a:b] += g[1].float()
+            dv[:, :, a:b] += g[2].float()
+        e_fault = k7_errors((dq.bfloat16(), dk.bfloat16(), dv.bfloat16()),
+                            want[1:])
+        expect(e_whole["ok"] and e_plain["ok"], (s0, e_whole, e_plain))
+        expect(max(o_rel.values()) <= K6_REL_TOL, (s0, o_rel))
+        expect(launches == {"flash_attention_lse": 2,
+                            "flash_attention_bwd": 2}, (s0, launches))
+        expect(math.isfinite(e_fault["max_abs"]) and e_fault["rel"]
+               >= K7_FAULT_FACTOR * K7_REL_TOL, (s0, e_fault))
+        out[str(s0)] = {"out_rel": o_rel, "vs_whole": e_whole,
+                        "vs_plain": e_plain, "fault": e_fault,
+                        "launches": launches,
+                        "wall_s": time.perf_counter() - t0}
+        print(f"sequence join (gemma2's layer: {hq} q / {hkv} kv heads, head "
+              f"dim {d}, softcap {JOIN_CAP}, window {JOIN_WINDOW}; q rows "
+              f"{s0}:{s} of S {s}, bf16, q and k at sigma {K7_CAP_SIGMA}): "
+              f"out per-(b, h) rel {o_rel} (limit {K6_REL_TOL}); dq dk dv "
+              f"against K6-LSE / K7 over the whole sequence rel "
+              f"{e_whole['rel']:.3e}, against the plain versions "
+              f"{e_plain['rel']:.3e} (limit {K7_REL_TOL}); launches "
+              f"{launches}; planted fault (each piece's own O and LSE) rel "
+              f"{e_fault['rel']:.3e} ({e_fault['rel'] / K7_REL_TOL:.3g}x the "
+              f"limit); {out[str(s0)]['wall_s']:.1f} s")
+        del q, k, v, do, whole, got, plain, dq, dk, dv
         torch.cuda.empty_cache()
     return out
 

@@ -38,36 +38,57 @@ them (``rows_local``):
   Row-major data-then-model order is the reference's token order, so each
   device holds the same tokens as under the reference's ``shard_map``.
 
-A ``MeshView`` also says how a block's params are held while it runs:
-gathered whole (training: the compute is replicated within a model
-group), or as this model rank's shards under ``param_specs``
-(``model_shards``, serving: tensor parallelism, each layer computing its
-heads, ff columns and vocab columns and joining them with
-``all_reduce`` / ``all_gather`` over ``model``; ``gather_fsdp`` gathers
-a leaf over its data axes alone).
+Under a ``MeshView`` (serving and training on a mesh) the layers also
+get this model rank's param shards under ``param_specs``
+(``model_shards``): tensor parallelism, each layer computing its heads, ff
+columns, ``d_inner`` channels and vocab columns where its weight is split
+(``sharding_rules.model_dim``) and joining them with ``all_reduce`` /
+``all_gather`` over ``model``, as the reference's ``jit`` partitions it
+under GSPMD; ``gather_fsdp`` gathers a leaf over its data axes alone.  A
+bare mesh gives the layers whole params (``gather_param`` rebuilds one).
 
-Training on a mesh computes the host's math with explicit collectives
-(under GSPMD the reference changes only the layout).  The rules:
+Training on a mesh computes the host's math with explicit collectives.
+One gradient convention holds everywhere:
 
-1. The batch splits over the data axes (the local convention above).
+1. The batch splits over the data axes (the local convention above); the
+   rows of a data rank are repeated on every rank of its model group, and
+   what a layer does not split over ``model`` (the norms, the router, a
+   fallback's replicated weight) each rank of the group computes whole.
 2. The loss is a sum of shares: rank r computes ``L_r = Σ_{its rows}
-   −ll·mask / (global mask count · tp)``, so that ``Σ_r L_r`` over the
-   mesh is the host's mean (``models/lm.py``).
-3. Every collective's backward is its adjoint: all-gather ↔
-   reduce-scatter (sum), all-to-all ↔ the reverse all-to-all
-   (``delayed.exchange``), a slice of a replicated tensor ↔ zeros
-   elsewhere (plain indexing), and a replicated value's gradient summed
-   over the ranks that replicate it (``gather_param``).  With rule 2 the
-   gradient of every parameter is then the sum of every rank's part of it
-   over the whole mesh, which is the host's gradient.
+   −ll·mask / (global mask count · tp)``, ``tp`` because the model group
+   repeats the rows, so that ``Σ_r L_r`` over the mesh is the host's mean
+   (``models/lm.py``).  A rank's vocab-parallel cross-entropy joins its
+   ``V / tp`` logit columns by all-reduces over ``model`` first, so every
+   rank of the group holds the same row losses.
+3. Every collective's backward is its exact adjoint, so that a rank's
+   gradient of any tensor it holds is the derivative of ``Σ_r L_r``:
+   all-gather ↔ reduce-scatter (sum), all-reduce ↔ all-reduce (a
+   row-parallel product's partials joined forward; the gradient of each
+   partial is the sum of every rank's gradient of the joined value),
+   all-to-all ↔ the reverse all-to-all (``delayed.exchange``,
+   ``take_columns``), a slice of a tensor ↔ zeros elsewhere (plain
+   indexing).  A replicated value, whose copies are separate tensors on
+   the ranks, gets the sum of the copies' gradients over the axes that
+   replicate it (``sum_grad``): ``gather_param`` and ``gather_fsdp`` do
+   that for every leaf, over ``model`` too wherever the spec replicates
+   it there.  With rule 2 the gradient of every parameter shard is then
+   the host's gradient of that block.
 4. Params (and AdamW's moments) are each rank's shard under
    ``ShardingRules.param_specs``: ``shard_param`` cuts a whole leaf,
    ``gather_param`` rebuilds it differentiably (its backward
    reduce-scatters the gradient to the shard and sums it over the axes
-   the spec replicates).
+   the spec replicates), and ``gather_fsdp`` rebuilds it over the data
+   axes alone (the same backward, with ``model`` among the summed axes
+   where the spec does not split the leaf over it).
+
+This is not Megatron's convention (an identity backward for the
+row-parallel all-reduce, an all-reduce at each column-parallel input, no
+``tp`` in the loss, no sum for replicated leaves).  Mixed, the two are off
+by a factor of ``tp`` on one class of leaf.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Sequence, Tuple, Union
 
@@ -83,7 +104,7 @@ __all__ = ["block_owner", "hash_owner", "mesh_axes", "data_axes",
            "model_shards", "token_axes", "group_gather",
            "group_reduce_scatter", "all_gather", "reduce_scatter",
            "all_reduce", "shard_dim", "sum_grad", "spec_axes",
-           "gather_param", "gather_fsdp", "shard_param"]
+           "gather_param", "gather_fsdp", "shard_param", "take_columns"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -202,13 +223,12 @@ def gather_leading(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 class MeshView:
     """``mesh`` under one convention of the module docstring: ``local``,
     the activations hold this data rank's rows (else every rank holds the
-    whole rows); ``model_shards``, a block's params are this model rank's
-    shards (else whole).  Everything else is the mesh's own (attributes
+    whole rows); and a block's params are this model rank's shards
+    (``model_shards``).  Everything else is the mesh's own (attributes
     are read through)."""
 
-    def __init__(self, mesh, *, local: bool, model_shards: bool = False):
-        self.__dict__.update(base=_base(mesh), local=local,
-                             model_shards=model_shards)
+    def __init__(self, mesh, *, local: bool):
+        self.__dict__.update(base=_base(mesh), local=local)
 
     def __getattr__(self, name):
         return getattr(self.base, name)
@@ -221,8 +241,9 @@ def rows_local(mesh) -> bool:
 
 def model_shards(mesh) -> bool:
     """True where the layers get each model rank's param shards and split
-    their compute over ``model`` (serving's tensor parallelism)."""
-    return isinstance(mesh, MeshView) and mesh.model_shards
+    their compute over ``model`` (a ``MeshView``: serving and training on
+    a mesh); a bare mesh gives them whole params."""
+    return isinstance(mesh, MeshView)
 
 
 def token_axes(mesh) -> Tuple[str, ...]:
@@ -328,17 +349,35 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
     return _ReduceScatter.apply(x, group, n, dim)
 
 
+class _AllReduce(torch.autograd.Function):
+    """The sum over the group forward; backward its adjoint, the same sum
+    of the gradient (rule 3 of the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """The sum of x over the coordinates of ``axes``, on each of them: a
-    row-parallel product's partials joined.  Written into x, which must be
-    a temporary of the caller's.  Forward only (serving): under autograd
-    it raises."""
+    row-parallel product's partials joined.  Under autograd (x requiring a
+    gradient) out of place, with the all-reduce of the gradient as its
+    backward; else written into x, which must be a temporary of the
+    caller's."""
     group, _, n = axis_group(mesh, axes)
     if n == 1:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("all_reduce has no backward yet: tensor "
-                                  "parallelism runs in serving only")
+        return _AllReduce.apply(x, group)
     x = x.contiguous()
     dist.all_reduce(x, group=group)
     return x
@@ -396,9 +435,13 @@ def gather_param(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 def gather_fsdp(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The leaf gathered over the data axes of ``spec`` alone: a dim whose
-    entry names ``model`` stays this model rank's block (serving's
-    tensor-parallel layers compute on it)."""
-    x = shard
+    entry names ``model`` stays this model rank's block, which the
+    tensor-parallel layers compute on.  Differentiable as ``gather_param``
+    is: the backward reduce-scatters the gradient over the data axes and
+    sums it over every axis the spec replicates, ``model`` among them
+    where the leaf is not split over it (the norms, the router, a
+    fallback's replicated weight)."""
+    x = sum_grad(shard, mesh, _replicated_axes(mesh, spec))
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
         if axes and "model" not in axes:
@@ -421,3 +464,76 @@ def shard_param(whole: torch.Tensor, spec, mesh) -> torch.Tensor:
         per = x.shape[dim] // n
         x = x.narrow(dim, axis_index(mesh, axes) * per, per)
     return x
+
+
+# ------------------------------------------- columns regrouped over an axis
+
+class _AllToAllV(torch.autograd.Function):
+    """An all-to-all of rows in uneven blocks (``send[j]`` rows to rank j,
+    ``recv[j]`` from it); backward the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.args = (group, send, recv)
+        return _all_to_all_v(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, send, recv = ctx.args
+        return _all_to_all_v(g, group, recv, send), None, None, None
+
+
+def _all_to_all_v(x, group, send, recv):
+    x = x.contiguous()
+    out = x.new_empty((sum(recv),) + x.shape[1:])
+    dist.all_to_all_single(out, x, list(recv), list(send), group=group)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _columns_plan(width: int, n: int, me: int, want: Tuple) -> Tuple:
+    """(the local columns to send, by destination; the count to each rank;
+    the count from each rank; the order that puts the received columns
+    into ``want[me]``'s) for ``take_columns``: rank s holds the global
+    columns [s·width, (s + 1)·width), and ``want[t]`` lists rank t's
+    ranges (start, stop) in the order it wants them."""
+    def cols(t):
+        return [c for a, b in want[t] for c in range(a, b)]
+    send, send_n = [], []
+    for t in range(n):
+        mine = [c - me * width for c in cols(t)
+                if me * width <= c < (me + 1) * width]
+        send += mine
+        send_n.append(len(mine))
+    wanted = cols(me)
+    by_src = [[c for c in wanted if s * width <= c < (s + 1) * width]
+              for s in range(n)]
+    at, base = {}, 0
+    for s in range(n):
+        for i, c in enumerate(by_src[s]):
+            at[c] = base + i
+        base += len(by_src[s])
+    return (tuple(send), tuple(send_n), tuple(len(b) for b in by_src),
+            tuple(at[c] for c in wanted))
+
+
+def take_columns(x: torch.Tensor, mesh, axes: Axes, dim: int,
+                 want: Tuple) -> torch.Tensor:
+    """The global columns of ``dim`` that this coordinate wants, from
+    every coordinate's contiguous block of them (x: this coordinate's,
+    ``x.shape[dim]`` wide): one all-to-all of the columns each coordinate
+    wants from each, differentiable (the backward sends the gradient back
+    and sums a column taken by several).  ``want``: a tuple, one entry a
+    coordinate of ``axes``, of the (start, stop) ranges it wants, in its
+    order.  A tensor-parallel layer whose weight concatenates several
+    channel blocks along one dim (mamba's ``in_proj``) regroups its
+    stored block this way into the channels its rank computes."""
+    group, me, n = axis_group(mesh, axes)
+    send, send_n, recv_n, order = _columns_plan(x.shape[dim], n, me, want)
+    dev = x.device
+    xs = x.movedim(dim, 0).index_select(
+        0, torch.tensor(send, dtype=torch.long, device=dev))
+    got = _AllToAllV.apply(xs, group, send_n, recv_n) if n > 1 else xs
+    got = got.index_select(0, torch.tensor(order, dtype=torch.long,
+                                           device=dev))
+    return got.movedim(0, dim)

@@ -310,12 +310,13 @@ def config_specs(cfg: ModelConfig, mesh) -> dict:
 
 def model_dim(cfg: ModelConfig, mesh, leaf: str) -> Optional[int]:
     """The dim of a block's or the embedding's leaf (``"attn/wq"``,
-    ``"mlp/down"``, ``"moe/up"``, ``"embed/table"``, ``"embed/head"``)
-    that ``param_specs`` splits over ``model`` once ``_axis_for``'s
-    fallbacks are taken, with the stack dims dropped; None where the spec
-    replicates it over ``model`` or the config has no such leaf.  Serving's
-    tensor-parallel layers ask this, never the config, so their compute is
-    split exactly where the weight is."""
+    ``"mlp/down"``, ``"moe/up"``, ``"mamba/in_proj"``, ``"embed/table"``,
+    ``"embed/head"``) that ``param_specs`` splits over ``model`` once
+    ``_axis_for``'s fallbacks are taken, with the stack dims dropped; None
+    where the spec replicates it over ``model`` or the config has no such
+    leaf.  The tensor-parallel layers (serving and training) ask this,
+    never the config, so their compute is split exactly where the weight
+    is."""
     return _model_dims(cfg, tuple(mesh_axes(mesh).items())).get(leaf)
 
 
@@ -333,8 +334,8 @@ def _model_dims(cfg: ModelConfig, shape: Tuple[Tuple[str, int], ...]
                 out[prefix + k] = next(
                     (d for d, e in enumerate(v)
                      if "model" in SH._entry_axes(e)), None)
-    # a transformer block's leaves: the dense blocks', or the hybrid's
-    # shared block (its mamba blocks have none of these)
+    # the first block's leaves ("attn/…", "mlp/…", "moe/…", or a mamba
+    # block's "mamba/…") and the hybrid's shared transformer block's
     for tree in specs["blocks"][:1] + [specs.get("shared", {})]:
         walk(tree, "")
     walk(specs["embed"], "embed/")

@@ -1,10 +1,11 @@
 """Dispatching entry points for the port's kernels (``repro/kernels/ops.py``):
-flash attention with its gradient (``:39-85``), the selective scan
-(``:88-113``) with a gradient the reference takes through its plain scan,
-the segment scatter-add (``:116-124``), the bit-pack
-kernels (``:129-185``) and paged decode
-attention (the kernel of ``repro/kernels/paged_decode.py``, which the
-reference's ops module leaves out).
+flash attention with its gradient (``:39-85``; and the join of two flash
+calls by their LSE rows that a sequence split over ranks runs, with its
+gradient), the selective scan (``:88-113``) with a gradient the reference
+takes through its plain scan, the segment scatter-add (``:116-124``), the
+bit-pack kernels (``:129-185``) and paged decode attention (the kernel
+of ``repro/kernels/paged_decode.py``, which the reference's ops module
+leaves out).
 
 ``impl``:
   * ``"auto"`` goes by the tensor's device: the CUDA kernel for a CUDA
@@ -154,8 +155,8 @@ def flash_attention_lse(q, k, v, *, causal=True, window=None, softcap=None,
                         scale=None, impl="auto"):
     """``flash_attention`` with its (B, Hq, Sq) float32 row log-sum-exp
     too (K6's LSE variant, or ``ref.attention_lse_ref``), with no
-    gradient: the two halves of a query block that a merge by the LSE
-    joins (serving's sequence split over ``model``)."""
+    gradient: the pieces of a query block that ``flash_attention_join``
+    joins by the LSE."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError("flash_attention_lse takes no gradient")
@@ -163,6 +164,89 @@ def flash_attention_lse(q, k, v, *, causal=True, window=None, softcap=None,
     if _use_ref(impl, q):
         return _ref.attention_lse_ref(q, k, v, **kw)
     return _fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+
+def join_pieces(s0: int, window):
+    """The key ranges of a query block at offset ``s0`` (``flash_attention
+    _join``): [(start, stop, causal, window)], the diagonal block from s0
+    to the end, causal under the layer's window, then, where the window
+    reaches before s0, the keys [ks, s0) with no causal mask and the
+    window moved by the offset (K6's positions start at 0 in q and in
+    k)."""
+    ks = 0 if window is None else max(0, s0 - window)
+    pieces = [(s0, None, True, window)]
+    if ks < s0:
+        pieces.append((ks, s0, False,
+                       None if window is None else window - (s0 - ks)))
+    return pieces
+
+
+def _join_forward(q, k, v, s0, window, softcap, scale, impl):
+    """The pieces' K6-LSE calls joined by their row LSEs in float32: (out
+    in q.dtype, the joined (B, Hq, Sq) LSE)."""
+    outs = []
+    for a, b, causal, w in join_pieces(s0, window):
+        outs.append(flash_attention_lse(
+            q, k[:, :, a:b], v[:, :, a:b], causal=causal, window=w,
+            softcap=softcap, scale=scale, impl=impl))
+    if len(outs) == 1:
+        return outs[0]
+    (diag, lse_d), (off, lse_o) = outs
+    m = torch.maximum(lse_d, lse_o)
+    a_d, a_o = torch.exp(lse_d - m), torch.exp(lse_o - m)
+    out = (diag.float() * a_d[..., None] + off.float() * a_o[..., None]) \
+        / (a_d + a_o)[..., None]
+    return out.to(q.dtype), m + torch.log(a_d + a_o)
+
+
+class _FlashJoin(torch.autograd.Function):
+    """``flash_attention_join`` under autograd.  Forward: the pieces'
+    K6-LSE calls joined by their LSE rows (saving q, k, v and the joined O
+    and LSE).  Backward: K7 on each piece with that piece's mask
+    arguments, fed the **joined** O and the **joined** LSE (the softmax
+    runs over every key of both pieces: a piece's own O and LSE would drop
+    the LSE's gradient), dQ summed over the pieces and dK, dV written at
+    each piece's keys (zero before the window's reach)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s0, window, softcap, scale, impl):
+        o, lse = _join_forward(q, k, v, s0, window, softcap, scale, impl)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (s0, window, softcap, scale, _use_ref(impl, q))
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        s0, window, softcap, scale, plain = ctx.args
+        bwd = (_ref.flash_attention_bwd_ref if plain
+               else _fab.flash_attention_bwd)
+        do = do.to(o.dtype)
+        dq = None
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for a, b, causal, w in join_pieces(s0, window):
+            dq_p, dk_p, dv_p = bwd(q, k[:, :, a:b], v[:, :, a:b], o, lse, do,
+                                   causal=causal, window=w, softcap=softcap,
+                                   scale=scale)
+            dq = dq_p.float() if dq is None else dq + dq_p.float()
+            dk[:, :, a:b] += dk_p.float()
+            dv[:, :, a:b] += dv_p.float()
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
+
+
+def flash_attention_join(q, k, v, s0: int, *, window=None, softcap=None,
+                         scale=None, impl="auto"):
+    """Causal attention of query rows at positions s0, s0 + 1, … over the
+    keys at 0, 1, …, s0 + n − 1 (a block of a sequence split over ranks):
+    q (B, Hq, n, D), k, v (B, Hkv, s0 + n, D) → (B, Hq, n, D) in q.dtype.
+    Two K6-LSE calls (``join_pieces``) joined by their row LSEs; when a
+    gradient is wanted, through ``_FlashJoin`` (K7 on each piece)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashJoin.apply(q, k, v, s0, window, softcap, scale, impl)
+    return _join_forward(q, k, v, s0, window, softcap, scale, impl)[0]
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,

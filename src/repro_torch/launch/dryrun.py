@@ -57,15 +57,14 @@ out).  So a cell with the mamba1 scan, or zamba2 with ``--ssm-impl seq``,
 leaves out the plain scan's per-step temporaries from bytes and peak.
 
 The port's collective schedule is its own, so its counts are not the
-reference's HLO counts: in training tensor parallelism is a storage
-layout (a block's params are gathered whole, the compute within a model
-group is replicated); serving passes the global inputs to every rank,
-and each rank computes its share (its data rank's rows, its heads, ff
-and vocab columns over ``model``, ``models/lm.py``), so a cell's FLOPs
-and peak are one rank's share of the step.  Where the heads do not
-divide ``model`` and the batch does not tile the grid, prefill splits
-the sequence, and the last model rank's query block sees the most keys:
-``--rank 15`` reads that rank of a 16 × 16 or 2 × 16 × 16 world.
+reference's HLO counts: each rank computes its share of a train step and
+of a serving call (its data rank's rows, its heads, ff, ``d_inner`` and
+vocab columns over ``model``, ``models/lm.py``; serving passes the
+global inputs to every rank), so a cell's FLOPs and peak are one rank's
+share of the step.  Where the heads do not divide ``model`` and the
+batch does not tile the grid, attention splits the sequence, and the
+last model rank's query block sees the most keys: ``--rank 15`` reads
+that rank of a 16 × 16 or 2 × 16 × 16 world.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm-2b \\

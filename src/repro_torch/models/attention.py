@@ -65,8 +65,16 @@ page to a rank that does not own it (``attention.py:119-123``):
   layer at batch 1 gathers its page shards first, as GSPMD does there in
   the reference, and keeps its own shard after.
 
-Training (``lm.loss_fn`` on a mesh) gets whole params and runs every
-head on every rank of a model group.
+Training (``lm.loss_fn`` on a mesh) takes the same prefill branches under
+autograd, on the same model shards: the heads branch runs K6-LSE forward
+and K7 backward (``ops._FlashAttention``) on the rank's heads, ``wo``
+row-parallel, whose all-reduce has the all-reduce of the gradient as its
+backward; the batch branch needs nothing more than the collectives'
+backwards; the sequence branch's join runs K7 on each piece with the
+joined O and LSE (``ops.flash_attention_join``).  The gradients of
+replicated weights (cut by head, or by rows) are summed over ``model``
+where ``gather_fsdp`` gathered them (``core/sharding.py``, rule 3).  A
+training call returns no k / v, so nothing is gathered for a cache.
 """
 from __future__ import annotations
 
@@ -266,32 +274,21 @@ def _flash_runs(q, k, v, runs, base: int, cfg: ModelConfig, window,
 
 def _flash_offset(q, k, v, s0: int, cfg: ModelConfig, window):
     """Causal attention of query rows at positions s0, s0 + 1, … over the
-    keys at 0, 1, …, s0 + n − 1, with K6 (whose positions start at 0 in q
-    and in k): the diagonal block causal, and the keys before it with no
-    causal mask and the window moved by the block's offset, the two joined
-    by their row LSEs in float32.  q (B, H, n, D), k, v (B, Hkv, s0 + n,
-    D) → (B, H, n, D)."""
+    keys at 0, 1, …, s0 + n − 1: K6 for the first block, else
+    ``ops.flash_attention_join`` (the diagonal block causal, the keys
+    before it with no causal mask and the window moved by the block's
+    offset, joined by their row LSEs; K7 on each piece under a gradient).
+    q (B, H, n, D), k, v (B, Hkv, s0 + n, D) → (B, H, n, D)."""
     kw = dict(softcap=cfg.attn_softcap or None, impl=cfg.kernels)
     if s0 == 0:
         return kops.flash_attention(q, k, v, window=window, **kw)
-    ks = 0 if window is None else max(0, s0 - window)
-    diag, lse_d = kops.flash_attention_lse(q, k[:, :, s0:], v[:, :, s0:],
-                                           window=window, **kw)
-    if ks >= s0:                         # the window ends inside the block
-        return diag
-    off, lse_o = kops.flash_attention_lse(
-        q, k[:, :, ks:s0], v[:, :, ks:s0], causal=False,
-        window=None if window is None else window - (s0 - ks), **kw)
-    m = torch.maximum(lse_d, lse_o)
-    a_d, a_o = torch.exp(lse_d - m)[..., None], torch.exp(lse_o - m)[..., None]
-    out = (diag.float() * a_d + off.float() * a_o) / (a_d + a_o)
-    return out.to(q.dtype)
+    return kops.flash_attention_join(q, k, v, s0, window=window, **kw)
 
 
 def _attention_heads(p: dict, x, positions, cfg: ModelConfig, window,
-                     plan: Optional[Heads], mesh):
+                     plan: Optional[Heads], mesh, return_kv: bool = True):
     """Every head, or ``plan``'s with ``wo`` row-parallel: (out (B, S, d),
-    (k, v) of every kv head)."""
+    (k, v) of every kv head, or None without ``return_kv``)."""
     q, k, v = _qkv(p, x, cfg, plan)
     q, k = _apply_rope(q, k, positions, cfg)
     runs, base = (_all_runs(cfg), 0) if plan is None else (plan.runs,
@@ -300,6 +297,8 @@ def _attention_heads(p: dict, x, positions, cfg: ModelConfig, window,
     out = out @ p["wo"].to(cdtype(cfg))
     if plan is not None:
         out = _sum_over_model(out, mesh)
+    if not return_kv:
+        return out, None
     return out, (_kv_all(k, plan, mesh), _kv_all(v, plan, mesh))
 
 
@@ -340,14 +339,16 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
         dp = SH.data_axes(mesh)
         spec = _attn_act_spec(cfg, mesh, b * SH.axis_size(mesh, dp), s)
     if spec is None:
-        out, kv = _attention_heads(p, x, positions, cfg, window, plan, mesh)
+        out, kv = _attention_heads(p, x, positions, cfg, window, plan, mesh,
+                                   return_kv)
     elif isinstance(spec[0][0], tuple) and "model" in spec[0][0]:  # batch
         out, kv = _attention_heads(
             p, SH.shard_dim(x, mesh, "model", 0),
             SH.shard_dim(positions, mesh, "model", 0), cfg, window, None,
-            mesh)
+            mesh, return_kv)
         out = SH.all_gather(out, mesh, "model", 0)
-        kv = tuple(SH.all_gather(t, mesh, "model", 0) for t in kv)
+        if return_kv:
+            kv = tuple(SH.all_gather(t, mesh, "model", 0) for t in kv)
     else:                                                     # sequence
         out, kv = _attention_seq(p, x, positions, cfg, window, mesh)
     return (out, kv) if return_kv else out

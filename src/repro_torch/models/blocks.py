@@ -6,9 +6,10 @@ by gemma2's post-norm when ``cfg.post_norm``) and the mamba block
 (pre-norm mamba1 or mamba2 by ``version``, residual).  zamba2's shared
 block is a transformer block with one weight set and a KV cache for each
 place it runs (``lm.py``).  ``mesh``: the MoE layer's roomy dispatch,
-the decode attention's sharded branches, and in serving the tensor
-parallelism of the attention and the MLP (``moe.py``, ``attention.py``,
-``layers.py``); the norms run replicated.
+the decode attention's sharded branches, and on model shards (serving
+and training) the tensor parallelism of the attention, the MLP and the
+mamba mixers (``moe.py``, ``attention.py``, ``layers.py``, ``ssm.py``);
+the norms run replicated.
 """
 from __future__ import annotations
 
@@ -55,8 +56,10 @@ def transformer_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, *, window: Optional[int] = None,
                       return_kv: bool = False, mesh=None):
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
-    h, kv = attention(p["attn"], h, positions, cfg, window=window,
-                      return_kv=True, mesh=mesh)
+    h = attention(p["attn"], h, positions, cfg, window=window,
+                  return_kv=return_kv, mesh=mesh)
+    if return_kv:
+        h, kv = h
     if cfg.post_norm:
         h = rms_norm(h, p["post_ln1"], cfg.rms_eps)
     x = _mlp_half(p, x + h, cfg, mesh)
@@ -86,21 +89,25 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *, device,
 
 
 def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                version: int = 1) -> torch.Tensor:
+                version: int = 1, mesh=None) -> torch.Tensor:
     fn = mamba1 if version == 1 else mamba2
-    return x + fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg)
+    return x + fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg,
+                  mesh=mesh)
 
 
 def mamba_block_decode(p: dict, x: torch.Tensor, state: SSMState,
-                       cfg: ModelConfig, version: int = 1
+                       cfg: ModelConfig, version: int = 1, mesh=None
                        ) -> Tuple[torch.Tensor, SSMState]:
     fn = mamba1_decode if version == 1 else mamba2_decode
-    h, state = fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), state, cfg)
+    h, state = fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), state, cfg,
+                  mesh=mesh)
     return x + h, state
 
 
 def mamba_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                        version: int = 1) -> Tuple[torch.Tensor, SSMState]:
+                        version: int = 1, mesh=None
+                        ) -> Tuple[torch.Tensor, SSMState]:
     fn = mamba1_prefill if version == 1 else mamba2_prefill
-    h, state = fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg)
+    h, state = fn(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps), cfg,
+                  mesh=mesh)
     return x + h, state

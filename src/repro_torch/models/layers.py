@@ -13,15 +13,17 @@ Params may be stored in float32 or in the compute dtype; every layer casts
 to ``cdtype(cfg)`` at use, which is a no-op for params already stored in
 it (casting once gives the same values as casting at each use).
 
-Serving on a mesh hands the layers each model rank's param shards
-(``core/sharding.py``'s ``MeshView`` with ``model_shards``), and each
-layer splits its compute where ``sharding_rules.model_dim`` says its
+Serving and training on a mesh hand the layers each model rank's param
+shards (``core/sharding.py``'s ``MeshView``, ``model_shards``), and
+each layer splits its compute where ``sharding_rules.model_dim`` says its
 weight is split (``tp_dim``): the MLP column-parallel in ``up`` /
 ``gate`` and row-parallel in ``down``, joined by one all-reduce over
-``model``; the embedding's take and the LM head vocab-parallel on the
+``model`` (under autograd its backward is the all-reduce of the
+gradient); the embedding's take and the LM head vocab-parallel on the
 rank's vocab block of ``table`` (or ``head``), or, where the vocab does
 not split and the rules put ``d`` over ``model`` instead, a row-parallel
-product over the rank's block of ``d``.
+product over the rank's block of ``d``.  The loss keeps the LM head's
+vocab columns on their rank (``lm_head(..., gather=False)``).
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 
 def tp_dim(cfg: ModelConfig, mesh, leaf: str):
     """The dim of ``leaf`` (``sharding_rules.model_dim``'s names) split
-    over ``model`` where the layers hold model shards (serving on a mesh),
-    else None: the layer runs on the whole weight."""
+    over ``model`` where the layers hold model shards (serving or training
+    on a mesh), else None: the layer runs on the whole weight."""
     if not SH.model_shards(mesh):
         return None
     return SR.model_dim(cfg, mesh, leaf)
@@ -234,19 +236,19 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def lm_head(p_embed: dict, x: torch.Tensor, cfg: ModelConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, gather: bool = True) -> torch.Tensor:
     """Logits against the tied embedding table, or the untied ``head``
     (d, vocab_padded), softcapped; the pad rows past ``vocab_size`` are
-    -1e30.  With model shards (serving): vocab-parallel on the rank's
-    columns (the softcap and the pad mask at their global indices), the
-    columns gathered over ``model``; or, where the rules split ``d``
+    -1e30.  With model shards: vocab-parallel on the rank's columns (the
+    softcap and the pad mask at their global indices), the columns
+    gathered over ``model`` unless ``gather`` is False (the loss's
+    vocab-parallel cross-entropy: then the rank's ``V / tp`` columns,
+    which ``vocab_block`` places); or, where the rules split ``d``
     instead, a row-parallel product joined by one all-reduce."""
     tied = cfg.tie_embeddings
     w = (p_embed["table"].to(cdtype(cfg)).T if tied
          else p_embed["head"].to(cdtype(cfg)))               # (d, V)
-    dim = tp_dim(cfg, mesh, "embed/table" if tied else "embed/head")
-    split = None if dim is None else ("vocab" if dim == (0 if tied else 1)
-                                      else "d")
+    split = _vocab_split(cfg, mesh)
     if split == "d":
         d0 = SH.axis_index(mesh, "model") * w.shape[0]
         logits = SH.all_reduce(x[..., d0:d0 + w.shape[0]] @ w, mesh,
@@ -262,6 +264,26 @@ def lm_head(p_embed: dict, x: torch.Tensor, cfg: ModelConfig,
             >= cfg.vocab_size
         logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
                                                device=x.device), logits)
-    if split == "vocab":
+    if split == "vocab" and gather:
         logits = SH.all_gather(logits, mesh, "model", logits.dim() - 1)
     return logits
+
+
+def _vocab_split(cfg: ModelConfig, mesh):
+    """How the LM head's weight is split over ``model``: "vocab", "d", or
+    None (whole)."""
+    tied = cfg.tie_embeddings
+    dim = tp_dim(cfg, mesh, "embed/table" if tied else "embed/head")
+    if dim is None:
+        return None
+    return "vocab" if dim == (0 if tied else 1) else "d"
+
+
+def vocab_block(cfg: ModelConfig, mesh):
+    """(first column, width) of this rank's block of the vocab where the
+    LM head is vocab-parallel, else None (every rank holds every
+    column)."""
+    if _vocab_split(cfg, mesh) != "vocab":
+        return None
+    width = cfg.vocab_padded // SH.axis_size(mesh, "model")
+    return SH.axis_index(mesh, "model") * width, width

@@ -55,28 +55,30 @@ them).
   position's logits are gathered over the data axes.  A batch that does
   not tile them (batch 1: the context-parallel decode, ``long_500k``)
   keeps its rows whole on every rank.
-* **Heads, ff and vocab over ``model``.**  A transformer block is
+* **Heads, ff, ``d_inner`` and vocab over ``model``.**  Every block is
   gathered over its data axes alone (``core.sharding.gather_fsdp``) as
   its layer runs, so it keeps its ``model`` shards, and the layers split
   their compute where ``sharding_rules.model_dim`` says the weight is
   split: attention by heads (K6 / K8 on the rank's heads, ``wo``
   row-parallel), or, where the heads do not divide ``model``, by the
   reference's ``_attn_act_spec`` over the batch or the sequence; the MLP
-  by ff columns; the embedding's take and the LM head by vocab (or by
-  ``d`` where the vocab does not divide); the MoE's experts, as
+  by ff columns; the mamba mixers by ``d_inner`` channels (K9 on the
+  rank's channels, ``x_proj`` and ``out_proj`` row-parallel,
+  ``models/ssm.py``); the embedding's take and the LM head by vocab (or
+  by ``d`` where the vocab does not divide); the MoE's experts, as
   ``moe_roomy``'s exchange places them.  Row-parallel outputs join by an
-  all-reduce over ``model``.  The norms run replicated.
-* **Replicated within a model group**: the mamba mixers (their blocks
-  are gathered whole as their layer runs; the ``tp_di`` split is not
-  ported yet), the router, the norms.
+  all-reduce over ``model``.
+* **Replicated within a model group**: the norms, the router, and any
+  weight a divisibility fallback of the rules replicated.
 
 The decode caches are each rank's shard (``paged.shard_layout``: its
 rows over the data axes, or at batch 1 its pages), with every kv head on
 each model rank (``cache_specs``), which ``prefill`` writes directly and
 ``make_cache`` allocates; ``decode_step`` reads and writes them in place
 of the whole.  The SSM states are the rank's rows where the batch tiles
-the data axes, else whole (the reference's ``cache_specs`` put ``h`` over
-``model`` at batch 1, a layout with no effect on a number).
+the data axes, else whole, and the rank's channels of ``h`` and ``conv``
+(``ssm.mixer_channels``; the reference's ``cache_specs`` put them over
+``model`` at batch 1 alone, a layout with no effect on a number).
 The reference's ``_constrain`` hints on other activations have no
 counterpart.
 
@@ -85,24 +87,28 @@ the rules of ``core/sharding.py``: ``params`` are this rank's shards under
 ``ShardingRules.param_specs`` (``distributed.sharding_rules.shard_params``
 cuts them), and ``batch`` is this data rank's rows, the same on every rank
 of its model group (the local convention: the roomy exchanges split the
-rows over ``model`` alone).  A block's params are gathered whole
-(``core.sharding.gather_param``) inside its remat region, so no rank keeps
-a gathered block for the backward: the non-reentrant ``checkpoint``
-gathers again there, and the gather's backward reduce-scatters the
-gradient to the shard.  The embedding, the final norm and the hybrid's
+rows over ``model`` alone).  Each rank computes its share of the step as
+in serving, under autograd: a block is gathered over its data axes alone
+(``gather_fsdp``) inside its remat region, so no rank keeps a gathered
+block for the backward (the non-reentrant ``checkpoint`` gathers again
+there, and the gather's backward reduce-scatters the gradient to the
+shard and sums it over the axes the spec replicates); the layers run the
+rank's heads (K6-LSE / K7), ff columns, ``d_inner`` channels (K9 / K9-bwd)
+and vocab columns.  The embedding, the final norm and the hybrid's
 shared block are gathered once a call.  They are gathered in float32 and
 each layer casts at use as it does off a mesh (the router and the norms
 read the float32 values), so a one-rank mesh computes the bits of no
 mesh.  The loss is a sum of shares: rank r takes ``L_r = Σ_{its rows}
 −ll·mask / (global mask count · tp)``, the count from one ``all_reduce``
-over the data axes, ``tp`` because the model group repeats the rows;
-``loss_fn`` returns ``Σ_r L_r`` over the mesh (the reference's
-``repro/models/lm.py:211-216``) with the gradient of this rank's share,
-so that every parameter's gradient is the sum of the ranks' parts of it.
-Compute stays replicated within a model group apart from the roomy
-exchanges: training's tensor parallelism is not ported yet.  The
-reference's ``_constrain`` on the logits is a layout hint with no
-counterpart.
+over the data axes, ``tp`` because the model group repeats the rows; the
+log-likelihoods come from a vocab-parallel cross-entropy on the rank's
+``V / tp`` float32 logit columns, which are never gathered (the row max
+over ``model`` with no gradient, the sum of exponentials and the label's
+logit by all-reduces over ``model``), as the reference constrains its
+logits to vocab over ``model`` (``repro/models/lm.py:192-216``).
+``loss_fn`` returns ``Σ_r L_r`` over the mesh with the gradient of this
+rank's share, so that every parameter's gradient is the sum of the
+ranks' parts of it.
 """
 from __future__ import annotations
 
@@ -123,8 +129,9 @@ from .blocks import (init_mamba_block, init_transformer_block, mamba_block,
                      mamba_block_decode, mamba_block_prefill,
                      transformer_block, transformer_block_decode)
 from .config import ModelConfig
-from .layers import cdtype, embed_tokens, init_embedding, lm_head, rms_norm
-from .ssm import init_ssm_state
+from .layers import (cdtype, embed_tokens, init_embedding, lm_head, rms_norm,
+                     vocab_block)
+from .ssm import init_ssm_state, mixer_channels
 
 PAGE_SIZE = 128
 
@@ -200,42 +207,30 @@ def _embed(params, inputs: Dict, cfg: ModelConfig, mesh=None
     return x
 
 
-def _gather_tree(tree, specs, mesh):
-    """Each shard of ``tree`` gathered whole under its spec."""
-    return T.tree_map(lambda x, spec: SH.gather_param(x, spec, mesh), tree,
-                      specs)
-
-
 def _on_mesh(params, cfg: ModelConfig, mesh):
     """(params with the embedding, the final norm and the hybrid's shared
-    block gathered whole, the blocks' specs, the mesh under the local
-    convention).  Off a mesh: (params, a None spec a block, None)."""
+    block gathered over their data axes, the blocks' specs, the mesh under
+    the local convention holding model shards).  Off a mesh: (params, a
+    None spec a block, None)."""
     if mesh is None:
         return params, [None] * cfg.n_layers, None
     specs = SR.config_specs(cfg, mesh)
-    local = SH.MeshView(mesh, local=True)
+    view = SH.MeshView(mesh, local=True)
     out = dict(params)
     for key in ("embed", "final_norm", "shared"):
         if key in params:
-            out[key] = _gather_tree(params[key], specs[key], local)
-    return out, specs["blocks"], local
+            out[key] = _block(params[key], specs[key], view)
+    return out, specs["blocks"], view
 
 
 def _block(p_l, spec_l, mesh):
     """One block's params: off a mesh ``p_l`` itself (``spec_l`` None);
-    with model shards (serving's transformer blocks) gathered over the
-    data axes alone; else gathered whole from this rank's shards."""
+    on one, gathered over the data axes alone, each leaf keeping its
+    ``model`` shard (``core.sharding.gather_fsdp``)."""
     if spec_l is None:
         return p_l
-    if SH.model_shards(mesh):
-        return T.tree_map(lambda x, spec: SH.gather_fsdp(x, spec, mesh),
-                          p_l, spec_l)
-    return _gather_tree(p_l, spec_l, mesh)
-
-
-def _mixer(p_l, spec_l, mesh):
-    """A mamba block's params whole: its mixer runs replicated."""
-    return p_l if spec_l is None else _gather_tree(p_l, spec_l, mesh)
+    return T.tree_map(lambda x, spec: SH.gather_fsdp(x, spec, mesh), p_l,
+                      spec_l)
 
 
 class _Serve(NamedTuple):
@@ -261,7 +256,7 @@ def _serve_on_mesh(params, inputs: Dict, cfg: ModelConfig, mesh) -> _Serve:
     specs = SR.config_specs(cfg, mesh)
     i, n = _dp_shard(mesh)
     local = next(iter(inputs.values())).shape[0] % n == 0
-    view = SH.MeshView(mesh, local=local, model_shards=True)
+    view = SH.MeshView(mesh, local=local)
     if local and n > 1:
         dp = SH.data_axes(mesh)
         inputs = {k: SH.shard_leading(v, mesh, dp) for k, v in inputs.items()}
@@ -299,7 +294,8 @@ def _hidden(params, inputs: Dict, cfg: ModelConfig, mesh, specs
         version = 1 if cfg.family == "ssm" else 2
         for s0, s1, shared in _hybrid_segments(cfg):
             for p_l, spec_l in zip(params["blocks"][s0:s1], specs[s0:s1]):
-                x = run(mamba_block, p_l, spec_l, x, cfg, version=version)
+                x = run(mamba_block, p_l, spec_l, x, cfg, version=version,
+                        mesh=mesh)
             if shared:
                 x = transformer_block(params["shared"], x,
                                       inputs["positions"], cfg, mesh=mesh)
@@ -327,8 +323,8 @@ def forward_hidden(params, inputs: Dict, cfg: ModelConfig, mesh=None
 
 def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig,
               mesh=None) -> torch.Tensor:
-    """``mesh``: the layers' view of a serving call (vocab-parallel on
-    model shards); None for whole params."""
+    """``mesh``: the layers' view of a call on a mesh (vocab-parallel on
+    model shards, the columns gathered); None for whole params."""
     return lm_head(params["embed"], hidden, cfg, mesh)
 
 
@@ -358,6 +354,33 @@ class _MeshLoss(torch.autograd.Function):
         return g, None
 
 
+def _log_likelihood(logits: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig, mesh) -> torch.Tensor:
+    """log softmax(logits)[label] of each position (labels clamped to 0).
+    Where the LM head is vocab-parallel (``layers.vocab_block``) the
+    logits are this rank's ``V / tp`` columns, and the cross-entropy is
+    vocab-parallel: the row max over ``model`` with no gradient, the sum
+    of exponentials and the label's logit each by a differentiable
+    all-reduce over ``model``; every rank of the group gets every row's
+    value."""
+    block = vocab_block(cfg, mesh) if mesh is not None else None
+    if block is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return logp.gather(-1, labels[..., None])[..., 0]
+    v0, width = block
+    with torch.no_grad():
+        m = logits.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX,
+                        group=SH.axis_group(mesh, "model")[0])
+    sumexp = SH.all_reduce(torch.exp(logits - m[..., None]).sum(-1), mesh,
+                           "model")
+    local = labels - v0
+    mine = (local >= 0) & (local < width)
+    picked = logits.gather(-1, local.clamp(0, width - 1)[..., None])[..., 0]
+    picked = SH.all_reduce(torch.where(mine, picked, 0.0), mesh, "model")
+    return picked - m - torch.log(sumexp)
+
+
 def loss_fn(params, batch: Dict, cfg: ModelConfig, mesh=None
             ) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is >= 0, on
@@ -366,13 +389,12 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig, mesh=None
     a mesh: ``params`` this rank's shards, ``batch`` this data rank's rows;
     the value is the mesh's loss, the gradient this rank's share's (the
     module docstring)."""
-    top, specs, local = _on_mesh(params, cfg, mesh)
-    hidden = _hidden(top, batch["inputs"], cfg, local, specs)
-    logits = logits_fn(top, hidden, cfg).float()
+    top, specs, view = _on_mesh(params, cfg, mesh)
+    hidden = _hidden(top, batch["inputs"], cfg, view, specs)
+    logits = lm_head(top["embed"], hidden, cfg, view, gather=False).float()
     labels = batch["labels"].long()
     mask = labels >= 0
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    ll = _log_likelihood(logits, labels.clamp(min=0), cfg, view)
     if mesh is None:
         return -(ll * mask).sum() / mask.sum().clamp(min=1)
     share = -(ll * mask).sum() / _loss_denominator(mask, mesh).clamp(min=1)
@@ -421,7 +443,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     family one mamba2 ``SSMState`` per layer and one ``PagedKV`` per
     application of the shared block.  On a mesh each ``PagedKV`` is this
     rank's shard only, and each ``SSMState`` its data rank's rows where
-    the batch tiles the data axes."""
+    the batch tiles the data axes, and its model rank's channels."""
     dev = _device.resolve(device)
     max_len = _round_len(max_len)
     shard = _dp_shard(mesh)
@@ -434,7 +456,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     if cfg.family in ("ssm", "hybrid"):
         version = 1 if cfg.family == "ssm" else 2
         rows = batch // shard[1] if batch % shard[1] == 0 else batch
-        caches = {"ssm": [init_ssm_state(cfg, rows, dev, version)
+        channels = mixer_channels(
+            cfg, None if mesh is None else SH.MeshView(mesh, local=True),
+            version)
+        caches = {"ssm": [init_ssm_state(cfg, rows, dev, version, channels)
                           for _ in range(cfg.n_layers)]}
         if cfg.family == "hybrid":
             caches["kv"] = kv(n_shared_applications(cfg))
@@ -459,7 +484,8 @@ def prefill(params, inputs: Dict, cfg: ModelConfig, mesh=None,
     if cfg.family == "ssm":
         states = []
         for p_l, spec_l in zip(params["blocks"], specs):
-            x, st = mamba_block_prefill(_mixer(p_l, spec_l, view), x, cfg)
+            x, st = mamba_block_prefill(_block(p_l, spec_l, view), x, cfg,
+                                        mesh=view)
             states.append(st)
         hidden = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
         return _last_logits(sv, hidden, cfg, mesh), {"ssm": states}
@@ -488,8 +514,8 @@ def prefill(params, inputs: Dict, cfg: ModelConfig, mesh=None,
         states = []
         for s0, s1, shared in _hybrid_segments(cfg):
             for p_l, spec_l in zip(params["blocks"][s0:s1], specs[s0:s1]):
-                x, st = mamba_block_prefill(_mixer(p_l, spec_l, view), x,
-                                            cfg, version=2)
+                x, st = mamba_block_prefill(_block(p_l, spec_l, view), x,
+                                            cfg, version=2, mesh=view)
                 states.append(st)
             if shared:
                 x, c = attend(params["shared"], x)
@@ -526,7 +552,8 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
     if cfg.family == "ssm":
         states = []
         for p_l, spec_l, st in zip(params["blocks"], specs, caches["ssm"]):
-            x, st = mamba_block_decode(_mixer(p_l, spec_l, view), x, st, cfg)
+            x, st = mamba_block_decode(_block(p_l, spec_l, view), x, st, cfg,
+                                       mesh=view)
             states.append(st)
         hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
         return _last_logits(sv, hidden, cfg, mesh), {"ssm": states}
@@ -536,8 +563,8 @@ def decode_step(params, inputs: Dict, caches, cfg: ModelConfig, mesh=None,
         for s0, s1, shared in _hybrid_segments(cfg):
             for p_l, spec_l, st in zip(params["blocks"][s0:s1],
                                        specs[s0:s1], caches["ssm"][s0:s1]):
-                x, st = mamba_block_decode(_mixer(p_l, spec_l, view), x, st,
-                                           cfg, version=2)
+                x, st = mamba_block_decode(_block(p_l, spec_l, view), x, st,
+                                           cfg, version=2, mesh=view)
                 states.append(st)
             if shared:
                 x, c = transformer_block_decode(params["shared"], x,

@@ -14,9 +14,11 @@ and ``sharding_notes`` equal the reference's (its config's counts, its
 calls), and rank 0's argument bytes equal the bytes the reference's
 specs place on one device, with the differences the port keeps on
 purpose: serving takes the global batch on every rank (the reference
-shards it over dp), the SSM states stay whole on every rank (the
-reference's ``cache_specs`` shard them over ``model``), and AdamW's step
-count is a Python int (the reference's is a 4-byte array).
+shards it over dp), each rank's SSM states hold its model rank's
+``d_inner`` channels (``h`` as the reference's batch-1 ``cache_specs``
+split it over ``model``; ``conv`` as [its x channels | B | C], where the
+reference cuts the channel dim contiguously), and AdamW's step count is a
+Python int (the reference's is a 4-byte array).
 """
 import json
 import math
@@ -156,8 +158,22 @@ def _reference(key):
         if "kv" in caches:
             args += _tree_bytes(caches["kv"], cspecs["kv"], mesh)
         if "ssm" in caches:
-            args += _whole_bytes(caches["ssm"])            # whole
+            args += _ssm_channel_bytes(caches["ssm"], cfg, mesh["model"])
     return meta, rules.describe(), args
+
+
+def _ssm_channel_bytes(ssm, cfg, tp: int) -> int:
+    """The bytes of the (L, B, …) SSM states a model rank holds: its
+    ``d_inner / tp`` channels of ``h``, and of ``conv`` those channels with
+    mamba2's B and C (every channel reads them)."""
+    conv, h = ssm.conv, ssm.h
+    di, n = cfg.d_inner, cfg.ssm_state
+    extra = conv.shape[-1] - di                 # 2N for mamba2, 0 for mamba1
+    assert di % tp == 0 and h.shape[-2] == di
+    per_h = math.prod(h.shape) // di * (di // tp)
+    per_conv = math.prod(conv.shape) // conv.shape[-1] * (di // tp + extra)
+    return (per_h * jax.numpy.dtype(h.dtype).itemsize
+            + per_conv * jax.numpy.dtype(conv.dtype).itemsize)
 
 
 @pytest.mark.parametrize("key", ["gemma2", "granite", "zamba2"])
